@@ -12,18 +12,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                512x512, fp32 heads, random weights from a seed: forward_pair
                through the kernels against the plain path, with an fp32 trunk
                and then with the serving bf16 trunk;
-    6. serve:  the serving loop on 8 uint8 pairs of 512x512 at batch 2.
+    6. serve:  the serving loop on 8 uint8 pairs of 512x512 at batch 2;
+    7. K1+LSE: the forward kernel with its logsumexp output at the phase-3
+               shapes: the same output as without it, the LSE against its
+               plain version;
+    8. K3:     the flash-attention backward kernels at the phase-3 shapes
+               against the plain backward and against autograd through the
+               plain forward;
+    9. K2 bwd: the RoPE gradient through the kernel (-F0) against autograd
+               through the plain version;
+   10. train:  the same DUSt3R, fp32 parameters and optimizer state: one
+               step's loss and every parameter's gradient through the kernels
+               against the plain path (fp32 trunk, then bf16 trunk), the
+               exact launches per step, 10 AdamW steps through
+               make_train_step, and ms/step against the plain path.
 
 The line before the last is a JSON object with each kernel's launches on the
-serving run, its error against the plain version and both times; the last
-line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU; exits non-zero
-without one.
+serving and training runs, its error against the plain version and both
+times; the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA
+GPU; exits non-zero without one.
 
 Usage:
     python3 chip_smoke.py
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +57,22 @@ MODEL_REL_TOL = 2e-2  # ||kernel path - plain path|| / ||plain path|| per output
 # The same with fp32 trunks; measured 1.0e-6 to 1.7e-6 on an H100 (700 W): fp32 sums in another order
 # through 36 blocks. The bf16 gap (measured 0.7e-2 to 1.2e-2) is bf16 rounding amplified by the depth.
 MODEL_FP32_REL_TOL = 1e-4
+LSE_TOL = {"bf16": 1e-4, "fp32": 1e-5}  # max abs: fp32 max and sum in another order, from the same inputs
+# K3, max |kernel - plain| / max |plain| per gradient. bf16: p and ds rounded to bf16 before their products
+# (2^-9 relative each) and bf16 outputs; fp32 (TF32 off): sums over up to 1030 rows in another order.
+K3_REL_TOL = {"bf16": 2e-2, "fp32": 1e-5}
+# Training step, kernels vs plain path, ||g_kernel - g_plain|| / ||g_plain|| per parameter gradient and
+# |loss_kernel - loss_plain| / |loss_plain|. fp32 trunk: the bar of phase 5.
+TRAIN_FP32_REL_TOL = 1e-4
+# bf16 trunk, set from what this phase prints (measured on an H100 80GB HBM3, 700 W): per parameter, the
+# bf16-plain vs fp32-plain gap has median 1.3e-2 and worst 0.135, the kernels vs plain path 2.5e-3 and 0.29.
+# The worst are the cross-attention projk biases: RoPE makes their gradient a near-cancelling sum over tokens,
+# and K3 rounds ds to bf16 before dk = ds^T q as the Pallas kernel does. So a loose per-parameter bound, and a
+# tight one on all gradients together (measured 2.6e-3 kernels vs plain, 1.4e-2 bf16-plain vs fp32-plain).
+TRAIN_BF16_REL_TOL = 0.5
+TRAIN_BF16_GLOBAL_TOL = 2e-2
+TRAIN_BF16_LOSS_TOL = 2e-3  # measured 9.2e-5 kernels vs plain, 1.4e-3 bf16-plain vs fp32-plain
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 
 ENC_DEPTH, ENC_DIM, ENC_HEADS = 24, 1024, 16
 DEC_DEPTH, DEC_DIM, DEC_HEADS = 12, 768, 12
@@ -240,6 +270,216 @@ def phase_serve(torch, np, serve, model, fa, rope, card):
     return launches
 
 
+def _bwd_cases(torch, gen):
+    "The phase-3 shapes with strided q/k/v views and an output gradient, in fp32."
+    for name, B, Nq, Nk, H in (
+        ("encoder 512", 4, 1024, 1024, 16),
+        ("decoder 512", 2, 1024, 1024, 12),
+        ("encoder 224", 4, 196, 196, 16),
+        ("Nq != Nk", 2, 300, 1000, 12),
+    ):
+        xq = torch.randn(B, Nq, 3, H, 64, device="cuda", generator=gen)
+        xkv = xq if Nq == Nk else torch.randn(B, Nk, 3, H, 64, device="cuda", generator=gen)
+        dout = torch.randn(B, Nq, H, 64, device="cuda", generator=gen)
+        yield name, xq, xkv, dout
+
+
+def phase_lse(torch, fa):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for name, xq, xkv, _ in _bwd_cases(torch, gen):
+        for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v = xq.to(dt)[:, :, 0], xkv.to(dt)[:, :, 1], xkv.to(dt)[:, :, 2]
+            out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+            same = torch.equal(out, fa.flash_attention_fwd(q, k, v)[0])
+            err = (lse - fa.flash_attention_lse_ref(q.float(), k.float(), v.float())[1]).abs().max().item()
+            line = f"[7 K1+LSE] {name:12s} {label}: output equals the no-LSE kernel's: {same}; LSE max|err| {err:.3e}"
+            if label == "bf16":
+                ms = graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, with_lse=True))
+                plain_ms = graph_ms(torch, lambda: fa.flash_attention_lse_ref(q, k, v))
+                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA graph)"
+            print(line + f" (tol {LSE_TOL[label]})")
+            require(same, f"K1+LSE {name} {label}: the LSE write changed the output")
+            require(err <= LSE_TOL[label], f"K1+LSE {name} {label}: LSE error {err} > {LSE_TOL[label]}")
+
+
+def phase_flash_bwd(torch, fa):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst_abs, main_ms, main_plain_ms = 0.0, None, None
+    for name, xq, xkv, dout32 in _bwd_cases(torch, gen):
+        for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v = xq.to(dt)[:, :, 0], xkv.to(dt)[:, :, 1], xkv.to(dt)[:, :, 2]
+            dout = dout32.to(dt)
+            out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+            refs = fa.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, lse, dout)))
+            qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+            auto = torch.autograd.grad(fa.flash_attention_ref(qf, kf, vf), (qf, kf, vf), dout.float())
+            rels, rels_auto = [], []
+            for g, r, a in zip(grads, refs, auto):
+                require(torch.isfinite(g).all().item(), f"K3 {name} {label}: non-finite gradient")
+                rels.append(((g.float() - r).abs().max() / r.abs().max()).item())
+                rels_auto.append(((g.float() - a).abs().max() / a.abs().max()).item())
+                if label == "bf16":
+                    worst_abs = max(worst_abs, (g.float() - r).abs().max().item())
+            line = (f"[8 K3] {name:12s} {label}: max|err|/max|ref| dq dk dv {rels[0]:.2e} {rels[1]:.2e} {rels[2]:.2e}"
+                    f" (vs autograd of the plain forward {max(rels_auto):.2e}; tol {K3_REL_TOL[label]})")
+            if label == "bf16":
+                ms = graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout))
+                plain_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout))
+                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA graph)"
+                if main_ms is None:
+                    main_ms, main_plain_ms = ms, plain_ms
+            print(line)
+            require(max(rels + rels_auto) <= K3_REL_TOL[label], f"K3 {name} {label}: error {max(rels + rels_auto)}")
+    return worst_abs, main_ms, main_plain_ms
+
+
+def phase_rope_bwd(torch, rope, make_patch_positions):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst_abs = 0.0
+    for B, H in ((4, 16), (2, 12)):
+        pos = make_patch_positions(B, 32, 32, device="cuda")
+        x = torch.randn(B, 1024, 3, H, 64, device="cuda", generator=gen)
+        g32 = torch.randn(B, 1024, H, 64, device="cuda", generator=gen)
+        line = f"[9 K2 bwd] B={B} N=1024 H={H} D=64:"
+        for label, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            t = x.to(dt)[:, :, 0].requires_grad_()
+            g = g32.to(dt)
+            (got,) = torch.autograd.grad(rope.rope_2d_kernel(t, pos), t, g)
+            (ref,) = torch.autograd.grad(rope.rope_2d(t, pos), t, g)
+            err = (got.float() - ref.float()).abs().max().item()
+            if label == "fp32":
+                line += f" fp32 max|err| {err:.3e} (tol {K2_FP32_TOL}),"
+                require(err <= K2_FP32_TOL, f"K2 bwd: fp32 error {err} > {K2_FP32_TOL}")
+            else:
+                ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(2.0**-126))) - 7)
+                ulps = ((got.float() - ref.float()).abs() / ulp).max().item()
+                worst_abs = max(worst_abs, err)
+                # the backward's launch (rotation by -F0) against the plain rotation by -F0
+                ms = graph_ms(torch, lambda: rope.rope_2d_kernel(g, pos, f0=-1.0))
+                plain_ms = graph_ms(torch, lambda: rope.rope_2d(g, pos, f0=-1.0))
+                line += f" bf16 {ulps:.2f} ulp (tol {K2_BF16_ULPS}); bf16 backward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                require(ulps <= K2_BF16_ULPS, f"K2 bwd: bf16 error {ulps} ulp > {K2_BF16_ULPS}")
+        print(line)
+    return worst_abs
+
+
+def _train_batch(torch, train, serve_mod, model):
+    "One batch of BATCH synthetic pairs from SEED, through the trainer's sampler and normalizer."
+    sampler = iter(train.DeterministicSampler(train.synthetic_dataset(2 * BATCH, IMG, SEED), BATCH, seed=SEED))
+    prep = serve_mod.make_frame_normalizer(model.data_norm_type, "cuda")
+    b = next(sampler)
+    return prep(b["img1"]), prep(b["img2"]), torch.from_numpy(b["pts1"]).cuda(), torch.from_numpy(b["pts2"]).cuda()
+
+
+def _loss_and_grads(torch, training, config, model, batch, impl):
+    config.set_attention_impl(impl)
+    try:
+        params = [p for p in model.parameters()]
+        res1, res2 = model.forward_pair(batch[0], batch[1])
+        loss = training.dust3r_confidence_loss(res1, res2, batch[2], batch[3])
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+    finally:
+        config.set_attention_impl("kernel")
+    return loss.detach(), grads
+
+
+def phase_train_grads(torch, train, serve_mod, training, config, build):
+    """One step's loss and gradients through the kernels against the plain path, fp32 trunk then bf16 trunk.
+    Returns the bf16 model (fp32 parameters) for the training phases."""
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    def flat(gs):
+        return torch.cat([g.float().flatten() for g in gs])
+
+    model32 = build(None)
+    names = [n for n, _ in model32.named_parameters()]
+    batch = _train_batch(torch, train, serve_mod, model32)
+    lk, gk = _loss_and_grads(torch, training, config, model32, batch, "kernel")
+    ln32, gn32 = _loss_and_grads(torch, training, config, model32, batch, "naive")
+    worst = max(zip((rel(a, b) for a, b in zip(gk, gn32)), names))
+    loss_rel = abs(lk.item() - ln32.item()) / abs(ln32.item())
+    print(f"[10 train fp32] loss kernels {lk.item():.6f} plain {ln32.item():.6f} (rel {loss_rel:.2e}); worst gradient "
+          f"rel err over {len(names)} parameters {worst[0]:.3e} ({worst[1]}) (tol {TRAIN_FP32_REL_TOL})")
+    require(torch.isfinite(lk).item() and all(torch.isfinite(g).all().item() for g in gk), "fp32 step: non-finite")
+    require(loss_rel <= TRAIN_FP32_REL_TOL and worst[0] <= TRAIN_FP32_REL_TOL, f"fp32 step: kernels vs plain {worst}")
+    del model32, gk
+    torch.cuda.empty_cache()
+
+    model = build(torch.bfloat16)
+    lk, gk = _loss_and_grads(torch, training, config, model, batch, "kernel")
+    ln, gn = _loss_and_grads(torch, training, config, model, batch, "naive")
+    loss_rel = abs(lk.item() - ln.item()) / abs(ln.item())
+    print(f"[10 train bf16] loss kernels {lk.item():.6f} plain {ln.item():.6f} (rel {loss_rel:.2e}; bf16-plain vs "
+          f"fp32-plain {abs(ln.item() - ln32.item()) / abs(ln32.item()):.2e}) (tol {TRAIN_BF16_LOSS_TOL})")
+    for label, xs, ys in (("kernels vs plain", gk, gn), ("bf16-plain vs fp32-plain", gn, gn32),
+                          ("kernels vs fp32-plain", gk, gn32)):
+        r = sorted(zip((rel(a, b) for a, b in zip(xs, ys)), names), reverse=True)
+        vals = sorted(x for x, _ in r)
+        print(f"[10 train bf16] gradients, {label}: all together {rel(flat(xs), flat(ys)):.3e}; per parameter median "
+              f"{vals[len(vals) // 2]:.3e}, p90 {vals[int(len(vals) * 0.9)]:.3e}, worst {[(f'{x:.3e}', n) for x, n in r[:3]]}")
+    worst = max(zip((rel(a, b) for a, b in zip(gk, gn)), names))
+    glob = rel(flat(gk), flat(gn))
+    print(f"[10 train bf16] kernels vs plain: worst parameter {worst[0]:.3e} (tol {TRAIN_BF16_REL_TOL}), all gradients "
+          f"together {glob:.3e} (tol {TRAIN_BF16_GLOBAL_TOL})")
+    require(torch.isfinite(lk).item() and all(torch.isfinite(g).all().item() for g in gk), "bf16 step: non-finite")
+    require(loss_rel <= TRAIN_BF16_LOSS_TOL, f"bf16 step: loss kernels vs plain {loss_rel} > {TRAIN_BF16_LOSS_TOL}")
+    require(worst[0] <= TRAIN_BF16_REL_TOL, f"bf16 step: kernels vs plain {worst}")
+    require(glob <= TRAIN_BF16_GLOBAL_TOL, f"bf16 step: all gradients kernels vs plain {glob} > {TRAIN_BF16_GLOBAL_TOL}")
+    del gk, gn, gn32
+    torch.cuda.empty_cache()
+    return model
+
+
+def phase_train(torch, train, serve_mod, training, config, fa, rope, model, card):
+    "make_train_step on the bf16 model: exact launches per step, finite losses, ms/step against the plain path."
+    ctx = training.make_train_step(model, learning_rate=1e-4)
+    batch = _train_batch(torch, train, serve_mod, model)
+    before = [p.detach().clone() for p in ctx.params[:4]]
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = fa.flash_attention.lse_launches = fa.flash_attention_bwd.launches = 0
+    rope.rope_2d_kernel.launches = rope.rope_2d_kernel.backward_launches = 0
+    losses = [ctx.step(*batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = {
+        "flash_attention_fwd": fa.flash_attention.launches, "flash_attention_lse": fa.flash_attention.lse_launches,
+        "flash_attention_bwd": fa.flash_attention_bwd.launches, "rope2d_fwd": rope.rope_2d_kernel.launches,
+        "rope2d_bwd": rope.rope_2d_kernel.backward_launches,
+    }
+    peak = torch.cuda.max_memory_allocated()
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    want = {"flash_attention_fwd": attn, "flash_attention_lse": attn, "flash_attention_bwd": attn,
+            "rope2d_fwd": 2 * attn, "rope2d_bwd": 2 * attn}  # per step; K2 on q and k of every attention
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"[10 train] launches per step {per_step} (want {want}) over {TRAIN_STEPS} steps")
+    require(per_step == want, f"training launches per step {per_step}, want {want}")
+    losses = [x.item() for x in losses]
+    print(f"[10 train] {TRAIN_STEPS} AdamW steps at batch {BATCH}, lr 1e-4: losses {['%.4f' % x for x in losses]}")
+    require(all(map(math.isfinite, losses)), f"non-finite training loss: {losses}")
+    moved = [not torch.equal(a, p) for a, p in zip(before, ctx.params)]
+    require(all(moved), "a parameter did not move")
+    state = {t.dtype for t in ctx.optimizer.mu + ctx.optimizer.nu} | {p.dtype for p in ctx.params}
+    require(state == {torch.float32}, f"parameters and optimizer state must be fp32, got {state}")
+
+    def timed(impl):
+        config.set_attention_impl(impl)
+        try:
+            return cuda_ms(torch, lambda: ctx.step(*batch), warmup=TRAIN_WARMUP, iters=5)
+        finally:
+            config.set_attention_impl("kernel")
+
+    plain_ms = timed("naive")
+    kernel_ms = timed("kernel")
+    print(f"[10 train] ms/step at batch {BATCH} (CUDA events, after {TRAIN_WARMUP} warm-up steps): kernels "
+          f"{kernel_ms:.2f} ms = {BATCH * 1e3 / kernel_ms:.3f} training pairs/s, plain path {plain_ms:.2f} ms = "
+          f"{BATCH * 1e3 / plain_ms:.3f} pairs/s; max_memory_allocated over the {TRAIN_STEPS} kernel steps {peak} "
+          f"bytes ({peak / 2**30:.3f} GiB) on {card}")
+    require(all(v > 0 for v in launches.values()), f"a kernel of the training path was never launched: {launches}")
+    return launches
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -254,11 +494,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references are full fp32
     torch.backends.cudnn.allow_tf32 = False
 
-    from uniception_tpu_torch import serve
+    from uniception_tpu_torch import serve, train
+    from uniception_tpu_torch.models.factory.dust3r import DUSt3R
     from uniception_tpu_torch.models.utils import config
     from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
     from uniception_tpu_torch.ops import flash_attention as fa
     from uniception_tpu_torch.ops import kernel_lib, rope
+    from uniception_tpu_torch.parallel import training
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     card = phase_card()
@@ -276,13 +518,33 @@ def main():
     model = build(torch.bfloat16)
     phase_model(torch, np, serve, model, config, fa, rope, MODEL_REL_TOL)
     launches = phase_serve(torch, np, serve, model, fa, rope, card)
+    require(fa.flash_attention.lse_launches == 0, "the serving path wrote a logsumexp")
+    del model
+    torch.cuda.empty_cache()
+
+    phase_lse(torch, fa)
+    k3_err, k3_ms, k3_plain_ms = phase_flash_bwd(torch, fa)
+    k2_err = max(k2_err, phase_rope_bwd(torch, rope, make_patch_positions))
+
+    def build_train(dtype):  # bench_train.py's configuration: fp32 parameters, compute in dtype
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return DUSt3R(name="dust3r_train", img_size=(IMG, IMG), patch_embed_cls="ManyAR_PatchEmbed",
+                      dtype=dtype, device="cuda", generator=gen)
+
+    model = phase_train_grads(torch, train, serve, training, config, build_train)
+    trained = phase_train(torch, train, serve, training, config, fa, rope, model, card)
 
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": "uniception_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "uniception_tpu/ops/flash_attention.py:194", "launches": launches["flash_attention_fwd"],
+         "replaces": "uniception_tpu/ops/flash_attention.py:194",
+         "launches": launches["flash_attention_fwd"] + trained["flash_attention_fwd"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "flash_attention_bwd", "route": "cuda", "source": "uniception_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "uniception_tpu/ops/flash_attention.py:436", "launches": trained["flash_attention_bwd"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
         {"name": "rope2d", "route": "cuda", "source": "uniception_tpu_torch/csrc/rope.cu",
-         "replaces": "uniception_tpu/ops/rope.py:126", "launches": launches["rope2d"],
+         "replaces": "uniception_tpu/ops/rope.py:126",
+         "launches": launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,20 +1,31 @@
 """
 The port's flash attention (uniception_tpu_torch/ops/flash_attention.py) on
-the CPU: its plain version against the JAX Pallas kernel run in interpret
-mode (single-step, multi-step and masked key blocks), and the attention
-dispatch. The CUDA kernel is held against the same plain version on the card
-(tests/test_torch_cuda_kernels.py, chip_smoke.py).
+the CPU: its plain versions against the JAX Pallas kernels run in interpret
+mode (single-step, multi-step and masked key blocks; the forward with its
+logsumexp; the fused single-block and the split dq / dk-dv backward), the
+autograd Function, and the attention dispatch. The CUDA kernels are held
+against the same plain versions on the card (tests/test_torch_cuda_kernels.py,
+chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from uniception_tpu.ops.flash_attention import _flash_attention_impl
 from uniception_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from uniception_tpu_torch.models.utils import config
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
-from uniception_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from uniception_tpu_torch.ops.flash_attention import (
+    FlashAttentionFunction,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 
 TOL = 5e-5  # fp32 max abs, the repo's parity bar
 
@@ -88,3 +99,74 @@ def test_invalid_impl_rejected():
     q = torch.zeros(1, 4, 1, 64)
     with pytest.raises(ValueError):
         scaled_dot_product_attention(q, q, q, impl="xla")
+
+
+@pytest.mark.parametrize("block", [16, 1024])  # several query/key blocks / one block
+@pytest.mark.parametrize("nq,nk", [(36, 36), (24, 40)])
+def test_lse_matches_pallas_interpret(nq, nk, block):
+    q, k, v = _qkv(5 * nq + nk, 2, nq, nk, 2)
+    out_ref, lse_ref = _flash_attention_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.2, block, block)
+    out, lse = flash_attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 0.2)
+    assert lse.shape == (2, 2, nq) and lse.dtype == torch.float32
+    assert np.abs(lse.numpy() - np.asarray(lse_ref)[..., :nq]).max() <= TOL
+    assert np.abs(out.numpy() - np.asarray(out_ref)).max() <= TOL
+
+
+def _jax_grads(q, k, v, g, scale, block_q, block_k, dtype=jnp.float32):
+    "jax.vjp of the Pallas flash attention (its Pallas backward in interpret mode)."
+    args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_flash_attention(q_, k_, v_, scale, block_q, block_k), *args)
+    return [np.asarray(x.astype(jnp.float32)) for x in vjp(jnp.asarray(g).astype(dtype))]
+
+
+# (block_q, block_k): one block (_fa_bwd_fused_kernel) or several (_fa_bwd_dq_kernel / _fa_bwd_dkv_kernel)
+@pytest.mark.parametrize("blocks", [(1024, 1024), (16, 16)], ids=["fused", "split"])
+@pytest.mark.parametrize("nq,nk", [(32, 32), (36, 36), (24, 40), (1, 7)])
+def test_backward_matches_pallas_interpret(nq, nk, blocks):
+    """flash_attention_bwd_ref, the CPU route of the K3 wrapper, and autograd
+    through FlashAttentionFunction against jax.vjp of the Pallas kernels:
+    fp32, within the repo's 5e-5 parity bar."""
+    q, k, v = _qkv(nq * 3 + nk, 2, nq, nk, 2)
+    g = np.random.RandomState(nq + 7 * nk).randn(2, nq, 2, 64).astype(np.float32)
+    refs = _jax_grads(q, k, v, g, 0.2, *blocks)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    out, lse = flash_attention_lse_ref(tq, tk, tv, 0.2)
+    plain = flash_attention_bwd_ref(tq, tk, tv, out, lse, tg, 0.2)
+    wrapper = flash_attention_bwd(tq, tk, tv, out, lse, tg, 0.2)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(FlashAttentionFunction.apply(*leaves, 0.2), leaves, tg)
+    for name, ref, *outs in zip(("dq", "dk", "dv"), refs, plain, wrapper, auto):
+        for o in outs:
+            assert o.shape == ref.shape and o.is_contiguous(), name
+            assert np.abs(o.numpy() - ref).max() <= TOL, name
+
+
+@pytest.mark.parametrize("blocks", [(1024, 1024), (16, 16)], ids=["fused", "split"])
+def test_backward_bf16_matches_pallas_interpret(blocks):
+    """bf16: both round p to dO's dtype for dv and ds to k's/q's dtype for dq/dk
+    and return bf16, so they agree to within one bf16 ulp of the gradient's
+    magnitude (sums of fp32 products in another order can move a rounding)."""
+    q, k, v = _qkv(11, 2, 36, 40, 2)
+    g = np.random.RandomState(12).randn(2, 36, 2, 64).astype(np.float32)
+    refs = _jax_grads(q, k, v, g, None, *blocks, dtype=jnp.bfloat16)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g)]
+    out, lse = flash_attention_lse_ref(*tb[:3])
+    grads = flash_attention_bwd_ref(*tb[:3], out, lse, tb[3])
+    for name, ref, got in zip(("dq", "dk", "dv"), refs, grads):
+        assert got.dtype == torch.bfloat16, name
+        err = np.abs(got.float().numpy() - ref)
+        assert err.max() <= 2.0**-8 * np.abs(ref).max(), name
+
+
+def test_function_takes_the_lse_path_only_with_grad():
+    "flash_attention: the autograd Function when a gradient is needed, the plain forward otherwise."
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 12, 20, 2))
+    assert flash_attention(q, k, v).grad_fn is None
+    qg = q.clone().requires_grad_()
+    out = flash_attention(qg, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    with torch.no_grad():
+        assert flash_attention(qg, k, v).grad_fn is None
+    (dq,) = torch.autograd.grad(out, qg, torch.ones_like(out))
+    (ref,) = torch.autograd.grad(flash_attention_ref(qg, k, v), qg, torch.ones_like(out))
+    assert (dq - ref).abs().max().item() <= 1e-6

@@ -74,13 +74,18 @@ def test_state_dict_keys_match_jax_export():
 
 
 def test_trunk_dtype_and_fp32_heads():
-    model = DUSt3R(name="d", img_size=(32, 32), dtype=torch.bfloat16, **SMALL)
+    # serving: the trunk's parameters are bf16; training: fp32 masters computed in bf16
+    model = DUSt3R(name="d", img_size=(32, 32), dtype=torch.bfloat16, param_dtype=torch.bfloat16, **SMALL)
     assert model.encoder.enc_blocks[0].attn.qkv.weight.dtype == torch.bfloat16
     assert model.info_sharing.norm.weight.dtype == torch.bfloat16
     assert model.head1.linear.weight.dtype == torch.float32
     arrays = {k: v.float().numpy() for k, v in model.state_dict().items()}
     load_state_dict_numpy(model, arrays)  # fp32 arrays are cast to each parameter's dtype
     assert model.encoder.enc_norm.weight.dtype == torch.bfloat16
+    train = DUSt3R(name="d", img_size=(32, 32), dtype=torch.bfloat16, **SMALL)
+    assert {p.dtype for p in train.parameters()} == {torch.float32}
+    assert train.encoder.enc_blocks[0].attn.qkv.compute_dtype == torch.bfloat16
+    assert train.head1.linear.weight.dtype == torch.float32
 
 
 def test_seeded_construction_is_reproducible():

@@ -2,7 +2,7 @@
 //
 // Replaces: uniception_tpu/ops/flash_attention.py: flash_attention /
 //   _flash_attention_impl with the bodies _fa_single_kernel and _fa_kernel
-//   (forward, with_lse=False).
+//   (forward; with_lse=True when an LSE pointer is given).
 //
 // What bounds it on the H100: at the main-path shapes (N = 1024 queries and
 //   keys, D = 64) each (b, h) pair does 4*N*N*D flops on 4*N*D*2 bytes of
@@ -27,6 +27,10 @@
 //   * q/k/v are read through their (b, n, h) strides with a unit stride on
 //     d, so the q/k/v views of a fused qkv projection need no copy. The
 //     ragged last key tile is masked to -inf, the TPU kernel's -1e30.
+//   * With an LSE pointer (training), each row's logsumexp m + log(l) is
+//     written in fp32 from the max and sum the kernel already holds in
+//     registers, (B, H, Nq) contiguous, for the backward (K3,
+//     flash_attention_bwd.cu). With a null pointer nothing more is written.
 //   * Later work: cp.async/TMA double buffering of the key tiles, wgmma,
 //     ldmatrix for the transposed V operand.
 
@@ -35,13 +39,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fa_common.cuh"
+
 namespace {
 
-constexpr int D = 64;
-
-struct Strides {
-  long long b, n, h;
-};
+using namespace uc_fa;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -51,27 +53,10 @@ constexpr int BQ = 64;   // query rows per block: 4 warps x 16
 constexpr int BK = 64;   // key rows per shared-memory tile
 constexpr int PAD = 8;   // bf16 padding per shared row: 144-byte rows keep the mma operand loads free of bank conflicts
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __global__ void __launch_bounds__(128) fa_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int Nq, int Nk,
-    Strides qs, Strides ks, Strides vs, float scale_log2) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Nq,
+    int Nk, Strides qs, Strides ks, Strides vs, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 k_s[BK][D + PAD];   // [key][d]
   __shared__ __align__(16) __nv_bfloat16 vt_s[D][BK + PAD];  // [d][key]: V transposed, the B operand of P.V
 
@@ -202,6 +187,11 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16_kernel(
     if (row1 < Nq)
       *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + c) = pack_bf16(acc[i][2] / l[1], acc[i][3] / l[1]);
   }
+  if (lse != nullptr && t == 0) {  // m is in log2 units of the scaled scores
+    float* lp = lse + ((long long)b * H + h) * Nq;
+    if (row0 < Nq) lp[row0] = m[0] * LN2 + logf(l[0]);
+    if (row1 < Nq) lp[row1] = m[1] * LN2 + logf(l[1]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -214,7 +204,8 @@ constexpr int F32_CHUNK = 16; // keys scored before each rescale of the accumula
 
 __global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs, float scale_log2) {
+    float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+    float scale_log2) {
   __shared__ __align__(16) float k_s[F32_BK][D];
   __shared__ __align__(16) float v_s[F32_BK][D];
 
@@ -293,17 +284,19 @@ __global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
 #pragma unroll
     for (int d = 0; d < D; d += 4)
       *reinterpret_cast<float4*>(op + d) = make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
+    if (lse != nullptr) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
   }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; d has unit stride.
-// o is a contiguous (B, Nq, H, D) tensor. Returns a cudaError_t.
-extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
-                                      int Nq, int Nk, int head_dim, long long q_sb, long long q_sn, long long q_sh,
-                                      long long k_sb, long long k_sn, long long k_sh, long long v_sb, long long v_sn,
-                                      long long v_sh, float scale, void* stream) {
+// o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a contiguous
+// (B, H, Nq) float32 tensor. Returns a cudaError_t.
+extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                                      int B, int H, int Nq, int Nk, int head_dim, long long q_sb, long long q_sn,
+                                      long long q_sh, long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+                                      long long v_sn, long long v_sh, float scale, void* stream) {
   if (head_dim != D || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
@@ -311,13 +304,13 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype == 1) {
     const dim3 grid((Nq + BQ - 1) / BQ, H, B);
     fa_fwd_bf16_kernel<<<grid, 128, 0, st>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                                              static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Nq,
-                                              Nk, qs, ks, vs, scale_log2);
+                                              static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+                                              static_cast<float*>(lse), H, Nq, Nk, qs, ks, vs, scale_log2);
   } else if (dtype == 0) {
     const dim3 grid((Nq + F32_BQ - 1) / F32_BQ, H, B);
     fa_fwd_f32_kernel<<<grid, F32_BQ, 0, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                static_cast<const float*>(v), static_cast<float*>(o), H, Nq, Nk, qs, ks,
-                                                vs, scale_log2);
+                                                static_cast<const float*>(v), static_cast<float*>(o),
+                                                static_cast<float*>(lse), H, Nq, Nk, qs, ks, vs, scale_log2);
   } else {
     return (int)cudaErrorInvalidValue;
   }

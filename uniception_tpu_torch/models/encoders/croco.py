@@ -2,7 +2,9 @@
 CroCo / DUSt3R / MASt3R ViT encoder (counterpart of uniception_tpu/models/encoders/croco.py).
 
 patch-embed -> depth x pre-norm attention blocks with shared 2D RoPE ->
-final LayerNorm -> BCHW feature grid. Loop layout only.
+final LayerNorm -> BCHW feature grid. Loop layout only. ``dtype`` is the
+compute dtype; ``gradient_checkpointing`` recomputes each block's
+activations in the backward (croco.py:142-143 of the JAX package).
 """
 
 from typing import Optional, Tuple, Union
@@ -13,6 +15,7 @@ from torch import nn
 from uniception_tpu_torch.models.encoders.base import UniCeptionViTEncoderBase, ViTEncoderInput, ViTEncoderOutput
 from uniception_tpu_torch.models.encoders.patch_embed import get_patch_embed
 from uniception_tpu_torch.nn.blocks import SelfAttentionBlock, layer_norm_factory
+from uniception_tpu_torch.nn.common import remat_call
 from uniception_tpu_torch.ops.rope import Rope2D
 
 __all__ = ["CroCoEncoder"]
@@ -34,8 +37,10 @@ class CroCoEncoder(UniCeptionViTEncoderBase):
         mlp_ratio: int = 4,
         pos_embed: str = "RoPE100",
         scan_blocks: bool = False,
+        gradient_checkpointing: bool = False,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(name=name, data_norm_type=data_norm_type, patch_size=patch_size)
@@ -52,10 +57,11 @@ class CroCoEncoder(UniCeptionViTEncoderBase):
         self.enc_num_heads = enc_num_heads
         self.mlp_ratio = mlp_ratio
         self.pos_embed = pos_embed
+        self.gradient_checkpointing = gradient_checkpointing
         self.rope = Rope2D(freq=float(pos_embed[len("RoPE"):]))
 
         self.patch_embed = get_patch_embed(
-            patch_embed_cls, img_size, patch_size, enc_embed_dim, device=device, generator=generator
+            patch_embed_cls, img_size, patch_size, enc_embed_dim, device=device, dtype=dtype, generator=generator
         )
         self.enc_blocks = nn.ModuleList(
             [
@@ -67,12 +73,13 @@ class CroCoEncoder(UniCeptionViTEncoderBase):
                     norm_layer=norm_layer,
                     custom_positional_encoding=self.rope,
                     device=device,
+                    dtype=dtype,
                     generator=generator,
                 )
                 for _ in range(enc_depth)
             ]
         )
-        self.enc_norm = norm_layer(enc_embed_dim, device=device)
+        self.enc_norm = norm_layer(enc_embed_dim, device=device, dtype=dtype)
 
     def forward(self, encoder_input: ViTEncoderInput) -> ViTEncoderOutput:
         self._check_data_normalization_type(encoder_input.data_norm_type)
@@ -82,8 +89,9 @@ class CroCoEncoder(UniCeptionViTEncoderBase):
         if true_shape is None:
             true_shape = torch.tensor([H, W], dtype=torch.int32, device=image.device).expand(B, 2)
         features, pos = self.patch_embed(image, true_shape=true_shape)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for blk in self.enc_blocks:
-            features = blk(features, pos)
+            features = remat_call(blk, features, pos) if remat else blk(features, pos)
         features = self.enc_norm(features)
         # (B, N, C) -> (B, C, H/P, W/P), matching croco.py:176-180
         features = features.reshape(B, H // self.patch_size, W // self.patch_size, self.enc_embed_dim)

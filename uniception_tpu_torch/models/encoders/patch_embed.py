@@ -8,12 +8,14 @@ uniception_tpu/models/encoders/patch_embed.py):
       (patch_embed.py:85-127): both orientations are patchified and merged
       per sample with ``torch.where``, as the JAX package does.
 
-Tokens come out as (B, N, C) in the row-major order of the BCHW flatten.
+Tokens come out as (B, N, C) in the row-major order of the BCHW flatten, in
+the compute ``dtype`` (None: the conv weight's dtype).
 """
 
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
@@ -36,9 +38,11 @@ class PatchEmbedCroCo(nn.Module):
         embed_dim: int = 768,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.compute_dtype = dtype
         self.img_size = _to_2tuple(img_size)
         self.patch_size = _to_2tuple(patch_size)
         self.grid_size = (self.img_size[0] // self.patch_size[0], self.img_size[1] // self.patch_size[1])
@@ -51,8 +55,9 @@ class PatchEmbedCroCo(nn.Module):
             self.proj.bias.zero_()
 
     def _project(self, image: torch.Tensor) -> torch.Tensor:
-        "BCHW image -> (B, H'*W', C) tokens, in the conv's compute dtype."
-        x = self.proj(image.to(self.proj.weight.dtype))
+        "BCHW image -> (B, H'*W', C) tokens, in the compute dtype (weights cast at use)."
+        dt = self.compute_dtype or self.proj.weight.dtype
+        x = F.conv2d(image.to(dt), self.proj.weight.to(dt), self.proj.bias.to(dt), stride=self.patch_size)
         return x.flatten(2).transpose(1, 2)
 
     def _check(self, H, W):
@@ -105,7 +110,7 @@ class ManyAR_PatchEmbed(PatchEmbedCroCo):
         return x, pos
 
 
-def get_patch_embed(patch_embed_cls: str, img_size, patch_size, enc_embed_dim, *, device=None, generator=None):
+def get_patch_embed(patch_embed_cls: str, img_size, patch_size, enc_embed_dim, *, device=None, dtype=None, generator=None):
     "String factory matching the reference's get_patch_embed (patch_embed.py:13-16)."
     classes = {
         "PatchEmbedCroCo": PatchEmbedCroCo,
@@ -114,4 +119,4 @@ def get_patch_embed(patch_embed_cls: str, img_size, patch_size, enc_embed_dim, *
     }
     if patch_embed_cls not in classes:
         raise ValueError(f"Unknown patch embed class: {patch_embed_cls}")
-    return classes[patch_embed_cls](img_size, patch_size, 3, enc_embed_dim, device=device, generator=generator)
+    return classes[patch_embed_cls](img_size, patch_size, 3, enc_embed_dim, device=device, dtype=dtype, generator=generator)

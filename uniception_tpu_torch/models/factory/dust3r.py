@@ -4,8 +4,10 @@ reference factory/dust3r.py:40-332).
 
 Shared CroCo ViT-L encoder -> two-view cross-attention transformer (+2D RoPE)
 -> per-view linear heads -> PointMapWithConfidence adaptor. The trunk
-(encoder + info sharing) runs in ``dtype`` (bfloat16 for serving); the heads
-and adaptor run in fp32, the reference's autocast-off region (dust3r.py:309).
+(encoder + info sharing) keeps its parameters in ``param_dtype`` and computes
+in ``dtype`` (None: in ``param_dtype``): fp32 parameters with a bf16 trunk for
+training, bf16 parameters for serving. The heads and adaptor run in fp32, the
+reference's autocast-off region (dust3r.py:309).
 """
 
 from typing import Optional, Tuple
@@ -47,8 +49,10 @@ class DUSt3R(nn.Module):
         info_sharing_num_heads: int = 12,
         scan_blocks: bool = False,
         landscape_only: bool = False,
+        gradient_checkpointing: bool = False,
         *,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = None,
+        param_dtype: torch.dtype = torch.float32,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -82,9 +86,11 @@ class DUSt3R(nn.Module):
             enc_num_heads=enc_num_heads,
             pos_embed=pos_embed,
             scan_blocks=scan_blocks,
+            gradient_checkpointing=gradient_checkpointing,
             device=device,
+            dtype=dtype,
             generator=generator,
-        ).to(dtype)
+        ).to(param_dtype)
         self.info_sharing = MultiViewCrossAttentionTransformer(
             name="base_info_sharing",
             input_embed_dim=enc_embed_dim,
@@ -94,9 +100,11 @@ class DUSt3R(nn.Module):
             num_heads=info_sharing_num_heads,
             custom_positional_encoding=self.rope,
             scan_blocks=scan_blocks,
+            gradient_checkpointing=gradient_checkpointing,
             device=device,
+            dtype=dtype,
             generator=generator,
-        ).to(dtype)
+        ).to(param_dtype)
         head_kwargs = dict(
             input_feature_dim=info_sharing_dim,
             output_dim=pred_head_output_dim,

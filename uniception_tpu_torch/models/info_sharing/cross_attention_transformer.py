@@ -4,6 +4,8 @@ uniception_tpu/models/info_sharing/cross_attention_transformer.py).
 
 Per-view branches of CrossAttentionBlocks; at each depth every view
 cross-attends to the concatenation of all other views' tokens. Loop layout.
+``dtype`` is the compute dtype; ``gradient_checkpointing`` recomputes each
+block's activations in the backward.
 """
 
 from typing import Callable, Optional
@@ -18,7 +20,7 @@ from uniception_tpu_torch.models.info_sharing.base import (
 )
 from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
 from uniception_tpu_torch.nn.blocks import CrossAttentionBlock, layer_norm_factory
-from uniception_tpu_torch.nn.common import Identity, LinearX
+from uniception_tpu_torch.nn.common import Identity, LinearX, remat_call
 
 __all__ = ["MultiViewCrossAttentionTransformer"]
 
@@ -43,8 +45,10 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
         qkv_bias: bool = True,
         custom_positional_encoding: Optional[Callable] = None,
         scan_blocks: bool = False,
+        gradient_checkpointing: bool = False,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(name=name)
@@ -58,9 +62,10 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
         self.dim = dim
         self.num_heads = num_heads
         self.custom_positional_encoding = custom_positional_encoding
+        self.gradient_checkpointing = gradient_checkpointing
 
         if input_embed_dim != dim:
-            self.proj_embed = LinearX(input_embed_dim, dim, device=device, generator=generator)
+            self.proj_embed = LinearX(input_embed_dim, dim, device=device, dtype=dtype, generator=generator)
         else:
             self.proj_embed = Identity()
 
@@ -73,13 +78,14 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
                 qkv_bias=qkv_bias,
                 custom_positional_encoding=custom_positional_encoding,
                 device=device,
+                dtype=dtype,
                 generator=generator,
             )
 
         self.multi_view_branches = nn.ModuleList(
             [nn.ModuleList([make_block() for _ in range(depth)]) for _ in range(num_views)]
         )
-        self.norm = norm_layer(dim, device=device)
+        self.norm = norm_layer(dim, device=device, dtype=dtype)
 
     def _check_input(self, model_input: MultiViewTransformerInput):
         feats = model_input.features
@@ -98,6 +104,7 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
         else:
             positions = [make_patch_positions(B, H, W, device=feats[0].device)] * self.num_views
 
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for depth_idx in range(self.depth):
             # every view attends to the others' tokens of the previous depth (:241-264)
             updated = []
@@ -107,7 +114,8 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
                 xpos = positions[view_idx]
                 ypos = None if xpos is None else _concat_tokens([positions[i] for i in others])
                 blk = self.multi_view_branches[view_idx][depth_idx]
-                updated.append(blk(tokens[view_idx], y, xpos, ypos))
+                args = (tokens[view_idx], y, xpos, ypos)
+                updated.append(remat_call(blk, *args) if remat else blk(*args))
             tokens = updated
 
         out = [self.norm(t).reshape(B, H, W, self.dim).permute(0, 3, 1, 2) for t in tokens]

@@ -4,8 +4,12 @@ Transformer building blocks (counterpart of uniception_tpu/nn/blocks.py).
 Parity with the reference's block library (transformer_blocks.py): Mlp,
 Attention, CrossAttention, SelfAttentionBlock and CrossAttentionBlock,
 including the scalable-softmax and entropy q-scalings
-(transformer_blocks.py:231-241). Inference only: no dropout, LayerScale or
-stochastic depth (identities at the serving configuration), no qk-norm.
+(transformer_blocks.py:231-241). No dropout, LayerScale or stochastic depth
+(identities at the DUSt3R configuration), no qk-norm.
+
+Every module takes a compute ``dtype`` (None: the parameters' dtype); with
+fp32 parameters and ``dtype=torch.bfloat16`` the residual stream, the norms'
+outputs and the attention run in bf16, as in the JAX package.
 
 Token layout inside attention is (B, N, H, D); a custom positional encoding
 takes (tokens (B, N, H, D), positions (B, N, 2)). Submodule names are the
@@ -17,12 +21,14 @@ from functools import partial
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from uniception_tpu_torch.nn.common import LinearX, gelu_exact
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
 
 __all__ = [
+    "LayerNorm",
     "Mlp",
     "Attention",
     "CrossAttention",
@@ -33,9 +39,25 @@ __all__ = [
 ]
 
 
-def make_norm_layer(dim: int, *, eps: float = 1e-5, device=None) -> nn.LayerNorm:
-    "Default norm factory: LayerNorm with torch-default eps=1e-5."
-    return nn.LayerNorm(dim, eps=eps, device=device)
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with an optional compute dtype: input, weight and bias
+    are cast to ``dtype`` at use (flax ``nnx.LayerNorm(dtype=...)``), so the
+    output is in ``dtype``; None computes in the parameters' dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *, device=None, dtype=None):
+        super().__init__(dim, eps=eps, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.layer_norm(x.to(dt), self.normalized_shape, self.weight.to(dt), self.bias.to(dt), self.eps)
+
+
+def make_norm_layer(dim: int, *, eps: float = 1e-5, device=None, dtype=None) -> LayerNorm:
+    "Default norm factory: LayerNorm with torch-default eps=1e-5 and compute dtype ``dtype``."
+    return LayerNorm(dim, eps=eps, device=device, dtype=dtype)
 
 
 def layer_norm_factory(eps: float = 1e-5) -> Callable:
@@ -46,10 +68,12 @@ def layer_norm_factory(eps: float = 1e-5) -> Callable:
 class Mlp(nn.Module):
     "ViT MLP (transformer_blocks.py:66-89): fc1 -> GELU -> fc2."
 
-    def __init__(self, in_features: int, hidden_features: int, *, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(
+        self, in_features: int, hidden_features: int, *, device=None, dtype=None, generator: Optional[torch.Generator] = None
+    ):
         super().__init__()
-        self.fc1 = LinearX(in_features, hidden_features, device=device, generator=generator)
-        self.fc2 = LinearX(hidden_features, in_features, device=device, generator=generator)
+        self.fc1 = LinearX(in_features, hidden_features, device=device, dtype=dtype, generator=generator)
+        self.fc2 = LinearX(hidden_features, in_features, device=device, dtype=dtype, generator=generator)
 
     def forward(self, x):
         return self.fc2(gelu_exact(self.fc1(x)))
@@ -114,14 +138,16 @@ class Attention(_AttentionBase):
         entropy_scaling_growth_factor: float = 1.4,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(
             dim, num_heads, custom_positional_encoding, use_scalable_softmax, use_entropy_scaling,
             base_token_count_for_entropy_scaling, entropy_scaling_growth_factor,
         )
-        self.qkv = LinearX(dim, dim * 3, bias=qkv_bias, device=device, generator=generator)
-        self.proj = LinearX(dim, dim, device=device, generator=generator)
+        lin = dict(device=device, dtype=dtype, generator=generator)
+        self.qkv = LinearX(dim, dim * 3, bias=qkv_bias, **lin)
+        self.proj = LinearX(dim, dim, **lin)
 
     def forward(self, x: torch.Tensor, xpos: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, _ = x.shape
@@ -145,16 +171,18 @@ class CrossAttention(_AttentionBase):
         entropy_scaling_growth_factor: float = 1.4,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(
             dim, num_heads, custom_positional_encoding, use_scalable_softmax, use_entropy_scaling,
             base_token_count_for_entropy_scaling, entropy_scaling_growth_factor,
         )
-        self.projq = LinearX(dim, dim, bias=qkv_bias, device=device, generator=generator)
-        self.projk = LinearX(dim, dim, bias=qkv_bias, device=device, generator=generator)
-        self.projv = LinearX(dim, dim, bias=qkv_bias, device=device, generator=generator)
-        self.proj = LinearX(dim, dim, device=device, generator=generator)
+        lin = dict(device=device, dtype=dtype, generator=generator)
+        self.projq = LinearX(dim, dim, bias=qkv_bias, **lin)
+        self.projk = LinearX(dim, dim, bias=qkv_bias, **lin)
+        self.projv = LinearX(dim, dim, bias=qkv_bias, **lin)
+        self.proj = LinearX(dim, dim, **lin)
 
     def forward(
         self,
@@ -187,14 +215,17 @@ class SelfAttentionBlock(nn.Module):
         norm_layer: Callable = make_norm_layer,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
         **attn_kwargs,
     ):
         super().__init__()
-        self.norm1 = norm_layer(dim, device=device)
-        self.attn = Attention(dim, num_heads=num_heads, device=device, generator=generator, **attn_kwargs)
-        self.norm2 = norm_layer(dim, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device, generator=generator)
+        norm = dict(device=device, dtype=dtype)
+        sub = dict(device=device, dtype=dtype, generator=generator)
+        self.norm1 = norm_layer(dim, **norm)
+        self.attn = Attention(dim, num_heads=num_heads, **sub, **attn_kwargs)
+        self.norm2 = norm_layer(dim, **norm)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **sub)
 
     def forward(self, x: torch.Tensor, xpos: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), xpos)
@@ -217,17 +248,20 @@ class CrossAttentionBlock(nn.Module):
         norm_layer: Callable = make_norm_layer,
         *,
         device=None,
+        dtype=None,
         generator: Optional[torch.Generator] = None,
         **attn_kwargs,
     ):
         super().__init__()
-        self.norm1 = norm_layer(dim, device=device)
-        self.attn = Attention(dim, num_heads=num_heads, device=device, generator=generator, **attn_kwargs)
-        self.norm_y = norm_layer(dim, device=device)
-        self.norm2 = norm_layer(dim, device=device)
-        self.cross_attn = CrossAttention(dim, num_heads=num_heads, device=device, generator=generator, **attn_kwargs)
-        self.norm3 = norm_layer(dim, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device, generator=generator)
+        norm = dict(device=device, dtype=dtype)
+        sub = dict(device=device, dtype=dtype, generator=generator)
+        self.norm1 = norm_layer(dim, **norm)
+        self.attn = Attention(dim, num_heads=num_heads, **sub, **attn_kwargs)
+        self.norm_y = norm_layer(dim, **norm)
+        self.norm2 = norm_layer(dim, **norm)
+        self.cross_attn = CrossAttention(dim, num_heads=num_heads, **sub, **attn_kwargs)
+        self.norm3 = norm_layer(dim, **norm)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **sub)
 
     def forward(
         self,

@@ -1,6 +1,12 @@
 """
 Small shared NN utilities (counterpart of uniception_tpu/nn/common.py):
-Identity, GELU by the configured mode, and the reference's Linear init.
+Identity, GELU by the configured mode, the reference's Linear init with an
+optional compute dtype, and gradient checkpointing.
+
+Mixed precision follows flax's ``dtype`` / ``param_dtype`` split: parameters
+stay in their own dtype (fp32 masters for training) and are cast to the
+compute dtype at each use, with the input, so the optimizer sees fp32
+parameters and fp32 gradients while the matmuls run in bf16.
 """
 
 from typing import Optional
@@ -8,10 +14,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uniception_tpu_torch.models.utils.config import get_gelu_mode
 
-__all__ = ["Identity", "gelu_exact", "LinearX"]
+__all__ = ["Identity", "gelu_exact", "Linear", "LinearX", "remat_call"]
 
 Identity = nn.Identity
 
@@ -21,19 +28,44 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if get_gelu_mode() == "tanh" else "none")
 
 
+class Linear(nn.Linear):
+    """nn.Linear with an optional compute dtype: input, weight and bias are
+    cast to ``dtype`` at use (flax ``nnx.Linear(dtype=...)``); None computes
+    in the parameters' dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *, device=None, dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
 def LinearX(
     in_features: int,
     out_features: int,
     *,
     bias: bool = True,
     device=None,
+    dtype=None,
     generator: Optional[torch.Generator] = None,
-) -> nn.Linear:
-    """nn.Linear with the reference's init scheme: xavier-uniform weight,
-    zero bias (reference: encoders/croco.py:136-145 et al.)."""
-    lin = nn.Linear(in_features, out_features, bias=bias, device=device)
+) -> Linear:
+    """:class:`Linear` with the reference's init scheme: xavier-uniform
+    weight, zero bias (reference: encoders/croco.py:136-145 et al.).
+    ``dtype`` is the compute dtype."""
+    lin = Linear(in_features, out_features, bias=bias, device=device, dtype=dtype)
     with torch.no_grad():
         nn.init.xavier_uniform_(lin.weight, generator=generator)
         if bias:
             lin.bias.zero_()
     return lin
+
+
+def remat_call(blk: nn.Module, *args):
+    """Apply a module under gradient checkpointing (the JAX package's
+    ``remat_call``, full rematerialization): its activations are not kept
+    for the backward but recomputed there, trading FLOPs for memory."""
+    return checkpoint(blk, *args, use_reentrant=False)

@@ -2,8 +2,10 @@
 Attention dispatch (counterpart of uniception_tpu/ops/attention.py).
 
 Token layout is (B, N, H, D). A CUDA tensor goes to the flash-attention
-kernel, or to its plain version when the "naive" implementation is selected;
-a CPU tensor goes to the plain version.
+kernels (through ``FlashAttentionFunction`` when a gradient is needed: the
+forward with its logsumexp, then the backward kernel), or to the plain
+version when the "naive" implementation is selected; a CPU tensor goes to the
+plain versions.
 """
 
 from typing import Optional

@@ -8,13 +8,16 @@ Q = D/4, rotated by ``angle = pos * F0 / base**(q/Q)``:
     out_u = u * cos - v * sin
     out_v = v * cos + u * sin
 
-The inverse rotation is the same operation with -F0.
+The inverse rotation is the same operation with -F0, and so is the
+gradient: the transpose of a rotation is the rotation by the opposite angle
+(the custom VJP of the JAX package's ``rope_2d_pallas``).
 
 Two implementations over (B, N, H, D) tokens and (B, N, 2) integer (y, x)
 positions:
     * :func:`rope_2d` — plain PyTorch, the reference for the kernel;
     * :func:`rope_2d_kernel` — the hand-written CUDA kernel (csrc/rope.cu) for
-      CUDA tensors; on a CPU tensor it takes :func:`rope_2d`.
+      CUDA tensors, through :class:`Rope2DFunction` when a gradient is
+      needed; on a CPU tensor it takes :func:`rope_2d`.
 """
 
 import torch
@@ -22,7 +25,7 @@ import torch
 from uniception_tpu_torch.models.utils.config import get_attention_impl
 from uniception_tpu_torch.ops import kernel_lib
 
-__all__ = ["rope_2d", "rope_2d_kernel", "Rope2D"]
+__all__ = ["rope_2d", "rope_2d_kernel", "Rope2DFunction", "Rope2D"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,14 +56,8 @@ def rope_2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0, 
     return out.reshape(B, N, H, D).to(tokens.dtype)
 
 
-def rope_2d_kernel(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0, f0: float = 1.0) -> torch.Tensor:
-    """RoPE2D through the CUDA kernel; a CPU tensor takes :func:`rope_2d`.
-
-    tokens: (B, N, H, D) float32 or bfloat16 with unit stride on D (any
-    (b, n, h) strides); positions: (B, N, 2) int32 on the same device.
-    Returns a new contiguous (B, N, H, D) tensor. ``rope_2d_kernel.launches``
-    counts the kernel launches.
-    """
+def _rope_launch(tokens: torch.Tensor, positions: torch.Tensor, base: float, f0: float, backward: bool) -> torch.Tensor:
+    "One counted launch of the kernel on a CUDA tensor; a CPU tensor takes :func:`rope_2d`."
     if tokens.device.type == "cpu":
         return rope_2d(tokens, positions, base, f0)
     if tokens.device.type != "cuda":
@@ -89,11 +86,44 @@ def rope_2d_kernel(tokens: torch.Tensor, positions: torch.Tensor, base: float = 
         torch.cuda.current_stream(tokens.device).cuda_stream,
     )
     kernel_lib.check(status, "rope2d")
-    rope_2d_kernel.launches += 1
+    if backward:
+        rope_2d_kernel.backward_launches += 1
+    else:
+        rope_2d_kernel.launches += 1
     return out
 
 
+class Rope2DFunction(torch.autograd.Function):
+    """RoPE2D whose backward is the same kernel with -F0; positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, tokens, positions, base, f0):
+        ctx.save_for_backward(positions)
+        ctx.base, ctx.f0 = base, f0
+        return _rope_launch(tokens, positions, base, f0, backward=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (positions,) = ctx.saved_tensors
+        return _rope_launch(grad, positions, ctx.base, -ctx.f0, backward=True), None, None, None
+
+
+def rope_2d_kernel(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0, f0: float = 1.0) -> torch.Tensor:
+    """RoPE2D through the CUDA kernel; a CPU tensor takes :func:`rope_2d`.
+
+    tokens: (B, N, H, D) float32 or bfloat16 with unit stride on D (any
+    (b, n, h) strides); positions: (B, N, 2) int32 on the same device.
+    Returns a new contiguous (B, N, H, D) tensor. When a gradient is needed
+    this is :class:`Rope2DFunction`. ``rope_2d_kernel.launches`` counts the
+    forward launches, ``rope_2d_kernel.backward_launches`` the backward ones.
+    """
+    if torch.is_grad_enabled() and tokens.requires_grad:
+        return Rope2DFunction.apply(tokens, positions, float(base), float(f0))
+    return _rope_launch(tokens, positions, base, f0, backward=False)
+
+
 rope_2d_kernel.launches = 0
+rope_2d_kernel.backward_launches = 0
 
 
 class Rope2D:

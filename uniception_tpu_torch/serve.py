@@ -25,7 +25,7 @@ import torch
 from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
 
-__all__ = ["build_model", "make_serving_fn", "serve_frames", "main"]
+__all__ = ["build_model", "make_frame_normalizer", "make_serving_fn", "serve_frames", "main"]
 
 
 def build_model(
@@ -56,20 +56,19 @@ def build_model(
         info_sharing_depth=dec_depth,
         info_sharing_num_heads=dec_heads,
         dtype=dtype,
+        param_dtype=dtype,  # serving casts the trunk's parameters themselves
         device=device,
         generator=generator,
     )
     return model.eval()
 
 
-def make_serving_fn(model: DUSt3R, device):
-    """Return ``serve(img1_u8, img2_u8) -> (pts3d, conf, pts3d_in_other_view, conf2)``.
-
-    The inputs are uint8 (B, H, W, 3) arrays or CPU tensors; the outputs are
-    BHWC fp32 tensors on ``device``.
-    """
+def make_frame_normalizer(data_norm_type: str, device):
+    """Return ``prep(frames_u8) -> (B, 3, H, W) fp32`` on ``device``: uint8
+    (B, H, W, 3) frames (arrays or CPU tensors) staged through pinned memory
+    on CUDA, then ``(x / 255 - mean) / std`` on the device."""
     device = torch.device(device)
-    norm = IMAGE_NORMALIZATION_DICT[model.data_norm_type]
+    norm = IMAGE_NORMALIZATION_DICT[data_norm_type]
     mean = torch.tensor(norm.mean, dtype=torch.float32, device=device).view(1, 3, 1, 1)
     std = torch.tensor(norm.std, dtype=torch.float32, device=device).view(1, 3, 1, 1)
 
@@ -81,6 +80,18 @@ def make_serving_fn(model: DUSt3R, device):
             x = x.pin_memory()
         x = x.to(device, non_blocking=True)
         return (x.permute(0, 3, 1, 2).float() / 255.0 - mean) / std
+
+    return prep
+
+
+def make_serving_fn(model: DUSt3R, device):
+    """Return ``serve(img1_u8, img2_u8) -> (pts3d, conf, pts3d_in_other_view, conf2)``.
+
+    The inputs are uint8 (B, H, W, 3) arrays or CPU tensors; the outputs are
+    BHWC fp32 tensors on ``device``.
+    """
+    device = torch.device(device)
+    prep = make_frame_normalizer(model.data_norm_type, device)
 
     @torch.inference_mode()
     def serve(img1_u8, img2_u8):
