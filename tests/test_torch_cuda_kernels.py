@@ -2,8 +2,9 @@
 The port's CUDA kernels against their plain PyTorch versions on a GPU, at
 small and ragged shapes (the main-path shapes run in chip_smoke.py): the
 flash-attention forward (K1, with and without the logsumexp), its backward
-(K3), RoPE2D (K2) forward and backward, and gradients through attention
-layers on the kernel path. Every test here needs a CUDA device and skips
+(K3), RoPE2D (K2) forward and backward, gradients through attention layers
+on the kernel path, the int8 matmul (K4), the int8 attention (K6) and the
+3x3 conv (K7) with its gradient. Every test here needs a CUDA device and skips
 without one.
 
 On a machine with a GPU and without jax, run them without the repo's
@@ -18,20 +19,28 @@ import torch
 from uniception_tpu_torch.models.utils import config
 from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
 from uniception_tpu_torch.nn.blocks import Attention, CrossAttention
+from uniception_tpu_torch.nn.common import LinearX
+from uniception_tpu_torch.nn.dpt_parts import Conv2dTorch
+from uniception_tpu_torch.nn.quant import Int8Linear
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
+from uniception_tpu_torch.ops.conv3x3 import conv3x3_nhwc, conv3x3_reference
 from uniception_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_fwd,
+    flash_attention_int8,
+    flash_attention_int8_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
 )
+from uniception_tpu_torch.ops.int8_matmul import int8_matmul_dynamic, int8_matmul_dynamic_ref
 from uniception_tpu_torch.ops.rope import Rope2D, rope_2d, rope_2d_kernel
 
 pytestmark = pytest.mark.cuda
 
 BF16_TOL = 2e-2  # max abs vs the plain version in fp32 from the same bf16 inputs
+K6_ULPS, K6_ULP_FLOOR = 2, 1 / 64  # K6 vs its plain version, in bf16 ulps of max(|plain|, 1/64)
 FP32_TOL = 2e-5
 LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}  # fp32 max and sum in another order, from the same inputs
 # K3, max |kernel - plain| / max |plain| per gradient. bf16: p and ds rounded
@@ -47,6 +56,7 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the plain conv of K7's comparisons in full fp32
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -241,3 +251,169 @@ def test_attention_layers_train_through_the_kernels(gen, dtype):
         assert kern[name].abs().max().item() > 0, name
         rel = ((kern[name] - plain[name]).norm() / plain[name].norm()).item()
         assert rel <= (2e-2 if dtype == torch.bfloat16 else 1e-5), (name, rel)
+
+
+def _ulps(out, ref, mantissa_bits, floor=2.0**-126):
+    "Max |out - ref| in units of the last place of max(|ref|, floor) (bf16: 7 mantissa bits, fp32: 23)."
+    ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(floor))) - mantissa_bits)
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,bias", [(300, 4096, 200, True), (129, 1024, 3080, False), (5, 48, 7, True)])
+def test_int8_matmul_matches_plain(gen, m, k, n, bias, dtype):
+    "K4 at M and N off the 128 tile: the same int8 codes and int32 sums as the plain version, so <= 1 ulp."
+    x = torch.randn(3, m, k, device="cuda", generator=gen).to(dtype)
+    w_q = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int8).t()  # (K, N) view
+    w_scale = torch.rand(1, n, device="cuda", generator=gen) * 1e-2 + 1e-4
+    b = torch.randn(n, device="cuda", generator=gen) if bias else None
+    before = int8_matmul_dynamic.launches
+    out = int8_matmul_dynamic(x, w_q, w_scale, b)
+    assert int8_matmul_dynamic.launches == before + 1
+    ref = int8_matmul_dynamic_ref(x, w_q, w_scale, b)
+    assert out.shape == (3, m, n) and out.dtype == dtype
+    assert _ulps(out, ref, 7 if dtype == torch.bfloat16 else 23) <= 1
+    # a contiguous (K, N) weight is taken too (copied to the kernel's layout)
+    assert torch.equal(int8_matmul_dynamic(x, w_q.contiguous(), w_scale, b), out)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8pv"])
+@pytest.mark.parametrize("b,nq,nk,h", [(2, 7, 1, 3), (2, 50, 36, 3), (1, 300, 1000, 2), (1, 1024, 1024, 2)])
+def test_flash_attention_int8_matches_plain(gen, b, nq, nk, h, mode):
+    q, k, v = _strided_qkv(gen, b, nq, nk, h, torch.bfloat16)
+    before = flash_attention_int8.launches
+    out = flash_attention_int8(q, k, v, mode=mode)
+    assert flash_attention_int8.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, nq, h, 64) and out.is_contiguous()
+    ref = flash_attention_int8_ref(q, k, v, mode=mode)
+    # the same codes and the same fp32 products; the sums of p and P.V run in
+    # another order before o is rounded to bf16: within K6_ULPS
+    assert _ulps(out, ref, 7, floor=K6_ULP_FLOOR) <= K6_ULPS
+    if nk > 1:
+        exact = flash_attention_ref(q.float(), k.float(), v.float())
+        rel = ((out.float() - exact).norm() / exact.norm()).item()
+        rel_plain = ((ref.float() - exact).norm() / exact.norm()).item()
+        assert rel < (2e-2 if mode == "int8" else 3e-2), rel  # the bound of the JAX package's test
+        assert abs(rel - rel_plain) <= 1e-3, (rel, rel_plain)
+        # controls: exact attention and the other int8 mode are told apart from the plain version
+        other = flash_attention_int8_ref(q, k, v, mode="int8pv" if mode == "int8" else "int8")
+        for control in (flash_attention_ref(q, k, v), other):
+            assert _ulps(control, ref, 7, floor=K6_ULP_FLOOR) > K6_ULPS
+
+
+def test_int8_attention_dispatch(gen):
+    "The quant mode sends single-block inference calls to K6; fp32, gradients and Nk > 1024 stay on K1."
+    q, k, v = _strided_qkv(gen, 1, 64, 64, 2, torch.bfloat16)
+    q32 = q.float()
+    long_k, long_v = (torch.randn(1, 1030, 2, 64, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    config.set_attention_quant("int8")
+    try:
+        k1, k6 = flash_attention.launches, flash_attention_int8.launches
+        scaled_dot_product_attention(q, k, v)
+        assert (flash_attention.launches, flash_attention_int8.launches) == (k1, k6 + 1)
+        scaled_dot_product_attention(q32, q32, q32)
+        scaled_dot_product_attention(q, long_k, long_v)
+        qg = q.detach().clone().requires_grad_()
+        scaled_dot_product_attention(qg, k, v)
+        assert (flash_attention.launches, flash_attention_int8.launches) == (k1 + 3, k6 + 1)
+    finally:
+        config.set_attention_quant("none")
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("b,h,w,c,co", [(1, 13, 31, 128, 64), (2, 16, 16, 256, 256), (1, 5, 3, 64, 136)])
+def test_conv3x3_matches_plain_and_its_gradient(gen, b, h, w, c, co, bias):
+    x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
+    wt = (torch.randn(3, 3, c, co, device="cuda", generator=gen) * 0.05).bfloat16()
+    bb = torch.randn(co, device="cuda", generator=gen) if bias else None
+    before = conv3x3_nhwc.launches
+    out = conv3x3_nhwc(x, wt, bb)
+    assert conv3x3_nhwc.launches == before + 1
+    ref = conv3x3_reference(x, wt, bb)
+    assert out.shape == (b, h, w, co) and out.dtype == torch.bfloat16
+    # fp32 sums over 9 * C products in another order, then one bf16 rounding: 1 ulp, counted at
+    # |ref| >= 1/16, since where the bias cancels the sum the order's error is relative to the terms
+    assert _ulps(out, ref, 7, floor=1 / 16) <= 1
+    # the gradient: the exact gradient of the plain conv, as the JAX custom VJP
+    xs, ws = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    bs = bb.clone().requires_grad_() if bias else None
+    g = torch.randn(b, h, w, co, device="cuda", generator=gen).bfloat16()
+    got = torch.autograd.grad(conv3x3_nhwc(xs, ws, bs), [t for t in (xs, ws, bs) if t is not None], g)
+    assert conv3x3_nhwc.launches == before + 2
+    want = torch.autograd.grad(conv3x3_reference(xs, ws, bs), [t for t in (xs, ws, bs) if t is not None], g)
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype and _rel(a, r) <= 1e-2, _rel(a, r)
+
+
+def test_new_kernels_reject_what_they_do_not_take(gen):
+    "On CUDA an input a kernel cannot take raises; nothing falls back to the plain version."
+    x = torch.randn(4, 24, device="cuda", generator=gen)
+    w_q = torch.zeros(24, 8, dtype=torch.int8, device="cuda")
+    before = (int8_matmul_dynamic.launches, flash_attention_int8.launches, conv3x3_nhwc.launches)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matmul_dynamic(x, w_q, torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError, match="dtypes"):
+        int8_matmul_dynamic(torch.randn(4, 32, device="cuda").half(), torch.zeros(32, 8, dtype=torch.int8,
+                            device="cuda"), torch.ones(8, device="cuda"))
+    q = torch.randn(1, 8, 2, 64, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_int8(q, q, q)
+    kb = torch.randn(1, 1025, 2, 64, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(ValueError, match="keys"):
+        flash_attention_int8(q.bfloat16(), kb, kb)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_int8(*(torch.randn(1, 8, 2, 32, device="cuda").bfloat16() for _ in range(3)))
+    xc = torch.randn(1, 8, 8, 96, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 64"):
+        conv3x3_nhwc(xc, torch.randn(3, 3, 96, 128, device="cuda").bfloat16())
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3_nhwc(xc.float()[..., :64], torch.randn(3, 3, 64, 128, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_nhwc(xc[..., :64], torch.randn(3, 3, 64, 128, device="cuda").bfloat16())
+    assert (int8_matmul_dynamic.launches, flash_attention_int8.launches, conv3x3_nhwc.launches) == before
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "zero-point", "static"])
+def test_int8_linear_on_cuda_matches_cpu(gen, mode):
+    "The symmetric dynamic mode launches K4 (also at K < 4096); the zero-point and static modes take torch._int_mm."
+    lin = LinearX(768, 200)
+    q = Int8Linear.from_linear(lin, asym=mode == "zero-point")
+    if mode == "static":
+        q = Int8Linear(q.w_q.t(), q.w_scale, q.bias, a_scale=0.03)
+    x = torch.randn(2, 9, 768, generator=torch.Generator().manual_seed(1)) * 2
+    ref = q(x)  # the CPU: plain versions
+    q = q.cuda()
+    before = int8_matmul_dynamic.launches
+    out = q(x.cuda())
+    assert int8_matmul_dynamic.launches == before + (mode == "dynamic")
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)  # the same codes, int32 sums, fp32 epilogue
+
+
+def test_dpt_conv_routing(gen):
+    "Eligible bf16 3x3 convs take K7 (plain version under 'naive'); others, or the 'torch' impl, take the stock conv."
+    conv = Conv2dTorch(128, 128, 3, 1, 1, dtype=torch.bfloat16, device="cuda").to(torch.bfloat16)
+    narrow = Conv2dTorch(96, 128, 3, 1, 1, dtype=torch.bfloat16, device="cuda").to(torch.bfloat16)
+    x = torch.randn(1, 128, 9, 11, device="cuda", generator=gen).bfloat16().contiguous(memory_format=torch.channels_last)
+    x96 = torch.randn(1, 96, 9, 11, device="cuda", generator=gen).bfloat16()
+    prev = config.get_conv3x3_impl()
+    config.set_conv3x3_impl("kernel")
+    try:
+        before = conv3x3_nhwc.launches
+        out = conv(x)
+        narrow(x96)
+        assert conv3x3_nhwc.launches == before + 1
+        config.set_attention_impl("naive")
+        try:
+            plain = conv(x)
+        finally:
+            config.set_attention_impl("kernel")
+        assert conv3x3_nhwc.launches == before + 1
+    finally:
+        config.set_conv3x3_impl(prev)
+    stock = conv(x)
+    assert conv3x3_nhwc.launches == before + 1
+    assert out.shape == plain.shape == stock.shape == (1, 128, 9, 11)
+    ref = conv3x3_reference(x.permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0), conv.bias).permute(0, 3, 1, 2)
+    torch.testing.assert_close(plain, ref, rtol=0, atol=0)
+    assert _ulps(out, plain, 7, floor=1 / 16) <= 1

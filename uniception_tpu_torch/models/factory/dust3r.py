@@ -3,11 +3,17 @@ DUSt3R: two-view pointmap model (counterpart of uniception_tpu/models/factory/du
 reference factory/dust3r.py:40-332).
 
 Shared CroCo ViT-L encoder -> two-view cross-attention transformer (+2D RoPE)
--> per-view linear heads -> PointMapWithConfidence adaptor. The trunk
+-> per-view linear or DPT heads -> PointMapWithConfidence adaptor. The trunk
 (encoder + info sharing) keeps its parameters in ``param_dtype`` and computes
 in ``dtype`` (None: in ``param_dtype``): fp32 parameters with a bf16 trunk for
-training, bf16 parameters for serving. The heads and adaptor run in fp32, the
-reference's autocast-off region (dust3r.py:309).
+training, bf16 parameters for serving. The heads keep fp32 parameters and
+compute in ``head_dtype``: None is fp32, the reference's autocast-off region
+(dust3r.py:309); bfloat16 is the serving option of the JAX package. The
+adaptor always runs in fp32.
+
+The DPT heads take the encoder's output and the decoder's features after
+depths 5 and 8 and after its last depth (for a decoder shallower than 9:
+depths 0 and depth // 2), without the final norm on the intermediates.
 """
 
 from typing import Optional, Tuple
@@ -18,9 +24,21 @@ from torch import nn
 from uniception_tpu_torch.models.encoders.base import ViTEncoderInput
 from uniception_tpu_torch.models.encoders.croco import CroCoEncoder
 from uniception_tpu_torch.models.info_sharing.base import MultiViewTransformerInput
-from uniception_tpu_torch.models.info_sharing.cross_attention_transformer import MultiViewCrossAttentionTransformer
+from uniception_tpu_torch.models.info_sharing.cross_attention_transformer import (
+    MultiViewCrossAttentionTransformer,
+    MultiViewCrossAttentionTransformerIFR,
+)
 from uniception_tpu_torch.models.prediction_heads.adaptors import PointMapWithConfidenceAdaptor
-from uniception_tpu_torch.models.prediction_heads.base import AdaptorInput, PredictionHeadInput
+from uniception_tpu_torch.models.prediction_heads.base import (
+    AdaptorInput,
+    PredictionHeadInput,
+    PredictionHeadLayeredInput,
+)
+from uniception_tpu_torch.models.prediction_heads.dpt import (
+    DPT_CHECKPOINT_ALIASES,
+    DPTFeature,
+    DPTRegressionProcessor,
+)
 from uniception_tpu_torch.models.prediction_heads.linear import LinearFeature
 from uniception_tpu_torch.ops.rope import Rope2D
 
@@ -38,6 +56,7 @@ class DUSt3R(nn.Module):
         patch_embed_cls: str = "PatchEmbedDust3R",
         pred_head_type: str = "linear",
         pred_head_output_dim: int = 4,
+        pred_head_feature_dim: int = 256,
         depth_mode: Tuple[str, float, float] = ("exp", -float("inf"), float("inf")),
         conf_mode: Tuple[str, float, float] = ("exp", 1, float("inf")),
         pos_embed: str = "RoPE100",
@@ -50,6 +69,8 @@ class DUSt3R(nn.Module):
         scan_blocks: bool = False,
         landscape_only: bool = False,
         gradient_checkpointing: bool = False,
+        head_gradient_checkpointing: Optional[bool] = None,
+        head_dtype: Optional[torch.dtype] = None,
         *,
         dtype: Optional[torch.dtype] = None,
         param_dtype: torch.dtype = torch.float32,
@@ -57,10 +78,10 @@ class DUSt3R(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if pred_head_type == "dpt":
-            raise NotImplementedError("the DPT head is not ported yet (ROADMAP.md queue 1 item 9)")
-        if pred_head_type != "linear":
+        if pred_head_type not in ("linear", "dpt"):
             raise ValueError(f"Invalid prediction head type: {pred_head_type}. Must be 'linear' or 'dpt'.")
+        if pred_head_type == "dpt" and info_sharing_depth < 2:
+            raise ValueError("dpt heads need info_sharing_depth >= 2 for distinct hook indices")
         if landscape_only:
             raise NotImplementedError("landscape_only is not ported yet (ROADMAP.md queue 1 item 7)")
 
@@ -70,9 +91,13 @@ class DUSt3R(nn.Module):
         self.patch_embed_cls = patch_embed_cls
         self.pred_head_type = pred_head_type
         self.pred_head_output_dim = pred_head_output_dim
+        self.head_dtype = head_dtype
         self.depth_mode = depth_mode
         self.conf_mode = conf_mode
         self.pos_embed = pos_embed
+        # head remat follows the trunk's unless set on its own (the DPT heads' fp32
+        # full-resolution activations, not the trunk, bound its training memory)
+        head_remat = gradient_checkpointing if head_gradient_checkpointing is None else head_gradient_checkpointing
 
         # one RoPE shared by encoder and info sharing (dust3r.py:110-112)
         self.rope = Rope2D(freq=float(pos_embed[len("RoPE"):]))
@@ -91,7 +116,7 @@ class DUSt3R(nn.Module):
             dtype=dtype,
             generator=generator,
         ).to(param_dtype)
-        self.info_sharing = MultiViewCrossAttentionTransformer(
+        info_kwargs = dict(
             name="base_info_sharing",
             input_embed_dim=enc_embed_dim,
             num_views=2,
@@ -104,16 +129,38 @@ class DUSt3R(nn.Module):
             device=device,
             dtype=dtype,
             generator=generator,
-        ).to(param_dtype)
-        head_kwargs = dict(
-            input_feature_dim=info_sharing_dim,
-            output_dim=pred_head_output_dim,
-            patch_size=self.encoder.patch_size,
-            device=device,
-            generator=generator,
         )
-        self.head1 = LinearFeature(**head_kwargs)
-        self.head2 = LinearFeature(**head_kwargs)
+        if pred_head_type == "linear":
+            self.info_sharing = MultiViewCrossAttentionTransformer(**info_kwargs).to(param_dtype)
+            head_kwargs = dict(
+                input_feature_dim=info_sharing_dim,
+                output_dim=pred_head_output_dim,
+                patch_size=self.encoder.patch_size,
+                dtype=head_dtype,
+                device=device,
+                generator=generator,
+            )
+            self.head1 = LinearFeature(**head_kwargs)
+            self.head2 = LinearFeature(**head_kwargs)
+        else:
+            # the reference's hooks [5, 8] of its 12-deep decoder; shallower decoders keep two distinct depths
+            indices = [5, 8] if info_sharing_depth >= 9 else [0, info_sharing_depth // 2]
+            self.info_sharing = MultiViewCrossAttentionTransformerIFR(
+                indices=indices, norm_intermediate=False, **info_kwargs
+            ).to(param_dtype)
+            kw = dict(checkpoint_gradient=head_remat, dtype=head_dtype, device=device, generator=generator)
+            feature_kwargs = dict(
+                patch_size=self.encoder.patch_size,
+                hooks=[0, 1, 2, 3],
+                input_feature_dims=[enc_embed_dim] + [info_sharing_dim] * 3,
+                feature_dim=pred_head_feature_dim,
+                **kw,
+            )
+            regressor_kwargs = dict(input_feature_dim=pred_head_feature_dim, output_dim=pred_head_output_dim, **kw)
+            self.dpt_feature_head1 = DPTFeature(**feature_kwargs)
+            self.dpt_regressor_head1 = DPTRegressionProcessor(**regressor_kwargs)
+            self.dpt_feature_head2 = DPTFeature(**feature_kwargs)
+            self.dpt_regressor_head2 = DPTRegressionProcessor(**regressor_kwargs)
         self.adaptor = PointMapWithConfidenceAdaptor(
             name="pointmap",
             pointmap_mode=depth_mode[0],
@@ -123,6 +170,22 @@ class DUSt3R(nn.Module):
             confidence_vmin=conf_mode[1],
             confidence_vmax=conf_mode[2],
         )
+
+    def heads(self):
+        "The prediction-head modules (the head_dtype region)."
+        if self.pred_head_type == "linear":
+            return [self.head1, self.head2]
+        return [self.dpt_feature_head1, self.dpt_regressor_head1, self.dpt_feature_head2, self.dpt_regressor_head2]
+
+    def checkpoint_alias_patterns(self) -> tuple:
+        """Regex patterns of duplicate keys in the reference's full-model state
+        dicts: its dpt variant also registers the heads as head{1,2} =
+        nn.Sequential(dpt_feature_head, dpt_regressor_head) (reference
+        factory/dust3r.py:178,192), plus the scratch.layer*_rn spellings. For
+        the linear variant head{1,2}.* is canonical, so nothing is ignored."""
+        if self.pred_head_type == "dpt":
+            return DPT_CHECKPOINT_ALIASES + (r"^head[12]\.",)
+        return ()
 
     def _encode_image_pairs(self, img1, img2, data_norm_type, true_shape1=None, true_shape2=None):
         "Encode both views; same-shape pairs go through the encoder as one batch (dust3r.py:211-225)."
@@ -154,15 +217,34 @@ class DUSt3R(nn.Module):
         feat1, feat2 = self._encode_image_pairs(img1, img2, self.data_norm_type, true_shape1, true_shape2)
         return self._decode_and_predict(feat1, feat2, shape1, shape2)
 
-    def _head_and_adapt(self, head, feature, shape):
-        # heads and the adaptor's exp/clip run in fp32 (dust3r.py:422-431)
-        head_out = head(PredictionHeadInput(last_feature=feature.float()))
-        return self.adaptor(AdaptorInput(adaptor_feature=head_out.decoded_channels, output_shape_hw=shape))
+    def _head(self, head_num: int, decout, img_shape):
+        if self.pred_head_type == "linear":
+            head = self.head1 if head_num == 1 else self.head2
+            return head(PredictionHeadInput(last_feature=decout[head_num]))
+        feature_head = self.dpt_feature_head1 if head_num == 1 else self.dpt_feature_head2
+        regressor = self.dpt_regressor_head1 if head_num == 1 else self.dpt_regressor_head2
+        return regressor(feature_head(PredictionHeadLayeredInput(list_features=decout[head_num],
+                                                                 target_output_shape=img_shape)))
+
+    def _head_and_adapt(self, head_num, decout, shape):
+        head_out = self._head(head_num, decout, shape)
+        # the adaptor's exp/clip always in fp32 (dust3r.py:378-383)
+        return self.adaptor(AdaptorInput(adaptor_feature=head_out.decoded_channels.float(), output_shape_hw=shape))
 
     def _decode_and_predict(self, feat1, feat2, shape1, shape2):
-        final = self.info_sharing(MultiViewTransformerInput(features=[feat1, feat2]))
-        out1 = self._head_and_adapt(self.head1, final.features[0], shape1)
-        out2 = self._head_and_adapt(self.head2, final.features[1], shape2)
+        hd = self.head_dtype or torch.float32
+        info_in = MultiViewTransformerInput(features=[feat1, feat2])
+        if self.pred_head_type == "linear":
+            final = self.info_sharing(info_in)
+            decout = {1: final.features[0].to(hd), 2: final.features[1].to(hd)}
+        else:
+            final, inter = self.info_sharing(info_in)
+            decout = {
+                v + 1: [f.to(hd) for f in (feat, inter[0].features[v], inter[1].features[v], final.features[v])]
+                for v, feat in enumerate((feat1, feat2))
+            }
+        out1 = self._head_and_adapt(1, decout, shape1)
+        out2 = self._head_and_adapt(2, decout, shape2)
         res1 = {"pts3d": out1.value.permute(0, 2, 3, 1), "conf": out1.confidence.permute(0, 2, 3, 1)}
         res2 = {"pts3d_in_other_view": out2.value.permute(0, 2, 3, 1), "conf": out2.confidence.permute(0, 2, 3, 1)}
         return res1, res2

@@ -5,10 +5,11 @@ uniception_tpu/models/info_sharing/cross_attention_transformer.py).
 Per-view branches of CrossAttentionBlocks; at each depth every view
 cross-attends to the concatenation of all other views' tokens. Loop layout.
 ``dtype`` is the compute dtype; ``gradient_checkpointing`` recomputes each
-block's activations in the backward.
+block's activations in the backward. :class:`MultiViewCrossAttentionTransformerIFR`
+also returns the features after chosen depths (the DPT heads' inputs).
 """
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Union
 
 import torch
 from torch import nn
@@ -18,11 +19,15 @@ from uniception_tpu_torch.models.info_sharing.base import (
     MultiViewTransformerOutput,
     UniCeptionInfoSharingBase,
 )
+from uniception_tpu_torch.models.utils.intermediate_feature_return import (
+    IntermediateFeatureReturner,
+    feature_take_indices,
+)
 from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
 from uniception_tpu_torch.nn.blocks import CrossAttentionBlock, layer_norm_factory
 from uniception_tpu_torch.nn.common import Identity, LinearX, remat_call
 
-__all__ = ["MultiViewCrossAttentionTransformer"]
+__all__ = ["MultiViewCrossAttentionTransformer", "MultiViewCrossAttentionTransformerIFR"]
 
 
 def _concat_tokens(parts):
@@ -94,8 +99,8 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
         if not all(f.dim() == 4 and f.shape[1] == self.input_embed_dim for f in feats):
             raise ValueError(f"All views must be (N, {self.input_embed_dim}, H, W)")
 
-    def forward(self, model_input: MultiViewTransformerInput) -> MultiViewTransformerOutput:
-        self._check_input(model_input)
+    def _tokens_and_positions(self, model_input: MultiViewTransformerInput):
+        "Per-view BCHW -> (B, N, dim) tokens and their positions."
         feats = model_input.features
         B, _, H, W = feats[0].shape
         tokens = [self.proj_embed(f.permute(0, 2, 3, 1).reshape(B, H * W, self.input_embed_dim)) for f in feats]
@@ -103,20 +108,63 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
             positions = [None] * self.num_views
         else:
             positions = [make_patch_positions(B, H, W, device=feats[0].device)] * self.num_views
+        return tokens, positions, (B, H, W)
 
+    def _depth_step(self, depth_idx, tokens, positions):
+        "One depth: every view attends to the others' tokens of the previous depth (:241-264)."
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
-        for depth_idx in range(self.depth):
-            # every view attends to the others' tokens of the previous depth (:241-264)
-            updated = []
-            for view_idx in range(self.num_views):
-                others = [i for i in range(self.num_views) if i != view_idx]
-                y = _concat_tokens([tokens[i] for i in others])
-                xpos = positions[view_idx]
-                ypos = None if xpos is None else _concat_tokens([positions[i] for i in others])
-                blk = self.multi_view_branches[view_idx][depth_idx]
-                args = (tokens[view_idx], y, xpos, ypos)
-                updated.append(remat_call(blk, *args) if remat else blk(*args))
-            tokens = updated
+        updated = []
+        for view_idx in range(self.num_views):
+            others = [i for i in range(self.num_views) if i != view_idx]
+            y = _concat_tokens([tokens[i] for i in others])
+            xpos = positions[view_idx]
+            ypos = None if xpos is None else _concat_tokens([positions[i] for i in others])
+            blk = self.multi_view_branches[view_idx][depth_idx]
+            args = (tokens[view_idx], y, xpos, ypos)
+            updated.append(remat_call(blk, *args) if remat else blk(*args))
+        return updated
 
-        out = [self.norm(t).reshape(B, H, W, self.dim).permute(0, 3, 1, 2) for t in tokens]
-        return MultiViewTransformerOutput(features=out)
+    def _to_bchw(self, t, B, H, W):
+        return t.reshape(B, H, W, self.dim).permute(0, 3, 1, 2)
+
+    def forward(self, model_input: MultiViewTransformerInput) -> MultiViewTransformerOutput:
+        self._check_input(model_input)
+        tokens, positions, (B, H, W) = self._tokens_and_positions(model_input)
+        for depth_idx in range(self.depth):
+            tokens = self._depth_step(depth_idx, tokens, positions)
+        return MultiViewTransformerOutput(features=[self._to_bchw(self.norm(t), B, H, W) for t in tokens])
+
+
+class MultiViewCrossAttentionTransformerIFR(MultiViewCrossAttentionTransformer, IntermediateFeatureReturner):
+    """Multi-view cross-attention transformer that also returns the features
+    after the depths in ``indices`` (JAX :243-297; reference :278-505)."""
+
+    def __init__(
+        self,
+        *args,
+        indices: Optional[Union[int, List[int]]] = None,
+        norm_intermediate: bool = True,
+        intermediates_only: bool = False,
+        **kwargs,
+    ):
+        MultiViewCrossAttentionTransformer.__init__(self, *args, **kwargs)
+        IntermediateFeatureReturner.__init__(
+            self, indices=indices, norm_intermediate=norm_intermediate, intermediates_only=intermediates_only
+        )
+
+    def forward(self, model_input: MultiViewTransformerInput):
+        """Returns (final output, [output after each index]), or only the list
+        with ``intermediates_only``; every output holds per-view BCHW features."""
+        self._check_input(model_input)
+        take_indices, _ = feature_take_indices(self.depth, self.indices)
+        tokens, positions, (B, H, W) = self._tokens_and_positions(model_input)
+        intermediates = []
+        for depth_idx in range(self.depth):
+            tokens = self._depth_step(depth_idx, tokens, positions)
+            if depth_idx in take_indices:
+                views = [self.norm(t) if self.norm_intermediate else t for t in tokens]
+                intermediates.append(MultiViewTransformerOutput(features=[self._to_bchw(t, B, H, W) for t in views]))
+        if self.intermediates_only:
+            return intermediates
+        out = MultiViewTransformerOutput(features=[self._to_bchw(self.norm(t), B, H, W) for t in tokens])
+        return out, intermediates

@@ -3,13 +3,14 @@ Prediction-head typed I/O (counterpart of uniception_tpu/models/prediction_heads
 """
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 from torch import nn
 
 __all__ = [
     "PredictionHeadInput",
+    "PredictionHeadLayeredInput",
     "PixelTaskOutput",
     "AdaptorInput",
     "RegressionAdaptorOutput",
@@ -23,6 +24,14 @@ class PredictionHeadInput:
     "Dense head input: (batch, feat_dim, feat_h, feat_w)."
 
     last_feature: torch.Tensor
+
+
+@dataclass
+class PredictionHeadLayeredInput:
+    "Layered head input (DPT): a list of BCHW features and the target (H, W)."
+
+    list_features: List[torch.Tensor]
+    target_output_shape: Tuple[int, int]
 
 
 @dataclass

@@ -16,7 +16,7 @@ __all__ = ["LinearFeature"]
 
 
 class LinearFeature(nn.Module):
-    "Linear mapping from patch features to pixel-wise features."
+    "Linear mapping from patch features to pixel-wise features; ``dtype`` is the compute dtype (None: the parameters')."
 
     def __init__(
         self,
@@ -24,10 +24,12 @@ class LinearFeature(nn.Module):
         output_dim: int,
         patch_size: int,
         *,
+        dtype=None,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.compute_dtype = dtype
         self.input_feature_dim = input_feature_dim
         self.output_dim = output_dim
         self.patch_size = patch_size
@@ -41,4 +43,9 @@ class LinearFeature(nn.Module):
         x = feature_input.last_feature  # (B, C, H, W)
         if x.shape[1] != self.input_feature_dim:
             raise ValueError(f"Input feature dimension mismatch: {x.shape[1]} != {self.input_feature_dim}")
-        return PixelTaskOutput(decoded_channels=F.pixel_shuffle(self.linear(x), self.patch_size))
+        dt = self.compute_dtype
+        if dt is None:
+            y = self.linear(x)
+        else:
+            y = F.conv2d(x.to(dt), self.linear.weight.to(dt), self.linear.bias.to(dt))
+        return PixelTaskOutput(decoded_channels=F.pixel_shuffle(y, self.patch_size))

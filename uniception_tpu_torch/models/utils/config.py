@@ -1,21 +1,42 @@
 """
 Global kernel selection (counterpart of uniception_tpu/models/utils/config.py).
 
-The attention implementation switch:
+The implementation switch:
 
-    - "kernel": the hand-written CUDA kernels (flash attention, 2D RoPE) for
-                CUDA tensors — the default, the counterpart of "pallas";
-    - "naive":  the plain PyTorch versions of those kernels, for parity runs.
+    - "kernel": the hand-written CUDA kernels for CUDA tensors — the default,
+                the counterpart of "pallas";
+    - "naive":  the plain PyTorch version of EVERY kernel (flash attention,
+                int8 attention, 2D RoPE, the int8 matmul, the 3x3 conv), for
+                parity runs: a naive run launches no kernel.
 
-A CPU tensor always takes the plain versions (ops/attention.py, ops/rope.py).
-The GELU mode is "exact" (erf, parity with torch nn.GELU) or "tanh".
-Both are set with the setters below; there are no environment variables.
+The attention quantization mode (inference only, the single-key-block case
+of ops/attention.py): "none" (bf16 QK^T and PV, the default), "int8" (int8
+QK^T, bf16 PV) or "int8pv" (int8 QK^T and PV).
+
+The 3x3-conv lowering of the DPT head's eligible convs (nn/dpt_parts.py):
+"torch" (the stock conv, the default, the counterpart of "xla") or "kernel"
+(the hand-written conv kernel, the counterpart of "pallas").
+
+A CPU tensor always takes the plain versions. The GELU mode is "exact" (erf,
+parity with torch nn.GELU) or "tanh". All are set with the setters below;
+there are no environment variables.
 """
 
-__all__ = ["get_attention_impl", "set_attention_impl", "get_gelu_mode", "set_gelu_mode"]
+__all__ = [
+    "get_attention_impl",
+    "set_attention_impl",
+    "get_attention_quant",
+    "set_attention_quant",
+    "get_conv3x3_impl",
+    "set_conv3x3_impl",
+    "get_gelu_mode",
+    "set_gelu_mode",
+]
 
 _VALID_IMPLS = ("kernel", "naive")
 _ATTN_IMPL = "kernel"
+_ATTN_QUANT = "none"
+_CONV3X3_IMPL = "torch"
 _GELU_MODE = "exact"
 
 
@@ -25,11 +46,37 @@ def get_attention_impl() -> str:
 
 
 def set_attention_impl(impl: str):
-    "Select the attention/RoPE implementation ('kernel' or 'naive')."
+    "Select the kernels ('kernel') or their plain versions ('naive') for every kernel of the port."
     global _ATTN_IMPL
     if impl not in _VALID_IMPLS:
         raise ValueError(f"Invalid attention impl {impl!r}; must be one of {_VALID_IMPLS}")
     _ATTN_IMPL = impl
+
+
+def get_attention_quant() -> str:
+    "Return the attention quantization mode ('none', 'int8' or 'int8pv')."
+    return _ATTN_QUANT
+
+
+def set_attention_quant(mode: str):
+    "Select the attention quantization mode ('none', 'int8' or 'int8pv')."
+    global _ATTN_QUANT
+    if mode not in ("none", "int8", "int8pv"):
+        raise ValueError(f"Invalid attention quant mode {mode!r}")
+    _ATTN_QUANT = mode
+
+
+def get_conv3x3_impl() -> str:
+    "Return the 3x3-conv lowering ('torch' or 'kernel')."
+    return _CONV3X3_IMPL
+
+
+def set_conv3x3_impl(impl: str):
+    "Select the 3x3-conv lowering ('torch' or 'kernel')."
+    global _CONV3X3_IMPL
+    if impl not in ("torch", "kernel"):
+        raise ValueError(f"Invalid conv3x3 impl {impl!r}")
+    _CONV3X3_IMPL = impl
 
 
 def get_gelu_mode() -> str:

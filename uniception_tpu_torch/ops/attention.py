@@ -6,16 +6,59 @@ kernels (through ``FlashAttentionFunction`` when a gradient is needed: the
 forward with its logsumexp, then the backward kernel), or to the plain
 version when the "naive" implementation is selected; a CPU tensor goes to the
 plain versions.
+
+With the attention quant mode "int8" or "int8pv" an inference call goes to the
+int8 kernel (K6) under the Pallas package's own rule
+(uniception_tpu/ops/flash_attention.py:254, :272-276): one key block covers
+every key (:func:`single_key_block`), no logsumexp is wanted (no gradient),
+and the dtype is not float32. Every other call stays on K1.
 """
 
 from typing import Optional
 
 import torch
 
-from uniception_tpu_torch.models.utils.config import get_attention_impl
-from uniception_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from uniception_tpu_torch.models.utils.config import get_attention_impl, get_attention_quant
+from uniception_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_int8,
+    flash_attention_int8_ref,
+    flash_attention_ref,
+)
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["scaled_dot_product_attention", "single_key_block", "uses_int8_attention"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def single_key_block(q_shape, nk: int, dtype: torch.dtype, block_q: int = 1024, block_k: int = 1024) -> bool:
+    """True when one key block covers all ``nk`` keys: the tile plan of the
+    Pallas flash attention (uniception_tpu/ops/flash_attention.py ``_plan``,
+    :209-234), shrinking the blocks until the working set fits 8 MiB."""
+    _, nq, _, d = q_shape
+    bq, bk = min(block_q, _round_up(nq, 8)), min(block_k, _round_up(nk, 8))
+    itemsize = 4 if dtype == torch.float32 else 2
+
+    def working_set(bq, bk):
+        return 2 * (bq + 2 * bk) * d * itemsize + bq * bk * 4 + bq * d * 4
+
+    while working_set(bq, bk) > 8 * 1024 * 1024 and (bq > 128 or bk > 128):
+        if bq >= bk and bq > 128:
+            bq = _round_up(bq // 2, 8)
+        else:
+            bk = _round_up(bk // 2, 8)
+    return _round_up(nk, bk) == bk
+
+
+def uses_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    "Whether this call takes the int8 attention under the configured quant mode (the Pallas package's rule)."
+    if get_attention_quant() == "none" or q.dtype == torch.float32:
+        return False
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return False  # training saves the logsumexp: K1
+    return single_key_block(q.shape, k.shape[1], q.dtype)
 
 
 def scaled_dot_product_attention(
@@ -38,8 +81,13 @@ def scaled_dot_product_attention(
         (B, Nq, H, D) attention output.
     """
     impl = impl or get_attention_impl()
+    if impl not in ("kernel", "naive"):
+        raise ValueError(f"Invalid attention impl {impl!r}")
+    if uses_int8_attention(q, k, v):
+        mode = get_attention_quant()
+        if impl == "naive":
+            return flash_attention_int8_ref(q, k, v, scale, mode)
+        return flash_attention_int8(q, k, v, scale, mode)  # a CPU tensor takes the plain version inside
     if impl == "naive":
         return flash_attention_ref(q, k, v, scale)
-    if impl != "kernel":
-        raise ValueError(f"Invalid attention impl {impl!r}")
-    return flash_attention(q, k, v, scale)  # a CPU tensor takes the plain version inside
+    return flash_attention(q, k, v, scale)

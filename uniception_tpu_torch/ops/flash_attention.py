@@ -16,7 +16,10 @@ FlashAttention-2 recurrence of the Pallas backward kernels).
       plain versions;
     * :class:`FlashAttentionFunction` — the autograd Function over the two;
     * :func:`flash_attention` — the entry point: through the Function when a
-      gradient is needed, else the forward without the logsumexp.
+      gradient is needed, else the forward without the logsumexp;
+    * :func:`flash_attention_int8` and :func:`flash_attention_int8_ref` — the
+      int8 inference variant of the single-key-block case (K6:
+      csrc/flash_attention_int8.cu) and its plain version.
 """
 
 from typing import Optional
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 
 from uniception_tpu_torch.ops import kernel_lib
+from uniception_tpu_torch.ops.int8_matmul import absmax_scale
 
 __all__ = [
     "flash_attention",
@@ -33,10 +37,14 @@ __all__ = [
     "flash_attention_lse_ref",
     "flash_attention_bwd_ref",
     "FlashAttentionFunction",
+    "flash_attention_int8",
+    "flash_attention_int8_ref",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the one head dim the kernels are built for
+INT8_MODES = ("int8", "int8pv")
+INT8_MAX_KEYS = 1024  # one key block: the Pallas int8 kernel's case at D = 64
 
 
 def _scale(q, scale):
@@ -225,3 +233,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Op
 
 flash_attention.launches = 0
 flash_attention.lse_launches = 0
+
+
+def _int8_args(op, k, mode):
+    if mode not in INT8_MODES:
+        raise ValueError(f"{op}: mode {mode!r} must be one of {INT8_MODES}")
+    if k.shape[1] > INT8_MAX_KEYS:
+        raise ValueError(f"{op}: {k.shape[1]} keys; the int8 kernel takes one block of at most {INT8_MAX_KEYS}")
+
+
+def flash_attention_int8_ref(q, k, v, scale: Optional[float] = None, mode: str = "int8") -> torch.Tensor:
+    """Plain PyTorch int8 attention with the Pallas int8 kernel's numerics.
+
+    k is smoothed by its mean over the keys and quantized with one scale per
+    (b, h); q per row; s = float(q8 k8^T) * (qs * (ks * scale)), softmax with
+    the row max over all keys. "int8": P.V in fp32 with p rounded to v's
+    dtype; "int8pv": p8 = round(p * 127) and v quantized per (b, h), P.V in
+    int32 times vs / 127. Both products are exact in fp32 (their integer sums
+    stay below 2^24 for D = 64 and at most 1024 keys). Returns (B, Nq, H, D)
+    in q's dtype.
+    """
+    _int8_args("flash_attention_int8_ref", k, mode)
+    scale = _scale(q, scale)
+    qf, kf = q.float(), k.float()
+    kf = kf - kf.mean(dim=1, keepdim=True)
+    qs = absmax_scale(qf.abs().amax(dim=-1, keepdim=True))  # (B, Nq, H, 1)
+    ks = absmax_scale(kf.abs().amax(dim=(1, 3), keepdim=True))  # (B, 1, H, 1)
+    q8, k8 = torch.round(qf / qs), torch.round(kf / ks)
+    s = torch.einsum("bnhd,bmhd->bhnm", q8, k8) * (qs * (ks * scale)).permute(0, 2, 1, 3)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)  # (B, H, Nq)
+    if mode == "int8pv":
+        vf = v.float()
+        vs = absmax_scale(vf.abs().amax(dim=(1, 3), keepdim=True))  # (B, 1, H, 1)
+        pv = torch.einsum("bhnm,bmhd->bnhd", torch.round(p * 127.0), torch.round(vf / vs))
+        pv = pv * (vs / torch.full_like(vs, 127.0))  # a true division, as the kernel's
+    else:
+        pv = torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype).float(), v.float())
+    return (pv / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def flash_attention_int8(q, k, v, scale: Optional[float] = None, mode: str = "int8") -> torch.Tensor:
+    """K6: the int8 attention kernel (inference; one key block of at most 1024 keys).
+
+    CUDA tensors (bfloat16, D = 64, read by stride as for K1) launch the
+    kernel: a pass over each (b, h) pair's keys for the mean, the scales and
+    the int8 keys (and values), then the attention; anything else on a CUDA
+    device raises. A CPU tensor takes :func:`flash_attention_int8_ref`.
+    Returns a contiguous (B, Nq, H, D) tensor. ``flash_attention_int8.launches``
+    counts the calls that launched it.
+    """
+    _int8_args("flash_attention_int8", k, mode)
+    scale = _scale(q, scale)
+    if not _on_cuda("flash_attention_int8", q):
+        return flash_attention_int8_ref(q, k, v, scale, mode)
+    _check("flash_attention_int8", q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_int8: dtype {q.dtype} not supported (bfloat16)")
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    nk_pad = -(-Nk // 64) * 64
+    pv8 = mode == "int8pv"
+    k8 = torch.empty((B, H, nk_pad, D), dtype=torch.int8, device=q.device)
+    kscale = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    v8 = torch.empty_like(k8) if pv8 else None
+    vscale = torch.empty_like(kscale) if pv8 else None
+    out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
+    status = kernel_lib.library().uc_flash_attention_int8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), k8.data_ptr(),
+        None if v8 is None else v8.data_ptr(), kscale.data_ptr(), None if vscale is None else vscale.data_ptr(),
+        int(pv8), B, H, Nq, Nk, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernel_lib.check(status, "flash_attention_int8")
+    flash_attention_int8.launches += 1
+    return out
+
+
+flash_attention_int8.launches = 0

@@ -1,0 +1,120 @@
+"""
+Int8 matmul with the dynamic per-row activation quantization fused in
+(counterpart of uniception_tpu/ops/int8_matmul.py):
+
+    a_scale = max(max|x_row|, 1e-30) / 127
+    x_q     = clip(round(x / a_scale), -127, 127)          (int8, half to even)
+    y       = float(x_q @ w_q) * (a_scale * w_scale) + bias (int32 accumulation)
+
+the symmetric dynamic scheme of ``Int8Linear`` (nn/quant.py).
+
+    * :func:`int8_matmul_dynamic_ref` — plain PyTorch with the kernel's
+      numerics; the int8 product is exact (fp32 products over K chunks of
+      1024, whose sums stay below 2^24, added in int32);
+    * :func:`int8_matmul_dynamic` — the hand-written CUDA kernels (K4:
+      csrc/int8_matmul.cu: the rows' quantization, then the int8 matmul) for
+      CUDA tensors; a CPU tensor takes the plain version.
+
+Layouts are the JAX package's: x (..., K), w_q (K, N) int8, w_scale (1, N)
+(or (N,)) fp32, bias (N,) fp32 or None.
+"""
+
+from typing import Optional
+
+import torch
+
+from uniception_tpu_torch.ops import kernel_lib
+
+__all__ = ["int8_matmul_dynamic", "int8_matmul_dynamic_ref", "absmax_scale", "quantize_rows", "int8_dot"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_EXACT_K = 1024  # 127^2 * 1024 < 2^24: a sum of this many int8 products is exact in fp32
+
+
+def absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale max(amax, 1e-30) / 127, as a true IEEE division
+    on every device (PyTorch multiplies a CUDA tensor by the reciprocal of a
+    Python-scalar divisor, which the kernels do not)."""
+    amax = amax.clamp_min(1e-30)
+    return amax / torch.full_like(amax, 127.0)
+
+
+def quantize_rows(x2: torch.Tensor):
+    "Symmetric per-row int8 quantization of a (M, K) tensor: (x_q int8, a_scale (M, 1) fp32)."
+    xf = x2.float()
+    a_scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
+    return torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8), a_scale
+
+
+def int8_dot(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    "The exact int32 product of (M, K) and (K, N) int8 matrices, through fp32 products over K chunks."
+    acc = None
+    for k0 in range(0, a_q.shape[-1], _EXACT_K):
+        part = (a_q[:, k0 : k0 + _EXACT_K].float() @ w_q[k0 : k0 + _EXACT_K].float()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def int8_matmul_dynamic_ref(x, w_q, w_scale, bias=None, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    "Plain PyTorch version of :func:`int8_matmul_dynamic` (same quantization decisions, exact int32 product)."
+    K, N = w_q.shape
+    x_q, a_scale = quantize_rows(x.reshape(-1, K))
+    y = int8_dot(x_q, w_q).float() * (a_scale * w_scale.float().reshape(1, N))
+    if bias is not None:
+        y = y + bias.float().reshape(1, N)
+    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
+
+
+def int8_matmul_dynamic(x, w_q, w_scale, bias=None, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K4: ``y = dequant(quant_rowwise(x) @ w_q) [+ bias]`` with the quantization fused in the kernel.
+
+    x: (..., K) bfloat16 or float32; w_q: (K, N) int8 — the kernel reads it
+    as (N, K), so a transposed view of a contiguous (N, K) tensor (what
+    ``Int8Linear`` passes) costs nothing and any other layout is copied;
+    w_scale: (1, N) or (N,); bias: (N,) or None (both used in fp32). Returns
+    (..., N) in ``out_dtype`` (default x's dtype: bfloat16 or float32).
+
+    A CPU tensor takes :func:`int8_matmul_dynamic_ref`. On CUDA anything the
+    kernel does not take (K % 16 != 0, other dtypes, an unaligned x) raises.
+    ``int8_matmul_dynamic.launches`` counts the kernel launches.
+    """
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return int8_matmul_dynamic_ref(x, w_q, w_scale, bias, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul_dynamic: unsupported device {x.device}")
+    if w_q.dim() != 2 or w_q.dtype != torch.int8 or w_q.device != x.device:
+        raise ValueError(f"int8_matmul_dynamic: w_q must be a (K, N) int8 tensor on {x.device}")
+    K, N = w_q.shape
+    if x.shape[-1] != K:
+        raise ValueError(f"int8_matmul_dynamic: x {tuple(x.shape)} does not fit w_q {tuple(w_q.shape)}")
+    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_dynamic: dtypes {x.dtype} -> {out_dtype} not supported (float32, bfloat16)")
+    if K % 16:
+        raise ValueError(f"int8_matmul_dynamic: K = {K} must be a multiple of 16")
+    if w_scale.numel() != N or (bias is not None and bias.numel() != N):
+        raise ValueError(f"int8_matmul_dynamic: w_scale and bias must hold N = {N} values")
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(*x.shape[:-1], N)
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:
+        raise ValueError("int8_matmul_dynamic: x needs a 16-byte aligned base")
+    w_nk = w_q.t() if w_q.t().is_contiguous() else w_q.t().contiguous()
+    ws = w_scale.reshape(N).float().contiguous()
+    b = None if bias is None else bias.reshape(N).float().contiguous()
+    x_q = torch.empty((M, K), dtype=torch.int8, device=x.device)  # scratch: the codes, then the matmul's A
+    a_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    status = kernel_lib.library().uc_int8_matmul(
+        x2.data_ptr(), w_nk.data_ptr(), ws.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+        x_q.data_ptr(), a_scale.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], M, N, K,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    kernel_lib.check(status, "int8_matmul_dynamic")
+    int8_matmul_dynamic.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+int8_matmul_dynamic.launches = 0

@@ -105,6 +105,12 @@ def _declare(lib):
     lib.uc_flash_attention_bwd.restype = I
     lib.uc_rope2d.argtypes = [P, P, P, I, I, I, I, I] + [L] * 6 + [Dbl, Dbl, P]
     lib.uc_rope2d.restype = I
+    lib.uc_int8_matmul.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.uc_int8_matmul.restype = I
+    lib.uc_flash_attention_int8.argtypes = [P] * 8 + [I] * 6 + [L] * 9 + [F, P]
+    lib.uc_flash_attention_int8.restype = I
+    lib.uc_conv3x3.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.uc_conv3x3.restype = I
     lib.uc_error_string.argtypes = [I]
     lib.uc_error_string.restype = ctypes.c_char_p
 

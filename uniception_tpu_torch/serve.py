@@ -5,25 +5,33 @@ examples/serve_dust3r.py, in PyTorch.
     uint8 frames (B, H, W, 3)
       -> device (pinned host staging, non_blocking copy; uint8 = 4x fewer bytes than fp32)
       -> float / 255, then (x - mean) / std with the dust3r norm, on the device
-      -> DUSt3R.forward_pair (bf16 trunk through the CUDA kernels, fp32 heads)
+      -> DUSt3R.forward_pair (bf16 trunk through the CUDA kernels; linear or DPT heads)
 
 Weights are random, from a fixed seed (no checkpoint loading yet); the trunk
-runs in bfloat16.
+runs in bfloat16. ``--int8`` quantizes the trunk's linears to int8 after the
+bf16 cast (nn/quant.py), as bench.py does. The full int8-DPT rung is reached
+from Python only: the int8 attention and the 3x3 conv kernel are chosen with
+``config.set_attention_quant`` and ``config.set_conv3x3_impl`` and the heads'
+dtype with ``build_model``'s ``head_dtype``; the command line serves fp32
+heads with the bf16 attention kernel.
 
 Usage:
     python -m uniception_tpu_torch.serve --img-size 512 --batch 2 --pairs 8
+    python -m uniception_tpu_torch.serve --head dpt --int8
     python -m uniception_tpu_torch.serve --device cpu --img-size 32 \\
         --enc-depth 2 --enc-dim 64 --enc-heads 4 --dec-depth 2 --dec-dim 48 --dec-heads 4
 """
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
+from uniception_tpu_torch.nn.quant import quantize_trunk
 
 __all__ = ["build_model", "make_frame_normalizer", "make_serving_fn", "serve_frames", "main"]
 
@@ -40,15 +48,27 @@ def build_model(
     device,
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
+    head: str = "linear",
+    head_dtype: Optional[torch.dtype] = None,
+    int8: bool = False,
+    int8_policy: str = "all",
+    int8_asym: str = "none",
 ) -> DUSt3R:
-    "The serving DUSt3R (linear head, ManyAR patch embed) with weights drawn from ``seed``."
+    """The serving DUSt3R (ManyAR patch embed, ``head`` "linear" or "dpt") with weights drawn from ``seed``.
+
+    The trunk's parameters are cast to ``dtype``; ``head_dtype`` (None: fp32)
+    is the heads' compute and parameter dtype. With ``int8`` the trunk's
+    linears under ``int8_policy`` are then quantized to int8, those under
+    ``int8_asym`` with zero-point activations (nn/quant.py trunk_policy).
+    """
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     model = DUSt3R(
-        name="dust3r_serve",
+        name=f"dust3r_serve_{head}",
         img_size=(img_size, img_size),
         patch_embed_cls="ManyAR_PatchEmbed",
-        pred_head_type="linear",
+        pred_head_type=head,
+        head_dtype=head_dtype,
         enc_embed_dim=enc_dim,
         enc_depth=enc_depth,
         enc_num_heads=enc_heads,
@@ -60,6 +80,11 @@ def build_model(
         device=device,
         generator=generator,
     )
+    if head_dtype is not None:
+        for module in model.heads():  # serving casts the heads' parameters too
+            module.to(head_dtype)
+    if int8:
+        quantize_trunk(model, int8_policy, asym=int8_asym)
     return model.eval()
 
 
@@ -148,6 +173,12 @@ def parse_args(argv=None):
     p.add_argument("--dec-depth", type=int, default=12)
     p.add_argument("--dec-dim", type=int, default=768)
     p.add_argument("--dec-heads", type=int, default=12)
+    p.add_argument("--head", default="linear", choices=["linear", "dpt"])
+    p.add_argument("--int8", action="store_true",
+                   help="w8a8-quantize the trunk linears (bench.py's default); the heads stay fp32 and the attention "
+                        "bf16: int8 attention, bf16 heads and the conv kernel are set from Python (see the module doc)")
+    p.add_argument("--int8-policy", default="all", help="(--int8) mixed-precision trunk policy (nn/quant.py trunk_policy)")
+    p.add_argument("--int8-asym", default="none", help="(--int8) which quantized layers use zero-point activations")
     p.add_argument("--device", default="cuda", help="cuda (default; fails without a GPU) or cpu")
     return p.parse_args(argv)
 
@@ -159,7 +190,7 @@ def main(argv=None):
         raise SystemExit("CUDA is not available: pass --device cpu to serve on the CPU")
     model = build_model(
         args.img_size, args.enc_depth, args.enc_dim, args.enc_heads, args.dec_depth, args.dec_dim, args.dec_heads,
-        device=device,
+        device=device, head=args.head, int8=args.int8, int8_policy=args.int8_policy, int8_asym=args.int8_asym,
     )
     rng = np.random.RandomState(0)
     frames = rng.randint(0, 256, size=(2 * args.pairs, args.img_size, args.img_size, 3), dtype=np.uint8)
