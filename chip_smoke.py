@@ -45,10 +45,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    15. serving: pairs/s and peak memory of four serving configurations
                (bf16-linear from phase 6, int8-linear, bf16-DPT with fp32
                heads, the int8-DPT rung) and a profile of the int8-DPT run.
+   16. K5:     the fused qkv + RoPE + attention kernel, self and cross, at the
+               main-path shapes, N = 196 and Nq != Nk, with and without RoPE,
+               bf16 and fp32: its projection launch alone and its output
+               against the plain version, with the positions dropped and with
+               -F0 as controls that must fail the same check; its time beside
+               the plain version, the unfused kernel path (the qkv matmul, two
+               K2, K1) and cuBLAS + SDPA;
+   17. fused:  DUSt3R 512 in the "fused" implementation: forward_pair against
+               the plain path (fp32 and bf16 trunks) with exact launches and
+               every K5 call held against its plain version on the same
+               activations; the int8 rung under "fused" (no K5, no K6); the
+               serving loop's pairs/s and peak memory;
+   18. K8:     the S.V diagnostic kernel at the sweep script's shape and at
+               the encoder's, against its plain version, timed beside K1.
 
 The line before the last is a JSON object with each kernel's launches on the
-serving and training runs, its error against the plain version and both
-times; the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA
+serving, training and diagnostic runs, its error against the plain version,
+its time, the plain version's, the least time the card could take for the
+same work (``bound_ms``, from the card's published peaks) and one PyTorch
+call's time where one computes the same function (``library_ms``, else
+null); the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA
 GPU; exits non-zero without one.
 
 Usage:
@@ -118,6 +135,26 @@ INT8_TRUNK_REL_TOL = 3e-2
 INT8_MODEL_REL_TOL = 8e-2
 K7_HEADS_REL_TOL = 5e-2
 SERVE_BATCHES = 4
+# K5 against its plain version (phase 16 and the path's calls in phase 17). The projection: v is one rounding of fp32
+# sums taken in another order, so at most 1 ulp; q and k are then rotated, and a 1-ulp step of u or v moves both outputs
+# of the pair by up to 1 ulp of the pair's norm, so they are counted in ulps of it. fp32: sums over C in another order.
+K5_PROJ_ULPS = {"v": 1, "qk": 2}
+K5_PROJ_FP32_TOL = 1e-5
+# The output: bf16 in ulps of max(|plain|, 1/64), as K6's check. The tensor cores sum q.k in another order than the
+# plain version's fp32 product, so a p (or a projected element) may round to the other bf16 neighbour and move its
+# row by up to ~1e-3; measured 4 to 10.7 ulps over the phase-16 cases on an H100 80GB HBM3 (700 W), the controls
+# (positions dropped, -F0) 2,800 to 6,400. fp32: the bar of K1.
+K5_ULPS, K5_ULP_FLOOR = 16, 1 / 64
+K5_FP32_TOL = 2e-5
+# K8: against the same function with cuBLAS's tensor-core scores (a bf16 torch.matmul, then S.V in fp32), which round
+# q.k from the same kind of fp32 sums, in ulps of max(|out|, 1): measured 1.00. Against the plain version's IEEE fp32 scores, 4.2e-5
+# of the scores round to the other bf16 neighbour, each moving its row by up to ulp(s) |v| (max abs 4.0 at the
+# sweep's shape): ||kernel - plain|| / ||plain||, measured 1.04e-4.
+K8_ULPS, K8_ULP_FLOOR = 2, 1.0
+K8_REL_TOL = 1e-3
+# Published peaks of the H100 SXM (dense) and its memory rate: the bound of each kernel's work.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
 
 ENC_DEPTH, ENC_DIM, ENC_HEADS = 24, 1024, 16
 DEC_DEPTH, DEC_DIM, DEC_HEADS = 12, 768, 12
@@ -169,6 +206,27 @@ def cuda_ms(torch, fn, warmup=3, iters=20):
     return start.elapsed_time(stop) / iters
 
 
+def bound(ops, nbytes):
+    """The least time the card could take for the work: ``ops`` {"bf16" | "int8" | "fp32": operations} at the
+    published peak of each type, and ``nbytes`` (each input read once, each output written once) at the memory
+    rate. Returns (ms, "operations" or "bytes"), whichever bounds it."""
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items()) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_bound(B, Nq, Nk, H):
+    "Attention's two products (4 Nq Nk D per (b, h)) in bf16 against q, k, v and o."
+    return bound({"bf16": 4 * B * H * Nq * Nk * 64}, (2 * Nq + 2 * Nk) * B * H * 64 * 2)
+
+
+def sdpa(q, k, v, scale=None):
+    "torch's scaled_dot_product_attention on (B, N, H, D) views: the library yardstick, never on the port's path."
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
+
+
 def phase_card():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -197,7 +255,7 @@ def phase_flash_attention(torch, fa):
         ("encoder 224", 4, 196, 196, 16),
         ("Nq != Nk", 2, 300, 1000, 12),
     ]
-    worst_bf16, main_ms, main_plain_ms = 0.0, None, None
+    worst_bf16, main = 0.0, None
     for name, B, Nq, Nk, H in cases:
         # q/k/v are strided views of (B, N, 3, H, D) tensors, as the qkv projection makes them
         xq = torch.randn(B, Nq, 3, H, 64, device="cuda", generator=gen)
@@ -212,21 +270,24 @@ def phase_flash_attention(torch, fa):
         err16 = (out.float() - ref).abs().max().item()
         ms = graph_ms(torch, lambda: fa.flash_attention(qb, kb, vb))
         plain_ms = graph_ms(torch, lambda: fa.flash_attention_ref(qb, kb, vb))
+        lib_ms = graph_ms(torch, lambda: sdpa(qb, kb, vb))
+        bound_ms = attention_bound(B, Nq, Nk, H)[0]
         print(
             f"[3 K1] {name:12s} B={B} Nq={Nq} Nk={Nk} H={H} D=64: max|err| bf16 {err16:.3e} (tol {K1_BF16_TOL})"
-            f" fp32 {err32:.3e} (tol {K1_FP32_TOL}); bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA graph)"
+            f" fp32 {err32:.3e} (tol {K1_FP32_TOL}); bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (CUDA graph)"
         )
         require(err16 <= K1_BF16_TOL, f"K1 {name}: bf16 error {err16} > {K1_BF16_TOL}")
         require(err32 <= K1_FP32_TOL, f"K1 {name}: fp32 error {err32} > {K1_FP32_TOL}")
         worst_bf16 = max(worst_bf16, err16)
-        if main_ms is None:
-            main_ms, main_plain_ms = ms, plain_ms
-    return worst_bf16, main_ms, main_plain_ms
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=attention_bound(B, Nq, Nk, H))
+    return worst_bf16, main
 
 
 def phase_rope(torch, rope, make_patch_positions):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst_bf16, main_ms, main_plain_ms = 0.0, None, None
+    worst_bf16, main = 0.0, None
     for B, H in ((4, 16), (2, 12)):
         pos = make_patch_positions(B, 32, 32, device="cuda")
         x = torch.randn(B, 1024, 3, H, 64, device="cuda", generator=gen)
@@ -241,18 +302,21 @@ def phase_rope(torch, rope, make_patch_positions):
         err16 = (out - ref).abs().max().item()
         ms = graph_ms(torch, lambda: rope.rope_2d_kernel(tb, pos))
         plain_ms = graph_ms(torch, lambda: rope.rope_2d(tb, pos))
+        # bytes: the tokens read and written, the positions read; ops: a sincos and 6 flops per (u, v) pair
+        k2_bound = bound({"fp32": 2 * tb.numel() * 3 + B * 1024 * 32 * 20}, 2 * tb.numel() * 2 + pos.numel() * 4)
         print(
             f"[4 K2] B={B} N=1024 H={H} D=64: fp32 max|err| {err32:.3e} (tol {K2_FP32_TOL}), inverse {err_inv:.3e}"
             f" (tol {K2_INVERSE_TOL}), bf16 {ulps:.2f} ulp (tol {K2_BF16_ULPS}) max|err| {err16:.3e};"
-            f" bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f" bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); no single "
+            f"library call computes it (the plain version is its eager composition)"
         )
         require(err32 <= K2_FP32_TOL, f"K2: fp32 error {err32} > {K2_FP32_TOL}")
         require(err_inv <= K2_INVERSE_TOL, f"K2: inverse error {err_inv} > {K2_INVERSE_TOL}")
         require(ulps <= K2_BF16_ULPS, f"K2: bf16 error {ulps} ulp > {K2_BF16_ULPS}")
         worst_bf16 = max(worst_bf16, err16)
-        if main_ms is None:
-            main_ms, main_plain_ms = ms, plain_ms
-    return worst_bf16, main_ms, main_plain_ms
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=k2_bound)
+    return worst_bf16, main
 
 
 def phase_model(torch, np, serve, model, config, fa, rope, tol):
@@ -349,7 +413,7 @@ def phase_lse(torch, fa):
 
 def phase_flash_bwd(torch, fa):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    worst_abs, main_ms, main_plain_ms = 0.0, None, None
+    worst_abs, main = 0.0, None
     for name, xq, xkv, dout32 in _bwd_cases(torch, gen):
         for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             q, k, v = xq.to(dt)[:, :, 0], xkv.to(dt)[:, :, 1], xkv.to(dt)[:, :, 2]
@@ -371,12 +435,32 @@ def phase_flash_bwd(torch, fa):
             if label == "bf16":
                 ms = graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout))
                 plain_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout))
-                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA graph)"
-                if main_ms is None:
-                    main_ms, main_plain_ms = ms, plain_ms
+                B, Nq, H, _ = q.shape
+                Nk = k.shape[1]
+                # five products of 2 Nq Nk D (S, dP, dV, dQ, dK); q, k, v, o, dO, lse read, dq, dk, dv written
+                k3_bound = bound({"bf16": 10 * B * H * Nq * Nk * 64},
+                                 (4 * Nq + 5 * Nk) * B * H * 64 * 2 + B * H * Nq * 4)
+                lib_ms = sdpa_fwd_bwd_ms(torch, q, k, v, dout)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA graph), SDPA forward + backward "
+                         f"{lib_ms:.4f} ms (CUDA events), bound {k3_bound[0]:.4f} ms")
+                if main is None:
+                    main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=k3_bound)
             print(line)
             require(max(rels + rels_auto) <= K3_REL_TOL[label], f"K3 {name} {label}: error {max(rels + rels_auto)}")
-    return worst_abs, main_ms, main_plain_ms
+    return worst_abs, main
+
+
+def sdpa_fwd_bwd_ms(torch, q, k, v, dout):
+    "Milliseconds of torch's SDPA forward and backward on the same inputs (the yardstick of K3), by CUDA events."
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    g = dout.transpose(1, 2)
+
+    def step():
+        import torch.nn.functional as F
+
+        torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g)
+
+    return cuda_ms(torch, step, warmup=3, iters=20)
 
 
 def phase_rope_bwd(torch, rope, make_patch_positions):
@@ -542,7 +626,7 @@ K4_SHAPES = [  # (layer, M tokens, K, N): encoder at batch 2 pairs (4 images), d
 
 def phase_int8_matmul(torch, i8):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    worst_abs, main_ms, main_plain_ms, probed = 0.0, None, None, {}
+    worst_abs, main, probed = 0.0, None, {}
     for name, M, K, N in K4_SHAPES:
         x32 = torch.randn(M, K, device="cuda", generator=gen)
         w_q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8).t()  # (K, N) view
@@ -568,11 +652,19 @@ def phase_int8_matmul(torch, i8):
                 worst_abs = max(worst_abs, (out.float() - ref.float()).abs().max().item())
                 ms = graph_ms(torch, lambda: i8.int8_matmul_dynamic(x, w_q, w_scale, bias))
                 plain_ms = graph_ms(torch, lambda: i8.int8_matmul_dynamic_ref(x, w_q, w_scale, bias))
-                line += f" bf16 kernel {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms;"
-                if main_ms is None:
-                    main_ms, main_plain_ms = ms, plain_ms
+
+                def library():  # eager row quantization, then cuBLASLt's int8 product through torch._int_mm
+                    x_q, a_scale = i8.quantize_rows(x)
+                    return (torch._int_mm(x_q, w_q).float() * (a_scale * w_scale) + bias).to(x.dtype)
+
+                lib_ms = graph_ms(torch, library)
+                k4_bound = bound({"int8": 2 * M * K * N}, M * K * 2 + K * N + 4 * N + 4 * N + M * N * 2)
+                line += (f" bf16 kernel {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, "
+                         f"torch._int_mm + eager quantization {lib_ms:.4f} ms, bound {k4_bound[0]:.4f} ms;")
+                if main is None:
+                    main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=k4_bound)
         print(line)
-    return worst_abs, main_ms, main_plain_ms
+    return worst_abs, main
 
 
 def k6_check(out, ref, exact):
@@ -589,7 +681,7 @@ def k6_check(out, ref, exact):
 
 def phase_int8_attention(torch, fa):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    worst, main_ms, main_plain_ms = 0.0, None, None
+    worst, main = 0.0, None
     for name, B, Nq, Nk, H in (("encoder 512", 4, 1024, 1024, 16), ("decoder 512", 2, 1024, 1024, 12),
                                ("encoder 224", 4, 196, 196, 16), ("Nq != Nk", 2, 300, 1000, 12)):
         xq = torch.randn(B, Nq, 3, H, 64, device="cuda", generator=gen).bfloat16()
@@ -613,13 +705,17 @@ def phase_int8_attention(torch, fa):
                   f"{K6_EXACT_SLACK}; the JAX test's bound {K6_EXACT_REL_TOL[mode]}: "
                   f"{'within' if rel <= K6_EXACT_REL_TOL[mode] else 'over'}); controls fail: K1 {ctrl_k1}, {other} "
                   f"{ctrl_other}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K1 bf16 {k1_ms:.4f} ms (CUDA graph)")
+            if main is None:  # int8 QK^T at the int8 rate, bf16 P.V at the bf16 rate
+                k6_bound = bound({"int8": 2 * B * H * Nq * Nk * 64, "bf16": 2 * B * H * Nq * Nk * 64},
+                                 (2 * Nq + 2 * Nk) * B * H * 64 * 2)
+                main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=k6_bound)
+                print(f"[12 K6] {name} {mode}: bound {k6_bound[0]:.4f} ms ({k6_bound[1]}); no single library call "
+                      f"computes it (K1 {k1_ms:.4f} ms computes exact attention)")
             require(not fails, f"K6 {name} {mode}: {fails}")
             require(ctrl_k1 and ctrl_other, f"K6 {name} {mode}: a control passed the check (K1 {ctrl_k1}, {other} "
                                             f"{ctrl_other})")
             worst = max(worst, err)
-            if main_ms is None:
-                main_ms, main_plain_ms = ms, plain_ms
-    return worst, main_ms, main_plain_ms
+    return worst, main
 
 
 K7_SHAPES = [  # (convs at 512 per head, H = W, C, Co), batch 2: the eligible convs of one DPT head
@@ -650,8 +746,10 @@ def phase_conv3x3(torch, F, c3):
         require(ulps <= K7_ULPS, f"K7 {name}: {ulps} ulp > {K7_ULPS}")
         worst = max(worst, (out.float() - ref.float()).abs().max().item())
         if name == "refinenet1 RCU":
-            main = (ms, plain_ms)
-    return worst, main[0], main[1]
+            k7_bound = bound({"bf16": flops}, (x.numel() + w.numel() + BATCH * hw * hw * Co) * 2 + Co * 4)
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=stock_ms, bound=k7_bound)
+            print(f"[13 K7] {name}: bound {k7_bound[0]:.4f} ms ({k7_bound[1]})")
+    return worst, main
 
 
 def k7_convs_per_forward(img):
@@ -666,8 +764,9 @@ def k7_convs_per_forward(img):
     return 2 * sum(hw * hw <= 256 * 256 and C % 128 == 0 and Co % 128 == 0 for hw, C, Co in convs)
 
 
-def _kernel_counters(fa, rope, i8, c3):
+def _kernel_counters(fa, rope, i8, c3, fused):
     return {"K1": fa.flash_attention, "K2": rope.rope_2d_kernel, "K4": i8.int8_matmul_dynamic,
+            "K5-self": fused.fused_qkv_rope_attention, "K5-cross": fused.fused_cross_rope_attention,
             "K6": fa.flash_attention_int8, "K7": c3.conv3x3_nhwc}
 
 
@@ -749,7 +848,7 @@ def phase_int8_dpt(torch, np, serve, config, quant, fa, counters):
     attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
     # K4: qkv, proj, fc1, fc2 of each encoder block; proj_embed once per view; 8 linears per decoder block and view
     k4 = ENC_DEPTH * 4 + (2 if ENC_DIM != DEC_DIM else 0) + DEC_DEPTH * 2 * 8
-    want = {"K1": 0, "K2": 2 * attn, "K4": k4, "K6": attn, "K7": k7_convs_per_forward(IMG)}
+    want = {"K1": 0, "K2": 2 * attn, "K4": k4, "K5-self": 0, "K5-cross": 0, "K6": attn, "K7": k7_convs_per_forward(IMG)}
     print(f"[14 int8-DPT] {n_q} trunk linears quantized; launches per forward_pair {launches} (want {want}); calls into "
           f"quantized layers {k4_calls}; with K6 on its plain version {split_launches}; the naive path's "
           f"{naive_launches}")
@@ -836,7 +935,7 @@ def phase_serving_rungs(torch, np, serve, config, counters, card, bf16_linear):
     return results
 
 
-def profile_serving(torch, fn, frames):
+def profile_serving(torch, fn, frames, label="15 profile int8-DPT", top=14):
     "Device time by kernel over 3 serving batches (torch.profiler), the top entries and the device-busy share."
     from torch.profiler import ProfilerActivity, profile
 
@@ -852,11 +951,334 @@ def profile_serving(torch, fn, frames):
     window = start.elapsed_time(stop)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[15 profile int8-DPT] 3 batches: {total:.2f} ms of device time in a {window:.2f} ms window "
+    print(f"[{label}] 3 batches: {total:.2f} ms of device time in a {window:.2f} ms window "
           f"(busy share {total / window:.3f}, profiler overhead included)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"    {ms / 3:8.3f} ms/batch {100 * ms / total:5.1f}% {e.count // 3:5d} calls/batch  {e.key[:90]}")
+
+
+K5_CASES = [  # (name, B, Nq, Nk (None: self-attention), C, H, query grid, key grid)
+    ("encoder self", 4, 1024, None, 1024, 16, (32, 32), None),
+    ("decoder self", 2, 1024, None, 768, 12, (32, 32), None),
+    ("decoder cross", 2, 1024, 1024, 768, 12, (32, 32), (32, 32)),
+    ("self N=196", 4, 196, None, 1024, 16, (14, 14), None),
+    ("cross Nq 300/Nk 1000", 2, 300, 1000, 768, 12, (15, 20), (25, 40)),
+]
+
+
+def k5_bound(B, Nq, Nk, C, H, cross):
+    "K5's bound: the projection and attention products in bf16 against x (and xkv), W, the biases and the output."
+    hd = H * 64
+    proj = 2 * B * (Nq * C * hd + Nk * C * 2 * hd)
+    nbytes = (B * Nq * C + (B * Nk * C if cross else 0) + 3 * hd * C + B * Nq * hd) * 2 + 3 * hd * 4
+    return bound({"bf16": proj + 4 * B * H * Nq * Nk * 64}, nbytes)
+
+
+def _pair_ulps(out, ref, floor):
+    "Max |out - ref| of RoPE'd (..., 64) heads in bf16 ulps of max(each (u, v) pair's norm in ref, floor)."
+    r = ref.float().unflatten(-1, (2, 2, 16))  # [y / x half][u / v][quarter index]
+    norm = r.square().sum(-2, keepdim=True).sqrt().expand_as(r).flatten(-3)
+    ulp = (norm.clamp_min(floor).log2().floor() - 7).exp2()
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
+
+
+class K5Case:
+    "One K5 configuration on the card: seeded inputs in fp32, and the calls of phase 16 in a dtype."
+
+    def __init__(self, torch, fa, make_patch_positions, gen, B, Nq, Nk, C, H, qgrid, kgrid):
+        self.fa, self.H, self.cross = fa, H, Nk is not None
+        hd = H * 64
+        self.x = torch.randn(B, Nq, C, device="cuda", generator=gen)
+        self.xkv = torch.randn(B, Nk, C, device="cuda", generator=gen) if self.cross else self.x
+        self.w = torch.randn(3 * hd, C, device="cuda", generator=gen) * C**-0.5  # unit-variance q, k, v
+        self.b = torch.randn(3 * hd, device="cuda", generator=gen) * 0.1
+        self.qpos = make_patch_positions(B, *qgrid, device="cuda")
+        self.kpos = make_patch_positions(B, *kgrid, device="cuda") if self.cross else self.qpos
+        self.scale = 64**-0.5
+
+    def args(self, dt, rope, f0=1.0, positions=True):
+        "The wrapper's arguments in dt; ``positions=False`` drops the positions, ``f0=-1`` inverts the rotation."
+        x, w = self.x.to(dt), self.w.to(dt)
+        qpos, kpos = (self.qpos, self.kpos) if rope and positions else (None, None)
+        if self.cross:
+            return (x, self.xkv.to(dt), *w.chunk(3), *self.b.chunk(3), qpos, kpos, self.H, self.scale, 100.0, f0)
+        return (x, w, self.b, qpos, self.H, self.scale, 100.0, f0)
+
+    def kernel(self, *args):
+        return (self.fa.fused_cross_rope_attention if self.cross else self.fa.fused_qkv_rope_attention)(*args)
+
+    def plain(self, *args):
+        return (self.fa.fused_cross_rope_attention_ref if self.cross else self.fa.fused_qkv_rope_attention_ref)(*args)
+
+    def project(self, a, rope, plain):
+        "q, k, v as (B, N, H, D) from the wrapper's arguments ``a``: the projection launch alone, or its plain version."
+        fa, H = self.fa, self.H
+        if self.cross:
+            xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos = a[:10]
+            if plain:
+                return (fa._project_ref(xq, (wq,), (bq,), qpos, (rope,), H, 100.0, 1.0)
+                        + fa._project_ref(xkv, (wk, wv), (bk, bv), kpos, (rope, False), H, 100.0, 1.0))
+            sections = (*fa._project(xq, (wq,), (bq,), qpos, int(rope), H, 100.0, 1.0),
+                        *fa._project(xkv, (wk, wv), (bk, bv), kpos, int(rope), H, 100.0, 1.0))
+        else:
+            x, w, b, pos = a[:4]
+            if plain:
+                return fa._project_ref(x, w.chunk(3), b.chunk(3), pos, (rope, rope, False), H, 100.0, 1.0)
+            sections = fa._project(x, w.chunk(3), b.chunk(3), pos, 2 * rope, H, 100.0, 1.0)
+        return [t.transpose(1, 2) for t in sections]
+
+    def linear_qkv(self, F, a):
+        "q, k, v (B, N, H, D) from the RoPE'd arguments ``a`` through cuBLAS (F.linear, as LinearX runs them)."
+        dt, heads = a[0].dtype, (lambda t: t.unflatten(-1, (self.H, 64)))  # noqa: E731
+        if self.cross:
+            xq, xkv, wq, wk, wv, bq, bk, bv = a[:8]
+            return heads(F.linear(xq, wq, bq.to(dt))), heads(F.linear(xkv, wk, bk.to(dt))), heads(F.linear(xkv, wv, bv.to(dt)))
+        x, w, b = a[:3]
+        return F.linear(x, w, b.to(dt)).unflatten(-1, (3, self.H, 64)).unbind(2)
+
+    def unfused(self, F, fa1, rope_mod, a):
+        "The unfused kernel path on the same inputs: the q/k/v matmuls, K2 on q and k, K1."
+        q, k, v = self.linear_qkv(F, a)
+        q, k = rope_mod.rope_2d_kernel(q, self.qpos), rope_mod.rope_2d_kernel(k, self.kpos)
+        return fa1.flash_attention(q, k, v, self.scale)
+
+    def library(self, F, a):
+        "The yardstick, never on the port's path: cuBLAS for the projections, then SDPA (no RoPE)."
+        return sdpa(*self.linear_qkv(F, a), self.scale)
+
+
+def k5_check(out, ref, bf16):
+    "K5's output check: (error in bf16 ulps of max(|plain|, 1/64), or max abs in fp32; whether it passes)."
+    if bf16:
+        ulps = _ulps(out, ref, 7, floor=K5_ULP_FLOOR)
+        return ulps, ulps <= K5_ULPS
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, err <= K5_FP32_TOL
+
+
+def phase_fused_attention(torch, F, fa, fa1, rope_mod, make_patch_positions):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    result = {"self": None, "cross": None}
+    worst = {"self": 0.0, "cross": 0.0}
+    for name, B, Nq, Nk, C, H, qgrid, kgrid in K5_CASES:
+        case = K5Case(torch, fa, make_patch_positions, gen, B, Nq, Nk, C, H, qgrid, kgrid)
+        kind = "cross" if case.cross else "self"
+        for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            bf16 = dt == torch.bfloat16
+            for rope in (True, False):
+                a = case.args(dt, rope)
+                got, want = case.project(a, rope, plain=False), case.project(a, rope, plain=True)
+                if bf16:
+                    fl = K5_ULP_FLOOR
+                    proj = {n: _pair_ulps(g, w_, fl) if rope and n != "v" else _ulps(g, w_, 7, floor=fl)
+                            for n, g, w_ in zip("qkv", got, want)}
+                    proj_ok = all(e <= K5_PROJ_ULPS["v" if n == "v" or not rope else "qk"] for n, e in proj.items())
+                else:
+                    proj = {n: (g.float() - w_).abs().max().item() for n, g, w_ in zip("qkv", got, want)}
+                    proj_ok = max(proj.values()) <= K5_PROJ_FP32_TOL
+                out, ref = case.kernel(*a), case.plain(*a)
+                require(torch.isfinite(out).all().item(), f"K5 {name} {label}: non-finite output")
+                require(out.shape == ref.shape and out.dtype == dt, f"K5 {name} {label}: {out.shape} {out.dtype}")
+                err, ok = k5_check(out, ref, bf16)
+                line = (f"[16 K5] {name:21s} {label} rope {'on ' if rope else 'off'}: projection "
+                        + " ".join(f"{n} {e:.2e}" for n, e in proj.items())
+                        + f" ({'ulp of max(|plain|, 1/64), q/k at the pair norm with RoPE; tol v %d, q/k %d' % (K5_PROJ_ULPS['v'], K5_PROJ_ULPS['qk']) if bf16 else 'max abs; tol %g' % K5_PROJ_FP32_TOL});"
+                        f" output {err:.3g} {'ulp' if bf16 else 'max abs'} (tol {K5_ULPS if bf16 else K5_FP32_TOL})")
+                controls = []
+                if rope:  # the positions dropped, and the inverse rotation (-F0): both must fail the same check
+                    for cname, cargs in (("no positions", case.args(dt, rope, positions=False)),
+                                         ("-F0", case.args(dt, rope, f0=-1.0))):
+                        c_err, c_ok = k5_check(case.kernel(*cargs), ref, bf16)
+                        controls.append((cname, c_err, c_ok))
+                    line += "; controls " + ", ".join(f"{c} {e:.3g} ({'PASSED' if o else 'fails'})" for c, e, o in controls)
+                if bf16:
+                    worst[kind] = max(worst[kind], (out.float() - ref.float()).abs().max().item())
+                if bf16 and rope and name in ("encoder self", "decoder self", "decoder cross"):
+                    ms = graph_ms(torch, lambda: case.kernel(*a))
+                    proj_ms = graph_ms(torch, lambda: case.project(a, rope, plain=False))
+                    plain_ms = graph_ms(torch, lambda: case.plain(*a))
+                    unfused_ms = graph_ms(torch, lambda: case.unfused(F, fa1, rope_mod, a))
+                    lib_ms = graph_ms(torch, lambda: case.library(F, a))
+                    k5b = k5_bound(B, Nq, Nk or Nq, C, H, case.cross)
+                    line += (f"; kernel {ms:.4f} ms (projection launch {proj_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                             f"unfused kernel path {unfused_ms:.4f} ms, cuBLAS + SDPA (no RoPE) {lib_ms:.4f} ms, bound "
+                             f"{k5b[0]:.4f} ms ({k5b[1]}) (CUDA graph)")
+                    if result[kind] is None:
+                        result[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=k5b)
+                print(line)
+                require(proj_ok, f"K5 {name} {label} rope {rope}: projection {proj}")
+                require(ok, f"K5 {name} {label} rope {rope}: output {err}")
+                require(all(not o for _, _, o in controls), f"K5 {name} {label}: a control passed the check {controls}")
+        del case
+    return worst, result
+
+
+def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16_linear):
+    """DUSt3R 512 in the "fused" implementation: forward_pair against the plain path and the unfused kernel path
+    (fp32 and bf16 trunks), exact launches, every K5 call of the bf16 forward against its plain version on the same
+    activations; one int8-rung forward under "fused"; the serving loop."""
+    frames = np.random.RandomState(SEED).randint(0, 256, size=(2 * PAIRS, IMG, IMG, 3), dtype=np.uint8)
+    img1, img2 = frames[0:2 * BATCH:2], frames[1:2 * BATCH:2]
+    attn = ENC_DEPTH + DEC_DEPTH * 2
+    want = {"K1": 0, "K2": 0, "K4": 0, "K5-self": attn, "K5-cross": DEC_DEPTH * 2, "K6": 0, "K7": 0}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def run(fn, impl):
+        config.set_attention_impl(impl)
+        try:
+            _reset(counters)
+            res = fn(img1, img2)
+            torch.cuda.synchronize()
+            return res, _read(counters)
+        finally:
+            config.set_attention_impl("kernel")
+
+    served = None
+    for dtype, tol in ((torch.float32, MODEL_FP32_REL_TOL), (torch.bfloat16, MODEL_REL_TOL)):
+        trunk = str(dtype).replace("torch.", "")
+        model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                                  dtype=dtype, seed=SEED)
+        fn = serve.make_serving_fn(model, "cuda")
+        calls = []
+        if dtype == torch.bfloat16:  # every K5 call held against its plain version on the same activations
+            def spy(kernel, plain):
+                def checked(*args):
+                    out = kernel(*args)
+                    calls.append(k5_check(out, plain(*args), True)[0])
+                    return out
+                return checked
+
+            blocks.fused_qkv_rope_attention = spy(fa.fused_qkv_rope_attention, fa.fused_qkv_rope_attention_ref)
+            blocks.fused_cross_rope_attention = spy(fa.fused_cross_rope_attention, fa.fused_cross_rope_attention_ref)
+        try:
+            res_f, launches = run(fn, "fused")
+            if dtype == torch.bfloat16:
+                path = dict(launches)
+        finally:
+            blocks.fused_qkv_rope_attention = fa.fused_qkv_rope_attention
+            blocks.fused_cross_rope_attention = fa.fused_cross_rope_attention
+        res_n, naive_launches = run(fn, "naive")
+        res_k, _ = run(fn, "kernel")
+        print(f"[17 fused {trunk}] launches per forward_pair {launches} (want {want}); the naive path's {naive_launches}")
+        require(launches == want, f"fused {trunk}: launches {launches}, want {want}")
+        require(not any(naive_launches.values()), "the naive path launched a kernel")
+        if calls:
+            print(f"[17 fused {trunk}] each of {len(calls)} K5 calls against its plain version on the same activations: "
+                  f"max {max(calls):.2f} ulp of max(|plain|, {K5_ULP_FLOOR}) (tol {K5_ULPS}), median "
+                  f"{sorted(calls)[len(calls) // 2]:.2f}")
+            require(len(calls) == attn + DEC_DEPTH * 2, f"{len(calls)} K5 calls checked")
+            require(max(calls) <= K5_ULPS, f"fused: a K5 call is {max(calls)} ulp from its plain version")
+        for name, a, b, c in zip(("pts3d", "conf1", "pts3d_in_other_view", "conf2"), res_f, res_n, res_k):
+            require(all(torch.isfinite(t).all().item() for t in (a, b, c)), f"{name}: non-finite output")
+            r = rel(a, b)
+            print(f"[17 fused {trunk}] {name:20s} {tuple(a.shape)} fused vs plain path {r:.3e} (tol {tol}); vs the "
+                  f"unfused kernel path {rel(a, c):.3e}; unfused kernel path vs plain {rel(c, b):.3e}")
+            require(r <= tol, f"fused {trunk} {name}: vs plain {r} > {tol}")
+        if dtype == torch.bfloat16:  # serving, fused then unfused on the same model, and forward_pair times
+            serving = {}
+            for impl in ("fused", "kernel"):
+                config.set_attention_impl(impl)
+                try:
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset(counters)
+                    out, pairs, seconds = serve.serve_frames(fn, frames, BATCH, "cuda")
+                    torch.cuda.synchronize()
+                    serving[impl] = (pairs / seconds, torch.cuda.max_memory_allocated(), base, _read(counters))
+                    fwd_ms = cuda_ms(torch, lambda: fn(img1, img2), warmup=1, iters=5)
+                    profile_serving(torch, fn, frames, label=f"17 profile {impl}", top=8)
+                finally:
+                    config.set_attention_impl("kernel")
+                shapes = [tuple(o.shape) for o in out]
+                require(shapes == [(BATCH, IMG, IMG, 3), (BATCH, IMG, IMG, 1)] * 2, f"{impl} serving: shapes {shapes}")
+                require(all(torch.isfinite(o).all().item() for o in out), f"{impl} serving: non-finite output")
+                rate, peak, base, n = serving[impl]
+                print(f"[17 serve {impl}] {pairs} pairs in {seconds:.4f}s = {rate:.3f} pairs/s at {IMG}x{IMG} batch "
+                      f"{BATCH} (CUDA events, after one warm-up batch); max_memory_allocated {peak} bytes "
+                      f"({peak / 2**30:.3f} GiB; {base} allocated before); forward_pair {fwd_ms:.2f} ms; launches {n} "
+                      f"on {card}")
+            served = serving["fused"][3]
+            print(f"[17 serve] fused {serving['fused'][0]:.3f} pairs/s beside the unfused bf16-linear rung's "
+                  f"{serving['kernel'][0]:.3f} here and {bf16_linear['pairs_per_s']:.3f} in phase 6 (peak "
+                  f"{bf16_linear['peak']} bytes); no gain is claimed")
+            require(served["K5-self"] > 0 and served["K5-cross"] > 0, f"fused serving never launched K5: {served}")
+        del model, fn
+        torch.cuda.empty_cache()
+
+    # the int8 rung under "fused": the int8 projections are outside the contract, and the fallback is exact attention
+    model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                              seed=SEED, int8=True)
+    fn = serve.make_serving_fn(model, "cuda")
+    config.set_attention_quant("int8")
+    try:
+        res, launches = run(fn, "fused")
+    finally:
+        config.set_attention_quant("none")
+    k4 = ENC_DEPTH * 4 + (2 if ENC_DIM != DEC_DIM else 0) + DEC_DEPTH * 2 * 8
+    want8 = {"K1": ENC_DEPTH + DEC_DEPTH * 4, "K2": 2 * (ENC_DEPTH + DEC_DEPTH * 4), "K4": k4, "K5-self": 0,
+             "K5-cross": 0, "K6": 0, "K7": 0}
+    print(f"[17 fused int8] int8 trunk, attention quant int8, 'fused': launches per forward_pair {launches} "
+          f"(want {want8}: the JAX routing rule)")
+    require(launches == want8, f"fused int8: launches {launches}, want {want8}")
+    require(all(torch.isfinite(t).all().item() for t in res), "fused int8: non-finite output")
+    del model, fn
+    torch.cuda.empty_cache()
+    return {k: path[k] + served[k] for k in path}
+
+
+K8_CASES = [("sweep script", 16, 1024, 16), ("encoder", 4, 1024, 16)]  # (name, B, N, H), D = 64, bf16
+
+
+def sv_only_tensor_cores(torch, q, k, v, check=True):
+    """K8's function as two torch.matmul: the scores from cuBLAS's bf16 product (fp32 sums on the tensor cores,
+    rounded to bf16), then S.V in fp32 for the check, or in bf16 (the yardstick's time) with ``check=False``."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qt, kt.transpose(-1, -2))
+    return (torch.matmul(s.float(), vt.float()) if check else torch.matmul(s, vt)).transpose(1, 2).to(q.dtype)
+
+
+def k8_check(torch, out, ref, ref_tc):
+    "(ulps from the tensor-core composition, relative error-norm from the plain version, whether both pass)."
+    ulps = _ulps(out, ref_tc, 7, floor=K8_ULP_FLOOR)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    return ulps, rel, ulps <= K8_ULPS and rel <= K8_REL_TOL
+
+
+def phase_sv_only(torch, sv, fa):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst, main = 0.0, None
+    for name, B, N, H in K8_CASES:
+        q, k, v = (torch.randn(B, N, H, 64, device="cuda", generator=gen).bfloat16() for _ in range(3))
+        out, ref = sv.sv_only(q, k, v), sv.sv_only_ref(q, k, v)
+        require(torch.isfinite(out).all().item(), f"K8 {name}: non-finite output")
+        ulps, rel, ok = k8_check(torch, out, ref, sv_only_tensor_cores(torch, q, k, v))
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = graph_ms(torch, lambda: sv.sv_only(q, k, v))
+        plain_ms = graph_ms(torch, lambda: sv.sv_only_ref(q, k, v))
+        k1_ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v))
+        two_ms = graph_ms(torch, lambda: sv_only_tensor_cores(torch, q, k, v, check=False))
+        k8_bound = attention_bound(B, N, N, H)
+        flops = 4 * B * H * N * N * 64
+        print(f"[18 K8] {name:12s} ({B},{N},{H},64) bf16: vs tensor-core scores {ulps:.2f} ulp of max(|out|, "
+              f"{K8_ULP_FLOOR}) (tol {K8_ULPS}); vs plain ||err||/||plain|| {rel:.3e} (tol {K8_REL_TOL}), max|err| "
+              f"{err:.3e}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, K1 "
+              f"{k1_ms:.4f} ms ({flops / k1_ms / 1e9:.1f} TFLOP/s), two bf16 torch.matmul {two_ms:.4f} ms, bound "
+              f"{k8_bound[0]:.4f} ms ({k8_bound[1]}) (CUDA graph)")
+        require(ok, f"K8 {name}: {ulps} ulp from the tensor-core composition, {rel} from the plain version")
+        worst = max(worst, err)
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=k8_bound)
+            # the diagnostic path: the sweep's timing of S.V at its shape, calls counted
+            sv.sv_only.launches = 0
+            diag_ms = cuda_ms(torch, lambda: sv.sv_only(q, k, v), warmup=3, iters=30)
+            main["launches"] = sv.sv_only.launches
+            print(f"[18 K8] diagnostic run: {main['launches']} launches, {diag_ms:.4f} ms per call (CUDA events)")
+            require(main["launches"] > 0, "the diagnostic path never launched K8")
+    return worst, main
 
 
 def main():
@@ -877,18 +1299,20 @@ def main():
     from uniception_tpu_torch.models.factory.dust3r import DUSt3R
     from uniception_tpu_torch.models.utils import config
     from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
-    from uniception_tpu_torch.nn import quant
+    from uniception_tpu_torch.nn import blocks, quant
     from uniception_tpu_torch.ops import conv3x3 as c3
     from uniception_tpu_torch.ops import flash_attention as fa
+    from uniception_tpu_torch.ops import fused_attention as fused
     from uniception_tpu_torch.ops import int8_matmul as i8
     from uniception_tpu_torch.ops import kernel_lib, rope
+    from uniception_tpu_torch.ops import sv_only as sv
     from uniception_tpu_torch.parallel import training
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     card = phase_card()
     phase_build(kernel_lib)
-    k1_err, k1_ms, k1_plain_ms = phase_flash_attention(torch, fa)
-    k2_err, k2_ms, k2_plain_ms = phase_rope(torch, rope, make_patch_positions)
+    k1_err, k1 = phase_flash_attention(torch, fa)
+    k2_err, k2 = phase_rope(torch, rope, make_patch_positions)
 
     def build(dtype):
         return serve.build_model(
@@ -905,7 +1329,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase_lse(torch, fa)
-    k3_err, k3_ms, k3_plain_ms = phase_flash_bwd(torch, fa)
+    k3_err, k3 = phase_flash_bwd(torch, fa)
     k2_err = max(k2_err, phase_rope_bwd(torch, rope, make_patch_positions))
 
     def build_train(dtype):  # bench_train.py's configuration: fp32 parameters, compute in dtype
@@ -920,37 +1344,43 @@ def main():
 
     import torch.nn.functional as F
 
-    k4_err, k4_ms, k4_plain_ms = phase_int8_matmul(torch, i8)
-    k6_err, k6_ms, k6_plain_ms = phase_int8_attention(torch, fa)
-    k7_err, k7_ms, k7_plain_ms = phase_conv3x3(torch, F, c3)
-    counters = _kernel_counters(fa, rope, i8, c3)
+    k4_err, k4 = phase_int8_matmul(torch, i8)
+    k6_err, k6 = phase_int8_attention(torch, fa)
+    k7_err, k7 = phase_conv3x3(torch, F, c3)
+    counters = _kernel_counters(fa, rope, i8, c3, fused)
     dpt = phase_int8_dpt(torch, np, serve, config, quant, fa, counters)
     rungs = phase_serving_rungs(torch, np, serve, config, counters, card, bf16_linear)
     served = {k: sum(rungs[r]["launches"][k] for r in ("int8-linear", "bf16-DPT fp32 heads", "int8-DPT")) + dpt[k]
               for k in counters}
 
+    k5_err, k5 = phase_fused_attention(torch, F, fused, fa, rope, make_patch_positions)
+    fused_path = phase_fused_model(torch, np, serve, config, blocks, fused, counters, card, bf16_linear)
+    k8_err, k8 = phase_sv_only(torch, sv, fa)
+
+    def entry(name, source, replaces, n, err, m):
+        return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound"][0], "bound_by": m["bound"][1], "library_ms": m["library_ms"]}
+
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda", "source": "uniception_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "uniception_tpu/ops/flash_attention.py:194",
-         "launches": launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "flash_attention_bwd", "route": "cuda", "source": "uniception_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "uniception_tpu/ops/flash_attention.py:436", "launches": trained["flash_attention_bwd"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "rope2d", "route": "cuda", "source": "uniception_tpu_torch/csrc/rope.cu",
-         "replaces": "uniception_tpu/ops/rope.py:126",
-         "launches": launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "int8_matmul_dynamic", "route": "cuda", "source": "uniception_tpu_torch/csrc/int8_matmul.cu",
-         "replaces": "uniception_tpu/ops/int8_matmul.py:50", "launches": served["K4"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "flash_attention_int8", "route": "cuda", "source": "uniception_tpu_torch/csrc/flash_attention_int8.cu",
-         "replaces": "uniception_tpu/ops/flash_attention.py:130", "launches": served["K6"],
-         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms},
-        {"name": "conv3x3_nhwc", "route": "cuda", "source": "uniception_tpu_torch/csrc/conv3x3.cu",
-         "replaces": "uniception_tpu/ops/conv3x3.py:47", "launches": served["K7"],
-         "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms},
+        entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
+              launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"], k1_err, k1),
+        entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
+              trained["flash_attention_bwd"], k3_err, k3),
+        entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
+              launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"], k2_err, k2),
+        entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
+              k4),
+        entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
+              fused_path["K5-self"], k5_err["self"], k5["self"]),
+        entry("fused_cross_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:325",
+              fused_path["K5-cross"], k5_err["cross"], k5["cross"]),
+        entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
+              served["K6"], k6_err, k6),
+        entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47", served["K7"], k7_err, k7),
+        entry("sv_only", "sv_only.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
     ]
+    require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

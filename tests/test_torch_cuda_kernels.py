@@ -3,9 +3,10 @@ The port's CUDA kernels against their plain PyTorch versions on a GPU, at
 small and ragged shapes (the main-path shapes run in chip_smoke.py): the
 flash-attention forward (K1, with and without the logsumexp), its backward
 (K3), RoPE2D (K2) forward and backward, gradients through attention layers
-on the kernel path, the int8 matmul (K4), the int8 attention (K6) and the
-3x3 conv (K7) with its gradient. Every test here needs a CUDA device and skips
-without one.
+on the kernel path, the int8 matmul (K4), the int8 attention (K6), the
+3x3 conv (K7) with its gradient, the fused qkv + RoPE + attention (K5, self
+and cross, with its gradient) and the S.V diagnostic (K8). Every test here
+needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -23,6 +24,7 @@ from uniception_tpu_torch.nn.common import LinearX
 from uniception_tpu_torch.nn.dpt_parts import Conv2dTorch
 from uniception_tpu_torch.nn.quant import Int8Linear
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
+from uniception_tpu_torch.ops import fused_attention as fused
 from uniception_tpu_torch.ops.conv3x3 import conv3x3_nhwc, conv3x3_reference
 from uniception_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -36,6 +38,7 @@ from uniception_tpu_torch.ops.flash_attention import (
 )
 from uniception_tpu_torch.ops.int8_matmul import int8_matmul_dynamic, int8_matmul_dynamic_ref
 from uniception_tpu_torch.ops.rope import Rope2D, rope_2d, rope_2d_kernel
+from uniception_tpu_torch.ops.sv_only import sv_only, sv_only_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -417,3 +420,126 @@ def test_dpt_conv_routing(gen):
     ref = conv3x3_reference(x.permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0), conv.bias).permute(0, 3, 1, 2)
     torch.testing.assert_close(plain, ref, rtol=0, atol=0)
     assert _ulps(out, plain, 7, floor=1 / 16) <= 1
+
+
+# K5 against its plain version: bf16 in ulps of max(|plain|, 1/64); the tensor cores sum q.k in another order, so a p
+# or a projected element may round to the other bf16 neighbour and move its row (chip_smoke.py states the
+# measurement). fp32 as K1.
+K5_ULPS, K5_ULP_FLOOR = 16, 1 / 64
+K5_CASES = [  # (b, nq, nk (None: self), c, h, query grid, key grid)
+    (2, 49, None, 128, 2, (7, 7), None), (1, 196, None, 192, 3, (14, 14), None), (2, 65, None, 64, 1, (5, 13), None),
+    (2, 49, 80, 128, 2, (7, 7), (8, 10)), (1, 130, 36, 192, 3, (10, 13), (6, 6)),
+]
+
+
+def _k5_inputs(gen, b, nq, nk, c, h, qgrid, kgrid, dtype):
+    "Seeded inputs; x a strided view (every other row of a wider tensor) and the biases fp32, as the modules pass them."
+    hd = h * 64
+    x = torch.randn(b, nq, 2 * c, device="cuda", generator=gen)[..., :c].to(dtype)
+    w = (torch.randn(3 * hd, c, device="cuda", generator=gen) * c**-0.5).to(dtype)
+    bias = torch.randn(3 * hd, device="cuda", generator=gen) * 0.1
+    qpos = make_patch_positions(b, *qgrid, device="cuda")
+    if nk is None:
+        return (x, w, bias, qpos, h, 64**-0.5)
+    xkv = torch.randn(b, nk, c, device="cuda", generator=gen).to(dtype)
+    return (x, xkv, *w.chunk(3), *bias.chunk(3), qpos, make_patch_positions(b, *kgrid, device="cuda"), h, 64**-0.5)
+
+
+def _k5_fns(nk):
+    return ((fused.fused_qkv_rope_attention, fused.fused_qkv_rope_attention_ref) if nk is None else
+            (fused.fused_cross_rope_attention, fused.fused_cross_rope_attention_ref))
+
+
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_fused_attention_matches_plain(gen, case, dtype, rope):
+    b, nq, nk, c, h = case[:5]
+    args = list(_k5_inputs(gen, *case, dtype))
+    if not rope:  # positions None
+        args[3 if nk is None else 8] = None
+        if nk is not None:
+            args[9] = None
+    kernel, plain = _k5_fns(nk)
+    before = kernel.launches
+    out = kernel(*args)
+    assert kernel.launches == before + 1
+    ref = plain(*args)
+    assert out.shape == (b, nq, h * 64) and out.dtype == dtype and out.is_contiguous()
+    if dtype == torch.bfloat16:
+        assert _ulps(out, ref, 7, floor=K5_ULP_FLOOR) <= K5_ULPS
+    else:
+        assert (out - ref).abs().max().item() <= FP32_TOL
+    if rope:  # the inverse rotation (-F0) is told apart from it
+        wrong = kernel(*args, 100.0, -1.0)
+        assert _ulps(wrong, ref, 7, floor=K5_ULP_FLOOR) > K5_ULPS
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_attention_layers_train_through_the_kernels(gen, dtype):
+    """Under "fused", loss.backward() through K5 (its backward: the unfused kernel path's recompute) gives the
+    attention layers' weights and the inputs the gradients of the unfused kernel path."""
+    torch.manual_seed(0)
+    rope = Rope2D(100.0)
+    self_attn = Attention(128, num_heads=2, qkv_bias=True, custom_positional_encoding=rope, device="cuda").to(dtype)
+    cross = CrossAttention(128, num_heads=2, qkv_bias=True, custom_positional_encoding=rope, device="cuda").to(dtype)
+    x = torch.randn(2, 48, 128, device="cuda", generator=gen).to(dtype)
+    y = torch.randn(2, 80, 128, device="cuda", generator=gen).to(dtype)
+    xpos, ypos = make_patch_positions(2, 6, 8, device="cuda"), make_patch_positions(2, 8, 10, device="cuda")
+
+    def grads(impl):
+        config.set_attention_impl(impl)
+        try:
+            for m in (self_attn, cross):
+                m.zero_grad(set_to_none=True)
+            xs, ys = x.clone().requires_grad_(), y.clone().requires_grad_()
+            loss = cross(self_attn(xs, xpos), ys, ys, xpos, ypos).float().square().mean()
+            loss.backward()
+        finally:
+            config.set_attention_impl("kernel")
+        named = [("qkv", self_attn.qkv), ("projq", cross.projq), ("projk", cross.projk), ("projv", cross.projv)]
+        out = {n: m.weight.grad.float().clone() for n, m in named}
+        out.update(qkv_bias=self_attn.qkv.bias.grad.float().clone(), x=xs.grad.float(), y=ys.grad.float())
+        return out
+
+    k5 = (fused.fused_qkv_rope_attention.launches, fused.fused_cross_rope_attention.launches)
+    bwd = flash_attention_bwd.launches
+    got = grads("fused")
+    assert (fused.fused_qkv_rope_attention.launches, fused.fused_cross_rope_attention.launches) == (k5[0] + 1, k5[1] + 1)
+    assert flash_attention_bwd.launches == bwd + 2  # the recompute's backward through K3
+    want = grads("kernel")
+    for name in want:
+        assert got[name].abs().max().item() > 0, name
+        rel = ((got[name] - want[name]).norm() / want[name].norm()).item()
+        assert rel <= (2e-2 if dtype == torch.bfloat16 else 1e-5), (name, rel)
+
+
+def test_fused_attention_rejects_what_it_does_not_take(gen):
+    "A CUDA call K5 cannot take raises; nothing falls back to the plain version."
+    x = torch.randn(1, 16, 128, device="cuda", generator=gen)
+    before = fused.fused_qkv_rope_attention.launches
+    with pytest.raises(ValueError, match="head dim"):  # D = 32
+        fused.fused_qkv_rope_attention(x, torch.randn(384, 128, device="cuda"), None, None, 4, 0.2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused.fused_qkv_rope_attention(x.half(), torch.randn(384, 128, device="cuda").half(), None, None, 2, 0.2)
+    with pytest.raises(ValueError, match="multiple of"):
+        fused.fused_qkv_rope_attention(x[..., :126], torch.randn(384, 126, device="cuda"), None, None, 2, 0.2)
+    assert fused.fused_qkv_rope_attention.launches == before
+
+
+@pytest.mark.parametrize("b,nq,nk,h", [(2, 64, 64, 2), (1, 100, 1030, 3), (2, 7, 1, 1)])
+def test_sv_only_matches_plain(gen, b, nq, nk, h):
+    q, k, v = _strided_qkv(gen, b, nq, nk, h, torch.bfloat16)
+    before = sv_only.launches
+    out = sv_only(q, k, v)
+    assert sv_only.launches == before + 1
+    assert out.shape == (b, nq, h, 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    # against two bf16 torch.matmul (tensor-core scores rounded to bf16 between them): <= 2 ulps of max(|out|, 1);
+    # against the plain version's IEEE fp32 scores a few round to the other bf16 neighbour: a small error norm
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    tc = torch.matmul(torch.matmul(qt, kt.transpose(-1, -2)).float(), vt.float()).transpose(1, 2)
+    assert _ulps(out, tc, 7, floor=1.0) <= 2
+    ref = sv_only_ref(q, k, v).float()
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-3
+    with pytest.raises(ValueError, match="dtype"):
+        sv_only(q.float(), k.float(), v.float())

@@ -5,9 +5,16 @@ The implementation switch:
 
     - "kernel": the hand-written CUDA kernels for CUDA tensors — the default,
                 the counterpart of "pallas";
+    - "fused":  as "kernel", but every attention layer inside the fused
+                contract (nn/blocks.py ``_fused_attention_applicable``: plain
+                projections, RoPE2D or no positional encoding, at most 2048
+                keys) runs the fused qkv-projection + RoPE + attention kernel
+                (K5, ops/fused_attention.py), the counterpart of "fused"; a
+                call outside the contract takes exact attention (K1), never
+                the int8 attention, as the JAX package routes it;
     - "naive":  the plain PyTorch version of EVERY kernel (flash attention,
-                int8 attention, 2D RoPE, the int8 matmul, the 3x3 conv), for
-                parity runs: a naive run launches no kernel.
+                int8 attention, 2D RoPE, the fused attention, the int8 matmul,
+                the 3x3 conv), for parity runs: a naive run launches no kernel.
 
 The attention quantization mode (inference only, the single-key-block case
 of ops/attention.py): "none" (bf16 QK^T and PV, the default), "int8" (int8
@@ -33,7 +40,7 @@ __all__ = [
     "set_gelu_mode",
 ]
 
-_VALID_IMPLS = ("kernel", "naive")
+_VALID_IMPLS = ("kernel", "fused", "naive")
 _ATTN_IMPL = "kernel"
 _ATTN_QUANT = "none"
 _CONV3X3_IMPL = "torch"
@@ -41,12 +48,12 @@ _GELU_MODE = "exact"
 
 
 def get_attention_impl() -> str:
-    "Return the selected implementation ('kernel' or 'naive')."
+    "Return the selected implementation ('kernel', 'fused' or 'naive')."
     return _ATTN_IMPL
 
 
 def set_attention_impl(impl: str):
-    "Select the kernels ('kernel') or their plain versions ('naive') for every kernel of the port."
+    "Select the kernels ('kernel'), the kernels with the fused attention ('fused'), or every kernel's plain version ('naive')."
     global _ATTN_IMPL
     if impl not in _VALID_IMPLS:
         raise ValueError(f"Invalid attention impl {impl!r}; must be one of {_VALID_IMPLS}")

@@ -7,6 +7,13 @@ including the scalable-softmax and entropy q-scalings
 (transformer_blocks.py:231-241). No dropout, LayerScale or stochastic depth
 (identities at the DUSt3R configuration), no qk-norm.
 
+Under the "fused" implementation, :class:`Attention` and :class:`CrossAttention`
+(when the caller passes the same tensor as key and value) run the fused
+qkv-projection + RoPE + attention kernel (K5) where the JAX package's fused
+contract covers them (:func:`_fused_attention_applicable`, JAX
+nn/blocks.py:228-266), with SSMax / entropy scaling folded into the softmax
+scale; the output projection stays a matmul.
+
 Every module takes a compute ``dtype`` (None: the parameters' dtype); with
 fp32 parameters and ``dtype=torch.bfloat16`` the residual stream, the norms'
 outputs and the attention run in bf16, as in the JAX package.
@@ -24,8 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from uniception_tpu_torch.models.utils.config import get_attention_impl
 from uniception_tpu_torch.nn.common import LinearX, gelu_exact
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
+from uniception_tpu_torch.ops.fused_attention import fused_cross_rope_attention, fused_qkv_rope_attention
+from uniception_tpu_torch.ops.rope import Rope2D
 
 __all__ = [
     "LayerNorm",
@@ -79,6 +89,35 @@ class Mlp(nn.Module):
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
+def _token_count_scale_factor(n_tokens, use_scalable_softmax, use_entropy_scaling, base_count, growth_factor):
+    "The scalar SSMax / entropy scaling multiply q by (transformer_blocks.py:231-241); folds into the softmax scale."
+    f = 1.0
+    if use_scalable_softmax:
+        f *= math.log(n_tokens)
+    if use_entropy_scaling:
+        f *= math.sqrt(growth_factor * math.log(n_tokens) / math.log(base_count))
+    return f
+
+
+def _fused_attention_applicable(mod, n_kv: int) -> bool:
+    """Whether the fused qkv + RoPE + attention kernel covers this module (JAX
+    nn/blocks.py:238-266): the "fused" implementation, plain projections (an
+    int8-quantized one has no float weight to fuse), a positional encoding that
+    is absent or RoPE2D, a head dim that is a multiple of 4, and at most 2048
+    keys. The port has no qk-norm, latent attention or sequence parallelism,
+    so the JAX package's checks of those fall away."""
+    if get_attention_impl() != "fused":
+        return False
+    pe = mod.custom_positional_encoding
+    projs = [getattr(mod, a) for a in ("qkv", "projq", "projk", "projv") if hasattr(mod, a)]
+    return (
+        all(isinstance(p, nn.Linear) for p in projs)
+        and (pe is None or isinstance(pe, Rope2D))
+        and mod.head_dim % 4 == 0
+        and n_kv <= 2048
+    )
+
+
 class _AttentionBase(nn.Module):
     "What self- and cross-attention share: head split, positional encoding, q-scalings, attention call."
 
@@ -103,6 +142,17 @@ class _AttentionBase(nn.Module):
         self.use_entropy_scaling = use_entropy_scaling
         self.base_token_count_for_entropy_scaling = base_token_count_for_entropy_scaling
         self.entropy_scaling_growth_factor = entropy_scaling_growth_factor
+
+    def _fused_args(self, n_tokens, positions_given):
+        "(scale with the q-scalings folded in, RoPE base, RoPE F0) for the fused kernel."
+        pe = self.custom_positional_encoding
+        if pe is not None and not positions_given:
+            raise ValueError("positions are required when using custom positional encoding")
+        scale = self.scale * _token_count_scale_factor(
+            n_tokens, self.use_scalable_softmax, self.use_entropy_scaling,
+            self.base_token_count_for_entropy_scaling, self.entropy_scaling_growth_factor,
+        )
+        return scale, (pe.base, pe.F0) if pe is not None else (100.0, 1.0)
 
     def _attend(self, q, k, v, qpos, kpos):
         "q: (B, Nq, H, D), k/v: (B, Nk, H, D) -> (B, Nq, H*D)."
@@ -151,6 +201,12 @@ class Attention(_AttentionBase):
 
     def forward(self, x: torch.Tensor, xpos: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, _ = x.shape
+        if _fused_attention_applicable(self, N):
+            scale, (base, f0) = self._fused_args(N, xpos is not None)
+            pos = xpos if self.custom_positional_encoding is not None else None
+            out = fused_qkv_rope_attention(x, self.qkv.weight.to(x.dtype), self.qkv.bias, pos, self.num_heads, scale,
+                                           base, f0)
+            return self.proj(out)
         # q/k/v stay strided views of the projection: the kernels read them by stride
         q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim).unbind(2)
         return self.proj(self._attend(q, k, v, xpos, xpos))
@@ -192,6 +248,17 @@ class CrossAttention(_AttentionBase):
         qpos: Optional[torch.Tensor] = None,
         kpos: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        # the fused kernel projects k and v from one tensor: only when the caller passes the same one for both
+        if key is value and _fused_attention_applicable(self, key.shape[1]):
+            scale, (base, f0) = self._fused_args(query.shape[1], qpos is not None and kpos is not None)
+            rope = self.custom_positional_encoding is not None
+            dt = query.dtype
+            out = fused_cross_rope_attention(
+                query, key, self.projq.weight.to(dt), self.projk.weight.to(dt), self.projv.weight.to(dt),
+                self.projq.bias, self.projk.bias, self.projv.bias, qpos if rope else None, kpos if rope else None,
+                self.num_heads, scale, base, f0,
+            )
+            return self.proj(out)
         heads = (self.num_heads, self.head_dim)
         q = self.projq(query).reshape(*query.shape[:2], *heads)
         k = self.projk(key).reshape(*key.shape[:2], *heads)

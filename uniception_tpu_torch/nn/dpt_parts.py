@@ -87,7 +87,7 @@ class Conv2dTorch(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_conv3x3(x):
-            fn = conv3x3_nhwc if get_attention_impl() == "kernel" else conv3x3_reference
+            fn = conv3x3_reference if get_attention_impl() == "naive" else conv3x3_nhwc
             x_nhwc = x.permute(0, 2, 3, 1)
             if not x_nhwc.is_contiguous():
                 x_nhwc = x_nhwc.contiguous()

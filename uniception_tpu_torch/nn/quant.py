@@ -98,7 +98,7 @@ class Int8Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.a_scale is None and self.w_colsum is None:
-            fn = int8_matmul_dynamic if get_attention_impl() == "kernel" else int8_matmul_dynamic_ref
+            fn = int8_matmul_dynamic_ref if get_attention_impl() == "naive" else int8_matmul_dynamic
             return fn(x, self.w_q.t(), self.w_scale, self.bias, out_dtype=x.dtype)
         xf = x.float()
         m = None

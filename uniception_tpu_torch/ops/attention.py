@@ -12,6 +12,11 @@ int8 kernel (K6) under the Pallas package's own rule
 (uniception_tpu/ops/flash_attention.py:254, :272-276): one key block covers
 every key (:func:`single_key_block`), no logsumexp is wanted (no gradient),
 and the dtype is not float32. Every other call stays on K1.
+
+Under the "fused" implementation the attention layers inside the fused
+contract never reach this function (nn/blocks.py sends them to K5); a call
+that does reach it takes exact attention (K1), never K6, whatever the quant
+mode, as the JAX package sends such a call to ``_xla_attention``.
 """
 
 from typing import Optional
@@ -75,15 +80,17 @@ def scaled_dot_product_attention(
         k: keys (B, Nk, H, D)
         v: values (B, Nk, H, D)
         scale: softmax scale; defaults to D**-0.5.
-        impl: override the configured implementation ("kernel" or "naive").
+        impl: override the configured implementation ("kernel", "fused" or "naive").
 
     Returns:
         (B, Nq, H, D) attention output.
     """
     impl = impl or get_attention_impl()
-    if impl not in ("kernel", "naive"):
+    if impl not in ("kernel", "fused", "naive"):
         raise ValueError(f"Invalid attention impl {impl!r}")
-    if uses_int8_attention(q, k, v):
+    # "fused" outside the fused contract: exact attention, no int8 (uniception_tpu/ops/attention.py:190-200:
+    # "fused" is neither "naive" nor "pallas", so the JAX call takes _xla_attention)
+    if impl != "fused" and uses_int8_attention(q, k, v):
         mode = get_attention_quant()
         if impl == "naive":
             return flash_attention_int8_ref(q, k, v, scale, mode)
