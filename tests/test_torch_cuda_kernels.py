@@ -2,7 +2,8 @@
 The port's CUDA kernels against their plain PyTorch versions on a GPU, at
 small and ragged shapes (the main-path shapes run in chip_smoke.py): the
 flash-attention forward (K1, with and without the logsumexp), its backward
-(K3), RoPE2D (K2) forward and backward, gradients through attention layers
+(K3; the bf16 kernels also at the edges of their TMA boxes and ring, on every
+q/k/v layout, and K3's determinism), RoPE2D (K2) forward and backward, gradients through attention layers
 on the kernel path, the int8 matmul (K4), the int8 attention (K6), the
 3x3 conv (K7) with its gradient, the fused qkv + RoPE + attention (K5, self
 and cross, with its gradient) and the S.V diagnostic (K8). Every test here
@@ -201,6 +202,61 @@ def test_flash_attention_grad_rejects_what_it_does_not_take(gen):
     out, lse = flash_attention_fwd(y, y, y, with_lse=True)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(y, y, y, out, lse[:, :, :4], out)
+
+
+def _layout_qkv(gen, layout, nq, nk, h):
+    """bf16 q, k, v at B = 1: views of (B, N, 3, H, D) projections ("qkv"), a contiguous q beside views of a
+    (B, Nk, 2, H, D) k/v projection ("kv"), or three contiguous tensors."""
+    def randn(*shape):
+        return torch.randn(*shape, 64, device="cuda", generator=gen).bfloat16()
+
+    if layout == "qkv":
+        xq = randn(1, nq, 3, h)
+        xkv = xq if nq == nk else randn(1, nk, 3, h)
+        return xq[:, :, 0], xkv[:, :, 1], xkv[:, :, 2]
+    if layout == "kv":
+        kv = randn(1, nk, 2, h)
+        return randn(1, nq, h), kv[:, :, 0], kv[:, :, 1]
+    return randn(1, nq, h), randn(1, nk, h), randn(1, nk, h)
+
+
+# The bf16 kernels' edges: one key or query, a ragged last 64- or 128-row TMA box, a ring of 2 slots that
+# wraps several times (1000 and 1024 keys: 8 K/V tiles in K1, 16 in K3's dq pass), and every q/k/v layout.
+@pytest.mark.parametrize("layout", ["qkv", "kv", "contiguous"])
+@pytest.mark.parametrize("h", [12, 16])
+@pytest.mark.parametrize("nq", [1, 300, 1024])
+@pytest.mark.parametrize("nk", [1, 7, 196, 1000, 1024])
+def test_bf16_kernels_at_tma_and_ring_edges(gen, nk, nq, h, layout):
+    q, k, v = _layout_qkv(gen, layout, nq, nk, h)
+    dout = torch.randn(1, nq, h, 64, device="cuda", generator=gen).bfloat16()
+    out, lse = flash_attention_fwd(q, k, v, 0.125, with_lse=True)
+    torch.testing.assert_close(out, flash_attention_fwd(q, k, v, 0.125)[0], rtol=0, atol=0)
+    ref, lse_ref = flash_attention_lse_ref(q.float(), k.float(), v.float(), 0.125)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL[torch.bfloat16]
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, 0.125)
+    refs = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, lse, dout)), 0.125)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(g).all().item(), name
+        if nk == 1 and name != "dv":
+            # A softmax over one key passes no gradient to q or k: both are rounding noise of dp - delta, summed
+            # over up to 1024 queries for dk, so they are held to the bf16 bar at the scale of dv instead.
+            bar = BWD_REL_TOL[torch.bfloat16] * refs[2].abs().max().item()
+            assert g.float().abs().max().item() <= bar and r.abs().max().item() <= bar, name
+            continue
+        assert _rel(g, r) <= BWD_REL_TOL[torch.bfloat16], (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("b,nq,nk,h", [(2, 1024, 1024, 16), (1, 300, 1000, 12)])
+def test_flash_attention_bwd_is_deterministic(gen, b, nq, nk, h):
+    "K3 adds no atomics: two calls on the same inputs give the same bits."
+    q, k, v = _strided_qkv(gen, b, nq, nk, h, torch.bfloat16)
+    dout = torch.randn(b, nq, h, 64, device="cuda", generator=gen).bfloat16()
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

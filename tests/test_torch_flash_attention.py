@@ -3,7 +3,8 @@ The port's flash attention (uniception_tpu_torch/ops/flash_attention.py) on
 the CPU: its plain versions against the JAX Pallas kernels run in interpret
 mode (single-step, multi-step and masked key blocks; the forward with its
 logsumexp; the fused single-block and the split dq / dk-dv backward), the
-autograd Function, and the attention dispatch. The CUDA kernels are held
+autograd Function, the attention dispatch, and the TMA tensor-map layouts the
+bf16 kernels are handed (with the checks that refuse what a map cannot take). The CUDA kernels are held
 against the same plain versions on the card (tests/test_torch_cuda_kernels.py,
 chip_smoke.py).
 """
@@ -19,12 +20,17 @@ from uniception_tpu.ops.flash_attention import flash_attention as jax_flash_atte
 from uniception_tpu_torch.models.utils import config
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
 from uniception_tpu_torch.ops.flash_attention import (
+    BWD_LOOP_ROWS,
+    BWD_OWN_ROWS,
+    FWD_ROWS,
     FlashAttentionFunction,
+    _check,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
+    tma_layout,
 )
 
 TOL = 5e-5  # fp32 max abs, the repo's parity bar
@@ -170,3 +176,54 @@ def test_function_takes_the_lse_path_only_with_grad():
     (dq,) = torch.autograd.grad(out, qg, torch.ones_like(out))
     (ref,) = torch.autograd.grad(flash_attention_ref(qg, k, v), qg, torch.ones_like(out))
     assert (dq - ref).abs().max().item() <= 1e-6
+
+
+# The tensor maps of the bf16 kernels (csrc/hopper.cuh): dims innermost first (D, H, N, B), the byte strides of
+# H, N and B, and a box of one head's rows. The kernels cannot run here; what they are handed can.
+@pytest.mark.parametrize("dtype,es", [(torch.bfloat16, 2), (torch.float32, 4)])
+def test_tma_layout_qkv_view(dtype, es):
+    "q/k/v as views of one (B, N, 3, H, D) projection: strided rows, no copy."
+    x = torch.zeros(2, 196, 3, 12, 64, dtype=dtype)
+    for i in range(3):
+        assert tma_layout(x[:, :, i], 128) == (64, 12, 196, 2, 64 * es, 3 * 12 * 64 * es, 196 * 3 * 12 * 64 * es,
+                                               64, 1, 128, 1)
+    _check("flash_attention", x[:, :, 0], x[:, :, 1], x[:, :, 2])
+
+
+def test_tma_layout_kv_view_and_contiguous():
+    "k/v as views of a (B, N, 2, H, D) projection, q contiguous, and the boxes of both backward kernels."
+    kv = torch.zeros(1, 1000, 2, 16, 64, dtype=torch.bfloat16)
+    q = torch.zeros(1, 300, 16, 64, dtype=torch.bfloat16)
+    assert tma_layout(kv[:, :, 1], BWD_LOOP_ROWS) == (64, 16, 1000, 1, 128, 2 * 16 * 128, 1000 * 2 * 16 * 128,
+                                                      64, 1, 64, 1)
+    assert tma_layout(q, BWD_OWN_ROWS) == (64, 16, 300, 1, 128, 16 * 128, 300 * 16 * 128, 64, 1, 128, 1)
+    assert FWD_ROWS == BWD_OWN_ROWS == 2 * BWD_LOOP_ROWS == 128
+    _check("flash_attention", q, kv[:, :, 0], kv[:, :, 1])
+
+
+def test_tma_layout_size_one_dims_take_contiguous_strides():
+    "A dim of size 1 is never stepped: its stride is the contiguous one, whatever the view holds (here 0)."
+    q = torch.zeros(64, dtype=torch.bfloat16).as_strided((1, 1, 1, 64), (0, 0, 0, 1))
+    assert tma_layout(q, 128) == (64, 1, 1, 1, 128, 128, 128, 64, 1, 128, 1)
+    assert all(s % 16 == 0 for s in tma_layout(q, 128)[4:7])
+
+
+@pytest.mark.parametrize("what", ["base", "n-stride", "h-stride", "b-stride"])
+def test_check_refuses_what_a_tensor_map_cannot_take(what):
+    "A base or a (b, n, h) byte stride that is not a multiple of 16 bytes is refused, with the reason."
+    if what == "base":
+        t = torch.zeros(2 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 2, 64)  # 2-byte offset
+    elif what == "n-stride":
+        t = torch.zeros(2, 8, 2 * 64 + 1, dtype=torch.bfloat16)[..., :128].unflatten(-1, (2, 64))
+    elif what == "h-stride":
+        t = torch.zeros(2, 8, 2, 65, dtype=torch.bfloat16)[..., :64]
+    else:
+        t = torch.zeros(2 * 8 * 2 * 64 + 8, dtype=torch.bfloat16)
+        t = t.as_strided((2, 8, 2, 64), (8 * 2 * 64 + 4, 2 * 64, 64, 1))
+    assert any(s * 2 % 16 for s in t.stride()[:3]) or t.data_ptr() % 16
+    ok = torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16)
+    _check("flash_attention", ok, ok, ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check("flash_attention", t, ok, ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check("flash_attention", ok, ok, t)

@@ -1,6 +1,8 @@
-// What the flash-attention forward (flash_attention.cu) and backward
-// (flash_attention_bwd.cu) kernels share: the head dim, the (b, n, h) stride
-// triple, and the bf16 mma.sync m16n8k16 helpers.
+// What the attention kernels share: the head dim and the (b, n, h) stride
+// triple (every kernel), and the bf16 mma.sync m16n8k16 helpers of the
+// kernels not yet on wgmma (fused_attention.cu, flash_attention_int8.cu,
+// sv_only.cu, conv3x3.cu). The bf16 bodies of flash_attention.cu and
+// flash_attention_bwd.cu use wgmma and TMA through hopper.cuh.
 //
 // mma.sync.m16n8k16 fragment layouts (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major), 4 x 32-bit registers of two bf16:

@@ -1,0 +1,359 @@
+// Hopper (sm_90a) plumbing shared by the wgmma kernels: mbarriers, TMA tile
+// loads into 128-byte-swizzled shared memory, wgmma shared-memory descriptors
+// and instructions, named barriers, setmaxnreg, and on the host the
+// tensor-map encoding and the SM count of a persistent grid.
+//
+// Tiles. Every operand tile is a (rows x 64) bf16 matrix with 128-byte rows,
+// loaded by one TMA box of (64, 1, rows, 1) over a 4-D tensor map of a
+// (B, N, H, D = 64) view (dims innermost first: D, H, N, B) with
+// CU_TENSOR_MAP_SWIZZLE_128B. Within each 1024-byte group of 8 rows the
+// hardware XORs the 16-byte chunk index with the row index (mod 8). Tiles
+// start on 1024-byte boundaries, so a descriptor's base offset is 0.
+//
+// Descriptors (64 bits): start address >> 4 in bits 0-13, leading byte offset
+// >> 4 in bits 16-29, stride byte offset >> 4 in bits 32-45, layout type in
+// bits 62-63 (1 = 128-byte swizzle).
+//   * K-major (the tile's 64 contiguous elements are the reduction dim: K as
+//     the B operand of Q.K^T): 8-row groups are 1024 bytes apart (SBO); the
+//     leading offset is unused under the swizzle. A k-step of 16 elements
+//     advances the start address by 32 bytes inside the swizzled row.
+//   * MN-major (the 64 contiguous elements are the N dim, the rows the
+//     reduction dim: V in P.V, read with the transpose bit): 8-row groups of
+//     the reduction dim are 1024 bytes apart. N = 64 is one swizzle atom wide,
+//     so the offset between atoms along N is never used; both offsets are set
+//     to 1024. A k-step of 16 rows advances the start address by 2048 bytes.
+//
+// Fragments. The m64nN f32 accumulator of a warpgroup: thread (warp w, lane
+// l), g = l / 4, t = l % 4, holds d[4c + 2i + j] = D[16w + g + 8i][8c + 2t + j].
+// The register A operand of m64nNk16 (4 x 32-bit, two bf16 each) holds
+// A[16w + g][2t..], A[16w + g + 8][2t..], A[16w + g][2t + 8..],
+// A[16w + g + 8][2t + 8..] of its 16-wide k-step: exactly the accumulator's
+// chunks 2kc and 2kc + 1 packed to bf16 in order (pack_a below), so a product's
+// rounded result feeds the next product without leaving registers. A tile a
+// block keeps for its whole work item (Q in the forward) is read into that
+// layout once (load_a_frags), so each later wgmma reads only B from shared
+// memory.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace uc_hopper {
+
+constexpr int SMEM_ALIGN = 1024;  // a 128-byte-swizzle atom: 8 rows of 128 bytes
+// Dynamic shared memory a warp-specialised block asks for at least: more than half of the SM's 227 KB, so
+// two blocks never share an SM (their setmaxnreg.inc would wait on each other's registers, and a persistent
+// grid of one block per SM would leave SMs idle).
+constexpr int MIN_SMEM_BYTES = 116 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((SMEM_ALIGN - (a & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1));
+}
+
+// ---------------------------------------------------------------------------
+// mbarrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA) and the other threads; then __syncthreads.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also tells the barrier to wait for `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A fresh barrier is in phase 0, so waiting on
+// parity 1 passes at once (the "previous" phase counts as complete): a producer's first wait on an empty slot.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// One box of a 4-D tensor map into shared memory at coordinates (c0, c1, c2, c3), innermost first; the
+// bytes complete a transaction on `bar`. Out-of-range elements of the box are written as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A 128-byte-swizzled tile whose contiguous elements run along the reduction dim.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) { return make_desc(addr, 16, 1024); }
+
+// A 128-byte-swizzled tile whose rows run along the reduction dim (64 contiguous N elements per row).
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) { return make_desc(addr, 1024, 1024); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across the asynchronous instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Named barriers (ids 1-15; 0 is __syncthreads): sync waits until `threads` threads have arrived, arrive
+// counts this warp's threads without waiting.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// 2^x on the MUFU alone: exp2f also scales subnormal inputs and results around it, and a p below 2^-126 is
+// zero to every sum and bf16 rounding these kernels take.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The register A operand of this thread for rows [16w, 16w + 16) of a 128-byte-swizzled (rows x 64) bf16 tile
+// (the tile of its warpgroup's 64 rows, 1024-byte aligned; w = its warp in the warpgroup): the 4 k-steps of
+// 16 over the 64 contiguous elements. Read once, it turns a K-major shared-memory A operand that a loop
+// re-reads into registers, so each later wgmma reads only B from shared memory.
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], const void* tile, int w, int lane) {
+  const uint8_t* base = static_cast<const uint8_t*>(tile);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * w + g + 8 * (i & 1), byte = (16 * kk + 2 * t + 8 * (i >> 1)) * 2;
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(base + row * 128 + (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15));
+    }
+}
+
+// The register A operands of the K / 16 k-steps of an m64 x K accumulator, rounded to bf16.
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K / 16][4], const float (&d)[K / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < K / 16; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kc][i] = pack_bf16x2(d[8 * kc + 2 * i], d[8 * kc + 2 * i + 1]);
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], both operands in shared memory (descriptors);
+// TA / TB: 0 = K-major, 1 = MN-major (transposed). scale_d = 0 overwrites D.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both operands in shared memory (descriptors);
+// TA / TB: 0 = K-major, 1 = MN-major (transposed). scale_d = 0 overwrites D.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A from registers (the accumulator layout packed to
+// bf16 pairs), B in shared memory; TB: 0 = K-major, 1 = MN-major. scale_d = 0 overwrites D.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A from registers (the accumulator layout packed to
+// bf16 pairs), B in shared memory; TB: 0 = K-major, 1 = MN-major. scale_d = 0 overwrites D.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+// A tensor map's description as the Python wrappers pass it (ops/flash_attention.py tma_layout): 11 ints,
+// dims innermost first (D, H, N, B), the byte strides of H, N and B, and the box (D, 1, rows, 1).
+constexpr int LAYOUT_INTS = 11;
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the library needs no -lcuda.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t st = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t st = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (st == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Encode the bf16 tensor map of one (B, N, H, 64) view from its layout; `rows` is the box height the
+// kernel was built for, and a layout with any other box is refused (a box that does not match the
+// kernel's expected transaction bytes would leave its barrier waiting for ever). Returns a cudaError_t.
+inline int encode_tile_map(CUtensorMap* map, const void* base, const long long* layout, int rows) {
+  const long long* L = layout;
+  if (L[0] != 64 || L[7] != 64 || L[8] != 1 || L[9] != rows || L[10] != 1) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)L[0], (cuuint64_t)L[1], (cuuint64_t)L[2], (cuuint64_t)L[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)L[4], (cuuint64_t)L[5], (cuuint64_t)L[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)L[7], (cuuint32_t)L[8], (cuuint32_t)L[9], (cuuint32_t)L[10]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Allow `bytes` of dynamic shared memory for `kernel` on the current device (once per device).
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st != cudaSuccess) return (int)st;
+  if (dev < 64 && done[dev]) return 0;
+  st = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (st == cudaSuccess && dev < 64) done[dev] = true;
+  return (int)st;
+}
+
+// The current device's SM count (cached per device): the grid of a persistent kernel.
+inline int sm_count(int* sms) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st != cudaSuccess) return (int)st;
+  if (dev < 64 && cached[dev] > 0) {
+    *sms = cached[dev];
+    return 0;
+  }
+  st = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (st == cudaSuccess && dev < 64) cached[dev] = *sms;
+  return (int)st;
+}
+
+}  // namespace uc_hopper

@@ -13,7 +13,9 @@ FlashAttention-2 recurrence of the Pallas backward kernels).
     * :func:`flash_attention_fwd` and :func:`flash_attention_bwd` — the
       hand-written CUDA kernels (K1: csrc/flash_attention.cu, K3:
       csrc/flash_attention_bwd.cu) for CUDA tensors; a CPU tensor takes the
-      plain versions;
+      plain versions. Their bf16 kernels read q/k/v (and dO) through TMA
+      tensor maps whose dims, byte strides and boxes :func:`tma_layout`
+      computes here;
     * :class:`FlashAttentionFunction` — the autograd Function over the two;
     * :func:`flash_attention` — the entry point: through the Function when a
       gradient is needed, else the forward without the logsumexp;
@@ -22,6 +24,8 @@ FlashAttention-2 recurrence of the Pallas backward kernels).
       csrc/flash_attention_int8.cu) and its plain version.
 """
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -39,12 +43,18 @@ __all__ = [
     "FlashAttentionFunction",
     "flash_attention_int8",
     "flash_attention_int8_ref",
+    "tma_layout",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the one head dim the kernels are built for
 INT8_MODES = ("int8", "int8pv")
 INT8_MAX_KEYS = 1024  # one key block: the Pallas int8 kernel's case at D = 64
+# Rows of the TMA boxes the bf16 kernels are built for (csrc/flash_attention.cu BQ / BK,
+# csrc/flash_attention_bwd.cu OWN / LOOP); the C entry points refuse any other box.
+FWD_ROWS = 128  # K1: query and key tiles
+BWD_OWN_ROWS, BWD_LOOP_ROWS = 128, 64  # K3: a block's own rows, and the rows of each tile it loops over
+TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below 2^40
 
 
 def _scale(q, scale):
@@ -94,8 +104,44 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, scale: Optional[float] = No
     return dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
 
 
+def tma_layout(t: torch.Tensor, rows: int):
+    """The tensor map of a (B, N, H, D) view as the kernels' C entry points take it (csrc/hopper.cuh).
+
+    Returns 11 ints: the dims innermost first (D, H, N, B), the byte strides
+    of H, N and B, and the box (D, 1, rows, 1): one head's ``rows`` rows of D
+    elements. A dimension of size 1 is never stepped, so it gets the stride it
+    would have in a contiguous tensor (a tensor map needs a multiple of 16
+    bytes there, whatever the view says). The fp32 kernels take their element
+    strides from the same ints.
+    """
+    return _tma_layout(t.shape, t.stride(), t.element_size(), rows)
+
+
+def _tma_layout(shape, stride, es, rows):
+    B, N, H, D = shape
+    sb, sn, sh, _ = (s * es for s in stride)
+    sh = sh if H > 1 else D * es
+    sn = sn if N > 1 else H * sh
+    sb = sb if B > 1 else N * sn
+    return (D, H, N, B, sh, sn, sb, D, 1, rows, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_array(*specs):
+    "The C array of the tensor-map layouts of (shape, stride, element size, rows) specs."
+    return (ctypes.c_longlong * (11 * len(specs)))(*(x for spec in specs for x in _tma_layout(*spec)))
+
+
+def _layouts(*pairs):
+    """The C array of the tensor-map layouts of (tensor, rows) pairs. It holds no pointer, so one array is
+    built per layout and reused: the C side reads it during the call only."""
+    return _layout_array(*((t.shape, t.stride(), t.element_size(), rows) for t, rows in pairs))
+
+
 def _check(op, *tensors):
-    "Raise on what the kernels do not take: q, k, v (and o, dO) of one device and dtype, D = 64, 16-byte vectors."
+    """Raise on what the kernels do not take: q, k, v (and o, dO) of one device and dtype, D = 64, and what
+    a TMA tensor map needs: a 16-byte aligned base and (b, n, h) byte strides that are multiples of 16 and
+    below 2^40."""
     q = tensors[0]
     for i, t in enumerate(tensors):
         name = ("q", "k", "v", "o", "dO")[i]
@@ -105,9 +151,12 @@ def _check(op, *tensors):
             raise ValueError(f"{op}: q/k/v must share device and dtype, {name} is {t.dtype} on {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{op}: {name} needs a unit stride on the head dim")
-        # 16-byte vector loads: aligned base and (b, n, h) strides
-        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+        # TMA tiles (bf16) and 16-byte vector loads (fp32): aligned base and (b, n, h) strides
+        strides = [s * t.element_size() for s in t.stride()[:3]]
+        if t.data_ptr() % 16 or any(s % 16 for s in strides):
             raise ValueError(f"{op}: {name} needs a 16-byte aligned base and (b, n, h) strides")
+        if max(strides) >= TMA_MAX_STRIDE:
+            raise ValueError(f"{op}: {name} has a stride of 2^40 bytes or more (a tensor map's limit)")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{op}: dtype {q.dtype} not supported (float32, bfloat16)")
     k, v = tensors[1], tensors[2]
@@ -149,7 +198,7 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device) if with_lse else None
     status = kernel_lib.library().uc_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D, _layouts((q, FWD_ROWS), (k, FWD_ROWS), (v, FWD_ROWS)),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_fwd")
@@ -187,8 +236,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     status = kernel_lib.library().uc_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Nq, Nk, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _layouts((q, BWD_OWN_ROWS), (k, BWD_LOOP_ROWS), (v, BWD_LOOP_ROWS), (dout, BWD_OWN_ROWS),  # dq kernel
+                 (k, BWD_OWN_ROWS), (v, BWD_OWN_ROWS), (q, BWD_LOOP_ROWS), (dout, BWD_LOOP_ROWS)),  # dk/dv kernel
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
