@@ -26,13 +26,15 @@ from uniception_tpu_torch.nn.dpt_parts import Conv2dTorch
 from uniception_tpu_torch.nn.quant import Int8Linear
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
 from uniception_tpu_torch.ops import fused_attention as fused
-from uniception_tpu_torch.ops.conv3x3 import conv3x3_nhwc, conv3x3_reference
+from uniception_tpu_torch.ops.conv3x3 import conv3x3_nhwc, conv3x3_plan, conv3x3_reference
 from uniception_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_int8,
+    flash_attention_int8_prep,
+    flash_attention_int8_prep_ref,
     flash_attention_int8_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
@@ -402,6 +404,105 @@ def test_conv3x3_matches_plain_and_its_gradient(gen, b, h, w, c, co, bias):
     want = torch.autograd.grad(conv3x3_reference(xs, ws, bs), [t for t in (xs, ws, bs) if t is not None], g)
     for a, r in zip(got, want):
         assert a.dtype == r.dtype and _rel(a, r) <= 1e-2, _rel(a, r)
+
+
+K7_SHAPES = [(32, 384, 256), (16, 768, 256), (16, 256, 256), (32, 256, 256), (64, 256, 256), (128, 256, 256),
+             (256, 256, 128)]  # (H = W, C, Co) of the DPT head's eligible convs at 512, batch 2
+
+
+def _conv_inputs(gen, b, h, w, c, co, bias_dtype=torch.float32):
+    x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
+    wt = (torch.randn(3, 3, c, co, device="cuda", generator=gen) * (9 * c) ** -0.5).bfloat16()
+    bb = None if bias_dtype is None else (torch.randn(co, device="cuda", generator=gen) * 0.1).to(bias_dtype)
+    return x, wt, bb
+
+
+# K7's edges: images smaller than the output rectangle (1x1, 5x3, 13x31), H * W off the tile, C = 768 at 16^2,
+# Co = 136 (a 128-wide tile past Co), a bf16 bias, and the K loop split or not.
+@pytest.mark.parametrize("b,h,w,c,co,bias_dtype", [
+    (1, 1, 1, 64, 128, torch.float32), (2, 5, 3, 128, 136, torch.bfloat16), (1, 13, 31, 256, 256, None),
+    (2, 20, 24, 128, 128, torch.bfloat16), (2, 16, 16, 768, 256, torch.float32), (1, 9, 200, 64, 8, torch.float32),
+])
+def test_conv3x3_edges(gen, b, h, w, c, co, bias_dtype):
+    x, wt, bb = _conv_inputs(gen, b, h, w, c, co, bias_dtype)
+    out = conv3x3_nhwc(x, wt, bb)
+    assert out.shape == (b, h, w, co) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert _ulps(out, conv3x3_reference(x, wt, bb), 7, floor=1 / 16) <= 1
+    assert torch.equal(conv3x3_nhwc(x, wt, bb), out)  # deterministic, split or not
+
+
+@pytest.mark.parametrize("hw,c,co", K7_SHAPES)
+def test_conv3x3_at_every_dpt_plan(gen, hw, c, co):
+    "The seven DPT shapes at batch 2, each with the tile and split the planner picks for it; two calls, one answer."
+    plan = conv3x3_plan(2, hw, hw, c, co, torch.cuda.get_device_properties(0).multi_processor_count)
+    x, wt, bb = _conv_inputs(gen, 2, hw, hw, c, co)
+    out = conv3x3_nhwc(x, wt, bb)
+    assert _ulps(out, conv3x3_reference(x, wt, bb), 7, floor=1 / 16) <= 1, plan
+    assert torch.equal(conv3x3_nhwc(x, wt, bb), out), plan
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_call_launches_only_its_kernels(gen, bias_dtype):
+    "A bf16 contiguous HWIO weight and a float32 or bf16 bias: one call launches K7's kernels and nothing else."
+    from torch.profiler import ProfilerActivity, profile
+
+    for hw, c, co in ((16, 256, 256), (128, 256, 256)):  # split (conv + reduction) and not
+        x, wt, bb = _conv_inputs(gen, 2, hw, hw, c, co, bias_dtype)
+        conv3x3_nhwc(x, wt, bb)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            conv3x3_nhwc(x, wt, bb)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        split = conv3x3_plan(2, hw, hw, c, co, torch.cuda.get_device_properties(0).multi_processor_count)[3]
+        assert names and all("conv3x3" in n for n in names), names
+        assert len(names) == (2 if split > 1 else 1), names
+
+
+def _int8_qkv(gen, layout, b, nq, nk, h):
+    "bf16 q, k, v in one of the layouts of _layout_qkv, at batch b."
+    def randn(*shape):
+        return torch.randn(*shape, 64, device="cuda", generator=gen).bfloat16()
+
+    if layout == "qkv":
+        xq = randn(b, nq, 3, h)
+        xkv = xq if nq == nk else randn(b, nk, 3, h)
+        return xq[:, :, 0], xkv[:, :, 1], xkv[:, :, 2]
+    if layout == "kv":
+        kv = randn(b, nk, 2, h)
+        return randn(b, nq, h), kv[:, :, 0], kv[:, :, 1]
+    return randn(b, nq, h), randn(b, nk, h), randn(b, nk, h)
+
+
+# K6's edges: one key, a key tile and prep chunk ragged or full (63, 64, 65, 1000, 1024 keys), ragged query
+# tiles, every q/k/v layout, both modes; its prep scratch is the plain prep's bit for bit, and two calls agree.
+@pytest.mark.parametrize("layout", ["qkv", "kv", "contiguous"])
+@pytest.mark.parametrize("mode", ["int8", "int8pv"])
+@pytest.mark.parametrize("nq,nk", [(7, 1), (63, 63), (130, 64), (65, 65), (300, 1000), (1024, 1024)])
+def test_flash_attention_int8_edges(gen, nq, nk, mode, layout):
+    q, k, v = _int8_qkv(gen, layout, 2, nq, nk, 3)
+    out = flash_attention_int8(q, k, v, mode=mode)
+    assert out.shape == (2, nq, 3, 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert _ulps(out, flash_attention_int8_ref(q, k, v, mode=mode), 7, floor=K6_ULP_FLOOR) <= K6_ULPS
+    assert torch.equal(flash_attention_int8(q, k, v, mode=mode), out)
+    before = flash_attention_int8_prep.launches
+    got = flash_attention_int8_prep(k, v, mode)
+    assert flash_attention_int8_prep.launches == before + 1
+    for name, a, r in zip(("k8", "kscale", "v8t", "vscale"), got, flash_attention_int8_prep_ref(k, v, mode)):
+        assert (a is None) == (r is None) == (mode == "int8" and name in ("v8t", "vscale")), name
+        if r is not None:
+            assert a.dtype == r.dtype and torch.equal(a, r), name
+
+
+def test_grouped_query_route_launches_k1(gen):
+    "Grouped-query shapes: the key/value heads repeated to the query heads, then one K1 launch."
+    q = torch.randn(2, 40, 8, 64, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(2, 40, 2, 64, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    before = flash_attention.launches
+    out = scaled_dot_product_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_ref(q.float(), k.float().repeat_interleave(4, dim=2), v.float().repeat_interleave(4, dim=2))
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
 def test_new_kernels_reject_what_they_do_not_take(gen):

@@ -85,13 +85,26 @@ class Conv2dTorch(nn.Conv2d):
             and self.out_channels % 128 == 0
         )
 
+    def _hwio_weight(self) -> torch.Tensor:
+        """The weight as the conv kernel reads it: bf16 (3, 3, C, Co). Inference keeps one contiguous copy,
+        remade only when the weight changes (its storage or version), so a call launches no relayout; with a
+        gradient it is a view of the weight, which autograd follows."""
+        w = self.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(torch.bfloat16).permute(2, 3, 1, 0)
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if getattr(self, "_hwio_key", None) != key:
+            self._hwio = w.detach().to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+            self._hwio_key = key
+        return self._hwio
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_conv3x3(x):
             fn = conv3x3_reference if get_attention_impl() == "naive" else conv3x3_nhwc
             x_nhwc = x.permute(0, 2, 3, 1)
             if not x_nhwc.is_contiguous():
                 x_nhwc = x_nhwc.contiguous()
-            return fn(x_nhwc, self.weight.to(torch.bfloat16).permute(2, 3, 1, 0), self.bias).permute(0, 3, 1, 2)
+            return fn(x_nhwc, self._hwio_weight(), self.bias).permute(0, 3, 1, 2)
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)

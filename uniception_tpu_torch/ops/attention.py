@@ -7,6 +7,12 @@ forward with its logsumexp, then the backward kernel), or to the plain
 version when the "naive" implementation is selected; a CPU tensor goes to the
 plain versions.
 
+Two shapes route first, as in the JAX package: Dv != Dq takes the explicit
+einsum path (:func:`einsum_attention`) on every implementation and device,
+and grouped-query shapes (fewer key/value heads than query heads) have their
+key/value heads repeated to the query heads (:func:`expand_kv_heads`) before
+the usual route.
+
 With the attention quant mode "int8" or "int8pv" an inference call goes to the
 int8 kernel (K6) under the Pallas package's own rule
 (uniception_tpu/ops/flash_attention.py:254, :272-276): one key block covers
@@ -31,7 +37,8 @@ from uniception_tpu_torch.ops.flash_attention import (
     flash_attention_ref,
 )
 
-__all__ = ["scaled_dot_product_attention", "single_key_block", "uses_int8_attention"]
+__all__ = ["scaled_dot_product_attention", "single_key_block", "uses_int8_attention", "einsum_attention",
+           "expand_kv_heads"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,6 +64,25 @@ def single_key_block(q_shape, nk: int, dtype: torch.dtype, block_q: int = 1024, 
     return _round_up(nk, bk) == bk
 
 
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """The JAX package's explicit einsum path (``_naive_attention``, uniception_tpu/ops/attention.py:138-143), which
+    also takes Dv != Dq: q scaled first, scores cast to fp32, softmax in fp32 cast to v's dtype, then P.V.
+    q, k: (B, N, H, Dq); v: (B, Nk, H, Dv). Returns (B, Nq, H, Dv) in the dtype of the P.V product."""
+    q = q * (q.shape[-1] ** -0.5 if scale is None else scale)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float()
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", weights, v)
+
+
+def expand_kv_heads(h_q: int, t: torch.Tensor) -> torch.Tensor:
+    """Key or value heads (B, N, H_k, D) repeated to ``h_q`` query heads with ``jax.nn.dot_product_attention``'s
+    grouping: query head h reads key head h // (h_q / H_k). Raises unless h_q is a multiple of H_k."""
+    h_k = t.shape[2]
+    if h_q % h_k:
+        raise ValueError(f"grouped-query attention: {h_q} query heads are not a multiple of {h_k} key/value heads")
+    return t.repeat_interleave(h_q // h_k, dim=2)
+
+
 def uses_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     "Whether this call takes the int8 attention under the configured quant mode (the Pallas package's rule)."
     if get_attention_quant() == "none" or q.dtype == torch.float32:
@@ -77,17 +103,23 @@ def scaled_dot_product_attention(
 
     Args:
         q: queries (B, Nq, H, D)
-        k: keys (B, Nk, H, D)
-        v: values (B, Nk, H, D)
+        k: keys (B, Nk, H_k, D), H_k dividing H
+        v: values (B, Nk, H_k, Dv)
         scale: softmax scale; defaults to D**-0.5.
         impl: override the configured implementation ("kernel", "fused" or "naive").
 
     Returns:
-        (B, Nq, H, D) attention output.
+        (B, Nq, H, Dv) attention output.
     """
     impl = impl or get_attention_impl()
     if impl not in ("kernel", "fused", "naive"):
         raise ValueError(f"Invalid attention impl {impl!r}")
+    # Dv != Dq (differential attention's Dv = 2 Dq) takes the explicit einsum path on every impl and device, as
+    # in the JAX package (uniception_tpu/ops/attention.py:190); no kernel takes it there either.
+    if v.shape[-1] != q.shape[-1]:
+        return einsum_attention(q, k, v, scale)
+    if k.shape[2] != q.shape[2]:  # grouped-query shapes (JAX :198): key/value heads shared by query-head groups
+        k, v = expand_kv_heads(q.shape[2], k), expand_kv_heads(q.shape[2], v)
     # "fused" outside the fused contract: exact attention, no int8 (uniception_tpu/ops/attention.py:190-200:
     # "fused" is neither "naive" nor "pallas", so the JAX call takes _xla_attention)
     if impl != "fused" and uses_int8_attention(q, k, v):

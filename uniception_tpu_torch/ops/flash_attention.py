@@ -21,7 +21,9 @@ FlashAttention-2 recurrence of the Pallas backward kernels).
       gradient is needed, else the forward without the logsumexp;
     * :func:`flash_attention_int8` and :func:`flash_attention_int8_ref` — the
       int8 inference variant of the single-key-block case (K6:
-      csrc/flash_attention_int8.cu) and its plain version.
+      csrc/flash_attention_int8.cu) and its plain version, built on
+      :func:`flash_attention_int8_prep_ref`, the plain version of K6's prep
+      (:func:`flash_attention_int8_prep` launches the prep alone).
 """
 
 import ctypes
@@ -43,6 +45,9 @@ __all__ = [
     "FlashAttentionFunction",
     "flash_attention_int8",
     "flash_attention_int8_ref",
+    "flash_attention_int8_prep",
+    "flash_attention_int8_prep_ref",
+    "int8_pv_keys",
     "tma_layout",
 ]
 
@@ -50,6 +55,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the one head dim the kernels are built for
 INT8_MODES = ("int8", "int8pv")
 INT8_MAX_KEYS = 1024  # one key block: the Pallas int8 kernel's case at D = 64
+INT8_CHUNK = 128  # K6's key tile and prep chunk (csrc/flash_attention_int8.cu BK): the scratch's padding
+INT8_PREP_KEYS = 4  # keys per thread of K6's prep (PREP_KEYS): the first step of its k sum's fixed order
 # Rows of the TMA boxes the bf16 kernels are built for (csrc/flash_attention.cu BQ / BK,
 # csrc/flash_attention_bwd.cu OWN / LOOP); the C entry points refuse any other box.
 FWD_ROWS = 128  # K1: query and key tiles
@@ -292,8 +299,60 @@ def _int8_args(op, k, mode):
         raise ValueError(f"{op}: {k.shape[1]} keys; the int8 kernel takes one block of at most {INT8_MAX_KEYS}")
 
 
+def int8_pv_keys(n: int = INT8_CHUNK, device=None) -> torch.Tensor:
+    """The key at each position of the transposed v8 scratch ("int8pv"), for ``n`` keys (a multiple of 32).
+
+    Within each 32 keys, position 4t + e of each 16-half holds key 2t + (e & 1) + 8 (e >> 1) of that half: the
+    order in which K6's score accumulators hold p, so p8 feeds the int8 P.V product from registers
+    (csrc/flash_attention_int8.cu). The product sums over keys, so the order changes nothing else."""
+    p = torch.arange(n, device=device)
+    return (p & ~15) + ((p & 2) << 2) + ((p & 12) >> 1) + (p & 1)
+
+
+def flash_attention_int8_prep_ref(k: torch.Tensor, v: torch.Tensor, mode: str = "int8"):
+    """Plain PyTorch version of K6's prep: the int8 keys (and values) with their scales, in the kernel's layout.
+
+    k, v: (B, Nk, H, D). The k mean over the Nk keys is summed in the kernel's fixed order (within each chunk
+    of 128 keys, each group of 4 keys in key order, then the 32 groups in order; then the chunks in order) and
+    divided by Nk; ks = max(max |k - mean|, 1e-30) / 127 per
+    (b, h); k8 = round((k - mean) / ks). Returns (k8, kscale, v8t, vscale): k8 (B, H, Nk_pad, D) int8 with
+    Nk_pad = Nk rounded up to 128, kscale (B, H) float32, and for "int8pv" v8 = round(v / vs) with vs per
+    (b, h), TRANSPOSED to (B, H, D, Nk_pad) int8 with each 32 keys in :func:`int8_pv_keys` order, and vscale
+    (B, H); None for both in "int8" mode. Zeros past Nk. Every value is the kernel's bit for bit.
+    """
+    _int8_args("flash_attention_int8_prep_ref", k, mode)
+    B, Nk, H, D = k.shape
+    chunks = -(-Nk // INT8_CHUNK)
+    nk_pad = chunks * INT8_CHUNK
+    kf = torch.zeros(B, nk_pad, H, D, dtype=torch.float32, device=k.device)
+    kf[:, :Nk] = k.float()
+    kc = kf.view(B, chunks, INT8_CHUNK // INT8_PREP_KEYS, INT8_PREP_KEYS, H, D)
+    group = torch.zeros(B, chunks, INT8_CHUNK // INT8_PREP_KEYS, H, D, dtype=torch.float32, device=k.device)
+    for i in range(INT8_PREP_KEYS):  # each group in key order (the padding adds zeros, which change no sum)
+        group = group + kc[:, :, :, i]
+    part = torch.zeros(B, chunks, H, D, dtype=torch.float32, device=k.device)
+    for g in range(INT8_CHUNK // INT8_PREP_KEYS):  # then the groups in order
+        part = part + group[:, :, g]
+    tot = torch.zeros(B, H, D, dtype=torch.float32, device=k.device)
+    for c in range(chunks):  # then the chunks in order
+        tot = tot + part[:, c]
+    mean = tot / torch.full_like(tot, float(Nk))  # (B, H, D)
+    centred = k.float() - mean[:, None]
+    ks = absmax_scale(centred.abs().amax(dim=(1, 3)))  # (B, H)
+    k8 = torch.zeros(B, H, nk_pad, D, dtype=torch.int8, device=k.device)
+    k8[:, :, :Nk] = torch.round(centred / ks[:, None, :, None]).clamp(-127, 127).to(torch.int8).transpose(1, 2)
+    if mode != "int8pv":
+        return k8, ks, None, None
+    vf = v.float()
+    vs = absmax_scale(vf.abs().amax(dim=(1, 3)))  # (B, H)
+    v8 = torch.zeros(B, H, D, nk_pad, dtype=torch.int8, device=k.device)
+    v8[..., :Nk] = torch.round(vf / vs[:, None, :, None]).clamp(-127, 127).to(torch.int8).permute(0, 2, 3, 1)
+    return k8, ks, v8[..., int8_pv_keys(nk_pad, k.device)], vs
+
+
 def flash_attention_int8_ref(q, k, v, scale: Optional[float] = None, mode: str = "int8") -> torch.Tensor:
-    """Plain PyTorch int8 attention with the Pallas int8 kernel's numerics.
+    """Plain PyTorch int8 attention with the Pallas int8 kernel's numerics, on the scratch of
+    :func:`flash_attention_int8_prep_ref`.
 
     k is smoothed by its mean over the keys and quantized with one scale per
     (b, h); q per row; s = float(q8 k8^T) * (qs * (ks * scale)), softmax with
@@ -305,55 +364,96 @@ def flash_attention_int8_ref(q, k, v, scale: Optional[float] = None, mode: str =
     """
     _int8_args("flash_attention_int8_ref", k, mode)
     scale = _scale(q, scale)
-    qf, kf = q.float(), k.float()
-    kf = kf - kf.mean(dim=1, keepdim=True)
+    Nk = k.shape[1]
+    k8, ks, v8t, vs = flash_attention_int8_prep_ref(k, v, mode)
+    qf = q.float()
     qs = absmax_scale(qf.abs().amax(dim=-1, keepdim=True))  # (B, Nq, H, 1)
-    ks = absmax_scale(kf.abs().amax(dim=(1, 3), keepdim=True))  # (B, 1, H, 1)
-    q8, k8 = torch.round(qf / qs), torch.round(kf / ks)
-    s = torch.einsum("bnhd,bmhd->bhnm", q8, k8) * (qs * (ks * scale)).permute(0, 2, 1, 3)
+    q8 = torch.round(qf / qs)
+    s = torch.einsum("bnhd,bhmd->bhnm", q8, k8[:, :, :Nk].float())
+    s = s * (qs * (ks[:, None, :, None] * scale)).permute(0, 2, 1, 3)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)  # (B, H, Nq)
     if mode == "int8pv":
-        vf = v.float()
-        vs = absmax_scale(vf.abs().amax(dim=(1, 3), keepdim=True))  # (B, 1, H, 1)
-        pv = torch.einsum("bhnm,bmhd->bnhd", torch.round(p * 127.0), torch.round(vf / vs))
+        v8 = torch.empty_like(v8t)
+        v8[..., int8_pv_keys(v8t.shape[-1], v8t.device)] = v8t
+        pv = torch.einsum("bhnm,bhdm->bnhd", torch.round(p * 127.0), v8[..., :Nk].float())
+        vs = vs[:, None, :, None]
         pv = pv * (vs / torch.full_like(vs, 127.0))  # a true division, as the kernel's
     else:
         pv = torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype).float(), v.float())
     return (pv / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def _int8_scratch(k, mode):
+    "Empty K6 scratch for k's shape: (k8, kscale, v8t, vscale, stats)."
+    B, Nk, H, D = k.shape
+    chunks = -(-Nk // INT8_CHUNK)
+    dev = k.device
+    k8 = torch.empty((B, H, chunks * INT8_CHUNK, D), dtype=torch.int8, device=dev)
+    kscale = torch.empty((B, H), dtype=torch.float32, device=dev)
+    pv8 = mode == "int8pv"
+    v8t = torch.empty((B, H, D, chunks * INT8_CHUNK), dtype=torch.int8, device=dev) if pv8 else None
+    vscale = torch.empty_like(kscale) if pv8 else None
+    stats = torch.empty((4, B, H, chunks, D), dtype=torch.float32, device=dev)
+    return k8, kscale, v8t, vscale, stats
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _int8_cuda_args(op, q, k, v, mode):
+    _int8_args(op, k, mode)
+    _check(op, q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{op}: dtype {q.dtype} not supported (bfloat16)")
+
+
+def flash_attention_int8_prep(k: torch.Tensor, v: torch.Tensor, mode: str = "int8"):
+    """K6's prep launches alone (the first two of every K6 call): (k8, kscale, v8t, vscale) as
+    :func:`flash_attention_int8_prep_ref` returns them. A CPU tensor takes that plain version; CUDA tensors
+    (bfloat16, D = 64, read by stride) launch the prep or raise. ``flash_attention_int8_prep.launches`` counts
+    these calls (not those inside :func:`flash_attention_int8`)."""
+    if not _on_cuda("flash_attention_int8_prep", k):
+        return flash_attention_int8_prep_ref(k, v, mode)
+    _int8_cuda_args("flash_attention_int8_prep", k, k, v, mode)
+    k8, kscale, v8t, vscale, stats = _int8_scratch(k, mode)
+    status = kernel_lib.library().uc_flash_attention_int8_prep(
+        k.data_ptr(), v.data_ptr(), k8.data_ptr(), _ptr(v8t), stats.data_ptr(), kscale.data_ptr(), _ptr(vscale),
+        int(mode == "int8pv"), k.shape[0], k.shape[2], k.shape[1], _layouts((k, INT8_CHUNK), (v, INT8_CHUNK)),
+        torch.cuda.current_stream(k.device).cuda_stream,
+    )
+    kernel_lib.check(status, "flash_attention_int8_prep")
+    flash_attention_int8_prep.launches += 1
+    return k8, kscale, v8t, vscale
+
+
+flash_attention_int8_prep.launches = 0
+
+
 def flash_attention_int8(q, k, v, scale: Optional[float] = None, mode: str = "int8") -> torch.Tensor:
     """K6: the int8 attention kernel (inference; one key block of at most 1024 keys).
 
     CUDA tensors (bfloat16, D = 64, read by stride as for K1) launch the
-    kernel: a pass over each (b, h) pair's keys for the mean, the scales and
-    the int8 keys (and values), then the attention; anything else on a CUDA
-    device raises. A CPU tensor takes :func:`flash_attention_int8_ref`.
-    Returns a contiguous (B, Nq, H, D) tensor. ``flash_attention_int8.launches``
-    counts the calls that launched it.
+    kernel: the prep (the k mean, the scales and the int8 keys, and values in
+    "int8pv", over (b, h, key chunk) blocks), then the attention; anything
+    else on a CUDA device raises. A CPU tensor takes
+    :func:`flash_attention_int8_ref`. Returns a contiguous (B, Nq, H, D)
+    tensor. ``flash_attention_int8.launches`` counts the calls that launched it.
     """
     _int8_args("flash_attention_int8", k, mode)
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention_int8", q):
         return flash_attention_int8_ref(q, k, v, scale, mode)
-    _check("flash_attention_int8", q, k, v)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_int8: dtype {q.dtype} not supported (bfloat16)")
+    _int8_cuda_args("flash_attention_int8", q, k, v, mode)
     B, Nq, H, D = q.shape
-    Nk = k.shape[1]
-    nk_pad = -(-Nk // 64) * 64
-    pv8 = mode == "int8pv"
-    k8 = torch.empty((B, H, nk_pad, D), dtype=torch.int8, device=q.device)
-    kscale = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    v8 = torch.empty_like(k8) if pv8 else None
-    vscale = torch.empty_like(kscale) if pv8 else None
+    k8, kscale, v8t, vscale, stats = _int8_scratch(k, mode)
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     status = kernel_lib.library().uc_flash_attention_int8(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), k8.data_ptr(),
-        None if v8 is None else v8.data_ptr(), kscale.data_ptr(), None if vscale is None else vscale.data_ptr(),
-        int(pv8), B, H, Nq, Nk, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), k8.data_ptr(), _ptr(v8t), stats.data_ptr(),
+        kscale.data_ptr(), _ptr(vscale), int(mode == "int8pv"), B, H, Nq, k.shape[1], D,
+        _layouts((q, INT8_CHUNK), (k, INT8_CHUNK), (v, INT8_CHUNK)), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_int8")

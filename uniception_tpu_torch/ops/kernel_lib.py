@@ -109,9 +109,11 @@ def _declare(lib):
     lib.uc_rope2d.restype = I
     lib.uc_int8_matmul.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.uc_int8_matmul.restype = I
-    lib.uc_flash_attention_int8.argtypes = [P] * 8 + [I] * 6 + [L] * 9 + [F, P]
+    lib.uc_flash_attention_int8.argtypes = [P] * 9 + [I] * 6 + [P, F, P]
     lib.uc_flash_attention_int8.restype = I
-    lib.uc_conv3x3.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.uc_flash_attention_int8_prep.argtypes = [P] * 7 + [I] * 4 + [P, P]
+    lib.uc_flash_attention_int8_prep.restype = I
+    lib.uc_conv3x3.argtypes = [P, P, P, I, P, P, P, I, I, P]
     lib.uc_conv3x3.restype = I
     lib.uc_fused_project.argtypes = [P] * 8 + [L] * 3 + [I, P] + [I] * 6 + [Dbl, Dbl, P]
     lib.uc_fused_project.restype = I
