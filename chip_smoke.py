@@ -32,7 +32,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                make_train_step, and ms/step against the plain path;
    11. K4:     the int8 matmul kernel at the nine trunk shapes, bf16 and fp32
                x, against its plain version: the share of equal int8 codes and
-               the output's max ulp;
+               the output's max ulp; the planner's tile and split, the call's
+               and its GEMM launch's time and TOP/s beside the planner's
+               alternatives, torch._int_mm alone, a bf16 F.linear of the same
+               shape and torch._int_mm with eager quantization; then the GEMM
+               at three shapes of few tiles and a long K loop under the
+               planner's split and others, each bit for bit the unsplit one;
    12. K6:     the int8 attention kernel, both modes, at the main-path shapes,
                N = 196 and Nq != Nk, against its plain version and against
                exact attention, with K1 and the other mode as controls that
@@ -48,19 +53,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                and the int8 bill against the bf16 plain path;
    15. serving: pairs/s and peak memory of four serving configurations
                (bf16-linear from phase 6, int8-linear, bf16-DPT with fp32
-               heads, the int8-DPT rung) and a profile of the int8-DPT run.
+               heads, the int8-DPT rung) and a profile of the int8-DPT run
+               with each kernel's device ms per batch.
    16. K5:     the fused qkv + RoPE + attention kernel, self and cross, at the
                main-path shapes, N = 196 and Nq != Nk, with and without RoPE,
                bf16 and fp32: its projection launch alone and its output
                against the plain version, with the positions dropped and with
-               -F0 as controls that must fail the same check; its time beside
-               the plain version, the unfused kernel path (the qkv matmul, two
-               K2, K1) and cuBLAS + SDPA;
+               -F0 as controls that must fail the same check, and its
+               attention launch (K1's kernel) alone on the projection's
+               scratch; its time beside the plain version, the unfused kernel
+               path (the qkv matmul, two K2, K1) and cuBLAS + SDPA, and the
+               projection launch's beside cuBLAS's GEMMs of the same shape;
    17. fused:  DUSt3R 512 in the "fused" implementation: forward_pair against
                the plain path (fp32 and bf16 trunks) with exact launches and
                every K5 call held against its plain version on the same
                activations; the int8 rung under "fused" (no K5, no K6); the
-               serving loop's pairs/s and peak memory;
+               serving loop's pairs/s and peak memory, and the device ms per
+               batch of the fused and unfused rungs beside the int8-DPT
+               rung's (phase 15);
    18. K8:     the S.V diagnostic kernel at the sweep script's shape and at
                the encoder's, against its plain version, timed beside K1.
 
@@ -669,17 +679,39 @@ K4_SHAPES = [  # (layer, M tokens, K, N): encoder at batch 2 pairs (4 images), d
     ("enc fc2", 4096, 4096, 1024), ("dec proj_embed", 2048, 1024, 768), ("dec qkv", 2048, 768, 2304),
     ("dec proj", 2048, 768, 768), ("dec fc1", 2048, 768, 3072), ("dec fc2", 2048, 3072, 768),
 ]
+K4_SPLIT_PROBES = [(129, 4096, 768), (300, 4096, 200), (1, 4096, 768)]  # (M, K, N): few tiles, a long K loop
 
 
-def phase_int8_matmul(torch, i8):
+def k4_split_probe(torch, i8, gemm, gen, sms):
+    """K4's GEMM launch where the planner may split the K loop (few tiles, long K): the planner's plan beside the
+    unsplit ones and splits of 2, 4 and 16, each bit for bit the unsplit result."""
+    for M, K, N in K4_SPLIT_PROBES:
+        x_q = torch.randint(-127, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+        a_scale = torch.rand(M, device="cuda", generator=gen) * 1e-2
+        w_nk = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+        w_scale = torch.rand(N, device="cuda", generator=gen) * 1e-3
+        plan = gemm.gemm_plan(M, N, K, 1, sms)
+        want = i8.int8_gemm(x_q, a_scale, w_nk, w_scale, plan=(128, 1))
+        times = {}
+        for p in dict.fromkeys([plan, (128, 1), (256, 1), (128, 2), (128, 4), (128, 16)]):
+            require(torch.equal(i8.int8_gemm(x_q, a_scale, w_nk, w_scale, plan=p), want), f"K4 probe {M, K, N} {p}")
+            times[p] = graph_ms(torch, lambda: i8.int8_gemm(x_q, a_scale, w_nk, w_scale, plan=p))
+        print(f"[11 K4] split probe M={M} K={K} N={N}: the planner's 128x{plan[0]} split {plan[1]} {times[plan]:.4f} "
+              f"ms; " + ", ".join(f"128x{b} split {k} {t:.4f} ms" for (b, k), t in times.items() if (b, k) != plan)
+              + " (each plan bit for bit the unsplit result; CUDA graph)")
+
+
+def phase_int8_matmul(torch, F, i8, gemm):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst_abs, main, probed = 0.0, None, {}
     for name, M, K, N in K4_SHAPES:
         x32 = torch.randn(M, K, device="cuda", generator=gen)
         w_q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8).t()  # (K, N) view
         w_scale = torch.rand(1, N, device="cuda", generator=gen) * 1e-3 + 1e-5
         bias = torch.randn(N, device="cuda", generator=gen)
-        line = f"[11 K4] {name:15s} M={M} K={K} N={N}:"
+        bn, split = gemm.gemm_plan(M, N, K, 1, sms)
+        line = f"[11 K4] {name:15s} M={M} K={K} N={N} plan {gemm.TILE_M}x{bn} split {split}:"
         for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             x = x32.to(dt)
             out, ref = i8.int8_matmul_dynamic(x, w_q, w_scale, bias), i8.int8_matmul_dynamic_ref(x, w_q, w_scale, bias)
@@ -697,20 +729,34 @@ def phase_int8_matmul(torch, i8):
             require(ulps <= K4_ULPS, f"K4 {name} {label}: {ulps} ulp > {K4_ULPS}")
             if label == "bf16":
                 worst_abs = max(worst_abs, (out.float() - ref.float()).abs().max().item())
+                x_q, a_scale = i8.quantize_rows(x)
+                w_nk, w_bf16 = w_q.t(), w_q.t().bfloat16()
                 ms = graph_ms(torch, lambda: i8.int8_matmul_dynamic(x, w_q, w_scale, bias))
+                gemm_ms = graph_ms(torch, lambda: i8.int8_gemm(x_q, a_scale, w_nk, w_scale, bias))
                 plain_ms = graph_ms(torch, lambda: i8.int8_matmul_dynamic_ref(x, w_q, w_scale, bias))
+                int_mm_ms = graph_ms(torch, lambda: torch._int_mm(x_q, w_q))  # cuBLASLt's int8 product alone
+                linear_ms = graph_ms(torch, lambda: F.linear(x, w_bf16))  # the bf16 product of the same shape
 
                 def library():  # eager row quantization, then cuBLASLt's int8 product through torch._int_mm
                     x_q, a_scale = i8.quantize_rows(x)
                     return (torch._int_mm(x_q, w_q).float() * (a_scale * w_scale) + bias).to(x.dtype)
 
                 lib_ms = graph_ms(torch, library)
+                # the planner's alternatives: the other tile width, and its own with the K loop split in two
+                others = [(384 - bn, 1), (bn, 2)]
+                other_ms = [graph_ms(torch, lambda: i8.int8_gemm(x_q, a_scale, w_nk, w_scale, bias, plan=p)) for p in others]
                 k4_bound = bound({"int8": 2 * M * K * N}, M * K * 2 + K * N + 4 * N + 4 * N + M * N * 2)
-                line += (f" bf16 kernel {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, "
-                         f"torch._int_mm + eager quantization {lib_ms:.4f} ms, bound {k4_bound[0]:.4f} ms;")
+                tops = 2 * M * K * N / 1e9
+                line += (f" bf16 kernel {ms:.4f} ms ({tops / ms:.1f} TOP/s), its GEMM launch alone {gemm_ms:.4f} ms "
+                         f"({tops / gemm_ms:.1f} TOP/s; "
+                         + ", ".join(f"128x{b} split {k} {t:.4f} ms" for (b, k), t in zip(others, other_ms))
+                         + f"), plain {plain_ms:.4f} ms; torch._int_mm alone {int_mm_ms:.4f} ms "
+                         f"({tops / int_mm_ms:.1f} TOP/s), bf16 F.linear {linear_ms:.4f} ms, torch._int_mm + eager "
+                         f"quantization {lib_ms:.4f} ms; bound {k4_bound[0]:.4f} ms;")
                 if main is None:
                     main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=k4_bound)
         print(line)
+    k4_split_probe(torch, i8, gemm, gen, sms)
     return worst_abs, main
 
 
@@ -972,7 +1018,7 @@ def phase_serving_rungs(torch, np, serve, config, counters, card, bf16_linear):
             torch.cuda.synchronize()
             launches, peak = _read(counters), torch.cuda.max_memory_allocated()
             if name == "int8-DPT":
-                profile_serving(torch, fn, frames)
+                results["int8-DPT device ms"] = profile_serving(torch, fn, frames)
         finally:
             config.set_attention_quant("none")
             config.set_conv3x3_impl("torch")
@@ -992,21 +1038,27 @@ def phase_serving_rungs(torch, np, serve, config, counters, card, bf16_linear):
     return results
 
 
-# The device kernels of each hand-written kernel of the int8-DPT rung, by the names the profiler gives them
-PROFILE_KERNELS = {"K2": ("rope2d",), "K4": ("quant_rows_kernel", "int8_gemm_kernel"), "K6": ("fa8_",), "K7": ("conv3x3",)}
+# The device kernels of each hand-written kernel on the serving paths, by the names the profiler gives them. Under
+# "fused" K1's kernel is K5's attention launch; K4's GEMM and K5's projection are the shared GEMM with their epilogues.
+PROFILE_KERNELS = {"K1 (under fused: K5's attention launch)": ("fa_fwd_bf16",), "K2": ("rope2d",),
+                   "K4": ("quant_rows_kernel", "DequantBiasEpilogue"), "K5 projection": ("BiasRopeEpilogue",),
+                   "K6": ("fa8_",), "K7": ("conv3x3",)}
 
 
 def profile_serving(torch, fn, frames, label="15 profile int8-DPT", top=14):
     """Device time by kernel over 3 serving batches (torch.profiler), the top entries and the device-busy share,
-    then each hand-written kernel's device ms per batch (all its launches: K6's prep and attention, K7's conv and
-    split-K reduction)."""
+    then each hand-written kernel's device ms per batch (all its launches: K4's row quantization and GEMM, K6's
+    prep and attention, K7's conv and split-K reduction). Returns the device ms per batch."""
     batches = [(frames[2 * i : 2 * i + 2 * BATCH : 2], frames[2 * i + 1 : 2 * i + 2 * BATCH : 2]) for i in range(3)]
     events = profile_device(torch, lambda: [fn(img1, img2) for img1, img2 in batches], 3, "batch", label, top)
     for name, keys in PROFILE_KERNELS.items():
         mine = [e for e in events if any(k in e.key for k in keys)]
+        if not mine:
+            continue
         ms = sum(e.self_device_time_total for e in mine) / 1e3 / 3
         print(f"[{label}] {name}: {ms:.3f} ms/batch in {sum(e.count for e in mine) // 3} launches/batch "
-              f"({', '.join(sorted(e.key[:40] for e in mine))})")
+              f"({', '.join(sorted(e.key[:60] for e in mine))})")
+    return sum(e.self_device_time_total for e in events) / 1e3 / 3
 
 
 def profile_device(torch, run, n, unit, label, top):
@@ -1154,10 +1206,14 @@ def phase_fused_attention(torch, F, fa, fa1, rope_mod, make_patch_positions):
                 require(torch.isfinite(out).all().item(), f"K5 {name} {label}: non-finite output")
                 require(out.shape == ref.shape and out.dtype == dt, f"K5 {name} {label}: {out.shape} {out.dtype}")
                 err, ok = k5_check(out, ref, bf16)
+                # the attention launch (K1's kernel) alone, on the projection launch's scratch
+                q, k, v = (t.transpose(1, 2) for t in got)
+                attn_err = k5_check(fa._attend(q, k, v, case.scale), fa._attend_ref(q, *got, case.scale), bf16)[0]
                 line = (f"[16 K5] {name:21s} {label} rope {'on ' if rope else 'off'}: projection "
                         + " ".join(f"{n} {e:.2e}" for n, e in proj.items())
                         + f" ({'ulp of max(|plain|, 1/64), q/k at the pair norm with RoPE; tol v %d, q/k %d' % (K5_PROJ_ULPS['v'], K5_PROJ_ULPS['qk']) if bf16 else 'max abs; tol %g' % K5_PROJ_FP32_TOL});"
-                        f" output {err:.3g} {'ulp' if bf16 else 'max abs'} (tol {K5_ULPS if bf16 else K5_FP32_TOL})")
+                        f" output {err:.3g} {'ulp' if bf16 else 'max abs'} (tol {K5_ULPS if bf16 else K5_FP32_TOL});"
+                        f" the attention launch (K1's kernel) alone on that scratch vs the plain attention {attn_err:.3g}")
                 controls = []
                 if rope:  # the positions dropped, and the inverse rotation (-F0): both must fail the same check
                     for cname, cargs in (("no positions", case.args(dt, rope, positions=False)),
@@ -1170,11 +1226,14 @@ def phase_fused_attention(torch, F, fa, fa1, rope_mod, make_patch_positions):
                 if bf16 and rope and name in ("encoder self", "decoder self", "decoder cross"):
                     ms = graph_ms(torch, lambda: case.kernel(*a))
                     proj_ms = graph_ms(torch, lambda: case.project(a, rope, plain=False))
+                    cublas_ms = graph_ms(torch, lambda: case.linear_qkv(F, a))
                     plain_ms = graph_ms(torch, lambda: case.plain(*a))
                     unfused_ms = graph_ms(torch, lambda: case.unfused(F, fa1, rope_mod, a))
                     lib_ms = graph_ms(torch, lambda: case.library(F, a))
                     k5b = k5_bound(B, Nq, Nk or Nq, C, H, case.cross)
-                    line += (f"; kernel {ms:.4f} ms (projection launch {proj_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                    proj_tf = 2 * B * (Nq * C + (Nk or Nq) * 2 * C) * H * 64 / 1e9
+                    line += (f"; kernel {ms:.4f} ms (projection launch {proj_ms:.4f} ms, {proj_tf / proj_ms:.1f} "
+                             f"TFLOP/s; cuBLAS bf16 GEMMs of the same shape {cublas_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                              f"unfused kernel path {unfused_ms:.4f} ms, cuBLAS + SDPA (no RoPE) {lib_ms:.4f} ms, bound "
                              f"{k5b[0]:.4f} ms ({k5b[1]}) (CUDA graph)")
                     if result[kind] is None:
@@ -1187,7 +1246,7 @@ def phase_fused_attention(torch, F, fa, fa1, rope_mod, make_patch_positions):
     return worst, result
 
 
-def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16_linear):
+def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16_linear, int8_dpt_ms):
     """DUSt3R 512 in the "fused" implementation: forward_pair against the plain path and the unfused kernel path
     (fp32 and bf16 trunks), exact launches, every K5 call of the bf16 forward against its plain version on the same
     activations; one int8-rung forward under "fused"; the serving loop."""
@@ -1251,7 +1310,7 @@ def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16
                   f"unfused kernel path {rel(a, c):.3e}; unfused kernel path vs plain {rel(c, b):.3e}")
             require(r <= tol, f"fused {trunk} {name}: vs plain {r} > {tol}")
         if dtype == torch.bfloat16:  # serving, fused then unfused on the same model, and forward_pair times
-            serving = {}
+            serving, device_ms = {}, {}
             for impl in ("fused", "kernel"):
                 config.set_attention_impl(impl)
                 try:
@@ -1263,7 +1322,7 @@ def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16
                     torch.cuda.synchronize()
                     serving[impl] = (pairs / seconds, torch.cuda.max_memory_allocated(), base, _read(counters))
                     fwd_ms = cuda_ms(torch, lambda: fn(img1, img2), warmup=1, iters=5)
-                    profile_serving(torch, fn, frames, label=f"17 profile {impl}", top=8)
+                    device_ms[impl] = profile_serving(torch, fn, frames, label=f"17 profile {impl}", top=8)
                 finally:
                     config.set_attention_impl("kernel")
                 shapes = [tuple(o.shape) for o in out]
@@ -1275,6 +1334,8 @@ def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16
                       f"({peak / 2**30:.3f} GiB; {base} allocated before); forward_pair {fwd_ms:.2f} ms; launches {n} "
                       f"on {card}")
             served = serving["fused"][3]
+            print(f"[17 profile] device ms per batch (torch.profiler, 3 batches): fused {device_ms['fused']:.2f}, the "
+                  f"unfused bf16-linear rung {device_ms['kernel']:.2f}; the int8-DPT rung {int8_dpt_ms:.2f} (phase 15)")
             print(f"[17 serve] fused {serving['fused'][0]:.3f} pairs/s beside the unfused bf16-linear rung's "
                   f"{serving['kernel'][0]:.3f} here and {bf16_linear['pairs_per_s']:.3f} in phase 6 (peak "
                   f"{bf16_linear['peak']} bytes); no gain is claimed")
@@ -1376,6 +1437,7 @@ def main():
     from uniception_tpu_torch.ops import conv3x3 as c3
     from uniception_tpu_torch.ops import flash_attention as fa
     from uniception_tpu_torch.ops import fused_attention as fused
+    from uniception_tpu_torch.ops import gemm
     from uniception_tpu_torch.ops import int8_matmul as i8
     from uniception_tpu_torch.ops import kernel_lib, rope
     from uniception_tpu_torch.ops import sv_only as sv
@@ -1417,7 +1479,7 @@ def main():
 
     import torch.nn.functional as F
 
-    k4_err, k4 = phase_int8_matmul(torch, i8)
+    k4_err, k4 = phase_int8_matmul(torch, F, i8, gemm)
     k6_err, k6 = phase_int8_attention(torch, fa)
     k7_err, k7 = phase_conv3x3(torch, F, c3)
     counters = _kernel_counters(fa, rope, i8, c3, fused)
@@ -1427,7 +1489,8 @@ def main():
               for k in counters}
 
     k5_err, k5 = phase_fused_attention(torch, F, fused, fa, rope, make_patch_positions)
-    fused_path = phase_fused_model(torch, np, serve, config, blocks, fused, counters, card, bf16_linear)
+    fused_path = phase_fused_model(torch, np, serve, config, blocks, fused, counters, card, bf16_linear,
+                                   rungs["int8-DPT device ms"])
     k8_err, k8 = phase_sv_only(torch, sv, fa)
 
     def entry(name, source, replaces, n, err, m):

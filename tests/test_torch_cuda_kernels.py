@@ -39,7 +39,8 @@ from uniception_tpu_torch.ops.flash_attention import (
     flash_attention_lse_ref,
     flash_attention_ref,
 )
-from uniception_tpu_torch.ops.int8_matmul import int8_matmul_dynamic, int8_matmul_dynamic_ref
+from uniception_tpu_torch.ops.gemm import K_BLOCK_BYTES, gemm_plan
+from uniception_tpu_torch.ops.int8_matmul import int8_gemm, int8_matmul_dynamic, int8_matmul_dynamic_ref, quantize_rows
 from uniception_tpu_torch.ops.rope import Rope2D, rope_2d, rope_2d_kernel
 from uniception_tpu_torch.ops.sv_only import sv_only, sv_only_ref
 
@@ -338,6 +339,27 @@ def test_int8_matmul_matches_plain(gen, m, k, n, bias, dtype):
     assert torch.equal(int8_matmul_dynamic(x, w_q.contiguous(), w_scale, b), out)
 
 
+@pytest.mark.parametrize("k", [16, 48, 4096])
+@pytest.mark.parametrize("n", [136, 768])
+@pytest.mark.parametrize("m", [1, 127, 129])
+def test_int8_gemm_at_every_plan(gen, m, n, k):
+    """K4's GEMM at ragged M, N and K under every tile width and split of the K loop: each plan gives the bits of
+    the planner's (int32 sums are exact in any order), two calls the same bits, and <= 1 ulp of the plain version."""
+    x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+    w_nk = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int8)
+    w_scale = torch.rand(n, device="cuda", generator=gen) * 1e-2 + 1e-4
+    b = torch.randn(n, device="cuda", generator=gen)
+    out = int8_matmul_dynamic(x, w_nk.t(), w_scale, b)
+    assert _ulps(out, int8_matmul_dynamic_ref(x, w_nk.t(), w_scale, b), 7) <= 1
+    x_q, a_scale = quantize_rows(x)
+    assert torch.equal(int8_gemm(x_q, a_scale, w_nk, w_scale, b, plan=gemm_plan(m, n, k, 1)), out)
+    for bn in (128, 256):
+        for split in range(1, -(-k // K_BLOCK_BYTES) + 1):
+            got = int8_gemm(x_q, a_scale, w_nk, w_scale, b, plan=(bn, split))
+            assert torch.equal(got, out), (bn, split)
+            assert torch.equal(int8_gemm(x_q, a_scale, w_nk, w_scale, b, plan=(bn, split)), got), (bn, split)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int8pv"])
 @pytest.mark.parametrize("b,nq,nk,h", [(2, 7, 1, 3), (2, 50, 36, 3), (1, 300, 1000, 2), (1, 1024, 1024, 2)])
 def test_flash_attention_int8_matches_plain(gen, b, nq, nk, h, mode):
@@ -630,6 +652,36 @@ def test_fused_attention_matches_plain(gen, case, dtype, rope):
     if rope:  # the inverse rotation (-F0) is told apart from it
         wrong = kernel(*args, 100.0, -1.0)
         assert _ulps(wrong, ref, 7, floor=K5_ULP_FLOOR) > K5_ULPS
+
+
+def _pair_ulps(out, ref, floor):
+    "Max |out - ref| of RoPE'd (..., 64) heads in bf16 ulps of max(each (u, v) pair's norm in ref, floor)."
+    r = ref.float().unflatten(-1, (2, 2, 16))  # [y / x half][u / v][quarter index]
+    norm = r.square().sum(-2, keepdim=True).sqrt().expand_as(r).flatten(-3)
+    ulp = (norm.clamp_min(floor).log2().floor() - 7).exp2()
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("c,h", [(768, 12), (1024, 16)])
+@pytest.mark.parametrize("b,n,grid", [(4, 196, (14, 14)), (2, 300, (15, 20)), (1, 1000, (25, 40)), (1, 100, (10, 10))])
+def test_fused_projection_scratch_matches_plain(gen, b, n, grid, c, h, rope, bias_dtype):
+    """K5's projection launch (the shared wgmma GEMM with the bias + RoPE epilogue) against the plain projection,
+    per section, at N = 196 (224 input), the cross shapes Nq 300 / Nk 1000 and 64 <= M < 128, with fp32 biases and
+    with the bf16 biases of a bf16 model (read as they are): v within 1 ulp (one rounding of fp32 sums in another
+    order), RoPE'd q and k within 2 ulps of the pair's norm."""
+    hd = h * 64
+    x = torch.randn(b, n, c, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(3 * hd, c, device="cuda", generator=gen) * c**-0.5).bfloat16()
+    bias = (torch.randn(3 * hd, device="cuda", generator=gen) * 0.1).to(bias_dtype)
+    pos = make_patch_positions(b, *grid, device="cuda") if rope else None
+    got = fused._project(x, w.chunk(3), bias.chunk(3), pos, 2 if rope else 0, h, 100.0, 1.0)
+    want = fused._project_ref(x, w.chunk(3), bias.chunk(3), pos, (rope, rope, False), h, 100.0, 1.0)
+    assert got.shape == (3, b, h, n, 64)
+    for name, g, w_ in zip("qkv", got, want):
+        err = _pair_ulps(g.transpose(1, 2), w_, K5_ULP_FLOOR) if rope and name != "v" else _ulps(g.transpose(1, 2), w_, 7, K5_ULP_FLOOR)
+        assert err <= (2 if rope and name != "v" else 1), (name, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) plumbing shared by the wgmma kernels: mbarriers, TMA tile
 // loads into 128-byte-swizzled shared memory, wgmma shared-memory descriptors
-// and instructions, named barriers, setmaxnreg, and on the host the
-// tensor-map encoding and the SM count of a persistent grid.
+// and instructions, named barriers, setmaxnreg, the persistent
+// warp-specialised GEMM of K4 and K5's projection (gemm_kernel, below), and on
+// the host the tensor-map encoding and the SM count of a persistent grid.
 //
 // Tiles. Every operand tile is a (rows x 64) bf16 matrix with 128-byte rows,
 // loaded by one TMA box of (64, 1, rows, 1) over a 4-D tensor map of a
@@ -11,9 +12,12 @@
 // start on 1024-byte boundaries, so a descriptor's base offset is 0. Other
 // kernels read other tensors through encode_map (3-D and 4-D maps, bf16 or
 // 8-bit elements): the conv's NHWC boxes and HWIO weight tiles (128-byte
-// rows, as above), and int8 key tiles of 64-byte rows under
-// CU_TENSOR_MAP_SWIZZLE_64B (8-row groups of 512 bytes, desc_k_major_64b).
-// 8-bit wgmma has no transpose bit: both of its operands are K-major.
+// rows, as above), int8 key tiles of 64-byte rows under
+// CU_TENSOR_MAP_SWIZZLE_64B (8-row groups of 512 bytes, desc_k_major_64b), and
+// the GEMM's row-major operands through 2-D maps in boxes of 128-byte rows
+// (128 int8 or 64 bf16 values of K). 8-bit wgmma has no transpose bit: both
+// of its operands are K-major; a k-step of 32 int8 is 32 bytes, as one of 16
+// bf16.
 //
 // Descriptors (64 bits): start address >> 4 in bits 0-13, leading byte offset
 // >> 4 in bits 16-29, stride byte offset >> 4 in bits 32-45, layout type in
@@ -28,8 +32,9 @@
 //     so the offset between atoms along N is never used; both offsets are set
 //     to 1024. A k-step of 16 rows advances the start address by 2048 bytes.
 //
-// Fragments. The m64nN f32 accumulator of a warpgroup: thread (warp w, lane
-// l), g = l / 4, t = l % 4, holds d[4c + 2i + j] = D[16w + g + 8i][8c + 2t + j].
+// Fragments. The m64nN f32 (or s32) accumulator of a warpgroup: thread (warp
+// w, lane l), g = l / 4, t = l % 4, holds d[4c + 2i + j] = D[16w + g + 8i][8c +
+// 2t + j].
 // The register A operand of m64nNk16 (4 x 32-bit, two bf16 each) holds
 // A[16w + g][2t..], A[16w + g + 8][2t..], A[16w + g][2t + 8..],
 // A[16w + g + 8][2t + 8..] of its 16-wide k-step: exactly the accumulator's
@@ -104,6 +109,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
+
+// One box of a 2-D tensor map into shared memory at coordinates (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // One box of a 3-D tensor map into shared memory at coordinates (c0, c1, c2), innermost first.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
@@ -394,6 +408,306 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 256] (+)= A[64 x 32] * B[32 x 256] in int8 with int32 sums, both operands K-major in shared memory
+// (descriptors). scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128] in int8 with int32 sums, both operands K-major in shared memory
+// (descriptors). scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// A persistent, warp-specialised GEMM: C[M x N] = A[M x K] . B[N x K]^T, A and B row-major (K-major), in
+// 8-bit integers (int32 sums) or bf16 (fp32 sums), with the epilogue a functor of the caller's
+// ---------------------------------------------------------------------------
+//
+// Work items (gemm_item; ops/gemm.py gemm_items is its plain twin): a 128 x BN output tile and a range of the K
+// loop, in k-blocks of 128 bytes (128 int8 or 64 bf16 values: one 128-byte swizzle row). m-tiles run fastest, so
+// the blocks working at one time share B's tiles in L2. N may be cut into `sections` of `sec_n` columns, each
+// with its own tensor map (K5's q, k and v weights); an n-tile never straddles two sections.
+//
+// One block per SM. Warpgroup 0 is the producer: one thread issues the TMA loads of each k-block's A box (128
+// rows x 128 bytes) and B box (BN rows x 128 bytes) into a ring of GemmCfg<BN>::STAGES slots, each guarded by
+// a "full" mbarrier (the bytes landed) and an "empty" one (both consumers are done with it), and runs ahead
+// across items, so the next tile's loads overlap this tile's epilogue. TMA fills rows and columns past the
+// tensor with zeros: ragged M, N and K add nothing. Warpgroups 1 and 2 are the consumers: each issues wgmma
+// m64nBN over its 64 rows of the tile, both operands from shared memory (K-major, 128-byte swizzle), keeps one
+// k-block's products in flight while the next k-block's operands arrive, releases each slot when its products
+// are done, and hands its m64nBN accumulator to the epilogue: thread (warp w, lane l), g = l / 4, t = l % 4,
+// holds acc[4c + 2i + j] = C[row0 + 8i][col0 + 8c + 2t + j] with row0 = m0 + 64 cwg + 16 w + g.
+//
+// Split-K (int8 only): with split > 1 each item adds its int32 partial sums into a zeroed (M, N) workspace and
+// counts itself on its tile's counter; the item that counts last reads the total back and runs the epilogue.
+// int32 addition is exact and associative, so the order in which the splits land changes no bit.
+
+constexpr int GEMM_BM = 128;         // output rows per tile: two consumer warpgroups x 64
+constexpr int GEMM_KB = 128;         // bytes of K per k-block
+constexpr int GEMM_THREADS = 384;    // producer warpgroup + two consumer warpgroups
+constexpr int GEMM_RING_BYTES = 192 * 1024;
+
+template <int BN>
+struct GemmCfg {
+  static constexpr int A_BYTES = GEMM_BM * GEMM_KB, B_BYTES = BN * GEMM_KB;
+  static constexpr int STAGES = GEMM_RING_BYTES / (A_BYTES + B_BYTES);  // 6 (BN = 128) or 4 (BN = 256)
+};
+
+template <int BN>
+struct alignas(SMEM_ALIGN) GemmSmem {
+  uint8_t a[GemmCfg<BN>::STAGES][GemmCfg<BN>::A_BYTES];
+  uint8_t b[GemmCfg<BN>::STAGES][GemmCfg<BN>::B_BYTES];
+  uint64_t full[GemmCfg<BN>::STAGES], empty[GemmCfg<BN>::STAGES];
+  int last;  // split-K: whether the block's current item counted last on its tile
+};
+
+template <int BN>
+constexpr int gemm_smem_bytes() {
+  return sizeof(GemmSmem<BN>) + SMEM_ALIGN;
+}
+
+// A's tensor map and one B map per section.
+struct GemmMaps {
+  CUtensorMap a, b[3];
+};
+
+struct GemmParams {
+  int M, sec_n, sections, kblocks, split;
+  int m_tiles, n_tiles, tiles, items;  // n_tiles: per section
+  int* ws;                             // split > 1: the (M, sections * sec_n) int32 workspace, zeroed; else null
+  int* counters;                       // split > 1: one int per tile, zeroed
+};
+
+struct GemmItem {
+  int tile, m0, section, col0, kb0, kb1;
+};
+
+template <int BN>
+__device__ __forceinline__ GemmItem gemm_item(const GemmParams& g, int item) {
+  GemmItem it;
+  const int split = item / g.tiles;
+  it.tile = item - split * g.tiles;
+  const int nt = it.tile / g.m_tiles;
+  it.m0 = (it.tile - nt * g.m_tiles) * GEMM_BM;
+  it.section = nt / g.n_tiles;
+  it.col0 = (nt - it.section * g.n_tiles) * BN;
+  it.kb0 = split * g.kblocks / g.split;
+  it.kb1 = (split + 1) * g.kblocks / g.split;
+  return it;
+}
+
+template <bool S8>
+struct GemmAcc {
+  using T = int;
+};
+template <>
+struct GemmAcc<false> {
+  using T = float;
+};
+
+// One k-block (4 k-steps of 32 bytes) of a consumer's m64nBN product: A and B K-major in 128-byte-swizzled
+// shared memory, the k-step advancing both start addresses by 32 bytes inside the swizzled rows.
+template <bool S8, int BN>
+__device__ __forceinline__ void gemm_kblock(typename GemmAcc<S8>::T (&acc)[BN / 2], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < GEMM_KB / 32; ++kk) {
+    const uint64_t da = desc_k_major(a_addr + kk * 32), db = desc_k_major(b_addr + kk * 32);
+    if constexpr (S8 && BN == 256)
+      wgmma_m64n256k32_s8_ss(acc, da, db, 1);
+    else if constexpr (S8)
+      wgmma_m64n128k32_s8_ss(acc, da, db, 1);
+    else if constexpr (BN == 256)
+      wgmma_m64n256k16_ss<0, 0>(acc, da, db, 1);
+    else
+      wgmma_m64n128k16_ss<0, 0>(acc, da, db, 1);
+  }
+}
+
+// The 4 x 4 transpose of 32-bit words across a quad of lanes (t = lane % 4): lane t's w[u] becomes lane u's
+// w[t]. In the accumulator layout above, lane t holds columns 2t, 2t + 1 of each 8-column chunk, so after packing
+// two columns to a word and transposing the words of 4 chunks, lane t holds all 8 columns of the t-th chunk: one
+// 16-byte store (bf16) where there were four of 4 bytes. Two exchanges, each of the two words a lane replaces.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
+  const bool b0 = t & 1, b1 = t & 2;
+  uint32_t x0 = __shfl_xor_sync(0xffffffffu, b0 ? w[0] : w[1], 1);
+  uint32_t x1 = __shfl_xor_sync(0xffffffffu, b0 ? w[2] : w[3], 1);
+  if (b0)
+    w[0] = x0, w[2] = x1;
+  else
+    w[1] = x0, w[3] = x1;
+  x0 = __shfl_xor_sync(0xffffffffu, b1 ? w[0] : w[2], 2);
+  x1 = __shfl_xor_sync(0xffffffffu, b1 ? w[1] : w[3], 2);
+  if (b1)
+    w[0] = x0, w[1] = x1;
+  else
+    w[2] = x0, w[3] = x1;
+}
+
+// Split-K: add this item's partial sums into the workspace and count the item on its tile. Returns true in the
+// item that counted last, with the tile's total in acc; false in the others, whose work on the tile is done.
+// Every consumer thread calls it (named barrier 1 spans the 256 of them).
+template <int BN>
+__device__ __forceinline__ bool gemm_split_total(int (&acc)[BN / 2], const GemmParams& g, const GemmItem& it,
+                                                 int row0, int t, int ctid, int& last) {
+  const int ld = g.sections * g.sec_n, cols = min(BN, g.sec_n - it.col0);
+  int* base = g.ws + it.section * g.sec_n + it.col0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= g.M) continue;
+    int* w = base + (long long)row * ld;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (8 * c + 2 * t + j < cols) atomicAdd(w + 8 * c + 2 * t + j, acc[4 * c + 2 * i + j]);
+  }
+  __threadfence();
+  named_bar_sync(1, 256);
+  if (ctid == 0) last = atomicAdd(g.counters + it.tile, 1) == g.split - 1;
+  named_bar_sync(1, 256);
+  if (!last) return false;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const int* w = base + (long long)row * ld;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * c + 2 * t + j;
+        acc[4 * c + 2 * i + j] = row < g.M && col < cols ? __ldcg(w + col) : 0;
+      }
+  }
+  return true;
+}
+
+// The epilogue functor: `typename Epi::State Epi::init(int t)` once per consumer thread (what it keeps across
+// tiles), then `epi(acc, state, row0, section, col0, t)` per tile, with acc in the layout above.
+template <bool S8, int BN, class Epi>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmParams g, const Epi epi) {
+  using Cfg = GemmCfg<BN>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  GemmSmem<BN>& sm = *reinterpret_cast<GemmSmem<BN>*>(align_smem(smem_raw));
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], GEMM_THREADS - 128);  // every consumer thread releases the slot
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
+        const GemmItem it = gemm_item<BN>(g, item);
+        for (int kb = it.kb0; kb < it.kb1; ++kb) {
+          const int k0 = kb * (S8 ? GEMM_KB : GEMM_KB / 2);
+          mbar_wait(&sm.empty[s], phase ^ 1);  // the first pass over the ring finds every slot free
+          mbar_arrive_expect_tx(&sm.full[s], Cfg::A_BYTES + Cfg::B_BYTES);
+          tma_load_2d(sm.a[s], &maps.a, &sm.full[s], k0, it.m0);
+          tma_load_2d(sm.b[s], &maps.b[it.section], &sm.full[s], k0, it.col0);
+          if (++s == STAGES) s = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumer warpgroups: 64 rows of the tile each
+    setmaxnreg_inc<232>();
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31, t = lane & 3;
+    const typename Epi::State state = epi.init(t);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
+      const GemmItem it = gemm_item<BN>(g, item);
+      typename GemmAcc<S8>::T acc[BN / 2];  // the m64nBN accumulator
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+      int prev = -1;
+      for (int kb = it.kb0; kb < it.kb1; ++kb) {
+        mbar_wait(&sm.full[s], phase);
+        fence_regs(acc);
+        wgmma_fence();
+        gemm_kblock<S8, BN>(acc, smem_u32(sm.a[s]) + cwg * 64 * GEMM_KB, smem_u32(sm.b[s]));
+        wgmma_commit();
+        fence_regs(acc);
+        wgmma_wait<1>();  // the previous k-block's products are done: release its slot
+        if (prev >= 0) mbar_arrive(&sm.empty[prev]);
+        prev = s;
+        if (++s == STAGES) s = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&sm.empty[prev]);
+
+      const int row0 = it.m0 + cwg * 64 + warp * 16 + (lane >> 2);
+      if constexpr (S8) {
+        if (g.split > 1 && !gemm_split_total<BN>(acc, g, it, row0, t, ctid, sm.last)) continue;
+      }
+      epi(acc, state, row0, it.section, it.col0, t);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------------
@@ -479,6 +793,60 @@ inline int sm_count(int* sms) {
   st = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (st == cudaSuccess && dev < 64) cached[dev] = *sms;
   return (int)st;
+}
+
+
+// The GEMM's tensor maps as ops/gemm.py gemm_maps describes them: 10 ints, A's dims (K, M), the byte stride
+// of its rows and its box (128 bytes of K, 128 rows), then B's (K, sec_n), stride and box (128 bytes, BN rows).
+constexpr int GEMM_MAP_INTS = 10;
+
+// Encode A's map and one B map per section (the sections' bases in b) from the description, in 8-bit or bf16
+// elements. A box other than the kernel's is refused: its full barrier would wait for other bytes than
+// arrive. Returns a cudaError_t.
+inline int encode_gemm_maps(GemmMaps* maps, CUtensorMapDataType type, int elem_bytes, const void* a,
+                            const void* const* b, int sections, const long long* L, int bn) {
+  if (L[3] * elem_bytes != GEMM_KB || L[4] != GEMM_BM || L[8] * elem_bytes != GEMM_KB || L[9] != bn ||
+      L[0] != L[5] || L[2] % 16 || L[7] % 16 || sections < 1 || sections > 3)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 1 + sections; ++i) {
+    const long long* l = i == 0 ? L : L + 5;
+    const cuuint64_t dims[2] = {(cuuint64_t)l[0], (cuuint64_t)l[1]}, strides[1] = {(cuuint64_t)l[2]};
+    const cuuint32_t box[2] = {(cuuint32_t)l[3], (cuuint32_t)l[4]};
+    const int status = encode_map(i == 0 ? &maps->a : &maps->b[i - 1], type, 2, i == 0 ? a : b[i - 1], dims,
+                                  strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (status != 0) return status;
+  }
+  return 0;
+}
+
+// The work of a GEMM of M rows, `sections` x sec_n columns and K of `k_bytes` bytes, in tiles of 128 x bn and
+// `split` ranges of the K loop, none empty; with split > 1, ws holds the zeroed int32 workspace of M x
+// sections x sec_n and then one counter per tile. Returns a cudaError_t.
+inline int gemm_params(GemmParams* g, int M, int sec_n, int sections, long long k_bytes, int bn, int split, int* ws) {
+  if (M <= 0 || sec_n <= 0 || k_bytes <= 0 || (bn != 128 && bn != 256)) return (int)cudaErrorInvalidValue;
+  const long long kblocks = (k_bytes + GEMM_KB - 1) / GEMM_KB;
+  if (split < 1 || split > kblocks || (split > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  const long long m_tiles = (M + GEMM_BM - 1) / GEMM_BM, n_tiles = (sec_n + bn - 1) / bn;
+  const long long tiles = m_tiles * n_tiles * sections;
+  if (tiles * split > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  g->M = M, g->sec_n = sec_n, g->sections = sections, g->kblocks = (int)kblocks, g->split = split;
+  g->m_tiles = (int)m_tiles, g->n_tiles = (int)n_tiles, g->tiles = (int)tiles, g->items = (int)(tiles * split);
+  g->ws = split > 1 ? ws : nullptr;
+  g->counters = split > 1 ? ws + (long long)M * sections * sec_n : nullptr;
+  return 0;
+}
+
+// Launch the GEMM on a persistent grid of min(items, SMs) blocks. Returns a cudaError_t.
+template <bool S8, int BN, class Epi>
+inline int launch_gemm(const GemmMaps& maps, const GemmParams& g, const Epi& epi, cudaStream_t st) {
+  static bool smem_set[64];
+  int status = allow_smem(gemm_kernel<S8, BN, Epi>, gemm_smem_bytes<BN>(), smem_set);
+  if (status != 0) return status;
+  int sms = 0;
+  status = sm_count(&sms);
+  if (status != 0) return status;
+  gemm_kernel<S8, BN, Epi><<<g.items < sms ? g.items : sms, GEMM_THREADS, gemm_smem_bytes<BN>(), st>>>(maps, g, epi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace uc_hopper

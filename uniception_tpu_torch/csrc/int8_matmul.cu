@@ -16,45 +16,57 @@
 // What bounds it on the H100: at the trunk shapes (M = 2048-4096 tokens, K and
 //   N 768-4096) the product is 2.4-34 GOP at ~100-200 int8 operations per
 //   byte of x, w_q and y, so tensor-core throughput is the limit, not HBM.
+//   Only wgmma reaches the int8 tensor cores' full rate on this card.
 //
-// What the design does about it (mma.sync, no TMA or wgmma yet):
+// What the design does about it:
 //   * The Pallas kernel quantizes x inside the matmul, keeping x_q in VMEM. On
 //     this card the quantization (a dozen instructions per element) costs more
-//     than the products it feeds when it is repeated for every 128-column
-//     tile of the output: a first version that did so ran at 41-106 TOP/s,
-//     80% of it the staging. So a first kernel quantizes each row once (a
-//     warp per row: the abs-max, then the codes) into an int8 scratch of
-//     M x K bytes (4 MB at the encoder's fc1, which stays in the 50 MB L2)
-//     and the row scales; the matmul then streams int8 tiles only.
-//   * The matmul: one block of 8 warps per 128x128 output tile, K in 64-byte
-//     steps through a two-stage cp.async pipeline (the next tile's copy is in
-//     flight while the current one is multiplied); w_q is kept (N, K) so that
-//     A and B fragments are both 32-bit loads from rows padded to 80 bytes
-//     (the 8 row groups of a warp fall in distinct banks).
-//   * Each warp owns a 32x64 sub-tile: 2 x 8 mma.sync m16n8k32 s8 products per
-//     32-wide k step, int32 accumulators in registers.
-//   * Ragged M and N are zero-filled in the copies (cp.async with a zero
-//     source size) and masked in the stores; K must be a multiple of 16.
+//     than the products it feeds when it is repeated for every output tile: a
+//     first version that did so ran at 41-106 TOP/s, 80% of it the staging. So
+//     a first launch quantizes each row once (a warp per row: the abs-max,
+//     then the codes) into an int8 scratch of M x K bytes (4 MB at the
+//     encoder's fc1, which stays in the 50 MB L2) and the row scales.
+//   * The matmul is hopper.cuh's persistent, warp-specialised GEMM: x_q and w_q
+//     (kept (N, K), so both operands are K-major, as 8-bit wgmma needs) go
+//     through 2-D tensor maps in boxes of 128 rows (BN for w_q) x 128 bytes,
+//     128-byte swizzled, into a 4-6 stage ring that one producer warp keeps
+//     full; two consumer warpgroups run s8 wgmma m64nBNk32 (BN = 128 or 256,
+//     both operands from shared memory) into int32 accumulators in registers.
+//     TMA's zero fill makes ragged M, N and K add nothing; K must be a
+//     multiple of 16 (a tensor map's row stride).
+//   * The planner (ops/gemm.py gemm_plan) picks BN and a split of the K loop
+//     by the makespan of the persistent grid on the card's SMs: a split adds
+//     its int32 partial sums into a zeroed workspace, and the last split of a
+//     tile reads the total back, so the dequantization runs once on the full
+//     sum and two calls give the same bits.
+//   * The epilogue (DequantBiasEpilogue) dequantizes in registers, in the
+//     Pallas kernel's order of roundings, and stores bf16 or fp32. It runs
+//     while the tensor cores wait, so it is kept short: the scales and biases
+//     of 8 column chunks are loaded together ahead of their stores, and bf16
+//     rows go out in 16-byte stores, a whole 8-column chunk per lane after a
+//     transpose of the quad's packed words (hopper.cuh quad_transpose).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "int8_common.cuh"
 
 namespace {
 
 using namespace uc_i8;
+namespace hw = uc_hopper;
 
-constexpr int BM = 128;      // rows per block
-constexpr int BN = 128;      // output columns per block
-constexpr int BK = 64;       // k step in bytes (int8)
-constexpr int PADB = 16;     // bytes of padding per shared row
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;         // threads per block of the quantizing kernel
 constexpr int QROWS = THREADS / 32;  // rows per block of the quantizing kernel: a warp each
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = hw::pack_bf16x2(a, b);
+}
 
 // Eight consecutive elements as floats (K % 8 == 0, 16-byte aligned rows).
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
@@ -68,7 +80,7 @@ __device__ __forceinline__ void load8(const float* p, float f[8]) {
   f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
 }
 
-// Kernel 1: a warp per row of x: a_scale, then the row's int8 codes.
+// A warp per row of x: a_scale, then the row's int8 codes.
 template <typename TX>
 __global__ void __launch_bounds__(THREADS) quant_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq,
                                                              float* __restrict__ ascale, int M, int K) {
@@ -98,143 +110,128 @@ __global__ void __launch_bounds__(THREADS) quant_rows_kernel(const TX* __restric
   }
 }
 
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+// The GEMM's epilogue: out = float(acc) * (a_scale * w_scale) + bias, each product and sum rounded on its own.
+// The scales and biases of EPI_CHUNKS column chunks are loaded together, ahead of their stores (a load after a
+// store to `out` cannot be hoisted above it, so loads inside the store loop would each wait a full latency).
+constexpr int EPI_CHUNKS = 8;
 
-// Kernel 2: out = float(x_q @ w_q^T) * (a_scale * w_scale) + bias.
 template <typename TO>
-__global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
-                                                            const float* __restrict__ ascale,
-                                                            const float* __restrict__ wscale,
-                                                            const float* __restrict__ bias, TO* __restrict__ out, int M,
-                                                            int N, int K) {
-  __shared__ __align__(16) int8_t a_s[2][BM][BK + PADB];  // x_q tiles [row][k]
-  __shared__ __align__(16) int8_t b_s[2][BN][BK + PADB];  // w_q tiles [col][k]
+struct DequantBiasEpilogue {
+  struct State {};
+  const float* ascale;
+  const float* wscale;
+  const float* bias;  // or null
+  TO* out;
+  int M, N;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  __device__ State init(int) const { return {}; }
 
-  // each thread copies 2 of the 512 16-byte chunks of each tile
-  auto load_tiles = [&](int stage, int k0) {
+  template <int NA>
+  __device__ __forceinline__ void operator()(const int (&acc)[NA], State, int row0, int, int col0, int t) const {
+    constexpr int CHUNKS = NA / 4;  // 8-column chunks of the tile
+    float as[2];
 #pragma unroll
-    for (int i = 0; i < BM * BK / 16 / THREADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK / 16), k16 = (c % (BK / 16)) * 16;
-      const bool in_k = k0 + k16 < K;
-      const bool va = in_k && m0 + r < M, vb = in_k && n0 + r < N;
-      cp_async16(&a_s[stage][r][k16], va ? xq + (m0 + r) * K + k0 + k16 : xq, va);
-      cp_async16(&b_s[stage][r][k16], vb ? wq + (long long)(n0 + r) * K + k0 + k16 : wq, vb);
-    }
-    cp_async_commit();
-  };
-
-  const int wm = warp >> 1, wn = warp & 1;  // this warp's 32x64 sub-tile
-  int acc[2][8][4];
+    for (int i = 0; i < 2; ++i) as[i] = row0 + 8 * i < M ? __ldg(ascale + row0 + 8 * i) : 0.f;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int c0 = 0; c0 < CHUNKS; c0 += EPI_CHUNKS) {
+      float ws[EPI_CHUNKS][2], bs[EPI_CHUNKS][2];
 #pragma unroll
-    for (int nj = 0; nj < 8; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0;
-
-  const int nk = (K + BK - 1) / BK;
-  load_tiles(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tiles(st ^ 1, (kt + 1) * BK);  // the stage read in step kt - 1, released by its closing barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+      for (int c = 0; c < EPI_CHUNKS; ++c)
 #pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t a[2][4];
+        for (int j = 0; j < 2; ++j) {
+          const int col = col0 + 8 * (c0 + c) + 2 * t + j;
+          ws[c][j] = col < N ? __ldg(wscale + col) : 0.f;
+          bs[c][j] = col < N && bias != nullptr ? __ldg(bias + col) : 0.f;
+        }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + g;
-        a[mi][0] = ld32s(&a_s[st][r][ks * 32 + 4 * t]);
-        a[mi][1] = ld32s(&a_s[st][r + 8][ks * 32 + 4 * t]);
-        a[mi][2] = ld32s(&a_s[st][r][ks * 32 + 16 + 4 * t]);
-        a[mi][3] = ld32s(&a_s[st][r + 8][ks * 32 + 16 + 4 * t]);
-      }
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        TO* orow = out + (long long)row * N;
+        float y[EPI_CHUNKS][2];
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj) {
-        const int n = wn * 64 + nj * 8 + g;
-        const uint32_t b0 = ld32s(&b_s[st][n][ks * 32 + 4 * t]), b1 = ld32s(&b_s[st][n][ks * 32 + 16 + 4 * t]);
-        mma_s8(acc[0][nj], a[0], b0, b1);
-        mma_s8(acc[1][nj], a[1], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: float(acc) * (a_scale * w_scale) + bias, in that order
+        for (int c = 0; c < EPI_CHUNKS; ++c)
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+          for (int j = 0; j < 2; ++j) {
+            y[c][j] = __fmul_rn((float)acc[4 * (c0 + c) + 2 * i + j], __fmul_rn(as[i], ws[c][j]));
+            if (bias != nullptr) y[c][j] = __fadd_rn(y[c][j], bs[c][j]);
+          }
+        if constexpr (sizeof(TO) == 2) {
+          if (N % 8 == 0) {  // bf16 rows of 16-byte aligned chunks: a chunk per lane (hw::quad_transpose)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long row = m0 + wm * 32 + mi * 16 + g + 8 * half;
-      if (row >= M) continue;
-      const float as = ascale[row];
-      TO* orow = out + row * N;
+            for (int q = 0; q < EPI_CHUNKS; q += 4) {
+              uint32_t w[4];
 #pragma unroll
-      for (int nj = 0; nj < 8; ++nj) {
+              for (int u = 0; u < 4; ++u) w[u] = hw::pack_bf16x2(y[q + u][0], y[q + u][1]);
+              hw::quad_transpose(w, t);  // every lane, whatever its row
+              const int col = col0 + 8 * (c0 + q + t);
+              if (row < M && col < N) *reinterpret_cast<uint4*>(orow + col) = make_uint4(w[0], w[1], w[2], w[3]);
+            }
+            continue;
+          }
+        }
+        if (row >= M) continue;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn * 64 + nj * 8 + 2 * t + e;
+        for (int c = 0; c < EPI_CHUNKS; ++c) {
+          const int col = col0 + 8 * (c0 + c) + 2 * t;
           if (col >= N) continue;
-          float y = __fmul_rn((float)acc[mi][nj][2 * half + e], __fmul_rn(as, wscale[col]));
-          if (bias != nullptr) y = __fadd_rn(y, bias[col]);
-          store(orow + col, y);
+          if ((N & 1) == 0)  // col is even, so the pair is in range and aligned
+            store2(orow + col, y[c][0], y[c][1]);
+          else {
+            store(orow + col, y[c][0]);
+            if (col + 1 < N) store(orow + col + 1, y[c][1]);
+          }
         }
       }
     }
   }
-}
+};
 
 template <typename TX>
 void quantize(const void* x, int8_t* xq, float* ascale, int M, int K, cudaStream_t st) {
   quant_rows_kernel<TX><<<(M + QROWS - 1) / QROWS, THREADS, 0, st>>>(static_cast<const TX*>(x), xq, ascale, M, K);
 }
 
-template <typename TO>
-void gemm(const int8_t* xq, const void* wq, const float* ascale, const void* wscale, const void* bias, void* out,
-          int M, int N, int K, cudaStream_t st) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  int8_gemm_kernel<TO><<<grid, THREADS, 0, st>>>(xq, static_cast<const int8_t*>(wq), ascale,
-                                                 static_cast<const float*>(wscale), static_cast<const float*>(bias),
-                                                 static_cast<TO*>(out), M, N, K);
+template <typename TO, int BN>
+int gemm(const hw::GemmMaps& maps, const hw::GemmParams& g, const float* ascale, const void* wscale,
+         const void* bias, void* out, int N, cudaStream_t st) {
+  const DequantBiasEpilogue<TO> epi{ascale, static_cast<const float*>(wscale), static_cast<const float*>(bias),
+                                    static_cast<TO*>(out), g.M, N};
+  return hw::launch_gemm<true, BN>(maps, g, epi, st);
 }
 
 }  // namespace
 
-// x: contiguous (M, K), dtype code 0 = float32, 1 = bfloat16; w_q: contiguous
-// (N, K) int8; w_scale: (N,) float32; bias: (N,) float32 or null; out:
-// contiguous (M, N) in out_dtype (same codes). Scratch: xq, (M, K) int8, and
-// ascale, (M,) float32, both 16-byte aligned. K % 16 == 0. Returns a cudaError_t.
+// x: contiguous (M, K), dtype code 0 = float32, 1 = bfloat16; w_q: contiguous (N, K) int8; w_scale: (N,)
+// float32; bias: (N,) float32 or null; out: contiguous (M, N) in out_dtype (same codes). Scratch: xq, (M, K)
+// int8, and ascale, (M,) float32, both 16-byte aligned. `maps`: the GEMM's tensor maps (ops/gemm.py gemm_maps,
+// 10 ints) for the plan's bn (128 or 256) and split; with split > 1, ws is a zeroed int32 workspace of M * N
+// values and then one per tile. with_quant = 0 skips the rows' quantization and runs the GEMM alone on the codes
+// and scales already in xq and ascale (x is then unused). K % 16 == 0. Returns a cudaError_t.
 extern "C" int uc_int8_matmul(const void* x, const void* wq, const void* wscale, const void* bias, void* out,
-                              void* xq, void* ascale, int x_dtype, int out_dtype, int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || (N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidValue;
+                              void* xq, void* ascale, void* ws, const long long* maps, int x_dtype, int out_dtype,
+                              int M, int N, int K, int bn, int split, int with_quant, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0) return (int)cudaErrorInvalidValue;
   if ((x_dtype != 0 && x_dtype != 1) || (out_dtype != 0 && out_dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (maps[0] != K || maps[1] != M || maps[2] != K || maps[6] != N) return (int)cudaErrorInvalidValue;
+  hw::GemmParams g;
+  int status = hw::gemm_params(&g, M, N, 1, K, bn, split, static_cast<int*>(ws));
+  hw::GemmMaps m;
+  const void* b[1] = {wq};
+  if (status == 0) status = hw::encode_gemm_maps(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, b, 1, maps, bn);
+  if (status != 0) return status;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(xq);
   float* a = static_cast<float*>(ascale);
-  if (x_dtype == 1)
-    quantize<__nv_bfloat16>(x, q, a, M, K, st);
-  else
-    quantize<float>(x, q, a, M, K, st);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (with_quant) {
+    if (x_dtype == 1)
+      quantize<__nv_bfloat16>(x, q, a, M, K, st);
+    else
+      quantize<float>(x, q, a, M, K, st);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   if (out_dtype == 1)
-    gemm<__nv_bfloat16>(q, wq, a, wscale, bias, out, M, N, K, st);
-  else
-    gemm<float>(q, wq, a, wscale, bias, out, M, N, K, st);
-  return (int)cudaGetLastError();
+    return bn == 256 ? gemm<__nv_bfloat16, 256>(m, g, a, wscale, bias, out, N, st)
+                     : gemm<__nv_bfloat16, 128>(m, g, a, wscale, bias, out, N, st);
+  return bn == 256 ? gemm<float, 256>(m, g, a, wscale, bias, out, N, st) : gemm<float, 128>(m, g, a, wscale, bias, out, N, st);
 }

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from uniception_tpu_torch.ops import kernel_lib
+from uniception_tpu_torch.ops.gemm import SMS, sm_count
 
 __all__ = ["conv3x3_nhwc", "conv3x3_reference", "conv3x3_plan", "conv3x3_maps", "Conv3x3Function"]
 
@@ -34,7 +35,6 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor
     return y.to(x.dtype).permute(0, 2, 3, 1)
 
 
-SMS = 132  # the H100's SMs: the planner's default wave
 TILE_PIXELS = 128  # output pixels per tile (csrc/conv3x3.cu BM)
 ITEM_STEPS = 2  # the planner's cost of a work item beyond its k-steps (ring fill, epilogue), in k-steps
 _BIAS_TYPES = {None: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -87,11 +87,6 @@ def _maps_array(*args):
     return (ctypes.c_longlong * 19)(*conv3x3_maps(*args))
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _conv3x3_kernel(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch K7 on CUDA tensors; raises on what it does not take. Returns a contiguous NHWC tensor.
 
@@ -112,7 +107,7 @@ def _conv3x3_kernel(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor])
         w = w.to(torch.bfloat16).contiguous()
     if b is not None and (b.dtype not in _BIAS_TYPES or not b.is_contiguous()):
         b = b.float().contiguous()
-    tw, th, bn, split = conv3x3_plan(B, H, W, C, Co, _sm_count(x.device.index or 0))
+    tw, th, bn, split = conv3x3_plan(B, H, W, C, Co, sm_count(x.device.index or 0))
     out = torch.empty((B, H, W, Co), dtype=x.dtype, device=x.device)
     ws = torch.empty((split, B, H, W, Co), dtype=torch.float32, device=x.device) if split > 1 else None
     status = kernel_lib.library().uc_conv3x3(

@@ -200,6 +200,16 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
         out, lse = flash_attention_lse_ref(q, k, v, scale)
         return out, (lse if with_lse else None)
     _check("flash_attention", q, k, v)
+    out, lse = forward_launch(q, k, v, scale, with_lse)
+    flash_attention.launches += 1
+    flash_attention.lse_launches += with_lse
+    return out, lse
+
+
+def forward_launch(q, k, v, scale: float, with_lse: bool = False):
+    """K1's launch on CUDA q/k/v that :func:`flash_attention_fwd` would take, unchecked and uncounted: the
+    wrapper that calls it (K1's own, or K5's attention launch, ops/fused_attention.py) counts its launches.
+    Returns (out, lse) as :func:`flash_attention_fwd` does."""
     B, Nq, H, D = q.shape
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -209,8 +219,6 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_fwd")
-    flash_attention.launches += 1
-    flash_attention.lse_launches += with_lse
     return out, lse
 
 

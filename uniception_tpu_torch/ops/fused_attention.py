@@ -15,9 +15,10 @@ into one (C, 2*H*D) kernel per call); the product is the same.
     * :func:`fused_qkv_rope_attention_ref` and :func:`fused_cross_rope_attention_ref`
       — plain PyTorch, the references for the kernel;
     * :func:`fused_qkv_rope_attention` and :func:`fused_cross_rope_attention`
-      — K5 (csrc/fused_attention.cu: a projection launch with the bias, RoPE
-      epilogue, then a two-pass attention launch) for CUDA tensors; a CPU
-      tensor takes the plain version. When a gradient is needed they go
+      — K5 for CUDA tensors (csrc/fused_attention.cu: a projection launch,
+      the shared Hopper GEMM tiled by ops/gemm.py gemm_plan with the bias and
+      RoPE epilogue, into a q/k/v scratch; then K1's kernel, launched here,
+      reads the scratch in place); a CPU tensor takes the plain version. When a gradient is needed they go
       through :class:`FusedSelfAttentionFunction` / :class:`FusedCrossAttentionFunction`,
       whose backward recomputes the forward through the unfused kernel path
       (the projection as a matmul, K2 through ``Rope2DFunction``, K1 with its
@@ -36,7 +37,9 @@ from uniception_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
     _on_cuda,
     flash_attention_ref,
+    forward_launch,
 )
+from uniception_tpu_torch.ops.gemm import gemm_plan, maps_array, sm_count
 from uniception_tpu_torch.ops.rope import rope_2d, rope_2d_kernel
 
 __all__ = [
@@ -117,7 +120,9 @@ def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num
             raise ValueError(
                 f"{op}: head dim {w.shape[0] / num_heads:g} not supported (the kernel is built for {HEAD_DIM})"
             )
-    bs = [None if b is None else b.to(torch.float32).contiguous() for b in biases]
+    # bf16 biases of a bf16 call are read as they are (the kernel widens them to fp32, exactly): no cast per call
+    bias_bf16 = x.dtype == torch.bfloat16 and all(b is None or b.dtype == torch.bfloat16 for b in biases)
+    bs = [None if b is None else (b if bias_bf16 else b.to(torch.float32)).contiguous() for b in biases]
     for b in bs:
         if b is not None and (b.shape != (hd,) or b.device != x.device):
             raise ValueError(f"{op}: bias {tuple(b.shape)} on {b.device} must be ({hd},) on {x.device}")
@@ -131,26 +136,25 @@ def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num
     S = len(ws)
     out = torch.empty((S, B, num_heads, N, HEAD_DIM), dtype=x.dtype, device=x.device)
     pad = [None] * (3 - S)
+    maps, bn = None, 0
+    if x.dtype == torch.bfloat16:
+        bn = gemm_plan(B * N, hd, C, 2, sm_count(x.device.index or 0), sections=S, split_k=False)[0]
+        maps = maps_array(B * N, C, hd, 2, bn)
     status = kernel_lib.library().uc_fused_project(
         x.data_ptr(), *[w.data_ptr() for w in ws], *pad, *[None if b is None else b.data_ptr() for b in bs], *pad,
         positions.data_ptr() if rope else None, *(positions.stride() if rope else (0, 0, 0)), (1 << n_rope) - 1,
-        out.data_ptr(), _DTYPE_CODES[x.dtype], B, N, C, num_heads, S, float(base), float(f0),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), _DTYPE_CODES[x.dtype], B, N, C, num_heads, S, float(base), float(f0), maps, bn,
+        int(bias_bf16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernel_lib.check(status, "fused_attention (projection)")
     return out
 
 
 def _attend(q, k, v, scale: float) -> torch.Tensor:
-    "The attention launch: q (B, H, Nq, D), k/v (B, H, Nk, D) contiguous scratch -> (B, Nq, H*D)."
-    B, H, Nq, D = q.shape
-    out = torch.empty((B, Nq, H * D), dtype=q.dtype, device=q.device)
-    status = kernel_lib.library().uc_fused_attend(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[2],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    kernel_lib.check(status, "fused_attention (attention)")
-    return out
+    """The attention launch: K1's kernel on the projection's scratch, read in place as (B, N, H, D) views of
+    q (B, H, Nq, D) and k/v (B, H, Nk, D). Returns (B, Nq, H*D)."""
+    out, _ = forward_launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale)
+    return out.reshape(out.shape[0], out.shape[1], -1)
 
 
 def _self_forward(x, wqkv, bqkv, positions, num_heads, scale, base, f0):

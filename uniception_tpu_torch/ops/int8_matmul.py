@@ -12,8 +12,11 @@ the symmetric dynamic scheme of ``Int8Linear`` (nn/quant.py).
       numerics; the int8 product is exact (fp32 products over K chunks of
       1024, whose sums stay below 2^24, added in int32);
     * :func:`int8_matmul_dynamic` — the hand-written CUDA kernels (K4:
-      csrc/int8_matmul.cu: the rows' quantization, then the int8 matmul) for
-      CUDA tensors; a CPU tensor takes the plain version.
+      csrc/int8_matmul.cu: the rows' quantization, then the int8 GEMM on the
+      shared Hopper mainloop, tiled by ops/gemm.py gemm_plan) for CUDA
+      tensors; a CPU tensor takes the plain version;
+    * :func:`int8_gemm` — K4's GEMM launch alone, on codes and row scales
+      given (for the card's tests and timings).
 
 Layouts are the JAX package's: x (..., K), w_q (K, N) int8, w_scale (1, N)
 (or (N,)) fp32, bias (N,) fp32 or None.
@@ -24,8 +27,9 @@ from typing import Optional
 import torch
 
 from uniception_tpu_torch.ops import kernel_lib
+from uniception_tpu_torch.ops.gemm import TILE_M, gemm_plan, maps_array, sm_count
 
-__all__ = ["int8_matmul_dynamic", "int8_matmul_dynamic_ref", "absmax_scale", "quantize_rows", "int8_dot"]
+__all__ = ["int8_matmul_dynamic", "int8_matmul_dynamic_ref", "int8_gemm", "absmax_scale", "quantize_rows", "int8_dot"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _EXACT_K = 1024  # 127^2 * 1024 < 2^24: a sum of this many int8 products is exact in fp32
@@ -96,25 +100,53 @@ def int8_matmul_dynamic(x, w_q, w_scale, bias=None, out_dtype: Optional[torch.dt
         raise ValueError(f"int8_matmul_dynamic: w_scale and bias must hold N = {N} values")
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
-        return out.reshape(*x.shape[:-1], N)
+        return torch.empty((*x.shape[:-1], N), dtype=out_dtype, device=x.device)
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:
         raise ValueError("int8_matmul_dynamic: x needs a 16-byte aligned base")
     w_nk = w_q.t() if w_q.t().is_contiguous() else w_q.t().contiguous()
-    ws = w_scale.reshape(N).float().contiguous()
-    b = None if bias is None else bias.reshape(N).float().contiguous()
-    x_q = torch.empty((M, K), dtype=torch.int8, device=x.device)  # scratch: the codes, then the matmul's A
+    x_q = torch.empty((M, K), dtype=torch.int8, device=x.device)  # scratch: the codes, then the GEMM's A
     a_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
-    status = kernel_lib.library().uc_int8_matmul(
-        x2.data_ptr(), w_nk.data_ptr(), ws.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        x_q.data_ptr(), a_scale.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], M, N, K,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    kernel_lib.check(status, "int8_matmul_dynamic")
+    out = _launch(x2, x_q, a_scale, w_nk, w_scale, bias, out_dtype, None)
     int8_matmul_dynamic.launches += 1
     return out.reshape(*x.shape[:-1], N)
+
+
+def _launch(x2, x_q, a_scale, w_nk, w_scale, bias, out_dtype, plan):
+    """K4's C entry: the rows' quantization of x2 into x_q and a_scale (none when x2 is None), then the GEMM
+    with ``plan`` = (bn, split), or gemm_plan's."""
+    M, K = x_q.shape
+    N = w_nk.shape[0]
+    bn, split = plan or gemm_plan(M, N, K, 1, sm_count(x_q.device.index or 0))
+    ws = w_scale.reshape(N).float().contiguous()
+    b = None if bias is None else bias.reshape(N).float().contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    tiles = -(-M // TILE_M) * -(-N // bn)
+    work = torch.zeros(M * N + tiles, dtype=torch.int32, device=x_q.device) if split > 1 else None
+    status = kernel_lib.library().uc_int8_matmul(
+        None if x2 is None else x2.data_ptr(), w_nk.data_ptr(), ws.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(), x_q.data_ptr(), a_scale.data_ptr(), None if work is None else work.data_ptr(),
+        maps_array(M, K, N, 1, bn), 1 if x2 is None else _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out_dtype],
+        M, N, K, bn, split, int(x2 is not None), torch.cuda.current_stream(x_q.device).cuda_stream,
+    )
+    kernel_lib.check(status, "int8_matmul_dynamic")
+    return out
+
+
+def int8_gemm(x_q, a_scale, w_nk, w_scale, bias=None, out_dtype=torch.bfloat16, plan=None) -> torch.Tensor:
+    """K4's GEMM launch alone: ``float(x_q @ w_nk^T) * (a_scale * w_scale) + bias`` on CUDA tensors.
+
+    x_q: contiguous (M, K) int8 codes and a_scale their (M,) float32 row scales (what :func:`quantize_rows`
+    gives); w_nk: contiguous (N, K) int8; ``plan`` = (bn, split) forces a tiling (else gemm_plan's).
+    Returns (M, N) in ``out_dtype``. Not counted in ``int8_matmul_dynamic.launches``.
+    """
+    if x_q.device.type != "cuda" or x_q.dtype != torch.int8 or w_nk.dtype != torch.int8 or x_q.shape[1] % 16:
+        raise ValueError("int8_gemm: needs CUDA int8 x_q and w_nk with K a multiple of 16")
+    if not (x_q.is_contiguous() and w_nk.is_contiguous()) or x_q.shape[1] != w_nk.shape[1]:
+        raise ValueError(f"int8_gemm: x_q {tuple(x_q.shape)} and w_nk {tuple(w_nk.shape)} must be contiguous (M, K), (N, K)")
+    a_scale = a_scale.reshape(-1).float().contiguous()
+    return _launch(None, x_q, a_scale, w_nk, w_scale, bias, out_dtype, plan)
 
 
 int8_matmul_dynamic.launches = 0

@@ -107,7 +107,7 @@ def _declare(lib):
     lib.uc_tensor_map_encode_ns.restype = Dbl
     lib.uc_rope2d.argtypes = [P, P, P, I, I, I, I, I] + [L] * 6 + [Dbl, Dbl, P]
     lib.uc_rope2d.restype = I
-    lib.uc_int8_matmul.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.uc_int8_matmul.argtypes = [P] * 9 + [I] * 8 + [P]
     lib.uc_int8_matmul.restype = I
     lib.uc_flash_attention_int8.argtypes = [P] * 9 + [I] * 6 + [P, F, P]
     lib.uc_flash_attention_int8.restype = I
@@ -115,10 +115,8 @@ def _declare(lib):
     lib.uc_flash_attention_int8_prep.restype = I
     lib.uc_conv3x3.argtypes = [P, P, P, I, P, P, P, I, I, P]
     lib.uc_conv3x3.restype = I
-    lib.uc_fused_project.argtypes = [P] * 8 + [L] * 3 + [I, P] + [I] * 6 + [Dbl, Dbl, P]
+    lib.uc_fused_project.argtypes = [P] * 8 + [L] * 3 + [I, P] + [I] * 6 + [Dbl, Dbl, P, I, I, P]
     lib.uc_fused_project.restype = I
-    lib.uc_fused_attend.argtypes = [P] * 4 + [I] * 5 + [F, P]
-    lib.uc_fused_attend.restype = I
     lib.uc_sv_only.argtypes = [P] * 4 + [I] * 5 + [L] * 9 + [P]
     lib.uc_sv_only.restype = I
     lib.uc_error_string.argtypes = [I]

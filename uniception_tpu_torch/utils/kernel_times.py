@@ -1,0 +1,60 @@
+"""
+Times K4 (the int8 matmul) at the nine trunk shapes and K5 (the fused qkv +
+RoPE + attention, self and cross) at its three main-path shapes on the card,
+by CUDA-graph replay, with the kernel package imported from ``--root``: this
+checkout or an unpacked earlier commit, so that two trees are compared on
+one card in one call (run them in turns: a, b, b, a). The shapes, inputs and
+timer are ``chip_smoke.py``'s. Prints the card's name and power limit, then
+one JSON object of milliseconds per call.
+
+    python3 uniception_tpu_torch/utils/kernel_times.py [--root DIR]
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=REPO, help="the checkout whose uniception_tpu_torch is timed")
+    root = os.path.abspath(parser.parse_args().root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
+    from uniception_tpu_torch.ops import fused_attention as fused
+    from uniception_tpu_torch.ops import int8_matmul as i8
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+    for name, M, K, N in cs.K4_SHAPES:
+        x = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
+        w_q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8).t()
+        w_scale = torch.rand(1, N, device="cuda", generator=gen) * 1e-3 + 1e-5
+        bias = torch.randn(N, device="cuda", generator=gen)
+        out["k4"][name] = cs.graph_ms(torch, lambda: i8.int8_matmul_dynamic(x, w_q, w_scale, bias))
+    for name, B, Nq, Nk, C, H, qgrid, kgrid in cs.K5_CASES[:3]:
+        case = cs.K5Case(torch, fused, make_patch_positions, gen, B, Nq, Nk, C, H, qgrid, kgrid)
+        args = case.args(torch.bfloat16, True)
+        out["k5"][name] = cs.graph_ms(torch, lambda: case.kernel(*args))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
