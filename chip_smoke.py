@@ -71,8 +71,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                serving loop's pairs/s and peak memory, and the device ms per
                batch of the fused and unfused rungs beside the int8-DPT
                rung's (phase 15);
-   18. K8:     the S.V diagnostic kernel at the sweep script's shape and at
-               the encoder's, against its plain version, timed beside K1.
+   18. K8:     the S.V diagnostic (K1's kernel with the softmax compiled
+               out) at the sweep script's shape and K1's four phase-3 shapes,
+               against its plain version; its time beside K1's, SDPA's, two
+               bf16 torch.matmul and the bound, the share of K1's time that
+               its softmax costs, (K1 - K8) / K1, and the exponentials' count
+               with an estimate of their time alone on the MUFU at the max
+               SM clock and at the clock nvidia-smi reads under K1's load.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -169,6 +174,10 @@ K8_REL_TOL = 1e-3
 # Published peaks of the H100 SXM (dense) and its memory rate: the bound of each kernel's work.
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
+# exp2 results per clock per SM on the MUFU at compute capability 9.0 (the CUDA C++ Programming Guide's table of
+# arithmetic instruction throughputs): with the card's SM count and an SM clock, an estimate of the time K1's
+# exponentials (one per score) take alone.
+MUFU_EXP2_PER_CLOCK = 16
 
 ENC_DEPTH, ENC_DIM, ENC_HEADS = 24, 1024, 16
 DEC_DEPTH, DEC_DIM, DEC_HEADS = 12, 768, 12
@@ -1364,7 +1373,9 @@ def phase_fused_model(torch, np, serve, config, blocks, fa, counters, card, bf16
     return {k: path[k] + served[k] for k in path}
 
 
-K8_CASES = [("sweep script", 16, 1024, 16), ("encoder", 4, 1024, 16)]  # (name, B, N, H), D = 64, bf16
+# (name, B, Nq, Nk, H), D = 64, bf16: the sweep script's shape, then K1's four phase-3 shapes
+K8_CASES = [("sweep script", 16, 1024, 1024, 16), ("encoder 512", 4, 1024, 1024, 16),
+            ("decoder 512", 2, 1024, 1024, 12), ("encoder 224", 4, 196, 196, 16), ("Nq != Nk", 2, 300, 1000, 12)]
 
 
 def sv_only_tensor_cores(torch, q, k, v, check=True):
@@ -1382,30 +1393,99 @@ def k8_check(torch, out, ref, ref_tc):
     return ulps, rel, ulps <= K8_ULPS and rel <= K8_REL_TOL
 
 
+def mufu_exp2_per_s(torch, mhz):
+    "An estimate of the card's exp2 rate on the MUFU at an SM clock of mhz: SMs x MUFU_EXP2_PER_CLOCK x mhz."
+    return torch.cuda.get_device_properties(0).multi_processor_count * MUFU_EXP2_PER_CLOCK * mhz * 1e6
+
+
+def sm_clock_under_load(torch, fn, seconds=2.0):
+    """The SM clock and power that nvidia-smi reads (every 50 ms) while fn runs back to back for about
+    ``seconds`` as CUDA-graph replays of 20 calls: the medians over the samples taken at utilization.gpu >= 90%,
+    as (MHz, W, samples), or None when no such sample was read."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    try:
+        smi = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu,clocks.sm,power.draw",
+                                "--format=csv,noheader,nounits", "-lms", "50"],
+                               stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        return None
+    try:
+        time.sleep(1.0)  # the sampler's start-up
+        end, n = time.perf_counter() + seconds, 0
+        while time.perf_counter() < end:
+            graph.replay()
+            n += 1
+            if n % 10 == 0:  # at most 10 replays queued, so the load ends with the window
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=30)[0]
+    busy = []
+    for line in text.splitlines():
+        try:
+            util, mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        if util >= 90:
+            busy.append((mhz, watts))
+    if not busy:
+        return None
+    mid = len(busy) // 2
+    return sorted(m for m, _ in busy)[mid], sorted(w for _, w in busy)[mid], len(busy)
+
+
 def phase_sv_only(torch, sv, fa):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    max_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    _, B, Nq, Nk, H = K8_CASES[0]
+    load_gen = torch.Generator(device="cuda").manual_seed(SEED + 9)  # gen's draws for the cases stay as they were
+    q, k, v = (torch.randn(B, n, H, 64, device="cuda", generator=load_gen).bfloat16() for n in (Nq, Nk, Nk))
+    load = sm_clock_under_load(torch, lambda: fa.flash_attention(q, k, v))
+    load_mhz = load[0] if load else max_mhz
+    exp2_max, exp2_load = mufu_exp2_per_s(torch, max_mhz), mufu_exp2_per_s(torch, load_mhz)
+    print(f"[18 K8] SM clock under K1's load at {K8_CASES[0][0]}: "
+          + (f"median {load[0]:.0f} MHz, {load[1]:.1f} W over {load[2]} samples at >= 90% utilization"
+             if load else "not read (no nvidia-smi sample at >= 90% utilization)")
+          + f"; max SM clock {max_mhz:.0f} MHz. MUFU exp2 rate, an estimate at {MUFU_EXP2_PER_CLOCK} per clock per "
+          f"SM: {exp2_max / 1e12:.3f} T/s at the max clock, {exp2_load / 1e12:.3f} T/s at the clock under load")
     worst, main = 0.0, None
-    for name, B, N, H in K8_CASES:
-        q, k, v = (torch.randn(B, N, H, 64, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    for name, B, Nq, Nk, H in K8_CASES:
+        q = torch.randn(B, Nq, H, 64, device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn(B, Nk, H, 64, device="cuda", generator=gen).bfloat16() for _ in range(2))
         out, ref = sv.sv_only(q, k, v), sv.sv_only_ref(q, k, v)
         require(torch.isfinite(out).all().item(), f"K8 {name}: non-finite output")
         ulps, rel, ok = k8_check(torch, out, ref, sv_only_tensor_cores(torch, q, k, v))
         err = (out.float() - ref.float()).abs().max().item()
-        ms = graph_ms(torch, lambda: sv.sv_only(q, k, v))
+        # K8 and K1 in turns (K8, K1, K1, K8), each the mean of its two readings
+        k8_fn, k1_fn = (lambda: sv.sv_only(q, k, v)), (lambda: fa.flash_attention(q, k, v))
+        k8_a, k1_a, k1_b, k8_b = (graph_ms(torch, fn) for fn in (k8_fn, k1_fn, k1_fn, k8_fn))
+        ms, k1_ms = (k8_a + k8_b) / 2, (k1_a + k1_b) / 2
         plain_ms = graph_ms(torch, lambda: sv.sv_only_ref(q, k, v))
-        k1_ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v))
+        sdpa_ms = graph_ms(torch, lambda: sdpa(q, k, v))
         two_ms = graph_ms(torch, lambda: sv_only_tensor_cores(torch, q, k, v, check=False))
-        k8_bound = attention_bound(B, N, N, H)
-        flops = 4 * B * H * N * N * 64
-        print(f"[18 K8] {name:12s} ({B},{N},{H},64) bf16: vs tensor-core scores {ulps:.2f} ulp of max(|out|, "
-              f"{K8_ULP_FLOOR}) (tol {K8_ULPS}); vs plain ||err||/||plain|| {rel:.3e} (tol {K8_REL_TOL}), max|err| "
-              f"{err:.3e}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, K1 "
-              f"{k1_ms:.4f} ms ({flops / k1_ms / 1e9:.1f} TFLOP/s), two bf16 torch.matmul {two_ms:.4f} ms, bound "
-              f"{k8_bound[0]:.4f} ms ({k8_bound[1]}) (CUDA graph)")
+        k8_bound = attention_bound(B, Nq, Nk, H)
+        flops, exps = 4 * B * H * Nq * Nk * 64, B * H * Nq * Nk
+        print(f"[18 K8] {name:12s} B={B} Nq={Nq} Nk={Nk} H={H} D=64 bf16: vs tensor-core scores {ulps:.2f} ulp of "
+              f"max(|out|, {K8_ULP_FLOOR}) (tol {K8_ULPS}); vs plain ||err||/||plain|| {rel:.3e} (tol {K8_REL_TOL}), "
+              f"max|err| {err:.3e}")
+        print(f"[18 K8] {name:12s} K8 {ms:.4f} ms ({k8_a:.4f}, {k8_b:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{k8_bound[0] / ms:.3f} of the bound), K1 {k1_ms:.4f} ms ({k1_a:.4f}, {k1_b:.4f}; "
+              f"{flops / k1_ms / 1e9:.1f} TFLOP/s), SDPA {sdpa_ms:.4f} ms, two bf16 torch.matmul {two_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {k8_bound[0]:.4f} ms ({k8_bound[1]}) (CUDA graph); (K1 - K8) / K1 "
+              f"{(k1_ms - ms) / k1_ms:.3f}; K8 <= K1: {ms <= k1_ms}; {exps} exponentials in K1 (one per score), "
+              f"alone on the MUFU an estimated {exps / exp2_max * 1e3:.4f} ms at the max clock, "
+              f"{exps / exp2_load * 1e3:.4f} ms at the clock under load")
         require(ok, f"K8 {name}: {ulps} ulp from the tensor-core composition, {rel} from the plain version")
         worst = max(worst, err)
         if main is None:
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=k8_bound)
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=two_ms, bound=k8_bound)
             # the diagnostic path: the sweep's timing of S.V at its shape, calls counted
             sv.sv_only.launches = 0
             diag_ms = cuda_ms(torch, lambda: sv.sv_only(q, k, v), warmup=3, iters=30)
@@ -1514,7 +1594,7 @@ def main():
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"], k6_err, k6),
         entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47", served["K7"], k7_err, k7),
-        entry("sv_only", "sv_only.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
+        entry("sv_only", "flash_attention.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ flash-attention forward (K1, with and without the logsumexp), its backward
 q/k/v layout, and K3's determinism), RoPE2D (K2) forward and backward, gradients through attention layers
 on the kernel path, the int8 matmul (K4), the int8 attention (K6), the
 3x3 conv (K7) with its gradient, the fused qkv + RoPE + attention (K5, self
-and cross, with its gradient) and the S.V diagnostic (K8). Every test here
+and cross, with its gradient) and the S.V diagnostic (K8, K1's kernel without
+the softmax, at the same TMA and ring edges). Every test here
 needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
@@ -736,6 +737,16 @@ def test_fused_attention_rejects_what_it_does_not_take(gen):
     assert fused.fused_qkv_rope_attention.launches == before
 
 
+def _k8_errors(out, q, k, v):
+    """K8's bar (chip_smoke.py phase 18): (ulps of max(|out|, 1) from two bf16 torch.matmul, whose tensor-core scores
+    round to bf16 between them; ||out - plain|| / ||plain||, where a few IEEE fp32 scores round to the other bf16
+    neighbour)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    tc = torch.matmul(torch.matmul(qt, kt.transpose(-1, -2)).float(), vt.float()).transpose(1, 2)
+    ref = sv_only_ref(q, k, v).float()
+    return _ulps(out, tc, 7, floor=1.0), ((out.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
 @pytest.mark.parametrize("b,nq,nk,h", [(2, 64, 64, 2), (1, 100, 1030, 3), (2, 7, 1, 1)])
 def test_sv_only_matches_plain(gen, b, nq, nk, h):
     q, k, v = _strided_qkv(gen, b, nq, nk, h, torch.bfloat16)
@@ -743,12 +754,52 @@ def test_sv_only_matches_plain(gen, b, nq, nk, h):
     out = sv_only(q, k, v)
     assert sv_only.launches == before + 1
     assert out.shape == (b, nq, h, 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
-    # against two bf16 torch.matmul (tensor-core scores rounded to bf16 between them): <= 2 ulps of max(|out|, 1);
-    # against the plain version's IEEE fp32 scores a few round to the other bf16 neighbour: a small error norm
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    tc = torch.matmul(torch.matmul(qt, kt.transpose(-1, -2)).float(), vt.float()).transpose(1, 2)
-    assert _ulps(out, tc, 7, floor=1.0) <= 2
-    ref = sv_only_ref(q, k, v).float()
-    assert ((out.float() - ref).norm() / ref.norm()).item() <= 1e-3
+    ulps, rel = _k8_errors(out, q, k, v)
+    assert ulps <= 2 and rel <= 1e-3, (ulps, rel)
     with pytest.raises(ValueError, match="dtype"):
         sv_only(q.float(), k.float(), v.float())
+
+
+# K8 (K1's kernel with the softmax compiled out) at K1's TMA and ring edges: one key, a ragged last 128-key box
+# (63, 127, 129, 1000 keys), full ones (128, 1024), ragged query tiles, q/k/v as views of qkv projections or
+# contiguous; 1000 and 1024 keys wrap the 3-slot ring twice.
+@pytest.mark.parametrize("layout", ["qkv", "contiguous"])
+@pytest.mark.parametrize("nq", [1, 130, 300])
+@pytest.mark.parametrize("nk", [1, 63, 127, 128, 129, 1000, 1024])
+def test_sv_only_at_tma_and_ring_edges(gen, nk, nq, layout):
+    q, k, v = _layout_qkv(gen, layout, nq, nk, 12)
+    out = sv_only(q, k, v)
+    assert out.shape == (1, nq, 12, 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    ulps, rel = _k8_errors(out, q, k, v)
+    assert ulps <= 2 and rel <= 1e-3, (ulps, rel)
+
+
+@pytest.mark.parametrize("n", [1, 129, 1000])
+def test_sv_only_reads_views_of_one_qkv_tensor(gen, n):
+    "q, k, v as the strided views of one (B, N, 3, H, D) projection: the answer of contiguous copies, bit for bit."
+    qkv = torch.randn(2, n, 3, 4, 64, device="cuda", generator=gen).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = sv_only(q, k, v)
+    assert torch.equal(out, sv_only(q.contiguous(), k.contiguous(), v.contiguous()))
+    ulps, rel = _k8_errors(out, q, k, v)
+    assert ulps <= 2 and rel <= 1e-3, (ulps, rel)
+
+
+def test_sv_only_across_items_is_deterministic_with_one_launch(gen):
+    """More work items than SMs (2 x 8 query tiles x 16 heads = 256), so each block's K/V ring phase carries from one
+    item to the next; two calls give the same bits, and each call is one launch of K8's kernel and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _strided_qkv(gen, 2, 1024, 1000, 16, torch.bfloat16)
+    before = sv_only.launches
+    out = sv_only(q, k, v)
+    assert sv_only.launches == before + 1
+    ulps, rel = _k8_errors(out, q, k, v)
+    assert ulps <= 2 and rel <= 1e-3, (ulps, rel)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = sv_only(q, k, v)
+        torch.cuda.synchronize()
+    assert torch.equal(again, out)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "fa_fwd_bf16_kernel<false>" in names[0], names

@@ -30,7 +30,7 @@ from uniception_tpu_torch.nn import blocks
 from uniception_tpu_torch.nn.quant import quantize_linears
 from uniception_tpu_torch.ops import attention
 from uniception_tpu_torch.ops import fused_attention as fa
-from uniception_tpu_torch.ops.flash_attention import flash_attention_int8_ref, flash_attention_ref
+from uniception_tpu_torch.ops.flash_attention import FWD_ROWS, flash_attention_int8_ref, flash_attention_ref
 from uniception_tpu_torch.ops.rope import Rope2D, rope_2d
 from uniception_tpu_torch.ops.sv_only import sv_only, sv_only_ref
 from uniception_tpu_torch.utils.weights import load_state_dict_numpy
@@ -338,3 +338,51 @@ def test_sv_only_plain_version_matches_the_pallas_body():
     assert (np.abs(out.float().numpy() - ref) / ulp).max() <= 1
     before = sv_only.launches
     assert torch.equal(sv_only(tq, tk, tv), out) and sv_only.launches == before
+
+
+def _sv_only_kernel_order(q, k, v, tile=FWD_ROWS):
+    """K8's arithmetic order (csrc/flash_attention.cu ``fa_fwd_bf16_kernel<false>``), restated in torch: per key
+    tile of the rows the wrapper's tensor maps are built for (FWD_ROWS), the fp32 scores of the bf16 inputs (exact
+    products, fp32 sums: the tensor cores' Q.K^T) rounded to bf16, keys past Nk zero (TMA's zero fill of K and V),
+    the tile's S.V in fp32 added to an fp32 O over the tiles; O rounded once. It documents the order the kernel
+    follows and runs none of its code; the card tests of tests/test_torch_cuda_kernels.py hold the kernel."""
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    pad = -(-Nk // tile) * tile
+    kf, vf = (torch.zeros(B, pad, H, D) for _ in range(2))
+    kf[:, :Nk], vf[:, :Nk] = k.float(), v.float()
+    o = torch.zeros(B, Nq, H, D)
+    for j in range(0, pad, tile):
+        s = torch.einsum("bnhd,bmhd->bhnm", q.float(), kf[:, j:j + tile])
+        o = o + torch.einsum("bhnm,bmhd->bnhd", s.bfloat16().float(), vf[:, j:j + tile])
+    return o.bfloat16()
+
+
+@pytest.mark.parametrize("nk", [1, 100, 128, 129, 300])
+def test_sv_only_kernel_order_matches_plain_and_pallas_body(nk):
+    """K8's tiled order (a restatement of the kernel's arithmetic, at the wrapper's key tile FWD_ROWS) against
+    its plain version and the jnp restatement of ``_mxu_only_kernel`` (scripts/sweep_attention.py:63-68) at
+    ragged and full key tiles. With the plain version's scores (the same fp32 products and sums) only the order
+    of the fp32 sums over the keys differs before one bf16 rounding: within 1 bf16 ulp of max(|ref|, 1)
+    everywhere. XLA sums each score in another order, so a few scores round to the other bf16 neighbour, which
+    moves their row by up to ulp(s) |v|: against jnp the same 1-ulp bar holds outside those rows, and
+    ||out - ref|| / ||ref|| <= 1e-3 (chip_smoke.py K8_REL_TOL) overall."""
+    rng = np.random.RandomState(nk)
+    q, k, v = (rng.randn(2, n, 3, 64).astype(np.float32) for n in (40, nk, nk))
+    jq, jk, jv = (jnp.transpose(jnp.asarray(a).astype(jnp.bfloat16), (0, 2, 1, 3)) for a in (q, k, v))
+    s = jnp.einsum("bhnd,bhmd->bhnm", jq, jk, preferred_element_type=jnp.float32)
+    jref = jnp.einsum("bhnm,bhmd->bhnd", s.astype(jnp.bfloat16), jv, preferred_element_type=jnp.float32)
+    jref = torch.from_numpy(np.asarray(jnp.transpose(jref.astype(jnp.bfloat16), (0, 2, 1, 3)).astype(jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    out = _sv_only_kernel_order(tq, tk, tv).float()
+    assert out.shape == (2, 40, 3, 64)
+
+    def ulps(ref):
+        return (out - ref).abs() / torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1.0))) - 7)
+
+    assert ulps(sv_only_ref(tq, tk, tv).float()).max().item() <= 1
+    ts = torch.einsum("bnhd,bmhd->bhnm", tq.float(), tk.float())
+    flipped = (torch.from_numpy(np.asarray(s.astype(jnp.bfloat16).astype(jnp.float32))) != ts.bfloat16().float())
+    flipped_rows = flipped.any(-1).transpose(1, 2)[..., None]  # (B, Nq, H, 1)
+    assert not ((ulps(jref) > 1) & ~flipped_rows).any()
+    assert ((out - jref).norm() / jref.norm()).item() <= 1e-3

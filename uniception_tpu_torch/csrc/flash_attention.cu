@@ -49,6 +49,16 @@
 //   * fp32: full fp32 FMA math on the CUDA cores, one query row per thread,
 //     no TF32 (the TPU kernel runs fp32 at HIGHEST precision): the parity path.
 //   * Later work: a third consumer warpgroup, a TMA store of the output.
+//
+// K8, the S.V diagnostic, is the same bf16 kernel with the softmax compiled
+// out (fa_fwd_bf16_kernel<false>, entry point uc_sv_only):
+//   out = bf16(sum over key tiles of float(bf16(q k^T in fp32)) . v), no
+//   scale, no mask, no max or sum, one rounding of O at the end.
+// Replaces: scripts/sweep_attention.py: mxu_only with the body _mxu_only_kernel
+//   (the "MXU-only" yardstick of the attention sweep). It does K1's two
+//   products in K1's schedule, so K1's time minus K8's is what the softmax
+//   costs K1. Keys past Nk add nothing: TMA zero-fills their K and V rows, and
+//   their scores on the ragged last tile are set to 0 all the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,17 +117,22 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BK 
   hw::wgmma_commit();
 }
 
+// The scores of tile j's keys past Nk set to `fill`, on the ragged last tile only.
+__device__ __forceinline__ void mask_keys(float (&sc)[BK / 2], int j, int Nk, int t, float fill) {
+  if ((j + 1) * BK > Nk) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      if (j * BK + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) sc[i] = fill;
+  }
+}
+
 // The online softmax of tile j on S in place: the row max of the raw scores over the 4 lanes of a row (keys
 // past Nk masked to -inf, on the last tile only), the new running max m in log2 units of the scaled scores,
 // the rescale corr of O and l, and p = exp2(s * scale_log2 - m), added to l before its bf16 rounding (the TPU
 // kernel's order). The scale is positive, so the max of the raw scores scales to the max of the scaled ones.
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
                                                int j, int Nk, int t, float scale_log2) {
-  if ((j + 1) * BK > Nk) {  // the ragged last tile
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      if (j * BK + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) sc[i] = -INFINITY;
-  }
+  mask_keys(sc, j, Nk, t, -INFINITY);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
@@ -154,6 +169,9 @@ __device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&corr)
 // fastest, so that the blocks working at one time share K and V in L2. The producer runs ahead across work
 // items: the next item's Q (released by the consumers as soon as they hold it in registers) and its first K/V
 // tiles load while the consumers finish the current item, which hides each item's pipeline fill and epilogue.
+// kSoftmax: K1 (attention); without it K8 (S.V: raw scores rounded to bf16, no scale, O summed over every
+// key tile and rounded once; lse and scale_log2 unused).
+template <bool kSoftmax>
 __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int H,
@@ -202,7 +220,8 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
     const int g = lane >> 2, t = lane & 3;
     // Ping-pong between the consumers (named barriers 1 and 2, 256 threads): each issues its wgmma groups
     // only in its turn and hands the turn over right after, so one consumer's softmax overlaps the
-    // other's products. Consumer 0 goes first; consumer 1's last hand-over is never waited for.
+    // other's products. Consumer 0 goes first; consumer 1's last hand-over is never waited for. K8 keeps it
+    // too: on the H100 it was faster with it than without at nine of ten readings (PERF.md section 6, K8).
     const int my_turn = 1 + cwg, other_turn = 2 - cwg;
     if (cwg == 1) hw::named_bar_arrive(1, 256);
     int s = 0;
@@ -230,7 +249,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       // Software pipeline inside the warpgroup (FlashAttention-3's order): tile j's S = Q K^T is issued, O
       // is rescaled for tile j-1's max, tile j-1's O += P V is issued, and tile j's softmax runs while that
       // P.V is still on the tensor cores. Each group of wgmma has its own fence, so no register they read or
-      // write is defined by other instructions inside it.
+      // write is defined by other instructions inside it. K8 keeps the order, with S in place of P.
       uint32_t pa[BK / 16][4];  // P of the previous tile in bf16: the register A operand of P.V
       float sc[BK / 2];         // S of this tile
       float corr[2];            // the previous tile's rescale of O
@@ -240,7 +259,10 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       hw::named_bar_arrive(other_turn, 256);
       hw::wgmma_wait<0>();
       hw::fence_regs(sc);
-      online_softmax(sc, m, l, corr, 0, Nk, t, scale_log2);
+      if (kSoftmax)
+        online_softmax(sc, m, l, corr, 0, Nk, t, scale_log2);
+      else
+        mask_keys(sc, 0, Nk, t, 0.f);
       hw::pack_a<BK>(pa, sc);
       int prev = s;
       if (++s == STAGES) s = 0, phase ^= 1;
@@ -248,12 +270,15 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
         hw::mbar_wait(&sm.full[s], phase);
         hw::named_bar_sync(my_turn, 256);
         issue_qk(sc, qa, hw::smem_u32(sm.k[s]));
-        rescale(acc, corr);
+        if (kSoftmax) rescale(acc, corr);
         issue_pv(acc, pa, hw::smem_u32(sm.v[prev]));
         hw::named_bar_arrive(other_turn, 256);
         hw::wgmma_wait<1>();  // S has landed; P.V may still run
         hw::fence_regs(sc);
-        online_softmax(sc, m, l, corr, j, Nk, t, scale_log2);
+        if (kSoftmax)
+          online_softmax(sc, m, l, corr, j, Nk, t, scale_log2);
+        else
+          mask_keys(sc, j, Nk, t, 0.f);
         hw::wgmma_wait<0>();  // the previous P.V is done: release its slot
         hw::fence_regs(acc);
         hw::mbar_arrive(&sm.empty[prev]);
@@ -261,7 +286,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
         prev = s;
         if (++s == STAGES) s = 0, phase ^= 1;
       }
-      rescale(acc, corr);
+      if (kSoftmax) rescale(acc, corr);
       hw::named_bar_sync(my_turn, 256);
       issue_pv(acc, pa, hw::smem_u32(sm.v[prev]));  // the last tile's O += P V
       if (cwg == 0 || !last_item) hw::named_bar_arrive(other_turn, 256);
@@ -269,10 +294,19 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       hw::fence_regs(acc);
       hw::mbar_arrive(&sm.empty[prev]);
 
+      if (kSoftmax) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        }
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          acc[4 * c] /= l[0];
+          acc[4 * c + 1] /= l[0];
+          acc[4 * c + 2] /= l[1];
+          acc[4 * c + 3] /= l[1];
+        }
       }
       __nv_bfloat16* op = o + ((long long)b * Nq * H + h) * D;  // o is contiguous (B, Nq, H, D)
 #pragma unroll
@@ -280,12 +314,12 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
         const int col = c * 8 + 2 * t;
         if (row0 < Nq)
           *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + col) =
-              hw::pack_bf16x2(acc[4 * c] / l[0], acc[4 * c + 1] / l[0]);
+              hw::pack_bf16x2(acc[4 * c], acc[4 * c + 1]);
         if (row1 < Nq)
           *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + col) =
-              hw::pack_bf16x2(acc[4 * c + 2] / l[1], acc[4 * c + 3] / l[1]);
+              hw::pack_bf16x2(acc[4 * c + 2], acc[4 * c + 3]);
       }
-      if (lse != nullptr && t == 0) {  // m is in log2 units of the scaled scores
+      if (kSoftmax && lse != nullptr && t == 0) {  // m is in log2 units of the scaled scores
         float* lp = lse + ((long long)b * H + h) * Nq;
         if (row0 < Nq) lp[row0] = m[0] * LN2 + logf(l[0]);
         if (row1 < Nq) lp[row1] = m[1] * LN2 + logf(l[1]);
@@ -388,6 +422,28 @@ __global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
   }
 }
 
+// The bf16 kernel on its persistent grid: K1 (kSoftmax) or K8. `layouts` as uc_flash_attention_fwd takes them.
+template <bool kSoftmax>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
+                const long long* layouts, float scale_log2, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  int status = hw::encode_tile_map(&qm, q, layouts, BQ);
+  if (status == 0) status = hw::encode_tile_map(&km, k, layouts + hw::LAYOUT_INTS, BK);
+  if (status == 0) status = hw::encode_tile_map(&vm, v, layouts + 2 * hw::LAYOUT_INTS, BK);
+  static bool smem_set[64];
+  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_kernel<kSoftmax>, FWD_SMEM, smem_set);
+  if (status != 0) return status;
+  const long long items = (long long)((Nq + BQ - 1) / BQ) * H * B;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  status = hw::sm_count(&sms);
+  if (status != 0) return status;
+  const int grid = (int)(items < sms ? items : sms);
+  fa_fwd_bf16_kernel<kSoftmax><<<grid, THREADS, FWD_SMEM, st>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, scale_log2);
+  return 0;
+}
+
 }  // namespace
 
 // The element strides (b, n, h) of a tensor from its tensor-map layout (byte strides of h, n, b).
@@ -407,21 +463,8 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
   const float scale_log2 = scale * LOG2E;  // exp(x) = exp2(x * log2(e))
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    CUtensorMap qm, km, vm;
-    int status = hw::encode_tile_map(&qm, q, lq, BQ);
-    if (status == 0) status = hw::encode_tile_map(&km, k, lk, BK);
-    if (status == 0) status = hw::encode_tile_map(&vm, v, lv, BK);
-    static bool smem_set[64];
-    if (status == 0) status = hw::allow_smem(fa_fwd_bf16_kernel, FWD_SMEM, smem_set);
+    const int status = launch_bf16<true>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st);
     if (status != 0) return status;
-    const long long items = (long long)((Nq + BQ - 1) / BQ) * H * B;
-    if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    int sms = 0;
-    status = hw::sm_count(&sms);
-    if (status != 0) return status;
-    const int grid = (int)(items < sms ? items : sms);
-    fa_fwd_bf16_kernel<<<grid, THREADS, FWD_SMEM, st>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o),
-                                                        static_cast<float*>(lse), B, H, Nq, Nk, scale_log2);
   } else if (dtype == 0) {
     const dim3 grid((Nq + F32_BQ - 1) / F32_BQ, H, B);
     fa_fwd_f32_kernel<<<grid, F32_BQ, 0, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
@@ -432,6 +475,17 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K8: S.V without the softmax over bf16 q (B, Nq, H, D) and k, v (B, Nk, H, D), D = 64, read through their
+// tensor-map layouts as uc_flash_attention_fwd takes them (boxes of 128 rows); o is a contiguous (B, Nq, H, D)
+// bf16 tensor. Returns a cudaError_t.
+extern "C" int uc_sv_only(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk,
+                          int head_dim, const long long* layouts, void* stream) {
+  if (head_dim != D || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
+  const int status =
+      launch_bf16<false>(q, k, v, o, nullptr, B, H, Nq, Nk, layouts, 0.f, static_cast<cudaStream_t>(stream));
+  return status != 0 ? status : (int)cudaGetLastError();
 }
 
 // Nanoseconds per bf16 tensor-map encoding of `layout` (128-row box) over `iters` encodings, or -1 on

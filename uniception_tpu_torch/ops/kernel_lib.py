@@ -117,7 +117,7 @@ def _declare(lib):
     lib.uc_conv3x3.restype = I
     lib.uc_fused_project.argtypes = [P] * 8 + [L] * 3 + [I, P] + [I] * 6 + [Dbl, Dbl, P, I, I, P]
     lib.uc_fused_project.restype = I
-    lib.uc_sv_only.argtypes = [P] * 4 + [I] * 5 + [L] * 9 + [P]
+    lib.uc_sv_only.argtypes = [P] * 4 + [I] * 5 + [P, P]
     lib.uc_sv_only.restype = I
     lib.uc_error_string.argtypes = [I]
     lib.uc_error_string.restype = ctypes.c_char_p

@@ -8,14 +8,16 @@ a diagnostic: its time is the lower bound the attention kernels are measured
 against, the share of their time that is not the exp/max/sum work.
 
     * :func:`sv_only_ref` — plain PyTorch, the reference for the kernel;
-    * :func:`sv_only` — K8 (csrc/sv_only.cu) for CUDA tensors; a CPU tensor
-      takes the plain version.
+    * :func:`sv_only` — K8 for CUDA tensors: K1's bf16 kernel with the
+      softmax compiled out (csrc/flash_attention.cu ``fa_fwd_bf16_kernel<false>``),
+      reading q/k/v through the same TMA tensor maps; a CPU tensor takes the
+      plain version.
 """
 
 import torch
 
 from uniception_tpu_torch.ops import kernel_lib
-from uniception_tpu_torch.ops.flash_attention import _check, _on_cuda
+from uniception_tpu_torch.ops.flash_attention import FWD_ROWS, _check, _layouts, _on_cuda
 
 __all__ = ["sv_only", "sv_only_ref"]
 
@@ -30,9 +32,10 @@ def sv_only_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
 
 def sv_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K8: S.V through the kernel on CUDA tensors (bfloat16, D = 64, unit stride
-    on D, 16-byte aligned (b, n, h) strides); anything else on a CUDA device
-    raises. A CPU tensor takes :func:`sv_only_ref`. Returns a contiguous
-    (B, Nq, H, D) tensor. ``sv_only.launches`` counts the kernel launches."""
+    on D, 16-byte aligned base and (b, n, h) strides, as K1 takes them); anything
+    else on a CUDA device raises. A CPU tensor takes :func:`sv_only_ref`. Returns
+    a contiguous (B, Nq, H, D) tensor. ``sv_only.launches`` counts the kernel
+    launches."""
     if not _on_cuda("sv_only", q):
         return sv_only_ref(q, k, v)
     _check("sv_only", q, k, v)
@@ -42,7 +45,7 @@ def sv_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     status = kernel_lib.library().uc_sv_only(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Nq, k.shape[1], D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream,
+        _layouts((q, FWD_ROWS), (k, FWD_ROWS), (v, FWD_ROWS)), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "sv_only")
     sv_only.launches += 1

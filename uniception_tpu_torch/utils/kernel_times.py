@@ -1,11 +1,12 @@
 """
-Times K4 (the int8 matmul) at the nine trunk shapes and K5 (the fused qkv +
-RoPE + attention, self and cross) at its three main-path shapes on the card,
-by CUDA-graph replay, with the kernel package imported from ``--root``: this
-checkout or an unpacked earlier commit, so that two trees are compared on
-one card in one call (run them in turns: a, b, b, a). The shapes, inputs and
-timer are ``chip_smoke.py``'s. Prints the card's name and power limit, then
-one JSON object of milliseconds per call.
+Times K4 (the int8 matmul) at the nine trunk shapes, K5 (the fused qkv +
+RoPE + attention, self and cross) at its three main-path shapes, and K1 (the
+flash-attention forward) and K8 (the S.V diagnostic) at K8's five shapes on
+the card, by CUDA-graph replay, with the kernel package imported from
+``--root``: this checkout or an unpacked earlier commit, so that two trees
+are compared on one card in one call (run them in turns: a, b, b, a). The
+shapes, inputs and timer are ``chip_smoke.py``'s. Prints the card's name and
+power limit, then one JSON object of milliseconds per call.
 
     python3 uniception_tpu_torch/utils/kernel_times.py [--root DIR]
 """
@@ -34,13 +35,15 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
+    from uniception_tpu_torch.ops import flash_attention as fa
     from uniception_tpu_torch.ops import fused_attention as fused
     from uniception_tpu_torch.ops import int8_matmul as i8
+    from uniception_tpu_torch.ops import sv_only as sv
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}}
+    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}, "k1": {}, "k8": {}}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
     for name, M, K, N in cs.K4_SHAPES:
         x = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
@@ -52,6 +55,11 @@ def main():
         case = cs.K5Case(torch, fused, make_patch_positions, gen, B, Nq, Nk, C, H, qgrid, kgrid)
         args = case.args(torch.bfloat16, True)
         out["k5"][name] = cs.graph_ms(torch, lambda: case.kernel(*args))
+    for name, B, Nq, Nk, H in cs.K8_CASES:
+        q = torch.randn(B, Nq, H, 64, device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn(B, Nk, H, 64, device="cuda", generator=gen).bfloat16() for _ in range(2))
+        out["k1"][name] = cs.graph_ms(torch, lambda: fa.flash_attention(q, k, v))
+        out["k8"][name] = cs.graph_ms(torch, lambda: sv.sv_only(q, k, v))
     print(json.dumps(out))
     return 0
 
