@@ -77,7 +77,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                bf16 torch.matmul and the bound, the share of K1's time that
                its softmax costs, (K1 - K8) / K1, and the exponentials' count
                with an estimate of their time alone on the MUFU at the max
-               SM clock and at the clock nvidia-smi reads under K1's load.
+               SM clock and at the clock nvidia-smi reads under K1's load;
+   19. checkpoints: DUSt3R ViT-L 512 DPT from seed 0 written as an fp32
+               .pth, the .npz interchange file and a bf16 .nsv in the JAX
+               scan layout (convert_checkpoints --serving), each loaded by
+               serve.build_model(checkpoint=...) bit for bit equal to the
+               in-memory model cast to the file's dtype; file sizes and the
+               time to weights of each;
+   20. bucketed: DUSt3R 512 with landscape_only (ManyAR, bf16 trunk, bf16
+               DPT heads on K7) serving JAX _bucket_loop's synthetic
+               mixed-aspect stream through the five DUSt3R-512 buckets:
+               pairs/s; per bucket the kernel path against the plain path
+               (decoder features, K7 alone, every kernel) and its device ms
+               per batch; exact K1, K2 and K7 launches for a batch with
+               portrait rows; K1, K6 and K7 timed at each bucket's shapes
+               and transposes; one int8-DPT batch at 336x512 with each K6
+               call held against its plain version;
+   21. flow:   UFMFlow 512 with the DPT head serving the same stream through
+               the buckets and their portrait canvases, each canvas's
+               kernel path against the plain path.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -864,16 +882,22 @@ def phase_conv3x3(torch, F, c3):
     return worst, main
 
 
-def k7_convs_per_forward(img):
-    """The DPT convs the K7 rule (nn/dpt_parts.py Conv2dTorch.takes_conv3x3) sends to the kernel in one
-    forward_pair at img x img: 3x3 / stride 1 with C and Co multiples of 128 at H * W <= 256^2, per head."""
-    g = img // 16  # the token grid
-    convs = [  # (H = W of the conv's input, C, Co) of every 3x3 / stride-1 conv (act_4's conv has stride 2)
-        (4 * g, 96, 256), (2 * g, 192, 256), (g, 384, 256), (g // 2, 768, 256),  # layer1_rn .. layer4_rn
-        *[(g // 2, 256, 256)] * 2, *[(g, 256, 256)] * 4, *[(2 * g, 256, 256)] * 4, *[(4 * g, 256, 256)] * 4,  # RCUs
-        (8 * g, 256, 128), (img, 128, 128),  # regressor conv1, conv2
+def dpt_k7_convs(h, w):
+    """(H, W, C, Co) of the convs of one DPT head pass on an h x w image that the K7 rule (nn/dpt_parts.py
+    Conv2dTorch.takes_conv3x3) sends to the kernel: 3x3 / stride 1 with C and Co multiples of 128 at H * W <= 256^2."""
+    hp, wp = h // 16, w // 16  # the token grid
+    h4, w4 = -(-hp // 2), -(-wp // 2)  # after act_4's stride-2 conv
+    convs = [  # every 3x3 / stride-1 conv of the head
+        (4 * hp, 4 * wp, 96, 256), (2 * hp, 2 * wp, 192, 256), (hp, wp, 384, 256), (h4, w4, 768, 256),  # layer*_rn
+        *[(h4, w4, 256, 256)] * 2, *[(hp, wp, 256, 256)] * 4, *[(2 * hp, 2 * wp, 256, 256)] * 4,  # RCUs
+        *[(4 * hp, 4 * wp, 256, 256)] * 4, (8 * hp, 8 * wp, 256, 128), (h, w, 128, 128),  # RCUs, regressor convs
     ]
-    return 2 * sum(hw * hw <= 256 * 256 and C % 128 == 0 and Co % 128 == 0 for hw, C, Co in convs)
+    return [c for c in convs if c[0] * c[1] <= 256 * 256 and c[2] % 128 == 0 and c[3] % 128 == 0]
+
+
+def k7_convs_per_forward(img):
+    "The K7 launches of one DUSt3R DPT forward_pair at img x img: one pass of each of the two heads."
+    return 2 * len(dpt_k7_convs(img, img))
 
 
 def _kernel_counters(fa, rope, i8, c3, fused):
@@ -1495,6 +1519,295 @@ def phase_sv_only(torch, sv, fa):
     return worst, main
 
 
+
+# Phases 19-21: the serving entry point as the JAX package's users run it (examples/serve_dust3r.py): checkpoints,
+# mixed-aspect bucketed DUSt3R with landscape_only and the UFM flow model, at full width.
+BUCKET_PAIRS = 20  # JAX _bucket_loop's synthetic stream: 4 pairs per aspect ratio, so every bucket fills 2 batches
+# Every kernel vs the plain path on a bucket's batch, bf16 trunk and bf16 DPT heads with K7, ||d|| / ||plain|| per
+# output. The decoder features keep phase 5's bar (MODEL_REL_TOL) and K7 alone phase 14's (K7_HEADS_REL_TOL); the
+# outputs through both, the trunk's bf16 gap amplified by the bf16 heads and the exp adaptor, have a bar of their own.
+# Measured on an H100 80GB HBM3 (700 W): decoder features 0.94e-2 to 0.98e-2; K7 alone 1.39e-2 to 3.75e-2; every
+# kernel 2.40e-2 to 5.38e-2 (DUSt3R), 0.70e-2 to 3.20e-2 (flow). Phase 14's every-kernel bar, 8e-2, holds them.
+BUCKET_OUT_REL_TOL = 8e-2
+
+
+def phase_checkpoints(torch, serve, card):
+    """DUSt3R ViT-L 512 DPT from seed 0: an fp32 .pth of its state dict, the .npz interchange file and a bf16 .nsv in
+    the JAX scan layout written by convert_checkpoints, each loaded through serve.build_model(checkpoint=...): every
+    tensor equals the in-memory model's, cast to the file's dtype and then to the module's, bit for bit. The time to
+    weights of each (construct on meta + read + transfer, synchronised) and the file sizes."""
+    import shutil
+    import tempfile
+
+    from uniception_tpu_torch import convert_checkpoints
+    from uniception_tpu_torch.utils.checkpoint import save_checkpoint
+
+    dims = (ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS)
+    flags = ["--head", "dpt", "--img-size", str(IMG), "--enc-depth", str(ENC_DEPTH), "--enc-dim", str(ENC_DIM),
+             "--enc-heads", str(ENC_HEADS), "--dec-depth", str(DEC_DEPTH), "--dec-dim", str(DEC_DIM),
+             "--dec-heads", str(DEC_HEADS)]
+    ref = serve.build_model(IMG, *dims, device="cuda", dtype=torch.float32, seed=SEED, head="dpt")
+    state = {k: v.detach().cpu() for k, v in ref.state_dict().items()}
+    del ref
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=REPO)
+    try:
+        paths = {"pth": os.path.join(tmp, "dust3r.pth"), "npz": os.path.join(tmp, "dust3r.npz"),
+                 "nsv": os.path.join(tmp, "dust3r.nsv")}
+        t0 = time.perf_counter()
+        torch.save({"model": state}, paths["pth"])
+        save_checkpoint(paths["npz"], state)
+        convert_checkpoints.main([paths["pth"], paths["nsv"], "--serving", *flags])
+        print(f"[19 checkpoints] wrote the .pth, .npz and the bf16 scan-layout .nsv in {time.perf_counter() - t0:.1f}s")
+        for fmt, file_dtype in (("pth", torch.float32), ("npz", torch.float32), ("nsv", torch.bfloat16)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = serve.build_model(IMG, *dims, device="cuda", head="dpt", checkpoint=paths[fmt])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = model.state_dict()
+            require(sorted(got) == sorted(state), f"{fmt}: the loaded model's keys are not the in-memory model's")
+            bad = [k for k, v in got.items()
+                   if v.device.type != "cuda" or not torch.equal(v.cpu(), state[k].to(file_dtype).to(v.dtype))]
+            dtypes = sorted({str(v.dtype).replace("torch.", "") for v in got.values()})
+            print(f"[19 checkpoints] .{fmt}: {os.path.getsize(paths[fmt])} bytes, time to weights {seconds:.2f}s "
+                  f"(construct on meta + read + one copy per dtype + layout on the card, synchronised); {len(got)} "
+                  f"tensors ({'/'.join(dtypes)}) equal to the in-memory model's as {file_dtype}: {not bad} on {card}")
+            require(not bad, f".{fmt}: {len(bad)} tensors differ from the in-memory model's, e.g. {bad[:3]}")
+            del model, got
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def first_bucket_batches(pairs, buckets, manyar):
+    "The first full batch of each bucket that the pair stream fills: {(h, w): (canvas1, canvas2, true_shape1, 2)}."
+    import torch
+
+    from uniception_tpu_torch.data.bucketing import PairBucketedBatcher
+
+    batcher, first = PairBucketedBatcher(BATCH, buckets, manyar=manyar), {}
+    for key, img1, img2 in pairs:
+        for hw, c1, c2, t1, t2, _ in batcher.add(img1, img2, key):
+            first.setdefault(hw, (c1, c2, torch.from_numpy(t1), torch.from_numpy(t2)))
+    return first
+
+
+def bucket_check(torch, config, model, fn, batch, label, names):
+    """One bucket batch three ways: every kernel, K7 on its plain version (the trunk's kernels unchanged), and the
+    plain path. The decoder features and K7 alone within their bars, the outputs within BUCKET_OUT_REL_TOL."""
+    import uniception_tpu_torch.nn.dpt_parts as dpt_parts
+    from uniception_tpu_torch.ops import conv3x3 as c3
+
+    trunk = []
+
+    def keep(mod, inp, out):
+        final = out[0] if isinstance(out, tuple) else out
+        trunk.append(torch.cat([f.float().flatten() for f in final.features]))
+
+    hook = model.info_sharing.register_forward_hook(keep)
+    try:
+        res_k = fn(*batch)
+        dpt_parts.conv3x3_nhwc = c3.conv3x3_reference
+        try:
+            res_s = fn(*batch)
+        finally:
+            dpt_parts.conv3x3_nhwc = c3.conv3x3_nhwc
+        config.set_attention_impl("naive")
+        try:
+            res_n = fn(*batch)
+        finally:
+            config.set_attention_impl("kernel")
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    t_k, t_s, t_n = trunk
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    require(torch.equal(t_k, t_s), f"{label}: the trunk moved when only K7 changed")
+    trunk_rel = rel(t_k, t_n)
+    worst = {"trunk": trunk_rel, "k7": 0.0, "out": 0.0}
+    line = [f"decoder features {trunk_rel:.3e} (tol {MODEL_REL_TOL})"]
+    require(trunk_rel <= MODEL_REL_TOL, f"{label}: decoder features kernels vs plain {trunk_rel} > {MODEL_REL_TOL}")
+    for name, a, s_, b in zip(names, res_k, res_s, res_n):
+        require(all(torch.isfinite(t).all().item() for t in (a, s_, b)), f"{label} {name}: non-finite output")
+        r_k, r_s = rel(a, b), rel(a, s_)
+        worst["k7"], worst["out"] = max(worst["k7"], r_s), max(worst["out"], r_k)
+        line.append(f"{name} K7 alone {r_s:.3e} every kernel {r_k:.3e}")
+        require(r_s <= K7_HEADS_REL_TOL, f"{label} {name}: K7 alone moves the output by {r_s} > {K7_HEADS_REL_TOL}")
+        require(r_k <= BUCKET_OUT_REL_TOL, f"{label} {name}: kernels vs plain {r_k} > {BUCKET_OUT_REL_TOL}")
+    print(f"[{label}] vs plain: " + "; ".join(line) + f" (tols: K7 alone {K7_HEADS_REL_TOL}, every kernel "
+          f"{BUCKET_OUT_REL_TOL})")
+    return worst, res_k
+
+
+def bucket_device_ms(torch, fn, batch, label):
+    "Device ms per batch and the busy share of two back-to-back batches of one bucket (torch.profiler)."
+    events = profile_device(torch, lambda: [fn(*batch) for _ in range(2)], 2, "batch", label, top=0)
+    return sum(e.self_device_time_total for e in events) / 1e3 / 2
+
+
+def bucket_kernel_times(torch, F, fa, c3, buckets):
+    "K1, K6 and K7 at each bucket's shapes beside their plain versions and library calls (CUDA graphs)."
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    for h, w in buckets:
+        hp, wp = h // 16, w // 16
+        n = hp * wp
+        x = torch.randn(4, n, 3, 16, 64, device="cuda", generator=gen).bfloat16()
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        k1 = graph_ms(torch, lambda: fa.flash_attention(q, k, v))
+        lib = graph_ms(torch, lambda: sdpa(q, k, v))
+        k6 = graph_ms(torch, lambda: fa.flash_attention_int8(q, k, v, mode="int8"))
+        b1 = attention_bound(4, n, n, 16)
+        conv = []
+        for hh, ww in ((4 * hp, 4 * wp), (4 * wp, 4 * hp)):  # refinenet1's RCUs, and on the transposed grid
+            xc = torch.randn(BATCH, hh, ww, 256, device="cuda", generator=gen).bfloat16()
+            wt = (torch.randn(3, 3, 256, 256, device="cuda", generator=gen) * (9 * 256) ** -0.5).bfloat16()
+            bc = torch.randn(256, device="cuda", generator=gen) * 0.1
+            ulps = _ulps(c3.conv3x3_nhwc(xc, wt, bc), c3.conv3x3_reference(xc, wt, bc), 7, floor=1 / 16)
+            require(ulps <= K7_ULPS, f"K7 at {hh}x{ww}: {ulps} ulp > {K7_ULPS}")
+            ms = graph_ms(torch, lambda: c3.conv3x3_nhwc(xc, wt, bc))
+            xn, wn = xc.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            cudnn = graph_ms(torch, lambda: F.conv2d(xn, wn, bc.bfloat16(), padding=1))
+            kb = bound({"bf16": 2 * BATCH * hh * ww * 256 * 256 * 9}, (2 * xc.numel() + wt.numel()) * 2)
+            conv.append(f"K7 {BATCH}x{hh}x{ww}x256->256 {ms:.4f} ms (cuDNN {cudnn:.4f}, bound {kb[0]:.4f} {kb[1]}, "
+                        f"{ulps:.2f} ulp)")
+        print(f"[20 kernels {h}x{w}] K1 (4,{n},16,64) {k1:.4f} ms (SDPA {lib:.4f}, bound {b1[0]:.4f} {b1[1]}); K6 int8 "
+              f"{k6:.4f} ms; " + "; ".join(conv))
+
+
+def phase_bucketed(torch, F, np, serve, config, quant, fa, c3, counters, card):
+    """DUSt3R 512 with landscape_only, ManyAR, bf16 trunk and bf16 DPT heads on K7, serving JAX _bucket_loop's
+    synthetic mixed-aspect stream through the five DUSt3R-512 buckets; per bucket the kernel path against the plain
+    path, exact launches for one batch with portrait rows, device ms per batch, then one int8-DPT batch at 336x512
+    with each K6 call held against its plain version. Returns the stream's launches."""
+    import uniception_tpu_torch.ops.attention as attention
+    from uniception_tpu_torch.data.bucketing import extract_view
+
+    buckets = serve.scaled_buckets(IMG)
+    pairs = list(serve.synthetic_pairs(BUCKET_PAIRS, IMG, seed=SEED))
+    model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                              seed=SEED, head="dpt", head_dtype=torch.bfloat16, landscape_only=True)
+    fn = serve.make_serving_fn(model, "cuda")
+    names = ("pts3d", "conf1", "pts3d_in_other_view", "conf2")
+    config.set_conv3x3_impl("kernel")
+    try:
+        _reset(counters)
+        stats = serve.serve_bucketed(model, "cuda", pairs, BATCH, buckets)
+        launches = _read(counters)
+        full = {hw: sum(1 for b in stats["batches"] if b == hw) for hw in buckets}
+        print(f"[20 bucketed] {stats['pairs']} pairs in {stats['seconds']:.3f}s = {stats['pairs'] / stats['seconds']:.3f} "
+              f"pairs/s through {len(buckets)} buckets {list(buckets)} at batch {BATCH} (host resizing included, each "
+              f"bucket warmed once in {stats['warm_seconds']:.2f}s); pairs per bucket "
+              f"{ {f'{h}x{w}': n for (h, w), n in stats['per_bucket'].items()} }, batches {full}; launches {launches} "
+              f"on {card}")
+        require(stats["pairs"] == BUCKET_PAIRS, f"served {stats['pairs']} pairs of {BUCKET_PAIRS}")
+        require(all(stats["per_bucket"].get(hw, 0) >= BATCH for hw in buckets), f"a bucket got no full batch: {full}")
+        out, t2, _ = stats["last"]
+        native = [extract_view(out[2][i], t2[i]).shape for i in range(BATCH)]
+        print(f"[20 bucketed] the last batch's second views in their native orientation: {native}")
+
+        t0 = time.perf_counter()
+        batches = first_bucket_batches(pairs, buckets, manyar=True)
+        resize_s = time.perf_counter() - t0
+        print(f"[20 bucketed] the host's bucketing of the stream alone (PairBucketedBatcher: {2 * len(pairs)} images "
+              f"resized and cropped, no device work): {resize_s:.3f}s, {1e3 * resize_s / (2 * len(pairs)):.1f} ms per "
+              f"image, {len(pairs) / resize_s:.2f} pairs/s")
+        device_ms = {}
+        for hw in buckets:
+            c1, c2, t1, t2 = batches[hw]
+            bucket_check(torch, config, model, fn, batches[hw], f"20 bucket {hw[0]}x{hw[1]} portrait rows "
+                         f"{(t1[:, 0] > t1[:, 1]).tolist()}/{(t2[:, 0] > t2[:, 1]).tolist()}", names)
+            device_ms[hw] = bucket_device_ms(torch, fn, batches[hw], f"20 profile {hw[0]}x{hw[1]}")
+        per_batch = "; ".join(f"{h}x{w} {ms:.2f}" for (h, w), ms in device_ms.items())
+        stream_device_s = sum(device_ms[hw] for hw in stats["batches"]) / 1e3
+        print(f"[20 bucketed] device ms per batch: {per_batch}; summed over the stream's {len(stats['batches'])} "
+              f"batches {stream_device_s:.3f}s of its {stats['seconds']:.3f}s (busy share "
+              f"{stream_device_s / stats['seconds']:.3f})")
+
+        # exact launches for one eager batch with portrait rows: the heads of a view with a portrait row run twice
+        hw = next(b for b in buckets if any((t[:, 0] > t[:, 1]).any() for t in batches[b][2:]))
+        c1, c2, t1, t2 = batches[hw]
+        _reset(counters)
+        fn(*batches[hw])
+        torch.cuda.synchronize()
+        got = _read(counters)
+        attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+        passes = [1 + bool((t[:, 0] > t[:, 1]).any()) for t in (t1, t2)]
+        want = {k: 0 for k in counters}
+        want.update(K1=attn, K2=2 * attn, K7=sum(p * len(dpt_k7_convs(*hw)) for p in passes))
+        print(f"[20 bucketed] launches for one batch at {hw[0]}x{hw[1]} (head passes per view {passes}): {got} "
+              f"(want {want})")
+        require(got == want, f"bucketed launches {got}, want {want}")
+
+        bucket_kernel_times(torch, F, fa, c3, buckets)
+
+        # the int8-DPT rung on one batch of the 336x512 bucket: each K6 call against its plain version
+        n_q = quant.quantize_trunk(model, "all")
+        k6_ulps, k6_ctrl = [], []
+
+        def k6_checked(q, k, v, scale=None, mode="int8"):
+            o = fa.flash_attention_int8(q, k, v, scale, mode)
+            ref = fa.flash_attention_int8_ref(q, k, v, scale, mode)
+            k6_ulps.append(_ulps(o, ref, 7, floor=K6_ULP_FLOOR))
+            k6_ctrl.append(_ulps(fa.flash_attention_ref(q, k, v, scale), ref, 7, floor=K6_ULP_FLOOR))
+            return o
+
+        config.set_attention_quant("int8")
+        attention.flash_attention_int8 = k6_checked
+        try:
+            res = fn(*batches[(336, 512)])
+            torch.cuda.synchronize()
+        finally:
+            attention.flash_attention_int8 = fa.flash_attention_int8
+            config.set_attention_quant("none")
+        require(all(torch.isfinite(r).all().item() for r in res), "int8-DPT 336x512: non-finite output")
+        print(f"[20 int8-DPT 336x512] {n_q} trunk linears quantized; {len(k6_ulps)} K6 calls (N = 672), each against "
+              f"its plain version on the same activations: max {max(k6_ulps):.2f} ulp (tol {K6_ULPS}); exact "
+              f"attention, the control: {sum(c > K6_ULPS for c in k6_ctrl)} calls over the tol, max {max(k6_ctrl):.2f}")
+        require(len(k6_ulps) == attn, f"{len(k6_ulps)} K6 calls, want {attn}")
+        require(max(k6_ulps) <= K6_ULPS, f"int8-DPT 336x512: a K6 call is {max(k6_ulps)} ulp from its plain version")
+        require(max(k6_ctrl) > K6_ULPS, "int8-DPT 336x512: exact attention passed K6's check")
+    finally:
+        config.set_conv3x3_impl("torch")
+    del model, fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flow(torch, np, serve, config, counters, card):
+    """UFMFlow 512 with the DPT head (bf16 trunk, bf16 head on K7) serving the same stream through the buckets and
+    their portrait canvases (manyar=False); per canvas the kernel path against the plain path. Returns the launches."""
+    buckets = serve.scaled_buckets(IMG, portrait=True)
+    pairs = list(serve.synthetic_pairs(BUCKET_PAIRS, IMG, seed=SEED))
+    model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                              seed=SEED, head="dpt", head_dtype=torch.bfloat16, model="flow")
+    fn = serve.make_serving_fn(model, "cuda")
+    config.set_conv3x3_impl("kernel")
+    try:
+        _reset(counters)
+        stats = serve.serve_bucketed(model, "cuda", pairs, BATCH, buckets)
+        launches = _read(counters)
+        print(f"[21 flow] {stats['pairs']} pairs in {stats['seconds']:.3f}s = {stats['pairs'] / stats['seconds']:.3f} "
+              f"pairs/s through {len(buckets)} canvases at batch {BATCH} (host resizing included); pairs per canvas "
+              f"{ {f'{h}x{w}': n for (h, w), n in stats['per_bucket'].items()} }; launches {launches} on {card}")
+        require(stats["pairs"] == BUCKET_PAIRS, f"flow served {stats['pairs']} pairs of {BUCKET_PAIRS}")
+        out = stats["last"][0]
+        require(tuple(out[0].shape[-1:]) == (2,) and tuple(out[1].shape[-1:]) == (1,), "flow: output shapes")
+        batches = first_bucket_batches(pairs, buckets, manyar=False)
+        for hw, batch in batches.items():
+            model.adaptor.value_adaptor.base_shape = list(hw)  # as serve_bucketed sets it per bucket
+            bucket_check(torch, config, model, fn, batch, f"21 flow {hw[0]}x{hw[1]}", ("flow", "flow_conf"))
+        require(len(batches) >= 5, f"flow: only {len(batches)} canvases got a full batch")
+    finally:
+        config.set_conv3x3_impl("torch")
+    del model, fn
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -1572,6 +1885,11 @@ def main():
     fused_path = phase_fused_model(torch, np, serve, config, blocks, fused, counters, card, bf16_linear,
                                    rungs["int8-DPT device ms"])
     k8_err, k8 = phase_sv_only(torch, sv, fa)
+
+    phase_checkpoints(torch, serve, card)
+    bucketed = phase_bucketed(torch, F, np, serve, config, quant, fa, c3, counters, card)
+    flow = phase_flow(torch, np, serve, config, counters, card)
+    served = {k: served[k] + bucketed[k] + flow[k] for k in counters}
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,

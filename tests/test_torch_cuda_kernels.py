@@ -16,6 +16,8 @@ conftest (which configures jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
+import time
+
 import pytest
 import torch
 
@@ -803,3 +805,97 @@ def test_sv_only_across_items_is_deterministic_with_one_launch(gen):
     assert torch.equal(again, out)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1 and "fa_fwd_bf16_kernel<false>" in names[0], names
+
+
+# The mixed-aspect serving shapes: the five DUSt3R-512 buckets (h, w) and their token counts per view.
+BUCKETS_512 = [(384, 512), (336, 512), (288, 512), (256, 512), (160, 512)]
+
+
+def _dpt_levels(h, w):
+    "(H, W, C, Co) of the K7 convs of one DPT head pass on an h x w image (nn/dpt_parts.py Conv2dTorch's rule)."
+    hp, wp = h // 16, w // 16
+    h4, w4 = -(-hp // 2), -(-wp // 2)  # after the stride-2 conv
+    return [(hp, wp, 384, 256), (h4, w4, 768, 256), (h4, w4, 256, 256), (hp, wp, 256, 256),
+            (2 * hp, 2 * wp, 256, 256), (4 * hp, 4 * wp, 256, 256), (8 * hp, 8 * wp, 256, 128)]
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["canvas", "transposed"])
+@pytest.mark.parametrize("bucket", BUCKETS_512, ids=lambda b: f"{b[0]}x{b[1]}")
+def test_conv3x3_at_bucket_dpt_levels(gen, bucket, transposed):
+    """K7 at every eligible DPT level of a bucket, and on the transposed grid of landscape_only's second head pass
+    (W = 21, 42, 84, 11, 5, ... cut the planner's power-of-two tiles), batch 2, with the planner's plan."""
+    h, w = bucket[::-1] if transposed else bucket
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for hh, ww, c, co in _dpt_levels(h, w):
+        plan = conv3x3_plan(2, hh, ww, c, co, sms)
+        x, wt, bb = _conv_inputs(gen, 2, hh, ww, c, co)
+        out = conv3x3_nhwc(x, wt, bb)
+        assert out.shape == (2, hh, ww, co)
+        assert _ulps(out, conv3x3_reference(x, wt, bb), 7, floor=1 / 16) <= 1, (hh, ww, c, co, plan)
+        assert torch.equal(conv3x3_nhwc(x, wt, bb), out), (hh, ww, c, co, plan)
+
+
+@pytest.mark.parametrize("b,h", [(4, 16), (2, 12)], ids=["encoder", "decoder"])
+@pytest.mark.parametrize("n", [320, 576, 672, 768])
+def test_attention_kernels_at_bucket_token_counts(gen, n, b, h):
+    "K1 (bf16) and K6 (both modes) at Nq = Nk of the buckets (672 = 5 * 128 + 32 and 320 = 2.5 * 128 keys)."
+    q, k, v = _strided_qkv(gen, b, n, n, h, torch.bfloat16)
+    out = flash_attention(q, k, v)
+    assert (out.float() - flash_attention_ref(q.float(), k.float(), v.float())).abs().max().item() <= BF16_TOL
+    for mode in ("int8", "int8pv"):
+        out8 = flash_attention_int8(q, k, v, mode=mode)
+        assert _ulps(out8, flash_attention_int8_ref(q, k, v, mode=mode), 7, floor=K6_ULP_FLOOR) <= K6_ULPS, mode
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_with_rows_of_different_positions(gen, dtype):
+    "K2 with landscape_only's positions: landscape rows on the (hp, wp) grid, portrait rows on (wp, hp)."
+    b, hp, wp, h = 4, 21, 32, 12
+    x = torch.randn(b, hp * wp, 3, h, 64, device="cuda", generator=gen).to(dtype)[:, :, 0]
+    is_land = torch.tensor([True, False, False, True], device="cuda")[:, None, None]
+    pos = torch.where(is_land, make_patch_positions(b, hp, wp, device="cuda"), make_patch_positions(b, wp, hp, device="cuda"))
+    assert not torch.equal(pos[0], pos[1])
+    out, ref = rope_2d_kernel(x, pos), rope_2d(x, pos)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:
+        assert _ulps(out, ref, 7) <= 1
+    assert not torch.equal(out[1], rope_2d(x, make_patch_positions(b, hp, wp, device="cuda"))[1])
+
+
+def test_prefetch_ring_delivers_every_batch_intact(gen):
+    "The pinned two-slot ring and copy stream of data/pipeline.py: batches of changing shapes arrive whole, in order."
+    import numpy as np
+
+    from uniception_tpu_torch.data.pipeline import prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    batches = [{"img": rng.randint(0, 256, (2, 8 + 4 * (i % 3), 16, 3), np.uint8), "rest": i} for i in range(9)]
+    for got, want in zip(prefetch_to_device(iter(batches), "cuda"), batches):
+        torch.cuda._sleep(200000)  # the consumer's work on the stream while the next batch is staged
+        assert got["rest"] == want["rest"] and got["img"].is_cuda
+        assert torch.equal(got["img"].cpu(), torch.from_numpy(want["img"]))
+
+
+@pytest.mark.parametrize("landscape_only", [False, True])
+def test_serving_forward_waits_for_no_queued_work(gen, landscape_only):
+    """A serving forward with CPU true shapes (landscape and portrait rows) only enqueues work: behind a second of
+    queued device time the host returns long before the card is done, so the host can prepare the next batch."""
+    import numpy as np
+
+    from uniception_tpu_torch import serve
+
+    model = serve.build_model(64, 2, 128, 2, 2, 128, 2, device="cuda", seed=0, landscape_only=landscape_only)
+    fn = serve.make_serving_fn(model, "cuda")
+    frames = np.random.RandomState(0).randint(0, 256, (2, 32, 64, 3), np.uint8)
+    ts = torch.tensor([[32, 64], [64, 32]], dtype=torch.int32)
+    fn(frames, frames, ts, ts)  # warm-up: builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second of queued work
+    start = time.perf_counter()
+    out = fn(frames, frames, ts, ts)
+    host = time.perf_counter() - start
+    torch.cuda.synchronize()
+    waited = time.perf_counter() - start
+    assert host < 0.3 < waited, (host, waited)
+    assert all(torch.isfinite(o).all() for o in out)

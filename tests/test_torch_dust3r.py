@@ -166,7 +166,7 @@ def test_serve_main_on_cpu(capsys):
     assert "pairs/s on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [{"landscape_only": True}, {"scan_blocks": True}], ids=["landscape_only", "scan"])
+@pytest.mark.parametrize("kw", [{"scan_blocks": True}], ids=["scan"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         DUSt3R(name="x", img_size=(32, 32), **ENC, **DEC, **kw)

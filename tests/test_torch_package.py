@@ -45,6 +45,7 @@ for name in names:
 print(json.dumps({
     "modules": names,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "uniception_tpu": sorted(m for m in sys.modules if m == "uniception_tpu" or m.startswith("uniception_tpu.")),
     "subprocesses": calls,
     "library_loaded": kernel_lib._lib is not None,
 }))
@@ -59,7 +60,11 @@ def test_import_everything_without_jax_or_nvcc():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "uniception_tpu_torch.models.factory.dust3r" in report["modules"]
     assert "uniception_tpu_torch.serve" in report["modules"]
+    for name in ("data.bucketing", "data.pipeline", "utils.coldstart", "utils.checkpoint", "utils.framing",
+                 "models.factory.flow", "convert_checkpoints"):
+        assert f"uniception_tpu_torch.{name}" in report["modules"]
     assert report["jax"] == []
+    assert report["uniception_tpu"] == []  # not even its jax-free modules (utils/checkpoint.py, data/bucketing.py)
     assert report["subprocesses"] == []  # no nvcc (or anything else) at import
     assert report["library_loaded"] is False
 

@@ -98,7 +98,8 @@ class ManyAR_PatchEmbed(PatchEmbedCroCo):
             raise ValueError(f"true_shape has the wrong shape={tuple(true_shape.shape)}")
 
         hp, wp = H // self.patch_size[0], W // self.patch_size[1]
-        is_landscape = (true_shape[:, 1] >= true_shape[:, 0]).to(image.device)[:, None, None]  # (B, 1, 1)
+        # a CPU true_shape (the server keeps it there) crosses without a stream sync
+        is_landscape = (true_shape[:, 1] >= true_shape[:, 0]).to(image.device, non_blocking=True)[:, None, None]
 
         x_land = self._project(image)
         x_port = self._project(image.transpose(-1, -2))

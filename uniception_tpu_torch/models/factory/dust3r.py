@@ -14,6 +14,17 @@ adaptor always runs in fp32.
 The DPT heads take the encoder's output and the decoder's features after
 depths 5 and 8 and after its last depth (for a decoder shallower than 9:
 depths 0 and depth // 2), without the final norm on the intermediates.
+
+``landscape_only`` makes ManyAR mixed-orientation batches correct end to end
+(the JAX package's static form of CroCo's transpose_to_landscape): with
+``true_shape`` given, each row's true token positions ride into the
+info-sharing RoPE, and the heads run a second pass on the transposed token
+grid whose result is selected for the portrait rows. Outputs stay in canvas
+layout (portrait rows hold the transposed native prediction;
+``data.bucketing.extract_view`` unpacks them). The second pass is skipped when
+no row is portrait (its result would be discarded); pass ``true_shape`` on
+the CPU so that test needs no device sync (its masks then cross to the card
+with non-blocking copies, which wait for no queued work).
 """
 
 from typing import Optional, Tuple
@@ -40,9 +51,30 @@ from uniception_tpu_torch.models.prediction_heads.dpt import (
     DPTRegressionProcessor,
 )
 from uniception_tpu_torch.models.prediction_heads.linear import LinearFeature
+from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
 from uniception_tpu_torch.ops.rope import Rope2D
+from uniception_tpu_torch.utils.checkpoint import load_checkpoint
+from uniception_tpu_torch.utils.weights import load_state_dict_numpy
 
-__all__ = ["DUSt3R"]
+__all__ = ["DUSt3R", "is_symmetrized", "interleave"]
+
+
+def is_symmetrized(gt1, gt2) -> bool:
+    "True when the pairs are symmetrized: (a, b) and (b, a) both present, adjacent (dust3r.py:21-30)."
+    x, y = gt1["instance"], gt2["instance"]
+    if len(x) == len(y) and len(x) == 1:
+        return False
+    ok = True
+    for i in range(0, len(x), 2):
+        ok = ok and (x[i] == y[i + 1]) and (x[i + 1] == y[i])
+    return ok
+
+
+def interleave(tensor1, tensor2):
+    "Re-expand deduped symmetric features: rows (a, b) -> (a, b), (b, a) (dust3r.py:33-37)."
+    res1 = torch.stack([tensor1, tensor2], dim=1).reshape((-1,) + tuple(tensor1.shape[1:]))
+    res2 = torch.stack([tensor2, tensor1], dim=1).reshape((-1,) + tuple(tensor2.shape[1:]))
+    return res1, res2
 
 
 class DUSt3R(nn.Module):
@@ -60,6 +92,7 @@ class DUSt3R(nn.Module):
         depth_mode: Tuple[str, float, float] = ("exp", -float("inf"), float("inf")),
         conf_mode: Tuple[str, float, float] = ("exp", 1, float("inf")),
         pos_embed: str = "RoPE100",
+        pretrained_checkpoint_path: Optional[str] = None,
         enc_embed_dim: int = 1024,
         enc_depth: int = 24,
         enc_num_heads: int = 16,
@@ -82,8 +115,6 @@ class DUSt3R(nn.Module):
             raise ValueError(f"Invalid prediction head type: {pred_head_type}. Must be 'linear' or 'dpt'.")
         if pred_head_type == "dpt" and info_sharing_depth < 2:
             raise ValueError("dpt heads need info_sharing_depth >= 2 for distinct hook indices")
-        if landscape_only:
-            raise NotImplementedError("landscape_only is not ported yet (ROADMAP.md queue 1 item 7)")
 
         self.name = name
         self.data_norm_type = data_norm_type
@@ -92,6 +123,7 @@ class DUSt3R(nn.Module):
         self.pred_head_type = pred_head_type
         self.pred_head_output_dim = pred_head_output_dim
         self.head_dtype = head_dtype
+        self.landscape_only = landscape_only
         self.depth_mode = depth_mode
         self.conf_mode = conf_mode
         self.pos_embed = pos_embed
@@ -170,6 +202,10 @@ class DUSt3R(nn.Module):
             confidence_vmin=conf_mode[1],
             confidence_vmax=conf_mode[2],
         )
+        if pretrained_checkpoint_path is not None:
+            print(f"Loading pretrained DUSt3R weights from {pretrained_checkpoint_path} ...")
+            ckpt = load_checkpoint(pretrained_checkpoint_path)
+            load_state_dict_numpy(self, ckpt["model"], ignore=self.checkpoint_alias_patterns())
 
     def heads(self):
         "The prediction-head modules (the head_dtype region)."
@@ -202,6 +238,18 @@ class DUSt3R(nn.Module):
             feat2 = self.encoder(ViTEncoderInput(image=img2, data_norm_type=data_norm_type, true_shape=true_shape2)).features
         return feat1, feat2
 
+    def _encode_symmetrized(self, view1, view2):
+        "Encode half of a symmetrized batch and re-interleave (dust3r.py:227-238)."
+        img1, img2 = view1["img"], view2["img"]
+        ts1, ts2 = view1.get("true_shape"), view2.get("true_shape")
+        if is_symmetrized(view1, view2):
+            feat1, feat2 = self._encode_image_pairs(
+                img1[::2], img2[::2], view1["data_norm_type"],
+                None if ts1 is None else ts1[::2], None if ts2 is None else ts2[::2],
+            )
+            return interleave(feat1, feat2)
+        return self._encode_image_pairs(img1, img2, view1["data_norm_type"], ts1, ts2)
+
     def forward_pair(self, img1, img2, true_shape1=None, true_shape2=None):
         """Two-view forward.
 
@@ -215,7 +263,22 @@ class DUSt3R(nn.Module):
         shape1 = (int(img1.shape[-2]), int(img1.shape[-1]))
         shape2 = (int(img2.shape[-2]), int(img2.shape[-1]))
         feat1, feat2 = self._encode_image_pairs(img1, img2, self.data_norm_type, true_shape1, true_shape2)
-        return self._decode_and_predict(feat1, feat2, shape1, shape2)
+        return self._decode_and_predict(feat1, feat2, shape1, shape2, true_shape1, true_shape2)
+
+    def forward(self, view1: dict, view2: dict):
+        """Reference-compatible forward over view dicts (dust3r.py:250-332): "img"
+        (B, 3, H, W), optional "instance" ids (symmetrized pairs are encoded
+        once), "data_norm_type" and "true_shape"."""
+        shape1 = (int(view1["img"].shape[-2]), int(view1["img"].shape[-1]))
+        shape2 = (int(view2["img"].shape[-2]), int(view2["img"].shape[-1]))
+        view1, view2 = dict(view1), dict(view2)
+        view1.setdefault("data_norm_type", self.data_norm_type)
+        view1.setdefault("instance", [str(i) for i in range(view1["img"].shape[0])])
+        view2.setdefault("instance", [str(i) for i in range(view2["img"].shape[0])])
+        feat1, feat2 = self._encode_symmetrized(view1, view2)
+        return self._decode_and_predict(
+            feat1, feat2, shape1, shape2, view1.get("true_shape"), view2.get("true_shape")
+        )
 
     def _head(self, head_num: int, decout, img_shape):
         if self.pred_head_type == "linear":
@@ -231,9 +294,53 @@ class DUSt3R(nn.Module):
         # the adaptor's exp/clip always in fp32 (dust3r.py:378-383)
         return self.adaptor(AdaptorInput(adaptor_feature=head_out.decoded_channels.float(), output_shape_hw=shape))
 
-    def _decode_and_predict(self, feat1, feat2, shape1, shape2):
+    @staticmethod
+    def _true_positions(feat, true_shape):
+        """Per-row token positions of a ManyAR batch: landscape rows on the (hp, wp)
+        grid, portrait rows on the (wp, hp) grid, as the patch embed made them."""
+        B, _, hp, wp = feat.shape
+        is_land = (true_shape[:, 1] >= true_shape[:, 0]).to(feat.device, non_blocking=True)[:, None, None]
+        pos_land = make_patch_positions(B, hp, wp, device=feat.device)
+        pos_port = make_patch_positions(B, wp, hp, device=feat.device)
+        return torch.where(is_land, pos_land, pos_port)
+
+    def _predict_view(self, head_num, decout, shape, true_shape):
+        """Head + adaptor; with ``true_shape`` (landscape_only) also the pass on the
+        transposed token grid, selected for the portrait rows (JAX :385-406)."""
+        out = self._head_and_adapt(head_num, decout, shape)
+        if true_shape is None:
+            return out
+        is_port = true_shape[:, 0] > true_shape[:, 1]
+        if not bool(is_port.any()):  # every row landscape: the second pass would be discarded
+            return out
+
+        def regrid(f):
+            # canvas grid -> token order -> transposed grid (a reshape, not a transpose): a portrait
+            # row's tokens were made in (wp, hp) row-major order
+            B, C, hp, wp = f.shape
+            return f.reshape(B, C, hp * wp).reshape(B, C, wp, hp)
+
+        feats = decout[head_num]
+        regridded = {head_num: [regrid(f) for f in feats] if isinstance(feats, list) else regrid(feats)}
+        out_p = self._head_and_adapt(head_num, regridded, shape[::-1])
+        sel = is_port.to(out.value.device, non_blocking=True).reshape(-1, 1, 1, 1)
+        return type(out)(
+            value=torch.where(sel, out_p.value.transpose(-1, -2), out.value),
+            confidence=torch.where(sel, out_p.confidence.transpose(-1, -2), out.confidence),
+        )
+
+    def _decode_and_predict(self, feat1, feat2, shape1, shape2, true_shape1=None, true_shape2=None):
+        mixed_ar = (
+            self.landscape_only
+            and self.patch_embed_cls == "ManyAR_PatchEmbed"
+            and true_shape1 is not None
+            and true_shape2 is not None
+        )
+        positions = None
+        if mixed_ar:
+            positions = [self._true_positions(feat1, true_shape1), self._true_positions(feat2, true_shape2)]
+        info_in = MultiViewTransformerInput(features=[feat1, feat2], positions=positions)
         hd = self.head_dtype or torch.float32
-        info_in = MultiViewTransformerInput(features=[feat1, feat2])
         if self.pred_head_type == "linear":
             final = self.info_sharing(info_in)
             decout = {1: final.features[0].to(hd), 2: final.features[1].to(hd)}
@@ -243,8 +350,8 @@ class DUSt3R(nn.Module):
                 v + 1: [f.to(hd) for f in (feat, inter[0].features[v], inter[1].features[v], final.features[v])]
                 for v, feat in enumerate((feat1, feat2))
             }
-        out1 = self._head_and_adapt(1, decout, shape1)
-        out2 = self._head_and_adapt(2, decout, shape2)
+        out1 = self._predict_view(1, decout, shape1, true_shape1 if mixed_ar else None)
+        out2 = self._predict_view(2, decout, shape2, true_shape2 if mixed_ar else None)
         res1 = {"pts3d": out1.value.permute(0, 2, 3, 1), "conf": out1.confidence.permute(0, 2, 3, 1)}
         res2 = {"pts3d_in_other_view": out2.value.permute(0, 2, 3, 1), "conf": out2.confidence.permute(0, 2, 3, 1)}
         return res1, res2

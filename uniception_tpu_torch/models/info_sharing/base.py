@@ -4,7 +4,7 @@ Feature lists keep the reference's per-view BCHW layout.
 """
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -14,9 +14,17 @@ __all__ = ["MultiViewTransformerInput", "MultiViewTransformerOutput", "UniCeptio
 
 @dataclass
 class MultiViewTransformerInput:
-    "Multi-view transformer input: per-view (batch, input_embed_dim, feat_h, feat_w)."
+    """Multi-view transformer input.
+
+    features: per-view (batch, input_embed_dim, feat_h, feat_w).
+    positions: optional per-view true token positions (batch, N, 2) int32 for
+        the custom positional encoding; None builds the canvas grid. A ManyAR
+        portrait row's tokens are in transposed-grid order, so its positions
+        are the (feat_w, feat_h) grid (DUSt3R ``landscape_only``).
+    """
 
     features: List[torch.Tensor]
+    positions: Optional[List[torch.Tensor]] = None
 
 
 @dataclass

@@ -106,6 +106,8 @@ class MultiViewCrossAttentionTransformer(UniCeptionInfoSharingBase):
         tokens = [self.proj_embed(f.permute(0, 2, 3, 1).reshape(B, H * W, self.input_embed_dim)) for f in feats]
         if self.custom_positional_encoding is None:
             positions = [None] * self.num_views
+        elif model_input.positions is not None:  # the caller's true positions (ManyAR mixed orientations)
+            positions = list(model_input.positions)
         else:
             positions = [make_patch_positions(B, H, W, device=feats[0].device)] * self.num_views
         return tokens, positions, (B, H, W)

@@ -6,7 +6,8 @@ The arrays are ``{state-dict key: np.ndarray}``: what
 JAX module, or a reference ``.pth`` state dict converted to numpy.
 """
 
-from typing import Dict
+import re
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -15,13 +16,21 @@ from torch import nn
 __all__ = ["load_state_dict_numpy"]
 
 
-def load_state_dict_numpy(module: nn.Module, arrays: Dict[str, np.ndarray], strict: bool = True):
+def load_state_dict_numpy(module: nn.Module, arrays: Dict[str, np.ndarray], strict: bool = True,
+                          ignore: Sequence[str] = ()):
     """Copy ``arrays`` into ``module``'s parameters and buffers, cast to each one's dtype.
+
+    Keys matching a regex of ``ignore`` (known aliases of other keys, such as
+    the reference DPT's ``head{1,2}.*`` and ``scratch.layer*_rn`` spellings)
+    are dropped first and never reported as unexpected.
 
     Raises ValueError on a shape mismatch, and (with ``strict``) KeyError on
     missing or unexpected keys, as torch_compat.load_torch_state_dict does.
     Returns (missing_keys, unexpected_keys).
     """
+    if ignore:
+        pats = [re.compile(p) for p in ignore]
+        arrays = {k: v for k, v in arrays.items() if not any(p.search(k) for p in pats)}
     own = module.state_dict()
     missing = [k for k in own if k not in arrays]
     unexpected = [k for k in arrays if k not in own]
