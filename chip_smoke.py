@@ -95,7 +95,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                call held against its plain version;
    21. flow:   UFMFlow 512 with the DPT head serving the same stream through
                the buckets and their portrait canvases, each canvas's
-               kernel path against the plain path.
+               kernel path against the plain path;
+   22. multiview: the N-frame multi-view pointmap model at
+               scripts/bench_multiview.py's width (ViT-L 512 encoder, 12-deep
+               768-wide info sharing, batch 1, tanh GELU), 4 views alternating
+               and global, 8 views alternating: kernels against the plain path
+               (every view's pts3d and conf, the info sharing's features) with
+               exact launches, frames/s, device ms per forward, busy share and
+               peak memory; on 4-view alternating also int8 attention, "fused"
+               and the int8 rung, each K6, K5 and K4 call held against its
+               plain version; K1 at the global streams' lengths (4096, 8192
+               tokens) and a frame's, beside SDPA and the bound.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -188,6 +198,13 @@ K5_FP32_TOL = 2e-5
 # of the scores round to the other bf16 neighbour, each moving its row by up to ulp(s) |v| (max abs 4.0 at the
 # sweep's shape): ||kernel - plain|| / ||plain||, measured 1.04e-4.
 K8_ULPS, K8_ULP_FLOOR = 2, 1.0
+# K1 at the multi-view model's shapes (phase 22), in bf16 ulps of max(|plain|, 1/64): over N random keys the output is
+# an average of about N / e values, |o| ~ 0.02-0.7, so an absolute bar sized for |o| ~ 2-4 would pass a kernel that
+# drops a key tile. Both outputs are one rounding of fp32 sums taken in another order, and a p that rounds to the
+# other bf16 neighbour moves its row by about 2^-8 of one key's weight: the more so the fewer the keys (K5's bar at
+# N = 1024 is 16). The control, the plain version without its last key tile (128 keys), must land at least
+# K1_MV_CONTROL_ULPS away, so the bar can see a lost tile; the phase prints both.
+K1_MV_ULPS, K1_MV_ULP_FLOOR, K1_MV_CONTROL_ULPS = 8, 1 / 64, 32
 K8_REL_TOL = 1e-3
 # Published peaks of the H100 SXM (dense) and its memory rate: the bound of each kernel's work.
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1084,14 +1101,20 @@ def profile_serving(torch, fn, frames, label="15 profile int8-DPT", top=14):
     prep and attention, K7's conv and split-K reduction). Returns the device ms per batch."""
     batches = [(frames[2 * i : 2 * i + 2 * BATCH : 2], frames[2 * i + 1 : 2 * i + 2 * BATCH : 2]) for i in range(3)]
     events = profile_device(torch, lambda: [fn(img1, img2) for img1, img2 in batches], 3, "batch", label, top)
+    return kernel_device_ms(events, 3, "batch", label)
+
+
+def kernel_device_ms(events, n, unit, label):
+    """Each hand-written kernel's device ms per unit from profiler events over n units (all its launches: K4's row
+    quantization and GEMM, K6's prep and attention, K7's conv and split-K reduction). Returns the device ms per unit."""
     for name, keys in PROFILE_KERNELS.items():
         mine = [e for e in events if any(k in e.key for k in keys)]
         if not mine:
             continue
-        ms = sum(e.self_device_time_total for e in mine) / 1e3 / 3
-        print(f"[{label}] {name}: {ms:.3f} ms/batch in {sum(e.count for e in mine) // 3} launches/batch "
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / n
+        print(f"[{label}] {name}: {ms:.3f} ms/{unit} in {sum(e.count for e in mine) // n} launches/{unit} "
               f"({', '.join(sorted(e.key[:60] for e in mine))})")
-    return sum(e.self_device_time_total for e in events) / 1e3 / 3
+    return sum(e.self_device_time_total for e in events) / 1e3 / n
 
 
 def profile_device(torch, run, n, unit, label, top):
@@ -1808,6 +1831,223 @@ def phase_flow(torch, np, serve, config, counters, card):
     return launches
 
 
+# Phase 22: scripts/bench_multiview.py's configuration: the ViT-L 512 encoder and the 12-deep, 768-wide multi-view info
+# sharing, batch 1, tanh GELU; (views, info sharing) in the order run. The int8 rung, int8 attention and "fused" run on
+# the first.
+MV_CONFIGS = [(4, "alternating"), (4, "global"), (8, "alternating")]
+MV_BATCH, MV_FORWARDS, MV_PROFILED = 1, 5, 3
+MV_K1_SHAPES = [("global 4 views", 1, 4096, 12), ("global 8 views", 1, 8192, 12), ("frame", 4, 1024, 12)]
+
+
+def mv_want(attention_type, rung, counters):
+    """Exact launches per multi-view forward at batch 1: the encoder's 24 attention layers run once over the views
+    folded into the batch; the info sharing's 12 depths are all global, or alternate global (even) and frame (odd)."""
+    glob = DEC_DEPTH if attention_type == "global" else DEC_DEPTH // 2
+    frame, want = DEC_DEPTH - glob, {k: 0 for k in counters}
+    if rung == "int8 attention":  # one key block holds the encoder's and a frame's 1024 keys, not V * 1024
+        want.update(K6=ENC_DEPTH + frame, K1=glob, K2=2 * ENC_DEPTH)
+    elif rung == "fused":  # the fused contract takes at most 2048 keys, and the info sharing has no RoPE
+        want.update({"K5-self": ENC_DEPTH + frame, "K1": glob})
+    else:
+        want.update(K1=ENC_DEPTH + DEC_DEPTH, K2=2 * ENC_DEPTH)
+        if rung == "int8":  # qkv, proj, fc1, fc2 of every block, and proj_embed once over the whole stream
+            want.update(K4=ENC_DEPTH * 4 + (ENC_DIM != DEC_DIM) + DEC_DEPTH * 4)
+    return want
+
+
+def mv_timing(torch, fwd, views, label, card):
+    """frames/s (V * B * n / seconds: CUDA events over n forwards after one warm-up), peak memory over them, device
+    ms per forward (torch.profiler over 3 forwards) with each kernel's share, and the busy share."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(MV_FORWARDS):
+        fwd()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / MV_FORWARDS
+    peak = torch.cuda.max_memory_allocated()
+    events = profile_device(torch, lambda: [fwd() for _ in range(MV_PROFILED)], MV_PROFILED, "forward", label, 8)
+    device_ms = kernel_device_ms(events, MV_PROFILED, "forward", label)
+    rate = views * MV_BATCH * 1e3 / ms
+    print(f"[{label}] {rate:.3f} frames/s ({views} views x batch {MV_BATCH}; {ms:.3f} ms per forward by CUDA events "
+          f"over {MV_FORWARDS} forwards after one warm-up); device {device_ms:.3f} ms per forward (torch.profiler, "
+          f"{MV_PROFILED} forwards); busy share {device_ms / ms:.3f} (device ms over the unprofiled ms per forward); "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB) on {card}")
+    return {"frames_per_s": rate, "ms": ms, "device_ms": device_ms, "peak": peak}
+
+
+def mv_k1_times(torch, fa, card):
+    "K1 at the multi-view shapes (q, k, v strided views of one qkv tensor, as in the layers) beside SDPA and the bound."
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    for name, B, N, H in MV_K1_SHAPES:
+        q, k, v = torch.randn(B, N, 3, H, 64, device="cuda", generator=gen, dtype=torch.bfloat16).unbind(2)
+        out, ref = fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        ulps = _ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR)
+        lost = _ulps(fa.flash_attention_ref(q, k[:, :-128], v[:, :-128]), ref, 7, floor=K1_MV_ULP_FLOOR)
+        del out, ref
+        require(ulps <= K1_MV_ULPS, f"K1 {name}: {ulps} ulps of max(|plain|, 1/64) vs plain > {K1_MV_ULPS}")
+        require(lost >= K1_MV_CONTROL_ULPS, f"K1 {name}: the control (last 128 keys dropped) is {lost} ulps away, "
+                f"under {K1_MV_CONTROL_ULPS}: the bar cannot see a lost key tile")
+        ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v))
+        lib = graph_ms(torch, lambda: sdpa(q, k, v))
+        b = attention_bound(B, N, N, H)
+        tflops = 4 * B * H * N * N * 64 / 1e9
+        print(f"[22 K1] {name} ({B},{N},{H},64): {ulps:.2f} ulps of max(|plain|, 1/64) vs plain (tol {K1_MV_ULPS}; "
+              f"max abs {err:.2e}), the plain version without its last 128 keys {lost:.1f} ulps; {ms:.4f} ms "
+              f"({tflops / ms:.1f} TFLOP/s), SDPA {lib:.4f} ms ({tflops / lib:.1f} TFLOP/s), bound {b[0]:.4f} ms "
+              f"({b[1]}), share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def phase_multiview(torch, np, serve, config, blocks, quant, fa, fused, i8, counters, card):
+    """The N-frame multi-view pointmap model at scripts/bench_multiview.py's full width, 512x512, batch 1, from seed 0:
+    4 views alternating and global, 8 views alternating. For each the kernel path against the plain path (every
+    view's pts3d and conf, the info sharing's features) with exact launches on an eager forward and its timing; on
+    4-view alternating also int8 attention (each K6 call against its plain version), "fused" (each K5 call against
+    its plain version) and the int8 rung (each K4 call's codes and output against its plain version). Then K1 at the
+    long shapes. Returns the launches of the counted forwards."""
+    import uniception_tpu_torch.ops.attention as attention
+
+    prep = serve.make_frame_normalizer("dust3r", "cuda")
+    frames = np.random.RandomState(SEED).randint(0, 256, size=(8 * MV_BATCH, IMG, IMG, 3), dtype=np.uint8)
+    launches = {k: 0 for k in counters}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def counted(fwd, label, want):
+        "One eager forward with the counts from 0; they must be ``want`` exactly."
+        _reset(counters)
+        out = fwd()
+        torch.cuda.synchronize()
+        got = _read(counters)
+        print(f"[{label}] launches per forward {got} (want {want})")
+        require(got == want, f"{label}: launches {got}, want {want}")
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    config.set_gelu_mode("tanh")  # bench_multiview.py's GELU
+    try:
+        for views, attention_type in MV_CONFIGS:
+            tag = f"22 {views}-view {attention_type}"
+            model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                                      seed=SEED, model="multiview", num_views=views, attention_type=attention_type)
+            imgs = [prep(frames[v * MV_BATCH:(v + 1) * MV_BATCH]) for v in range(views)]
+            feats = []
+            hook = model.info_sharing.register_forward_hook(
+                lambda mod, inp, out: feats.append(torch.cat([f.float().flatten() for f in out.features])))
+
+            def fwd():
+                with torch.inference_mode():
+                    return model(imgs)
+
+            config.set_attention_impl("naive")
+            try:
+                res_n = fwd()
+                torch.cuda.synchronize()
+            finally:
+                config.set_attention_impl("kernel")
+            res_k = counted(fwd, tag, mv_want(attention_type, "bf16", counters))
+            feat_k, feat_n = feats.pop(), feats.pop()
+            hook.remove()
+            errs = [rel(feat_k, feat_n)]
+            for v, (a, b) in enumerate(zip(res_k, res_n)):
+                for key, c in (("pts3d", 3), ("conf", 1)):
+                    require(tuple(a[key].shape) == (MV_BATCH, IMG, IMG, c), f"{tag} view {v} {key}: {a[key].shape}")
+                    require(torch.isfinite(a[key]).all().item(), f"{tag} view {v} {key}: non-finite output")
+                    errs.append(rel(a[key], b[key]))
+            print(f"[{tag}] kernels vs plain path, ||kernel - plain|| / ||plain||: info-sharing features "
+                  f"{errs[0]:.3e}, every view's pts3d and conf max {max(errs[1:]):.3e} (tol {MODEL_REL_TOL})")
+            require(max(errs) <= MODEL_REL_TOL, f"{tag}: kernels vs plain {max(errs)} > {MODEL_REL_TOL}")
+            mv_timing(torch, fwd, views, tag, card)
+
+            if (views, attention_type) == MV_CONFIGS[0]:
+                k6_ulps, k6_ctrl = [], []
+
+                def k6_checked(q, k, v, scale=None, mode="int8"):
+                    o = fa.flash_attention_int8(q, k, v, scale, mode)
+                    ref = fa.flash_attention_int8_ref(q, k, v, scale, mode)
+                    k6_ulps.append(_ulps(o, ref, 7, floor=K6_ULP_FLOOR))
+                    k6_ctrl.append(_ulps(fa.flash_attention_ref(q, k, v, scale), ref, 7, floor=K6_ULP_FLOOR))
+                    return o
+
+                config.set_attention_quant("int8")
+                attention.flash_attention_int8 = k6_checked
+                try:
+                    res = counted(fwd, f"{tag} int8 attention", mv_want(attention_type, "int8 attention", counters))
+                finally:
+                    attention.flash_attention_int8 = fa.flash_attention_int8
+                    config.set_attention_quant("none")
+                require(all(torch.isfinite(r[k]).all().item() for r in res for k in r), f"{tag} int8 attn: non-finite")
+                print(f"[{tag} int8 attention] {len(k6_ulps)} K6 calls, each against its plain version on the same "
+                      f"activations: max {max(k6_ulps):.2f} ulp (tol {K6_ULPS}); exact attention, the control: "
+                      f"{sum(c > K6_ULPS for c in k6_ctrl)} calls over the tol, max {max(k6_ctrl):.2f}")
+                require(max(k6_ulps) <= K6_ULPS, f"{tag}: a K6 call is {max(k6_ulps)} ulp from its plain version")
+                require(max(k6_ctrl) > K6_ULPS, f"{tag}: exact attention passed K6's check")
+
+                k5_ulps = []
+
+                def k5_checked(*args):
+                    out = fused.fused_qkv_rope_attention(*args)
+                    k5_ulps.append(k5_check(out, fused.fused_qkv_rope_attention_ref(*args), True)[0])
+                    return out
+
+                config.set_attention_impl("fused")
+                blocks.fused_qkv_rope_attention = k5_checked
+                try:
+                    res = counted(fwd, f"{tag} fused", mv_want(attention_type, "fused", counters))
+                finally:
+                    blocks.fused_qkv_rope_attention = fused.fused_qkv_rope_attention
+                    config.set_attention_impl("kernel")
+                require(all(torch.isfinite(r[k]).all().item() for r in res for k in r), f"{tag} fused: non-finite")
+                print(f"[{tag} fused] {len(k5_ulps)} K5-self calls, each against its plain version on the same "
+                      f"activations: max {max(k5_ulps):.2f} ulp of max(|plain|, {K5_ULP_FLOOR}) (tol {K5_ULPS})")
+                require(max(k5_ulps) <= K5_ULPS, f"{tag}: a K5 call is {max(k5_ulps)} ulp from its plain version")
+
+                n_q = quant.quantize_trunk(model, "all")
+                want = mv_want(attention_type, "int8", counters)
+                require(n_q == want["K4"], f"{tag}: {n_q} trunk linears quantized, want {want['K4']}")
+                k4_codes, k4_ulps = [], []
+
+                def k4_checked(x, w_q, w_scale, bias=None, out_dtype=None):
+                    out = i8.int8_matmul_dynamic(x, w_q, w_scale, bias, out_dtype)
+                    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+                    x_q = torch.empty(x2.shape, dtype=torch.int8, device=x.device)
+                    a_scale = torch.empty(x2.shape[0], dtype=torch.float32, device=x.device)
+                    # the codes K4's launch writes to its scratch, from an uncounted launch on the same inputs
+                    i8._launch(x2, x_q, a_scale, w_q.t().contiguous(), w_scale, bias, out_dtype or x.dtype, None)
+                    ref_q, ref_scale = i8.quantize_rows(x2)
+                    k4_codes.append(torch.equal(x_q, ref_q) and torch.equal(a_scale, ref_scale.reshape(-1)))
+                    k4_ulps.append(_ulps(out, i8.int8_matmul_dynamic_ref(x, w_q, w_scale, bias, out_dtype), 7))
+                    return out
+
+                quant.int8_matmul_dynamic = k4_checked
+                try:
+                    res = counted(fwd, f"{tag} int8 trunk", want)
+                finally:
+                    quant.int8_matmul_dynamic = i8.int8_matmul_dynamic
+                require(all(torch.isfinite(r[k]).all().item() for r in res for k in r), f"{tag} int8: non-finite")
+                print(f"[{tag} int8 trunk] {n_q} trunk linears quantized; {len(k4_codes)} K4 calls, each against its "
+                      f"plain version: int8 codes and row scales equal in {sum(k4_codes)}, output max "
+                      f"{max(k4_ulps):.2f} ulp (tol {K4_ULPS})")
+                require(all(k4_codes), f"{tag}: a K4 call's int8 codes differ from its plain version's")
+                require(max(k4_ulps) <= K4_ULPS, f"{tag}: a K4 call is {max(k4_ulps)} ulp from its plain version")
+                mv_timing(torch, fwd, views, f"{tag} int8 trunk", card)
+            del model, imgs, res_k, res_n
+            torch.cuda.empty_cache()
+    finally:
+        config.set_gelu_mode("exact")
+    mv_k1_times(torch, fa, card)
+    return launches
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -1889,7 +2129,8 @@ def main():
     phase_checkpoints(torch, serve, card)
     bucketed = phase_bucketed(torch, F, np, serve, config, quant, fa, c3, counters, card)
     flow = phase_flow(torch, np, serve, config, counters, card)
-    served = {k: served[k] + bucketed[k] + flow[k] for k in counters}
+    multiview = phase_multiview(torch, np, serve, config, blocks, quant, fa, fused, i8, counters, card)
+    served = {k: served[k] + bucketed[k] + flow[k] + multiview[k] for k in counters}
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -1906,7 +2147,7 @@ def main():
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
               k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
-              fused_path["K5-self"], k5_err["self"], k5["self"]),
+              fused_path["K5-self"] + multiview["K5-self"], k5_err["self"], k5["self"]),
         entry("fused_cross_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:325",
               fused_path["K5-cross"], k5_err["cross"], k5["cross"]),
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",

@@ -899,3 +899,59 @@ def test_serving_forward_waits_for_no_queued_work(gen, landscape_only):
     waited = time.perf_counter() - start
     assert host < 0.3 < waited, (host, waited)
     assert all(torch.isfinite(o).all() for o in out)
+
+
+# K1 over the multi-view global stream, in bf16 ulps of max(|plain|, 1/64): |o| is 0.02-0.3 over thousands of random
+# keys, so the bar is relative (chip_smoke.py K1_MV_ULPS). The plain version without the keys of a lost tile, or of
+# the ragged tail, must land at least K1_MV_CONTROL_ULPS away: the bar sees such a fault.
+K1_MV_ULPS, K1_MV_ULP_FLOOR, K1_MV_CONTROL_ULPS = 8, 1 / 64, 32
+
+
+@pytest.mark.parametrize("n,lost", [(4096, 128), (8192, 128), (3 * 1024 + 5, 5)],
+                         ids=["4-views", "8-views", "3-views-5-global"])
+def test_flash_attention_at_multiview_global_lengths(gen, n, lost):
+    """K1 over the multi-view model's global stream (V * 1024 tokens of 512x512 views, 12 heads of the 768-wide
+    info sharing), on strided views of one qkv tensor as the layers pass them; 3077 = 3 views and 5 global tokens."""
+    q, k, v = _strided_qkv(gen, 1, n, n, 12, torch.bfloat16)
+    ref = flash_attention_ref(q, k, v)
+    assert _ulps(flash_attention(q, k, v), ref, 7, floor=K1_MV_ULP_FLOOR) <= K1_MV_ULPS
+    control = flash_attention_ref(q, k[:, :n - lost], v[:, :n - lost])
+    assert _ulps(control, ref, 7, floor=K1_MV_ULP_FLOOR) >= K1_MV_CONTROL_ULPS
+
+
+@pytest.mark.parametrize("rung", ["bf16", "int8 attention", "fused"])
+@pytest.mark.parametrize("attention_type", ["alternating", "global"])
+def test_multiview_model_kernels_match_plain_with_exact_launches(gen, attention_type, rung):
+    """A narrow multi-view model (3 views of 512x512: 1024 tokens per view, 3072 in the global stream; 2 encoder
+    blocks, 4 info-sharing depths) against its plain path, with exact launches per forward: a global layer's 3072
+    keys are past one int8 key block (1024) and past the fused contract (2048), so it stays on K1."""
+    from uniception_tpu_torch import serve
+    from uniception_tpu_torch.ops.fused_attention import fused_qkv_rope_attention
+
+    model = serve.build_model(512, 2, 128, 2, 4, 192, 3, device="cuda", seed=0, model="multiview", num_views=3,
+                              attention_type=attention_type)
+    views = [torch.randn(1, 3, 512, 512, device="cuda", generator=gen) for _ in range(3)]
+    glob = 4 if attention_type == "global" else 2
+    want = {"bf16": (6, 4, 0, 0), "int8 attention": (glob, 4, 2 + 4 - glob, 0), "fused": (glob, 0, 0, 2 + 4 - glob)}
+    counters = (flash_attention, rope_2d_kernel, flash_attention_int8, fused_qkv_rope_attention)
+
+    def forward(impl):
+        config.set_attention_impl(impl)
+        config.set_attention_quant("int8" if rung == "int8 attention" else "none")
+        try:
+            before = [c.launches for c in counters]
+            with torch.inference_mode():
+                out = model(views)
+            return out, tuple(c.launches - b for c, b in zip(counters, before))
+        finally:
+            config.set_attention_impl("kernel")
+            config.set_attention_quant("none")
+
+    plain, none = forward("naive")
+    out, launches = forward("fused" if rung == "fused" else "kernel")
+    assert none == (0, 0, 0, 0)
+    assert launches == want[rung]
+    for o, p in zip(out, plain):
+        for key in ("pts3d", "conf"):
+            assert torch.isfinite(o[key]).all()
+            assert ((o[key] - p[key]).norm() / p[key].norm()).item() <= 2e-2, key

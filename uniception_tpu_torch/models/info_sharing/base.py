@@ -9,7 +9,13 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-__all__ = ["MultiViewTransformerInput", "MultiViewTransformerOutput", "UniCeptionInfoSharingBase"]
+__all__ = [
+    "MultiViewTransformerInput",
+    "MultiViewTransformerOutput",
+    "MultiSetTransformerInput",
+    "MultiSetTransformerOutput",
+    "UniCeptionInfoSharingBase",
+]
 
 
 @dataclass
@@ -17,6 +23,8 @@ class MultiViewTransformerInput:
     """Multi-view transformer input.
 
     features: per-view (batch, input_embed_dim, feat_h, feat_w).
+    additional_input_tokens: (batch, input_embed_dim, num_additional), global extra tokens.
+    additional_input_tokens_per_view: per-view (batch, input_embed_dim, n) extra tokens.
     positions: optional per-view true token positions (batch, N, 2) int32 for
         the custom positional encoding; None builds the canvas grid. A ManyAR
         portrait row's tokens are in transposed-grid order, so its positions
@@ -24,14 +32,34 @@ class MultiViewTransformerInput:
     """
 
     features: List[torch.Tensor]
+    additional_input_tokens: Optional[torch.Tensor] = None
+    additional_input_tokens_per_view: Optional[List[torch.Tensor]] = None
     positions: Optional[List[torch.Tensor]] = None
 
 
 @dataclass
 class MultiViewTransformerOutput:
-    "Multi-view transformer output: per-view BCHW features."
+    "Multi-view transformer output: per-view BCHW features and the extra tokens' features (batch, dim, n)."
 
     features: List[torch.Tensor]
+    additional_token_features: Optional[torch.Tensor] = None
+    additional_token_features_per_view: Optional[List[torch.Tensor]] = None
+
+
+@dataclass
+class MultiSetTransformerInput:
+    "Multi-set transformer input: per-set (batch, input_embed_dim, num_tokens), and global extra tokens."
+
+    features: List[torch.Tensor]
+    additional_input_tokens: Optional[torch.Tensor] = None
+
+
+@dataclass
+class MultiSetTransformerOutput:
+    "Multi-set transformer output: per-set (batch, dim, num_tokens), and the extra tokens' features."
+
+    features: List[torch.Tensor]
+    additional_token_features: Optional[torch.Tensor] = None
 
 
 class UniCeptionInfoSharingBase(nn.Module):

@@ -203,8 +203,8 @@ def quantize_linears(
 
 
 def quantize_trunk(model: nn.Module, policy: str = "all", *, asym: Optional[str] = None, min_params: int = 1 << 16) -> int:
-    """Quantize a DUSt3R-style model's trunk (``model.encoder`` and
-    ``model.info_sharing``) under a mixed-precision policy (see
+    """Quantize a model's trunk (``model.encoder`` and ``model.info_sharing``:
+    DUSt3R, UFMFlow, MultiViewPointmapModel) under a mixed-precision policy (see
     :func:`trunk_policy`); ``asym`` is a second policy naming the layers that
     take the zero-point activation mode (None: "none"). Returns the number of
     converted linears."""

@@ -59,6 +59,7 @@ from uniception_tpu_torch.data.pipeline import prefetch_to_device
 from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
 from uniception_tpu_torch.models.factory.flow import UFMFlow
+from uniception_tpu_torch.models.factory.multiview import MultiViewPointmapModel
 from uniception_tpu_torch.nn.quant import quantize_linears, quantize_trunk
 from uniception_tpu_torch.utils.checkpoint import load_checkpoint
 from uniception_tpu_torch.utils.coldstart import (
@@ -82,13 +83,13 @@ __all__ = [
 ]
 
 
-def make_model(model: str, img_size, dims, *, dtype, head, head_dtype, landscape_only, device=None, generator=None):
-    "The serving model's constructor (shared by the seeded and the checkpoint paths and the converter)."
+def make_model(model: str, img_size, dims, *, dtype, head, head_dtype, landscape_only, device=None, generator=None,
+               num_views: int = 4, attention_type: str = "alternating"):
+    """The serving model's constructor (shared by the seeded and the checkpoint paths and the converter).
+    ``num_views`` and ``attention_type`` configure the multi-view model only."""
     enc_depth, enc_dim, enc_heads, dec_depth, dec_dim, dec_heads = dims
     common = dict(
         img_size=img_size,
-        pred_head_type=head,
-        head_dtype=head_dtype,
         enc_embed_dim=enc_dim,
         enc_depth=enc_depth,
         enc_num_heads=enc_heads,
@@ -100,13 +101,20 @@ def make_model(model: str, img_size, dims, *, dtype, head, head_dtype, landscape
         device=device,
         generator=generator,
     )
+    if model == "multiview":  # the JAX factory's one configuration: PatchEmbedDust3R, one fp32 linear head
+        if head != "linear" or head_dtype is not None or landscape_only:
+            raise ValueError("the multi-view model has one fp32 linear head and no landscape_only: "
+                             f"got head={head!r}, head_dtype={head_dtype}, landscape_only={landscape_only}")
+        return MultiViewPointmapModel(name=f"mv_serve_{attention_type}", num_views=num_views,
+                                      attention_type=attention_type, **common)
+    common.update(pred_head_type=head, head_dtype=head_dtype)
     if model == "flow":  # no ManyAR: flow buckets carry the orientation in the canvas itself
         m = UFMFlow(name="ufm_flow_serve", **common)
     elif model == "dust3r":
         m = DUSt3R(name=f"dust3r_serve_{head}", patch_embed_cls="ManyAR_PatchEmbed", landscape_only=landscape_only,
                    **common)
     else:
-        raise ValueError(f"unknown model {model!r}: 'dust3r' or 'flow'")
+        raise ValueError(f"unknown model {model!r}: 'dust3r', 'flow' or 'multiview'")
     if head_dtype is not None:
         for module in m.heads():  # serving casts the heads' parameters too
             module.to(head_dtype)
@@ -133,10 +141,14 @@ def build_model(
     model: str = "dust3r",
     checkpoint: Optional[str] = None,
     landscape_only: bool = False,
+    num_views: int = 4,
+    attention_type: str = "alternating",
 ) -> nn.Module:
-    """The serving model: ``model`` "dust3r" (ManyAR patch embed) or "flow"
-    (``UFMFlow``), ``head`` "linear" or "dpt"; ``img_size`` an int (square) or
-    (h, w), which sets the flow adaptor's base shape.
+    """The serving model: ``model`` "dust3r" (ManyAR patch embed), "flow"
+    (``UFMFlow``) or "multiview" (``MultiViewPointmapModel`` over ``num_views``
+    frames with ``attention_type`` "alternating" or "global" info sharing;
+    ``head`` "linear" only, fp32); ``head`` "linear" or "dpt"; ``img_size`` an
+    int (square) or (h, w), which sets the flow adaptor's base shape.
 
     Weights: drawn from ``seed``, or with ``checkpoint`` read from it (built on
     the meta device, one host-to-device copy per dtype). The trunk's
@@ -151,7 +163,8 @@ def build_model(
     device = torch.device(device)
     size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
     dims = (enc_depth, enc_dim, enc_heads, dec_depth, dec_dim, dec_heads)
-    kw = dict(dtype=dtype, head=head, head_dtype=head_dtype, landscape_only=landscape_only)
+    kw = dict(dtype=dtype, head=head, head_dtype=head_dtype, landscape_only=landscape_only, num_views=num_views,
+              attention_type=attention_type)
     quant_spec = (int8_policy, int8_asym) if int8 else None
     if checkpoint is None:
         generator = torch.Generator(device=device).manual_seed(seed)

@@ -29,8 +29,12 @@ the scan layout is ``root.{i}.rest``; ``Int8Linear``'s keys are the JAX
 module's (nn/quant.py exports w_q as (in, out)). The JAX modules' dropout
 RNG leaves (``*.rngs.count``) have no counterpart and are skipped on load;
 the port does not write them (the JAX loader makes them zeros, their initial
-value). ``.npz`` holds the same state as a numpy zip (bf16 as raw 2-byte
-words with the true dtype in its metadata).
+value). A non-persistent buffer (the multi-view info sharing's sinusoid
+view- or set-index table) is computed at construction, never written and
+never loaded: the JAX package keeps it as a plain array attribute, which its
+files hold at ``info_sharing.view_pos_table`` (no ``.value``), and the load
+skips that entry. ``.npz`` holds the same state as a numpy zip (bf16 as raw
+2-byte words with the true dtype in its metadata).
 
 :func:`materialize` copies each dtype section to the device as one pinned
 host-to-device copy, does the layout transforms and casts there, and installs
@@ -50,6 +54,7 @@ import torch
 from torch import nn
 
 from uniception_tpu_torch.utils.framing import read_framed_header, write_framed_header
+from uniception_tpu_torch.utils.weights import recomputed_buffers
 
 __all__ = [
     "abstract_construct",
@@ -102,7 +107,8 @@ def abstract_construct(thunk: Callable[[], nn.Module]) -> nn.Module:
 
 
 def _stacked_roots(module: nn.Module) -> Dict[str, int]:
-    "Dotted names of the block lists the JAX scan layout stacks (encoder blocks, each view's decoder branch) -> depth."
+    """Dotted names of the block lists the JAX scan layout stacks (encoder blocks, each view's decoder branch, the
+    multi-view info sharing's blocks) -> depth."""
     from uniception_tpu_torch.nn.blocks import CrossAttentionBlock, SelfAttentionBlock
 
     return {
@@ -383,6 +389,7 @@ def materialize(
     arrays: native state (JAX path -> tensor, from :func:`load_native_state`), loop or scan layout.
     state_dict: torch-layout state (key -> numpy array or tensor, e.g. ``load_checkpoint(...)["model"]``);
         keys matching a regex of ``ignore`` (the reference's aliases) are dropped first.
+    In either, an entry naming a non-persistent buffer (recomputed at construction) is not loaded.
 
     The load is strict: a missing or unexpected entry raises (KeyError), a
     shape mismatch raises (ValueError). Returns the module.
@@ -391,6 +398,7 @@ def materialize(
         raise ValueError("pass arrays= (native state) or state_dict= (torch layout), one of them")
     device = torch.device(device)
     own = module.state_dict()
+    recomputed = recomputed_buffers(module)
     table = native_key_table(module)
     sources = {}  # state key -> (source key, index in a scan stack or None)
     if arrays is not None:
@@ -400,7 +408,7 @@ def materialize(
             elif scan is not None and scan in arrays:
                 sources[key] = (scan, index)
         used = {src for src, _ in sources.values()}
-        unexpected = sorted(p for p in arrays if p not in used and not _skipped(p))
+        unexpected = sorted(p for p in arrays if p not in used and not _skipped(p) and p not in recomputed)
         if isinstance(arrays, PackedNativeState):  # ship its sections as they are, those the module uses
             shipped = {arrays.index[p][0] for p in used}
             host = {n: _torch_view(b, n) for n, b in arrays.blobs.items() if n in shipped}
@@ -409,7 +417,7 @@ def materialize(
             host, index = _pack({p: torch.as_tensor(arrays[p]) for p in used})
     else:
         pats = [re.compile(p) for p in ignore]
-        kept = {k: v for k, v in state_dict.items() if not any(p.search(k) for p in pats)}
+        kept = {k: v for k, v in state_dict.items() if k not in recomputed and not any(p.search(k) for p in pats)}
         sources = {key: (key, None) for key in own if key in kept}
         unexpected = sorted(k for k in kept if k not in own)
         host, index = _pack({k: torch.as_tensor(kept[k]) for k in sources})
@@ -430,10 +438,13 @@ def materialize(
             raise ValueError(f"Shape mismatch for {key}: checkpoint {tuple(t.shape)} vs module {tuple(own[key].shape)}")
         state[key] = t.to(own[key].dtype).contiguous()
     module.load_state_dict(state, strict=True, assign=True)
-    for mod in module.modules():  # a load hook may install a transposed view (Int8Linear's w_q): keep each contiguous
+    for mod in module.modules():
         for name, t in mod._buffers.items():
-            if t is not None and not t.is_contiguous():
-                mod._buffers[name] = t.contiguous()
+            if t is None:
+                continue
+            if name in mod._non_persistent_buffers_set:  # built on the host at construction: placed, not loaded
+                t = t.to(device)
+            mod._buffers[name] = t.contiguous()  # a load hook may install a transposed view (Int8Linear's w_q)
     left = [n for n, t in list(module.named_parameters()) + list(module.named_buffers()) if t.is_meta]
     if left:
         raise RuntimeError(f"materialize: tensors left on the meta device: {left[:8]}")
