@@ -106,6 +106,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                and the int8 rung, each K6, K5 and K4 call held against its
                plain version; K1 at the global streams' lengths (4096, 8192
                tokens) and a frame's, beside SDPA and the bound.
+   23. K3 long: K1 with its logsumexp and K3 at (1, N, 12, 64) for the
+               multi-view global streams (N = 4096, 8192, 3077), in bf16 ulps
+               of max(|plain|, 1/64) against their plain versions with
+               dropped-tile controls; K3's time beside SDPA's backward and
+               the bound;
+   24-29. training as examples/train_dust3r.py and scripts/bench_train.py
+               run it, at the full width of DUSt3R ViT-L 512 (bf16 trunk over
+               fp32 parameters and AdamW state, seed 0): one step's loss and
+               gradients through the kernels against the plain path at phase
+               10's bars, the exact launches of a step, ms/step, the busy
+               share and peak memory of (24) the DPT heads (bf16, on K7, head
+               remat on; the peak with it off beside), (25) mixed-aspect
+               ManyAR batches on the 512 x 768 canvas with a portrait row,
+               (26) UFMFlow DPT on NaN-sentinel targets, (27) the 4-view
+               alternating multi-view model with gradient checkpointing (the
+               key count of every K1 and K3 launch; frames/s), (28) LoRA rank
+               8 on the trunk (only the adapters move; the merged model's
+               forward equals the wrapped one; under "fused" the wrapped
+               projections take K1 and K2, the merged ones K5), (29) one step
+               in the "fused" implementation (K5, its backward through K2, K1
+               and K3);
+   30. resume: the training entry point at ViT-L 512's width with its
+               depth cut to 2 (--warmup-cosine, --mu-bf16, clipping and
+               --skip-nonfinite): 4 steps against 2 steps with an
+               asynchronous save, then --resume and 2 more; the train states
+               must be equal bit for bit.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -899,9 +925,10 @@ def phase_conv3x3(torch, F, c3):
     return worst, main
 
 
-def dpt_k7_convs(h, w):
+def dpt_k7_convs(h, w, recomputed_only=False):
     """(H, W, C, Co) of the convs of one DPT head pass on an h x w image that the K7 rule (nn/dpt_parts.py
-    Conv2dTorch.takes_conv3x3) sends to the kernel: 3x3 / stride 1 with C and Co multiples of 128 at H * W <= 256^2."""
+    Conv2dTorch.takes_conv3x3) sends to the kernel: 3x3 / stride 1 with C and Co multiples of 128 at H * W <= 256^2.
+    ``recomputed_only``: those of the stages head remat recomputes (all but the four layer*_rn convs)."""
     hp, wp = h // 16, w // 16  # the token grid
     h4, w4 = -(-hp // 2), -(-wp // 2)  # after act_4's stride-2 conv
     convs = [  # every 3x3 / stride-1 conv of the head
@@ -909,7 +936,8 @@ def dpt_k7_convs(h, w):
         *[(h4, w4, 256, 256)] * 2, *[(hp, wp, 256, 256)] * 4, *[(2 * hp, 2 * wp, 256, 256)] * 4,  # RCUs
         *[(4 * hp, 4 * wp, 256, 256)] * 4, (8 * hp, 8 * wp, 256, 128), (h, w, 128, 128),  # RCUs, regressor convs
     ]
-    return [c for c in convs if c[0] * c[1] <= 256 * 256 and c[2] % 128 == 0 and c[3] % 128 == 0]
+    return [c for c in convs[4 if recomputed_only else 0:]
+            if c[0] * c[1] <= 256 * 256 and c[2] % 128 == 0 and c[3] % 128 == 0]
 
 
 def k7_convs_per_forward(img):
@@ -2048,6 +2076,470 @@ def phase_multiview(torch, np, serve, config, blocks, quant, fa, fused, i8, coun
     return launches
 
 
+# Phases 23-30: the training entry point as JAX users run it (examples/train_dust3r.py, scripts/bench_train.py) at
+# ViT-L 512 with the 12-deep, 768-wide decoder, bf16 trunk over fp32 parameters and AdamW state, seed 0.
+# K3 and K1 with its logsumexp at the multi-view model's global stream lengths, in bf16 ulps of max(|plain|, 1/64), as
+# phase 22 holds K1: set from a probe on an H100 80GB HBM3 (700 W) that ran phase 23's computation (measured at most
+# 3.74 ulps over dq, dk and dv, K1's output 2.31). The controls, the plain dq without the last 128 keys and the plain
+# dk and dv without the last 128 queries (and K1's output without the last 128 keys), must land at least
+# K3_MV_CONTROL_ULPS away (measured 343 and more): the bar sees a lost tile of keys or queries.
+K3_MV_ULPS, K3_MV_CONTROL_ULPS = 8, 32
+K3_MV_SHAPES = [("global 4 views", 4096), ("global 8 views", 8192), ("3 views + 5 global tokens", 3077)]
+TRAIN_TIMED_STEPS = 3  # steps timed by CUDA events after one warm-up step, and profiled
+LORA_RANK, LORA_STEPS = 8, 3
+MV_TRAIN_VIEWS = 4
+
+
+def _train_counters(fa, rope, c3, fused):
+    """Every launch counter a training step moves: name -> (module, function, attribute), read through the module
+    so that a counting wrapper put in a function's place is what is read."""
+    return {"K1": (fa, "flash_attention", "launches"), "K1-LSE": (fa, "flash_attention", "lse_launches"),
+            "K3": (fa, "flash_attention_bwd", "launches"), "K2": (rope, "rope_2d_kernel", "launches"),
+            "K2-bwd": (rope, "rope_2d_kernel", "backward_launches"),
+            "K5-self": (fused, "fused_qkv_rope_attention", "launches"),
+            "K5-cross": (fused, "fused_cross_rope_attention", "launches"), "K7": (c3, "conv3x3_nhwc", "launches")}
+
+
+def _treset(tc):
+    for mod, fn, attr in tc.values():
+        setattr(getattr(mod, fn), attr, 0)
+
+
+def _tread(tc):
+    return {k: getattr(getattr(mod, fn), attr) for k, (mod, fn, attr) in tc.items()}
+
+
+def _tadd(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def k7_train_launches(h, w, remat):
+    """K7 launches of one DPT head pass on an h x w image in a training step: its K7 convs in the forward, and with
+    head remat those of the refinenets and the regressor once more in the backward (the layer*_rn convs run before
+    the recomputed stages). The backward's own convs are cuDNN's (Conv3x3Function)."""
+    return len(dpt_k7_convs(h, w)) + (len(dpt_k7_convs(h, w, recomputed_only=True)) if remat else 0)
+
+
+def train_want(tc, attn, rope_attn, k7=0, passes=1):
+    """Exact launches of one training step: ``attn`` attention layers (K1 with its logsumexp, then K3), ``rope_attn``
+    of them with RoPE on q and k (K2 both ways), each forward run ``passes`` times (2: recomputed under gradient
+    checkpointing), and ``k7`` K7 launches."""
+    want = {k: 0 for k in tc}
+    want.update({"K1": passes * attn, "K1-LSE": passes * attn, "K3": attn, "K2": passes * 2 * rope_attn,
+                 "K2-bwd": 2 * rope_attn, "K7": k7})
+    return want
+
+
+def grads_by_impl(torch, config, model, loss_fn, args, impl):
+    "(loss, {name: gradient}) of loss_fn(model, *args) over the parameters that train, under attention ``impl``."
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    config.set_attention_impl(impl)
+    try:
+        loss = loss_fn(model, *args)
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        torch.cuda.synchronize()
+    finally:
+        config.set_attention_impl("kernel")
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, grads)}
+
+
+def check_train_grads(torch, config, model, loss_fn, args, label, fused=False):
+    """One step's loss and gradients through the kernels (or "fused") against the plain path on the same model and
+    batch, at phase 10's bf16 bars. Every gradient must be finite."""
+    lk, gk = grads_by_impl(torch, config, model, loss_fn, args, "fused" if fused else "kernel")
+    ln, gn = grads_by_impl(torch, config, model, loss_fn, args, "naive")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    require(torch.isfinite(lk).item() and all(torch.isfinite(g).all().item() for g in gk.values()),
+            f"{label}: a non-finite loss or gradient")
+    per = sorted(((rel(gk[k], gn[k]), k) for k in gk if gn[k].abs().max().item() > 0), reverse=True)
+    glob = rel(torch.cat([g.float().flatten() for g in gk.values()]), torch.cat([g.float().flatten() for g in gn.values()]))
+    loss_rel = abs(lk.item() - ln.item()) / abs(ln.item())
+    vals = sorted(x for x, _ in per)
+    print(f"[{label}] loss kernels {lk.item():.6f} plain {ln.item():.6f} (rel {loss_rel:.2e}, tol {TRAIN_BF16_LOSS_TOL}); "
+          f"gradients over {len(gk)} parameters, kernels vs plain: all together {glob:.3e} (tol {TRAIN_BF16_GLOBAL_TOL}); "
+          f"per parameter median {vals[len(vals) // 2]:.3e}, worst {[(f'{x:.3e}', n) for x, n in per[:2]]} "
+          f"(tol {TRAIN_BF16_REL_TOL})")
+    require(loss_rel <= TRAIN_BF16_LOSS_TOL, f"{label}: loss kernels vs plain {loss_rel} > {TRAIN_BF16_LOSS_TOL}")
+    require(per[0][0] <= TRAIN_BF16_REL_TOL, f"{label}: kernels vs plain {per[0]} > {TRAIN_BF16_REL_TOL}")
+    require(glob <= TRAIN_BF16_GLOBAL_TOL, f"{label}: all gradients kernels vs plain {glob} > {TRAIN_BF16_GLOBAL_TOL}")
+    del gk, gn
+    torch.cuda.empty_cache()
+
+
+def counted_step(torch, tc, ctx, args, want, label):
+    "One ctx.step with every count from 0; the counts must be ``want`` exactly. Returns them and the loss."
+    _treset(tc)
+    loss = ctx.step(*args)
+    torch.cuda.synchronize()
+    got = _tread(tc)
+    print(f"[{label}] launches per step {got} (want {want})")
+    require(got == want, f"{label}: launches per step {got}, want {want}")
+    require(math.isfinite(loss.item()), f"{label}: non-finite loss {loss.item()}")
+    return got
+
+
+def timed_steps(torch, ctx, args, label, card, samples, unit):
+    """ms/step by CUDA events over TRAIN_TIMED_STEPS steps after one warm-up, the rate of ``samples`` per step,
+    device ms per step and its busy share (torch.profiler over TRAIN_TIMED_STEPS steps); returns the peak memory
+    since the last reset."""
+    ms = cuda_ms(torch, lambda: ctx.step(*args), warmup=1, iters=TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    events = profile_device(torch, lambda: [ctx.step(*args) for _ in range(TRAIN_TIMED_STEPS)], TRAIN_TIMED_STEPS,
+                            "step", label, 10)
+    device_ms = kernel_device_ms(events, TRAIN_TIMED_STEPS, "step", label)
+    print(f"[{label}] {ms:.2f} ms/step (CUDA events over {TRAIN_TIMED_STEPS} steps after one warm-up) = "
+          f"{samples * 1e3 / ms:.3f} {unit}/s; device {device_ms:.2f} ms/step (busy share {device_ms / ms:.3f}); "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB) on {card}")
+    return peak
+
+
+def phase_k3_long(torch, fa, card):
+    """K1 with its logsumexp and K3 at (1, N, 12, 64) for the multi-view global streams, on strided views of one
+    projection as the layers make them, each against its plain version in bf16 ulps of max(|plain|, 1/64), with
+    dropped-tile controls; K3's time beside SDPA's backward alone and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    for name, n in K3_MV_SHAPES:
+        q = torch.randn(1, n, 3, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)[:, :, 0]
+        kv = torch.randn(1, n, 2, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        dout = torch.randn(1, n, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        qf, kf, vf, of, df = (t.float() for t in (q, k, v, out, dout))
+        oref, lref = fa.flash_attention_lse_ref(qf, kf, vf)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        refs = fa.flash_attention_bwd_ref(qf, kf, vf, of, lse, df)
+        o_c, l_c = fa.flash_attention_lse_ref(qf, kf[:, :-128], vf[:, :-128])
+        dq_c = fa.flash_attention_bwd_ref(qf, kf[:, :-128], vf[:, :-128], o_c, l_c, df)[0]
+        _, dk_c, dv_c = fa.flash_attention_bwd_ref(qf[:, :-128], kf, vf, of[:, :-128], lse[..., :-128], df[:, :-128])
+        out_ulps, out_ctrl = _ulps(out, oref, 7, K1_MV_ULP_FLOOR), _ulps(o_c, oref, 7, K1_MV_ULP_FLOOR)
+        lse_err = (lse - lref).abs().max().item()
+        ulps = [_ulps(g, r, 7, K1_MV_ULP_FLOOR) for g, r in zip(grads, refs)]
+        ctrl = [_ulps(c, r, 7, K1_MV_ULP_FLOOR) for c, r in zip((dq_c, dk_c, dv_c), refs)]
+        del o_c, l_c, dq_c, dk_c, dv_c
+        ms = graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout))
+        plain_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout))
+        lib_ms = sdpa_bwd_ms(torch, q, k, v, dout)[0]
+        flops = 10 * 12 * n * n * 64
+        b = bound({"bf16": flops}, (4 * n + 5 * n) * 12 * 64 * 2 + 12 * n * 4)
+        print(f"[23 K3 long] {name} (1,{n},12,64): K1+LSE output {out_ulps:.2f} ulps (tol {K1_MV_ULPS}; control "
+              f"{out_ctrl:.1f}), LSE max|err| {lse_err:.2e} (tol {LSE_TOL['bf16']}); K3 dq dk dv "
+              f"{' '.join(f'{x:.2f}' for x in ulps)} ulps of max(|plain|, 1/64) (tol {K3_MV_ULPS}), controls "
+              f"{' '.join(f'{x:.1f}' for x in ctrl)} (>= {K3_MV_CONTROL_ULPS}); K3 {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA backward alone {lib_ms:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]}), "
+              f"share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+        require(out_ulps <= K1_MV_ULPS and out_ctrl >= K1_MV_CONTROL_ULPS, f"K1+LSE {name}: {out_ulps}, {out_ctrl}")
+        require(lse_err <= LSE_TOL["bf16"], f"K1+LSE {name}: LSE error {lse_err}")
+        require(max(ulps) <= K3_MV_ULPS, f"K3 {name}: {ulps} ulps > {K3_MV_ULPS}")
+        require(min(ctrl) >= K3_MV_CONTROL_ULPS, f"K3 {name}: a control is {min(ctrl)} ulps away, under "
+                f"{K3_MV_CONTROL_ULPS}: the bar cannot see a lost tile")
+        del q, kv, k, v, dout, out, lse, grads, refs
+        torch.cuda.empty_cache()
+
+
+def _dpt_model(torch, DUSt3R, size, **kw):
+    "DUSt3R ViT-L with bf16-computing DPT heads (K7) over fp32 parameters, head remat on, from SEED."
+    return DUSt3R(name="dust3r_train_dpt", img_size=size, patch_embed_cls="ManyAR_PatchEmbed", pred_head_type="dpt",
+                  head_gradient_checkpointing=True, head_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(SEED), **kw)
+
+
+def _pair_loss(training):
+    def loss_fn(m, v1, v2, t1, t2):
+        r1, r2 = m.forward_pair(v1["img"], v2["img"], true_shape1=v1.get("ts"), true_shape2=v2.get("ts"))
+        return training.dust3r_confidence_loss(r1, r2, t1, t2)
+
+    return loss_fn
+
+
+def _set_head_remat(model, on):
+    for head in model.heads():
+        head.checkpoint_gradient = on
+
+
+def phase_train_dpt(torch, np, train, serve, training, config, DUSt3R, tc, card):
+    """bench_train's BENCH_HEAD=dpt at batch 2 with head remat on: the heads computing in bf16 so that their convs
+    run on K7 (the JAX package's head_dtype; fp32 heads run cuDNN). Gradients vs plain, exact launches, ms/step,
+    busy share, peak memory; the peak again with head remat off."""
+    model = _dpt_model(torch, DUSt3R, (IMG, IMG))
+    img1, img2, t1, t2 = _train_batch(torch, train, serve, model)
+    args = ({"img": img1}, {"img": img2}, t1, t2)
+    loss_fn = _pair_loss(training)
+    check_train_grads(torch, config, model, loss_fn, args, "24 train DPT")
+    ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    torch.cuda.reset_peak_memory_stats()
+    launches = counted_step(torch, tc, ctx, args, train_want(tc, attn, attn, 2 * k7_train_launches(IMG, IMG, True)),
+                            "24 train DPT")
+    peak = timed_steps(torch, ctx, args, "24 train DPT", card, BATCH, "training pairs")
+    _set_head_remat(model, False)
+    torch.cuda.reset_peak_memory_stats()
+    counted_step(torch, tc, ctx, args, train_want(tc, attn, attn, 2 * k7_train_launches(IMG, IMG, False)),
+                 "24 train DPT, head remat off")
+    ctx.step(*args)
+    torch.cuda.synchronize()
+    off = torch.cuda.max_memory_allocated()
+    print(f"[24 train DPT] peak memory with head remat on {peak / 2**30:.3f} GiB, off {off / 2**30:.3f} GiB "
+          f"(max_memory_allocated over 2 steps) on {card}")
+    del model, ctx, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_mixed_ar(torch, np, train, serve, training, config, DUSt3R, tc, card):
+    """Mixed-aspect training (--mixed-ar at 512): the 512 x 768 ManyAR canvas (1536 tokens), landscape_only, row 0
+    landscape and row 1 portrait, so every head pass runs twice (canvas and transposed grid). With the trunk's
+    gradient checkpointing (--remat): without it the plain path's attention probabilities at 1536 tokens outgrow
+    the card's 80 GB."""
+    h, w = IMG, IMG * 3 // 2
+    model = _dpt_model(torch, DUSt3R, (h, w), landscape_only=True, gradient_checkpointing=True)
+    data = train.synthetic_mixed_dataset(BATCH, h, w, SEED)
+    ts = torch.tensor([[h, w], [w, h]], dtype=torch.int32)  # on the host, where landscape_only reads it
+    prep = serve.make_frame_normalizer(model.data_norm_type, "cuda")
+    args = ({"img": prep(data["img1"]), "ts": ts}, {"img": prep(data["img2"]), "ts": ts},
+            torch.from_numpy(data["pts1"]).cuda(), torch.from_numpy(data["pts2"]).cuda())
+    loss_fn = _pair_loss(training)
+    check_train_grads(torch, config, model, loss_fn, args, "25 train mixed-AR DPT")
+    ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    k7 = 2 * (k7_train_launches(h, w, True) + k7_train_launches(w, h, True))
+    torch.cuda.reset_peak_memory_stats()
+    launches = counted_step(torch, tc, ctx, args, train_want(tc, attn, attn, k7, passes=2), "25 train mixed-AR DPT")
+    timed_steps(torch, ctx, args, "25 train mixed-AR DPT", card, BATCH, "training pairs")
+    del model, ctx, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_flow(torch, np, train, serve, training, config, UFMFlow, tc, card):
+    "UFMFlow 512 DPT (bf16 head on K7, head remat on) on train.synthetic_flow_dataset: ~10% NaN-sentinel targets."
+    model = UFMFlow(name="ufm_train", img_size=(IMG, IMG), pred_head_type="dpt", head_gradient_checkpointing=True,
+                    head_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+    data = train.synthetic_flow_dataset(BATCH, IMG, SEED)
+    prep = serve.make_frame_normalizer(model.data_norm_type, "cuda")
+    args = (prep(data["img1"]), prep(data["img2"]), torch.from_numpy(data["flow"]).cuda(),
+            torch.from_numpy(data["valid"]).cuda())
+    invalid = 1 - data["valid"].mean()
+    require(0.05 < invalid < 0.15 and np.isnan(data["flow"]).any(), f"flow: {invalid} of the pixels invalid")
+
+    def loss_fn(m, img1, img2, flow, valid):
+        return training.flow_confidence_loss(m.forward_pair(img1, img2), flow, valid=valid > 0)
+
+    print(f"[26 train flow] {invalid:.3f} of the pixels invalid, their targets NaN")
+    check_train_grads(torch, config, model, loss_fn, args, "26 train flow DPT")
+    ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    want = train_want(tc, attn, attn, k7_train_launches(IMG, IMG, True))
+    # the flow head reads view 1's decoder branch: view 2's last block (self and cross attention) gets no gradient
+    want.update({"K3": attn - 2, "K2-bwd": 2 * (attn - 2)})
+    torch.cuda.reset_peak_memory_stats()
+    launches = counted_step(torch, tc, ctx, args, want, "26 train flow DPT")
+    timed_steps(torch, ctx, args, "26 train flow DPT", card, BATCH, "training pairs")
+    del model, ctx, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_multiview(torch, np, serve, training, config, fa, MultiViewPointmapModel, tc, card):
+    """bench_train's BENCH_MODEL=multiview: 4 views alternating at 512, batch 1, gradient checkpointing, tanh GELU,
+    multiview_confidence_loss; the views ride the first image slot, their targets the first target slot. Gradients
+    vs plain, exact launches with the key count of every K1+LSE and K3 launch, frames/s and device ms per step."""
+    V = MV_TRAIN_VIEWS
+    config.set_gelu_mode("tanh")
+    real_fwd, real_bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+    try:
+        model = MultiViewPointmapModel(name="mv_train", num_views=V, img_size=(IMG, IMG), attention_type="alternating",
+                                       gradient_checkpointing=True, dtype=torch.bfloat16, device="cuda",
+                                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+        rng = np.random.RandomState(SEED)
+        prep = serve.make_frame_normalizer(model.data_norm_type, "cuda")
+        views = prep(rng.randint(0, 256, (V * MV_BATCH, IMG, IMG, 3), np.uint8)).reshape(V, MV_BATCH, 3, IMG, IMG)
+        targets = torch.from_numpy(rng.randn(V, MV_BATCH, IMG, IMG, 3).astype(np.float32)).cuda()
+        args = (views, None, targets, None)
+
+        def loss_fn(m, views, _, targets, __):
+            return training.multiview_confidence_loss(m(list(views.unbind(0))), list(targets.unbind(0)))
+
+        check_train_grads(torch, config, model, loss_fn, args, "27 train multi-view")
+        ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
+        keys = {"K1-LSE": {}, "K3": {}}
+
+        def fwd_counting(q, k, v, scale=None, with_lse=False):
+            if with_lse:
+                keys["K1-LSE"][k.shape[1]] = keys["K1-LSE"].get(k.shape[1], 0) + 1
+            return real_fwd(q, k, v, scale, with_lse)
+
+        def bwd_counting(q, k, *rest):
+            keys["K3"][k.shape[1]] = keys["K3"].get(k.shape[1], 0) + 1
+            return real_bwd(q, k, *rest)
+
+        bwd_counting.launches = 0  # K3's wrapper counts itself by its module name: it now counts here
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd_counting, bwd_counting
+        attn = ENC_DEPTH + DEC_DEPTH  # 24 encoder layers over the views as a batch; 6 global + 6 frame layers
+        torch.cuda.reset_peak_memory_stats()
+        launches = counted_step(torch, tc, ctx, args, train_want(tc, attn, ENC_DEPTH, passes=2), "27 train multi-view")
+        glob = DEC_DEPTH // 2
+        want_keys = {"K1-LSE": {V * 1024: 2 * glob, 1024: 2 * (attn - glob)}, "K3": {V * 1024: glob, 1024: attn - glob}}
+        print(f"[27 train multi-view] launches by key count {keys} (want {want_keys})")
+        require(keys == want_keys, f"multi-view training: launches by key count {keys}, want {want_keys}")
+        fa.flash_attention_fwd, fa.flash_attention_bwd = real_fwd, real_bwd
+        timed_steps(torch, ctx, args, "27 train multi-view", card, V * MV_BATCH, "training frames")
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = real_fwd, real_bwd
+        config.set_gelu_mode("exact")
+    del model, ctx, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_lora(torch, np, train, serve, training, config, lora, DUSt3R, tc, card):
+    """--lora 8 on the trunk (linear head, bf16 trunk): only the adapters move, the rest stays bit for bit; the
+    merged model's forward equals the wrapped one at phase 5's fp32 bar, the trunk computing in fp32 for both (the
+    bf16 gap is printed); under "fused" the wrapped projections leave the fused contract (K1 and K2, no K5) and the
+    merged ones take it (K5)."""
+    model = DUSt3R(name="dust3r_train_lora", img_size=(IMG, IMG), patch_embed_cls="ManyAR_PatchEmbed",
+                   dtype=torch.bfloat16, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    n = lora.apply_lora(model.encoder, LORA_RANK, generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                        min_params=1)
+    n += lora.apply_lora(model.info_sharing, LORA_RANK, generator=torch.Generator(device="cuda").manual_seed(SEED + 2),
+                         min_params=1)
+    want_n = ENC_DEPTH * 4 + 1 + 2 * DEC_DEPTH * 8  # qkv, proj, fc1, fc2; decoder_embed; per branch 8 linears
+    require(n == want_n, f"LoRA wrapped {n} linears, want {want_n}")
+    img1, img2, t1, t2 = _train_batch(torch, train, serve, model)
+    args = (img1, img2, t1, t2)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ctx = training.make_train_step(model, learning_rate=1e-4, trainable=lora.lora_trainable)
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    launches = counted_step(torch, tc, ctx, args, train_want(tc, attn, attn), "28 train LoRA")
+    for _ in range(LORA_STEPS - 1):
+        ctx.step(*args)
+    torch.cuda.synchronize()
+    after = model.state_dict()
+    moved = [k for k in after if not torch.equal(after[k], before[k])]
+    adapters = [k for k in after if lora.lora_trainable(k)]
+    print(f"[28 train LoRA] rank {LORA_RANK} on {n} trunk linears: {sum(p.numel() for p in ctx.params)} trainable "
+          f"parameters in {len(ctx.params)} tensors; after {LORA_STEPS} steps {len(moved)} tensors moved, all of them "
+          f"adapters: {set(moved) <= set(adapters)}; adapters that moved {len(set(moved) & set(adapters))} of "
+          f"{len(adapters)}")
+    require(set(moved) == set(adapters), f"LoRA: moved {sorted(set(moved) ^ set(adapters))[:4]} (want the adapters)")
+
+    def forward(impl):
+        _treset(tc)
+        config.set_attention_impl(impl)
+        try:
+            with torch.inference_mode():
+                r1, r2 = model.forward_pair(img1, img2)
+            torch.cuda.synchronize()
+        finally:
+            config.set_attention_impl("kernel")
+        return (r1["pts3d"], r1["conf"], r2["pts3d_in_other_view"], r2["conf"]), _tread(tc)
+
+    trunk = [m for m in model.modules() if getattr(m, "compute_dtype", None) == torch.bfloat16]
+
+    def compute_in(dtype):  # the trunk's compute dtype: its modules cast their fp32 parameters to it at use
+        for m in trunk:
+            m.compute_dtype = dtype
+
+    def rels(a, b):
+        return [((x - y).norm() / y.norm()).item() for x, y in zip(a, b)]
+
+    wrapped16, _ = forward("kernel")
+    _, fused_wrapped = forward("fused")
+    compute_in(None)  # fp32, where the merged weights hold the adapters' update exactly
+    wrapped32, _ = forward("kernel")
+    require(lora.merge_lora(model) == n, "LoRA: merge_lora did not fold every adapter")
+    merged32, _ = forward("kernel")
+    compute_in(torch.bfloat16)
+    merged16, _ = forward("kernel")
+    _, fused_merged = forward("fused")
+    fp32, bf16 = rels(merged32, wrapped32), rels(merged16, wrapped16)
+    print(f"[28 train LoRA] merged vs wrapped forward_pair, ||merged - wrapped|| / ||wrapped|| per output, fp32 "
+          f"trunk {max(fp32):.3e} (tol {MODEL_FP32_REL_TOL}); bf16 trunk {max(bf16):.3e} (the bf16 cast of a merged "
+          f"weight rounds the adapters' small update away, the wrapped layer adds it in a product of its own); "
+          f"under \"fused\" the wrapped model launches {fused_wrapped}, the merged one {fused_merged}")
+    require(max(fp32) <= MODEL_FP32_REL_TOL, f"LoRA: merged vs wrapped in fp32 {fp32}")
+    want_wrapped = {k: 0 for k in tc}
+    want_wrapped.update(K1=attn, K2=2 * attn)
+    want_merged = {k: 0 for k in tc}
+    want_merged.update({"K5-self": ENC_DEPTH + 2 * DEC_DEPTH, "K5-cross": 2 * DEC_DEPTH})
+    require(fused_wrapped == want_wrapped, f"LoRA under fused: {fused_wrapped}, want {want_wrapped}")
+    require(fused_merged == want_merged, f"merged model under fused: {fused_merged}, want {want_merged}")
+    _tadd(launches, fused_wrapped)
+    _tadd(launches, fused_merged)
+    del model, ctx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_fused(torch, np, train, serve, training, config, DUSt3R, tc, card):
+    """One training step in the "fused" implementation: K5 forward, its backward recomputed through K2, K1 and K3;
+    gradients against the plain path, exact launches."""
+    model = DUSt3R(name="dust3r_train_fused", img_size=(IMG, IMG), patch_embed_cls="ManyAR_PatchEmbed",
+                   dtype=torch.bfloat16, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    args = _train_batch(torch, train, serve, model)
+
+    def loss_fn(m, img1, img2, t1, t2):
+        r1, r2 = m.forward_pair(img1, img2)
+        return training.dust3r_confidence_loss(r1, r2, t1, t2)
+
+    check_train_grads(torch, config, model, loss_fn, args, "29 train fused", fused=True)
+    ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    want = train_want(tc, attn, attn)
+    want.update({"K5-self": ENC_DEPTH + 2 * DEC_DEPTH, "K5-cross": 2 * DEC_DEPTH})
+    config.set_attention_impl("fused")
+    try:
+        launches = counted_step(torch, tc, ctx, args, want, "29 train fused")
+    finally:
+        config.set_attention_impl("kernel")
+    del model, ctx
+    torch.cuda.empty_cache()
+    return launches
+
+
+RESUME_FLAGS = ["--device", "cuda", "--img", str(IMG), "--embed-dim", str(ENC_DIM), "--heads", str(ENC_HEADS),
+                "--depth", "2", "--batch", str(BATCH), "--dataset-size", "8", "--bf16", "--warmup-cosine", "2",
+                "--mu-bf16", "--clip-grad", "1.0", "--skip-nonfinite", "--seed", str(SEED)]
+
+
+def phase_resume(torch, train, training, tc, card):
+    """The entry point's save and --resume on the card (ViT-L 512's width, depth cut to 2): 4 steps uninterrupted
+    against 2 steps with an asynchronous save after the first and a final one, then a fresh process state restored
+    from the directory and 2 more steps. The two final train states must be equal bit for bit."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=REPO)
+    try:
+        whole, part = os.path.join(root, "whole"), os.path.join(root, "part")
+        _treset(tc)
+        t0 = time.perf_counter()
+        ref = train.main(RESUME_FLAGS + ["--steps", "4", "--ckpt-dir", whole])
+        first = train.main(RESUME_FLAGS + ["--steps", "2", "--ckpt-every", "1", "--ckpt-dir", part])
+        second = train.main(RESUME_FLAGS + ["--steps", "2", "--resume", "--ckpt-dir", part])
+        seconds = time.perf_counter() - t0
+        launches = _tread(tc)
+        a, b = (torch.load(os.path.join(d, training.STATE_FILE), map_location="cpu", weights_only=True)
+                for d in (whole, part))
+        differ = [k for k in a["tensors"] if not torch.equal(a["tensors"][k], b["tensors"][k])]
+        counters = {k: (a[k], b[k]) for k in ("step", "count", "mini_step", "notfinite_count")}
+        size = os.path.getsize(os.path.join(whole, training.STATE_FILE))
+        print(f"[30 resume] {' '.join(RESUME_FLAGS[2:])}: losses uninterrupted {['%.6f' % x for x in ref]}, "
+              f"saved and resumed {['%.6f' % x for x in first + second]}; counters (uninterrupted, resumed) "
+              f"{counters}; {len(a['tensors'])} tensors, {len(differ)} differ {differ[:5]}; train state "
+              f"{size / 2**30:.3f} GiB; {seconds:.1f} s for the three runs on {card}")
+        require(first + second == ref, "resume: the resumed run's losses differ from the uninterrupted run's")
+        require(not differ and all(x == y for x, y in counters.values()), f"resume: {differ[:5]} {counters}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -2064,9 +2556,11 @@ def main():
 
     from uniception_tpu_torch import serve, train
     from uniception_tpu_torch.models.factory.dust3r import DUSt3R
+    from uniception_tpu_torch.models.factory.flow import UFMFlow
+    from uniception_tpu_torch.models.factory.multiview import MultiViewPointmapModel
     from uniception_tpu_torch.models.utils import config
     from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
-    from uniception_tpu_torch.nn import blocks, quant
+    from uniception_tpu_torch.nn import blocks, lora, quant
     from uniception_tpu_torch.ops import conv3x3 as c3
     from uniception_tpu_torch.ops import flash_attention as fa
     from uniception_tpu_torch.ops import fused_attention as fused
@@ -2132,6 +2626,22 @@ def main():
     multiview = phase_multiview(torch, np, serve, config, blocks, quant, fa, fused, i8, counters, card)
     served = {k: served[k] + bucketed[k] + flow[k] + multiview[k] for k in counters}
 
+    phase_k3_long(torch, fa, card)
+    tc = _train_counters(fa, rope, c3, fused)
+    new_train = {}
+    config.set_conv3x3_impl("kernel")  # the DPT heads' convs on K7, forward; backward cuDNN's (Conv3x3Function)
+    try:
+        _tadd(new_train, phase_train_dpt(torch, np, train, serve, training, config, DUSt3R, tc, card))
+        _tadd(new_train, phase_train_mixed_ar(torch, np, train, serve, training, config, DUSt3R, tc, card))
+        _tadd(new_train, phase_train_flow(torch, np, train, serve, training, config, UFMFlow, tc, card))
+    finally:
+        config.set_conv3x3_impl("torch")
+    _tadd(new_train, phase_train_multiview(torch, np, serve, training, config, fa, MultiViewPointmapModel, tc, card))
+    _tadd(new_train, phase_train_lora(torch, np, train, serve, training, config, lora, DUSt3R, tc, card))
+    _tadd(new_train, phase_train_fused(torch, np, train, serve, training, config, DUSt3R, tc, card))
+    _tadd(new_train, phase_resume(torch, train, training, tc, card))
+    print(f"[30 training] launches over phases 24-30's counted steps and entry-point runs: {new_train}")
+
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -2139,20 +2649,23 @@ def main():
 
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
-              launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"], k1_err, k1),
+              launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"],
+              k1_err, k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
-              trained["flash_attention_bwd"], k3_err, k3),
+              trained["flash_attention_bwd"] + new_train["K3"], k3_err, k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
-              launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"], k2_err, k2),
+              launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
+              + new_train["K2-bwd"], k2_err, k2),
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
               k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
-              fused_path["K5-self"] + multiview["K5-self"], k5_err["self"], k5["self"]),
+              fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"], k5_err["self"], k5["self"]),
         entry("fused_cross_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:325",
-              fused_path["K5-cross"], k5_err["cross"], k5["cross"]),
+              fused_path["K5-cross"] + new_train["K5-cross"], k5_err["cross"], k5["cross"]),
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"], k6_err, k6),
-        entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47", served["K7"], k7_err, k7),
+        entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47", served["K7"] + new_train["K7"],
+              k7_err, k7),
         entry("sv_only", "flash_attention.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")

@@ -955,3 +955,104 @@ def test_multiview_model_kernels_match_plain_with_exact_launches(gen, attention_
         for key in ("pts3d", "conf"):
             assert torch.isfinite(o[key]).all()
             assert ((o[key] - p[key]).norm() / p[key].norm()).item() <= 2e-2, key
+
+
+# K3, and K1 with its logsumexp, over the multi-view global stream, in bf16 ulps of max(|plain|, 1/64): set from a probe
+# on an H100 (at most 3.74 ulps over dq, dk, dv; chip_smoke.py K3_MV_ULPS). The controls, the plain dq without the last
+# 128 keys and the plain dk and dv without the last 128 queries, must land at least 4 bars away.
+K3_MV_ULPS = 8
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 3 * 1024 + 5], ids=["4-views", "8-views", "3-views-5-global"])
+def test_attention_backward_at_multiview_global_lengths(gen, n):
+    q, k, v = _strided_qkv(gen, 1, n, n, 12, torch.bfloat16)
+    dout = torch.randn(1, n, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    qf, kf, vf, of, df = (t.float() for t in (q, k, v, out, dout))
+    oref, lref = flash_attention_lse_ref(qf, kf, vf)
+    assert _ulps(out, oref, 7, floor=K1_MV_ULP_FLOOR) <= K1_MV_ULPS
+    assert (lse - lref).abs().max().item() <= LSE_TOL[torch.bfloat16]
+    grads = flash_attention_bwd(q, k, v, out, lse, dout)
+    refs = flash_attention_bwd_ref(qf, kf, vf, of, lse, df)
+    o_c, l_c = flash_attention_lse_ref(qf, kf[:, :-128], vf[:, :-128])
+    dq_c = flash_attention_bwd_ref(qf, kf[:, :-128], vf[:, :-128], o_c, l_c, df)[0]
+    _, dk_c, dv_c = flash_attention_bwd_ref(qf[:, :-128], kf, vf, of[:, :-128], lse[..., :-128], df[:, :-128])
+    for name, g, r, c in zip(("dq", "dk", "dv"), grads, refs, (dq_c, dk_c, dv_c)):
+        assert _ulps(g, r, 7, floor=K1_MV_ULP_FLOOR) <= K3_MV_ULPS, name
+        assert _ulps(c, r, 7, floor=K1_MV_ULP_FLOOR) >= 4 * K3_MV_ULPS, name
+
+
+def test_narrow_dpt_lora_training_matches_plain_and_resumes(gen, tmp_path):
+    """A narrow DUSt3R with bf16 DPT heads (K7 forward, cuDNN backward) and LoRA on the trunk: one step's loss and
+    adapter gradients through the kernels against the plain path at chip_smoke.py's bf16 training bars; then the
+    trainer's save and --resume on the card (LoRA, linear head), bit for bit the uninterrupted run."""
+    from uniception_tpu_torch import train
+    from uniception_tpu_torch.models.factory.dust3r import DUSt3R
+    from uniception_tpu_torch.nn.lora import apply_lora, lora_trainable
+    from uniception_tpu_torch.parallel import training
+
+    model = DUSt3R(name="t", img_size=(64, 64), pred_head_type="dpt", enc_embed_dim=128, enc_depth=2, enc_num_heads=2,
+                   info_sharing_dim=128, info_sharing_depth=2, info_sharing_num_heads=2, head_gradient_checkpointing=True,
+                   head_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    for part in (model.encoder, model.info_sharing):
+        apply_lora(part, 4, generator=torch.Generator(device="cuda").manual_seed(1), min_params=1)
+    for m in model.modules():  # non-zero adapters: the first gradients reach lora_a too
+        if hasattr(m, "lora_b"):
+            with torch.no_grad():
+                m.lora_b.normal_(0, 0.05, generator=gen)
+    img1, img2 = (torch.randn(2, 3, 64, 64, device="cuda", generator=gen) for _ in range(2))
+    t1, t2 = (torch.randn(2, 64, 64, 3, device="cuda", generator=gen) for _ in range(2))
+    named = [(n, p) for n, p in model.named_parameters() if lora_trainable(n)]
+
+    def grads(impl):
+        config.set_attention_impl(impl)
+        config.set_conv3x3_impl("kernel")
+        try:
+            before = conv3x3_nhwc.launches
+            r1, r2 = model.forward_pair(img1, img2)
+            loss = training.dust3r_confidence_loss(r1, r2, t1, t2)
+            gs = torch.autograd.grad(loss, [p for _, p in named])
+            return loss.item(), torch.cat([g.float().flatten() for g in gs]), conv3x3_nhwc.launches - before
+        finally:
+            config.set_attention_impl("kernel")
+            config.set_conv3x3_impl("torch")
+
+    lk, gk, k7 = grads("kernel")
+    ln, gn, none = grads("naive")
+    assert k7 > 0 and none == 0
+    assert torch.isfinite(gk).all() and abs(lk - ln) / abs(ln) <= 2e-3
+    assert ((gk - gn).norm() / gn.norm()).item() <= 2e-2
+
+    # the linear head: the DPT head's bilinear upsampling adds its gradient with atomics on the card (see PERF.md)
+    flags = ["--device", "cuda", "--img", "64", "--embed-dim", "128", "--heads", "2", "--depth", "2", "--batch", "2",
+             "--dataset-size", "4", "--lora", "4", "--bf16", "--warmup-cosine", "1", "--mu-bf16"]
+    whole, part = str(tmp_path / "whole"), str(tmp_path / "part")
+    ref = train.main(flags + ["--steps", "4", "--ckpt-dir", whole])
+    first = train.main(flags + ["--steps", "2", "--ckpt-every", "1", "--ckpt-dir", part])
+    second = train.main(flags + ["--steps", "2", "--resume", "--ckpt-dir", part])
+    assert first + second == ref
+    a, b = (torch.load(f"{d}/{training.STATE_FILE}", weights_only=True) for d in (whole, part))
+    assert a["count"] == b["count"] == 4 and all(torch.equal(v, b["tensors"][k]) for k, v in a["tensors"].items())
+
+
+def test_dpt_training_resumes_bit_for_bit_under_deterministic_algorithms(gen, tmp_path):
+    """The DPT heads' bilinear upsampling and cuDNN's fp32 conv gradients add with atomics by default, so DPT
+    training on the card repeats only under torch.use_deterministic_algorithms: there save and --resume equal the
+    uninterrupted run bit for bit."""
+    from uniception_tpu_torch import train
+    from uniception_tpu_torch.parallel import training
+
+    flags = ["--device", "cuda", "--img", "64", "--embed-dim", "128", "--heads", "2", "--depth", "2", "--batch", "2",
+             "--dataset-size", "4", "--head", "dpt", "--bf16", "--mu-bf16"]
+    whole, part = str(tmp_path / "whole"), str(tmp_path / "part")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = train.main(flags + ["--steps", "4", "--ckpt-dir", whole])
+        first = train.main(flags + ["--steps", "2", "--ckpt-dir", part])
+        second = train.main(flags + ["--steps", "2", "--resume", "--ckpt-dir", part])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert first + second == ref
+    a, b = (torch.load(f"{d}/{training.STATE_FILE}", weights_only=True) for d in (whole, part))
+    assert all(torch.equal(v, b["tensors"][k]) for k, v in a["tensors"].items())

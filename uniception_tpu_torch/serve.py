@@ -55,8 +55,7 @@ from uniception_tpu_torch.data.bucketing import (
     extract_view,
     with_portrait_buckets,
 )
-from uniception_tpu_torch.data.pipeline import prefetch_to_device
-from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
+from uniception_tpu_torch.data.pipeline import make_frame_normalizer, prefetch_to_device
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
 from uniception_tpu_torch.models.factory.flow import UFMFlow
 from uniception_tpu_torch.models.factory.multiview import MultiViewPointmapModel
@@ -199,27 +198,6 @@ def build_model(
             quantize_trunk(m, int8_policy, asym=int8_asym)
     m.quant_spec = quant_spec
     return m.eval()
-
-
-def make_frame_normalizer(data_norm_type: str, device):
-    """Return ``prep(frames_u8) -> (B, 3, H, W) fp32`` on ``device``: uint8
-    (B, H, W, 3) frames (arrays, CPU or device tensors) staged through pinned
-    memory on CUDA, then ``(x / 255 - mean) / std`` on the device."""
-    device = torch.device(device)
-    norm = IMAGE_NORMALIZATION_DICT[data_norm_type]
-    mean = torch.tensor(norm.mean, dtype=torch.float32, device=device).view(1, 3, 1, 1)
-    std = torch.tensor(norm.std, dtype=torch.float32, device=device).view(1, 3, 1, 1)
-
-    def prep(frames_u8):
-        x = torch.as_tensor(frames_u8)
-        if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
-            raise ValueError(f"want uint8 (B, H, W, 3) frames, got {x.dtype} {tuple(x.shape)}")
-        if device.type == "cuda" and x.device.type == "cpu":
-            x = x.pin_memory()
-        x = x.to(device, non_blocking=True)
-        return (x.permute(0, 3, 1, 2).float() / 255.0 - mean) / std
-
-    return prep
 
 
 def make_serving_fn(model: nn.Module, device):
