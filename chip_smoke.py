@@ -131,7 +131,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                depth cut to 2 (--warmup-cosine, --mu-bf16, clipping and
                --skip-nonfinite): 4 steps against 2 steps with an
                asynchronous save, then --resume and 2 more; the train states
-               must be equal bit for bit.
+               must be equal bit for bit;
+   31. dinov2: DINOv2-L/14 with registers at 518, batch 2, through
+               encoder_factory (seed 0): features and cls + register tokens
+               through the kernels against the plain path with an fp32 trunk,
+               then bf16 (24 K1), under "fused" (24 K5: no RoPE, a qkv bias,
+               N = 1374; each call held against its plain version), and a
+               qk-norm variant under "fused" (no K5: 24 K1); ViT-g/14-reg at
+               518, batch 1, bf16, all 40 blocks (SwiGLU-fused FFN; 40 K1);
+               DUNE-base at 448 (12 K1); each with images/s, device ms per
+               forward, busy share and peak memory;
+   32. dino K1: K1 at the DINOv2 paths' ragged key counts (2, 1374, 16, 64),
+               (1, 1374, 24, 64), (2, 1029, 12, 64) and (1, 2738, 16, 64) in
+               bf16 ulps with the ragged tile's keys dropped as the control,
+               beside SDPA and the bound; K5 without RoPE with a qkv bias at
+               DINOv2-L's shape and K6 at its 224 shape beside their plain
+               versions, the library calls and the bounds;
+   33. dino surgery: DINOv2-L-reg's intermediate features after block 11 of
+               two 518 views, then a 12-deep global info sharing initialised
+               by convert_dino_to_info_sharing from blocks 12-23 and loaded
+               strict, against the plain path (K1 12 at 1374 keys, 12 at
+               2738); DINOv2-L-reg at 224 under int8 attention (24 K6, N =
+               261), each call against its plain version.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -145,6 +166,7 @@ Usage:
     python3 chip_smoke.py
 """
 
+import gc
 import json
 import math
 import os
@@ -1864,7 +1886,8 @@ def phase_flow(torch, np, serve, config, counters, card):
 # the first.
 MV_CONFIGS = [(4, "alternating"), (4, "global"), (8, "alternating")]
 MV_BATCH, MV_FORWARDS, MV_PROFILED = 1, 5, 3
-MV_K1_SHAPES = [("global 4 views", 1, 4096, 12), ("global 8 views", 1, 8192, 12), ("frame", 4, 1024, 12)]
+MV_K1_SHAPES = [  # (name, B, N, H, keys the control drops: one 128-key tile)
+    ("global 4 views", 1, 4096, 12, 128), ("global 8 views", 1, 8192, 12, 128), ("frame", 4, 1024, 12, 128)]
 
 
 def mv_want(attention_type, rung, counters):
@@ -1883,9 +1906,22 @@ def mv_want(attention_type, rung, counters):
     return want
 
 
-def mv_timing(torch, fwd, views, label, card):
-    """frames/s (V * B * n / seconds: CUDA events over n forwards after one warm-up), peak memory over them, device
-    ms per forward (torch.profiler over 3 forwards) with each kernel's share, and the busy share."""
+def counted_forward(torch, counters, fwd, label, want, total):
+    "One eager forward with the counts from 0; they must be ``want`` exactly; added to ``total``."
+    _reset(counters)
+    out = fwd()
+    torch.cuda.synchronize()
+    got = _read(counters)
+    print(f"[{label}] launches per forward {got} (want {want})")
+    require(got == want, f"{label}: launches {got}, want {want}")
+    for k in total:
+        total[k] += got[k]
+    return out
+
+
+def forward_timing(torch, fwd, n, unit, per_forward, label, card, top=8):
+    """``unit``/s (n per forward: CUDA events over MV_FORWARDS forwards after one warm-up), peak memory over them,
+    device ms per forward (torch.profiler over MV_PROFILED forwards) with each kernel's share, and the busy share."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fwd()
@@ -1898,37 +1934,43 @@ def mv_timing(torch, fwd, views, label, card):
     torch.cuda.synchronize()
     ms = start.elapsed_time(stop) / MV_FORWARDS
     peak = torch.cuda.max_memory_allocated()
-    events = profile_device(torch, lambda: [fwd() for _ in range(MV_PROFILED)], MV_PROFILED, "forward", label, 8)
+    events = profile_device(torch, lambda: [fwd() for _ in range(MV_PROFILED)], MV_PROFILED, "forward", label, top)
     device_ms = kernel_device_ms(events, MV_PROFILED, "forward", label)
-    rate = views * MV_BATCH * 1e3 / ms
-    print(f"[{label}] {rate:.3f} frames/s ({views} views x batch {MV_BATCH}; {ms:.3f} ms per forward by CUDA events "
+    rate = n * 1e3 / ms
+    print(f"[{label}] {rate:.3f} {unit}/s ({per_forward}; {ms:.3f} ms per forward by CUDA events "
           f"over {MV_FORWARDS} forwards after one warm-up); device {device_ms:.3f} ms per forward (torch.profiler, "
           f"{MV_PROFILED} forwards); busy share {device_ms / ms:.3f} (device ms over the unprofiled ms per forward); "
           f"max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB) on {card}")
-    return {"frames_per_s": rate, "ms": ms, "device_ms": device_ms, "peak": peak}
 
 
-def mv_k1_times(torch, fa, card):
-    "K1 at the multi-view shapes (q, k, v strided views of one qkv tensor, as in the layers) beside SDPA and the bound."
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
-    for name, B, N, H in MV_K1_SHAPES:
+def mv_timing(torch, fwd, views, label, card):
+    "frames/s of a multi-view forward (V * B frames), its device ms, busy share and peak memory."
+    forward_timing(torch, fwd, views * MV_BATCH, "frames", f"{views} views x batch {MV_BATCH}", label, card)
+
+
+def k1_times(torch, fa, card, shapes, label, seed):
+    """K1 at (name, B, N, H, lost) shapes (q, k, v strided views of one qkv tensor, as in the layers) in bf16 ulps of
+    max(|plain|, 1/64), the plain version without the last ``lost`` keys as the control, beside SDPA and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, B, N, H, lost in shapes:
         q, k, v = torch.randn(B, N, 3, H, 64, device="cuda", generator=gen, dtype=torch.bfloat16).unbind(2)
         out, ref = fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         ulps = _ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR)
-        lost = _ulps(fa.flash_attention_ref(q, k[:, :-128], v[:, :-128]), ref, 7, floor=K1_MV_ULP_FLOOR)
+        control = _ulps(fa.flash_attention_ref(q, k[:, :-lost], v[:, :-lost]), ref, 7, floor=K1_MV_ULP_FLOOR)
         del out, ref
         require(ulps <= K1_MV_ULPS, f"K1 {name}: {ulps} ulps of max(|plain|, 1/64) vs plain > {K1_MV_ULPS}")
-        require(lost >= K1_MV_CONTROL_ULPS, f"K1 {name}: the control (last 128 keys dropped) is {lost} ulps away, "
-                f"under {K1_MV_CONTROL_ULPS}: the bar cannot see a lost key tile")
+        require(control >= K1_MV_CONTROL_ULPS, f"K1 {name}: the control (last {lost} keys dropped) is {control} "
+                f"ulps away, under {K1_MV_CONTROL_ULPS}: the bar cannot see a lost key tile")
         ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v))
         lib = graph_ms(torch, lambda: sdpa(q, k, v))
         b = attention_bound(B, N, N, H)
         tflops = 4 * B * H * N * N * 64 / 1e9
-        print(f"[22 K1] {name} ({B},{N},{H},64): {ulps:.2f} ulps of max(|plain|, 1/64) vs plain (tol {K1_MV_ULPS}; "
-              f"max abs {err:.2e}), the plain version without its last 128 keys {lost:.1f} ulps; {ms:.4f} ms "
-              f"({tflops / ms:.1f} TFLOP/s), SDPA {lib:.4f} ms ({tflops / lib:.1f} TFLOP/s), bound {b[0]:.4f} ms "
-              f"({b[1]}), share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+        print(f"[{label}] {name} ({B},{N},{H},64), {N // 128} full key tiles + {N % 128}: {ulps:.2f} ulps of "
+              f"max(|plain|, 1/64) vs plain (tol {K1_MV_ULPS}; max abs {err:.2e}), the plain version without its last "
+              f"{lost} keys {control:.1f} ulps; {ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), SDPA {lib:.4f} ms "
+              f"({tflops / lib:.1f} TFLOP/s), {ms / lib:.3f}x SDPA, bound {b[0]:.4f} ms ({b[1]}), share of the bound "
+              f"{b[0] / ms:.3f} (CUDA graphs) on {card}")
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -1950,16 +1992,7 @@ def phase_multiview(torch, np, serve, config, blocks, quant, fa, fused, i8, coun
         return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
     def counted(fwd, label, want):
-        "One eager forward with the counts from 0; they must be ``want`` exactly."
-        _reset(counters)
-        out = fwd()
-        torch.cuda.synchronize()
-        got = _read(counters)
-        print(f"[{label}] launches per forward {got} (want {want})")
-        require(got == want, f"{label}: launches {got}, want {want}")
-        for k in launches:
-            launches[k] += got[k]
-        return out
+        return counted_forward(torch, counters, fwd, label, want, launches)
 
     config.set_gelu_mode("tanh")  # bench_multiview.py's GELU
     try:
@@ -2072,7 +2105,7 @@ def phase_multiview(torch, np, serve, config, blocks, quant, fa, fused, i8, coun
             torch.cuda.empty_cache()
     finally:
         config.set_gelu_mode("exact")
-    mv_k1_times(torch, fa, card)
+    k1_times(torch, fa, card, MV_K1_SHAPES, "22 K1", SEED + 22)
     return launches
 
 
@@ -2264,8 +2297,9 @@ def _set_head_remat(model, on):
 def phase_train_dpt(torch, np, train, serve, training, config, DUSt3R, tc, card):
     """bench_train's BENCH_HEAD=dpt at batch 2 with head remat on: the heads computing in bf16 so that their convs
     run on K7 (the JAX package's head_dtype; fp32 heads run cuDNN). Gradients vs plain, exact launches, ms/step,
-    busy share, peak memory; the peak again with head remat off."""
+    busy share, peak memory; the peak again with head remat off, from the initial weights and a fresh optimizer."""
     model = _dpt_model(torch, DUSt3R, (IMG, IMG))
+    initial = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}  # off the card: not in its peak
     img1, img2, t1, t2 = _train_batch(torch, train, serve, model)
     args = ({"img": img1}, {"img": img2}, t1, t2)
     loss_fn = _pair_loss(training)
@@ -2277,6 +2311,13 @@ def phase_train_dpt(torch, np, train, serve, training, config, DUSt3R, tc, card)
                             "24 train DPT")
     peak = timed_steps(torch, ctx, args, "24 train DPT", card, BATCH, "training pairs")
     _set_head_remat(model, False)
+    # Eight steps on one batch take the random-weight DPT loss from 5.8e5 to 1e11-1e14, and the heads' atomic adds
+    # (bilinear upsampling, cuDNN's conv backward) make each run's path differ from the second step: on an H100 the
+    # ninth step's loss overflowed to inf in 2 of 6 runs. The head-remat-off step starts where the first one did.
+    model.load_state_dict(initial)
+    del initial, ctx
+    gc.collect()  # the first optimizer's state goes before the second's is made: not in the peak below
+    ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
     torch.cuda.reset_peak_memory_stats()
     counted_step(torch, tc, ctx, args, train_want(tc, attn, attn, 2 * k7_train_launches(IMG, IMG, False)),
                  "24 train DPT, head remat off")
@@ -2540,6 +2581,287 @@ def phase_resume(torch, train, training, tc, card):
     return launches
 
 
+# Phases 31-33: the DINOv2 encoder family (models/encoders/vit.py, dinov2.py, dune.py) at its published widths
+# through the registry's factories, seed 0, and the DINOv2 -> info-sharing surgery (convert_dino_to_info_sharing.py).
+# Every size has heads of 64, so the path runs on K1 (no RoPE: no K2), K5 under "fused" and K6 under int8 attention.
+DINO_IMG, DINO_BATCH = 518, 2
+DUNE_IMG, DINO_INT8_IMG = 448, 224
+DINO_L_DEPTH, DINO_G_DEPTH, DUNE_DEPTH = 24, 40, 12
+SURGERY_START = 12  # DINOv2-L's blocks 12-23 become a 12-deep global info sharing over two views
+# K1 at the DINOv2 paths' key counts, none a multiple of its 128-key tile: 37 x 37 patches + cls + 4 registers at 518,
+# 32 x 32 + 5 for DUNE at 448, two views of 37 x 37 patches in the surgery's global stream. Held in bf16 ulps of
+# max(|plain|, 1/64) as phase 22 holds K1 (K1_MV_ULPS); the control is the plain version without the ragged last
+# tile's keys (the last entry), which must land at least K1_MV_CONTROL_ULPS away: the bar sees a lost zero-filled tile.
+DINO_K1_SHAPES = [("DINOv2-L-reg 518", 2, 1374, 16, 94), ("ViT-g-reg 518", 1, 1374, 24, 94),
+                  ("DUNE-base 448", 2, 1029, 12, 5), ("surgery global, 2 views", 1, 2738, 16, 50)]
+
+
+def _dino_tensors(out):
+    "The output tensors of an encoder (features, registers), an IFR (each features) or an info sharing (each view's)."
+    if isinstance(out, list):
+        return [o.features for o in out]
+    if hasattr(out, "registers"):
+        return [out.features] + ([] if out.registers is None else [out.registers])
+    return list(out.features)
+
+
+def dino_against_plain(torch, config, counters, fwd, label, want, total, tol, impl="kernel"):
+    """The plain path (attention "naive"), then ``impl`` counted with exact launches, on the same inputs: every
+    output finite and within ``tol`` of the plain one, ||kernel - plain|| / ||plain||. Returns the kernel output."""
+    config.set_attention_impl("naive")
+    try:
+        plain = fwd()
+        torch.cuda.synchronize()
+    finally:
+        config.set_attention_impl("kernel")
+    config.set_attention_impl(impl)
+    try:
+        out = counted_forward(torch, counters, fwd, label, want, total)
+    finally:
+        config.set_attention_impl("kernel")
+    errs = []
+    for a, b in zip(_dino_tensors(out), _dino_tensors(plain)):
+        require(a.shape == b.shape and torch.isfinite(a).all().item(), f"{label}: {tuple(a.shape)} non-finite or "
+                f"not the plain path's {tuple(b.shape)}")
+        errs.append(((a.float() - b.float()).norm() / b.float().norm()).item())
+    shapes = [tuple(t.shape) for t in _dino_tensors(out)]
+    print(f"[{label}] kernels vs plain path, ||kernel - plain|| / ||plain|| of {shapes}: "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol})")
+    require(max(errs) <= tol, f"{label}: kernels vs plain {max(errs)} > {tol}")
+    return out
+
+
+def dino_timing(torch, fwd, images, label, card):
+    "images/s of an encoder forward, its device ms, busy share and peak memory."
+    forward_timing(torch, fwd, images, "images", f"{images} images per forward", label, card, top=6)
+
+
+def _dino_input(torch, np, serve, norm, n, size, seed):
+    "A (n, 3, size, size) batch of seeded uint8 frames normalized for ``norm`` on the card, as the encoder's input."
+    from uniception_tpu_torch.models.encoders import ViTEncoderInput
+
+    frames = np.random.RandomState(seed).randint(0, 256, size=(n, size, size, 3), dtype=np.uint8)
+    return ViTEncoderInput(image=serve.make_frame_normalizer(norm, "cuda")(frames), data_norm_type=norm)
+
+
+def phase_dinov2(torch, np, serve, config, blocks, fused, counters, card):
+    """DINOv2-L/14-reg at 518, batch 2, through encoder_factory: fp32 then bf16 trunk against the plain path (24 K1);
+    under "fused" (24 K5, each call against its plain version); a qk-norm variant under "fused" (no K5: 24 K1). Then
+    ViT-g/14-reg at 518, batch 1, bf16, full depth (40 K1; SwiGLUFFNFused), and DUNE-base at 448 (12 K1). For the
+    bf16 ones images/s, device ms, busy share and peak memory. Returns the launches of the counted forwards."""
+    from uniception_tpu_torch.models.encoders import encoder_factory
+
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+    inp = _dino_input(torch, np, serve, "dinov2", DINO_BATCH, DINO_IMG, SEED)
+    grid = DINO_IMG // 14
+    for trunk, dtype, tol in (("fp32", torch.float32, MODEL_FP32_REL_TOL), ("bf16", torch.bfloat16, MODEL_REL_TOL)):
+        tag = f"31 DINOv2-L-reg {trunk}"
+        enc = encoder_factory("dinov2", name="dinov2_large", size="large", with_registers=True, device="cuda",
+                              seed=SEED, dtype=dtype, param_dtype=dtype).eval()
+
+        def fwd():
+            with torch.inference_mode():
+                return enc(inp)
+
+        out = dino_against_plain(torch, config, counters, fwd, tag, {**none, "K1": DINO_L_DEPTH}, total, tol)
+        require(tuple(out.features.shape) == (DINO_BATCH, 1024, grid, grid), f"{tag}: {tuple(out.features.shape)}")
+        require(tuple(out.registers.shape) == (DINO_BATCH, 1024, 5), f"{tag}: {tuple(out.registers.shape)}")
+        if dtype == torch.float32:
+            del enc, out
+            torch.cuda.empty_cache()
+            continue
+        dino_timing(torch, fwd, DINO_BATCH, tag, card)
+
+        k5_ulps = []
+
+        def k5_checked(*args):
+            o = fused.fused_qkv_rope_attention(*args)
+            k5_ulps.append(k5_check(o, fused.fused_qkv_rope_attention_ref(*args), True)[0])
+            return o
+
+        blocks.fused_qkv_rope_attention = k5_checked
+        try:  # no RoPE, a qkv bias, 1374 <= 2048 keys: every layer inside the fused contract
+            dino_against_plain(torch, config, counters, fwd, f"{tag} fused", {**none, "K5-self": DINO_L_DEPTH}, total,
+                               tol, impl="fused")
+        finally:
+            blocks.fused_qkv_rope_attention = fused.fused_qkv_rope_attention
+        print(f"[{tag} fused] {len(k5_ulps)} K5-self calls (no RoPE, qkv bias, N = 1374), each against its plain "
+              f"version on the same activations: max {max(k5_ulps):.2f} ulp of max(|plain|, {K5_ULP_FLOOR}) "
+              f"(tol {K5_ULPS})")
+        require(len(k5_ulps) == DINO_L_DEPTH and max(k5_ulps) <= K5_ULPS, f"{tag}: K5 calls {k5_ulps}")
+        dino_timing(torch, fwd, DINO_BATCH, f"{tag} fused", card)
+
+        for blk in enc.model.blocks:  # the qk-norm variant: a LayerNorm on each head's q and k (JAX nn/blocks.py:345)
+            blk.attn.q_norm = blocks.make_norm_layer(64, device="cuda", dtype=dtype).to(dtype)
+            blk.attn.k_norm = blocks.make_norm_layer(64, device="cuda", dtype=dtype).to(dtype)
+        dino_against_plain(torch, config, counters, fwd, f"{tag} qk-norm fused", {**none, "K1": DINO_L_DEPTH}, total,
+                           tol, impl="fused")
+        del enc, out
+        torch.cuda.empty_cache()
+
+    tag = "31 ViT-g-reg bf16"
+    enc = encoder_factory("dinov2", name="dinov2_giant", size="giant", with_registers=True, device="cuda", seed=SEED,
+                          dtype=torch.bfloat16, param_dtype=torch.bfloat16).eval()
+    require(enc.model.blocks[0].mlp.w3.weight.shape[1] == 4096, "ViT-g: the SwiGLU-fused hidden width is not 4096")
+    inp_g = _dino_input(torch, np, serve, "dinov2", 1, DINO_IMG, SEED + 1)
+
+    def fwd_g():
+        with torch.inference_mode():
+            return enc(inp_g)
+
+    dino_against_plain(torch, config, counters, fwd_g, tag, {**none, "K1": DINO_G_DEPTH}, total, MODEL_REL_TOL)
+    dino_timing(torch, fwd_g, 1, tag, card)
+    del enc
+    torch.cuda.empty_cache()
+
+    tag = f"31 DUNE-base {DUNE_IMG} bf16"
+    enc = encoder_factory("dune", name="dune_base", vit_size="base", device="cuda", seed=SEED, dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16).eval()
+    with torch.no_grad():  # the 448 PE table starts at zeros (as in the JAX package): give it seeded values
+        pe = enc.model.pos_embed
+        pe.normal_(0.0, 0.02, generator=torch.Generator(device=pe.device).manual_seed(SEED))
+    inp_d = _dino_input(torch, np, serve, "dune", DINO_BATCH, DUNE_IMG, SEED + 2)
+
+    def fwd_d():
+        with torch.inference_mode():
+            return enc(inp_d)
+
+    out = dino_against_plain(torch, config, counters, fwd_d, tag, {**none, "K1": DUNE_DEPTH}, total, MODEL_REL_TOL)
+    require(tuple(out.features.shape) == (DINO_BATCH, 768, 32, 32), f"{tag}: {tuple(out.features.shape)}")
+    dino_timing(torch, fwd_d, DINO_BATCH, tag, card)
+    del enc, out
+    torch.cuda.empty_cache()
+    return total
+
+
+def dino_k5_k6_times(torch, F, fused, fa, make_patch_positions, card):
+    """K5 as DINOv2-L's layers run it under "fused" (no RoPE, a qkv bias; (2, 1374), C 1024, 16 heads) beside its
+    plain version, cuBLAS + SDPA and the bound; K6 "int8" at DINOv2-L's 224 shape (2, 261, 16, 64), one key block,
+    beside its plain version, K1, SDPA and the bound. Each held against its plain version first."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    case = K5Case(torch, fused, make_patch_positions, gen, DINO_BATCH, 1374, None, 1024, 16, (1374, 1), None)
+    a = case.args(torch.bfloat16, rope=False)
+    ulps, ok = k5_check(case.kernel(*a), case.plain(*a), True)
+    require(ok, f"K5 DINOv2-L: {ulps} ulp from its plain version")
+    ms, plain_ms = graph_ms(torch, lambda: case.kernel(*a)), graph_ms(torch, lambda: case.plain(*a))
+    proj_ms, lib_ms = graph_ms(torch, lambda: case.project(a, False, plain=False)), graph_ms(torch, lambda: case.library(F, a))
+    b = k5_bound(DINO_BATCH, 1374, 1374, 1024, 16, False)
+    print(f"[32 K5] DINOv2-L self, no RoPE, qkv bias ({DINO_BATCH},1374,C 1024,H 16): {ulps:.2f} ulp of max(|plain|, "
+          f"{K5_ULP_FLOOR}) vs plain (tol {K5_ULPS}); kernel {ms:.4f} ms (projection launch {proj_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, cuBLAS + SDPA {lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) (CUDA graphs) on {card}")
+    del case, a
+    q, k, v = torch.randn(DINO_BATCH, 261, 3, 16, 64, device="cuda", generator=gen, dtype=torch.bfloat16).unbind(2)
+    ulps = _ulps(fa.flash_attention_int8(q, k, v), fa.flash_attention_int8_ref(q, k, v), 7, floor=K6_ULP_FLOOR)
+    require(ulps <= K6_ULPS, f"K6 DINOv2-L 224: {ulps} ulp from its plain version")
+    ms, plain_ms = graph_ms(torch, lambda: fa.flash_attention_int8(q, k, v)), graph_ms(
+        torch, lambda: fa.flash_attention_int8_ref(q, k, v))
+    k1_ms, lib_ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v)), graph_ms(torch, lambda: sdpa(q, k, v))
+    ops = 2 * DINO_BATCH * 16 * 261 * 261 * 64
+    b = bound({"int8": ops, "bf16": ops}, 4 * 261 * DINO_BATCH * 16 * 64 * 2)
+    print(f"[32 K6] DINOv2-L 224 int8 ({DINO_BATCH},261,16,64), one key block: {ulps:.2f} ulp vs plain (tol {K6_ULPS}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K1 {k1_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}) (CUDA graphs) on {card}")
+
+
+def phase_dino_surgery(torch, np, serve, config, fa, counters, card):
+    """DINOv2-L-reg's IFR (pre-norm tokens after block 11) of two 518 views, then a 12-deep, 1024-wide global info
+    sharing with LayerScale initialised by convert_dino_to_info_sharing from the encoder's blocks 12-23, loaded
+    strict: kernels against the plain path with exact launches (12 K1 at 1374 keys in the encoder, 12 at 2738 in the
+    global stream). Then DINOv2-L-reg at 224 under int8 attention: 24 K6 (N = 261, one key block), each against its
+    plain version. Returns the launches of the counted forwards."""
+    import uniception_tpu_torch.ops.attention as attention
+    from uniception_tpu_torch import convert_dino_to_info_sharing as surgery
+    from uniception_tpu_torch.models.encoders import encoder_factory, feature_returner_encoder_factory
+    from uniception_tpu_torch.models.info_sharing import MultiViewGlobalAttentionTransformer, MultiViewTransformerInput
+    from uniception_tpu_torch.utils.weights import load_state_dict_numpy
+
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+    bf16 = torch.bfloat16
+    tag = "33 DINOv2-L surgery"
+    ifr = feature_returner_encoder_factory("dinov2", name="dinov2_large", size="large", with_registers=True,
+                                           indices=[SURGERY_START - 1], norm_intermediate=False, device="cuda",
+                                           seed=SEED, dtype=bf16, param_dtype=bf16).eval()
+    t0 = time.perf_counter()
+    dino_state = {k: v.float().cpu().numpy() for k, v in ifr.state_dict().items()}
+    state = surgery.convert(dino_state, SURGERY_START, DINO_L_DEPTH)
+    missing, unexpected = surgery.verify(state, DINO_L_DEPTH - SURGERY_START)
+    require(not missing and not unexpected, f"{tag}: the surgery's check: missing {missing}, unexpected {unexpected}")
+    info = MultiViewGlobalAttentionTransformer(name="dino_surgery", input_embed_dim=1024, dim=1024,
+                                               depth=DINO_L_DEPTH - SURGERY_START, num_heads=16, init_values=1.0,
+                                               device="cuda", dtype=bf16).to(bf16).eval()
+    load_state_dict_numpy(info, state)  # strict
+    print(f"[{tag}] {len(state)} tensors from blocks {SURGERY_START}-{DINO_L_DEPTH - 1} and the final norm, loaded "
+          f"strict in {time.perf_counter() - t0:.2f} s (host copy, convert, check, load)")
+    del dino_state, state
+    inp = _dino_input(torch, np, serve, "dinov2", 2, DINO_IMG, SEED + 3)  # two views of batch 1, as one batch of 2
+    keys = {}
+    real_k1 = attention.flash_attention
+
+    def k1_counting(q, k, v, scale=None):
+        keys[k.shape[1]] = keys.get(k.shape[1], 0) + 1
+        return real_k1(q, k, v, scale)
+
+    def fwd():
+        with torch.inference_mode():
+            feats = ifr(inp)[0].features  # (2, 1024, 37, 37): the views stacked
+            return info(MultiViewTransformerInput(features=[feats[:1], feats[1:]]))
+
+    attention.flash_attention = k1_counting
+    try:
+        out = dino_against_plain(torch, config, counters, fwd, tag, {**none, "K1": 2 * SURGERY_START}, total,
+                                 MODEL_REL_TOL)
+    finally:
+        attention.flash_attention = real_k1
+    want_keys = {1374: SURGERY_START, 2738: DINO_L_DEPTH - SURGERY_START}
+    print(f"[{tag}] K1 launches by key count {keys} (want {want_keys})")
+    require(keys == want_keys, f"{tag}: K1 launches by key count {keys}, want {want_keys}")
+    require(all(tuple(f.shape) == (1, 1024, 37, 37) for f in out.features), f"{tag}: {[f.shape for f in out.features]}")
+    dino_timing(torch, fwd, 2, tag, card)
+    del ifr, info, out
+    torch.cuda.empty_cache()
+
+    tag = f"33 DINOv2-L-reg {DINO_INT8_IMG} int8 attention"
+    enc = encoder_factory("dinov2", name="dinov2_large", size="large", with_registers=True, device="cuda", seed=SEED,
+                          dtype=bf16, param_dtype=bf16).eval()
+    inp = _dino_input(torch, np, serve, "dinov2", DINO_BATCH, DINO_INT8_IMG, SEED + 4)
+    k6_ulps, k6_ctrl = [], []
+
+    def k6_checked(q, k, v, scale=None, mode="int8"):
+        o = fa.flash_attention_int8(q, k, v, scale, mode)
+        ref = fa.flash_attention_int8_ref(q, k, v, scale, mode)
+        k6_ulps.append(_ulps(o, ref, 7, floor=K6_ULP_FLOOR))
+        k6_ctrl.append(_ulps(fa.flash_attention_ref(q, k, v, scale), ref, 7, floor=K6_ULP_FLOOR))
+        return o
+
+    def fwd_i8():
+        with torch.inference_mode():
+            return enc(inp)
+
+    config.set_attention_quant("int8")
+    attention.flash_attention_int8 = k6_checked
+    try:
+        out = counted_forward(torch, counters, fwd_i8, tag, {**none, "K6": DINO_L_DEPTH}, total)
+    finally:
+        attention.flash_attention_int8 = fa.flash_attention_int8
+        config.set_attention_quant("none")
+    require(all(torch.isfinite(t).all().item() for t in _dino_tensors(out)), f"{tag}: non-finite output")
+    print(f"[{tag}] {len(k6_ulps)} K6 calls at (2, 261, 16, 64), each against its plain version on the same "
+          f"activations: max {max(k6_ulps):.2f} ulp (tol {K6_ULPS}); exact attention, the control: "
+          f"{sum(c > K6_ULPS for c in k6_ctrl)} calls over the tol, max {max(k6_ctrl):.2f}")
+    require(max(k6_ulps) <= K6_ULPS, f"{tag}: a K6 call is {max(k6_ulps)} ulp from its plain version")
+    require(max(k6_ctrl) > K6_ULPS, f"{tag}: exact attention passed K6's check")
+    config.set_attention_quant("int8")
+    try:
+        dino_timing(torch, fwd_i8, DINO_BATCH, tag, card)
+    finally:
+        config.set_attention_quant("none")
+    del enc, out
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -2642,6 +2964,13 @@ def main():
     _tadd(new_train, phase_resume(torch, train, training, tc, card))
     print(f"[30 training] launches over phases 24-30's counted steps and entry-point runs: {new_train}")
 
+    dino = phase_dinov2(torch, np, serve, config, blocks, fused, counters, card)
+    k1_times(torch, fa, card, DINO_K1_SHAPES, "32 K1", SEED + 32)
+    dino_k5_k6_times(torch, F, fused, fa, make_patch_positions, card)
+    surgery = phase_dino_surgery(torch, np, serve, config, fa, counters, card)
+    dino = {k: dino[k] + surgery[k] for k in counters}
+    print(f"[33 dino] launches over phases 31 and 33's counted forwards: {dino}")
+
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -2649,8 +2978,8 @@ def main():
 
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
-              launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"],
-              k1_err, k1),
+              launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
+              + dino["K1"], k1_err, k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
               trained["flash_attention_bwd"] + new_train["K3"], k3_err, k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
@@ -2659,11 +2988,12 @@ def main():
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
               k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
-              fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"], k5_err["self"], k5["self"]),
+              fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"] + dino["K5-self"], k5_err["self"],
+              k5["self"]),
         entry("fused_cross_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:325",
               fused_path["K5-cross"] + new_train["K5-cross"], k5_err["cross"], k5["cross"]),
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
-              served["K6"], k6_err, k6),
+              served["K6"] + dino["K6"], k6_err, k6),
         entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47", served["K7"] + new_train["K7"],
               k7_err, k7),
         entry("sv_only", "flash_attention.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),

@@ -1056,3 +1056,70 @@ def test_dpt_training_resumes_bit_for_bit_under_deterministic_algorithms(gen, tm
     assert first + second == ref
     a, b = (torch.load(f"{d}/{training.STATE_FILE}", weights_only=True) for d in (whole, part))
     assert all(torch.equal(v, b["tensors"][k]) for k, v in a["tensors"].items())
+
+
+# K1 at the DINOv2 paths' key counts, none a multiple of its 128-key tile (37 x 37 patches + cls + 4 registers at
+# 518; 32 x 32 + 5 for DUNE at 448; two 518 views in the surgery's global stream), in bf16 ulps as at the multi-view
+# lengths. The control drops the ragged last tile's keys (the TMA's zero-filled tile): the bar must see them.
+@pytest.mark.parametrize("b,n,h", [(2, 1374, 16), (1, 1374, 24), (2, 1029, 12), (1, 2738, 16)],
+                         ids=["dinov2-L-518", "vit-g-518", "dune-448", "surgery-2-views"])
+def test_flash_attention_at_dinov2_ragged_lengths(gen, b, n, h):
+    q, k, v = _strided_qkv(gen, b, n, n, h, torch.bfloat16)
+    ref = flash_attention_ref(q, k, v)
+    assert _ulps(flash_attention(q, k, v), ref, 7, floor=K1_MV_ULP_FLOOR) <= K1_MV_ULPS
+    control = flash_attention_ref(q, k[:, :n - n % 128], v[:, :n - n % 128])
+    assert _ulps(control, ref, 7, floor=K1_MV_ULP_FLOOR) >= K1_MV_CONTROL_ULPS
+
+
+@pytest.mark.parametrize("h", [16, 6])
+def test_fused_attention_without_rope_with_qkv_bias_at_dinov2_length(gen, h):
+    "K5 as DINOv2's attention runs it under \"fused\": no RoPE, a qkv bias, N = 1374 (ViT-L: C 1024; ViT-S: C 384)."
+    n, c = 1374, 64 * h
+    x = torch.randn(2, n, c, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(3 * c, c, device="cuda", generator=gen) * c**-0.5).to(torch.bfloat16)
+    bias = torch.randn(3 * c, device="cuda", generator=gen) * 0.1
+    before = fused.fused_qkv_rope_attention.launches
+    out = fused.fused_qkv_rope_attention(x, w, bias, None, h, 64**-0.5)
+    assert fused.fused_qkv_rope_attention.launches == before + 1
+    ref = fused.fused_qkv_rope_attention_ref(x, w, bias, None, h, 64**-0.5)
+    assert out.shape == (2, n, c) and _ulps(out, ref, 7, floor=K5_ULP_FLOOR) <= K5_ULPS
+    no_bias = fused.fused_qkv_rope_attention_ref(x, w, None, None, h, 64**-0.5)  # the bias must be seen
+    assert _ulps(no_bias, ref, 7, floor=K5_ULP_FLOOR) > K5_ULPS
+
+
+@pytest.mark.parametrize("rung", ["kernel", "fused", "qk-norm fused"])
+def test_dinov2_small_reg_518_kernels_match_plain_with_exact_launches(gen, rung):
+    """DINOv2-S with registers at 518 (12 blocks, 1374 tokens), bf16, through encoder_factory, against its plain
+    path with exact launches per forward: K1 on every layer; under "fused" K5 on every layer; with qk-norm on q and
+    k (a LayerNorm per head) "fused" cannot take the layers, so they stay on K1 and no K5 launches."""
+    from uniception_tpu_torch.models.encoders import ViTEncoderInput, encoder_factory
+    from uniception_tpu_torch.nn.blocks import make_norm_layer
+    from uniception_tpu_torch.ops.fused_attention import fused_qkv_rope_attention
+
+    enc = encoder_factory("dinov2", name="dinov2_small", size="small", with_registers=True, dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16).eval()
+    if rung == "qk-norm fused":
+        for blk in enc.model.blocks:
+            blk.attn.q_norm = make_norm_layer(64, device="cuda", dtype=torch.bfloat16).to(torch.bfloat16)
+            blk.attn.k_norm = make_norm_layer(64, device="cuda", dtype=torch.bfloat16).to(torch.bfloat16)
+    inp = ViTEncoderInput(image=torch.randn(2, 3, 518, 518, device="cuda", generator=gen), data_norm_type="dinov2")
+    counters = (flash_attention, fused_qkv_rope_attention)
+
+    def forward(impl):
+        config.set_attention_impl(impl)
+        try:
+            before = [c.launches for c in counters]
+            with torch.inference_mode():
+                out = enc(inp)
+            return out, tuple(c.launches - b for c, b in zip(counters, before))
+        finally:
+            config.set_attention_impl("kernel")
+
+    plain, none = forward("naive")
+    out, launches = forward("kernel" if rung == "kernel" else "fused")
+    assert none == (0, 0)
+    assert launches == ((0, 12) if rung == "fused" else (12, 0))
+    assert out.features.shape == (2, 384, 37, 37) and out.registers.shape == (2, 384, 5)
+    for o, p in ((out.features, plain.features), (out.registers, plain.registers)):
+        assert torch.isfinite(o).all()
+        assert ((o.float() - p.float()).norm() / p.float().norm()).item() <= 2e-2

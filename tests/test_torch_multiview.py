@@ -428,8 +428,32 @@ def test_routing_rules_at_full_size_shapes():
                                     dict(mlp_layer=torch.nn.Identity), dict(scan_blocks=True)],
                          ids=lambda o: next(iter(o)))
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="scan_blocks" if "scan_blocks" in option else "queue 1 item 9"):
-        glob.MultiViewGlobalAttentionTransformer(name="g", input_embed_dim=32, dim=48, depth=1, num_heads=4, **option)
+    """scan_blocks, an XLA layout, still raises; the block options once refused are now taken and reach every block
+    as in the JAX package (act_layer is accepted and, as there, not passed on)."""
+    kw = dict(name="g", input_embed_dim=32, dim=48, depth=2, num_heads=4)
+    if "scan_blocks" in option:
+        with pytest.raises(NotImplementedError, match="scan_blocks"):
+            glob.MultiViewGlobalAttentionTransformer(**kw, **option)
+        return
+    if "mlp_layer" in option:
+        option = dict(mlp_layer=lambda in_features, **_: torch.nn.Identity())
+    model = glob.MultiViewGlobalAttentionTransformer(**kw, **option)
+    for blk in model.self_attention_blocks:
+        name = next(iter(option))
+        if name == "qk_norm":
+            assert isinstance(blk.attn.q_norm, blocks.LayerNorm) and isinstance(blk.attn.k_norm, blocks.LayerNorm)
+        elif name == "init_values":
+            assert torch.equal(blk.ls1.gamma, torch.full((48,), 1e-5)) and isinstance(blk.ls2, blocks.LayerScale)
+        elif name == "drop_path":
+            assert blk.drop_path1.drop_prob == blk.drop_path2.drop_prob == 0.1
+        elif name == "proj_drop":
+            assert blk.attn.proj_drop.p == blk.mlp.drop1.p == blk.mlp.drop2.p == 0.1
+        elif name == "attn_drop":
+            assert blk.attn.attn_drop == 0.1
+        elif name == "act_layer":
+            assert blk.mlp.act is blocks.gelu_exact
+        else:
+            assert isinstance(blk.mlp, torch.nn.Identity)
 
 
 def test_multiview_model_refuses_what_it_does_not_take():

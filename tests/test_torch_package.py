@@ -63,7 +63,10 @@ def test_import_everything_without_jax_or_nvcc():
     for name in ("data.bucketing", "data.pipeline", "utils.coldstart", "utils.checkpoint", "utils.framing",
                  "models.factory.flow", "convert_checkpoints", "models.factory.multiview", "models.encoders.pe_utils",
                  "models.info_sharing.global_attention_transformer",
-                 "models.info_sharing.alternating_attention_transformer", "nn.lora", "train"):
+                 "models.info_sharing.alternating_attention_transformer", "nn.lora", "train", "models.encoders",
+                 "models.encoders.vit", "models.encoders.dinov2", "models.encoders.dune",
+                 "models.encoders.patch_embedder", "models.encoders.list", "models.encoders.image_normalizations",
+                 "models.info_sharing", "models.utils.unported", "convert_dino_to_info_sharing"):
         assert f"uniception_tpu_torch.{name}" in report["modules"]
     assert report["jax"] == []
     assert report["uniception_tpu"] == []  # not even its jax-free modules (utils/checkpoint.py, data/bucketing.py)

@@ -1,0 +1,199 @@
+"""
+Encoder registry and factories (counterpart of uniception_tpu/models/encoders/__init__.py; reference
+uniception/models/encoders/__init__.py:37-140).
+
+``ENCODER_CONFIGS`` lists every key of the JAX package's registry. A key whose encoder the port does not build
+yet holds a stand-in class that raises NotImplementedError naming its ROADMAP item; an unknown key raises
+ValueError. ``python -m uniception_tpu_torch.models.encoders.list`` prints the table.
+
+The factories are entry points: they build on the card unless the caller passes ``device="cpu"`` (or another
+device), and draw the weights from ``seed`` unless a ``generator`` is given.
+"""
+
+import os
+
+import torch
+
+from uniception_tpu_torch.models.encoders.base import (
+    EncoderGlobalRepInput,
+    EncoderGlobalRepOutput,
+    EncoderInput,
+    EncoderOutput,
+    UniCeptionEncoderBase,
+    UniCeptionViTEncoderBase,
+    ViTEncoderInput,
+    ViTEncoderNonImageInput,
+    ViTEncoderOutput,
+)
+from uniception_tpu_torch.models.encoders.croco import CroCoEncoder, CroCoIntermediateFeatureReturner
+from uniception_tpu_torch.models.encoders.dinov2 import DINOv2Encoder, DINOv2IntermediateFeatureReturner
+from uniception_tpu_torch.models.encoders.dune import DUNEEncoder, DUNEIntermediateFeatureReturner
+from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT, ImageNormalization
+from uniception_tpu_torch.models.encoders.patch_embedder import PatchEmbedder
+from uniception_tpu_torch.models.utils.unported import not_ported
+
+__all__ = [
+    "ENCODER_CONFIGS",
+    "encoder_factory",
+    "feature_returner_encoder_factory",
+    "get_available_encoders",
+    "is_ported",
+    "EncoderGlobalRepInput",
+    "EncoderGlobalRepOutput",
+    "EncoderInput",
+    "EncoderOutput",
+    "UniCeptionEncoderBase",
+    "UniCeptionViTEncoderBase",
+    "ViTEncoderInput",
+    "ViTEncoderNonImageInput",
+    "ViTEncoderOutput",
+    "CroCoEncoder",
+    "CroCoIntermediateFeatureReturner",
+    "DINOv2Encoder",
+    "DINOv2IntermediateFeatureReturner",
+    "DUNEEncoder",
+    "DUNEIntermediateFeatureReturner",
+    "PatchEmbedder",
+    "IMAGE_NORMALIZATION_DICT",
+    "ImageNormalization",
+]
+
+_ZOO = "queue 1 item 6"  # the encoder zoo
+_COSMOS = "queue 1 item 11"  # the Cosmos tokenizer
+
+
+def _unported(name, item, ifr=False, supported=()):
+    "A registry entry whose classes raise NotImplementedError; ``ifr``: the JAX entry has an IFR variant."
+    entry = {"class": not_ported(name, item), "supported_models": list(supported)}
+    if ifr:
+        entry["intermediate_feature_returner_class"] = not_ported(f"{name} (intermediate features)", item)
+    return entry
+
+
+ENCODER_CONFIGS = {
+    "croco": {
+        "class": CroCoEncoder,
+        "intermediate_feature_returner_class": CroCoIntermediateFeatureReturner,
+        "supported_models": ["CroCov2", "DUSt3R", "MASt3R"],
+    },
+    "dense_rep_encoder": _unported("dense_rep_encoder", _ZOO, supported=["Dense-Representation-Encoder"]),
+    "dinov2": {
+        "class": DINOv2Encoder,
+        "intermediate_feature_returner_class": DINOv2IntermediateFeatureReturner,
+        "supported_models": ["DINOv2", "DINOv2-Registers", "DINOv2-Depth-Anythingv2"],
+    },
+    "dinov3": _unported("dinov3", _ZOO, ifr=True, supported=["DINOv3-ViT"]),
+    "dinov3_convnext": _unported("dinov3_convnext", _ZOO, ifr=True, supported=["DINOv3-ConvNext"]),
+    "cosmos": _unported("cosmos", _COSMOS, supported=["Cosmos-Tokenizer CI8x8", "Cosmos-Tokenizer CI16x16"]),
+    "dune": {
+        "class": DUNEEncoder,
+        "intermediate_feature_returner_class": DUNEIntermediateFeatureReturner,
+        "supported_models": ["DUNE"],
+    },
+    "global_rep_encoder": _unported("global_rep_encoder", _ZOO, supported=["Global-Representation-Encoder"]),
+    "perception_encoder": _unported("perception_encoder", _ZOO, ifr=True,
+                                    supported=["Perception Encoder Core", "Perception Encoder Spatial"]),
+    "pixio": _unported("pixio", _ZOO, supported=["Pixio-Encoder"]),
+    "radio": _unported("radio", _ZOO, ifr=True, supported=[
+        "RADIO", "E-RADIO (capability-equivalent hybrid trunk; hub checkpoints not loadable offline)"]),
+    "patch_embedder": {
+        "class": PatchEmbedder,
+        "supported_models": ["Patch-Embedder"],
+    },
+}
+
+
+def is_ported(encoder_str: str) -> bool:
+    "Whether the port builds the registry entry ``encoder_str``."
+    return not hasattr(ENCODER_CONFIGS[encoder_str]["class"], "roadmap_item")
+
+
+def _entry(encoder_str: str) -> dict:
+    if encoder_str not in ENCODER_CONFIGS:
+        raise ValueError(
+            f"Unknown encoder: {encoder_str}. For valid encoder_str options, "
+            "please use python -m uniception_tpu_torch.models.encoders.list"
+        )
+    return ENCODER_CONFIGS[encoder_str]
+
+
+def _placed(kwargs: dict, seed: int) -> dict:
+    """``kwargs`` with ``device`` (default: the card; raises without one) and a ``generator`` on it seeded with
+    ``seed`` unless the caller gave one (none on the meta device, where nothing is drawn)."""
+    device = torch.device(kwargs.get("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the encoders build on the card unless the caller passes device='cpu'")
+    generator = kwargs.get("generator")
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device=device).manual_seed(seed)
+    return {**kwargs, "device": device, "generator": generator}
+
+
+def encoder_factory(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:
+    """Build an encoder by registry name (``python -m uniception_tpu_torch.models.encoders.list`` lists them);
+    ``kwargs`` go to its class."""
+    cls = _entry(encoder_str)["class"]
+    if not is_ported(encoder_str):
+        return cls()  # raises, naming the ROADMAP item
+    return cls(**_placed(kwargs, seed))
+
+
+def feature_returner_encoder_factory(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:
+    "Build an intermediate-feature-returner encoder by registry name; ``kwargs`` go to its class."
+    cfg = _entry(encoder_str)
+    if "intermediate_feature_returner_class" not in cfg:
+        raise ValueError(f"Encoder {encoder_str} has no intermediate-feature-returner variant")
+    cls = cfg["intermediate_feature_returner_class"]
+    if not is_ported(encoder_str):
+        return cls()
+    return cls(**_placed(kwargs, seed))
+
+
+def get_available_encoders():
+    "Registry keys, ported or not (reference encoders/__init__.py get_available_encoders)."
+    return sorted(ENCODER_CONFIGS)
+
+
+def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:
+    """Build the canonical test configuration of an encoder string (JAX encoders/__init__.py:162-210), with the
+    canonical checkpoint under ``checkpoints/encoders`` of the repository passed only when that file exists:
+    nothing is downloaded, and without the file the weights are drawn from ``seed``. Strings of encoders the port
+    does not build yet raise NotImplementedError naming their ROADMAP item."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = os.path.normpath(os.path.join(here, "../../../checkpoints/encoders"))
+
+    def ckpt(rel):
+        path = os.path.join(ckpt_dir, rel)
+        return path if os.path.exists(path) else None
+
+    if encoder_str == "dummy":
+        return UniCeptionEncoderBase(name="dummy", data_norm_type="dummy")
+    for key in ("radio", "dinov3", "cosmos", "perception_encoder", "pixio"):  # dinov3 covers dinov3_convnext
+        if key in encoder_str:
+            return ENCODER_CONFIGS[key]["class"]()
+    kwargs = _placed(kwargs, seed)
+    if encoder_str == "croco":
+        return CroCoEncoder(name="croco", data_norm_type="croco", patch_embed_cls="PatchEmbedCroCo",
+                            pretrained_checkpoint_path=ckpt("CroCo_Encoder_224.pth"), **kwargs)
+    if encoder_str == "dust3r_224":
+        return CroCoEncoder(name="dust3r_224", data_norm_type="dust3r", patch_embed_cls="PatchEmbedDust3R",
+                            pretrained_checkpoint_path=ckpt("CroCo_Encoder_224_DUSt3R_linear.pth"), **kwargs)
+    if encoder_str in ("dust3r_512", "dust3r_512_dpt", "mast3r_512"):
+        names = {
+            "dust3r_512": "CroCo_Encoder_512_DUSt3R_linear.pth",
+            "dust3r_512_dpt": "CroCo_Encoder_512_DUSt3R_dpt.pth",
+            "mast3r_512": "CroCo_Encoder_512_MASt3R.pth",
+        }
+        return CroCoEncoder(name=encoder_str, data_norm_type="dust3r", patch_embed_cls="ManyAR_PatchEmbed",
+                            img_size=(512, 512), pretrained_checkpoint_path=ckpt(names[encoder_str]), **kwargs)
+    if "dinov2" in encoder_str:
+        size = encoder_str.split("_")[1]
+        path = ckpt(f"DINOv2_ViT{size[0].upper()}_DepthAnythingV2.pth") if "dav2" in encoder_str else None
+        return DINOv2Encoder(name=encoder_str.replace("_reg", ""), size=size, with_registers="reg" in encoder_str,
+                             pretrained_checkpoint_path=path, **kwargs)
+    if "dune" in encoder_str:
+        return DUNEEncoder(name="dune_base", vit_size="base", pe_image_size=448,
+                           pretrained_checkpoint_path=ckpt("dune_vitbase14_448.pth"), **kwargs)
+    if "patch_embedder" in encoder_str:
+        return PatchEmbedder(name=encoder_str, **kwargs)
+    raise ValueError(f"Unknown encoder: {encoder_str}")

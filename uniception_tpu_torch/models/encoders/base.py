@@ -11,7 +11,44 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["ViTEncoderInput", "ViTEncoderOutput", "UniCeptionEncoderBase", "UniCeptionViTEncoderBase"]
+__all__ = [
+    "EncoderInput",
+    "EncoderOutput",
+    "EncoderGlobalRepInput",
+    "EncoderGlobalRepOutput",
+    "ViTEncoderInput",
+    "ViTEncoderNonImageInput",
+    "ViTEncoderOutput",
+    "UniCeptionEncoderBase",
+    "UniCeptionViTEncoderBase",
+]
+
+
+@dataclass
+class EncoderInput:
+    "Base encoder input: carries the normalization-type handshake."
+
+    data_norm_type: str
+
+
+@dataclass
+class EncoderOutput:
+    "Base encoder output."
+
+
+@dataclass
+class EncoderGlobalRepInput:
+    "Global-representation input: (batch, channel)."
+
+    data: torch.Tensor
+    data_norm_type: str = ""
+
+
+@dataclass
+class EncoderGlobalRepOutput:
+    "Global-representation output: (batch, enc_embed_dim)."
+
+    features: torch.Tensor
 
 
 @dataclass
@@ -29,10 +66,20 @@ class ViTEncoderInput:
 
 
 @dataclass
+class ViTEncoderNonImageInput:
+    "Dense 2D-grid non-image input: (batch, channel, height, width)."
+
+    data: torch.Tensor
+    data_norm_type: str = ""
+
+
+@dataclass
 class ViTEncoderOutput:
-    "ViT encoder output: features (batch, enc_embed_dim, h/P, w/P) BCHW."
+    """ViT encoder output: features (batch, enc_embed_dim, h/P, w/P) BCHW; registers (batch, enc_embed_dim, R), the
+    cls token first, from the encoders that return them (DINOv2), else None."""
 
     features: torch.Tensor
+    registers: Optional[torch.Tensor] = None
 
 
 class UniCeptionEncoderBase(nn.Module):
@@ -53,8 +100,10 @@ class UniCeptionEncoderBase(nn.Module):
 
 
 class UniCeptionViTEncoderBase(UniCeptionEncoderBase):
-    "ViT encoder base class (reference encoders/base.py:121-152)."
+    """ViT encoder base class (reference encoders/base.py:121-152). ``gradient_checkpointing`` recomputes each
+    block's activations in the backward (``nn.common.remat_call``)."""
 
-    def __init__(self, patch_size: int, *args, **kwargs):
+    def __init__(self, patch_size: int, gradient_checkpointing: bool = False, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.patch_size = patch_size
+        self.gradient_checkpointing = gradient_checkpointing

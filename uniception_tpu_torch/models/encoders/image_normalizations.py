@@ -17,6 +17,13 @@ class ImageNormalization:
     std: Tuple[float, float, float]
 
 
+_IMAGENET = ImageNormalization(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
+
 IMAGE_NORMALIZATION_DICT = {
+    "dummy": ImageNormalization(mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0)),
+    "croco": _IMAGENET,
     "dust3r": ImageNormalization(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
+    "dune": _IMAGENET,
+    "dinov2": _IMAGENET,
+    "patch_embedder": _IMAGENET,
 }

@@ -16,6 +16,12 @@ tables are non-persistent buffers: computed at construction, never loaded.
 Loop layout only. ``dtype`` is the compute dtype; ``gradient_checkpointing``
 recomputes each block's activations in the backward.
 
+The blocks take the JAX package's options: qk-norm, LayerScale
+(``init_values``), stochastic depth, dropout and ``mlp_layer`` (Mlp or
+SwiGLUFFNFused), so a transformer initialised from DINOv2 blocks
+(``convert_dino_to_info_sharing``) loads strict. As in the JAX package,
+``act_layer`` is accepted and not passed to the blocks (they use GELU).
+
 Global attention over V*T tokens is K1's longest sequence: 4 views of
 512x512 are 4096 tokens in one attention call per layer.
 """
@@ -98,16 +104,6 @@ class _GlobalAttentionBase(UniCeptionInfoSharingBase):
         super().__init__(name=name)
         if scan_blocks:
             raise NotImplementedError("scan_blocks is XLA-only (nn/scan.py); the port runs the loop layout")
-        unported = [opt for opt, used in (
-            ("qk_norm", qk_norm), ("init_values", init_values is not None), ("drop_path", drop_path > 0),
-            ("proj_drop", proj_drop > 0), ("attn_drop", attn_drop > 0), ("act_layer", act_layer is not None),
-            ("mlp_layer", mlp_layer is not Mlp),
-        ) if used]
-        if unported:
-            raise NotImplementedError(
-                f"{name}: {', '.join(unported)} not ported: the port's SelfAttentionBlock has no qk-norm, LayerScale, "
-                "stochastic depth, dropout, other activations or other MLPs (ROADMAP queue 1 item 9)"
-            )
         norm_layer = norm_layer or layer_norm_factory(eps=1e-6)
 
         self.size = size
@@ -135,11 +131,17 @@ class _GlobalAttentionBase(UniCeptionInfoSharingBase):
                 dim,
                 num_heads,
                 mlp_ratio=mlp_ratio,
+                qkv_bias=qkv_bias,
+                qk_norm=qk_norm,
+                proj_drop=proj_drop,
+                attn_drop=attn_drop,
+                init_values=init_values,
+                drop_path=drop_path,
                 norm_layer=norm_layer,
+                mlp_layer=mlp_layer,
                 device=device,
                 dtype=dtype,
                 generator=generator,
-                qkv_bias=qkv_bias,
                 custom_positional_encoding=custom_positional_encoding,
                 use_scalable_softmax=use_scalable_softmax,
                 use_entropy_scaling=use_entropy_scaling,

@@ -1,7 +1,7 @@
 """
 Small shared NN utilities (counterpart of uniception_tpu/nn/common.py):
 Identity, GELU by the configured mode, the reference's Linear init with an
-optional compute dtype, and gradient checkpointing.
+optional compute dtype, the truncated-normal init, and gradient checkpointing.
 
 Mixed precision follows flax's ``dtype`` / ``param_dtype`` split: parameters
 stay in their own dtype (fp32 masters for training) and are cast to the
@@ -18,7 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uniception_tpu_torch.models.utils.config import get_gelu_mode
 
-__all__ = ["Identity", "gelu_exact", "Linear", "LinearX", "remat_call"]
+__all__ = ["Identity", "gelu_exact", "trunc_normal", "Linear", "LinearX", "remat_call"]
 
 Identity = nn.Identity
 
@@ -26,6 +26,15 @@ Identity = nn.Identity
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     "GELU as torch nn.GELU (erf), or its tanh approximation when the GELU mode is 'tanh'."
     return F.gelu(x, approximate="tanh" if get_gelu_mode() == "tanh" else "none")
+
+
+def trunc_normal(tensor: torch.Tensor, std: float = 0.02, *, generator: Optional[torch.Generator] = None):
+    """Fill ``tensor`` in place with ``std`` times a unit normal truncated to (-2, 2), so values lie within two
+    ``std`` (their standard deviation is 0.88 ``std``): ``jax.nn.initializers.truncated_normal(stddev=std)``, the
+    JAX package's ``trunc_normal`` (its nn/common.py:54). Returns the tensor."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(tensor, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return tensor.mul_(std)
 
 
 class Linear(nn.Linear):
