@@ -152,7 +152,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                by convert_dino_to_info_sharing from blocks 12-23 and loaded
                strict, against the plain path (K1 12 at 1374 keys, 12 at
                2738); DINOv2-L-reg at 224 under int8 attention (24 K6, N =
-               261), each call against its plain version.
+               261), each call against its plain version;
+   34. zoo K1: K1 at the encoder zoo's head dims and shapes (RADIO-h 80,
+               PE-G14 96, DINOv3-7b 128, E-RADIO's windows 32, Pixio-H 80),
+               bf16 in ulps with two controls (the ragged key tile dropped,
+               the last 16 head-dim columns zeroed) and fp32, with and
+               without the logsumexp, beside the plain version, SDPA and the
+               bound; K2 on DINOv3's patch tokens (a strided view) at D = 64
+               and 128;
+   35. zoo:    the encoder zoo through encoder_factory against the plain path
+               with exact launches: RADIO v2.5-H/16 and DINOv3 ViT-L/16 at
+               512, batch 2, full depth, fp32 and bf16 trunks (32 K1; 24 K1
+               and 48 K2); PE-Core-G14 at 448 and DINOv3-7b at 512 (depth
+               cut), Pixio-H at 256, E-RADIO v2 at 512 (10 K1 over windows of
+               1024 and 256 tokens), DINOv3 ConvNeXt-base, the dense
+               representation encoder (3 K7 under the 3x3-conv kernel) and
+               the global one; images/s, device ms, busy share and peak
+               memory of each bf16 forward.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -321,9 +337,9 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bound(B, Nq, Nk, H):
+def attention_bound(B, Nq, Nk, H, D=64, elem_bytes=2):
     "Attention's two products (4 Nq Nk D per (b, h)) in bf16 against q, k, v and o."
-    return bound({"bf16": 4 * B * H * Nq * Nk * 64}, (2 * Nq + 2 * Nk) * B * H * 64 * 2)
+    return bound({"bf16": 4 * B * H * Nq * Nk * D}, (2 * Nq + 2 * Nk) * B * H * D * elem_bytes)
 
 
 def sdpa(q, k, v, scale=None):
@@ -2862,6 +2878,199 @@ def phase_dino_surgery(torch, np, serve, config, fa, counters, card):
     return total
 
 
+# K1 at the encoder zoo's head dims and shapes (name, B, N, H, D): RADIO v2.5-H/16 at 512 (cls + 8 registers + 32 x
+# 32 patches), PE-Core-G14 at 448 (32 x 32 patches, no cls token), DINOv3-7b/16 at 512 (cls + 4 storage + 32 x 32),
+# E-RADIO v2's windows at 512 (the /16 stage's 32 x 32 window, the /32 stage's 16 x 16) and Pixio-H/16 at 256 (8 cls
+# + 16 x 16). Held as phase 22 holds K1 (K1_MV_ULPS, bf16 ulps of max(|plain|,
+# 1/64)) with two controls that must land at least K1_MV_CONTROL_ULPS away: the plain version without its ragged last
+# key tile (the whole last 128-key tile where N is a multiple of 128), and the plain version with the last 16
+# head-dim columns of q, k and v zeroed (at D > 64 the columns of the second TMA box). fp32 by ||kernel - plain|| /
+# ||plain||; the logsumexp as LSE_TOL.
+ZOO_K1_SHAPES = [("RADIO-h 512", 2, 1033, 16, 80), ("PE-G14 448", 2, 1024, 16, 96), ("DINOv3-7b 512", 1, 1029, 32, 128),
+                 ("E-RADIO /16 window", 2, 1024, 12, 32), ("E-RADIO /32 window", 2, 256, 24, 32),
+                 ("Pixio-H 256", 2, 264, 16, 80)]
+ZOO_K1_FP32_REL_TOL = 2e-6
+ZOO_K2_SHAPES = [("DINOv3-L 512", 2, 16, 64), ("DINOv3-7b 512", 1, 32, 128)]  # (name, B, H, D) at 32 x 32 patches
+ZOO_IMG, ZOO_BATCH = 512, 2
+RADIO_H_DEPTH, DINOV3_L_DEPTH = 32, 24
+# depth cuts of phase 35 (published widths; every cut listed in PERF.md section 4)
+PE_G_BLOCKS, DINOV3_7B_BLOCKS = 8, 4
+
+
+def zoo_k1_check(torch, fa, q, k, v, lost, label):
+    """K1 against its plain version on (q, k, v) (bf16: ulps with the two controls; fp32: norm-relative), with and
+    without the logsumexp. Returns (bf16 ulps or fp32 relative error, control ulps or None)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    no_lse = fa.flash_attention_fwd(q, k, v)[0]
+    ref, ref_lse = fa.flash_attention_lse_ref(q, k, v)
+    require(torch.equal(out, no_lse), f"{label}: the output with the logsumexp differs from the one without")
+    lse_err = (lse - ref_lse).abs().max().item()
+    bf16 = q.dtype == torch.bfloat16
+    require(lse_err <= LSE_TOL["bf16" if bf16 else "fp32"], f"{label}: logsumexp {lse_err}")
+    if not bf16:
+        rel = ((out - ref).norm() / ref.norm()).item()
+        require(rel <= ZOO_K1_FP32_REL_TOL, f"{label}: fp32 {rel} > {ZOO_K1_FP32_REL_TOL}")
+        return rel, None, lse_err
+    ulps = _ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR)
+    ragged = _ulps(fa.flash_attention_ref(q, k[:, :-lost], v[:, :-lost]), ref, 7, floor=K1_MV_ULP_FLOOR)
+    zero = lambda t: torch.cat([t[..., :-16], torch.zeros_like(t[..., -16:])], dim=-1)  # noqa: E731
+    columns = _ulps(fa.flash_attention_ref(zero(q), zero(k), zero(v)), ref, 7, floor=K1_MV_ULP_FLOOR)
+    require(ulps <= K1_MV_ULPS, f"{label}: {ulps} ulps of max(|plain|, 1/64) vs plain > {K1_MV_ULPS}")
+    require(min(ragged, columns) >= K1_MV_CONTROL_ULPS, f"{label}: a control is under {K1_MV_CONTROL_ULPS} ulps "
+            f"(last {lost} keys dropped {ragged}, last 16 columns zeroed {columns}): the bar cannot see the loss")
+    return ulps, (ragged, columns), lse_err
+
+
+def phase_zoo_k1(torch, fa, rope, make_patch_positions, card):
+    """K1 at the zoo's shapes (ZOO_K1_SHAPES), q, k and v strided views of one qkv tensor as the layers make them:
+    bf16 and fp32 against the plain version with and without the logsumexp, the controls, and its time beside the
+    plain version, SDPA and the bound (CUDA graphs). Then K2 on the DINOv3 trunks' patch tokens (the view q[:, 5:]
+    of a qkv projection) against its plain version, timed beside it and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    worst = 0.0
+    for name, B, N, H, D in ZOO_K1_SHAPES:
+        lost = N % 128 or 128
+        qkv = torch.randn(B, N, 3, H, D, device="cuda", generator=gen)
+        q32, k32, v32 = qkv.unbind(2)
+        rel, _, lse32 = zoo_k1_check(torch, fa, q32, k32, v32, lost, f"34 K1 {name} fp32")
+        q, k, v = qkv.bfloat16().unbind(2)
+        del qkv, q32, k32, v32
+        ulps, (ragged, columns), lse16 = zoo_k1_check(torch, fa, q, k, v, lost, f"34 K1 {name} bf16")
+        worst = max(worst, (fa.flash_attention(q, k, v).float() - fa.flash_attention_ref(q, k, v).float()).abs().max()
+                    .item())
+        ms, plain_ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v)), graph_ms(
+            torch, lambda: fa.flash_attention_ref(q, k, v))
+        lib = graph_ms(torch, lambda: sdpa(q, k, v))
+        b = attention_bound(B, N, N, H, D)
+        tflops = 4 * B * H * N * N * D / 1e9
+        dp = 64 if D <= 64 else 128  # K1's padded head dim (csrc/flash_attention.cu FwdCfg)
+        print(f"[34 K1] {name} ({B},{N},{H},{D}) padded to {dp}: bf16 {ulps:.2f} ulps of max(|plain|, 1/64) vs plain "
+              f"(tol {K1_MV_ULPS}), controls: last {lost} keys dropped {ragged:.1f} ulps, last 16 columns of q/k/v "
+              f"zeroed {columns:.1f} ulps (each >= {K1_MV_CONTROL_ULPS}); fp32 ||kernel - plain|| / ||plain|| "
+              f"{rel:.2e} (tol {ZOO_K1_FP32_REL_TOL}); logsumexp max abs bf16 {lse16:.2e}, fp32 {lse32:.2e}; "
+              f"{ms:.4f} ms ({tflops / ms:.1f} TFLOP/s of the {D} real columns), plain {plain_ms:.4f} ms, SDPA "
+              f"{lib:.4f} ms ({tflops / lib:.1f} TFLOP/s), {ms / lib:.3f}x SDPA, bound {b[0]:.4f} ms ({b[1]}), share "
+              f"of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    for name, B, H, D in ZOO_K2_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, 5 + 1024, 3, H, D, device="cuda", generator=gen).to(dtype)[:, 5:, 0]
+            pos = make_patch_positions(B, 32, 32, device="cuda")
+            out, ref = rope.rope_2d_kernel(q, pos), rope.rope_2d(q.contiguous(), pos)
+            if dtype == torch.float32:
+                err = (out - ref).abs().max().item()
+                require(err <= K2_FP32_TOL, f"34 K2 {name}: fp32 {err}")
+                continue
+            ulps = _ulps(out, ref, 7)
+            require(ulps <= K2_BF16_ULPS, f"34 K2 {name}: {ulps} bf16 ulps")
+            ms, plain_ms = graph_ms(torch, lambda: rope.rope_2d_kernel(q, pos)), graph_ms(
+                torch, lambda: rope.rope_2d(q, pos))
+            b = bound({}, 2 * B * 1024 * H * D * 2 + B * 1024 * 2 * 4)
+            print(f"[34 K2] {name} patch tokens q[:, 5:] of a (B, 1029, 3, {H}, {D}) projection (strided): fp32 max "
+                  f"abs {err:.2e} (tol {K2_FP32_TOL}), bf16 {ulps:.2f} ulps (tol {K2_BF16_ULPS}); {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) (CUDA graphs) on {card}")
+    return worst
+
+
+def _zoo_input(torch, np, serve, norm, n, hw, seed):
+    "A (n, 3, H, W) batch of seeded uint8 frames normalized for ``norm`` on the card, as the encoder's input."
+    from uniception_tpu_torch.models.encoders import ViTEncoderInput
+
+    frames = np.random.RandomState(seed).randint(0, 256, size=(n, hw[0], hw[1], 3), dtype=np.uint8)
+    return ViTEncoderInput(image=serve.make_frame_normalizer(norm, "cuda")(frames), data_norm_type=norm)
+
+
+def phase_zoo(torch, np, serve, config, counters, card):
+    """The zoo's encoders through encoder_factory (seed 0) against the plain path with exact launches per forward:
+    RADIO v2.5-H/16 at 512, batch 2, all 32 blocks, fp32 then bf16 trunk (32 K1 at (2, 1033, 16, 80)); DINOv3
+    ViT-L/16 at 512, all 24 blocks, fp32 then bf16 (24 K1, 48 K2 on the patch tokens); in bf16 at published widths,
+    depth cut: PE-Core-G14 at 448 (PE_G_BLOCKS blocks, heads of 96), DINOv3-7b/16 at 512 (DINOV3_7B_BLOCKS blocks,
+    batch 1, heads of 128); Pixio-H/16 at 256, all 32 blocks (heads of 80); E-RADIO v2 at 512, whole (windows of
+    1024 and 256 tokens, heads of 32: 10 K1); DINOv3 ConvNeXt-base at 512 and the global representation encoder
+    (no kernel); the dense representation encoder on a (B, 3, 518, 518) non-image input in bf16 under the 3x3-conv
+    kernel (3 K7). For the bf16
+    ones images/s, device ms, busy share and peak memory. Returns the launches of the counted forwards."""
+    from uniception_tpu_torch.models.encoders import EncoderGlobalRepInput, ViTEncoderNonImageInput, encoder_factory
+
+    total = {k: 0 for k in counters}
+    none = {k: 0 for k in counters}
+
+    def run(tag, build, inp, want, tol, timed, batch):
+        enc = build().eval()
+
+        def fwd():
+            with torch.inference_mode():
+                return enc(inp)
+
+        out = dino_against_plain(torch, config, counters, fwd, tag, {**none, **want}, total, tol)
+        if timed:
+            dino_timing(torch, fwd, batch, tag, card)
+        del enc
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    grid = ZOO_IMG // 16
+    radio_in = _zoo_input(torch, np, serve, "radio", ZOO_BATCH, (ZOO_IMG, ZOO_IMG), SEED)
+    dinov3_in = _zoo_input(torch, np, serve, "dinov3", ZOO_BATCH, (ZOO_IMG, ZOO_IMG), SEED + 1)
+    for trunk, dtype, tol in (("fp32", torch.float32, MODEL_FP32_REL_TOL), ("bf16", torch.bfloat16, MODEL_REL_TOL)):
+        kw = dict(device="cuda", seed=SEED, dtype=dtype, param_dtype=dtype)
+        out = run(f"35 RADIO v2.5-H/16 {ZOO_IMG} {trunk}", lambda: encoder_factory(
+            "radio", name="radio_v2.5-h", model_version="radio_v2.5-h", **kw), radio_in, {"K1": RADIO_H_DEPTH}, tol,
+            dtype == torch.bfloat16, ZOO_BATCH)
+        require(tuple(out.features.shape) == (ZOO_BATCH, 1280, grid, grid), f"RADIO-h: {tuple(out.features.shape)}")
+        out = run(f"35 DINOv3 ViT-L/16 {ZOO_IMG} {trunk}", lambda: encoder_factory(
+            "dinov3", name="dinov3_large", size="large", **kw), dinov3_in,
+            {"K1": DINOV3_L_DEPTH, "K2": 2 * DINOV3_L_DEPTH}, tol, dtype == torch.bfloat16, ZOO_BATCH)
+        require(tuple(out.features.shape) == (ZOO_BATCH, 1024, grid, grid), f"DINOv3-L: {tuple(out.features.shape)}")
+        del out
+
+    bf16 = dict(device="cuda", seed=SEED, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    out = run(f"35 PE-Core-G14 448 bf16 ({PE_G_BLOCKS} of 50 blocks)", lambda: encoder_factory(
+        "perception_encoder", name="pe_core_giant", size="giant", checkpoint_type="core",
+        keep_first_n_layers=PE_G_BLOCKS - 1, **bf16),
+        _zoo_input(torch, np, serve, "perception_encoder", ZOO_BATCH, (448, 448), SEED + 2), {"K1": PE_G_BLOCKS},
+        MODEL_REL_TOL, True, ZOO_BATCH)
+    require(tuple(out.features.shape) == (ZOO_BATCH, 1536, 32, 32), f"PE-G14: {tuple(out.features.shape)}")
+    out = run(f"35 DINOv3-7b/16 {ZOO_IMG} bf16 ({DINOV3_7B_BLOCKS} of 40 blocks)", lambda: encoder_factory(
+        "dinov3", name="dinov3_7b", size="7b", keep_first_n_layers=DINOV3_7B_BLOCKS, **bf16),
+        _zoo_input(torch, np, serve, "dinov3", 1, (ZOO_IMG, ZOO_IMG), SEED + 3),
+        {"K1": DINOV3_7B_BLOCKS, "K2": 2 * DINOV3_7B_BLOCKS}, MODEL_REL_TOL, True, 1)
+    require(tuple(out.features.shape) == (1, 4096, grid, grid), f"DINOv3-7b: {tuple(out.features.shape)}")
+    out = run("35 Pixio-H/16 256 bf16", lambda: encoder_factory("pixio", name="pixio_vith16", **bf16),
+              _zoo_input(torch, np, serve, "pixio", ZOO_BATCH, (256, 256), SEED + 4), {"K1": 32}, MODEL_REL_TOL, True,
+              ZOO_BATCH)
+    require(tuple(out.features.shape) == (ZOO_BATCH, 1280, 16, 16), f"Pixio-H: {tuple(out.features.shape)}")
+    out = run(f"35 E-RADIO v2 {ZOO_IMG} bf16", lambda: encoder_factory(
+        "radio", name="e-radio_v2", model_version="e-radio_v2", eradio_input_shape=(ZOO_IMG, ZOO_IMG), **bf16),
+        radio_in, {"K1": 10}, MODEL_REL_TOL, True, ZOO_BATCH)
+    require(tuple(out.features.shape) == (ZOO_BATCH, 1536, grid, grid), f"E-RADIO: {tuple(out.features.shape)}")
+    out = run(f"35 DINOv3 ConvNeXt-base {ZOO_IMG} bf16", lambda: encoder_factory(
+        "dinov3_convnext", name="dinov3_convnext_base", size="base", **bf16), dinov3_in, {}, MODEL_REL_TOL, True,
+        ZOO_BATCH)
+    require(tuple(out.features.shape) == (ZOO_BATCH, 1024, ZOO_IMG // 32, ZOO_IMG // 32), "ConvNeXt-base")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dense_in = ViTEncoderNonImageInput(data=torch.randn(ZOO_BATCH, 3, 518, 518, device="cuda", generator=gen))
+    config.set_conv3x3_impl("kernel")  # the JAX conv gate: bf16 modules, 3x3 convs of C, Co multiples of 128
+    try:
+        out = run("35 dense representation encoder 518 bf16 (3x3 convs on K7)", lambda: encoder_factory(
+            "dense_rep_encoder", name="dense_rep_encoder", **bf16), dense_in, {"K7": 3}, MODEL_REL_TOL, True,
+            ZOO_BATCH)
+    finally:
+        config.set_conv3x3_impl("torch")
+    require(tuple(out.features.shape) == (ZOO_BATCH, 1024, 37, 37), f"dense: {tuple(out.features.shape)}")
+    data = EncoderGlobalRepInput(data=torch.randn(ZOO_BATCH, 3, device="cuda", generator=gen))
+    glob = encoder_factory("global_rep_encoder", name="global_rep_encoder", device="cuda", seed=SEED).eval()
+    with torch.inference_mode():
+        feats = glob(data).features
+    require(tuple(feats.shape) == (ZOO_BATCH, 1024) and torch.isfinite(feats).all().item(), "global rep encoder")
+    print(f"[35 global representation encoder] (B, 3) -> {tuple(feats.shape)} fp32, finite, no kernel")
+    del out, glob
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -2971,6 +3180,10 @@ def main():
     dino = {k: dino[k] + surgery[k] for k in counters}
     print(f"[33 dino] launches over phases 31 and 33's counted forwards: {dino}")
 
+    k1_err = max(k1_err, phase_zoo_k1(torch, fa, rope, make_patch_positions, card))
+    zoo = phase_zoo(torch, np, serve, config, counters, card)
+    print(f"[35 zoo] launches over phase 35's counted forwards: {zoo}")
+
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -2979,12 +3192,12 @@ def main():
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
-              + dino["K1"], k1_err, k1),
+              + dino["K1"] + zoo["K1"], k1_err, k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
               trained["flash_attention_bwd"] + new_train["K3"], k3_err, k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
               launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
-              + new_train["K2-bwd"], k2_err, k2),
+              + new_train["K2-bwd"] + zoo["K2"], k2_err, k2),
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
               k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
@@ -2994,8 +3207,8 @@ def main():
               fused_path["K5-cross"] + new_train["K5-cross"], k5_err["cross"], k5["cross"]),
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"] + dino["K6"], k6_err, k6),
-        entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47", served["K7"] + new_train["K7"],
-              k7_err, k7),
+        entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47",
+              served["K7"] + new_train["K7"] + zoo["K7"], k7_err, k7),
         entry("sv_only", "flash_attention.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")

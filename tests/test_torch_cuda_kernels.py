@@ -7,8 +7,11 @@ q/k/v layout, and K3's determinism), RoPE2D (K2) forward and backward, gradients
 on the kernel path, the int8 matmul (K4), the int8 attention (K6), the
 3x3 conv (K7) with its gradient, the fused qkv + RoPE + attention (K5, self
 and cross, with its gradient) and the S.V diagnostic (K8, K1's kernel without
-the softmax, at the same TMA and ring edges). Every test here
-needs a CUDA device and skips without one.
+the softmax, at the same TMA and ring edges); K1 at the head dims 32, 80, 96
+and 128 at its TMA and ring edges and at the encoder zoo's shapes, the raise of
+K3, K5, K6 and K8 at a head dim other than 64, and K2 on the patch tokens of a
+DINOv3 projection (a strided view). Every test here needs a CUDA device and
+skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -85,8 +88,8 @@ def test_flash_attention_matches_plain(gen, b, nq, nk, h, dtype):
 
 
 def test_flash_attention_rejects_what_it_does_not_take(gen):
-    x = torch.randn(1, 8, 2, 32, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head dim"):
+    x = torch.randn(1, 8, 2, 48, device="cuda", generator=gen)  # D = 48: not a head dim K1 is built for
+    with pytest.raises(ValueError, match="head dim 48"):
         flash_attention(x, x, x)
     y = torch.randn(1, 8, 2, 128, device="cuda", generator=gen)[..., ::2]  # D = 64, stride 2
     with pytest.raises(ValueError, match="unit stride"):
@@ -804,7 +807,7 @@ def test_sv_only_across_items_is_deterministic_with_one_launch(gen):
         torch.cuda.synchronize()
     assert torch.equal(again, out)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 1 and "fa_fwd_bf16_kernel<false>" in names[0], names
+    assert len(names) == 1 and "fa_fwd_bf16_kernel<false, 64, 64>" in names[0], names
 
 
 # The mixed-aspect serving shapes: the five DUSt3R-512 buckets (h, w) and their token counts per view.
@@ -1123,3 +1126,94 @@ def test_dinov2_small_reg_518_kernels_match_plain_with_exact_launches(gen, rung)
     for o, p in ((out.features, plain.features), (out.registers, plain.registers)):
         assert torch.isfinite(o).all()
         assert ((o.float() - p.float()).norm() / p.float().norm()).item() <= 2e-2
+
+
+# K1 at the head dims of the encoder zoo (32: E-RADIO; 80: RADIO-h, Pixio-H; 96: PE-G, Pixio-5B; 128: DINOv3-7b),
+# in bf16 ulps of max(|plain|, 1/64) (chip_smoke.py phase 34), fp32 by ||kernel - plain|| / ||plain||.
+K1_ULPS, K1_ULP_FLOOR, K1_FP32_REL = 8, 1 / 64, 2e-6
+NEW_HEAD_DIMS = [32, 80, 96, 128]
+# (Nq, Nk) at the edges of K1's 128-row TMA boxes and its ring (1033 keys: 9 tiles, the last of 9 keys)
+K1_EDGES = [(1, 1), (127, 129), (128, 128), (129, 127), (1, 1033), (1033, 1033)]
+# (B, N, H, D) of the zoo's attention: RADIO-h at 512, PE-G14 at 448, DINOv3-7b at 512, E-RADIO's windows at 512,
+# Pixio-H at 256
+ZOO_SHAPES = [(2, 1033, 16, 80), (2, 1025, 16, 96), (1, 1029, 32, 128), (2, 1024, 12, 32), (2, 256, 24, 32),
+              (2, 264, 16, 80)]
+
+
+def _k1_against_plain(q, k, v, with_lse):
+    out, lse = flash_attention_fwd(q, k, v, with_lse=with_lse)
+    ref, ref_lse = flash_attention_lse_ref(q, k, v)
+    assert out.dtype == q.dtype and out.shape == q.shape and out.is_contiguous()
+    assert torch.isfinite(out).all()
+    if q.dtype == torch.bfloat16:
+        assert _ulps(out, ref, 7, floor=K1_ULP_FLOOR) <= K1_ULPS
+    else:
+        assert ((out - ref).norm() / ref.norm()).item() <= K1_FP32_REL
+    if with_lse:
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL[q.dtype]
+    else:
+        assert lse is None
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,nk", K1_EDGES)
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+def test_flash_attention_head_dims_at_tma_and_ring_edges(gen, d, nq, nk, dtype, with_lse):
+    "q as a view of a (B, N, 3, H, D) projection, k and v of a (B, N, 2, H, D) one: K1 reads them by stride."
+    q = torch.randn(2, nq, 3, 3, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
+    kv = torch.randn(2, nk, 2, 3, d, device="cuda", generator=gen).to(dtype)
+    _k1_against_plain(q, kv[:, :, 0], kv[:, :, 1], with_lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,d", ZOO_SHAPES)
+def test_flash_attention_at_the_zoo_shapes(gen, b, n, h, d, dtype, with_lse):
+    qkv = torch.randn(b, n, 3, h, d, device="cuda", generator=gen).to(dtype)
+    before = flash_attention.launches
+    _k1_against_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], with_lse)
+    assert flash_attention.launches == before + 1
+
+
+def test_the_other_attention_kernels_raise_at_head_dims_other_than_64(gen):
+    """K3 (the backward), K5 (fused), K6 (int8) and K8 (S.V) are built for D = 64: at D = 80 each raises, naming the
+    ROADMAP item that would add the head dim, and launches nothing; K1 takes the same tensors."""
+    x = torch.randn(1, 40, 2, 80, device="cuda", generator=gen).bfloat16()
+    counters = (flash_attention_bwd, flash_attention_int8, fused.fused_qkv_rope_attention, sv_only)
+    before = [c.launches for c in counters]
+    out, lse = flash_attention_fwd(x, x, x, with_lse=True)
+    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
+        flash_attention_bwd(x, x, x, out, lse, out)
+    leaf = x.clone().requires_grad_()
+    with pytest.raises(ValueError, match="ROADMAP queue 2 item a"):
+        flash_attention(leaf, leaf, leaf).sum().backward()
+    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
+        flash_attention_int8(x, x, x)
+    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
+        sv_only(x, x, x)
+    xs = torch.randn(1, 40, 160, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
+        fused.fused_qkv_rope_attention(xs, torch.randn(480, 160, device="cuda").bfloat16(), None, None, 2, 0.1)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_on_the_patch_tokens_of_a_projection(gen, d, dtype):
+    """DINOv3's RoPE: K2 on q[:, 5:], a strided view of a (B, N, 3, H, D) projection past the cls and storage
+    tokens, as the plain version on a contiguous copy (test_rope_matches_plain's bars); the prefix unchanged."""
+    from uniception_tpu_torch.models.encoders.dinov3 import PrefixedRope2D
+
+    qkv = torch.randn(2, 5 + 64 * 16, 3, 4, d, device="cuda", generator=gen).to(dtype)
+    q = qkv[:, :, 0]
+    pos = make_patch_positions(2, 64, 16, device="cuda")
+    before = rope_2d_kernel.launches
+    out = PrefixedRope2D(5)(q, pos)
+    assert rope_2d_kernel.launches == before + 1
+    assert torch.equal(out[:, :5], q[:, :5])
+    ref = rope_2d(q[:, 5:].contiguous(), pos, 100.0)
+    if dtype == torch.float32:
+        assert (out[:, 5:] - ref).abs().max().item() <= 1e-5
+    else:
+        assert _ulps(out[:, 5:], ref, 7) <= 1

@@ -35,15 +35,14 @@ from uniception_tpu_torch.models.encoders.base import ViTEncoderInput, ViTEncode
 from uniception_tpu_torch.nn.blocks import layer_norm_factory
 from uniception_tpu_torch.utils import coldstart
 from uniception_tpu_torch.utils.checkpoint import save_checkpoint
+from tests.test_torch_encoder_zoo import narrow_configs
 from tests.test_torch_quant import jax_module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 5e-5  # fp32 max abs per component, the repo's parity bar
 SMALL = dict(name="dinov2", size="small", keep_first_n_layers=2)  # ViT-S width (384, 6 heads of 64), 2 blocks
 # every registry key of the JAX package that the port does not build yet, and the ROADMAP item that ports it
-UNPORTED = {"cosmos": "queue 1 item 11", "dense_rep_encoder": "queue 1 item 6", "dinov3": "queue 1 item 6",
-            "dinov3_convnext": "queue 1 item 6", "global_rep_encoder": "queue 1 item 6",
-            "perception_encoder": "queue 1 item 6", "pixio": "queue 1 item 6", "radio": "queue 1 item 6"}
+UNPORTED = {"cosmos": "queue 1 item 11"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -284,9 +283,18 @@ def test_registry_lists_every_jax_key():
 @pytest.mark.parametrize("key,kw", [
     ("croco", CROCO), ("dinov2", SMALL), ("dune", dict(name="dune", vit_size="small", keep_first_n_layers=1)),
     ("patch_embedder", dict(name="pe", enc_embed_dim=32, input_size=28)),
+    ("radio", dict(name="radio", model_version="radio_v2.5-b", keep_first_n_layers=1)),
+    ("dinov3", dict(name="dinov3", size="small", keep_first_n_layers=1)),
+    ("dinov3_convnext", dict(name="convnext", size="base")),
+    ("perception_encoder", dict(name="pe", size="large", keep_first_n_layers=0)),
+    ("pixio", dict(name="pixio", embed_dim=64, depth=1, num_heads=2)),
+    ("dense_rep_encoder", dict(name="dense", patch_size=4, intermediate_dims=[48, 64], enc_embed_dim=32)),
+    ("global_rep_encoder", dict(name="global", intermediate_dims=[8], enc_embed_dim=16)),
 ])
-def test_factories_build_every_ported_key(key, kw):
-    "Each ported key builds on the CPU from a seed (the same weights for the same seed), and its IFR where it has one."
+def test_factories_build_every_ported_key(key, kw, monkeypatch):
+    """Each ported key builds on the CPU from a seed (the same weights for the same seed), and its IFR where it has
+    one; the zoo's published configurations at tests/test_torch_encoder_zoo.py's narrow widths."""
+    narrow_configs(monkeypatch)
     enc = encoders.encoder_factory(key, device="cpu", seed=3, **kw)
     assert isinstance(enc, encoders.ENCODER_CONFIGS[key]["class"])
     again = encoders.encoder_factory(key, device="cpu", seed=3, **kw).state_dict()
@@ -321,7 +329,8 @@ def test_factories_refuse_unknown_keys_and_build_on_the_card_by_default():
 # JAX's canonical test strings; those marked True are also built abstractly in JAX and their shapes compared
 CANONICAL = {"dummy": True, "croco": False, "dust3r_224": False, "dust3r_512": False, "dust3r_512_dpt": False,
              "mast3r_512": False, "dinov2_small": False, "dinov2_base_reg": False, "dinov2_large_dav2": False,
-             "dinov2_giant_reg": True, "dune": True, "patch_embedder": True}
+             "dinov2_giant_reg": True, "dune": True, "patch_embedder": True, "radio_v2.5-b": True, "e-radio_v2": True,
+             "dinov3_base": True, "dinov3_convnext_base": True, "perception_encoder_core_base": True, "pixio": True}
 
 
 @pytest.mark.parametrize("encoder_str", sorted(CANONICAL))
@@ -349,15 +358,24 @@ def _torch_layout_shapes(abstract_jax_module):
             shape = shape[::-1]
         elif attr == "kernel" and isinstance(owner, nnx.Conv):
             shape = (shape[3], shape[2], shape[0], shape[1])
+        elif attr == "kernel" and isinstance(owner, nnx.ConvTranspose):
+            shape = (shape[2], shape[3], shape[0], shape[1])
         shapes[torch_key_for(dotted, owner, attr)] = shape
     return shapes
 
 
-@pytest.mark.parametrize("encoder_str", ["radio_v2.5-b", "e-radio_v2", "dinov3_vitb16", "dinov3_convnext_base",
-                                         "cosmos_ci8x8", "perception_encoder_core_base", "pixio"])
+@pytest.mark.parametrize("encoder_str", ["cosmos_ci8x8", "cosmos_ci16x16"])
 def test_canonical_test_configurations_of_unported_encoders_raise(encoder_str):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         encoders._make_encoder_test(encoder_str, device="meta")
+
+
+def test_canonical_dinov3_string_parses_its_size_as_the_jax_package_does():
+    "JAX reads the size as the string's last field, so its canonical 'dinov3_vitb16' names no size in either."
+    with pytest.raises(KeyError):
+        nnx.eval_shape(lambda: jencoders._make_encoder_test("dinov3_vitb16", rngs=nnx.Rngs(0)))
+    with pytest.raises(ValueError, match="Unknown DINOv3 size 'vitb16'"):
+        encoders._make_encoder_test("dinov3_vitb16", device="meta")
 
 
 def test_list_cli_prints_the_registry():

@@ -4,9 +4,9 @@ the CPU: its plain versions against the JAX Pallas kernels run in interpret
 mode (single-step, multi-step and masked key blocks; the forward with its
 logsumexp; the fused single-block and the split dq / dk-dv backward), the
 autograd Function, the attention dispatch, and the TMA tensor-map layouts the
-bf16 kernels are handed (with the checks that refuse what a map cannot take). The CUDA kernels are held
-against the same plain versions on the card (tests/test_torch_cuda_kernels.py,
-chip_smoke.py).
+bf16 kernels are handed (with the checks that refuse what a map cannot take). The forward and its logsumexp are held at every head dim K1
+takes (32, 64, 80, 96 and 128). The CUDA kernels are held against the same
+plain versions on the card (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
 
 import jax
@@ -46,10 +46,15 @@ def _qkv(seed, b, nq, nk, h, d=64, dtype=np.float32):
     return rng.randn(b, nq, h, d).astype(dtype), rng.randn(b, nk, h, d).astype(dtype), rng.randn(b, nk, h, d).astype(dtype)
 
 
+# every head dim K1 is built for (ops/flash_attention.py HEAD_DIMS): the encoders' 32, 64, 80, 96 and 128
+HEAD_DIMS = [32, 64, 80, 96, 128]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("block_k", [16, 1024])  # multi-step online softmax / one key block
 @pytest.mark.parametrize("nq,nk", [(32, 32), (36, 36), (48, 48), (24, 40)])  # 36: padded and masked; 24/40: Nq != Nk
-def test_plain_matches_pallas_interpret(nq, nk, block_k):
-    q, k, v = _qkv(nq + nk, 2, nq, nk, 2)
+def test_plain_matches_pallas_interpret(nq, nk, block_k, d):
+    q, k, v = _qkv(nq + nk, 2, nq, nk, 2, d)
     ref = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, 16, block_k))
     out = flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)).numpy()
     assert out.shape == ref.shape
@@ -107,10 +112,11 @@ def test_invalid_impl_rejected():
         scaled_dot_product_attention(q, q, q, impl="xla")
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("block", [16, 1024])  # several query/key blocks / one block
 @pytest.mark.parametrize("nq,nk", [(36, 36), (24, 40)])
-def test_lse_matches_pallas_interpret(nq, nk, block):
-    q, k, v = _qkv(5 * nq + nk, 2, nq, nk, 2)
+def test_lse_matches_pallas_interpret(nq, nk, block, d):
+    q, k, v = _qkv(5 * nq + nk, 2, nq, nk, 2, d)
     out_ref, lse_ref = _flash_attention_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.2, block, block)
     out, lse = flash_attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 0.2)
     assert lse.shape == (2, 2, nq) and lse.dtype == torch.float32

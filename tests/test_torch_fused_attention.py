@@ -341,7 +341,7 @@ def test_sv_only_plain_version_matches_the_pallas_body():
 
 
 def _sv_only_kernel_order(q, k, v, tile=FWD_ROWS):
-    """K8's arithmetic order (csrc/flash_attention.cu ``fa_fwd_bf16_kernel<false>``), restated in torch: per key
+    """K8's arithmetic order (csrc/flash_attention.cu ``fa_fwd_bf16_kernel<false, 64, 64>``), restated in torch: per key
     tile of the rows the wrapper's tensor maps are built for (FWD_ROWS), the fp32 scores of the bf16 inputs (exact
     products, fp32 sums: the tensor cores' Q.K^T) rounded to bf16, keys past Nk zero (TMA's zero fill of K and V),
     the tile's S.V in fp32 added to an fp32 O over the tiles; O rounded once. It documents the order the kernel

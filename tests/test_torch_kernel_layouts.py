@@ -1,10 +1,16 @@
 """
-What surrounds the K7 (3x3 conv) and K6 (int8 attention) kernels, on the CPU:
-K7's planner and tensor maps, with the kernel's tiling, split K loop and
-fixed-order reduction emulated box by box against the plain conv; and the
-scratch layout of K6's prep (the int8 keys, the transposed int8 values in
-the order the score accumulators hold p, zeros past the keys).
+What surrounds the K7 (3x3 conv), K6 (int8 attention) and K1 (flash attention)
+kernels, on the CPU: K7's planner and tensor maps, with the kernel's tiling,
+split K loop and fixed-order reduction emulated box by box against the plain
+conv; the scratch layout of K6's prep (the int8 keys, the transposed int8
+values in the order the score accumulators hold p, zeros past the keys); and
+K1's tile plan at every head dim it takes (the box count and width, the zeros
+TMA writes past D and past N, the ring's shared memory), with its tiles loaded
+box by box and its online softmax emulated against the plain version.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,15 +18,45 @@ import torch
 
 from uniception_tpu_torch.ops.conv3x3 import ITEM_STEPS, TILE_PIXELS, conv3x3_maps, conv3x3_plan, conv3x3_reference
 from uniception_tpu_torch.ops.flash_attention import (
+    FWD_ROWS,
+    HEAD_DIMS,
     INT8_CHUNK,
     flash_attention_int8_prep_ref,
+    flash_attention_lse_ref,
     int8_pv_keys,
+    tma_layout,
 )
 
 SMS = 132
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100 (227 KB)
+CSRC = Path(__file__).resolve().parents[1] / "uniception_tpu_torch" / "csrc"
+
 # (H = W, C, Co) of the DPT head's eligible convs at 512 (chip_smoke.py K7_SHAPES), batch 2
 K7_SHAPES = [(32, 384, 256), (16, 768, 256), (16, 256, 256), (32, 256, 256), (64, 256, 256), (128, 256, 256),
              (256, 256, 128)]
+
+
+def _constant(source, pattern):
+    "The integers one line of a CUDA source defines, read from the file so the plan below follows it."
+    return re.search(pattern, (CSRC / source).read_text()).groups()
+
+
+def k1_plan(head_dim):
+    """K1's bf16 tiling for a head dim, from csrc/flash_attention.cu (FwdCfg, FwdSmem, fwd_smem_bytes): (padded
+    head dim DP, TMA boxes of BOX_COLS columns per Q, K or V tile, K / V ring stages, dynamic shared memory bytes).
+    DP is 64 for D = 32 and 64, 128 above."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not supported (other head dims: ROADMAP queue 2 item a)")
+    box_cols, = map(int, _constant("flash_attention.cu", r"constexpr int BOX_COLS = (\d+);"))
+    rows, = map(int, _constant("flash_attention.cu", r"constexpr int BQ = (\d+);"))
+    big, small = map(int, _constant("flash_attention.cu", r"STAGES = DP == 128 \? (\d+) : (\d+);"))
+    align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
+    kib, unit = map(int, _constant("hopper.cuh", r"constexpr int MIN_SMEM_BYTES = (\d+) \* (\d+);"))
+    dp = 64 if head_dim <= 64 else 128
+    stages = big if dp == 128 else small
+    tiles = rows * dp * 2 * (1 + 2 * stages)  # Q, and K and V per stage, bf16
+    struct = -(-(tiles + 8 * (2 + 2 * stages)) // align) * align  # + the mbarriers, padded to the struct's alignment
+    return dp, dp // box_cols, stages, max(struct + align, kib * unit)
 
 
 def _makespan(tiles, steps, split, sms):
@@ -164,3 +200,69 @@ def test_int8_prep_ref_layout(nk, mode):
     assert not v8[..., nk:].any()
     want = torch.round(v.float() / vs[:, None, :, None]).to(torch.int8).permute(0, 2, 3, 1)
     assert torch.equal(v8[..., :nk], want)
+
+
+@pytest.mark.parametrize("d,plan", [(32, (64, 1, 3)), (64, (64, 1, 3)), (80, (128, 2, 2)), (96, (128, 2, 2)),
+                                    (128, (128, 2, 2))])
+def test_k1_plan_pads_the_head_dim_into_64_column_boxes(d, plan):
+    """D = 32 and 64 take one 64-column box per tile (DP = 64), 80, 96 and 128 two (DP = 128) with a two-stage
+    ring: the shared memory fits the block's 227 KB, and a third stage at DP = 128 would leave under 2 KB."""
+    dp, boxes, stages, smem = k1_plan(d)
+    assert (dp, boxes, stages) == plan
+    assert smem <= SMEM_LIMIT
+    if dp == 128:
+        assert SMEM_LIMIT - (smem + 2 * FWD_ROWS * dp * 2) < 2048
+    t = torch.zeros(2, 300, 3, d, dtype=torch.bfloat16)
+    assert tma_layout(t, FWD_ROWS)[0] == d and tma_layout(t, FWD_ROWS)[7:] == (64, 1, FWD_ROWS, 1)
+    with pytest.raises(ValueError, match="queue 2 item a"):
+        k1_plan(d + 8)
+
+
+def _k1_tile(flat, layout, d, head, row0):
+    "One Q, K or V tile as K1 loads it: its boxes side by side, (128 rows, DP) with zeros past D and past N."
+    dims, strides, box = layout[0:4], layout[4:7], layout[7:11]
+    dp, boxes = k1_plan(d)[:2]
+    tiles = [_tma_box(flat, dims, strides, box, (64 * i, head, row0, 0), es=4)[0, :, 0, :] for i in range(boxes)]
+    return np.concatenate(tiles, axis=1)
+
+
+def _emulate_k1(q, k, v, scale):
+    """K1 on one (b, h) pair, tile by tile: q, k and v are head 1 of three views of one (N, 3, H = 2, D) projection,
+    loaded box by box through their tensor maps (each view's base: its section of the projection); S over the
+    padded DP columns, the keys past Nk masked, the online softmax, P.V over DP columns, and only the D real columns
+    of o kept."""
+    n, d = q.shape
+    qkv = np.zeros((1, n, 3, 2, d), np.float32)
+    qkv[0, :, 0, 1], qkv[0, :, 1, 1], qkv[0, :, 2, 1] = q, k, v
+    flat = qkv.reshape(-1)
+    q_map, k_map, v_map = (tma_layout(torch.from_numpy(qkv)[:, :, i], FWD_ROWS) for i in range(3))
+    q_flat, k_flat, v_flat = (flat[i * 2 * d:] for i in range(3))  # each view's base
+    out = np.zeros((n, d))
+    for qt in range(0, n, FWD_ROWS):
+        qtile = _k1_tile(q_flat, q_map, d, 1, qt).astype(np.float64)
+        assert not qtile[:, d:].any() and not qtile[n - qt:].any()  # zeros past D and past N
+        m, l, acc = np.full(FWD_ROWS, -np.inf), np.zeros(FWD_ROWS), np.zeros((FWD_ROWS, qtile.shape[1]))
+        for kt in range(0, n, FWD_ROWS):
+            ktile, vtile = _k1_tile(k_flat, k_map, d, 1, kt), _k1_tile(v_flat, v_map, d, 1, kt)
+            s = qtile @ ktile.T * scale
+            s[:, n - kt:] = -np.inf  # keys past Nk
+            m_new = np.maximum(m, s.max(axis=1))
+            p = np.exp(s - m_new[:, None])
+            corr = np.exp(m - m_new)
+            l, m = l * corr + p.sum(axis=1), m_new
+            acc = acc * corr[:, None] + p @ vtile
+        assert not acc[:, d:].any()  # the padding's columns of o are zeros, never stored
+        rows = min(FWD_ROWS, n - qt)
+        out[qt:qt + rows] = (acc[:, :d] / l[:, None])[:rows]
+    return out
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_k1_tiles_of_every_head_dim_compute_attention(d):
+    "At every head dim, over a ragged second tile of 130 keys, the emulated tiles give the plain version's output."
+    rng = np.random.RandomState(d)
+    q, k, v = (rng.randn(130, d).astype(np.float32) for _ in range(3))
+    scale = d**-0.5
+    got = _emulate_k1(q, k, v, scale)
+    ref = flash_attention_lse_ref(*(torch.from_numpy(a)[None, :, None] for a in (q, k, v)), scale)[0][0, :, 0]
+    assert np.abs(got - ref.numpy()).max() <= 1e-5

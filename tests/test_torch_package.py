@@ -66,7 +66,11 @@ def test_import_everything_without_jax_or_nvcc():
                  "models.info_sharing.alternating_attention_transformer", "nn.lora", "train", "models.encoders",
                  "models.encoders.vit", "models.encoders.dinov2", "models.encoders.dune",
                  "models.encoders.patch_embedder", "models.encoders.list", "models.encoders.image_normalizations",
-                 "models.info_sharing", "models.utils.unported", "convert_dino_to_info_sharing"):
+                 "models.info_sharing", "models.utils.unported", "convert_dino_to_info_sharing",
+                 "models.encoders.radio", "models.encoders.eradio", "models.encoders.dinov3",
+                 "models.encoders.perception_encoder", "models.encoders.pixio", "models.encoders.dense_rep_encoder",
+                 "models.encoders.global_rep_encoder", "models.libs.perception_encoder.pe",
+                 "models.libs.perception_encoder.transforms"):
         assert f"uniception_tpu_torch.{name}" in report["modules"]
     assert report["jax"] == []
     assert report["uniception_tpu"] == []  # not even its jax-free modules (utils/checkpoint.py, data/bucketing.py)

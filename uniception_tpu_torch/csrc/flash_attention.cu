@@ -1,15 +1,20 @@
-// Flash attention forward (non-causal, no mask) over (B, N, H, D) tensors, D = 64.
+// Flash attention forward (non-causal, no mask) over (B, N, H, D) tensors, D in {32, 64, 80, 96, 128}.
 //
 // Replaces: uniception_tpu/ops/flash_attention.py: flash_attention /
 //   _flash_attention_impl with the bodies _fa_single_kernel and _fa_kernel
-//   (forward; with_lse=True when an LSE pointer is given).
+//   (forward; with_lse=True when an LSE pointer is given). The Pallas kernel
+//   takes any D (its _plan); this one takes the head dims of the encoders the
+//   repository builds: 32 (E-RADIO's windows), 64 (CroCo, DINOv2/v3, RADIO-b/l/g,
+//   PE-B/L, Pixio-B/L/1B), 80 (RADIO-h, Pixio-H), 96 (PE-G, Pixio-5B) and 128
+//   (DINOv3-7b).
 //
-// What bounds it on the H100: at the main-path shapes (N = 1024 queries and
-//   keys, D = 64) each (b, h) pair does 4*N*N*D flops on 4*N*D*2 bytes of
-//   q/k/v/o, ~256 flops per byte in bf16: at the knee of the roofline, so the
-//   tensor-core issue rate and the exp/max/sum work of the online softmax
-//   between the two products bound it, not HBM. Only wgmma reaches the full
-//   tensor-core rate on this card.
+// What bounds it on the H100: each (b, h) pair does 4*N*N*D flops on 4*N*D*2
+//   bytes of q/k/v/o, N/2 flops per byte in bf16 whatever D: 512 at N = 1024,
+//   516 at N = 1033 (RADIO-h's D = 80), 132 at N = 264 (Pixio-H at 256). Above
+//   the card's ridge of ~295 the tensor-core issue rate and the exp/max/sum work
+//   of the online softmax between the two products bound it, not HBM; below it,
+//   at a few hundred keys, the bytes and the launch. Only wgmma reaches the full
+//   tensor-core rate.
 //
 // What the design does about it (bf16; the outline of FlashAttention-3):
 //   * A persistent kernel: one block per SM walks the (128-query tile, head,
@@ -23,11 +28,11 @@
 //     copy, and an item's pipeline fill and epilogue are hidden.
 //   * Warpgroups 1 and 2 are consumers (setmaxnreg.inc), 64 query rows each.
 //     Each reads its Q rows into wgmma register A operands once per item (and
-//     frees the Q buffer for the next item). S = Q.K^T is 4 wgmma m64n128k16
-//     with K read K-major from shared memory; the online softmax runs on the
-//     fp32 accumulator registers; P is rounded to bf16 in registers (as the
-//     TPU kernel casts p to v's dtype) and is the register A operand of
-//     O += P.V (8 wgmma m64n64k16), with V read MN-major through the transpose
+//     frees the Q buffer for the next item). S = Q.K^T is DP/16 wgmma
+//     m64n128k16 with K read K-major from shared memory; the online softmax
+//     runs on the fp32 accumulator registers; P is rounded to bf16 in registers
+//     (as the TPU kernel casts p to v's dtype) and is the register A operand of
+//     O += P.V (8 wgmma m64nDPk16), with V read MN-major through the transpose
 //     bit straight from its TMA tile: no hand transpose of V.
 //   * Inside a consumer, tile j's Q.K^T and tile j-1's P.V are issued back to
 //     back and tile j's softmax runs while P.V is still in flight
@@ -40,18 +45,40 @@
 //     fused qkv projection need no copy. TMA fills rows past N with zeros; keys
 //     past Nk are still masked to -inf (the TPU kernel's -1e30) and rows past
 //     Nq are not written.
+//   * Head dims. The kernel is built for a padded head dim DP: 64 for D = 32
+//     and 64, 128 for D = 80, 96 and 128. Every tile is DP / 64 boxes of 64
+//     columns (128 bytes, one 128-byte swizzle row), each a 1024-byte-aligned
+//     atom of its own; TMA writes zeros into the columns past D, so S over DP
+//     columns is S over the real D, and P.V's columns past D are zeros that are
+//     never stored. P.V runs at N = DP, not at D rounded up to 16: an MN-major
+//     operand under the 128-byte swizzle is a whole number of 64-column atoms
+//     (CUTLASS's canonical layouts), which 80 and 96 are not. D = 32 takes
+//     DP = 64 through the same zero fill rather than a 64-byte swizzle, so it
+//     runs the D = 64 code as it stands. What the padding costs: S and P.V do
+//     DP / D of the needed products, 2x at D = 32, 1.6x at D = 80, 1.33x at
+//     D = 96. At DP = 128, Q (32 KB) and three stages of K and V (192 KB) would
+//     leave about 1 KB of the 227 KB a block may use, so the ring has two
+//     stages there; the consumers hold O (64 fp32 registers at N = 128), S (64)
+//     and their Q (32) and P (32) operands within setmaxnreg's 232 (the build
+//     log's ptxas line shows the registers and that nothing spills).
 //   * Numerics as before: fp32 scores, running max and sum; the sum takes p
 //     before its bf16 rounding (the Pallas kernel's order); o = acc / l in q's
 //     dtype. p is the MUFU's 2^x with subnormals flushed (hopper.cuh
 //     exp2_ftz), as in the backward. With an LSE pointer (training), each row's logsumexp m + log(l)
 //     is written in fp32, (B, H, Nq) contiguous, for the backward (K3,
 //     flash_attention_bwd.cu); with a null pointer nothing more is written.
-//   * fp32: full fp32 FMA math on the CUDA cores, one query row per thread,
-//     no TF32 (the TPU kernel runs fp32 at HIGHEST precision): the parity path.
-//   * Later work: a third consumer warpgroup, a TMA store of the output.
+//   * fp32: full fp32 FMA math on the CUDA cores, no TF32 (the TPU kernel runs
+//     fp32 at HIGHEST precision): the parity path. A thread holds its query row
+//     and its accumulator in registers: the whole row for D <= 64 (one row per
+//     thread, as before), half of it for D = 80, 96 and 128 (two neighbouring
+//     lanes per row, whose partial dot products meet in one shuffle; both then
+//     hold the same score, so the softmax stays exact), so no D spills the
+//     2 x D registers a row needs.
+//   * Later work: a third consumer warpgroup, a TMA store of the output, P.V at
+//     N = D where the swizzle allows it.
 //
-// K8, the S.V diagnostic, is the same bf16 kernel with the softmax compiled
-// out (fa_fwd_bf16_kernel<false>, entry point uc_sv_only):
+// K8, the S.V diagnostic, is the same bf16 kernel at D = DP = 64 with the softmax
+// compiled out (fa_fwd_bf16_kernel<false, 64, 64>, entry point uc_sv_only):
 //   out = bf16(sum over key tiles of float(bf16(q k^T in fp32)) . v), no
 //   scale, no mask, no max or sum, one rounding of O at the end.
 // Replaces: scripts/sweep_attention.py: mxu_only with the body _mxu_only_kernel
@@ -81,40 +108,71 @@ namespace hw = uc_hopper;
 
 constexpr int BQ = 128;                 // query rows per block: two consumer warpgroups x 64
 constexpr int BK = 128;                 // keys per K / V tile
-constexpr int STAGES = 3;               // K / V ring slots
 constexpr int THREADS = 384;            // producer warpgroup + two consumer warpgroups
-constexpr int TILE_BYTES = BK * D * 2;  // one K or V tile: 128 rows of 128 bytes
+constexpr int BOX_COLS = 64;            // columns of one TMA box: one 128-byte swizzle row
+constexpr int ATOM_BYTES = BK * 128;    // one box of a Q, K or V tile (BQ == BK rows of 128 bytes)
 
-struct alignas(hw::SMEM_ALIGN) FwdSmem {
-  __nv_bfloat16 q[BQ * D];
-  __nv_bfloat16 k[STAGES][BK * D];
-  __nv_bfloat16 v[STAGES][BK * D];
-  uint64_t q_full, q_empty, full[STAGES], empty[STAGES];
+// The layout of the kernel built for the padded head dim DP (64 or 128): DP / 64 boxes per tile.
+template <int DP>
+struct FwdCfg {
+  static_assert(DP == 64 || DP == 128, "padded head dim");
+  static constexpr int BOXES = DP / BOX_COLS;
+  static constexpr int STAGES = DP == 128 ? 2 : 3;  // K / V ring slots
+  static constexpr int TILE_BYTES = BK * DP * 2;    // one K or V tile
 };
-constexpr int FWD_SMEM = sizeof(FwdSmem) + hw::SMEM_ALIGN > hw::MIN_SMEM_BYTES ? sizeof(FwdSmem) + hw::SMEM_ALIGN
-                                                                               : hw::MIN_SMEM_BYTES;
 
-// S = Q K^T for one consumer's 64 rows and a 128-key tile: 4 k-steps of 16 over D, Q from registers, K read
-// K-major from shared memory; the first k-step overwrites S. One wgmma group, committed.
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], const uint32_t (&qa)[D / 16][4], uint32_t k_addr) {
+template <int DP>
+struct alignas(hw::SMEM_ALIGN) FwdSmem {
+  __nv_bfloat16 q[BQ * DP];
+  __nv_bfloat16 k[FwdCfg<DP>::STAGES][BK * DP];
+  __nv_bfloat16 v[FwdCfg<DP>::STAGES][BK * DP];
+  uint64_t q_full, q_empty, full[FwdCfg<DP>::STAGES], empty[FwdCfg<DP>::STAGES];
+};
+template <int DP>
+constexpr int fwd_smem_bytes() {
+  return sizeof(FwdSmem<DP>) + hw::SMEM_ALIGN > hw::MIN_SMEM_BYTES ? sizeof(FwdSmem<DP>) + hw::SMEM_ALIGN
+                                                                   : hw::MIN_SMEM_BYTES;
+}
+
+// S = Q K^T for one consumer's 64 rows and a 128-key tile: DP / 16 k-steps of 16 over the padded head dim, Q
+// from registers, K read K-major from shared memory (box kk / 4, 32 bytes a k-step inside its swizzled rows);
+// the first k-step overwrites S. One wgmma group, committed.
+template <int DP>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], const uint32_t (&qa)[DP / 16][4], uint32_t k_addr) {
   hw::fence_regs(sc);
   hw::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    hw::wgmma_m64n128k16_rs<0>(sc, qa[kk], hw::desc_k_major(k_addr + kk * 32), kk > 0);
+  for (int kk = 0; kk < DP / 16; ++kk)
+    hw::wgmma_m64n128k16_rs<0>(sc, qa[kk], hw::desc_k_major(k_addr + (kk / 4) * ATOM_BYTES + (kk % 4) * 32), kk > 0);
   hw::wgmma_commit();
 }
 
-// O += P V: 8 k-steps of 16 keys, P from registers, V read MN-major (rows = keys) with the transpose bit.
-// One wgmma group, committed.
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BK / 16][4], uint32_t v_addr) {
+// O += P V: 8 k-steps of 16 keys, P from registers, V read MN-major (rows = keys) with the transpose bit, N = DP
+// (at DP = 128 the two boxes of the tile are the MN-major operand's two atoms, ATOM_BYTES apart). One wgmma
+// group, committed.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], uint32_t (&pa)[BK / 16][4], uint32_t v_addr) {
   hw::fence_regs(acc);
   hw::fence_regs(pa);
   hw::wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc)
-    hw::wgmma_m64n64k16_rs<1>(acc, pa[kc], hw::desc_mn_major(v_addr + kc * 16 * D * 2), 1);
+  for (int kc = 0; kc < BK / 16; ++kc) {
+    if constexpr (DP == 64)
+      hw::wgmma_m64n64k16_rs<1>(acc, pa[kc], hw::desc_mn_major(v_addr + kc * 16 * 128), 1);
+    else
+      hw::wgmma_m64n128k16_rs<1>(acc, pa[kc], hw::desc_mn_major(v_addr + kc * 16 * 128, ATOM_BYTES), 1);
+  }
   hw::wgmma_commit();
+}
+
+// The register A operands of this consumer's 64 Q rows over the padded head dim: 4 k-steps from each box.
+template <int DP>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[DP / 16][4], const __nv_bfloat16* q, int cwg, int warp,
+                                             int lane) {
+#pragma unroll
+  for (int box = 0; box < DP / BOX_COLS; ++box)
+    hw::load_a_frags(*reinterpret_cast<uint32_t(*)[4][4]>(&qa[4 * box]), q + box * BQ * BOX_COLS + cwg * 64 * BOX_COLS,
+                     warp, lane);
 }
 
 // The scores of tile j's keys past Nk set to `fill`, on the ragged last tile only.
@@ -155,9 +213,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2
   }
 }
 
-__device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&corr)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2]) {
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
+  for (int c = 0; c < N / 4; ++c) {
     acc[4 * c] *= corr[0];
     acc[4 * c + 1] *= corr[0];
     acc[4 * c + 2] *= corr[1];
@@ -170,14 +229,19 @@ __device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&corr)
 // items: the next item's Q (released by the consumers as soon as they hold it in registers) and its first K/V
 // tiles load while the consumers finish the current item, which hides each item's pipeline fill and epilogue.
 // kSoftmax: K1 (attention); without it K8 (S.V: raw scores rounded to bf16, no scale, O summed over every
-// key tile and rounded once; lse and scale_log2 unused).
-template <bool kSoftmax>
+// key tile and rounded once; lse and scale_log2 unused). DP: the padded head dim (64 or 128); D <= DP the
+// real one, the columns of o written (a compile-time constant too, so D = 64 compiles to the kernel it was
+// before the padding came in).
+template <bool kSoftmax, int DP, int D>
 __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int H,
     int Nq, int Nk, float scale_log2) {
+  static_assert(D <= DP && D % 16 == 0, "the real head dim");
+  using Cfg = FwdCfg<DP>;
+  constexpr int STAGES = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(hw::align_smem(smem_raw));
+  FwdSmem<DP>& sm = *reinterpret_cast<FwdSmem<DP>*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
   const int q_tiles = (Nq + BQ - 1) / BQ, n_items = q_tiles * H * B;
   const int n_tiles = (Nk + BK - 1) / BK;
@@ -202,14 +266,19 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
         hw::mbar_wait(&sm.q_empty, q_phase ^ 1);  // the first item finds the Q buffer free
-        hw::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 2);
-        hw::tma_load_4d(sm.q, &qmap, &sm.q_full, 0, h, qt * BQ, b);
+        hw::mbar_arrive_expect_tx(&sm.q_full, BQ * DP * 2);
+#pragma unroll
+        for (int box = 0; box < Cfg::BOXES; ++box)
+          hw::tma_load_4d(sm.q + box * BQ * BOX_COLS, &qmap, &sm.q_full, box * BOX_COLS, h, qt * BQ, b);
         q_phase ^= 1;
         for (int j = 0; j < n_tiles; ++j) {
           hw::mbar_wait(&sm.empty[s], phase ^ 1);  // the first pass over the ring finds every slot free
-          hw::mbar_arrive_expect_tx(&sm.full[s], 2 * TILE_BYTES);
-          hw::tma_load_4d(sm.k[s], &kmap, &sm.full[s], 0, h, j * BK, b);
-          hw::tma_load_4d(sm.v[s], &vmap, &sm.full[s], 0, h, j * BK, b);
+          hw::mbar_arrive_expect_tx(&sm.full[s], 2 * Cfg::TILE_BYTES);
+#pragma unroll
+          for (int box = 0; box < Cfg::BOXES; ++box) {
+            hw::tma_load_4d(sm.k[s] + box * BK * BOX_COLS, &kmap, &sm.full[s], box * BOX_COLS, h, j * BK, b);
+            hw::tma_load_4d(sm.v[s] + box * BK * BOX_COLS, &vmap, &sm.full[s], box * BOX_COLS, h, j * BK, b);
+          }
           if (++s == STAGES) s = 0, phase ^= 1;
         }
       }
@@ -232,17 +301,17 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       const int row0 = qt * BQ + cwg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
       const int row1 = row0 + 8;
 
-      float acc[D / 2];  // O: m64n64 accumulator
+      float acc[DP / 2];  // O: m64nDP accumulator
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};  // running max of rows row0 / row1 (log2 units)
       float l[2] = {0.f, 0.f};              // this thread's share of the running sums
 
       // Q as register A operands, read once: each Q.K^T then reads only K from shared memory, and the Q
       // buffer is free for the next item at once.
-      uint32_t qa[D / 16][4];
+      uint32_t qa[DP / 16][4];
       hw::mbar_wait(&sm.q_full, q_phase);
-      hw::load_a_frags(qa, sm.q + cwg * 64 * D, warp, lane);
+      load_q_frags<DP>(qa, sm.q, cwg, warp, lane);
       hw::mbar_arrive(&sm.q_empty);
       q_phase ^= 1;
 
@@ -255,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       float corr[2];            // the previous tile's rescale of O
       hw::mbar_wait(&sm.full[s], phase);
       hw::named_bar_sync(my_turn, 256);
-      issue_qk(sc, qa, hw::smem_u32(sm.k[s]));
+      issue_qk<DP>(sc, qa, hw::smem_u32(sm.k[s]));
       hw::named_bar_arrive(other_turn, 256);
       hw::wgmma_wait<0>();
       hw::fence_regs(sc);
@@ -269,9 +338,9 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       for (int j = 1; j < n_tiles; ++j) {
         hw::mbar_wait(&sm.full[s], phase);
         hw::named_bar_sync(my_turn, 256);
-        issue_qk(sc, qa, hw::smem_u32(sm.k[s]));
+        issue_qk<DP>(sc, qa, hw::smem_u32(sm.k[s]));
         if (kSoftmax) rescale(acc, corr);
-        issue_pv(acc, pa, hw::smem_u32(sm.v[prev]));
+        issue_pv<DP>(acc, pa, hw::smem_u32(sm.v[prev]));
         hw::named_bar_arrive(other_turn, 256);
         hw::wgmma_wait<1>();  // S has landed; P.V may still run
         hw::fence_regs(sc);
@@ -288,7 +357,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       }
       if (kSoftmax) rescale(acc, corr);
       hw::named_bar_sync(my_turn, 256);
-      issue_pv(acc, pa, hw::smem_u32(sm.v[prev]));  // the last tile's O += P V
+      issue_pv<DP>(acc, pa, hw::smem_u32(sm.v[prev]));  // the last tile's O += P V
       if (cwg == 0 || !last_item) hw::named_bar_arrive(other_turn, 256);
       hw::wgmma_wait<0>();
       hw::fence_regs(acc);
@@ -301,7 +370,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
           l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         }
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < DP / 8; ++c) {
           acc[4 * c] /= l[0];
           acc[4 * c + 1] /= l[0];
           acc[4 * c + 2] /= l[1];
@@ -310,14 +379,16 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
       }
       __nv_bfloat16* op = o + ((long long)b * Nq * H + h) * D;  // o is contiguous (B, Nq, H, D)
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < DP / 8; ++c) {
         const int col = c * 8 + 2 * t;
-        if (row0 < Nq)
-          *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + col) =
-              hw::pack_bf16x2(acc[4 * c], acc[4 * c + 1]);
-        if (row1 < Nq)
-          *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + col) =
-              hw::pack_bf16x2(acc[4 * c + 2], acc[4 * c + 3]);
+        if (c * 8 < D) {  // the columns past D are the padding's zeros (a compile-time test)
+          if (row0 < Nq)
+            *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + col) =
+                hw::pack_bf16x2(acc[4 * c], acc[4 * c + 1]);
+          if (row1 < Nq)
+            *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + col) =
+                hw::pack_bf16x2(acc[4 * c + 2], acc[4 * c + 3]);
+        }
       }
       if (kSoftmax && lse != nullptr && t == 0) {  // m is in log2 units of the scaled scores
         float* lp = lse + ((long long)b * H + h) * Nq;
@@ -332,27 +403,32 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
 // fp32: CUDA cores, full precision
 // ---------------------------------------------------------------------------
 
-constexpr int F32_BQ = 128;   // one query row per thread
+constexpr int F32_THREADS = 128;
 constexpr int F32_BK = 32;    // key rows per shared-memory tile
 constexpr int F32_CHUNK = 16; // keys scored before each rescale of the accumulator
 
-__global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
+// TPR threads per query row (1, or 2 for D > 64: neighbouring lanes, each with half of the row's D), so a thread
+// holds DT = D / TPR elements of q and of the accumulator: at most 64 of each.
+template <int D, int TPR>
+__global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs,
     float scale_log2) {
+  constexpr int DT = D / TPR, ROWS = F32_THREADS / TPR;
+  static_assert(DT % 4 == 0 && DT <= 64, "a thread's share of the row");
   __shared__ __align__(16) float k_s[F32_BK][D];
   __shared__ __align__(16) float v_s[F32_BK][D];
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * F32_BQ + tid;
+  const int row = blockIdx.x * ROWS + tid / TPR, d0 = (tid % TPR) * DT;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
 
-  float qr[D], acc[D];
-  const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n;
+  float qr[DT], acc[DT];
+  const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n + d0;
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < DT; d += 4) {
     const float4 x = row < Nq ? *reinterpret_cast<const float4*>(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[d] = x.x, qr[d + 1] = x.y, qr[d + 2] = x.z, qr[d + 3] = x.w;
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
@@ -381,13 +457,14 @@ __global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
       for (int i = 0; i < F32_CHUNK; ++i) {
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {  // every thread reads the same key row: a shared-memory broadcast
-          const float4 kx = *reinterpret_cast<const float4*>(&k_s[c0 + i][d]);
+        for (int d = 0; d < DT; d += 4) {  // the threads of a half read the same key row: a shared-memory broadcast
+          const float4 kx = *reinterpret_cast<const float4*>(&k_s[c0 + i][d0 + d]);
           dot = fmaf(qr[d], kx.x, dot);
           dot = fmaf(qr[d + 1], kx.y, dot);
           dot = fmaf(qr[d + 2], kx.z, dot);
           dot = fmaf(qr[d + 3], kx.w, dot);
         }
+        if (TPR == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // both lanes: the same sum (a + b == b + a)
         s[i] = k0 + c0 + i < Nk ? dot * scale_log2 : -INFINITY;
         mx = fmaxf(mx, s[i]);
       }
@@ -396,14 +473,14 @@ __global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
       m = m_new;
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
+      for (int d = 0; d < DT; ++d) acc[d] *= corr;
 #pragma unroll
       for (int i = 0; i < F32_CHUNK; ++i) {
         const float p = exp2f(s[i] - m);
         l += p;
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 vx = *reinterpret_cast<const float4*>(&v_s[c0 + i][d]);
+        for (int d = 0; d < DT; d += 4) {
+          const float4 vx = *reinterpret_cast<const float4*>(&v_s[c0 + i][d0 + d]);
           acc[d] = fmaf(p, vx.x, acc[d]);
           acc[d + 1] = fmaf(p, vx.y, acc[d + 1]);
           acc[d + 2] = fmaf(p, vx.z, acc[d + 2]);
@@ -414,16 +491,27 @@ __global__ void __launch_bounds__(F32_BQ) fa_fwd_f32_kernel(
   }
 
   if (row < Nq) {
-    float* op = o + (((long long)b * Nq + row) * H + h) * D;
+    float* op = o + (((long long)b * Nq + row) * H + h) * D + d0;
 #pragma unroll
-    for (int d = 0; d < D; d += 4)
+    for (int d = 0; d < DT; d += 4)
       *reinterpret_cast<float4*>(op + d) = make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
-    if (lse != nullptr) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
+    if (lse != nullptr && d0 == 0) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
   }
 }
 
-// The bf16 kernel on its persistent grid: K1 (kSoftmax) or K8. `layouts` as uc_flash_attention_fwd takes them.
-template <bool kSoftmax>
+template <int D, int TPR>
+void launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
+                Strides qs, Strides ks, Strides vs, float scale_log2, cudaStream_t st) {
+  constexpr int ROWS = F32_THREADS / TPR;
+  const dim3 grid((Nq + ROWS - 1) / ROWS, H, B);
+  fa_fwd_f32_kernel<D, TPR><<<grid, F32_THREADS, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Nq, Nk, qs, ks, vs, scale_log2);
+}
+
+// The bf16 kernel on its persistent grid: K1 (kSoftmax) or K8, built for the padded head dim DP and the real one
+// D. `layouts` as uc_flash_attention_fwd takes them.
+template <bool kSoftmax, int DP, int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
                 const long long* layouts, float scale_log2, cudaStream_t st) {
   CUtensorMap qm, km, vm;
@@ -431,7 +519,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   if (status == 0) status = hw::encode_tile_map(&km, k, layouts + hw::LAYOUT_INTS, BK);
   if (status == 0) status = hw::encode_tile_map(&vm, v, layouts + 2 * hw::LAYOUT_INTS, BK);
   static bool smem_set[64];
-  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_kernel<kSoftmax>, FWD_SMEM, smem_set);
+  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_kernel<kSoftmax, DP, D>, fwd_smem_bytes<DP>(), smem_set);
   if (status != 0) return status;
   const long long items = (long long)((Nq + BQ - 1) / BQ) * H * B;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -439,7 +527,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   status = hw::sm_count(&sms);
   if (status != 0) return status;
   const int grid = (int)(items < sms ? items : sms);
-  fa_fwd_bf16_kernel<kSoftmax><<<grid, THREADS, FWD_SMEM, st>>>(
+  fa_fwd_bf16_kernel<kSoftmax, DP, D><<<grid, THREADS, fwd_smem_bytes<DP>(), st>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, scale_log2);
   return 0;
 }
@@ -451,40 +539,52 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
   return Strides{L[6] / elem_bytes, L[5] / elem_bytes, L[4] / elem_bytes};
 }
 
-// dtype: 0 = float32, 1 = bfloat16. `layouts` holds the tensor-map layouts of q, k and v, 11 ints each
-// (hopper.cuh LAYOUT_INTS; boxes of 128 rows), from which the fp32 kernel takes its element strides; d has
-// unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a contiguous (B, H, Nq) float32
-// tensor. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 32, 64, 80, 96 or 128. `layouts` holds the tensor-map layouts of
+// q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of 64 columns and 128 rows), from which the fp32 kernel
+// takes its element strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a
+// contiguous (B, H, Nq) float32 tensor. Returns a cudaError_t.
 extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
                                       int B, int H, int Nq, int Nk, int head_dim, const long long* layouts,
                                       float scale, void* stream) {
-  if (head_dim != D || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
+  const int D = head_dim;
+  if ((D != 32 && D != 64 && D != 80 && D != 96 && D != 128) || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0)
+    return (int)cudaErrorInvalidValue;
   const long long *lq = layouts, *lk = layouts + hw::LAYOUT_INTS, *lv = layouts + 2 * hw::LAYOUT_INTS;
   const float scale_log2 = scale * LOG2E;  // exp(x) = exp2(x * log2(e))
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const int status = launch_bf16<true>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st);
+    int status;
+    switch (D) {
+      case 32: status = launch_bf16<true, 64, 32>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+      case 64: status = launch_bf16<true, 64, 64>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+      case 80: status = launch_bf16<true, 128, 80>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+      case 96: status = launch_bf16<true, 128, 96>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+      default: status = launch_bf16<true, 128, 128>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+    }
     if (status != 0) return status;
   } else if (dtype == 0) {
-    const dim3 grid((Nq + F32_BQ - 1) / F32_BQ, H, B);
-    fa_fwd_f32_kernel<<<grid, F32_BQ, 0, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                static_cast<const float*>(v), static_cast<float*>(o),
-                                                static_cast<float*>(lse), H, Nq, Nk, layout_strides(lq, 4),
-                                                layout_strides(lk, 4), layout_strides(lv, 4), scale_log2);
+    const Strides qs = layout_strides(lq, 4), ks = layout_strides(lk, 4), vs = layout_strides(lv, 4);
+    switch (D) {
+      case 32: launch_f32<32, 1>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+      case 64: launch_f32<64, 1>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+      case 80: launch_f32<80, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+      case 96: launch_f32<96, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+      default: launch_f32<128, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// K8: S.V without the softmax over bf16 q (B, Nq, H, D) and k, v (B, Nk, H, D), D = 64, read through their
-// tensor-map layouts as uc_flash_attention_fwd takes them (boxes of 128 rows); o is a contiguous (B, Nq, H, D)
+// K8: S.V without the softmax over bf16 q (B, Nq, H, 64) and k, v (B, Nk, H, 64), read through their
+// tensor-map layouts as uc_flash_attention_fwd takes them (boxes of 128 rows); o is a contiguous (B, Nq, H, 64)
 // bf16 tensor. Returns a cudaError_t.
 extern "C" int uc_sv_only(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk,
                           int head_dim, const long long* layouts, void* stream) {
-  if (head_dim != D || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
-  const int status =
-      launch_bf16<false>(q, k, v, o, nullptr, B, H, Nq, Nk, layouts, 0.f, static_cast<cudaStream_t>(stream));
+  if (head_dim != 64 || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
+  const int status = launch_bf16<false, 64, 64>(q, k, v, o, nullptr, B, H, Nq, Nk, layouts, 0.f,
+                                                 static_cast<cudaStream_t>(stream));
   return status != 0 ? status : (int)cudaGetLastError();
 }
 

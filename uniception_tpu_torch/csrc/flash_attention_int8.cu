@@ -570,7 +570,8 @@ bool prep_args_ok(const void* v8t, const void* vscale, int pv_int8, int B, int H
 extern "C" int uc_flash_attention_int8_prep(const void* k, const void* v, void* k8, void* v8t, void* stats,
                                             void* kscale, void* vscale, int pv_int8, int B, int H, int Nk,
                                             const long long* layouts, void* stream) {
-  if (!prep_args_ok(v8t, vscale, pv_int8, B, H, Nk)) return (int)cudaErrorInvalidValue;
+  if (layouts[0] != D || layouts[hw::LAYOUT_INTS] != D || !prep_args_ok(v8t, vscale, pv_int8, B, H, Nk))
+    return (int)cudaErrorInvalidValue;
   return prep(k, v, k8, v8t, stats, kscale, vscale, pv_int8, B, H, Nk, layouts, layouts + hw::LAYOUT_INTS,
               static_cast<cudaStream_t>(stream));
 }

@@ -713,7 +713,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 // ---------------------------------------------------------------------------
 
 // A tensor map's description as the Python wrappers pass it (ops/flash_attention.py tma_layout): 11 ints,
-// dims innermost first (D, H, N, B), the byte strides of H, N and B, and the box (D, 1, rows, 1).
+// dims innermost first (D, H, N, B), the byte strides of H, N and B, and the box (64, 1, rows, 1).
 constexpr int LAYOUT_INTS = 11;
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -736,12 +736,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Encode the bf16 tensor map of one (B, N, H, 64) view from its layout; `rows` is the box height the
-// kernel was built for, and a layout with any other box is refused (a box that does not match the
-// kernel's expected transaction bytes would leave its barrier waiting for ever). Returns a cudaError_t.
+// Encode the bf16 tensor map of one (B, N, H, D) view from its layout, D a multiple of 16 up to 128, in boxes of
+// 64 columns (one 128-byte swizzle row; a kernel loads a tile of D > 64 as two boxes, and TMA writes zeros into
+// the columns past D); `rows` is the box height the kernel was built for, and a layout with any other box is
+// refused (a box that does not match the kernel's expected transaction bytes would leave its barrier waiting
+// for ever). Returns a cudaError_t.
 inline int encode_tile_map(CUtensorMap* map, const void* base, const long long* layout, int rows) {
   const long long* L = layout;
-  if (L[0] != 64 || L[7] != 64 || L[8] != 1 || L[9] != rows || L[10] != 1) return (int)cudaErrorInvalidValue;
+  if (L[0] < 16 || L[0] > 128 || L[0] % 16 || L[7] != 64 || L[8] != 1 || L[9] != rows || L[10] != 1)
+    return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)L[0], (cuuint64_t)L[1], (cuuint64_t)L[2], (cuuint64_t)L[3]};
   const cuuint64_t strides[3] = {(cuuint64_t)L[4], (cuuint64_t)L[5], (cuuint64_t)L[6]};
   const cuuint32_t box[4] = {(cuuint32_t)L[7], (cuuint32_t)L[8], (cuuint32_t)L[9], (cuuint32_t)L[10]};

@@ -3,8 +3,8 @@ Encoder registry and factories (counterpart of uniception_tpu/models/encoders/__
 uniception/models/encoders/__init__.py:37-140).
 
 ``ENCODER_CONFIGS`` lists every key of the JAX package's registry. A key whose encoder the port does not build
-yet holds a stand-in class that raises NotImplementedError naming its ROADMAP item; an unknown key raises
-ValueError. ``python -m uniception_tpu_torch.models.encoders.list`` prints the table.
+yet (``cosmos``) holds a stand-in class that raises NotImplementedError naming its ROADMAP item; an unknown key
+raises ValueError. ``python -m uniception_tpu_torch.models.encoders.list`` prints the table.
 
 The factories are entry points: they build on the card unless the caller passes ``device="cpu"`` (or another
 device), and draw the weights from ``seed`` unless a ``generator`` is given.
@@ -26,10 +26,24 @@ from uniception_tpu_torch.models.encoders.base import (
     ViTEncoderOutput,
 )
 from uniception_tpu_torch.models.encoders.croco import CroCoEncoder, CroCoIntermediateFeatureReturner
+from uniception_tpu_torch.models.encoders.dense_rep_encoder import DenseRepresentationEncoder
 from uniception_tpu_torch.models.encoders.dinov2 import DINOv2Encoder, DINOv2IntermediateFeatureReturner
+from uniception_tpu_torch.models.encoders.dinov3 import (
+    DINOv3ConvNextEncoder,
+    DINOv3ConvNextIntermediateFeatureReturner,
+    DINOv3Encoder,
+    DINOv3IntermediateFeatureReturner,
+)
 from uniception_tpu_torch.models.encoders.dune import DUNEEncoder, DUNEIntermediateFeatureReturner
+from uniception_tpu_torch.models.encoders.global_rep_encoder import GlobalRepresentationEncoder
 from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT, ImageNormalization
 from uniception_tpu_torch.models.encoders.patch_embedder import PatchEmbedder
+from uniception_tpu_torch.models.encoders.perception_encoder import (
+    PerceptionEncoder,
+    PerceptionEncoderIntermediateFeatureReturner,
+)
+from uniception_tpu_torch.models.encoders.pixio import PixioEncoder
+from uniception_tpu_torch.models.encoders.radio import RADIOEncoder, RADIOIntermediateFeatureReturner
 from uniception_tpu_torch.models.utils.unported import not_ported
 
 __all__ = [
@@ -53,12 +67,22 @@ __all__ = [
     "DINOv2IntermediateFeatureReturner",
     "DUNEEncoder",
     "DUNEIntermediateFeatureReturner",
+    "DINOv3Encoder",
+    "DINOv3IntermediateFeatureReturner",
+    "DINOv3ConvNextEncoder",
+    "DINOv3ConvNextIntermediateFeatureReturner",
+    "RADIOEncoder",
+    "RADIOIntermediateFeatureReturner",
+    "PerceptionEncoder",
+    "PerceptionEncoderIntermediateFeatureReturner",
+    "PixioEncoder",
+    "DenseRepresentationEncoder",
+    "GlobalRepresentationEncoder",
     "PatchEmbedder",
     "IMAGE_NORMALIZATION_DICT",
     "ImageNormalization",
 ]
 
-_ZOO = "queue 1 item 6"  # the encoder zoo
 _COSMOS = "queue 1 item 11"  # the Cosmos tokenizer
 
 
@@ -76,26 +100,49 @@ ENCODER_CONFIGS = {
         "intermediate_feature_returner_class": CroCoIntermediateFeatureReturner,
         "supported_models": ["CroCov2", "DUSt3R", "MASt3R"],
     },
-    "dense_rep_encoder": _unported("dense_rep_encoder", _ZOO, supported=["Dense-Representation-Encoder"]),
+    "dense_rep_encoder": {
+        "class": DenseRepresentationEncoder,
+        "supported_models": ["Dense-Representation-Encoder"],
+    },
     "dinov2": {
         "class": DINOv2Encoder,
         "intermediate_feature_returner_class": DINOv2IntermediateFeatureReturner,
         "supported_models": ["DINOv2", "DINOv2-Registers", "DINOv2-Depth-Anythingv2"],
     },
-    "dinov3": _unported("dinov3", _ZOO, ifr=True, supported=["DINOv3-ViT"]),
-    "dinov3_convnext": _unported("dinov3_convnext", _ZOO, ifr=True, supported=["DINOv3-ConvNext"]),
+    "dinov3": {
+        "class": DINOv3Encoder,
+        "intermediate_feature_returner_class": DINOv3IntermediateFeatureReturner,
+        "supported_models": ["DINOv3-ViT"],
+    },
+    "dinov3_convnext": {
+        "class": DINOv3ConvNextEncoder,
+        "intermediate_feature_returner_class": DINOv3ConvNextIntermediateFeatureReturner,
+        "supported_models": ["DINOv3-ConvNext"],
+    },
     "cosmos": _unported("cosmos", _COSMOS, supported=["Cosmos-Tokenizer CI8x8", "Cosmos-Tokenizer CI16x16"]),
     "dune": {
         "class": DUNEEncoder,
         "intermediate_feature_returner_class": DUNEIntermediateFeatureReturner,
         "supported_models": ["DUNE"],
     },
-    "global_rep_encoder": _unported("global_rep_encoder", _ZOO, supported=["Global-Representation-Encoder"]),
-    "perception_encoder": _unported("perception_encoder", _ZOO, ifr=True,
-                                    supported=["Perception Encoder Core", "Perception Encoder Spatial"]),
-    "pixio": _unported("pixio", _ZOO, supported=["Pixio-Encoder"]),
-    "radio": _unported("radio", _ZOO, ifr=True, supported=[
-        "RADIO", "E-RADIO (capability-equivalent hybrid trunk; hub checkpoints not loadable offline)"]),
+    "global_rep_encoder": {
+        "class": GlobalRepresentationEncoder,
+        "supported_models": ["Global-Representation-Encoder"],
+    },
+    "perception_encoder": {
+        "class": PerceptionEncoder,
+        "intermediate_feature_returner_class": PerceptionEncoderIntermediateFeatureReturner,
+        "supported_models": ["Perception Encoder Core", "Perception Encoder Spatial"],
+    },
+    "pixio": {
+        "class": PixioEncoder,
+        "supported_models": ["Pixio-Encoder"],
+    },
+    "radio": {
+        "class": RADIOEncoder,
+        "intermediate_feature_returner_class": RADIOIntermediateFeatureReturner,
+        "supported_models": ["RADIO", "E-RADIO (capability-equivalent hybrid trunk; hub checkpoints not loadable offline)"],
+    },
     "patch_embedder": {
         "class": PatchEmbedder,
         "supported_models": ["Patch-Embedder"],
@@ -158,7 +205,7 @@ def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionE
     """Build the canonical test configuration of an encoder string (JAX encoders/__init__.py:162-210), with the
     canonical checkpoint under ``checkpoints/encoders`` of the repository passed only when that file exists:
     nothing is downloaded, and without the file the weights are drawn from ``seed``. Strings of encoders the port
-    does not build yet raise NotImplementedError naming their ROADMAP item."""
+    does not build yet (``cosmos``) raise NotImplementedError naming their ROADMAP item."""
     here = os.path.dirname(os.path.abspath(__file__))
     ckpt_dir = os.path.normpath(os.path.join(here, "../../../checkpoints/encoders"))
 
@@ -168,9 +215,8 @@ def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionE
 
     if encoder_str == "dummy":
         return UniCeptionEncoderBase(name="dummy", data_norm_type="dummy")
-    for key in ("radio", "dinov3", "cosmos", "perception_encoder", "pixio"):  # dinov3 covers dinov3_convnext
-        if key in encoder_str:
-            return ENCODER_CONFIGS[key]["class"]()
+    if "cosmos" in encoder_str:
+        return ENCODER_CONFIGS["cosmos"]["class"]()
     kwargs = _placed(kwargs, seed)
     if encoder_str == "croco":
         return CroCoEncoder(name="croco", data_norm_type="croco", patch_embed_cls="PatchEmbedCroCo",
@@ -191,9 +237,25 @@ def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionE
         path = ckpt(f"DINOv2_ViT{size[0].upper()}_DepthAnythingV2.pth") if "dav2" in encoder_str else None
         return DINOv2Encoder(name=encoder_str.replace("_reg", ""), size=size, with_registers="reg" in encoder_str,
                              pretrained_checkpoint_path=path, **kwargs)
+    if "radio" in encoder_str:
+        eradio_input_shape = (224, 224) if "e-radio" in encoder_str else None
+        return RADIOEncoder(name=encoder_str, model_version=encoder_str, eradio_input_shape=eradio_input_shape,
+                            **kwargs)
+    if "dinov3_convnext" in encoder_str:
+        return DINOv3ConvNextEncoder(name=encoder_str, size=encoder_str.split("_")[-1],
+                                     weights=ckpt("dinov3_convnext_base_pretrain_lvd1689m-801f2ba9.pth"), **kwargs)
+    if "dinov3" in encoder_str:
+        return DINOv3Encoder(name=encoder_str, size=encoder_str.split("_")[-1],
+                             weights=ckpt("dinov3_vitb16_pretrain_lvd1689m-73cec8be.pth"), **kwargs)
     if "dune" in encoder_str:
         return DUNEEncoder(name="dune_base", vit_size="base", pe_image_size=448,
                            pretrained_checkpoint_path=ckpt("dune_vitbase14_448.pth"), **kwargs)
+    if "perception_encoder" in encoder_str:
+        pe_type, pe_size = encoder_str.split("_")[2], encoder_str.split("_")[3]
+        return PerceptionEncoder(name=encoder_str, patch_size=16 if pe_size == "base" else 14,
+                                 data_norm_type="perception_encoder", size=pe_size, checkpoint_type=pe_type, **kwargs)
     if "patch_embedder" in encoder_str:
         return PatchEmbedder(name=encoder_str, **kwargs)
+    if "pixio" in encoder_str:
+        return PixioEncoder(name=encoder_str, patch_size=16, data_norm_type="pixio", **kwargs)
     raise ValueError(f"Unknown encoder: {encoder_str}")

@@ -1,8 +1,7 @@
 """
 Per-encoder image normalizations (counterpart of
-uniception_tpu/models/encoders/image_normalizations.py). The port serves
-DUSt3R, so the table holds the "dust3r" entry; entries are added with the
-encoders that need them.
+uniception_tpu/models/encoders/image_normalizations.py): the entries of the
+encoders the port builds, as the JAX table has them.
 """
 
 from dataclasses import dataclass
@@ -25,5 +24,9 @@ IMAGE_NORMALIZATION_DICT = {
     "dust3r": ImageNormalization(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
     "dune": _IMAGENET,
     "dinov2": _IMAGENET,
+    "dinov3": _IMAGENET,
+    "perception_encoder": ImageNormalization(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
     "patch_embedder": _IMAGENET,
+    "radio": ImageNormalization(mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0)),
+    "pixio": _IMAGENET,
 }

@@ -1,7 +1,10 @@
 """
 Small shared NN utilities (counterpart of uniception_tpu/nn/common.py):
 Identity, GELU by the configured mode, the reference's Linear init with an
-optional compute dtype, the truncated-normal init, and gradient checkpointing.
+optional compute dtype, the truncated-normal init, gradient checkpointing, and
+the counterparts of flax's ``nnx.Linear`` and ``nnx.Conv`` (lecun-normal init;
+the conv on channels-last activations) for the modules the JAX package builds
+from them directly.
 
 Mixed precision follows flax's ``dtype`` / ``param_dtype`` split: parameters
 stay in their own dtype (fp32 masters for training) and are cast to the
@@ -11,6 +14,8 @@ parameters and fp32 gradients while the matmuls run in bf16.
 
 from typing import Optional
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -18,7 +23,8 @@ from torch.utils.checkpoint import checkpoint
 
 from uniception_tpu_torch.models.utils.config import get_gelu_mode
 
-__all__ = ["Identity", "gelu_exact", "trunc_normal", "Linear", "LinearX", "remat_call"]
+__all__ = ["Identity", "gelu_exact", "trunc_normal", "Linear", "LinearX", "remat_call", "lecun_normal", "flax_linear",
+           "ChannelsLastConv"]
 
 Identity = nn.Identity
 
@@ -78,3 +84,41 @@ def remat_call(blk: nn.Module, *args):
     ``remat_call``, full rematerialization): its activations are not kept
     for the backward but recomputed there, trading FLOPs for memory."""
     return checkpoint(blk, *args, use_reentrant=False)
+
+
+def lecun_normal(weight: torch.Tensor, fan_in: int, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default kernel init in place: a unit normal truncated to (-2, 2), scaled to variance 1 / fan_in
+    (``variance_scaling(1, "fan_in", "truncated_normal")``). Returns the tensor."""
+    return trunc_normal(weight, 1.0 / (0.87962566103423978 * math.sqrt(fan_in)), generator=generator)
+
+
+def flax_linear(in_features: int, out_features: int, *, bias: bool = True, device=None, dtype=None,
+                generator: Optional[torch.Generator] = None) -> Linear:
+    "``nnx.Linear``: :class:`Linear` with a lecun-normal weight and zero bias; ``dtype`` is the compute dtype."
+    lin = Linear(in_features, out_features, bias=bias, device=device, dtype=dtype)
+    lecun_normal(lin.weight, in_features, generator=generator)
+    if bias:
+        with torch.no_grad():
+            lin.bias.zero_()
+    return lin
+
+
+class ChannelsLastConv(nn.Conv2d):
+    """``nnx.Conv`` on channels-last activations: (B, H, W, Cin) -> (B, H', W', Cout) through an NCHW view of the
+    same memory, torch's (out, in / groups, kh, kw) weight, lecun-normal init, zero bias, compute ``dtype``.
+    ``padding`` is torch's: flax's default "SAME" is no padding at the stride-k k x k convs the JAX modules use."""
+
+    def __init__(self, cin: int, cout: int, kernel_size, stride=1, padding=0, groups: int = 1, bias: bool = True, *,
+                 device=None, dtype=None, generator: Optional[torch.Generator] = None):
+        super().__init__(cin, cout, kernel_size, stride=stride, padding=padding, groups=groups, bias=bias,
+                         device=device)
+        self.compute_dtype = dtype
+        lecun_normal(self.weight, (cin // groups) * self.kernel_size[0] * self.kernel_size[1], generator=generator)
+        if bias:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias).permute(0, 2, 3, 1)

@@ -52,7 +52,11 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64  # the one head dim the kernels are built for
+HEAD_DIM = 64  # the head dim K3 (backward), K5 (fused), K6 (int8) and K8 (S.V) are built for
+HEAD_DIMS = (32, 64, 80, 96, 128)  # the head dims K1 (forward) is built for
+# A call at another head dim than its kernel takes raises, naming the ROADMAP item that would add it.
+HEAD_DIM_ITEM = "ROADMAP queue 2 item a"
+BOX_COLS = 64  # columns of each TMA box: one 128-byte swizzle row; a K1 tile of D > 64 is two boxes
 INT8_MODES = ("int8", "int8pv")
 INT8_MAX_KEYS = 1024  # one key block: the Pallas int8 kernel's case at D = 64
 INT8_CHUNK = 128  # K6's key tile and prep chunk (csrc/flash_attention_int8.cu BK): the scratch's padding
@@ -115,11 +119,13 @@ def tma_layout(t: torch.Tensor, rows: int):
     """The tensor map of a (B, N, H, D) view as the kernels' C entry points take it (csrc/hopper.cuh).
 
     Returns 11 ints: the dims innermost first (D, H, N, B), the byte strides
-    of H, N and B, and the box (D, 1, rows, 1): one head's ``rows`` rows of D
-    elements. A dimension of size 1 is never stepped, so it gets the stride it
-    would have in a contiguous tensor (a tensor map needs a multiple of 16
-    bytes there, whatever the view says). The fp32 kernels take their element
-    strides from the same ints.
+    of H, N and B, and the box (64, 1, rows, 1): one head's ``rows`` rows of
+    64 elements (one 128-byte swizzle row). K1 loads a tile of D > 64 as two
+    such boxes, at columns 0 and 64, and a box's columns past D arrive as
+    zeros (D = 32 is one box, half of it zeros). A dimension of size 1 is
+    never stepped, so it gets the stride it would have in a contiguous tensor
+    (a tensor map needs a multiple of 16 bytes there, whatever the view says).
+    The fp32 kernels take their element strides from the same ints.
     """
     return _tma_layout(t.shape, t.stride(), t.element_size(), rows)
 
@@ -130,7 +136,7 @@ def _tma_layout(shape, stride, es, rows):
     sh = sh if H > 1 else D * es
     sn = sn if N > 1 else H * sh
     sb = sb if B > 1 else N * sn
-    return (D, H, N, B, sh, sn, sb, D, 1, rows, 1)
+    return (D, H, N, B, sh, sn, sb, BOX_COLS, 1, rows, 1)
 
 
 @functools.lru_cache(maxsize=256)
@@ -145,10 +151,10 @@ def _layouts(*pairs):
     return _layout_array(*((t.shape, t.stride(), t.element_size(), rows) for t, rows in pairs))
 
 
-def _check(op, *tensors):
-    """Raise on what the kernels do not take: q, k, v (and o, dO) of one device and dtype, D = 64, and what
-    a TMA tensor map needs: a 16-byte aligned base and (b, n, h) byte strides that are multiples of 16 and
-    below 2^40."""
+def _check(op, *tensors, head_dims=HEAD_DIMS):
+    """Raise on what the kernels do not take: q, k, v (and o, dO) of one device and dtype, a head dim of
+    ``head_dims`` (K1's by default; the other attention kernels pass (64,)), and what a TMA tensor map needs: a
+    16-byte aligned base and (b, n, h) byte strides that are multiples of 16 and below 2^40."""
     q = tensors[0]
     for i, t in enumerate(tensors):
         name = ("q", "k", "v", "o", "dO")[i]
@@ -168,8 +174,9 @@ def _check(op, *tensors):
         raise ValueError(f"{op}: dtype {q.dtype} not supported (float32, bfloat16)")
     k, v = tensors[1], tensors[2]
     B, _, H, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"{op}: head dim {D} not supported (the kernel is built for {HEAD_DIM})")
+    if D not in head_dims:
+        raise ValueError(f"{op}: head dim {D} not supported (the kernel is built for {', '.join(map(str, head_dims))}; "
+                         f"other head dims: {HEAD_DIM_ITEM})")
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
         raise ValueError(f"{op}: k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if B > 65535 or H > 65535:
@@ -188,9 +195,9 @@ def _on_cuda(op, t):
 def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool = False):
     """K1: the flash-attention forward kernel; a CPU tensor takes :func:`flash_attention_lse_ref`.
 
-    CUDA tensors (float32 or bfloat16, D = 64, unit stride on D, 16-byte
-    aligned strides) launch the kernel; anything else on a CUDA device
-    raises. Returns (out, lse): a contiguous (B, Nq, H, D) tensor in q's
+    CUDA tensors (float32 or bfloat16, D of :data:`HEAD_DIMS`, unit stride on
+    D, 16-byte aligned strides) launch the kernel; anything else on a CUDA
+    device raises. Returns (out, lse): a contiguous (B, Nq, H, D) tensor in q's
     dtype, and with ``with_lse`` the (B, H, Nq) fp32 logsumexp, else None.
     ``flash_attention.launches`` counts the kernel launches,
     ``flash_attention.lse_launches`` those that wrote the logsumexp.
@@ -229,15 +236,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     ``lse`` the forward's outputs, ``dout`` the output gradient (made
     contiguous when its layout does not fit the kernel). Returns contiguous
     (dq, dk, dv) in the input dtype. Anything the kernel does not take on a
-    CUDA device raises. ``flash_attention_bwd.launches`` counts the calls
-    (each launches the delta, dq and dk/dv kernels).
+    CUDA device raises, a head dim other than 64 among it.
+    ``flash_attention_bwd.launches`` counts the calls (each launches the
+    delta, dq and dk/dv kernels).
     """
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention_bwd", q):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale)
     if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(s * dout.element_size() % 16 for s in dout.stride()[:3]):
         dout = dout.contiguous()
-    _check("flash_attention_bwd", q, k, v, out, dout)
+    _check("flash_attention_bwd", q, k, v, out, dout, head_dims=(HEAD_DIM,))
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
     if out.shape != q.shape or not out.is_contiguous() or dout.shape != q.shape:
@@ -413,7 +421,7 @@ def _ptr(t):
 
 def _int8_cuda_args(op, q, k, v, mode):
     _int8_args(op, k, mode)
-    _check(op, q, k, v)
+    _check(op, q, k, v, head_dims=(HEAD_DIM,))
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{op}: dtype {q.dtype} not supported (bfloat16)")
 

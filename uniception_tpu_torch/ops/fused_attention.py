@@ -34,6 +34,7 @@ from uniception_tpu_torch.ops import kernel_lib
 from uniception_tpu_torch.ops.flash_attention import (
     _DTYPE_CODES,
     HEAD_DIM,
+    HEAD_DIM_ITEM,
     FlashAttentionFunction,
     _on_cuda,
     flash_attention_ref,
@@ -118,7 +119,8 @@ def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num
             raise ValueError(f"{op}: weight {tuple(w.shape)} {w.dtype} on {w.device} does not fit x {tuple(x.shape)}")
         if w.shape[0] != hd:
             raise ValueError(
-                f"{op}: head dim {w.shape[0] / num_heads:g} not supported (the kernel is built for {HEAD_DIM})"
+                f"{op}: head dim {w.shape[0] / num_heads:g} not supported (the kernel is built for {HEAD_DIM}; "
+                f"other head dims: {HEAD_DIM_ITEM})"
             )
     # bf16 biases of a bf16 call are read as they are (the kernel widens them to fp32, exactly): no cast per call
     bias_bf16 = x.dtype == torch.bfloat16 and all(b is None or b.dtype == torch.bfloat16 for b in biases)

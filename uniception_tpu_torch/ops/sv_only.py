@@ -9,7 +9,7 @@ against, the share of their time that is not the exp/max/sum work.
 
     * :func:`sv_only_ref` — plain PyTorch, the reference for the kernel;
     * :func:`sv_only` — K8 for CUDA tensors: K1's bf16 kernel with the
-      softmax compiled out (csrc/flash_attention.cu ``fa_fwd_bf16_kernel<false>``),
+      softmax compiled out (csrc/flash_attention.cu ``fa_fwd_bf16_kernel<false, 64, 64>``),
       reading q/k/v through the same TMA tensor maps; a CPU tensor takes the
       plain version.
 """
@@ -17,7 +17,7 @@ against, the share of their time that is not the exp/max/sum work.
 import torch
 
 from uniception_tpu_torch.ops import kernel_lib
-from uniception_tpu_torch.ops.flash_attention import FWD_ROWS, _check, _layouts, _on_cuda
+from uniception_tpu_torch.ops.flash_attention import FWD_ROWS, HEAD_DIM, _check, _layouts, _on_cuda
 
 __all__ = ["sv_only", "sv_only_ref"]
 
@@ -38,7 +38,7 @@ def sv_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     launches."""
     if not _on_cuda("sv_only", q):
         return sv_only_ref(q, k, v)
-    _check("sv_only", q, k, v)
+    _check("sv_only", q, k, v, head_dims=(HEAD_DIM,))
     if q.dtype != torch.bfloat16:
         raise ValueError(f"sv_only: dtype {q.dtype} not supported (bfloat16)")
     B, Nq, H, D = q.shape

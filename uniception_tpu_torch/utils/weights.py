@@ -7,16 +7,21 @@ JAX module, or a reference ``.pth`` state dict converted to numpy. An entry
 that names a non-persistent buffer (the multi-view info sharing's sinusoid
 index tables: computed at construction, never loaded) is dropped, here and in
 ``utils.coldstart.materialize``.
+
+:func:`load_encoder_checkpoint` reads a checkpoint file (``.pth``, ``.pt``,
+``.bin`` or ``.npz``, utils/checkpoint.py) and loads its ``"model"`` state
+strictly: the encoders' ``pretrained_checkpoint_path`` / ``weights`` /
+``pe_checkpoint_path`` readers.
 """
 
 import re
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_state_dict_numpy", "recomputed_buffers"]
+__all__ = ["load_state_dict_numpy", "load_encoder_checkpoint", "recomputed_buffers"]
 
 
 def recomputed_buffers(module: nn.Module) -> set:
@@ -57,3 +62,20 @@ def load_state_dict_numpy(module: nn.Module, arrays: Dict[str, np.ndarray], stri
         for key, arr in present.items():
             own[key].copy_(torch.tensor(arr))  # copy_ casts to the parameter's dtype and device
     return missing, unexpected
+
+
+def load_encoder_checkpoint(module: nn.Module, path: str, ignore: Sequence[str] = (),
+                            kept_blocks: Optional[Dict[str, int]] = None):
+    """Load the checkpoint file at ``path`` into ``module``: its ``"model"`` state dict (a bare state dict is
+    wrapped so, utils/checkpoint.py ``load_checkpoint``) in the module's keys, the reference's torch names, strictly;
+    ``ignore`` as for :func:`load_state_dict_numpy`. ``kept_blocks`` maps a block list's key prefix
+    (``"model.blocks."``) to the number of blocks the module keeps: the checkpoint's entries of later blocks (a
+    full-depth file loaded into an encoder cut by ``keep_first_n_layers``) are dropped first. Returns
+    (missing_keys, unexpected_keys)."""
+    from uniception_tpu_torch.utils.checkpoint import load_checkpoint
+
+    state = load_checkpoint(path)["model"]
+    for prefix, kept in (kept_blocks or {}).items():
+        later = re.compile(re.escape(prefix) + r"(\d+)\.")
+        state = {k: v for k, v in state.items() if not ((m := later.match(k)) and int(m.group(1)) >= kept)}
+    return load_state_dict_numpy(module, state, strict=True, ignore=ignore)
