@@ -168,7 +168,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                1024 and 256 tokens), DINOv3 ConvNeXt-base, the dense
                representation encoder (3 K7 under the 3x3-conv kernel) and
                the global one; images/s, device ms, busy share and peak
-               memory of each bf16 forward.
+               memory of each bf16 forward;
+   36. heads:  DINOv2-L/14-reg at 518, batch 2, bf16, its levels after
+               blocks 5, 11, 17 and 23 into every head at its published widths:
+               in bf16 under the 3x3-conv kernel DPTFeature at DPT-Large with
+               the regression and segmentation processors; in fp32 on TF32
+               MoGeConvFeature at MoGe-v1's defaults, PoseHead, GlobalHead and
+               MLPFeature, against
+               the plain path with exact launches (K1 24, K7 18 per forward),
+               each head's adaptors on the card against the CPU, images/s,
+               device ms and peak memory; K7 at the eight DPT-Large shapes
+               beside cuDNN and the bound;
+   37. differential: DUSt3R ViT-L 512 with bf16 DPT heads (K7) and the 12-deep,
+               768-wide differential cross-attention info sharing with RoPE100
+               (6 differential heads per block), batch 2 pairs: exact launches
+               (K1 48, K2 144, K7 34), every K2 call against its plain version,
+               the info sharing's features, K7 alone and the outputs against
+               the plain path, pairs/s, device ms and peak memory; K2 at the
+               differential sub-head shapes beside its plain version and the
+               bound.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -3071,6 +3089,256 @@ def phase_zoo(torch, np, serve, config, counters, card):
     return total
 
 
+
+# Phases 36-37: the prediction-head and adaptor layer over DINOv2-L/14-reg at 518 (36) and the differential info
+# sharing in the DUSt3R-DPT composition at 512 (37), seeded weights, synthetic uint8 images, bf16 trunks and heads.
+HEAD_LEVELS = [5, 11, 17, 23]  # DINOv2-L's four DPT levels
+# DPT-Large (Ranftl et al. 2021, intel-isl/DPT dpt_large): layer dims and fusion width over 1024-wide levels
+DPT_LARGE = dict(patch_size=14, hooks=[0, 1, 2, 3], input_feature_dims=1024, layer_dims=[256, 512, 1024, 1024],
+                 feature_dim=256)
+# K7 per DPT-Large pass on the 37 x 37 grid: 4 layer*_rn (C 256-1024, all multiples of 128), 2 in refinenet4, 4 in each
+# of refinenets 3-1; the processors' 3x3 convs run on 296^2 and 518^2 maps, above the kernel's 256^2
+DPT_LARGE_K7 = 4 + 2 + 3 * 4
+K7_DPT_LARGE_518 = [("layer1_rn", 148, 256), ("layer2_rn", 74, 512), ("layer3_rn", 37, 1024), ("layer4_rn", 19, 1024),
+                    ("refinenet4 RCU", 19, 256), ("refinenet3 RCU", 37, 256), ("refinenet2 RCU", 74, 256),
+                    ("refinenet1 RCU", 148, 256)]  # (name, H = W, C), Co 256, batch 2
+# The adaptors on the card against the same adaptors on the CPU from the same decoded channels, fp32, per component
+# |card - cpu| / max(1, |cpu|): elementwise, so this guards the device's exp / sigmoid / norms, not a kernel.
+ADAPTOR_REL_TOL = 1e-5
+DIFF_DEC_HEADS = DEC_HEADS // 2  # the differential blocks run num_heads // 2 heads (each two sub-heads)
+# K2 on the differential path: (B, N, H, D) of its calls (the blocks' self-attention: 6 heads of 128; the differential
+# cross-attention: 12 sub-heads of 64), and the same width at 24 sub-heads of 32, timed beside them
+K2_DIFF_SHAPES = [(BATCH, 1024, DIFF_DEC_HEADS, 2 * DEC_DIM // DEC_HEADS),
+                  (BATCH, 1024, DEC_HEADS, DEC_DIM // DEC_HEADS), (BATCH, 1024, 2 * DEC_HEADS, DEC_DIM // DEC_HEADS // 2)]
+
+
+def _head_adaptors(tad, tbase):
+    "Each head's AdaptorMap, by head name (the adaptors of phase 36)."
+    inf = float("inf")
+    rays = dict(ray_directions_mode="linear", ray_directions_normalize_to_unit_sphere=True,
+                ray_directions_normalize_to_unit_image_plane=False, ray_directions_vmin=-inf, ray_directions_vmax=inf,
+                ray_directions_clamp_min_of_z_dir=False, ray_directions_z_dir_min=1, depth_mode="exp", depth_vmin=0,
+                depth_vmax=inf, confidence_type="exp", confidence_vmin=1, confidence_vmax=inf)
+    pose = dict(cam_trans_mode="linear", cam_trans_vmin=-inf, cam_trans_vmax=inf, quaternions_mode="linear",
+                quaternions_normalize=True, quaternions_vmin=-inf, quaternions_vmax=inf)
+    return {
+        "dpt": tbase.AdaptorMap(tad.RayDirectionsPlusDepthWithConfidenceAndMaskAdaptor("rays", **rays)),
+        "segmentation": tbase.AdaptorMap(tad.MaskAdaptor("mask")),
+        "moge": tbase.AdaptorMap(tad.PointMapWithMaskAdaptor("pointmap", "z_exp", -inf, inf)),
+        "pose": tbase.AdaptorMap(tad.CamTranslationPlusQuatsAdaptor("pose", **pose)),
+        "global": tbase.AdaptorMap(tad.ScaleAdaptor("scale", "exp")),
+        "mlp": tbase.AdaptorMap(tad.DepthAdaptor("depth", "exp"), tad.ConfidenceAdaptor("conf", "sigmoid", 0, 1)),
+    }
+
+
+def adaptors_card_vs_cpu(torch, maps, decoded, label):
+    """Each head's AdaptorMap on the card and on the CPU over the same fp32 decoded channels; every output field within
+    ADAPTOR_REL_TOL. Returns the worst error."""
+    import dataclasses
+
+    from uniception_tpu_torch.models.prediction_heads.base import AdaptorInput
+
+    worst = 0.0
+    for head, amap in maps.items():
+        x = decoded[head].float()
+        card, cpu = amap(AdaptorInput(x, x.shape[2:])), amap(AdaptorInput(x.cpu(), x.shape[2:]))
+        for name in card:
+            for field in dataclasses.fields(card[name]):
+                a, b = getattr(card[name], field.name), getattr(cpu[name], field.name)
+                require(a.shape == b.shape and torch.isfinite(a).all().item(), f"{label}: {head}.{name}.{field.name}")
+                err = ((a.cpu() - b).abs() / b.abs().clamp_min(1.0)).max().item()
+                worst = max(worst, err)
+                require(err <= ADAPTOR_REL_TOL, f"{label}: {head}.{name}.{field.name} card vs CPU {err}")
+    print(f"[{label}] adaptors on the card vs the CPU from the same fp32 decoded channels ({', '.join(maps)}): "
+          f"max |card - cpu| / max(1, |cpu|) {worst:.2e} (tol {ADAPTOR_REL_TOL})")
+    return worst
+
+
+def phase_heads(torch, F, np, serve, config, c3, counters, card):
+    """DINOv2-L/14-reg at 518, batch 2, bf16, its four levels (HEAD_LEVELS) into every head at its published widths:
+    in bf16 under the conv kernel, DPTFeature at DPT-Large (K7 18 per pass) with the regression processor (6
+    channels) and the segmentation processor; in fp32 on TF32 (the JAX heads' default dtype and JAX's default GPU
+    precision, over the levels cast to fp32), MoGeConvFeature at MoGe-v1's defaults, PoseHead, GlobalHead and
+    MLPFeature on the last level. The kernel path against the plain path (attention "naive": K1 and K7 on their plain
+    versions) with exact launches (K1 24, K7 18 per forward); each head's decoded channels within K7_HEADS_REL_TOL
+    where K7 runs and MODEL_REL_TOL elsewhere; each head's adaptors on the card against the CPU; images/s, device ms
+    and peak memory; K7 at the eight DPT-Large shapes beside cuDNN and the bound. Returns (launches, K7 timing at
+    refinenet1's RCU)."""
+    from uniception_tpu_torch.models.encoders import feature_returner_encoder_factory
+    from uniception_tpu_torch.models.prediction_heads import adaptors as tad
+    from uniception_tpu_torch.models.prediction_heads import base as tbase
+    from uniception_tpu_torch.models.prediction_heads import dpt
+    from uniception_tpu_torch.models.prediction_heads.mlp_feature import MLPFeature
+    from uniception_tpu_torch.models.prediction_heads.moge_conv import MoGeConvFeature
+    from uniception_tpu_torch.models.prediction_heads.pose_head import GlobalHead, PoseHead
+
+    total = {k: 0 for k in counters}
+    bf16 = torch.bfloat16
+    tag = "36 heads over DINOv2-L-reg 518"
+    ifr = feature_returner_encoder_factory("dinov2", name="dinov2_large", size="large", with_registers=True,
+                                           indices=HEAD_LEVELS, device="cuda", seed=SEED, dtype=bf16,
+                                           param_dtype=bf16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 36)
+    kw, fp32 = dict(dtype=bf16, device="cuda", generator=gen), dict(device="cuda", generator=gen)
+    heads = dict(
+        dpt=dpt.DPTFeature(**DPT_LARGE, **kw), regressor=dpt.DPTRegressionProcessor(256, 6, **kw),
+        segmentation=dpt.DPTSegmentationProcessor(256, 1, **kw),
+        moge=MoGeConvFeature(patch_size=14, num_features=4, input_feature_dims=1024, dim_out=[3, 1], **fp32),
+        pose=PoseHead(14, 1024, **fp32), glob=GlobalHead(14, 1024, **fp32), mlp=MLPFeature(1024, 14, 2, **fp32))
+    for h in heads.values():
+        h.eval()
+    inp = _dino_input(torch, np, serve, "dinov2", DINO_BATCH, DINO_IMG, SEED + 36)
+
+    def fwd():
+        with torch.inference_mode():
+            levels = [o.features for o in ifr(inp)]
+            size = (DINO_IMG, DINO_IMG)
+            feat = heads["dpt"](tbase.PredictionHeadLayeredInput(list_features=levels, target_output_shape=size))
+            levels = [f.float() for f in levels]  # the fp32 heads' input, as DUSt3R casts to its head dtype
+            layered = tbase.PredictionHeadLayeredInput(list_features=levels, target_output_shape=size)
+            last = tbase.PredictionHeadInput(last_feature=levels[-1])
+            return {"dpt": heads["regressor"](feat).decoded_channels,
+                    "segmentation": heads["segmentation"](feat).decoded_channels,
+                    "moge": heads["moge"](layered).decoded_channels, "pose": heads["pose"](last).decoded_channels,
+                    "global": heads["glob"](last).decoded_channels, "mlp": heads["mlp"](last).decoded_channels}
+
+    # the fp32 heads' convs and matmuls on TF32, as JAX runs fp32 on a GPU by default, on both paths (the bf16 trunk
+    # and DPT heads are untouched); with TF32 off cuDNN takes FFT convs for MoGe's 518^2 maps, about 0.9 s a forward
+    config.set_conv3x3_impl("kernel")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        config.set_attention_impl("naive")
+        try:
+            plain = fwd()
+            torch.cuda.synchronize()
+        finally:
+            config.set_attention_impl("kernel")
+        out = counted_forward(torch, counters, fwd, tag, {**{k: 0 for k in counters}, "K1": DINO_L_DEPTH,
+                                                          "K7": DPT_LARGE_K7}, total)
+        shapes = {"dpt": (6, DINO_IMG, DINO_IMG), "segmentation": (1, DINO_IMG, DINO_IMG),
+                  "moge": (4, DINO_IMG, DINO_IMG), "pose": (7,), "global": (1,), "mlp": (2, DINO_IMG, DINO_IMG)}
+        for name, a in out.items():
+            b, tol = plain[name], K7_HEADS_REL_TOL if name in ("dpt", "segmentation") else MODEL_REL_TOL
+            require(tuple(a.shape) == (DINO_BATCH, *shapes[name]) and torch.isfinite(a).all().item(),
+                    f"{tag}: {name} {tuple(a.shape)} non-finite or not {shapes[name]}")
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            print(f"[{tag}] {name:12s} decoded channels {tuple(a.shape)}, max |x| {a.float().abs().max().item():.3e}: "
+                  f"kernels vs plain path ||kernel - plain|| / ||plain|| {rel:.3e} (tol {tol})")
+            require(rel <= tol, f"{tag}: {name} kernels vs plain {rel} > {tol}")
+        adaptors_card_vs_cpu(torch, _head_adaptors(tad, tbase), out, tag)
+        forward_timing(torch, fwd, DINO_BATCH, "images", f"{DINO_BATCH} images per forward, six heads", tag, card)
+    finally:
+        config.set_conv3x3_impl("torch")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    del ifr, heads, out, plain
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    main = None
+    for name, hw, C in K7_DPT_LARGE_518:
+        x = torch.randn(BATCH, hw, hw, C, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(3, 3, C, 256, device="cuda", generator=gen) * (9 * C) ** -0.5).bfloat16()
+        b = torch.randn(256, device="cuda", generator=gen) * 0.1
+        out, ref = c3.conv3x3_nhwc(x, w, b), c3.conv3x3_reference(x, w, b)
+        ulps = _ulps(out, ref, 7, floor=1 / 16)
+        require(ulps <= K7_ULPS and torch.equal(c3.conv3x3_nhwc(x, w, b), out), f"36 K7 {name}: {ulps} ulp")
+        ms, plain_ms = graph_ms(torch, lambda: c3.conv3x3_nhwc(x, w, b)), graph_ms(
+            torch, lambda: c3.conv3x3_reference(x, w, b))
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        stock_ms = graph_ms(torch, lambda: F.conv2d(xc, wc, b.bfloat16(), padding=1))
+        flops = 2 * BATCH * hw * hw * C * 256 * 9
+        k7_bound = bound({"bf16": flops}, (x.numel() + w.numel() + BATCH * hw * hw * 256) * 2 + 256 * 4)
+        print(f"[36 K7] DPT-Large {name:15s} {BATCH}x{hw}x{hw}x{C} -> 256: {ulps:.2f} ulp (tol {K7_ULPS}); {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), cuDNN bf16 {stock_ms:.4f} ms ({ms / stock_ms:.3f}x), bound "
+              f"{k7_bound[0]:.4f} ms ({k7_bound[1]}), plain (fp32 conv) {plain_ms:.4f} ms (CUDA graphs) on {card}")
+        if name == "refinenet1 RCU":
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=stock_ms, bound=k7_bound)
+    return total, main
+
+
+def phase_diff(torch, np, serve, config, rope_mod, counters, card, DUSt3R):
+    """DUSt3R ViT-L 512 with bf16 DPT heads on K7 (phase 17's composition), its info sharing swapped for the 12-deep,
+    768-wide DifferentialMultiViewCrossAttentionTransformerIFR (12 heads: each block 6 differential heads) with RoPE100
+    and the DPT hooks [encoder, 5, 8, final], batch 2 pairs: forward_pair with exact launches (K1 24 + 24 at D = 128,
+    K2 48 + 96, K7 34 per forward), every K2 call held against its plain version in bf16 ulps; against the plain path
+    (bucket_check): the info sharing's features within MODEL_REL_TOL, K7 alone and the outputs within their bars;
+    pairs/s, device ms and peak memory; K2 at the differential shapes timed beside its plain version and the bound.
+    Returns (launches, K2 timing at the cross-attention's shape)."""
+    from uniception_tpu_torch.models.info_sharing.diff_cross_attention_transformer import (
+        DifferentialMultiViewCrossAttentionTransformerIFR,
+    )
+    from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
+
+    total = {k: 0 for k in counters}
+    bf16 = torch.bfloat16
+    tag = "37 differential info sharing, DUSt3R-DPT 512"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
+    model = DUSt3R(name="dust3r_diff_dpt", img_size=(IMG, IMG), pred_head_type="dpt", head_dtype=bf16, dtype=bf16,
+                   device="cuda", generator=gen)
+    model.info_sharing = DifferentialMultiViewCrossAttentionTransformerIFR(
+        name="base_info_sharing", input_embed_dim=ENC_DIM, num_views=2, depth=DEC_DEPTH, dim=DEC_DIM,
+        num_heads=DEC_HEADS, custom_positional_encoding=model.rope, indices=[5, 8], norm_intermediate=False,
+        device="cuda", dtype=bf16, generator=gen)
+    model.eval()
+    blk = model.info_sharing.multi_view_branches[0][0]
+    require((blk.attn.num_heads, blk.attn.head_dim, blk.cross_attn.num_heads, blk.cross_attn.head_dim)
+            == (DIFF_DEC_HEADS, 128, DIFF_DEC_HEADS, 64), f"{tag}: the blocks' heads")
+    frames = np.random.RandomState(SEED + 37).randint(0, 256, size=(2 * BATCH, IMG, IMG, 3), dtype=np.uint8)
+    fn = serve.make_serving_fn(model, "cuda")
+    k2_ulps = {}
+    rope_call = rope_mod.Rope2D.__call__
+
+    def k2_checked(pe, tokens, positions):  # every RoPE of the path (encoder and info sharing) and its plain version
+        o = rope_call(pe, tokens, positions)
+        shape = tuple(tokens.shape[2:])
+        k2_ulps[shape] = max(k2_ulps.get(shape, 0.0), _ulps(o, rope_mod.rope_2d(tokens, positions, pe.base, pe.F0), 7))
+        return o
+
+    def fwd():
+        return fn(frames[0::2], frames[1::2])
+
+    config.set_conv3x3_impl("kernel")
+    try:
+        want = {**{k: 0 for k in counters}, "K1": ENC_DEPTH + 2 * DEC_DEPTH,
+                "K2": 2 * ENC_DEPTH + 2 * DEC_DEPTH * 4, "K7": k7_convs_per_forward(IMG)}
+        rope_mod.Rope2D.__call__ = k2_checked
+        try:
+            out = counted_forward(torch, counters, fwd, tag, want, total)
+        finally:
+            rope_mod.Rope2D.__call__ = rope_call
+        require(all(tuple(a.shape[:3]) == (BATCH, IMG, IMG) and torch.isfinite(a).all().item() for a in out),
+                f"{tag}: {[tuple(a.shape) for a in out]}")
+        # the differential info sharing's features within MODEL_REL_TOL of the plain path's; K7 alone and the outputs
+        # through the bf16 DPT heads and the exp adaptor within the bars phases 14 and 20 set for them
+        bucket_check(torch, config, model, fn, (frames[0::2], frames[1::2]), tag,
+                     ("pts3d", "conf1", "pts3d_in_other_view", "conf2"))
+        print(f"[{tag}] every K2 call against its plain version on the same activations, max bf16 ulps by (H, D): "
+              f"{ {k: round(v, 2) for k, v in k2_ulps.items()} } (tol {K2_BF16_ULPS})")
+        require(set(k2_ulps) == {(ENC_HEADS, 64), (DIFF_DEC_HEADS, 128), (DEC_HEADS, 64)} and
+                max(k2_ulps.values()) <= K2_BF16_ULPS, f"{tag}: K2 calls {k2_ulps}")
+        forward_timing(torch, fwd, BATCH, "pairs", f"{BATCH} pairs per forward", tag, card)
+    finally:
+        config.set_conv3x3_impl("torch")
+    del model, out
+    torch.cuda.empty_cache()
+
+    main = None
+    for B, N, H, D in K2_DIFF_SHAPES:
+        q = torch.randn(B, N, 3, H // 2, 2 * D, device="cuda", generator=gen).bfloat16()[:, :, 0].reshape(B, N, H, D)
+        pos = make_patch_positions(B, 32, N // 32, device="cuda")
+        ulps = _ulps(rope_mod.rope_2d_kernel(q, pos), rope_mod.rope_2d(q.contiguous(), pos), 7)
+        require(ulps <= K2_BF16_ULPS, f"37 K2 ({B},{N},{H},{D}): {ulps} bf16 ulps")
+        ms, plain_ms = graph_ms(torch, lambda: rope_mod.rope_2d_kernel(q, pos)), graph_ms(
+            torch, lambda: rope_mod.rope_2d(q, pos))
+        b = bound({}, 2 * B * N * H * D * 2 + B * N * 2 * 4)
+        print(f"[37 K2] ({B},{N},{H},{D}) sub-heads of a strided projection: {ulps:.2f} ulps (tol {K2_BF16_ULPS}); "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), library none (CUDA graphs) on "
+              f"{card}")
+        if H == DEC_HEADS:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=b)
+    return total, main
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -3183,6 +3451,10 @@ def main():
     k1_err = max(k1_err, phase_zoo_k1(torch, fa, rope, make_patch_positions, card))
     zoo = phase_zoo(torch, np, serve, config, counters, card)
     print(f"[35 zoo] launches over phase 35's counted forwards: {zoo}")
+    heads, k7_518 = phase_heads(torch, F, np, serve, config, c3, counters, card)
+    diff, k2_diff = phase_diff(torch, np, serve, config, rope, counters, card, DUSt3R)
+    print(f"[37 heads] launches over phases 36-37's counted forwards: heads {heads}, differential {diff}; "
+          f"K7 at DPT-Large's refinenet1 RCU (2, 148, 148, 256): {k7_518}; K2 at (2, 1024, 12, 64): {k2_diff}")
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -3192,12 +3464,12 @@ def main():
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
-              + dino["K1"] + zoo["K1"], k1_err, k1),
+              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"], k1_err, k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
               trained["flash_attention_bwd"] + new_train["K3"], k3_err, k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
               launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
-              + new_train["K2-bwd"] + zoo["K2"], k2_err, k2),
+              + new_train["K2-bwd"] + zoo["K2"] + diff["K2"], k2_err, k2),
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
               k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
@@ -3208,7 +3480,7 @@ def main():
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"] + dino["K6"], k6_err, k6),
         entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47",
-              served["K7"] + new_train["K7"] + zoo["K7"], k7_err, k7),
+              served["K7"] + new_train["K7"] + zoo["K7"] + heads["K7"] + diff["K7"], k7_err, k7),
         entry("sv_only", "flash_attention.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")

@@ -10,8 +10,10 @@ and cross, with its gradient) and the S.V diagnostic (K8, K1's kernel without
 the softmax, at the same TMA and ring edges); K1 at the head dims 32, 80, 96
 and 128 at its TMA and ring edges and at the encoder zoo's shapes, the raise of
 K3, K5, K6 and K8 at a head dim other than 64, and K2 on the patch tokens of a
-DINOv3 projection (a strided view). Every test here needs a CUDA device and
-skips without one.
+DINOv3 projection (a strided view); K7 at the DPT-Large head's shapes over
+DINOv2-L/14 at 518 and its 18 launches per head pass, K2 on the differential
+attention's sub-heads and a differential block against the plain path with
+exact launches. Every test here needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -1217,3 +1219,101 @@ def test_rope_on_the_patch_tokens_of_a_projection(gen, d, dtype):
         assert (out[:, 5:] - ref).abs().max().item() <= 1e-5
     else:
         assert _ulps(out[:, 5:], ref, 7) <= 1
+
+
+# K7 at the DPT-Large head's eligible convs over DINOv2-L/14 at 518 (a 37 x 37 token grid), batch 2: (H = W, C, Co)
+# of the four layer*_rn projections and the refinenets' residual convs (chip_smoke.py phase 36)
+K7_DPT_LARGE_518 = [(148, 256, 256), (74, 512, 256), (37, 1024, 256), (19, 1024, 256), (19, 256, 256),
+                    (37, 256, 256), (74, 256, 256), (148, 256, 256)]
+
+
+@pytest.mark.parametrize("hw,c,co", K7_DPT_LARGE_518, ids=lambda v: str(v))
+def test_conv3x3_at_dpt_large_518_shapes(gen, hw, c, co):
+    "K7 at the DPT-Large shapes, odd grids included: within 1 ulp of its plain version, two calls one answer."
+    x, wt, bb = _conv_inputs(gen, 2, hw, hw, c, co)
+    before = conv3x3_nhwc.launches
+    out = conv3x3_nhwc(x, wt, bb)
+    assert conv3x3_nhwc.launches == before + 1
+    assert _ulps(out, conv3x3_reference(x, wt, bb), 7, floor=1 / 16) <= 1
+    assert torch.equal(conv3x3_nhwc(x, wt, bb), out)
+
+
+def test_dpt_large_head_at_518_takes_k7_eighteen_times(gen):
+    """DPTFeature at the DPT-Large widths on a 37 x 37 grid in bf16 under the conv kernel: 18 K7 launches (4
+    layer*_rn, 2 in refinenet4, 4 in each of refinenets 3-1) and none in the regression or segmentation processor,
+    whose 296^2 input is above the kernel's 256^2; the features within the DPT head bar of the plain path."""
+    from uniception_tpu_torch.models.prediction_heads.base import PredictionHeadLayeredInput
+    from uniception_tpu_torch.models.prediction_heads.dpt import (
+        DPTFeature, DPTRegressionProcessor, DPTSegmentationProcessor)
+
+    kw = dict(dtype=torch.bfloat16, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    feature = DPTFeature(patch_size=14, hooks=[0, 1, 2, 3], input_feature_dims=1024, layer_dims=[256, 512, 1024, 1024],
+                         feature_dim=256, **kw).eval()
+    regressor, seg = DPTRegressionProcessor(256, 6, **kw).eval(), DPTSegmentationProcessor(256, 1, **kw).eval()
+    feats = [torch.randn(1, 1024, 37, 37, device="cuda", generator=gen).bfloat16() for _ in range(4)]
+    inp = PredictionHeadLayeredInput(list_features=feats, target_output_shape=(518, 518))
+    prev = config.get_conv3x3_impl()
+    config.set_conv3x3_impl("kernel")
+    try:
+        with torch.no_grad():
+            config.set_attention_impl("naive")
+            try:
+                plain = feature(inp).features_upsampled_8x
+            finally:
+                config.set_attention_impl("kernel")
+            before = conv3x3_nhwc.launches
+            out = feature(inp)
+            assert conv3x3_nhwc.launches == before + 18
+            regressor(out), seg(out)
+            assert conv3x3_nhwc.launches == before + 18
+    finally:
+        config.set_conv3x3_impl(prev)
+    got = out.features_upsampled_8x
+    assert tuple(got.shape) == (1, 256, 296, 296) and torch.isfinite(got).all()
+    assert ((got.float() - plain.float()).norm() / plain.float().norm()).item() <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,d", [(2, 1024, 24, 32), (2, 1024, 12, 64), (2, 1024, 6, 128)],
+                         ids=["24x32", "12x64", "6x128"])
+def test_rope_on_differential_sub_heads(gen, b, n, h, d, dtype):
+    """K2 on the differential attention's sub-heads: q of a (B, N, 3, H / 2, 2 D) projection viewed as (B, N, H, D),
+    as DiffAttention makes it. (2, 1024, 12, 64) and (2, 1024, 6, 128) are the 768-wide, 12-head differential info
+    sharing's cross and self-attention; (2, 1024, 24, 32) the same width at twice the heads."""
+    q = torch.randn(b, n, 3, h // 2, 2 * d, device="cuda", generator=gen).to(dtype)[:, :, 0].reshape(b, n, h, d)
+    pos = make_patch_positions(b, 32, n // 32, device="cuda")
+    before = rope_2d_kernel.launches
+    out = rope_2d_kernel(q, pos)
+    assert rope_2d_kernel.launches == before + 1
+    ref = rope_2d(q.contiguous(), pos)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:
+        assert _ulps(out, ref, 7) <= 1
+
+
+def test_diff_cross_attention_block_kernels_match_plain_with_exact_launches(gen):
+    """A DiffCrossAttentionBlock of the 768-wide, 12-head differential info sharing (6 heads per block) in bf16 with
+    RoPE100: one K1 (its self-attention, D = 128) and four K2 (self q, k at D = 128; cross q, k over 12 sub-heads of
+    64), the two softmaxes on the einsum path (Dv = 2 Dq); within 2e-2 of the plain path by norm."""
+    from uniception_tpu_torch.nn.blocks import DiffCrossAttentionBlock, layer_norm_factory
+
+    blk = DiffCrossAttentionBlock(768, 3, 6, qkv_bias=True, norm_layer=layer_norm_factory(1e-6),
+                                  custom_positional_encoding=Rope2D(100.0), device="cuda", dtype=torch.bfloat16,
+                                  generator=torch.Generator(device="cuda").manual_seed(0)).eval()
+    x, y = (torch.randn(2, 1024, 768, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    pos = make_patch_positions(2, 32, 32, device="cuda")
+    with torch.no_grad():
+        config.set_attention_impl("naive")
+        try:
+            plain = blk(x, y, pos, pos)
+        finally:
+            config.set_attention_impl("kernel")
+        before = (flash_attention.launches, rope_2d_kernel.launches)
+        out = blk(x, y, pos, pos)
+    assert (flash_attention.launches - before[0], rope_2d_kernel.launches - before[1]) == (1, 4)
+    assert torch.isfinite(out).all() and _rel_norm(out, plain) <= 2e-2
+
+
+def _rel_norm(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()

@@ -99,11 +99,6 @@ def test_info_sharing_registry_matches_jax():
     assert sorted(info_sharing.INFO_SHARING_CLASSES) == sorted(jinfo.INFO_SHARING_CLASSES)
     for name, (cls, ifr) in info_sharing.INFO_SHARING_CLASSES.items():
         jcls, jifr = jinfo.INFO_SHARING_CLASSES[name]
-        if name == "diff_cross_attention":
-            for c in (cls, ifr):
-                with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-                    c(name="d", input_embed_dim=32)
-            continue
         assert (cls.__name__, ifr.__name__) == (jcls.__name__, jifr.__name__)
         assert issubclass(ifr, cls)
 

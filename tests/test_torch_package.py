@@ -70,7 +70,10 @@ def test_import_everything_without_jax_or_nvcc():
                  "models.encoders.radio", "models.encoders.eradio", "models.encoders.dinov3",
                  "models.encoders.perception_encoder", "models.encoders.pixio", "models.encoders.dense_rep_encoder",
                  "models.encoders.global_rep_encoder", "models.libs.perception_encoder.pe",
-                 "models.libs.perception_encoder.transforms"):
+                 "models.libs.perception_encoder.transforms", "models.prediction_heads.mlp_feature",
+                 "models.prediction_heads.mlp_head", "models.prediction_heads.pose_head",
+                 "models.prediction_heads.global_head", "models.prediction_heads.moge_conv",
+                 "models.info_sharing.diff_cross_attention_transformer"):
         assert f"uniception_tpu_torch.{name}" in report["modules"]
     assert report["jax"] == []
     assert report["uniception_tpu"] == []  # not even its jax-free modules (utils/checkpoint.py, data/bucketing.py)

@@ -1,13 +1,16 @@
 """
 DPT prediction head (counterpart of uniception_tpu/models/prediction_heads/dpt.py;
 reference uniception/models/prediction_heads/dpt.py): 4-hook feature pyramid
--> fusion stages -> 8x-upsampled features -> regression processor.
+-> fusion stages -> 8x-upsampled features -> regression or segmentation processor.
 
     * :class:`DPTFeature` (:32-232): per-hook resize convs (4x deconv / 2x
       deconv / identity / stride-2 conv) -> scratch 3x3 projections -> four
       fusion stages with align_corners=True 2x upsampling;
     * :class:`DPTRegressionProcessor` (:238-311): conv -> exact-size bilinear
-      interpolation (align_corners=True) -> conv-act-conv.
+      interpolation (align_corners=True) -> conv-act-conv;
+    * :class:`DPTSegmentationProcessor` (:314-379): conv(-bn)-ReLU-conv ->
+      exact-size bilinear interpolation (align_corners=True);
+    * :class:`DPTFeatureDoubleUpsampling` (:383-560): the 2-hook variant.
 
 State-dict keys are the JAX export's (input_process.{i}.{j}, scratch.refinenet*):
 the scratch projection convs are registered once, under input_process, where
@@ -29,11 +32,13 @@ from uniception_tpu_torch.nn.dpt_parts import (
     Conv2dTorch,
     ConvTranspose2dTorch,
     Seq,
+    BatchNorm,
     make_fusion_block,
     make_nonlinearity,
 )
 
-__all__ = ["DPTFeature", "DPTFeatureInput", "DPTRegressionProcessor", "DPT_CHECKPOINT_ALIASES"]
+__all__ = ["DPTFeature", "DPTFeatureInput", "DPTRegressionProcessor", "DPTSegmentationProcessor",
+           "DPTFeatureDoubleUpsampling", "DPT_CHECKPOINT_ALIASES"]
 
 # The reference DPT registers the scratch convs under three spellings
 # (input_process.{i}.1, scratch.layer{i}_rn, scratch.layer_rn.{i-1}); the
@@ -163,3 +168,94 @@ class DPTRegressionProcessor(nn.Module):
         remat = self.checkpoint_gradient and torch.is_grad_enabled()
         out = remat_call(self._body, x, shape) if remat else self._body(x, shape)
         return PixelTaskOutput(decoded_channels=out)
+
+
+class DPTSegmentationProcessor(nn.Module):
+    """conv(-bn)-ReLU-conv -> exact-size bilinear (align_corners=True) (dpt.py:314-379). The Sequential keeps the
+    reference's numbering [conv, bn or Identity, ReLU, Dropout (eval: Identity), conv]."""
+
+    def __init__(
+        self,
+        input_feature_dim: int,
+        output_dim: int,
+        hidden_dim: Optional[int] = None,
+        use_bn: bool = False,
+        *,
+        dtype=None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        hidden_dim = input_feature_dim if hidden_dim is None else hidden_dim
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.conv = Seq(
+            Conv2dTorch(input_feature_dim, hidden_dim, 3, 1, 1, bias=False, **kw),
+            BatchNorm(hidden_dim, dtype=dtype, device=device) if use_bn else nn.Identity(),
+            make_nonlinearity("relu"),
+            nn.Identity(),
+            Conv2dTorch(hidden_dim, output_dim, 1, 1, 0, **kw),
+        )
+
+    def forward(self, dpt_processor_input: DPTFeatureInput) -> PixelTaskOutput:
+        x = self.conv(dpt_processor_input.features_upsampled_8x)
+        x = F.interpolate(x, size=tuple(dpt_processor_input.target_output_shape), mode="bilinear", align_corners=True)
+        return PixelTaskOutput(decoded_channels=x)
+
+
+class DPTFeatureDoubleUpsampling(nn.Module):
+    """The 2-hook DPT variant (dpt.py:383-560): hooks at the token grid and a stride-2 level, fused by refinenets 4
+    and 3 into features at twice the token grid (returned as ``features_upsampled_8x``, the reference's name).
+    ``checkpoint_gradient`` is kept and unused, as in the JAX package."""
+
+    def __init__(
+        self,
+        patch_size: Union[int, Tuple[int, int]] = 16,
+        main_tasks: Iterable[str] = ("rgb",),
+        hooks: List[int] = (0, 1),
+        input_feature_dims: Union[int, List[int]] = 768,
+        layer_dims: List[int] = (384, 768),
+        feature_dim: int = 256,
+        use_bn: bool = False,
+        output_width_ratio=1,
+        checkpoint_gradient: bool = False,
+        *,
+        dtype=None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.patch_size = patch_size if isinstance(patch_size, tuple) else (patch_size, patch_size)
+        self.main_tasks = tuple(main_tasks)
+        self.hooks = list(hooks)
+        self.layer_dims = list(layer_dims)
+        self.feature_dim = feature_dim
+        self.checkpoint_gradient = checkpoint_gradient
+        if isinstance(input_feature_dims, int):
+            input_feature_dims = 2 * [input_feature_dims]
+        if len(input_feature_dims) != 2:
+            raise ValueError("DPTFeatureDoubleUpsampling takes two input feature dims")
+        self.input_feature_dims = [d * len(self.main_tasks) for d in input_feature_dims]
+
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        ld, d = self.layer_dims, self.input_feature_dims
+        self.scratch = nn.Module()
+        self.scratch.refinenet3 = make_fusion_block(feature_dim, use_bn, output_width_ratio, **kw)
+        self.scratch.refinenet4 = make_fusion_block(feature_dim, use_bn, output_width_ratio, has_res1=False, **kw)
+        acts = [
+            Seq(Conv2dTorch(d[0], ld[0], 1, 1, 0, **kw)),
+            Seq(Conv2dTorch(d[1], ld[1], 1, 1, 0, **kw), Conv2dTorch(ld[1], ld[1], 3, 2, 1, **kw)),
+        ]
+        self.input_process = nn.ModuleList(
+            [Seq(act, Conv2dTorch(ld[i], feature_dim, 3, 1, 1, bias=False, **kw)) for i, act in enumerate(acts)]
+        )
+
+    def forward(self, dpt_input: PredictionHeadLayeredInput) -> DPTFeatureInput:
+        feats = dpt_input.list_features
+        for idx, hook in enumerate(self.hooks):
+            if feats[hook].shape[1] != self.input_feature_dims[idx]:
+                raise ValueError(f"Input feature dimension mismatch at hook {hook}. Expected BCHW")
+        layers = [self.input_process[idx](feats[hook].contiguous(memory_format=torch.channels_last))
+                  for idx, hook in enumerate(self.hooks)]
+        path_4 = self.scratch.refinenet4(layers[1])[:, :, : layers[0].shape[2], : layers[0].shape[3]]
+        return DPTFeatureInput(features_upsampled_8x=self.scratch.refinenet3(path_4, layers[0]),
+                               target_output_shape=dpt_input.target_output_shape)

@@ -38,6 +38,8 @@ __all__ = [
     "set_conv3x3_impl",
     "get_gelu_mode",
     "set_gelu_mode",
+    "use_fused_attn",
+    "set_fused_attn",
 ]
 
 _VALID_IMPLS = ("kernel", "fused", "naive")
@@ -97,3 +99,13 @@ def set_gelu_mode(mode: str):
     if mode not in ("exact", "tanh"):
         raise ValueError(f"Invalid gelu mode {mode!r}")
     _GELU_MODE = mode
+
+
+def use_fused_attn() -> bool:
+    "True when a kernel implementation (not 'naive') is selected: the reference's and the JAX package's shim."
+    return _ATTN_IMPL != "naive"
+
+
+def set_fused_attn(enable: bool = True):
+    "Select the kernels ('kernel') or every kernel's plain version ('naive'), mirroring the reference API."
+    set_attention_impl("kernel" if enable else "naive")

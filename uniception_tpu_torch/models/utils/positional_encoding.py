@@ -4,7 +4,7 @@ Patch-position helper (counterpart of uniception_tpu/models/utils/positional_enc
 
 import torch
 
-__all__ = ["make_patch_positions"]
+__all__ = ["PositionGetter", "make_patch_positions"]
 
 
 def make_patch_positions(batch_size: int, height: int, width: int, device=None, dtype=torch.int32) -> torch.Tensor:
@@ -17,3 +17,10 @@ def make_patch_positions(batch_size: int, height: int, width: int, device=None, 
     x = torch.arange(width, dtype=dtype, device=device)
     pos = torch.cartesian_prod(y, x).reshape(height * width, 2)
     return pos[None].expand(batch_size, height * width, 2)
+
+
+class PositionGetter:
+    "Callable wrapper matching the reference's PositionGetter API: (b, h, w, device) -> (b, h * w, 2) positions."
+
+    def __call__(self, b: int, h: int, w: int, device=None) -> torch.Tensor:
+        return make_patch_positions(b, h, w, device=device)

@@ -5,7 +5,9 @@ Parity with the reference's block library (transformer_blocks.py): Mlp,
 SwiGLUFFN(Fused), LayerScale, DropPath, RMSNorm, Attention, CrossAttention,
 SelfAttentionBlock and CrossAttentionBlock, including qk-norm, dropout,
 stochastic depth and the scalable-softmax and entropy q-scalings
-(transformer_blocks.py:231-241). As in the JAX package, ``attn_drop`` is
+(transformer_blocks.py:231-241); and the differential attention family
+(DiffAttention, DiffCrossAttention and their blocks, arXiv:2410.05258;
+transformer_blocks.py:682-1045). As in the JAX package, ``attn_drop`` is
 accepted and not applied (no attention kernel drops probabilities).
 
 Dropout and stochastic depth draw their masks from the ``generator`` the
@@ -56,6 +58,11 @@ __all__ = [
     "CrossAttention",
     "SelfAttentionBlock",
     "CrossAttentionBlock",
+    "lambda_init_fn",
+    "DiffAttention",
+    "DiffCrossAttention",
+    "DiffSelfAttentionBlock",
+    "DiffCrossAttentionBlock",
     "make_norm_layer",
     "layer_norm_factory",
 ]
@@ -512,7 +519,7 @@ class CrossAttentionBlock(nn.Module):
     CroCo DecoderBlock (libs/croco/blocks.py:214-249).
 
     ``attn_kwargs`` are the further options of both attentions, as for :class:`SelfAttentionBlock`. The cross
-    tokens are normalized (norm_y).
+    tokens are normalized (norm_y) unless ``norm_cross_tokens`` is False.
     """
 
     def __init__(
@@ -529,6 +536,7 @@ class CrossAttentionBlock(nn.Module):
         act_layer: Callable = gelu_exact,
         norm_layer: Callable = make_norm_layer,
         mlp_layer: Callable = Mlp,
+        norm_cross_tokens: bool = True,
         *,
         device=None,
         dtype=None,
@@ -543,7 +551,7 @@ class CrossAttentionBlock(nn.Module):
         self.norm1 = norm_layer(dim, **norm)
         self.attn = Attention(dim, num_heads=num_heads, **sub, **attn)
         self.ls1, self.drop_path1 = _residual_branch(dim, init_values, drop_path, device, generator)
-        self.norm_y = norm_layer(dim, **norm)
+        self.norm_y = norm_layer(dim, **norm) if norm_cross_tokens else nn.Identity()
         self.norm2 = norm_layer(dim, **norm)
         self.cross_attn = CrossAttention(dim, num_heads=num_heads, **sub, **attn)
         self.ls2, self.drop_path2 = _residual_branch(dim, init_values, drop_path, device, generator)
@@ -563,3 +571,157 @@ class CrossAttentionBlock(nn.Module):
         y_ = self.norm_y(y)
         x = x + self.drop_path2(self.ls2(self.cross_attn(self.norm2(x), y_, y_, xpos, ypos)))
         return x + self.drop_path3(self.ls3(self.mlp(self.norm3(x))))
+
+
+def lambda_init_fn(depth: int) -> float:
+    "DiffTransformer's lambda schedule over the block depth (transformer_blocks.py:682-683)."
+    return 0.8 - 0.6 * math.exp(-0.3 * depth)
+
+
+class _DiffAttentionBase(nn.Module):
+    """What both differential attentions share (JAX nn/blocks.py:660-835): each of the ``num_heads`` heads splits
+    its q and k into two sub-heads of ``head_dim = dim // num_heads // 2``, the (B, N, 2H, Dh) split taken as the
+    first and second halves of the 2H axis (the reference's ``chunk(2)`` after its view), while v keeps (B, N, H,
+    2 Dh). The two softmaxes share v: a1 - lambda a2 with lambda = exp(lambda_q1 . lambda_k1) - exp(lambda_q2 .
+    lambda_k2) + lambda_init, then RMSNorm over 2 Dh (eps 1e-5) and the (1 - lambda_init) scale. The positional
+    encoding (RoPE) rotates the Dh sub-heads. The four lambda vectors are fp32 parameters; lambda is cast to the
+    compute dtype after its exponentials. The attentions (Dv = 2 Dq) take the einsum path of ops/attention.py, as
+    in the JAX package, which routes Dv != Dq to XLA's einsum."""
+
+    def __init__(self, dim, depth, num_heads, qk_norm, attn_drop, proj_drop, norm_layer, custom_positional_encoding,
+                 device, dtype, generator):
+        super().__init__()
+        if dim % num_heads != 0:
+            raise ValueError("dim should be divisible by num_heads")
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads // 2
+        self.scale = self.head_dim**-0.5
+        self.q_norm = norm_layer(self.head_dim, device=device, dtype=dtype) if qk_norm else nn.Identity()
+        self.k_norm = norm_layer(self.head_dim, device=device, dtype=dtype) if qk_norm else nn.Identity()
+        self.attn_drop = attn_drop  # accepted and not applied, as in the JAX package
+        self.proj = LinearX(dim, dim, device=device, dtype=dtype, generator=generator)
+        self.proj_drop = _dropout(proj_drop, generator)
+        self.custom_positional_encoding = custom_positional_encoding
+        self.lambda_init = lambda_init_fn(depth)
+        for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+            param = torch.empty(self.head_dim, device=device)
+            nn.init.normal_(param, 0.0, 0.1, generator=generator)
+            setattr(self, name, nn.Parameter(param))
+        self.subln = RMSNorm(2 * self.head_dim, eps=1e-5, elementwise_affine=True, device=device)
+
+    def _lambda_full(self, dt: torch.dtype) -> torch.Tensor:
+        l1 = torch.exp((self.lambda_q1.float() * self.lambda_k1.float()).sum()).to(dt)
+        l2 = torch.exp((self.lambda_q2.float() * self.lambda_k2.float()).sum()).to(dt)
+        return l1 - l2 + self.lambda_init
+
+    def _attend(self, q, k, v, qpos, kpos):
+        "q, k: (B, N, 2H, Dh); v: (B, Nk, H, 2 Dh) -> (B, Nq, H * 2 Dh) after the projection."
+        q, k = self.q_norm(q), self.k_norm(k)
+        if self.custom_positional_encoding is not None:
+            if qpos is None or kpos is None:
+                raise ValueError("positions are required when using custom positional encoding")
+            q = self.custom_positional_encoding(q, qpos)
+            k = self.custom_positional_encoding(k, kpos)
+        H = self.num_heads
+        a1 = scaled_dot_product_attention(q[:, :, :H], k[:, :, :H], v, scale=self.scale)
+        a2 = scaled_dot_product_attention(q[:, :, H:], k[:, :, H:], v, scale=self.scale)
+        attn = self.subln(a1 - self._lambda_full(q.dtype) * a2) * (1 - self.lambda_init)
+        B, N = attn.shape[:2]
+        return self.proj_drop(self.proj(attn.reshape(B, N, H * 2 * self.head_dim)))
+
+
+class DiffAttention(_DiffAttentionBase):
+    """Differential self-attention (arXiv:2410.05258; transformer_blocks.py:686-804). As in the JAX package, the
+    output is transposed heads-last before the merge (the reference reshapes (B, H, N, 2 Dh) straight to (B, N, C),
+    which scrambles tokens across heads for more than one head; its cross variant transposes)."""
+
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        num_heads: int = 8,
+        qkv_bias: bool = False,
+        qk_norm: bool = False,
+        attn_drop: float = 0.0,
+        proj_drop: float = 0.0,
+        norm_layer: Callable = make_norm_layer,
+        custom_positional_encoding: Optional[Callable] = None,
+        *,
+        device=None,
+        dtype=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(dim, depth, num_heads, qk_norm, attn_drop, proj_drop, norm_layer, custom_positional_encoding,
+                         device, dtype, generator)
+        self.qkv = LinearX(dim, dim * 3, bias=qkv_bias, device=device, dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor, xpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, N, _ = x.shape
+        q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, 2 * self.head_dim).unbind(2)
+        sub = (B, N, 2 * self.num_heads, self.head_dim)
+        return self._attend(q.reshape(sub), k.reshape(sub), v, xpos, xpos)
+
+
+class DiffCrossAttention(_DiffAttentionBase):
+    "Differential cross-attention (transformer_blocks.py:807-945)."
+
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        num_heads: int = 8,
+        qkv_bias: bool = False,
+        qk_norm: bool = False,
+        attn_drop: float = 0.0,
+        proj_drop: float = 0.0,
+        norm_layer: Callable = make_norm_layer,
+        custom_positional_encoding: Optional[Callable] = None,
+        *,
+        device=None,
+        dtype=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(dim, depth, num_heads, qk_norm, attn_drop, proj_drop, norm_layer, custom_positional_encoding,
+                         device, dtype, generator)
+        lin = dict(bias=qkv_bias, device=device, dtype=dtype, generator=generator)
+        self.projq = LinearX(dim, dim, **lin)
+        self.projk = LinearX(dim, dim, **lin)
+        self.projv = LinearX(dim, dim, **lin)
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        qpos: Optional[torch.Tensor] = None,
+        kpos: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        H, Dh = self.num_heads, self.head_dim
+        q = self.projq(query).reshape(*query.shape[:2], 2 * H, Dh)
+        k = self.projk(key).reshape(*key.shape[:2], 2 * H, Dh)
+        v = self.projv(value).reshape(*value.shape[:2], H, 2 * Dh)
+        return self._attend(q, k, v, qpos, kpos)
+
+
+_DIFF_KEYS = ("qkv_bias", "qk_norm", "attn_drop", "proj_drop", "norm_layer", "custom_positional_encoding")
+
+
+class DiffSelfAttentionBlock(SelfAttentionBlock):
+    "Self-attention block with differential attention (transformer_blocks.py:948-994); ``depth`` sets its lambda."
+
+    def __init__(self, dim, depth, num_heads, *, device=None, dtype=None, generator: Optional[torch.Generator] = None,
+                 **kw):
+        super().__init__(dim=dim, num_heads=num_heads, device=device, dtype=dtype, generator=generator, **kw)
+        self.attn = DiffAttention(dim, depth, num_heads=num_heads, device=device, dtype=dtype, generator=generator,
+                                  **{k: kw[k] for k in _DIFF_KEYS if k in kw})
+
+
+class DiffCrossAttentionBlock(CrossAttentionBlock):
+    """Cross-attention block whose cross-attention is differential (transformer_blocks.py:997-1045); the
+    self-attention stays :class:`Attention`. ``depth`` sets the lambda."""
+
+    def __init__(self, dim, depth, num_heads, *, device=None, dtype=None, generator: Optional[torch.Generator] = None,
+                 **kw):
+        super().__init__(dim=dim, num_heads=num_heads, device=device, dtype=dtype, generator=generator, **kw)
+        self.cross_attn = DiffCrossAttention(dim, depth, num_heads=num_heads, device=device, dtype=dtype,
+                                             generator=generator, **{k: kw[k] for k in _DIFF_KEYS if k in kw})

@@ -1,9 +1,10 @@
 """
 DPT internals (counterpart of uniception_tpu/nn/dpt_parts.py): the scratch
-projection convs, residual conv units, feature fusion blocks and the
-nonlinearity factory (reference uniception/models/libs/croco/dpt_block.py:
-make_scratch :21-81, ResidualConvUnit_custom :114-178,
-FeatureFusionBlock_custom :180-256, make_nonlinearity :258-274).
+projection convs, residual conv units (with or without batch norm), feature
+fusion blocks, the nonlinearity factory and the MultiMAE-style DPT output
+adapter (reference uniception/models/libs/croco/dpt_block.py: make_scratch
+:21-81, ResidualConvUnit_custom :114-178, FeatureFusionBlock_custom :180-256,
+make_nonlinearity :258-274, DPTOutputAdapter :326-530).
 
 Activations are NCHW tensors kept in ``channels_last`` memory (the JAX DPT runs
 NHWC), so the 3x3 conv kernel (K7, ops/conv3x3.py) reads them as NHWC without
@@ -33,7 +34,15 @@ __all__ = [
     "ConvTranspose2dTorch",
     "Seq",
     "Interpolate2x",
+    "BatchNorm",
+    "Elementwise",
+    "DPTOutputAdapter",
+    "DPT_ADAPTER_CHECKPOINT_ALIASES",
 ]
+
+# DPTOutputAdapter's canonical keys are scratch.layer{i}_rn and act_{i}_postprocess; the reference torch module also
+# aliases them as scratch.layer_rn.{i-1} and act_postprocess.{i-1} (dpt_block.py:71,488), which these patterns name.
+DPT_ADAPTER_CHECKPOINT_ALIASES = (r"scratch\.layer_rn\.", r"(^|\.)act_postprocess\.")
 
 # Sequential whose children sit at "0", "1", ...: the reference's nn.Sequential keys.
 Seq = nn.Sequential
@@ -130,7 +139,7 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride)
 
 
-class _Elementwise(nn.Module):
+class Elementwise(nn.Module):
     "A parameter-free activation as a module, so that it can sit in a Sequential."
 
     def __init__(self, fn, name: str):
@@ -144,8 +153,8 @@ class _Elementwise(nn.Module):
         return self.name
 
 
-def make_nonlinearity(nonlinearity: str) -> nn.Module:
-    "Activation factory (dpt_block.py:258-274)."
+def make_nonlinearity(nonlinearity: str, dim=None, on_channels: bool = False) -> nn.Module:
+    "Activation factory (dpt_block.py:258-274); ``dim`` and ``on_channels`` are accepted and unused, as in JAX."
     fns = {
         "relu": F.relu,
         "sine": torch.sin,
@@ -157,24 +166,48 @@ def make_nonlinearity(nonlinearity: str) -> nn.Module:
     }
     if nonlinearity not in fns:
         raise ValueError(f"Unknown nonlinearity: {nonlinearity}")
-    return _Elementwise(fns[nonlinearity], nonlinearity)
+    return Elementwise(fns[nonlinearity], nonlinearity)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nnx.BatchNorm(use_running_average=True)``: always the running statistics, in training too; epsilon 1e-5;
+    computed in fp32, the output in the compute ``dtype`` (None: the input's). Keys are torch's (weight, bias,
+    running_mean, running_var, num_batches_tracked)."""
+
+    def __init__(self, features: int, *, dtype=None, device=None):
+        super().__init__(features, eps=1e-5, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or x.dtype
+        out = F.batch_norm(x.float(), self.running_mean.float(), self.running_var.float(), self.weight.float(),
+                           self.bias.float(), False, 0.0, self.eps)
+        return out.to(dt)
 
 
 class ResidualConvUnit(nn.Module):
-    "act-conv-act-conv + skip (dpt_block.py:114-178)."
+    "act-conv(-bn)-act-conv(-bn) + skip (dpt_block.py:114-178); with ``bn`` the convs have no bias."
 
     def __init__(self, features: int, activation: nn.Module, bn: bool, *, dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if bn:
-            raise NotImplementedError("batch norm in the DPT residual units is not ported (unused by DUSt3R)")
         kw = dict(dtype=dtype, device=device, generator=generator)
-        self.conv1 = Conv2dTorch(features, features, 3, 1, 1, bias=True, **kw)
-        self.conv2 = Conv2dTorch(features, features, 3, 1, 1, bias=True, **kw)
+        self.bn = bn
+        self.conv1 = Conv2dTorch(features, features, 3, 1, 1, bias=not bn, **kw)
+        self.conv2 = Conv2dTorch(features, features, 3, 1, 1, bias=not bn, **kw)
+        if bn:
+            self.bn1 = BatchNorm(features, dtype=dtype, device=device)
+            self.bn2 = BatchNorm(features, dtype=dtype, device=device)
         self.activation = activation
 
     def forward(self, x):
-        return self.conv2(self.activation(self.conv1(self.activation(x)))) + x
+        out = self.conv1(self.activation(x))
+        if self.bn:
+            out = self.bn1(out)
+        out = self.conv2(self.activation(out))
+        if self.bn:
+            out = self.bn2(out)
+        return out + x
 
 
 class FeatureFusionBlock(nn.Module):
@@ -225,3 +258,110 @@ class Interpolate2x(nn.Module):
 
     def forward(self, x):
         return F.interpolate(x, scale_factor=self.scale_factor, mode=self.mode, align_corners=self.align_corners)
+
+
+class DPTOutputAdapter(nn.Module):
+    """MultiMAE-style DPT output adapter (dpt_block.py:326-530; JAX nn/dpt_parts.py:237).
+
+    Hooks four of a list of per-depth encoder token tensors (B, N, C), reshapes each to its token grid, resizes it
+    through its ``act_{i}_postprocess`` (4x deconv / 2x deconv / identity / stride-2 conv), projects it with
+    ``scratch.layer{i}_rn``, fuses coarse to fine through four refinenets and applies the "regression" or "semseg"
+    output head. Returns NCHW. The resizers depend on the encoder's width and are built by :meth:`init` (or at
+    construction with ``dim_tokens_enc``). Keys are the reference's canonical ones; its aliases are
+    :data:`DPT_ADAPTER_CHECKPOINT_ALIASES`.
+    """
+
+    def __init__(
+        self,
+        num_channels: int = 1,
+        stride_level: int = 1,
+        patch_size=16,
+        main_tasks=("rgb",),
+        hooks=(2, 5, 8, 11),
+        layer_dims=(96, 192, 384, 768),
+        feature_dim: int = 256,
+        last_dim: int = 32,
+        use_bn: bool = False,
+        dim_tokens_enc: Optional[int] = None,
+        head_type: str = "regression",
+        output_width_ratio=1,
+        nonlinearity: str = "relu",
+        *,
+        dtype=None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+        **_ignore,
+    ):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.num_channels = num_channels
+        self.stride_level = stride_level
+        self.patch_size = (patch_size, patch_size) if isinstance(patch_size, int) else tuple(patch_size)
+        self.main_tasks = tuple(main_tasks)
+        self.hooks = list(hooks)
+        self.layer_dims = list(layer_dims)
+        self.feature_dim = feature_dim
+        self.head_type = head_type
+        self.dim_tokens_enc = None
+        self.P_H = max(1, self.patch_size[0] // stride_level)
+        self.P_W = max(1, self.patch_size[1] // stride_level)
+
+        self.scratch = nn.Module()
+        convs = make_scratch_convs(self.layer_dims, feature_dim, **kw)
+        self.scratch.layer1_rn, self.scratch.layer2_rn, self.scratch.layer3_rn, self.scratch.layer4_rn = convs
+        for i in range(1, 5):
+            setattr(self.scratch, f"refinenet{i}",
+                    make_fusion_block(feature_dim, use_bn, output_width_ratio, nonlinearity, **kw))
+        if head_type == "regression":
+            self.head = Seq(
+                Conv2dTorch(feature_dim, feature_dim // 2, 3, 1, 1, **kw),
+                Interpolate2x(2, "bilinear", True),
+                Conv2dTorch(feature_dim // 2, last_dim, 3, 1, 1, **kw),
+                make_nonlinearity(nonlinearity, dim=last_dim),
+                Conv2dTorch(last_dim, num_channels, 1, 1, 0, **kw),
+            )
+        elif head_type == "semseg":
+            self.head = Seq(
+                Conv2dTorch(feature_dim, feature_dim, 3, 1, 1, bias=False, **kw),
+                BatchNorm(feature_dim, dtype=dtype, device=device) if use_bn else nn.Identity(),
+                make_nonlinearity(nonlinearity, dim=feature_dim),
+                nn.Identity(),  # the reference's Dropout(0.1), a no-op at inference
+                Conv2dTorch(feature_dim, num_channels, 1, 1, 0, **kw),
+                Interpolate2x(2, "bilinear", True),
+            )
+        else:
+            raise ValueError('DPT head_type must be "regression" or "semseg".')
+        if dim_tokens_enc is not None:
+            self.init(dim_tokens_enc=dim_tokens_enc, dtype=dtype, device=device, generator=generator)
+
+    def init(self, dim_tokens_enc=768, *, dtype=None, device=None, generator: Optional[torch.Generator] = None):
+        "Build the encoder-width-dependent resizers act_{1..4}_postprocess (dpt_block.py:408-490)."
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        if isinstance(dim_tokens_enc, int):
+            dim_tokens_enc = 4 * [dim_tokens_enc]
+        self.dim_tokens_enc = [dt * len(self.main_tasks) for dt in dim_tokens_enc]
+        d, ld = self.dim_tokens_enc, self.layer_dims
+        self.act_1_postprocess = Seq(Conv2dTorch(d[0], ld[0], 1, 1, 0, **kw),
+                                     ConvTranspose2dTorch(ld[0], ld[0], 4, 4, **kw))
+        self.act_2_postprocess = Seq(Conv2dTorch(d[1], ld[1], 1, 1, 0, **kw),
+                                     ConvTranspose2dTorch(ld[1], ld[1], 2, 2, **kw))
+        self.act_3_postprocess = Seq(Conv2dTorch(d[2], ld[2], 1, 1, 0, **kw))
+        self.act_4_postprocess = Seq(Conv2dTorch(d[3], ld[3], 1, 1, 0, **kw), Conv2dTorch(ld[3], ld[3], 3, 2, 1, **kw))
+
+    def forward(self, encoder_tokens, image_size) -> torch.Tensor:
+        "encoder_tokens: a list of (B, N, C); image_size: (H, W). Returns NCHW."
+        if self.dim_tokens_enc is None:
+            raise RuntimeError("Need to call init(dim_tokens_enc) first")
+        H, W = image_size
+        n_h, n_w = H // (self.stride_level * self.P_H), W // (self.stride_level * self.P_W)
+        posts = [self.act_1_postprocess, self.act_2_postprocess, self.act_3_postprocess, self.act_4_postprocess]
+        rn = [self.scratch.layer1_rn, self.scratch.layer2_rn, self.scratch.layer3_rn, self.scratch.layer4_rn]
+        layers = []
+        for hook, post, conv in zip(self.hooks, posts, rn):
+            t = encoder_tokens[hook]
+            t = t.reshape(t.shape[0], n_h, n_w, t.shape[-1]).permute(0, 3, 1, 2)
+            layers.append(conv(post(t.contiguous(memory_format=torch.channels_last))))
+        s = self.scratch
+        path_3 = s.refinenet3(s.refinenet4(layers[3]), layers[2])
+        path_1 = s.refinenet1(s.refinenet2(path_3, layers[1]), layers[0])
+        return self.head(path_1)
