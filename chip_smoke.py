@@ -187,6 +187,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                the plain path, pairs/s, device ms and peak memory; K2 at the
                differential sub-head shapes beside its plain version and the
                bound.
+   38. cosmos K1: K1 at D = 512 (the Cosmos tokenizer's single-head mid-block
+               attention) at (2, 4096), (1, 16384), (2, 1024) and a ragged
+               (2, 4100) tokens, bf16 in ulps with the last key tile dropped
+               as the control and fp32, with and without the logsumexp,
+               beside the plain version, SDPA (each backend that takes D =
+               512 timed alone, the default's named) and the bound;
+   39. cosmos: the CI and DI tokenizers through ImageTokenizer at their
+               published widths: CI8x8 and CI16x16 at 512 x 2 in bf16 (K7)
+               and fp32, CI8x8 at 1024 x 1 and DI16x16 at 512 x 2 in bf16,
+               against the plain path with exact launches (K1 2; K7 39 at
+               CI8x8, 40 at CI16x16, 42 at DI16x16 per autoencode) and every
+               K7 and K1 call held against its plain version, the
+               reconstructions no farther from the fp32 path than the plain
+               path's, the DI indices that flip, images/s, device ms and peak
+               memory; K7 at the tokenizers' conv shapes beside cuDNN and the
+               bound; the image CLI once on a PNG;
+   40. cosmos encoder and head: encoder_factory("cosmos") at CI8x8 and
+               CI16x16, 512 x 2, bf16 (K1 1, K7 16), and CosmosFeature 768 -> 3
+               (three CI16x16 decoders: K1 3, K7 72) into
+               FlowWithConfidenceAdaptor, each against the plain path with
+               exact launches, images/s and device ms.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -3339,6 +3360,365 @@ def phase_diff(torch, np, serve, config, rope_mod, counters, card, DUSt3R):
     return total, main
 
 
+# --- the Cosmos image tokenizer (phases 38-40) ----------------------------------------------------------------------
+
+COSMOS_D = 512  # the mid blocks' single attention head: D = C = 512
+# K1 at D = 512: (name, B, N) at the tokenizers' shapes (CI8x8 at 512: a 64^2 grid; CI8x8 at 1024: 128^2; CI16x16 at
+# 512: 32^2) and a ragged N. bf16 in ulps of max(|plain|, 1/64) (K1_MV_ULPS), the plain version without the last key
+# tile (64 keys, or the ragged 4) as the control (K1_MV_CONTROL_ULPS); fp32 max abs (K1_FP32_TOL).
+COSMOS_K1_SHAPES = [("CI8x8 512", 2, 4096), ("CI8x8 1024", 1, 16384), ("CI16x16 512", 2, 1024), ("ragged", 2, 4100)]
+# ||kernel path - plain path|| / ||plain path|| of the latents (and DI's codes): bf16 (K7 and K1 against their plain
+# versions, rounded to bf16 at other places through the encoder's 16 K7 convs) and fp32 (cuDNN without TF32 on both
+# paths, K1 fp32). The fp32 bar holds the reconstructions too.
+COSMOS_REL_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+# bf16 reconstructions. Behind 39-42 convs two bf16 paths that differ only in summation order land apart by about
+# the bf16 rung's own distance from the fp32 path: measured on an H100 80GB HBM3 (700 W), CI8x8 at 512, the plain
+# path 2.040e-2 from the fp32 plain path, the kernel path 2.046e-2, the two 2.177e-2 apart (CI16x16: 2.579e-2,
+# 2.603e-2, 2.613e-2), with every K7 call within 1 ulp and every K1 call within 3 ulps of its plain version on the
+# same activations. So a reconstruction is held as the heads behind K7 are (phase 36's K7_HEADS_REL_TOL) and, what
+# matters, no farther from the fp32 path than the plain bf16 path is, within COSMOS_RUNG_SLACK.
+COSMOS_REC_REL_TOL = K7_HEADS_REL_TOL
+COSMOS_RUNG_SLACK = 1.1
+# (tokenizer, spatial compression, image side, batch, dtype) of phase 39
+COSMOS_RUNS = [("CI", 8, 512, 2, "bf16"), ("CI", 8, 512, 2, "fp32"), ("CI", 16, 512, 2, "bf16"),
+               ("CI", 16, 512, 2, "fp32"), ("CI", 8, 1024, 1, "bf16"), ("DI", 16, 512, 2, "bf16")]
+# K7 launches of one bf16 encoder and decoder by (tokenizer, compression): 16 and 23 at CI8x8, one more Upsample conv
+# at 16x16; DI's 256-channel latent (CI's has 16) also puts the encoder's conv_out (512 -> 256) and the decoder's
+# conv_in (256 -> 512) on K7
+COSMOS_K7 = {("CI", 8): (16, 23), ("CI", 16): (16, 24), ("DI", 16): (17, 25)}
+# (name, B, H = W, C, Co) of the tokenizers' K7 convs: CI8x8's at 512 (encoder 128^2 and 64^2 levels, decoder
+# 128^2), and the 256^2 level at 1024
+COSMOS_K7_SHAPES = [("enc 128^2 128->256", 2, 128, 128, 256), ("enc 128^2 256->256", 2, 128, 256, 256),
+                    ("enc 64^2 256->512", 2, 64, 256, 512), ("enc 64^2 512->512", 2, 64, 512, 512),
+                    ("dec 128^2 512->512", 2, 128, 512, 512), ("dec 128^2 512->256", 2, 128, 512, 256),
+                    ("enc 256^2 128->256 (1024)", 1, 256, 128, 256)]
+
+
+def sdpa_backends(torch, q, k, v):
+    """SDPA's backends that take (q, k, v), each alone under ``sdpa_kernel`` and timed by CUDA graphs: {name: ms}.
+    The default call runs one of them, the one whose time it matches."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                sdpa(q, k, v)
+                torch.cuda.synchronize()
+                times[backend.name.lower()] = graph_ms(torch, lambda: sdpa(q, k, v), iters=5)
+        except RuntimeError:  # this backend does not take the inputs (flash: D <= 256)
+            pass
+    return times
+
+
+def phase_cosmos_k1(torch, fa, card):
+    """K1 at D = 512 (the tokenizer's mid-block attention, one head) at COSMOS_K1_SHAPES, q, k and v strided views of
+    one (B, N, 3, 1, 512) tensor: bf16 in ulps with the dropped-tile control, fp32 max abs, each with and without the
+    logsumexp; timed by CUDA-graph replay beside the plain version, SDPA (each of its backends that takes the inputs
+    timed alone, so the default call's is named) and the bound. Returns (worst bf16 max abs, the timing at (2, 4096, 1, 512))."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
+    worst, main = 0.0, None
+    for name, B, N in COSMOS_K1_SHAPES:
+        lost = N % fa.WIDE_ROWS or fa.WIDE_ROWS  # the last key tile of K1 at D = 512
+        qkv = torch.randn(B, N, 3, 1, COSMOS_D, device="cuda", generator=gen)
+        q32, k32, v32 = qkv.unbind(2)
+        out32, lse32 = fa.flash_attention_fwd(q32, k32, v32, with_lse=True)
+        ref32, ref_lse32 = fa.flash_attention_lse_ref(q32, k32, v32)
+        err32 = (out32 - ref32).abs().max().item()
+        lse_err32 = (lse32 - ref_lse32).abs().max().item()
+        require(torch.equal(out32, fa.flash_attention_fwd(q32, k32, v32)[0]), f"38 K1 {name} fp32: the LSE changed o")
+        del out32, ref32, ref_lse32, lse32
+        f32_ms = graph_ms(torch, lambda: fa.flash_attention(q32, k32, v32), iters=5)
+        f32_plain_ms = graph_ms(torch, lambda: fa.flash_attention_ref(q32, k32, v32), iters=3)
+        f32_lib_ms = graph_ms(torch, lambda: sdpa(q32, k32, v32), iters=5)
+        q, k, v = qkv.bfloat16().unbind(2)
+        del qkv, q32, k32, v32
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        ref, ref_lse = fa.flash_attention_lse_ref(q, k, v)
+        require(torch.isfinite(out).all().item() and torch.equal(out, fa.flash_attention_fwd(q, k, v)[0]),
+                f"38 K1 {name}: non-finite, or the LSE changed o")
+        ulps = _ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR)
+        control = _ulps(fa.flash_attention_ref(q, k[:, :-lost], v[:, :-lost]), ref, 7, floor=K1_MV_ULP_FLOOR)
+        err16 = (out.float() - ref.float()).abs().max().item()
+        lse_err16 = (lse - ref_lse).abs().max().item()
+        del out, ref, lse, ref_lse
+        worst = max(worst, err16)
+        require(ulps <= K1_MV_ULPS, f"38 K1 {name}: {ulps} ulps of max(|plain|, 1/64) > {K1_MV_ULPS}")
+        require(control >= K1_MV_CONTROL_ULPS, f"38 K1 {name}: the control (last {lost} keys dropped) is {control} "
+                f"ulps away, under {K1_MV_CONTROL_ULPS}: the bar cannot see a lost key tile")
+        require(err32 <= K1_FP32_TOL, f"38 K1 {name}: fp32 max abs {err32} > {K1_FP32_TOL}")
+        require(lse_err16 <= LSE_TOL["bf16"] and lse_err32 <= LSE_TOL["fp32"], f"38 K1 {name}: logsumexp "
+                f"{lse_err16} / {lse_err32}")
+        ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v))
+        plain_ms = graph_ms(torch, lambda: fa.flash_attention_ref(q, k, v), iters=5)
+        lib_ms = graph_ms(torch, lambda: sdpa(q, k, v))
+        alone = sdpa_backends(torch, q, k, v)
+        backend = min(alone, key=lambda name: abs(alone[name] - lib_ms))
+        b = attention_bound(B, N, N, 1, COSMOS_D)
+        b32 = bound({"fp32": 4 * B * N * N * COSMOS_D}, 4 * N * B * COSMOS_D * 4)
+        tflops = 4 * B * N * N * COSMOS_D / 1e9
+        print(f"[38 K1] {name} ({B},{N},1,{COSMOS_D}): bf16 {ulps:.2f} ulps of max(|plain|, 1/64) vs plain (tol "
+              f"{K1_MV_ULPS}; max abs {err16:.2e}), the plain version without its last {lost} keys {control:.1f} ulps "
+              f"(>= {K1_MV_CONTROL_ULPS}); fp32 max abs {err32:.2e} (tol {K1_FP32_TOL}); logsumexp max abs bf16 "
+              f"{lse_err16:.2e}, fp32 {lse_err32:.2e}; bf16 {ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (its {backend} backend; each backend that takes D = 512 "
+              f"alone: {({name: round(t, 4) for name, t in alone.items()})}), bound "
+              f"{b[0]:.4f} ms ({b[1]}), share of the bound {b[0] / ms:.3f}; fp32 {f32_ms:.4f} ms, plain "
+              f"{f32_plain_ms:.4f} ms, SDPA {f32_lib_ms:.4f} ms, its bound {b32[0]:.4f} ms ({b32[1]}) (CUDA graphs) "
+              f"on {card}")
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b, backend=backend,
+                        fp32=dict(ms=f32_ms, plain_ms=f32_plain_ms, library_ms=f32_lib_ms, bound=b32))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return worst, main
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def cosmos_calls_checked(torch, fa, c3, record):
+    """A context in which every K7 and K1 call of the Cosmos path is held against its plain version on the same
+    activations: K7 in bf16 ulps at |plain| >= 1/16 (K7_ULPS), K1 in bf16 ulps of max(|plain|, 1/64) (K1_MV_ULPS) or
+    fp32 max abs (K1_FP32_TOL). ``record`` collects the worst of each; the launches count as before."""
+    import contextlib
+
+    import uniception_tpu_torch.nn.dpt_parts as dpt_parts
+    import uniception_tpu_torch.ops.attention as attention
+
+    conv, attn = dpt_parts.conv3x3_nhwc, attention.flash_attention
+
+    def conv_checked(x, w, b):
+        out = conv(x, w, b)
+        record["K7"] = max(record.get("K7", 0.0), _ulps(out, c3.conv3x3_reference(x, w, b), 7, floor=1 / 16))
+        return out
+
+    def attn_checked(q, k, v, scale=None):
+        out, ref = attn(q, k, v, scale), fa.flash_attention_ref(q, k, v, scale)
+        err = (_ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR) if q.dtype == torch.bfloat16 else
+               (out - ref).abs().max().item())
+        record["K1"] = max(record.get("K1", 0.0), err)
+        return out
+
+    @contextlib.contextmanager
+    def checked():
+        dpt_parts.conv3x3_nhwc, attention.flash_attention = conv_checked, attn_checked
+        try:
+            yield
+        finally:
+            dpt_parts.conv3x3_nhwc, attention.flash_attention = conv, attn
+
+    return checked()
+
+
+def phase_cosmos_tokenizers(torch, F, np, config, fa, c3, counters, card):
+    """The CI and DI tokenizers through ImageTokenizer at COSMOS_RUNS (seed 0, synthetic images in [-1, 1], the
+    published widths, nothing cut): one autoencode with exact launches (K1 2 and COSMOS_K7's K7 in bf16, no K7 in
+    fp32) and every K7 and K1 call held against its plain version on the same activations; the kernel path against
+    the plain path (attention "naive": K1 and K7 on their plain versions) on the same weights: latents (DI: codes and
+    the indices that flip) within COSMOS_REL_TOL, reconstructions (DI: the decoder on the plain path's indices)
+    within COSMOS_REC_REL_TOL in bf16 and no farther from the fp32 plain path than the plain bf16 path is; images/s,
+    device ms and peak memory; K7 at the tokenizers' conv shapes beside cuDNN and the bound; the CLI once in a
+    subprocess on a PNG the phase writes. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from uniception_tpu_torch.models.libs.cosmos_tokenizer.image_lib import ImageTokenizer
+    from uniception_tpu_torch.utils.png import read_png, write_png
+
+    total = {k: 0 for k in counters}
+
+    def nrel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    for kind, comp, side, B, dt in COSMOS_RUNS:
+        tag = f"39 {kind}{comp}x{comp} {side} x{B} {dt}"
+        bf16 = dt == "bf16"
+        tok = ImageTokenizer(kind, comp, device="cuda", dtype=torch.bfloat16 if bf16 else None, seed=SEED)
+        x = torch.rand(B, 3, side, side, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 39)) * 2 - 1
+        config.set_conv3x3_impl("kernel" if bf16 else "torch")
+        try:
+            config.set_attention_impl("naive")
+            try:
+                plain_enc = tok.encode(x)
+                plain_auto = tok.autoencode(x)
+                # DI: the decoder alone, on the plain path's indices
+                plain_rec = plain_auto if kind == "CI" else tok.decode(plain_enc[0]).float().cpu().numpy()
+                exact = None
+                if bf16:  # the same weights in fp32 on the plain path: where the bf16 rung itself lands
+                    twin = ImageTokenizer(kind, comp, device="cuda", seed=SEED)
+                    exact = twin.autoencode(x) if kind == "CI" else twin.decode(plain_enc[0]).cpu().numpy()
+                    del twin
+                torch.cuda.synchronize()
+            finally:
+                config.set_attention_impl("kernel")
+            want = {**{k: 0 for k in counters}, "K1": 2, "K7": sum(COSMOS_K7[kind, comp]) if bf16 else 0}
+            calls = {}
+            with cosmos_calls_checked(torch, fa, c3, calls):
+                out = counted_forward(torch, counters, lambda: tok.autoencode(x), tag, want, total)
+            k1_bar = K1_MV_ULPS if bf16 else K1_FP32_TOL
+            print(f"[{tag}] every call against its plain version on the same activations: K7 {calls.get('K7', 0):.2f} "
+                  f"ulp (tol {K7_ULPS}), K1 {calls['K1']:.3g} {'ulps' if bf16 else 'max abs'} (tol {k1_bar})")
+            require(calls.get("K7", 0.0) <= K7_ULPS and calls["K1"] <= k1_bar, f"{tag}: calls {calls}")
+            require(out.shape == (B, 3, side, side) and np.isfinite(out).all(), f"{tag}: reconstruction {out.shape}")
+            tol = COSMOS_REL_TOL[dt]
+            enc = tok.encode(x)
+            if kind == "CI":
+                require(tuple(enc.shape) == (B, 16, side // comp, side // comp), f"{tag}: latent {tuple(enc.shape)}")
+                rel_lat = _rel(enc, plain_enc)
+                detail = f"latent {tuple(enc.shape)} {rel_lat:.3e} (tol {tol})"
+                require(rel_lat <= tol, f"{tag}: latent kernels vs plain {rel_lat} > {tol}")
+                rec, what = out, "reconstruction"
+            else:
+                idx, codes = enc
+                flips = (idx != plain_enc[0]).float().mean().item()
+                rel_codes = _rel(codes, plain_enc[1])
+                detail = (f"FSQ indices {tuple(idx.shape)}: {flips:.4%} flip; codes {rel_codes:.3e}; the "
+                          f"reconstruction through the flipped indices {nrel(out, plain_auto):.3e}")
+                rec, what = tok.decode(plain_enc[0]).float().cpu().numpy(), "decoder on the plain path's indices"
+            rel_rec = nrel(rec, plain_rec)
+            rec_tol = tol if exact is None else COSMOS_REC_REL_TOL
+            rung = ""
+            if exact is not None:
+                d_plain, d_kernel = nrel(plain_rec, exact), nrel(rec, exact)
+                rung = (f"; from the fp32 plain path: the plain path {d_plain:.3e}, the kernels {d_kernel:.3e} "
+                        f"(<= {COSMOS_RUNG_SLACK} x the plain path's)")
+                require(d_kernel <= COSMOS_RUNG_SLACK * d_plain, f"{tag}: the kernels land {d_kernel} from the fp32 "
+                        f"path, the plain path {d_plain}")
+            print(f"[{tag}] kernels vs plain path ||kernel - plain|| / ||plain||: {detail}; {what} {rel_rec:.3e} "
+                  f"(tol {rec_tol}){rung}; mean |recon - input| {np.abs(out - x.cpu().numpy()).mean():.4f}")
+            require(rel_rec <= rec_tol, f"{tag}: {what} kernels vs plain {rel_rec} > {rec_tol}")
+            forward_timing(torch, lambda: tok.autoencode(x), B, "images", f"{B} images per autoencode", tag, card)
+        finally:
+            config.set_conv3x3_impl("torch")
+        del tok, x, plain_enc, plain_auto, plain_rec, exact, out, rec, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 39)
+    for name, B, hw, C, Co in COSMOS_K7_SHAPES:
+        x = torch.randn(B, hw, hw, C, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(3, 3, C, Co, device="cuda", generator=gen) * (9 * C) ** -0.5).bfloat16()
+        b = torch.randn(Co, device="cuda", generator=gen) * 0.1
+        out, ref = c3.conv3x3_nhwc(x, w, b), c3.conv3x3_reference(x, w, b)
+        ulps = _ulps(out, ref, 7, floor=1 / 16)
+        require(ulps <= K7_ULPS and torch.equal(c3.conv3x3_nhwc(x, w, b), out), f"39 K7 {name}: {ulps} ulp")
+        ms, plain_ms = graph_ms(torch, lambda: c3.conv3x3_nhwc(x, w, b)), graph_ms(
+            torch, lambda: c3.conv3x3_reference(x, w, b), iters=5)
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        stock_ms = graph_ms(torch, lambda: F.conv2d(xc, wc, b.bfloat16(), padding=1))
+        flops = 2 * B * hw * hw * C * Co * 9
+        k7_bound = bound({"bf16": flops}, (x.numel() + w.numel() + B * hw * hw * Co) * 2 + Co * 4)
+        print(f"[39 K7] Cosmos {name:26s} {B}x{hw}x{hw}x{C} -> {Co}: {ulps:.2f} ulp (tol {K7_ULPS}); {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), cuDNN bf16 {stock_ms:.4f} ms ({ms / stock_ms:.3f}x), bound "
+              f"{k7_bound[0]:.4f} ms ({k7_bound[1]}), plain (fp32 conv) {plain_ms:.4f} ms (CUDA graphs) on {card}")
+        del x, w, b, out, ref
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_cosmos_", dir=REPO)
+    try:
+        src, dst = os.path.join(tmp, "in.png"), os.path.join(tmp, "out.png")
+        y, xx = np.mgrid[0:512, 0:512]
+        write_png(src, np.stack([xx // 2, y // 2, (xx + y) // 4], -1).astype(np.uint8))
+        cmd = [sys.executable, "-m", "uniception_tpu_torch.models.libs.cosmos_tokenizer.image_cli", "--image", src,
+               "--output", dst, "--tokenizer", "CI", "--spatial-compression", "8", "--dtype", "bfloat16"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0 and "recon (1, 3, 512, 512)" in proc.stdout and read_png(dst).shape ==
+                (512, 512, 3), f"39 CLI: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr[-2000:]}")
+        print(f"[39 CLI] {' '.join(cmd[2:4])} on a 512 x 512 PNG, bf16, on the card in {time.perf_counter() - t0:.1f} "
+              f"s (process start, build check, weights, one autoencode): {proc.stdout.strip().splitlines()[0]}; "
+              f"wrote a 512 x 512 PNG")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def phase_cosmos_encoder_and_head(torch, config, counters, card):
+    """The Cosmos encoder through encoder_factory at CI8x8 and CI16x16, 512, batch 2, bf16 (K1 1, K7 16 per forward),
+    and CosmosFeature(input_feature_dim=768, output_dim=3, patch_size=16) in bf16 over a 768-wide 32^2 map (DUSt3R's
+    decoder width): three CI16x16 decoders (K1 3, K7 72 per pass) into FlowWithConfidenceAdaptor. Each against the
+    plain path with exact launches, images/s, device ms and peak memory. Returns the launches."""
+    from uniception_tpu_torch.models.encoders import ViTEncoderInput, encoder_factory
+    from uniception_tpu_torch.models.prediction_heads import base as tbase
+    from uniception_tpu_torch.models.prediction_heads.cosmos import CLASSNAME_TO_ADAPTOR_CLASS, CosmosFeature
+
+    total = {k: 0 for k in counters}
+    bf16, tol = torch.bfloat16, COSMOS_REL_TOL["bf16"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    x = torch.rand(BATCH, 3, IMG, IMG, device="cuda", generator=gen) * 2 - 1
+    config.set_conv3x3_impl("kernel")
+    try:
+        for patch in (8, 16):
+            tag = f"40 encoder_factory cosmos CI{patch}x{patch} {IMG} x{BATCH} bf16"
+            enc = encoder_factory("cosmos", name=f"cosmos_ci{patch}x{patch}", patch_size=patch, device="cuda",
+                                  seed=SEED, dtype=bf16).eval()
+            inp = ViTEncoderInput(image=x, data_norm_type="cosmos")
+
+            def fwd():
+                with torch.inference_mode():
+                    return enc(inp).features
+
+            config.set_attention_impl("naive")
+            try:
+                plain = fwd()
+            finally:
+                config.set_attention_impl("kernel")
+            out = counted_forward(torch, counters, fwd, tag, {**{k: 0 for k in counters}, "K1": 1,
+                                                              "K7": COSMOS_K7["CI", patch][0]}, total)
+            rel = _rel(out, plain)
+            print(f"[{tag}] features {tuple(out.shape)}: kernels vs plain path {rel:.3e} (tol {tol})")
+            require(tuple(out.shape) == (BATCH, 16, IMG // patch, IMG // patch) and torch.isfinite(out).all().item()
+                    and rel <= tol, f"{tag}: {tuple(out.shape)}, {rel}")
+            forward_timing(torch, fwd, BATCH, "images", f"{BATCH} images per forward", tag, card)
+            del enc, out, plain
+            torch.cuda.empty_cache()
+
+        tag = f"40 CosmosFeature 768 -> 3 (CI16x16) over a 32^2 map x{BATCH} bf16"
+
+        def build_head(dtype):  # the same weights for the bf16 head and its fp32 twin
+            return CosmosFeature(input_feature_dim=DEC_DIM, output_dim=3, patch_size=16, device="cuda", dtype=dtype,
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED + 41)).eval()
+
+        head = build_head(bf16)
+        adaptor = CLASSNAME_TO_ADAPTOR_CLASS["FlowWithConfidenceAdaptor"](
+            "flow", (0.0, 0.0), (1.0, 1.0), (IMG, IMG), "none", False, "exp", 1.0, float("inf"))
+        feat = torch.randn(BATCH, DEC_DIM, 32, 32, device="cuda", generator=gen).bfloat16()
+
+        def head_fwd(mod=head, inp=feat):
+            with torch.inference_mode():
+                decoded = mod(tbase.PredictionHeadInput(last_feature=inp))[0].decoded_channels
+                return decoded, adaptor(tbase.AdaptorInput(adaptor_feature=decoded, output_shape_hw=(IMG, IMG)))
+
+        config.set_attention_impl("naive")
+        try:
+            plain, plain_flow = head_fwd()
+            exact = head_fwd(build_head(None), feat.float())[0]  # fp32 on the plain path: where bf16 itself lands
+        finally:
+            config.set_attention_impl("kernel")
+        out, flow = counted_forward(torch, counters, head_fwd, tag, {**{k: 0 for k in counters}, "K1": 3,
+                                                                      "K7": 3 * COSMOS_K7["CI", 16][1]}, total)
+        rels = {"decoded": _rel(out, plain), "flow": _rel(flow.value, plain_flow.value),
+                "confidence": _rel(flow.confidence, plain_flow.confidence)}
+        d_plain, d_kernel = _rel(plain, exact), _rel(out, exact)
+        print(f"[{tag}] decoded {tuple(out.shape)}, flow {tuple(flow.value.shape)}, confidence "
+              f"{tuple(flow.confidence.shape)}: kernels vs plain path {({k: f'{v:.3e}' for k, v in rels.items()})} "
+              f"(tol {COSMOS_REC_REL_TOL}: each decoder is a CI16x16 one behind 24 K7 convs); decoded from the fp32 "
+              f"plain path: the plain path {d_plain:.3e}, the kernels {d_kernel:.3e} (<= {COSMOS_RUNG_SLACK} x)")
+        require(tuple(out.shape) == (BATCH, 3, IMG, IMG) and torch.isfinite(out).all().item() and
+                max(rels.values()) <= COSMOS_REC_REL_TOL and d_kernel <= COSMOS_RUNG_SLACK * d_plain,
+                f"{tag}: {tuple(out.shape)} {rels}, from fp32 {d_kernel} vs the plain path's {d_plain}")
+        forward_timing(torch, head_fwd, BATCH, "images", f"{BATCH} maps per pass", tag, card)
+        del head, out, plain, flow, plain_flow, exact
+    finally:
+        config.set_conv3x3_impl("torch")
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -3456,6 +3836,13 @@ def main():
     print(f"[37 heads] launches over phases 36-37's counted forwards: heads {heads}, differential {diff}; "
           f"K7 at DPT-Large's refinenet1 RCU (2, 148, 148, 256): {k7_518}; K2 at (2, 1024, 12, 64): {k2_diff}")
 
+    k1_512_err, k1_512 = phase_cosmos_k1(torch, fa, card)
+    k1_err = max(k1_err, k1_512_err)
+    cosmos = phase_cosmos_tokenizers(torch, F, np, config, fa, c3, counters, card)
+    cosmos_enc = phase_cosmos_encoder_and_head(torch, config, counters, card)
+    cosmos = {k: cosmos[k] + cosmos_enc[k] for k in counters}
+    print(f"[40 cosmos] launches over phases 39-40's counted runs: {cosmos}; K1 at (2, 4096, 1, 512): {k1_512}")
+
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -3464,7 +3851,7 @@ def main():
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
-              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"], k1_err, k1),
+              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"], k1_err, k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
               trained["flash_attention_bwd"] + new_train["K3"], k3_err, k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
@@ -3480,7 +3867,7 @@ def main():
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"] + dino["K6"], k6_err, k6),
         entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47",
-              served["K7"] + new_train["K7"] + zoo["K7"] + heads["K7"] + diff["K7"], k7_err, k7),
+              served["K7"] + new_train["K7"] + zoo["K7"] + heads["K7"] + diff["K7"] + cosmos["K7"], k7_err, k7),
         entry("sv_only", "flash_attention.cu", "scripts/sweep_attention.py:75", k8["launches"], k8_err, k8),
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")

@@ -7,8 +7,9 @@ q/k/v layout, and K3's determinism), RoPE2D (K2) forward and backward, gradients
 on the kernel path, the int8 matmul (K4), the int8 attention (K6), the
 3x3 conv (K7) with its gradient, the fused qkv + RoPE + attention (K5, self
 and cross, with its gradient) and the S.V diagnostic (K8, K1's kernel without
-the softmax, at the same TMA and ring edges); K1 at the head dims 32, 80, 96
-and 128 at its TMA and ring edges and at the encoder zoo's shapes, the raise of
+the softmax, at the same TMA and ring edges); K1 at the head dims 32, 80, 96,
+128 and 512 at its TMA and ring edges and at the encoder zoo's and the Cosmos
+tokenizer's shapes, a bf16 Cosmos encoder on K1 and K7 with exact launches, the raise of
 K3, K5, K6 and K8 at a head dim other than 64, and K2 on the patch tokens of a
 DINOv3 projection (a strided view); K7 at the DPT-Large head's shapes over
 DINOv2-L/14 at 518 and its 18 launches per head pass, K2 on the differential
@@ -1317,3 +1318,70 @@ def test_diff_cross_attention_block_kernels_match_plain_with_exact_launches(gen)
 
 def _rel_norm(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+# K1 at D = 512, the Cosmos tokenizer's single-head mid-block attention (its column-split kernel: 64-row tiles), at the
+# edges of its boxes (1033 keys: 17 tiles, the last of 9) and with q, k and v strided views of one projection
+K1_WIDE_EDGES = [(1, 1), (63, 65), (64, 64), (65, 63), (1, 4100), (200, 1033)]
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,nk", K1_WIDE_EDGES)
+def test_flash_attention_d512_at_tma_edges(gen, nq, nk, dtype, with_lse):
+    q = torch.randn(2, nq, 3, 2, 512, device="cuda", generator=gen).to(dtype)[:, :, 0]
+    kv = torch.randn(2, nk, 2, 2, 512, device="cuda", generator=gen).to(dtype)
+    out, lse = flash_attention_fwd(q, kv[:, :, 0], kv[:, :, 1], with_lse=with_lse)
+    ref, ref_lse = flash_attention_lse_ref(q, kv[:, :, 0], kv[:, :, 1])
+    assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous() and torch.isfinite(out).all()
+    if dtype == torch.bfloat16:
+        assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    else:
+        assert ((out - ref).norm() / ref.norm()).item() <= K1_FP32_REL
+    if with_lse:
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n", [(2, 1024), (2, 4096)], ids=["CI16x16-512", "CI8x8-512"])
+def test_flash_attention_d512_at_the_tokenizer_shapes(gen, b, n, dtype):
+    "One launch each; bf16 in ulps of max(|plain|, 1/64) (chip_smoke.py phase 38), fp32 norm-relative."
+    q, k, v = torch.randn(b, n, 3, 1, 512, device="cuda", generator=gen).to(dtype).unbind(2)
+    before = flash_attention.launches
+    out, ref = flash_attention(q, k, v), flash_attention_ref(q, k, v)
+    assert flash_attention.launches == before + 1
+    if dtype == torch.bfloat16:
+        assert _ulps(out, ref, 7, floor=K1_ULP_FLOOR) <= K1_ULPS
+    else:
+        assert ((out - ref).norm() / ref.norm()).item() <= K1_FP32_REL
+
+
+def test_cosmos_encoder_runs_on_k1_and_k7_with_exact_launches(gen):
+    """A bf16 Cosmos encoder at the published channels (128, multipliers 2 and 4: its residual convs take K7, its mid
+    block attends at D = 512), two levels, on 64 x 64 images: one K1 launch, one K7 launch per eligible 3x3 conv,
+    against the plain path within 2e-2."""
+    from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules.layers2d import AttnBlock, Encoder
+
+    enc = Encoder(in_channels=3, channels=128, channels_mult=[2, 4], num_res_blocks=1, attn_resolutions=[32],
+                  dropout=0.0, resolution=64, z_channels=16, spatial_compression=8, patch_size=4, patch_method="haar",
+                  dtype=torch.bfloat16, device="cuda", generator=gen).eval()
+    k7 = sum(1 for m in enc.modules() if isinstance(m, Conv2dTorch) and m.kernel_size == (3, 3) and m.stride == (1, 1)
+             and m.in_channels % 128 == 0 and m.out_channels % 128 == 0)
+    attn = sum(1 for m in enc.modules() if isinstance(m, AttnBlock))
+    assert (k7, attn) == (8, 1)  # two per ResnetBlock (levels 0 and 1, mid 1 and 2); the mid block's AttnBlock
+    x = torch.rand(2, 3, 64, 64, device="cuda", generator=gen) * 2 - 1
+    config.set_conv3x3_impl("kernel")
+    try:
+        config.set_attention_impl("naive")
+        try:
+            plain = enc(x)
+        finally:
+            config.set_attention_impl("kernel")
+        before = (flash_attention.launches, conv3x3_nhwc.launches)
+        out = enc(x)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches - before[0], conv3x3_nhwc.launches - before[1]) == (attn, k7)
+    finally:
+        config.set_conv3x3_impl("torch")
+    assert out.shape == (2, 16, 8, 8) and torch.isfinite(out).all()
+    assert ((out.float() - plain.float()).norm() / plain.float().norm()).item() <= 2e-2

@@ -41,8 +41,6 @@ from tests.test_torch_quant import jax_module
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 5e-5  # fp32 max abs per component, the repo's parity bar
 SMALL = dict(name="dinov2", size="small", keep_first_n_layers=2)  # ViT-S width (384, 6 heads of 64), 2 blocks
-# every registry key of the JAX package that the port does not build yet, and the ROADMAP item that ports it
-UNPORTED = {"cosmos": "queue 1 item 11"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -277,7 +275,7 @@ def test_registry_lists_every_jax_key():
         jcfg = jencoders.ENCODER_CONFIGS[key]
         assert cfg["supported_models"] == jcfg["supported_models"], key
         assert ("intermediate_feature_returner_class" in cfg) == ("intermediate_feature_returner_class" in jcfg), key
-        assert encoders.is_ported(key) == (key not in UNPORTED), key
+        assert encoders.is_ported(key), key  # every JAX key builds in the port
 
 
 @pytest.mark.parametrize("key,kw", [
@@ -290,6 +288,7 @@ def test_registry_lists_every_jax_key():
     ("pixio", dict(name="pixio", embed_dim=64, depth=1, num_heads=2)),
     ("dense_rep_encoder", dict(name="dense", patch_size=4, intermediate_dims=[48, 64], enc_embed_dim=32)),
     ("global_rep_encoder", dict(name="global", intermediate_dims=[8], enc_embed_dim=16)),
+    ("cosmos", dict(name="cosmos", patch_size=16)),
 ])
 def test_factories_build_every_ported_key(key, kw, monkeypatch):
     """Each ported key builds on the CPU from a seed (the same weights for the same seed), and its IFR where it has
@@ -307,15 +306,6 @@ def test_factories_build_every_ported_key(key, kw, monkeypatch):
             encoders.feature_returner_encoder_factory(key, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("key", sorted(UNPORTED))
-def test_factories_refuse_every_unported_key(key):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {UNPORTED[key]}"):
-        encoders.encoder_factory(key, device="cpu", name=key)
-    if "intermediate_feature_returner_class" in encoders.ENCODER_CONFIGS[key]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {UNPORTED[key]}"):
-            encoders.feature_returner_encoder_factory(key, device="cpu", name=key)
-
-
 def test_factories_refuse_unknown_keys_and_build_on_the_card_by_default():
     for factory in (encoders.encoder_factory, encoders.feature_returner_encoder_factory):
         with pytest.raises(ValueError, match="Unknown encoder"):
@@ -330,7 +320,8 @@ def test_factories_refuse_unknown_keys_and_build_on_the_card_by_default():
 CANONICAL = {"dummy": True, "croco": False, "dust3r_224": False, "dust3r_512": False, "dust3r_512_dpt": False,
              "mast3r_512": False, "dinov2_small": False, "dinov2_base_reg": False, "dinov2_large_dav2": False,
              "dinov2_giant_reg": True, "dune": True, "patch_embedder": True, "radio_v2.5-b": True, "e-radio_v2": True,
-             "dinov3_base": True, "dinov3_convnext_base": True, "perception_encoder_core_base": True, "pixio": True}
+             "dinov3_base": True, "dinov3_convnext_base": True, "perception_encoder_core_base": True, "pixio": True,
+             "cosmos_ci8x8": True, "cosmos_ci16x16": True}
 
 
 @pytest.mark.parametrize("encoder_str", sorted(CANONICAL))
@@ -364,10 +355,12 @@ def _torch_layout_shapes(abstract_jax_module):
     return shapes
 
 
-@pytest.mark.parametrize("encoder_str", ["cosmos_ci8x8", "cosmos_ci16x16"])
-def test_canonical_test_configurations_of_unported_encoders_raise(encoder_str):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        encoders._make_encoder_test(encoder_str, device="meta")
+@pytest.mark.parametrize("encoder_str,patch", [("cosmos_ci8x8", 8), ("cosmos_ci16x16", 16)])
+def test_canonical_cosmos_strings_take_their_patch_size(encoder_str, patch):
+    "JAX reads the Cosmos patch size (the spatial compression) from the string's last field, and so does the port."
+    enc = encoders._make_encoder_test(encoder_str, device="meta")
+    assert isinstance(enc, encoders.CosmosEncoder) and enc.patch_size == patch and enc.enc_embed_dim == 16
+    assert [hasattr(level, "downsample") for level in enc.encoder.down] == [True, patch == 16, False]
 
 
 def test_canonical_dinov3_string_parses_its_size_as_the_jax_package_does():
@@ -386,7 +379,7 @@ def test_list_cli_prints_the_registry():
     for key, line in lines.items():
         ifr = "yes" if "intermediate_feature_returner_class" in jencoders.ENCODER_CONFIGS[key] else "no"
         assert f"IFR: {ifr}" in line
-        assert (f"not yet ({UNPORTED[key]})" if key in UNPORTED else "port: builds") in line
+        assert "port: builds" in line
         assert ", ".join(jencoders.ENCODER_CONFIGS[key]["supported_models"]) in line
 
 

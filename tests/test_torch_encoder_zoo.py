@@ -424,13 +424,15 @@ def test_jax_native_state_loads_into_the_port(tmp_path, key):
 def test_registry_key_set_is_the_jax_packages():
     "Every JAX encoder key is a port key and the other way round, so a new key on either side fails here."
     assert set(encoders.get_available_encoders()) == set(jencoders.get_available_encoders())
-    assert [k for k in encoders.get_available_encoders() if not encoders.is_ported(k)] == ["cosmos"]
+    assert [k for k in encoders.get_available_encoders() if not encoders.is_ported(k)] == []
 
 
 def test_image_normalizations_of_the_zoo_are_the_jax_packages():
+    "Every key of the JAX table is a port key and the other way round, with the same mean and std."
     from uniception_tpu.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT as JAX_NORMS
     from uniception_tpu_torch.models.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
 
-    for key in ("radio", "dinov3", "perception_encoder", "pixio"):
+    assert set(IMAGE_NORMALIZATION_DICT) == set(JAX_NORMS)
+    for key in JAX_NORMS:
         np.testing.assert_allclose(IMAGE_NORMALIZATION_DICT[key].mean, JAX_NORMS[key].mean, rtol=0, atol=1e-7)
         np.testing.assert_allclose(IMAGE_NORMALIZATION_DICT[key].std, JAX_NORMS[key].std, rtol=0, atol=1e-7)

@@ -5,7 +5,7 @@ mode (single-step, multi-step and masked key blocks; the forward with its
 logsumexp; the fused single-block and the split dq / dk-dv backward), the
 autograd Function, the attention dispatch, and the TMA tensor-map layouts the
 bf16 kernels are handed (with the checks that refuse what a map cannot take). The forward and its logsumexp are held at every head dim K1
-takes (32, 64, 80, 96 and 128). The CUDA kernels are held against the same
+takes (32, 64, 80, 96, 128 and 512). The CUDA kernels are held against the same
 plain versions on the card (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
 
@@ -46,8 +46,9 @@ def _qkv(seed, b, nq, nk, h, d=64, dtype=np.float32):
     return rng.randn(b, nq, h, d).astype(dtype), rng.randn(b, nk, h, d).astype(dtype), rng.randn(b, nk, h, d).astype(dtype)
 
 
-# every head dim K1 is built for (ops/flash_attention.py HEAD_DIMS): the encoders' 32, 64, 80, 96 and 128
-HEAD_DIMS = [32, 64, 80, 96, 128]
+# every head dim K1 is built for (ops/flash_attention.py HEAD_DIMS): the encoders' 32, 64, 80, 96 and 128, and the
+# Cosmos tokenizer's 512
+HEAD_DIMS = [32, 64, 80, 96, 128, 512]
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)

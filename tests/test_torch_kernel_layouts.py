@@ -21,8 +21,10 @@ from uniception_tpu_torch.ops.flash_attention import (
     FWD_ROWS,
     HEAD_DIMS,
     INT8_CHUNK,
+    WIDE_HEAD_DIM,
     flash_attention_int8_prep_ref,
     flash_attention_lse_ref,
+    fwd_rows,
     int8_pv_keys,
     tma_layout,
 )
@@ -42,9 +44,10 @@ def _constant(source, pattern):
 
 
 def k1_plan(head_dim):
-    """K1's bf16 tiling for a head dim, from csrc/flash_attention.cu (FwdCfg, FwdSmem, fwd_smem_bytes): (padded
-    head dim DP, TMA boxes of BOX_COLS columns per Q, K or V tile, K / V ring stages, dynamic shared memory bytes).
-    DP is 64 for D = 32 and 64, 128 above."""
+    """K1's bf16 tiling for a head dim, from csrc/flash_attention.cu (FwdCfg, FwdSmem, fwd_smem_bytes; WideSmem and
+    wide_smem_bytes at D = 512): (padded head dim DP, TMA boxes of BOX_COLS columns per Q, K or V tile, K / V ring
+    stages, dynamic shared memory bytes). DP is 64 for D = 32 and 64, 128 up to 128, 512 at 512 (64-row tiles and
+    one K and one V slot, each with its own barriers)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not supported (other head dims: ROADMAP queue 2 item a)")
     box_cols, = map(int, _constant("flash_attention.cu", r"constexpr int BOX_COLS = (\d+);"))
@@ -52,6 +55,11 @@ def k1_plan(head_dim):
     big, small = map(int, _constant("flash_attention.cu", r"STAGES = DP == 128 \? (\d+) : (\d+);"))
     align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
     kib, unit = map(int, _constant("hopper.cuh", r"constexpr int MIN_SMEM_BYTES = (\d+) \* (\d+);"))
+    if head_dim == WIDE_HEAD_DIM:
+        wide_rows, = map(int, _constant("flash_attention.cu", r"constexpr int W_BQ = (\d+);"))
+        tiles = 3 * wide_rows * head_dim * 2  # Q, K and V, bf16
+        struct = -(-(tiles + 8 * 6) // align) * align  # + six mbarriers
+        return head_dim, head_dim // box_cols, 1, max(struct + align, kib * unit)
     dp = 64 if head_dim <= 64 else 128
     stages = big if dp == 128 else small
     tiles = rows * dp * 2 * (1 + 2 * stages)  # Q, and K and V per stage, bf16
@@ -203,23 +211,28 @@ def test_int8_prep_ref_layout(nk, mode):
 
 
 @pytest.mark.parametrize("d,plan", [(32, (64, 1, 3)), (64, (64, 1, 3)), (80, (128, 2, 2)), (96, (128, 2, 2)),
-                                    (128, (128, 2, 2))])
+                                    (128, (128, 2, 2)), (512, (512, 8, 1))])
 def test_k1_plan_pads_the_head_dim_into_64_column_boxes(d, plan):
     """D = 32 and 64 take one 64-column box per tile (DP = 64), 80, 96 and 128 two (DP = 128) with a two-stage
-    ring: the shared memory fits the block's 227 KB, and a third stage at DP = 128 would leave under 2 KB."""
+    ring: the shared memory fits the block's 227 KB, and a third stage at DP = 128 would leave under 2 KB. D = 512
+    takes eight boxes of 64-row tiles, one K and one V slot: a second slot of either would not fit."""
     dp, boxes, stages, smem = k1_plan(d)
     assert (dp, boxes, stages) == plan
     assert smem <= SMEM_LIMIT
     if dp == 128:
         assert SMEM_LIMIT - (smem + 2 * FWD_ROWS * dp * 2) < 2048
+    if dp == 512:
+        assert fwd_rows(d) == 64 and smem + fwd_rows(d) * dp * 2 > SMEM_LIMIT
+    else:
+        assert fwd_rows(d) == FWD_ROWS
     t = torch.zeros(2, 300, 3, d, dtype=torch.bfloat16)
-    assert tma_layout(t, FWD_ROWS)[0] == d and tma_layout(t, FWD_ROWS)[7:] == (64, 1, FWD_ROWS, 1)
+    assert tma_layout(t, fwd_rows(d))[0] == d and tma_layout(t, fwd_rows(d))[7:] == (64, 1, fwd_rows(d), 1)
     with pytest.raises(ValueError, match="queue 2 item a"):
         k1_plan(d + 8)
 
 
 def _k1_tile(flat, layout, d, head, row0):
-    "One Q, K or V tile as K1 loads it: its boxes side by side, (128 rows, DP) with zeros past D and past N."
+    "One Q, K or V tile as K1 loads it: its boxes side by side, (rows, DP) with zeros past D and past N."
     dims, strides, box = layout[0:4], layout[4:7], layout[7:11]
     dp, boxes = k1_plan(d)[:2]
     tiles = [_tma_box(flat, dims, strides, box, (64 * i, head, row0, 0), es=4)[0, :, 0, :] for i in range(boxes)]
@@ -235,14 +248,15 @@ def _emulate_k1(q, k, v, scale):
     qkv = np.zeros((1, n, 3, 2, d), np.float32)
     qkv[0, :, 0, 1], qkv[0, :, 1, 1], qkv[0, :, 2, 1] = q, k, v
     flat = qkv.reshape(-1)
-    q_map, k_map, v_map = (tma_layout(torch.from_numpy(qkv)[:, :, i], FWD_ROWS) for i in range(3))
+    tile = fwd_rows(d)
+    q_map, k_map, v_map = (tma_layout(torch.from_numpy(qkv)[:, :, i], tile) for i in range(3))
     q_flat, k_flat, v_flat = (flat[i * 2 * d:] for i in range(3))  # each view's base
     out = np.zeros((n, d))
-    for qt in range(0, n, FWD_ROWS):
+    for qt in range(0, n, tile):
         qtile = _k1_tile(q_flat, q_map, d, 1, qt).astype(np.float64)
         assert not qtile[:, d:].any() and not qtile[n - qt:].any()  # zeros past D and past N
-        m, l, acc = np.full(FWD_ROWS, -np.inf), np.zeros(FWD_ROWS), np.zeros((FWD_ROWS, qtile.shape[1]))
-        for kt in range(0, n, FWD_ROWS):
+        m, l, acc = np.full(tile, -np.inf), np.zeros(tile), np.zeros((tile, qtile.shape[1]))
+        for kt in range(0, n, tile):
             ktile, vtile = _k1_tile(k_flat, k_map, d, 1, kt), _k1_tile(v_flat, v_map, d, 1, kt)
             s = qtile @ ktile.T * scale
             s[:, n - kt:] = -np.inf  # keys past Nk
@@ -252,7 +266,7 @@ def _emulate_k1(q, k, v, scale):
             l, m = l * corr + p.sum(axis=1), m_new
             acc = acc * corr[:, None] + p @ vtile
         assert not acc[:, d:].any()  # the padding's columns of o are zeros, never stored
-        rows = min(FWD_ROWS, n - qt)
+        rows = min(tile, n - qt)
         out[qt:qt + rows] = (acc[:, :d] / l[:, None])[:rows]
     return out
 

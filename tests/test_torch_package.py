@@ -73,7 +73,9 @@ def test_import_everything_without_jax_or_nvcc():
                  "models.libs.perception_encoder.transforms", "models.prediction_heads.mlp_feature",
                  "models.prediction_heads.mlp_head", "models.prediction_heads.pose_head",
                  "models.prediction_heads.global_head", "models.prediction_heads.moge_conv",
-                 "models.info_sharing.diff_cross_attention_transformer"):
+                 "models.info_sharing.diff_cross_attention_transformer", "models.encoders.cosmos",
+                 "models.prediction_heads.cosmos", "models.libs.cosmos_tokenizer.image_lib",
+                 "models.libs.cosmos_tokenizer.image_cli", "models.libs.cosmos_tokenizer.modules.layers2d", "utils.png"):
         assert f"uniception_tpu_torch.{name}" in report["modules"]
     assert report["jax"] == []
     assert report["uniception_tpu"] == []  # not even its jax-free modules (utils/checkpoint.py, data/bucketing.py)

@@ -1,12 +1,14 @@
-// Flash attention forward (non-causal, no mask) over (B, N, H, D) tensors, D in {32, 64, 80, 96, 128}.
+// Flash attention forward (non-causal, no mask) over (B, N, H, D) tensors, D in {32, 64, 80, 96, 128, 512}.
 //
 // Replaces: uniception_tpu/ops/flash_attention.py: flash_attention /
 //   _flash_attention_impl with the bodies _fa_single_kernel and _fa_kernel
 //   (forward; with_lse=True when an LSE pointer is given). The Pallas kernel
 //   takes any D (its _plan); this one takes the head dims of the encoders the
 //   repository builds: 32 (E-RADIO's windows), 64 (CroCo, DINOv2/v3, RADIO-b/l/g,
-//   PE-B/L, Pixio-B/L/1B), 80 (RADIO-h, Pixio-H), 96 (PE-G, Pixio-5B) and 128
-//   (DINOv3-7b).
+//   PE-B/L, Pixio-B/L/1B), 80 (RADIO-h, Pixio-H), 96 (PE-G, Pixio-5B), 128
+//   (DINOv3-7b) and 512 (the Cosmos tokenizer's single-head mid-block attention,
+//   models/libs/cosmos_tokenizer/modules/layers2d.py AttnBlock, for which the
+//   Pallas _plan shrinks its tiles).
 //
 // What bounds it on the H100: each (b, h) pair does 4*N*N*D flops on 4*N*D*2
 //   bytes of q/k/v/o, N/2 flops per byte in bf16 whatever D: 512 at N = 1024,
@@ -76,6 +78,29 @@
 //     2 x D registers a row needs.
 //   * Later work: a third consumer warpgroup, a TMA store of the output, P.V at
 //     N = D where the swizzle allows it.
+//
+// D = 512 (bf16, fa_fwd_bf16_wide_kernel): the kernel above cannot hold it. A
+//   consumer's 64 x 512 fp32 accumulator would be 256 registers a thread and its
+//   Q operands 128 more, over the 255 a thread may have. So the two consumer
+//   warpgroups split O's columns instead of the query rows: a work item is 64
+//   query rows of one (b, h), and consumer c owns O's columns [256c, 256c + 256)
+//   (two m64n128 accumulators, 128 registers). Each consumer computes the same
+//   S = Q.K^T over the full 512 (32 wgmma m64n64k16 with both operands in shared
+//   memory: Q is too wide for registers), so both hold the same scores and run
+//   the same online softmax with no exchange, then O += P.V over its own half of
+//   V (8 wgmma m64n128k16, P from registers, V MN-major through the transpose
+//   bit). That is 1.5x the minimum tensor-core work (S twice). Shared memory:
+//   Q (64 KB), one 64-key K tile (64 KB) and one V tile (64 KB), 8 boxes of 64
+//   columns each, 192 KB of the 227 KB; K and V have separate barriers, so the
+//   next K tile loads while the consumers run the softmax and P.V, and the next
+//   V tile while they run the next S. No ping-pong and no overlap of S with P.V
+//   inside a consumer: the simple, correct first design. With one head the grid
+//   is B * Nq / 64 items (32 at B = 2, N = 1024: a quarter of the 132 SMs); a
+//   split over the keys is later work. fp32 at D = 512: the fp32 kernel below
+//   with eight lanes per query row (their partial dot products meet in a
+//   three-step butterfly of shuffles, so all eight hold the same score), each
+//   lane's 64 columns interleaved in 4-wide groups so the lanes of a row read
+//   neighbouring words of a key row, and 8-key shared-memory tiles (32 KB).
 //
 // K8, the S.V diagnostic, is the same bf16 kernel at D = DP = 64 with the softmax
 // compiled out (fa_fwd_bf16_kernel<false, 64, 64>, entry point uc_sv_only):
@@ -175,12 +200,15 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[DP / 16][4], const _
                      warp, lane);
 }
 
-// The scores of tile j's keys past Nk set to `fill`, on the ragged last tile only.
-__device__ __forceinline__ void mask_keys(float (&sc)[BK / 2], int j, int Nk, int t, float fill) {
-  if ((j + 1) * BK > Nk) {
+// The scores of tile j's keys past Nk set to `fill`, on the ragged last tile only. NS: the accumulator's
+// registers, so the tile holds 2 NS keys (128 in the kernel above, 64 in the D = 512 one).
+template <int NS>
+__device__ __forceinline__ void mask_keys(float (&sc)[NS], int j, int Nk, int t, float fill) {
+  constexpr int KT = 2 * NS;
+  if ((j + 1) * KT > Nk) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      if (j * BK + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) sc[i] = fill;
+    for (int i = 0; i < NS; ++i)
+      if (j * KT + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) sc[i] = fill;
   }
 }
 
@@ -188,12 +216,13 @@ __device__ __forceinline__ void mask_keys(float (&sc)[BK / 2], int j, int Nk, in
 // past Nk masked to -inf, on the last tile only), the new running max m in log2 units of the scaled scores,
 // the rescale corr of O and l, and p = exp2(s * scale_log2 - m), added to l before its bf16 rounding (the TPU
 // kernel's order). The scale is positive, so the max of the raw scores scales to the max of the scaled ones.
-__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
+template <int NS>
+__device__ __forceinline__ void online_softmax(float (&sc)[NS], float (&m)[2], float (&l)[2], float (&corr)[2],
                                                int j, int Nk, int t, float scale_log2) {
   mask_keys(sc, j, Nk, t, -INFINITY);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   float neg_m[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -206,7 +235,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const float p = hw::exp2_ftz(fmaf(sc[i], scale_log2, neg_m[(i >> 1) & 1]));
     sc[i] = p;
     l[(i >> 1) & 1] += p;
@@ -400,6 +429,175 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 512: the consumers split O's columns (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int W_D = 512;                     // the head dim
+constexpr int W_BQ = 64;                     // query rows per work item, shared by both consumers
+constexpr int W_BK = 64;                     // keys per K / V tile
+constexpr int W_BOXES = W_D / BOX_COLS;      // 8 boxes of 64 columns per tile
+constexpr int W_BOX_BYTES = 64 * 128;        // one box: 64 rows of 128 bytes
+constexpr int W_TILE_BYTES = W_BQ * W_D * 2; // one Q, K or V tile (W_BQ == W_BK)
+
+struct alignas(hw::SMEM_ALIGN) WideSmem {
+  __nv_bfloat16 q[W_BQ * W_D];
+  __nv_bfloat16 k[W_BK * W_D];
+  __nv_bfloat16 v[W_BK * W_D];
+  uint64_t q_full, q_empty, k_full, k_empty, v_full, v_empty;
+};
+constexpr int wide_smem_bytes() { return sizeof(WideSmem) + hw::SMEM_ALIGN; }
+static_assert(wide_smem_bytes() <= 232448, "the block's shared memory");
+static_assert(wide_smem_bytes() >= hw::MIN_SMEM_BYTES, "one block per SM");
+
+// One box after another: `boxes` TMA boxes of 64 columns at rows row0 of head h, batch b, into consecutive
+// W_BOX_BYTES slots of dst.
+__device__ __forceinline__ void load_wide_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                               int row0, int b) {
+#pragma unroll
+  for (int box = 0; box < W_BOXES; ++box)
+    hw::tma_load_4d(dst + box * W_BQ * BOX_COLS, map, bar, box * BOX_COLS, h, row0, b);
+}
+
+// Persistent: gridDim.x blocks walk the (64-query tile, head, batch) items, query tile fastest. Warpgroup 0's
+// thread 0 loads each item's Q, then for each key tile K and V, each behind its own full/empty barrier pair (one
+// slot each). Consumer c (warpgroups 1 and 2) computes S over the full head dim, the online softmax, and O's
+// columns [256c, 256c + 256). With an LSE pointer, consumer 0 writes each row's logsumexp.
+__global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int H,
+    int Nq, int Nk, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  WideSmem& sm = *reinterpret_cast<WideSmem*>(hw::align_smem(smem_raw));
+  const int tid = threadIdx.x;
+  const int q_tiles = (Nq + W_BQ - 1) / W_BQ, n_items = q_tiles * H * B;
+  const int n_tiles = (Nk + W_BK - 1) / W_BK;
+
+  if (tid == 0) {
+    hw::mbar_init(&sm.q_full, 1);
+    hw::mbar_init(&sm.k_full, 1);
+    hw::mbar_init(&sm.v_full, 1);
+    hw::mbar_init(&sm.q_empty, THREADS - 128);  // every consumer thread releases each buffer
+    hw::mbar_init(&sm.k_empty, THREADS - 128);
+    hw::mbar_init(&sm.v_empty, THREADS - 128);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    hw::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      uint32_t q_phase = 0, kv_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
+        hw::mbar_wait(&sm.q_empty, q_phase ^ 1);  // the first item finds the Q buffer free
+        hw::mbar_arrive_expect_tx(&sm.q_full, W_TILE_BYTES);
+        load_wide_tile(sm.q, &qmap, &sm.q_full, h, qt * W_BQ, b);
+        q_phase ^= 1;
+        for (int j = 0; j < n_tiles; ++j) {
+          hw::mbar_wait(&sm.k_empty, kv_phase ^ 1);  // both consumers are done with the last K tile's S
+          hw::mbar_arrive_expect_tx(&sm.k_full, W_TILE_BYTES);
+          load_wide_tile(sm.k, &kmap, &sm.k_full, h, j * W_BK, b);
+          hw::mbar_wait(&sm.v_empty, kv_phase ^ 1);  // ... and with the last V tile's P.V
+          hw::mbar_arrive_expect_tx(&sm.v_full, W_TILE_BYTES);
+          load_wide_tile(sm.v, &vmap, &sm.v_full, h, j * W_BK, b);
+          kv_phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumer warpgroups: the item's 64 rows, half of O's columns each
+    hw::setmaxnreg_inc<232>();
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_addr = hw::smem_u32(sm.q), k_addr = hw::smem_u32(sm.k);
+    const uint32_t v_addr = hw::smem_u32(sm.v) + cwg * 4 * W_BOX_BYTES;  // this consumer's four boxes of V
+    uint32_t q_phase = 0, kv_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
+      const int row0 = qt * W_BQ + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+      const int row1 = row0 + 8;
+
+      float acc0[64], acc1[64];  // O's columns [256c, 256c + 128) and [256c + 128, 256c + 256): m64n128 each
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max of rows row0 / row1 (log2 units)
+      float l[2] = {0.f, 0.f};              // this thread's share of the running sums
+      float sc[W_BK / 2];                   // S of this tile: m64n64
+      uint32_t pa[W_BK / 16][4];            // P in bf16: the register A operand of P.V
+      float corr[2];
+
+      hw::mbar_wait(&sm.q_full, q_phase);
+      q_phase ^= 1;
+      for (int j = 0; j < n_tiles; ++j) {
+        // S = Q K^T: 32 k-steps of 16 over the 8 boxes, both operands K-major in shared memory
+        hw::mbar_wait(&sm.k_full, kv_phase);
+        hw::fence_regs(sc);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < W_D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * W_BOX_BYTES + (kk % 4) * 32;
+          hw::wgmma_m64n64k16_ss<0, 0>(sc, hw::desc_k_major(q_addr + off), hw::desc_k_major(k_addr + off), kk > 0);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(sc);
+        hw::mbar_arrive(&sm.k_empty);
+        if (j == n_tiles - 1) hw::mbar_arrive(&sm.q_empty);  // the item's last read of Q
+
+        online_softmax(sc, m, l, corr, j, Nk, t, scale_log2);
+        hw::pack_a<W_BK>(pa, sc);
+        rescale(acc0, corr);
+        rescale(acc1, corr);
+
+        // O += P V over this consumer's 256 columns: 4 k-steps of 16 keys, two m64n128 products each
+        hw::mbar_wait(&sm.v_full, kv_phase);
+        hw::fence_regs(acc0);
+        hw::fence_regs(acc1);
+        hw::fence_regs(pa);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < W_BK / 16; ++kc) {
+          hw::wgmma_m64n128k16_rs<1>(acc0, pa[kc], hw::desc_mn_major(v_addr + kc * 16 * 128, W_BOX_BYTES), 1);
+          hw::wgmma_m64n128k16_rs<1>(acc1, pa[kc],
+                                     hw::desc_mn_major(v_addr + 2 * W_BOX_BYTES + kc * 16 * 128, W_BOX_BYTES), 1);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(acc0);
+        hw::fence_regs(acc1);
+        hw::mbar_arrive(&sm.v_empty);
+        kv_phase ^= 1;
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      __nv_bfloat16* op = o + ((long long)b * Nq * H + h) * W_D + cwg * 256;  // o is contiguous (B, Nq, H, D)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int col = c * 8 + 2 * t;
+        if (row0 < Nq) {
+          __nv_bfloat16* p0 = op + (long long)row0 * H * W_D + col;
+          *reinterpret_cast<uint32_t*>(p0) = hw::pack_bf16x2(acc0[4 * c] / l[0], acc0[4 * c + 1] / l[0]);
+          *reinterpret_cast<uint32_t*>(p0 + 128) = hw::pack_bf16x2(acc1[4 * c] / l[0], acc1[4 * c + 1] / l[0]);
+        }
+        if (row1 < Nq) {
+          __nv_bfloat16* p1 = op + (long long)row1 * H * W_D + col;
+          *reinterpret_cast<uint32_t*>(p1) = hw::pack_bf16x2(acc0[4 * c + 2] / l[1], acc0[4 * c + 3] / l[1]);
+          *reinterpret_cast<uint32_t*>(p1 + 128) = hw::pack_bf16x2(acc1[4 * c + 2] / l[1], acc1[4 * c + 3] / l[1]);
+        }
+      }
+      if (lse != nullptr && cwg == 0 && t == 0) {  // m is in log2 units of the scaled scores
+        float* lp = lse + ((long long)b * H + h) * Nq;
+        if (row0 < Nq) lp[row0] = m[0] * LN2 + logf(l[0]);
+        if (row1 < Nq) lp[row1] = m[1] * LN2 + logf(l[1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: CUDA cores, full precision
 // ---------------------------------------------------------------------------
 
@@ -407,21 +605,27 @@ constexpr int F32_THREADS = 128;
 constexpr int F32_BK = 32;    // key rows per shared-memory tile
 constexpr int F32_CHUNK = 16; // keys scored before each rescale of the accumulator
 
-// TPR threads per query row (1, or 2 for D > 64: neighbouring lanes, each with half of the row's D), so a thread
-// holds DT = D / TPR elements of q and of the accumulator: at most 64 of each.
-template <int D, int TPR>
+// TPR threads per query row (1; 2 for D = 80, 96 and 128, neighbouring lanes each with half of the row's D; 8 for
+// D = 512), so a thread holds DT = D / TPR elements of q and of the accumulator: at most 64 of each. With TPR <= 2
+// a thread's columns are contiguous; with 8 they are 4-wide groups interleaved across the row's lanes, so the 8
+// lanes read 128 neighbouring bytes of a key or value row. KB: key rows per shared-memory tile (8 at D = 512, so
+// K and V stay within the 48 KB of static shared memory).
+template <int D, int TPR, int KB = F32_BK>
 __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs,
     float scale_log2) {
   constexpr int DT = D / TPR, ROWS = F32_THREADS / TPR;
-  static_assert(DT % 4 == 0 && DT <= 64, "a thread's share of the row");
-  __shared__ __align__(16) float k_s[F32_BK][D];
-  __shared__ __align__(16) float v_s[F32_BK][D];
+  constexpr int CHUNK = KB < F32_CHUNK ? KB : F32_CHUNK;
+  constexpr int STEP = TPR > 2 ? 4 * TPR : 4;  // columns between a thread's 4-wide groups
+  static_assert(DT % 4 == 0 && DT <= 64 && KB % CHUNK == 0, "a thread's share of the row");
+  __shared__ __align__(16) float k_s[KB][D];
+  __shared__ __align__(16) float v_s[KB][D];
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * ROWS + tid / TPR, d0 = (tid % TPR) * DT;
+  const int row = blockIdx.x * ROWS + tid / TPR;
+  const int d0 = TPR > 2 ? (tid % TPR) * 4 : (tid % TPR) * DT;  // the column of this thread's first group
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
 
@@ -429,15 +633,16 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
   const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n + d0;
 #pragma unroll
   for (int d = 0; d < DT; d += 4) {
-    const float4 x = row < Nq ? *reinterpret_cast<const float4*>(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x =
+        row < Nq ? *reinterpret_cast<const float4*>(qp + (d / 4) * STEP) : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[d] = x.x, qr[d + 1] = x.y, qr[d + 2] = x.z, qr[d + 3] = x.w;
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < Nk; k0 += F32_BK) {
+  for (int k0 = 0; k0 < Nk; k0 += KB) {
     __syncthreads();
-    for (int c = tid; c < F32_BK * D / 4; c += blockDim.x) {
+    for (int c = tid; c < KB * D / 4; c += blockDim.x) {
       const int r = c / (D / 4), d4 = (c % (D / 4)) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < Nk) {
@@ -450,21 +655,23 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
     __syncthreads();
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < F32_BK; c0 += F32_CHUNK) {
-      float s[F32_CHUNK];
+    for (int c0 = 0; c0 < KB; c0 += CHUNK) {
+      float s[CHUNK];
       float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < F32_CHUNK; ++i) {
+      for (int i = 0; i < CHUNK; ++i) {
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < DT; d += 4) {  // the threads of a half read the same key row: a shared-memory broadcast
-          const float4 kx = *reinterpret_cast<const float4*>(&k_s[c0 + i][d0 + d]);
+        for (int d = 0; d < DT; d += 4) {  // the rows of a warp read the same key row: a shared-memory broadcast
+          const float4 kx = *reinterpret_cast<const float4*>(&k_s[c0 + i][d0 + (d / 4) * STEP]);
           dot = fmaf(qr[d], kx.x, dot);
           dot = fmaf(qr[d + 1], kx.y, dot);
           dot = fmaf(qr[d + 2], kx.z, dot);
           dot = fmaf(qr[d + 3], kx.w, dot);
         }
-        if (TPR == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // both lanes: the same sum (a + b == b + a)
+        // a butterfly over the row's lanes: every lane ends with the same sum (a + b == b + a at each step)
+#pragma unroll
+        for (int x = 1; x < TPR; x <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, x);
         s[i] = k0 + c0 + i < Nk ? dot * scale_log2 : -INFINITY;
         mx = fmaxf(mx, s[i]);
       }
@@ -475,12 +682,12 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
 #pragma unroll
       for (int d = 0; d < DT; ++d) acc[d] *= corr;
 #pragma unroll
-      for (int i = 0; i < F32_CHUNK; ++i) {
+      for (int i = 0; i < CHUNK; ++i) {
         const float p = exp2f(s[i] - m);
         l += p;
 #pragma unroll
         for (int d = 0; d < DT; d += 4) {
-          const float4 vx = *reinterpret_cast<const float4*>(&v_s[c0 + i][d0 + d]);
+          const float4 vx = *reinterpret_cast<const float4*>(&v_s[c0 + i][d0 + (d / 4) * STEP]);
           acc[d] = fmaf(p, vx.x, acc[d]);
           acc[d + 1] = fmaf(p, vx.y, acc[d + 1]);
           acc[d + 2] = fmaf(p, vx.z, acc[d + 2]);
@@ -494,17 +701,18 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
     float* op = o + (((long long)b * Nq + row) * H + h) * D + d0;
 #pragma unroll
     for (int d = 0; d < DT; d += 4)
-      *reinterpret_cast<float4*>(op + d) = make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
-    if (lse != nullptr && d0 == 0) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
+      *reinterpret_cast<float4*>(op + (d / 4) * STEP) =
+          make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
+    if (lse != nullptr && tid % TPR == 0) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
   }
 }
 
-template <int D, int TPR>
+template <int D, int TPR, int KB = F32_BK>
 void launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
                 Strides qs, Strides ks, Strides vs, float scale_log2, cudaStream_t st) {
   constexpr int ROWS = F32_THREADS / TPR;
   const dim3 grid((Nq + ROWS - 1) / ROWS, H, B);
-  fa_fwd_f32_kernel<D, TPR><<<grid, F32_THREADS, 0, st>>>(
+  fa_fwd_f32_kernel<D, TPR, KB><<<grid, F32_THREADS, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), H, Nq, Nk, qs, ks, vs, scale_log2);
 }
@@ -532,6 +740,27 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   return 0;
 }
 
+// The D = 512 bf16 kernel on its persistent grid (boxes of 64 rows).
+int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
+                     const long long* layouts, float scale_log2, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  int status = hw::encode_tile_map(&qm, q, layouts, W_BQ);
+  if (status == 0) status = hw::encode_tile_map(&km, k, layouts + hw::LAYOUT_INTS, W_BK);
+  if (status == 0) status = hw::encode_tile_map(&vm, v, layouts + 2 * hw::LAYOUT_INTS, W_BK);
+  static bool smem_set[64];
+  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_wide_kernel, wide_smem_bytes(), smem_set);
+  if (status != 0) return status;
+  const long long items = (long long)((Nq + W_BQ - 1) / W_BQ) * H * B;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  status = hw::sm_count(&sms);
+  if (status != 0) return status;
+  const int grid = (int)(items < sms ? items : sms);
+  fa_fwd_bf16_wide_kernel<<<grid, THREADS, wide_smem_bytes(), st>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, scale_log2);
+  return 0;
+}
+
 }  // namespace
 
 // The element strides (b, n, h) of a tensor from its tensor-map layout (byte strides of h, n, b).
@@ -539,15 +768,17 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
   return Strides{L[6] / elem_bytes, L[5] / elem_bytes, L[4] / elem_bytes};
 }
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 32, 64, 80, 96 or 128. `layouts` holds the tensor-map layouts of
-// q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of 64 columns and 128 rows), from which the fp32 kernel
-// takes its element strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 32, 64, 80, 96, 128 or 512. `layouts` holds the tensor-map layouts
+// of q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of 64 columns and 128 rows, 64 rows at D = 512),
+// from which the fp32 kernel takes its element
+// strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a
 // contiguous (B, H, Nq) float32 tensor. Returns a cudaError_t.
 extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
                                       int B, int H, int Nq, int Nk, int head_dim, const long long* layouts,
                                       float scale, void* stream) {
   const int D = head_dim;
-  if ((D != 32 && D != 64 && D != 80 && D != 96 && D != 128) || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0)
+  if ((D != 32 && D != 64 && D != 80 && D != 96 && D != 128 && D != 512) || B <= 0 || H <= 0 || Nq <= 0 ||
+      Nk <= 0)
     return (int)cudaErrorInvalidValue;
   const long long *lq = layouts, *lk = layouts + hw::LAYOUT_INTS, *lv = layouts + 2 * hw::LAYOUT_INTS;
   const float scale_log2 = scale * LOG2E;  // exp(x) = exp2(x * log2(e))
@@ -559,7 +790,8 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
       case 64: status = launch_bf16<true, 64, 64>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
       case 80: status = launch_bf16<true, 128, 80>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
       case 96: status = launch_bf16<true, 128, 96>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-      default: status = launch_bf16<true, 128, 128>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+      case 128: status = launch_bf16<true, 128, 128>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
+      default: status = launch_bf16_wide(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
     }
     if (status != 0) return status;
   } else if (dtype == 0) {
@@ -569,7 +801,8 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
       case 64: launch_f32<64, 1>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
       case 80: launch_f32<80, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
       case 96: launch_f32<96, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-      default: launch_f32<128, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+      case 128: launch_f32<128, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
+      default: launch_f32<512, 8, 8>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
     }
   } else {
     return (int)cudaErrorInvalidValue;

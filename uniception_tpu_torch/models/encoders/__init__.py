@@ -2,9 +2,10 @@
 Encoder registry and factories (counterpart of uniception_tpu/models/encoders/__init__.py; reference
 uniception/models/encoders/__init__.py:37-140).
 
-``ENCODER_CONFIGS`` lists every key of the JAX package's registry. A key whose encoder the port does not build
-yet (``cosmos``) holds a stand-in class that raises NotImplementedError naming its ROADMAP item; an unknown key
-raises ValueError. ``python -m uniception_tpu_torch.models.encoders.list`` prints the table.
+``ENCODER_CONFIGS`` lists every key of the JAX package's registry, and the port builds each. A key whose encoder
+the port did not build would hold a stand-in class (``models/utils/unported.py``) that raises NotImplementedError
+naming its ROADMAP item (:func:`is_ported`); an unknown key raises ValueError. ``python -m
+uniception_tpu_torch.models.encoders.list`` prints the table.
 
 The factories are entry points: they build on the card unless the caller passes ``device="cpu"`` (or another
 device), and draw the weights from ``seed`` unless a ``generator`` is given.
@@ -25,6 +26,7 @@ from uniception_tpu_torch.models.encoders.base import (
     ViTEncoderNonImageInput,
     ViTEncoderOutput,
 )
+from uniception_tpu_torch.models.encoders.cosmos import CosmosEncoder
 from uniception_tpu_torch.models.encoders.croco import CroCoEncoder, CroCoIntermediateFeatureReturner
 from uniception_tpu_torch.models.encoders.dense_rep_encoder import DenseRepresentationEncoder
 from uniception_tpu_torch.models.encoders.dinov2 import DINOv2Encoder, DINOv2IntermediateFeatureReturner
@@ -44,7 +46,6 @@ from uniception_tpu_torch.models.encoders.perception_encoder import (
 )
 from uniception_tpu_torch.models.encoders.pixio import PixioEncoder
 from uniception_tpu_torch.models.encoders.radio import RADIOEncoder, RADIOIntermediateFeatureReturner
-from uniception_tpu_torch.models.utils.unported import not_ported
 
 __all__ = [
     "ENCODER_CONFIGS",
@@ -61,6 +62,7 @@ __all__ = [
     "ViTEncoderInput",
     "ViTEncoderNonImageInput",
     "ViTEncoderOutput",
+    "CosmosEncoder",
     "CroCoEncoder",
     "CroCoIntermediateFeatureReturner",
     "DINOv2Encoder",
@@ -82,17 +84,6 @@ __all__ = [
     "IMAGE_NORMALIZATION_DICT",
     "ImageNormalization",
 ]
-
-_COSMOS = "queue 1 item 11"  # the Cosmos tokenizer
-
-
-def _unported(name, item, ifr=False, supported=()):
-    "A registry entry whose classes raise NotImplementedError; ``ifr``: the JAX entry has an IFR variant."
-    entry = {"class": not_ported(name, item), "supported_models": list(supported)}
-    if ifr:
-        entry["intermediate_feature_returner_class"] = not_ported(f"{name} (intermediate features)", item)
-    return entry
-
 
 ENCODER_CONFIGS = {
     "croco": {
@@ -119,7 +110,10 @@ ENCODER_CONFIGS = {
         "intermediate_feature_returner_class": DINOv3ConvNextIntermediateFeatureReturner,
         "supported_models": ["DINOv3-ConvNext"],
     },
-    "cosmos": _unported("cosmos", _COSMOS, supported=["Cosmos-Tokenizer CI8x8", "Cosmos-Tokenizer CI16x16"]),
+    "cosmos": {
+        "class": CosmosEncoder,
+        "supported_models": ["Cosmos-Tokenizer CI8x8", "Cosmos-Tokenizer CI16x16"],
+    },
     "dune": {
         "class": DUNEEncoder,
         "intermediate_feature_returner_class": DUNEIntermediateFeatureReturner,
@@ -179,10 +173,7 @@ def _placed(kwargs: dict, seed: int) -> dict:
 def encoder_factory(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:
     """Build an encoder by registry name (``python -m uniception_tpu_torch.models.encoders.list`` lists them);
     ``kwargs`` go to its class."""
-    cls = _entry(encoder_str)["class"]
-    if not is_ported(encoder_str):
-        return cls()  # raises, naming the ROADMAP item
-    return cls(**_placed(kwargs, seed))
+    return _entry(encoder_str)["class"](**_placed(kwargs, seed))
 
 
 def feature_returner_encoder_factory(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:
@@ -190,10 +181,7 @@ def feature_returner_encoder_factory(encoder_str: str, seed: int = 0, **kwargs) 
     cfg = _entry(encoder_str)
     if "intermediate_feature_returner_class" not in cfg:
         raise ValueError(f"Encoder {encoder_str} has no intermediate-feature-returner variant")
-    cls = cfg["intermediate_feature_returner_class"]
-    if not is_ported(encoder_str):
-        return cls()
-    return cls(**_placed(kwargs, seed))
+    return cfg["intermediate_feature_returner_class"](**_placed(kwargs, seed))
 
 
 def get_available_encoders():
@@ -204,8 +192,7 @@ def get_available_encoders():
 def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:
     """Build the canonical test configuration of an encoder string (JAX encoders/__init__.py:162-210), with the
     canonical checkpoint under ``checkpoints/encoders`` of the repository passed only when that file exists:
-    nothing is downloaded, and without the file the weights are drawn from ``seed``. Strings of encoders the port
-    does not build yet (``cosmos``) raise NotImplementedError naming their ROADMAP item."""
+    nothing is downloaded, and without the file the weights are drawn from ``seed``."""
     here = os.path.dirname(os.path.abspath(__file__))
     ckpt_dir = os.path.normpath(os.path.join(here, "../../../checkpoints/encoders"))
 
@@ -215,8 +202,6 @@ def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionE
 
     if encoder_str == "dummy":
         return UniCeptionEncoderBase(name="dummy", data_norm_type="dummy")
-    if "cosmos" in encoder_str:
-        return ENCODER_CONFIGS["cosmos"]["class"]()
     kwargs = _placed(kwargs, seed)
     if encoder_str == "croco":
         return CroCoEncoder(name="croco", data_norm_type="croco", patch_embed_cls="PatchEmbedCroCo",
@@ -250,6 +235,11 @@ def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionE
     if "dune" in encoder_str:
         return DUNEEncoder(name="dune_base", vit_size="base", pe_image_size=448,
                            pretrained_checkpoint_path=ckpt("dune_vitbase14_448.pth"), **kwargs)
+    if "cosmos" in encoder_str:
+        patch_size = int(encoder_str.split("x")[-1])
+        return CosmosEncoder(name=encoder_str, patch_size=patch_size,
+                             pretrained_checkpoint_path=ckpt(f"Cosmos-Tokenizer-CI{patch_size}x{patch_size}/encoder.pth"),
+                             **kwargs)
     if "perception_encoder" in encoder_str:
         pe_type, pe_size = encoder_str.split("_")[2], encoder_str.split("_")[3]
         return PerceptionEncoder(name=encoder_str, patch_size=16 if pe_size == "base" else 14,

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uniception_tpu_torch.models.prediction_heads.base import PixelTaskOutput, PredictionHeadLayeredInput
-from uniception_tpu_torch.nn.common import Identity, lecun_normal
+from uniception_tpu_torch.nn.common import GroupNorm, Identity, lecun_normal
 from uniception_tpu_torch.nn.dpt_parts import Conv2dTorch, ConvTranspose2dTorch, Elementwise, Seq
 from uniception_tpu_torch.utils.weights import load_encoder_checkpoint
 
@@ -43,27 +43,6 @@ class ReplicatePadConv(nn.Conv2d):
         if p:
             x = F.pad(x, (p, p, p, p), mode="replicate")
         return self._conv_forward(x, self.weight.to(dt), self.bias.to(dt))
-
-
-class GroupNorm(nn.GroupNorm):
-    """``nnx.GroupNorm``: epsilon 1e-6, statistics in fp32 with flax's fast variance (E[x^2] - E[x]^2, floored at 0),
-    the scale folded into the reciprocal deviation as flax folds it, the output in the compute ``dtype`` (None: the
-    input's). The statistics are two full-width reductions: torch's native group norm reduces each (sample, group)
-    row in one thread block, which at MoGe's one-group norms over 296^2 maps is two blocks for the whole card."""
-
-    def __init__(self, num_channels: int, num_groups: int, *, dtype=None, device=None):
-        super().__init__(num_groups, num_channels, eps=1e-6, device=device)
-        self.compute_dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype or x.dtype
-        B, C, G = x.shape[0], x.shape[1], self.num_groups
-        xg = x.float().reshape(B, G, C // G, -1)
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        var = (xg.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(1, G, C // G, 1)
-        out = (xg - mean) * mul + self.bias.float().view(1, G, C // G, 1)
-        return out.reshape(x.shape).to(dt)
 
 
 def _activation(name: str) -> nn.Module:

@@ -4,7 +4,7 @@ Identity, GELU by the configured mode, the reference's Linear init with an
 optional compute dtype, the truncated-normal init, gradient checkpointing, and
 the counterparts of flax's ``nnx.Linear`` and ``nnx.Conv`` (lecun-normal init;
 the conv on channels-last activations) for the modules the JAX package builds
-from them directly.
+from them directly, and flax's ``nnx.GroupNorm``.
 
 Mixed precision follows flax's ``dtype`` / ``param_dtype`` split: parameters
 stay in their own dtype (fp32 masters for training) and are cast to the
@@ -24,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from uniception_tpu_torch.models.utils.config import get_gelu_mode
 
 __all__ = ["Identity", "gelu_exact", "trunc_normal", "Linear", "LinearX", "remat_call", "lecun_normal", "flax_linear",
-           "ChannelsLastConv"]
+           "ChannelsLastConv", "GroupNorm"]
 
 Identity = nn.Identity
 
@@ -122,3 +122,25 @@ class ChannelsLastConv(nn.Conv2d):
         dt = self.compute_dtype or self.weight.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias).permute(0, 2, 3, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nnx.GroupNorm``: epsilon 1e-6, statistics in fp32 with flax's fast variance (E[x^2] - E[x]^2, floored at 0),
+    the scale folded into the reciprocal deviation as flax folds it, the output in the compute ``dtype`` (None: the
+    input's). The statistics are two full-width reductions: torch's native group norm reduces each (sample, group)
+    row in one thread block, which at MoGe's one-group norms over 296^2 maps is two blocks for the whole card. MoGe's
+    conv head and the Cosmos tokenizer's ``Normalize`` (32 groups) share it."""
+
+    def __init__(self, num_channels: int, num_groups: int, *, dtype=None, device=None):
+        super().__init__(num_groups, num_channels, eps=1e-6, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or x.dtype
+        B, C, G = x.shape[0], x.shape[1], self.num_groups
+        xg = x.float().reshape(B, G, C // G, -1)
+        mean = xg.mean(dim=(2, 3), keepdim=True)
+        var = (xg.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(1, G, C // G, 1)
+        out = (xg - mean) * mul + self.bias.float().view(1, G, C // G, 1)
+        return out.reshape(x.shape).to(dt)

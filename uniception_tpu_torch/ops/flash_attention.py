@@ -49,11 +49,12 @@ __all__ = [
     "flash_attention_int8_prep_ref",
     "int8_pv_keys",
     "tma_layout",
+    "fwd_rows",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the head dim K3 (backward), K5 (fused), K6 (int8) and K8 (S.V) are built for
-HEAD_DIMS = (32, 64, 80, 96, 128)  # the head dims K1 (forward) is built for
+HEAD_DIMS = (32, 64, 80, 96, 128, 512)  # the head dims K1 (forward) is built for; 512: the Cosmos tokenizer
 # A call at another head dim than its kernel takes raises, naming the ROADMAP item that would add it.
 HEAD_DIM_ITEM = "ROADMAP queue 2 item a"
 BOX_COLS = 64  # columns of each TMA box: one 128-byte swizzle row; a K1 tile of D > 64 is two boxes
@@ -64,6 +65,7 @@ INT8_PREP_KEYS = 4  # keys per thread of K6's prep (PREP_KEYS): the first step o
 # Rows of the TMA boxes the bf16 kernels are built for (csrc/flash_attention.cu BQ / BK,
 # csrc/flash_attention_bwd.cu OWN / LOOP); the C entry points refuse any other box.
 FWD_ROWS = 128  # K1: query and key tiles
+WIDE_HEAD_DIM, WIDE_ROWS = 512, 64  # K1 at D = 512 (its column-split kernel): 64-row query and key tiles
 BWD_OWN_ROWS, BWD_LOOP_ROWS = 128, 64  # K3: a block's own rows, and the rows of each tile it loops over
 TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below 2^40
 
@@ -213,6 +215,11 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
     return out, lse
 
 
+def fwd_rows(head_dim: int) -> int:
+    "The rows of K1's TMA boxes at a head dim: 128, or 64 for the D = 512 kernel."
+    return WIDE_ROWS if head_dim == WIDE_HEAD_DIM else FWD_ROWS
+
+
 def forward_launch(q, k, v, scale: float, with_lse: bool = False):
     """K1's launch on CUDA q/k/v that :func:`flash_attention_fwd` would take, unchecked and uncounted: the
     wrapper that calls it (K1's own, or K5's attention launch, ops/fused_attention.py) counts its launches.
@@ -222,7 +229,7 @@ def forward_launch(q, k, v, scale: float, with_lse: bool = False):
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device) if with_lse else None
     status = kernel_lib.library().uc_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D, _layouts((q, FWD_ROWS), (k, FWD_ROWS), (v, FWD_ROWS)),
+        _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D, _layouts(*((t, fwd_rows(D)) for t in (q, k, v))),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_fwd")
