@@ -10,7 +10,8 @@ and cross, with its gradient) and the S.V diagnostic (K8, K1's kernel without
 the softmax, at the same TMA and ring edges); K1 at the head dims 32, 80, 96,
 128 and 512 at its TMA and ring edges and at the encoder zoo's and the Cosmos
 tokenizer's shapes, a bf16 Cosmos encoder on K1 and K7 with exact launches, the raise of
-K3, K5, K6 and K8 at a head dim other than 64, and K2 on the patch tokens of a
+K3, K5 and K6 at every head dim up to 256 (and D = 20, padded) with their raise
+above it (K1 above 512, K8 at any D but 64), the new paths' shapes, and K2 on the patch tokens of a
 DINOv3 projection (a strided view); K7 at the DPT-Large head's shapes over
 DINOv2-L/14 at 518 and its 18 launches per head pass, K2 on the differential
 attention's sub-heads and a differential block against the plain path with
@@ -91,8 +92,8 @@ def test_flash_attention_matches_plain(gen, b, nq, nk, h, dtype):
 
 
 def test_flash_attention_rejects_what_it_does_not_take(gen):
-    x = torch.randn(1, 8, 2, 48, device="cuda", generator=gen)  # D = 48: not a head dim K1 is built for
-    with pytest.raises(ValueError, match="head dim 48"):
+    x = torch.randn(1, 8, 2, 520, device="cuda", generator=gen)  # D = 520: above the 512 K1 takes
+    with pytest.raises(ValueError, match="head dim 520"):
         flash_attention(x, x, x)
     y = torch.randn(1, 8, 2, 128, device="cuda", generator=gen)[..., ::2]  # D = 64, stride 2
     with pytest.raises(ValueError, match="unit stride"):
@@ -207,7 +208,7 @@ def test_flash_attention_backward_through_autograd(gen, dtype):
 
 
 def test_flash_attention_grad_rejects_what_it_does_not_take(gen):
-    x = torch.randn(1, 8, 2, 32, device="cuda", generator=gen, requires_grad=True)
+    x = torch.randn(1, 8, 2, 264, device="cuda", generator=gen, requires_grad=True)  # K1 takes 264, K3 up to 256
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(x, x, x).sum().backward()
     y = torch.randn(1, 8, 2, 64, device="cuda", generator=gen)
@@ -552,8 +553,8 @@ def test_new_kernels_reject_what_they_do_not_take(gen):
     kb = torch.randn(1, 1025, 2, 64, device="cuda", generator=gen).bfloat16()
     with pytest.raises(ValueError, match="keys"):
         flash_attention_int8(q.bfloat16(), kb, kb)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_int8(*(torch.randn(1, 8, 2, 32, device="cuda").bfloat16() for _ in range(3)))
+    with pytest.raises(ValueError, match="head dim"):  # D = 264: above the 256 K6 takes
+        flash_attention_int8(*(torch.randn(1, 8, 2, 264, device="cuda").bfloat16() for _ in range(3)))
     xc = torch.randn(1, 8, 8, 96, device="cuda", generator=gen).bfloat16()
     with pytest.raises(ValueError, match="multiple of 64"):
         conv3x3_nhwc(xc, torch.randn(3, 3, 96, 128, device="cuda").bfloat16())
@@ -736,8 +737,10 @@ def test_fused_attention_rejects_what_it_does_not_take(gen):
     "A CUDA call K5 cannot take raises; nothing falls back to the plain version."
     x = torch.randn(1, 16, 128, device="cuda", generator=gen)
     before = fused.fused_qkv_rope_attention.launches
-    with pytest.raises(ValueError, match="head dim"):  # D = 32
-        fused.fused_qkv_rope_attention(x, torch.randn(384, 128, device="cuda"), None, None, 4, 0.2)
+    with pytest.raises(ValueError, match="head dim"):  # D = 264: above the 256 K5 takes
+        fused.fused_qkv_rope_attention(x, torch.randn(792, 128, device="cuda"), None, None, 1, 0.2)
+    with pytest.raises(ValueError, match="head dim"):  # D = 18: not a multiple of 4 (the RoPE quarters)
+        fused.fused_qkv_rope_attention(x, torch.randn(216, 128, device="cuda"), None, None, 4, 0.2)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused.fused_qkv_rope_attention(x.half(), torch.randn(384, 128, device="cuda").half(), None, None, 2, 0.2)
     with pytest.raises(ValueError, match="multiple of"):
@@ -1180,25 +1183,156 @@ def test_flash_attention_at_the_zoo_shapes(gen, b, n, h, d, dtype, with_lse):
 
 
 def test_the_other_attention_kernels_raise_at_head_dims_other_than_64(gen):
-    """K3 (the backward), K5 (fused), K6 (int8) and K8 (S.V) are built for D = 64: at D = 80 each raises, naming the
-    ROADMAP item that would add the head dim, and launches nothing; K1 takes the same tensors."""
+    """K3 (the backward), K5 (fused) and K6 (int8) take D = 80 now: each launches once and matches its plain version.
+    Above the head dims they take (K3, K5 and K6 256, K1 512) and for K8 (S.V, 64 only) each raises, naming the ROADMAP
+    item that would add the head dim, and launches nothing."""
     x = torch.randn(1, 40, 2, 80, device="cuda", generator=gen).bfloat16()
-    counters = (flash_attention_bwd, flash_attention_int8, fused.fused_qkv_rope_attention, sv_only)
+    counters = (flash_attention, flash_attention_bwd, flash_attention_int8, fused.fused_qkv_rope_attention, sv_only)
     before = [c.launches for c in counters]
     out, lse = flash_attention_fwd(x, x, x, with_lse=True)
-    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
-        flash_attention_bwd(x, x, x, out, lse, out)
-    leaf = x.clone().requires_grad_()
+    grads = flash_attention_bwd(x, x, x, out, lse, out)
+    refs = flash_attention_bwd_ref(*(t.float() for t in (x, x, x, out, lse, out)))
+    assert all(_rel(g, r) <= BWD_REL_TOL[torch.bfloat16] for g, r in zip(grads, refs))
+    ref8 = flash_attention_int8_ref(x, x, x)
+    assert _ulps(flash_attention_int8(x, x, x), ref8, 7, floor=K6_ULP_FLOOR) <= K6_ULPS
+    xs = torch.randn(1, 40, 160, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(480, 160, device="cuda", generator=gen) * 160**-0.5).bfloat16()
+    k5 = fused.fused_qkv_rope_attention(xs, w, None, None, 2, 0.1)
+    assert _ulps(k5, fused.fused_qkv_rope_attention_ref(xs, w, None, None, 2, 0.1), 7, floor=1 / 64) <= 16
+    assert [c.launches for c in counters] == [b + n for b, n in zip(before, (1, 1, 1, 1, 0))]
+    before = [c.launches for c in counters]
+    y = torch.randn(1, 40, 2, 264, device="cuda", generator=gen).bfloat16()
+    out, lse = flash_attention_fwd(y, y, y, with_lse=True)  # K1 takes 264
+    with pytest.raises(ValueError, match="head dim 264 .*ROADMAP queue 2 item a"):
+        flash_attention_bwd(y, y, y, out, lse, out)
+    leaf = y.clone().requires_grad_()
     with pytest.raises(ValueError, match="ROADMAP queue 2 item a"):
         flash_attention(leaf, leaf, leaf).sum().backward()
-    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
-        flash_attention_int8(x, x, x)
+    with pytest.raises(ValueError, match="head dim 264 .*ROADMAP queue 2 item a"):
+        flash_attention_int8(y, y, y)
     with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
         sv_only(x, x, x)
-    xs = torch.randn(1, 40, 160, device="cuda", generator=gen).bfloat16()
-    with pytest.raises(ValueError, match="head dim 80 .*ROADMAP queue 2 item a"):
-        fused.fused_qkv_rope_attention(xs, torch.randn(480, 160, device="cuda").bfloat16(), None, None, 2, 0.1)
-    assert [c.launches for c in counters] == before
+    ys = torch.randn(1, 40, 528, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(ValueError, match="head dim 264 .*ROADMAP queue 2 item a"):
+        fused.fused_qkv_rope_attention(ys, torch.randn(1584, 528, device="cuda").bfloat16(), None, None, 2, 0.1)
+    z = torch.randn(1, 40, 1, 520, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(ValueError, match="head dim 520 .*ROADMAP queue 2 item a"):
+        flash_attention_fwd(z, z, z)
+    assert [c.launches for c in counters] == [b + n for b, n in zip(before, (2, 0, 0, 0, 0))]
+
+
+# Every head dim the Pallas kernels take (chip_smoke.py phase 41): each kernel against its plain version at each padded
+# head dim it is built for and at D = 20 (not a multiple of 8: padded into a copy), Nq != Nk with ragged tiles.
+K1_ANY_D = [8, 20, 48, 72, 136, 200, 264]  # DP 64, 64, 64, 128, 192, 256, 512
+K3_ANY_D = [20, 48, 80, 136, 200]  # DP 64, 64, 128, 192, 256
+K6_ANY_D = [20, 48, 136, 200]  # int8 rows of 64, 64, 256, 256 bytes
+K5_ANY_D = [20, 48, 80, 136, 200]  # padded heads of 32, 64, 128, 256, 256 columns
+# Hundreds of keys, where K1's bar holds: at 70 keys an exact fp32 emulation of K1's online softmax over the 64-key
+# tiles of its column-split kernel is itself 10.5-10.8 bf16 ulps from the plain version (chip_smoke.py HD_SHAPES).
+ANY_D_SHAPES = [(2, 200, 520, 2), (1, 130, 700, 3)]
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h", ANY_D_SHAPES)
+@pytest.mark.parametrize("d", K1_ANY_D)
+def test_flash_attention_at_any_head_dim(gen, d, b, nq, nk, h, dtype, with_lse):
+    q = torch.randn(b, nq, 3, h, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
+    kv = torch.randn(b, nk, 2, h, d, device="cuda", generator=gen).to(dtype)
+    before = flash_attention.head_dims[d]
+    _k1_against_plain(q, kv[:, :, 0], kv[:, :, 1], with_lse)
+    assert flash_attention.head_dims[d] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h", ANY_D_SHAPES)
+@pytest.mark.parametrize("d", K3_ANY_D)
+def test_flash_attention_backward_at_any_head_dim(gen, d, b, nq, nk, h, dtype):
+    q = torch.randn(b, nq, h, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, nk, h, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    dout = torch.randn(b, nq, h, d, device="cuda", generator=gen).to(dtype)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout)
+    refs = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, lse, dout)))
+    for g, r in zip(grads, refs):
+        assert g.shape == r.shape and g.dtype == dtype and g.is_contiguous()
+        assert _rel(g, r) <= BWD_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8pv"])
+@pytest.mark.parametrize("b,nq,nk,h", ANY_D_SHAPES)
+@pytest.mark.parametrize("d", K6_ANY_D)
+def test_int8_attention_at_any_head_dim(gen, d, b, nq, nk, h, mode):
+    q = torch.randn(b, nq, h, d, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(b, nk, h, d, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    for got, want in zip(flash_attention_int8_prep(k, v, mode), flash_attention_int8_prep_ref(k, v, mode)):
+        assert (got is None and want is None) or torch.equal(got, want)
+    out = flash_attention_int8(q, k, v, mode=mode)
+    assert out.shape == q.shape and _ulps(out, flash_attention_int8_ref(q, k, v, mode=mode), 7,
+                                          floor=K6_ULP_FLOOR) <= K6_ULPS
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("d", K5_ANY_D)
+def test_fused_attention_at_any_head_dim(gen, d, rope, dtype):
+    H, C, grid = max(1, 400 // d), 256, (20, 20)  # 400 tokens: hundreds of keys, as ANY_D_SHAPES
+    x = torch.randn(2, 400, C, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(3 * H * d, C, device="cuda", generator=gen) * C**-0.5).to(dtype)
+    b = torch.randn(3 * H * d, device="cuda", generator=gen) * 0.1
+    pos = make_patch_positions(2, *grid, device="cuda") if rope else None
+    out = fused.fused_qkv_rope_attention(x, w, b, pos, H, d**-0.5)
+    ref = fused.fused_qkv_rope_attention_ref(x, w, b, pos, H, d**-0.5)
+    assert out.shape == ref.shape == (2, 400, H * d)
+    if dtype == torch.bfloat16:
+        assert _ulps(out, ref, 7, floor=1 / 64) <= 16
+    else:
+        assert (out - ref).abs().max().item() <= FP32_TOL
+    xkv = torch.randn(2, 64, C, device="cuda", generator=gen).to(dtype)
+    kpos = make_patch_positions(2, 8, 8, device="cuda") if rope else None
+    args = (x, xkv, *w.chunk(3), *b.chunk(3), pos, kpos, H, d**-0.5)
+    out, ref = fused.fused_cross_rope_attention(*args), fused.fused_cross_rope_attention_ref(*args)
+    if dtype == torch.bfloat16:
+        assert _ulps(out, ref, 7, floor=1 / 64) <= 16
+    else:
+        assert (out - ref).abs().max().item() <= FP32_TOL
+
+
+# The new paths' exact shapes (chip_smoke.py phases 42-46): K3 under training at the JAX example's defaults (16 images of
+# 4 tokens, 4 heads of 16) and at ViT-L 512 with 8 and 32 heads; K5 in RADIO-h at 512 and Pixio-H at 256 (16 heads of
+# 80, C = 1280); K6 in Pixio-H, E-RADIO's windows and the differential info sharing's self-attention; K1 in PE-G14's
+# attention pool (one query, 8 heads of 192).
+@pytest.mark.parametrize("b,n,h,d", [(16, 4, 4, 16), (4, 1024, 8, 128), (4, 1024, 32, 32)])
+def test_flash_attention_backward_at_the_training_paths(gen, b, n, h, d):
+    q, k, v, dout = (torch.randn(b, n, h, d, device="cuda", generator=gen).bfloat16() for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    for g, r in zip(flash_attention_bwd(q, k, v, out, lse, dout),
+                    flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, lse, dout)))):
+        assert _rel(g, r) <= BWD_REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("n", [1033, 264])
+def test_fused_attention_at_the_zoo_paths(gen, n):
+    x = torch.randn(2, n, 1280, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(3 * 1280, 1280, device="cuda", generator=gen) * 1280**-0.5).bfloat16()
+    b = torch.randn(3 * 1280, device="cuda", generator=gen) * 0.1
+    out = fused.fused_qkv_rope_attention(x, w, b, None, 16, 80**-0.5)
+    assert _ulps(out, fused.fused_qkv_rope_attention_ref(x, w, b, None, 16, 80**-0.5), 7, floor=1 / 64) <= 16
+
+
+@pytest.mark.parametrize("b,n,h,d", [(2, 264, 16, 80), (2, 1024, 12, 32), (2, 256, 24, 32), (2, 1024, 6, 128)])
+def test_int8_attention_at_the_zoo_paths(gen, b, n, h, d):
+    qkv = torch.randn(b, n, 3, h, d, device="cuda", generator=gen).bfloat16()
+    q, k, v = qkv.unbind(2)
+    for mode in ("int8", "int8pv"):
+        out = flash_attention_int8(q, k, v, mode=mode)
+        assert _ulps(out, flash_attention_int8_ref(q, k, v, mode=mode), 7, floor=K6_ULP_FLOOR) <= K6_ULPS
+
+
+def test_flash_attention_at_the_pe_attention_pool(gen):
+    q = torch.randn(2, 1, 8, 192, device="cuda", generator=gen).bfloat16()
+    kv = torch.randn(2, 1025, 2, 8, 192, device="cuda", generator=gen).bfloat16()
+    _k1_against_plain(q, kv[:, :, 0], kv[:, :, 1], False)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -4,9 +4,10 @@ kernels, on the CPU: K7's planner and tensor maps, with the kernel's tiling,
 split K loop and fixed-order reduction emulated box by box against the plain
 conv; the scratch layout of K6's prep (the int8 keys, the transposed int8
 values in the order the score accumulators hold p, zeros past the keys); and
-K1's tile plan at every head dim it takes (the box count and width, the zeros
-TMA writes past D and past N, the ring's shared memory), with its tiles loaded
-box by box and its online softmax emulated against the plain version.
+K1's tile plan at every padded head dim it is built for (the box count and
+width, the zeros TMA writes past D and past N, the ring's shared memory), with
+its tiles loaded box by box and its online softmax emulated against the plain
+version; and the shared memory of K3's and K6's kernels at every head dim.
 """
 
 import re
@@ -18,14 +19,16 @@ import torch
 
 from uniception_tpu_torch.ops.conv3x3 import ITEM_STEPS, TILE_PIXELS, conv3x3_maps, conv3x3_plan, conv3x3_reference
 from uniception_tpu_torch.ops.flash_attention import (
+    BWD_LOOP_ROWS,
+    BWD_OWN_ROWS,
     FWD_ROWS,
-    HEAD_DIMS,
     INT8_CHUNK,
-    WIDE_HEAD_DIM,
+    MAX_HEAD_DIM,
     flash_attention_int8_prep_ref,
     flash_attention_lse_ref,
     fwd_rows,
     int8_pv_keys,
+    int8_row_bytes,
     tma_layout,
 )
 
@@ -44,27 +47,57 @@ def _constant(source, pattern):
 
 
 def k1_plan(head_dim):
-    """K1's bf16 tiling for a head dim, from csrc/flash_attention.cu (FwdCfg, FwdSmem, fwd_smem_bytes; WideSmem and
-    wide_smem_bytes at D = 512): (padded head dim DP, TMA boxes of BOX_COLS columns per Q, K or V tile, K / V ring
-    stages, dynamic shared memory bytes). DP is 64 for D = 32 and 64, 128 up to 128, 512 at 512 (64-row tiles and
-    one K and one V slot, each with its own barriers)."""
-    if head_dim not in HEAD_DIMS:
+    """K1's bf16 tiling for a head dim (a multiple of 8: the wrapper pads any other), from csrc/flash_attention.cu
+    (FwdCfg, FwdSmem, fwd_smem_bytes; WideCfg, WideSmem and wide_smem_bytes above D = 128): (padded head dim DP,
+    TMA boxes of BOX_COLS columns per Q, K or V tile, K / V ring stages, dynamic shared memory bytes). DP is 64 up to
+    D = 64, 128 up to 128 (128-row tiles), then 192, 256 and 512 on the column-split kernel (64-row tiles, one K and
+    one V slot, each with its own barriers)."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM["K1"]:
         raise ValueError(f"head dim {head_dim} not supported (other head dims: ROADMAP queue 2 item a)")
     box_cols, = map(int, _constant("flash_attention.cu", r"constexpr int BOX_COLS = (\d+);"))
     rows, = map(int, _constant("flash_attention.cu", r"constexpr int BQ = (\d+);"))
     big, small = map(int, _constant("flash_attention.cu", r"STAGES = DP == 128 \? (\d+) : (\d+);"))
     align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
     kib, unit = map(int, _constant("hopper.cuh", r"constexpr int MIN_SMEM_BYTES = (\d+) \* (\d+);"))
-    if head_dim == WIDE_HEAD_DIM:
+    dp = next(p for p in (64, 128, 192, 256, 512) if head_dim <= p)
+    if dp > 128:
         wide_rows, = map(int, _constant("flash_attention.cu", r"constexpr int W_BQ = (\d+);"))
-        tiles = 3 * wide_rows * head_dim * 2  # Q, K and V, bf16
+        tiles = 3 * wide_rows * dp * 2  # Q, K and V, bf16
         struct = -(-(tiles + 8 * 6) // align) * align  # + six mbarriers
-        return head_dim, head_dim // box_cols, 1, max(struct + align, kib * unit)
-    dp = 64 if head_dim <= 64 else 128
+        return dp, dp // box_cols, 1, max(struct + align, kib * unit)
     stages = big if dp == 128 else small
     tiles = rows * dp * 2 * (1 + 2 * stages)  # Q, and K and V per stage, bf16
     struct = -(-(tiles + 8 * (2 + 2 * stages)) // align) * align  # + the mbarriers, padded to the struct's alignment
     return dp, dp // box_cols, stages, max(struct + align, kib * unit)
+
+
+def k3_plan(head_dim):
+    """K3's bf16 column-chunk kernels above D = 64 (csrc/flash_attention_bwd.cu WideCfg, WideBwdSmem): (DP, ring
+    slots, dynamic shared memory bytes, 64-column chunks a work item covers one of)."""
+    ring, unit = map(int, _constant("flash_attention_bwd.cu", r"constexpr int W_RING_BYTES = (\d+) \* (\d+);"))
+    own, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int OWN = (\d+);"))
+    loop, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int LOOP = (\d+);"))
+    align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
+    assert (own, loop) == (BWD_OWN_ROWS, BWD_LOOP_ROWS)
+    dp = next(p for p in (128, 192, 256) if head_dim <= p)
+    stages = (ring * unit - 2 * own * dp * 2) // (2 * loop * dp * 2)
+    size = 2 * own * dp * 2 + stages * (2 * loop * dp * 2 + 2 * loop * 4) + 8 * (2 + 2 * stages)
+    return dp, stages, -(-size // align) * align + align, -(-head_dim // 64)
+
+
+def k6_plan(head_dim, pv8):
+    """K6's attention kernel (csrc/flash_attention_int8.cu Fa8Cfg, Fa8Smem): (DK, output columns a sweep, sweeps, ring
+    stages, dynamic shared memory bytes)."""
+    ring, unit = map(int, _constant("flash_attention_int8.cu", r"constexpr int RING_BYTES = (\d+) \* (\d+);"))
+    bq, = map(int, _constant("flash_attention_int8.cu", r"constexpr int BQ = (\d+);"))
+    bk, = map(int, _constant("flash_attention_int8.cu", r"constexpr int BK = (\d+);"))
+    align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
+    dk = int8_row_bytes(head_dim)
+    ow = 64 if dk == 64 else 128
+    q_bytes, k_bytes, v_bytes = bq * dk * 2, bk * dk, ow * bk if pv8 else bk * ow * 2
+    stages = 6 if dk == 64 else (ring * unit - q_bytes) // (k_bytes + v_bytes)
+    size = q_bytes + stages * (k_bytes + v_bytes) + 8 * (2 + 2 * stages)
+    return dk, ow, dk // ow, stages, -(-size // align) * align + align
 
 
 def _makespan(tiles, steps, split, sms):
@@ -210,25 +243,54 @@ def test_int8_prep_ref_layout(nk, mode):
     assert torch.equal(v8[..., :nk], want)
 
 
-@pytest.mark.parametrize("d,plan", [(32, (64, 1, 3)), (64, (64, 1, 3)), (80, (128, 2, 2)), (96, (128, 2, 2)),
-                                    (128, (128, 2, 2)), (512, (512, 8, 1))])
+@pytest.mark.parametrize("d,plan", [(8, (64, 1, 3)), (16, (64, 1, 3)), (32, (64, 1, 3)), (64, (64, 1, 3)),
+                                    (72, (128, 2, 2)), (80, (128, 2, 2)), (96, (128, 2, 2)), (128, (128, 2, 2)),
+                                    (136, (192, 3, 1)), (192, (192, 3, 1)), (200, (256, 4, 1)), (256, (256, 4, 1)),
+                                    (264, (512, 8, 1)), (512, (512, 8, 1))])
 def test_k1_plan_pads_the_head_dim_into_64_column_boxes(d, plan):
-    """D = 32 and 64 take one 64-column box per tile (DP = 64), 80, 96 and 128 two (DP = 128) with a two-stage
-    ring: the shared memory fits the block's 227 KB, and a third stage at DP = 128 would leave under 2 KB. D = 512
-    takes eight boxes of 64-row tiles, one K and one V slot: a second slot of either would not fit."""
+    """Every D up to 64 takes one 64-column box per tile (DP = 64), up to 128 two (DP = 128) with a two-stage ring: the
+    shared memory fits the block's 227 KB, and a third stage at DP = 128 would leave under 2 KB. Above 128 a 128-row Q
+    tile with two K/V stages does not fit, so DP = 192, 256 and 512 take the column-split kernel's 64-row tiles, one K
+    and one V slot (at 512 a second slot of either would not fit). Only a head dim above 512 raises."""
     dp, boxes, stages, smem = k1_plan(d)
     assert (dp, boxes, stages) == plan
     assert smem <= SMEM_LIMIT
     if dp == 128:
         assert SMEM_LIMIT - (smem + 2 * FWD_ROWS * dp * 2) < 2048
-    if dp == 512:
-        assert fwd_rows(d) == 64 and smem + fwd_rows(d) * dp * 2 > SMEM_LIMIT
+    if dp > 128:
+        assert fwd_rows(d) == 64 and FWD_ROWS * dp * 2 * (1 + 2 * 2) > SMEM_LIMIT
     else:
         assert fwd_rows(d) == FWD_ROWS
+    if dp == 512:
+        assert smem + fwd_rows(d) * dp * 2 > SMEM_LIMIT
     t = torch.zeros(2, 300, 3, d, dtype=torch.bfloat16)
     assert tma_layout(t, fwd_rows(d))[0] == d and tma_layout(t, fwd_rows(d))[7:] == (64, 1, fwd_rows(d), 1)
+    if d + 8 <= 512:
+        assert k1_plan(d + 8)[0] >= dp
     with pytest.raises(ValueError, match="queue 2 item a"):
-        k1_plan(d + 8)
+        k1_plan(513)
+
+
+@pytest.mark.parametrize("d,plan", [(72, (128, 4, 2)), (128, (128, 4, 2)), (136, (192, 2, 3)), (192, (192, 2, 3)),
+                                    (200, (256, 1, 4)), (256, (256, 1, 4))])
+def test_k3_chunk_kernels_fit_the_block(d, plan):
+    """K3 above D = 64: the own tiles (128 rows of q and dO, or k and v, over DP) and the ring of 64-row loop tiles fit
+    227 KB with 4, 2 and 1 slots at DP = 128, 192 and 256; a work item covers one of ceil(D / 64) column chunks."""
+    dp, stages, smem, chunks = k3_plan(d)
+    assert (dp, stages, chunks) == plan
+    assert smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", [16, 64, 72, 128, 136, 256])
+@pytest.mark.parametrize("pv8", [False, True])
+def test_k6_plan_fits_the_block(d, pv8):
+    """K6's int8 rows: 64 bytes up to D = 64 (one 64-byte-swizzled box, the kernel as it was), 128 and 256 above, in P.V
+    sweeps of 128 output columns (two at DK = 256); at least two ring stages within 227 KB."""
+    dk, ow, sweeps, stages, smem = k6_plan(d, pv8)
+    assert dk == (64 if d <= 64 else 128 if d <= 128 else 256) and ow * sweeps == dk
+    assert stages >= 2 and smem <= SMEM_LIMIT
+    if dk == 64:
+        assert stages == 6
 
 
 def _k1_tile(flat, layout, d, head, row0):
@@ -271,7 +333,7 @@ def _emulate_k1(q, k, v, scale):
     return out
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 128, 136, 192, 256, 512])
 def test_k1_tiles_of_every_head_dim_compute_attention(d):
     "At every head dim, over a ragged second tile of 130 keys, the emulated tiles give the plain version's output."
     rng = np.random.RandomState(d)

@@ -457,7 +457,7 @@ def test_unported_options_raise(option):
 
 
 def test_multiview_model_refuses_what_it_does_not_take():
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         MultiViewPointmapModel(sequence_parallel=("mesh", "sp"), **_model_kw("global"))
     with pytest.raises(NotImplementedError, match="scan_blocks"):
         MultiViewPointmapModel(scan_blocks=True, **_model_kw("global"))

@@ -1,4 +1,4 @@
-// What the attention kernels share: the head dim, the log constants, the
+// What the attention kernels share: the log constants, the
 // (b, n, h) stride triple of their fp32 and non-TMA paths, and pack_bf16
 // (two floats rounded to one bf16x2 word, fused_attention.cu's epilogue). The
 // bf16 tensor-core bodies (flash_attention.cu, flash_attention_bwd.cu,
@@ -11,7 +11,6 @@
 
 namespace uc_fa {
 
-constexpr int D = 64;  // the one head dim the kernels are built for
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 

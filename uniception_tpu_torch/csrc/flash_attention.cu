@@ -1,14 +1,17 @@
-// Flash attention forward (non-causal, no mask) over (B, N, H, D) tensors, D in {32, 64, 80, 96, 128, 512}.
+// Flash attention forward (non-causal, no mask) over (B, N, H, D) tensors, D a multiple of 8 up to 512.
 //
 // Replaces: uniception_tpu/ops/flash_attention.py: flash_attention /
 //   _flash_attention_impl with the bodies _fa_single_kernel and _fa_kernel
 //   (forward; with_lse=True when an LSE pointer is given). The Pallas kernel
-//   takes any D (its _plan); this one takes the head dims of the encoders the
-//   repository builds: 32 (E-RADIO's windows), 64 (CroCo, DINOv2/v3, RADIO-b/l/g,
-//   PE-B/L, Pixio-B/L/1B), 80 (RADIO-h, Pixio-H), 96 (PE-G, Pixio-5B), 128
-//   (DINOv3-7b) and 512 (the Cosmos tokenizer's single-head mid-block attention,
-//   models/libs/cosmos_tokenizer/modules/layers2d.py AttnBlock, for which the
-//   Pallas _plan shrinks its tiles).
+//   takes any D (its _plan); so does this one up to 512, D passed at run time
+//   to one build per padded head dim DP (64, 128, 192, 256, 512), the wrapper
+//   (ops/flash_attention.py) padding a D that is not a multiple of 8 into a
+//   copy. The repository's heads: 16 (the training example's defaults), 32
+//   (E-RADIO's windows), 64 (CroCo, DINOv2/v3, RADIO-b/l/g, PE-B/L, Pixio-B/L/1B),
+//   80 (RADIO-h, Pixio-H), 96 (PE-G, Pixio-5B), 128 (DINOv3-7b), 192 (PE-G's
+//   attention pooling) and 512 (the Cosmos tokenizer's single-head mid-block
+//   attention, models/libs/cosmos_tokenizer/modules/layers2d.py AttnBlock, for
+//   which the Pallas _plan shrinks its tiles).
 //
 // What bounds it on the H100: each (b, h) pair does 4*N*N*D flops on 4*N*D*2
 //   bytes of q/k/v/o, N/2 flops per byte in bf16 whatever D: 512 at N = 1024,
@@ -47,8 +50,10 @@
 //     fused qkv projection need no copy. TMA fills rows past N with zeros; keys
 //     past Nk are still masked to -inf (the TPU kernel's -1e30) and rows past
 //     Nq are not written.
-//   * Head dims. The kernel is built for a padded head dim DP: 64 for D = 32
-//     and 64, 128 for D = 80, 96 and 128. Every tile is DP / 64 boxes of 64
+//   * Head dims. The kernel is built for a padded head dim DP: 64 for D <= 64,
+//     128 for 64 < D <= 128, D itself passed at run time (the columns of o
+//     written, o's row length), but for D = 64, built as a constant. Every
+//     tile is DP / 64 boxes of 64
 //     columns (128 bytes, one 128-byte swizzle row), each a 1024-byte-aligned
 //     atom of its own; TMA writes zeros into the columns past D, so S over DP
 //     columns is S over the real D, and P.V's columns past D are zeros that are
@@ -71,27 +76,34 @@
 //     flash_attention_bwd.cu); with a null pointer nothing more is written.
 //   * fp32: full fp32 FMA math on the CUDA cores, no TF32 (the TPU kernel runs
 //     fp32 at HIGHEST precision): the parity path. A thread holds its query row
-//     and its accumulator in registers: the whole row for D <= 64 (one row per
-//     thread, as before), half of it for D = 80, 96 and 128 (two neighbouring
-//     lanes per row, whose partial dot products meet in one shuffle; both then
-//     hold the same score, so the softmax stays exact), so no D spills the
-//     2 x D registers a row needs.
+//     and its accumulator in registers, built per padded head dim (16, 32, 64,
+//     128, 192, 256, 512; D at run time, columns past it loaded as zeros): the
+//     whole row up to 64 (one row per thread), half of it up to 128 (two
+//     neighbouring lanes per row, whose partial dot products meet in one
+//     shuffle; both then hold the same score, so the softmax stays exact), a
+//     quarter up to 256, an eighth at 512, so no D spills the 2 x D registers a
+//     row needs.
 //   * Later work: a third consumer warpgroup, a TMA store of the output, P.V at
 //     N = D where the swizzle allows it.
 //
-// D = 512 (bf16, fa_fwd_bf16_wide_kernel): the kernel above cannot hold it. A
-//   consumer's 64 x 512 fp32 accumulator would be 256 registers a thread and its
-//   Q operands 128 more, over the 255 a thread may have. So the two consumer
-//   warpgroups split O's columns instead of the query rows: a work item is 64
-//   query rows of one (b, h), and consumer c owns O's columns [256c, 256c + 256)
-//   (two m64n128 accumulators, 128 registers). Each consumer computes the same
-//   S = Q.K^T over the full 512 (32 wgmma m64n64k16 with both operands in shared
+// 128 < D <= 512 (bf16, fa_fwd_bf16_wide_kernel<DP>, DP = 192, 256 or 512): the
+//   kernel above cannot hold it. At D = 512 a consumer's 64 x 512 fp32 accumulator
+//   would be 256 registers a thread and its Q operands 128 more, over the 255 a
+//   thread may have; at DP = 256 Q (128 rows, 64 KB) and two K/V stages (128 KB)
+//   leave no room, and O, S, P and Q's operands need 288 registers. So the two
+//   consumer warpgroups split O's columns instead of the query rows: a work item
+//   is 64 query rows of one (b, h), and consumer 0 owns O's first ceil(DP / 128)
+//   boxes of 64 columns, consumer 1 the rest (at D = 512 [256c, 256c + 256), two
+//   m64n128 accumulators, 128 registers; at DP = 192 two boxes and one, the odd
+//   box an m64n64 product). Each consumer computes the same
+//   S = Q.K^T over the full DP (DP / 16 wgmma m64n64k16 with both operands in shared
 //   memory: Q is too wide for registers), so both hold the same scores and run
-//   the same online softmax with no exchange, then O += P.V over its own half of
-//   V (8 wgmma m64n128k16, P from registers, V MN-major through the transpose
-//   bit). That is 1.5x the minimum tensor-core work (S twice). Shared memory:
-//   Q (64 KB), one 64-key K tile (64 KB) and one V tile (64 KB), 8 boxes of 64
-//   columns each, 192 KB of the 227 KB; K and V have separate barriers, so the
+//   the same online softmax with no exchange, then O += P.V over its own boxes of
+//   V (wgmma m64n128k16 per pair of boxes, P from registers, V MN-major through
+//   the transpose bit). That is 1.5x the minimum tensor-core work (S twice).
+//   Shared memory at D = 512: Q (64 KB), one 64-key K tile (64 KB) and one V tile
+//   (64 KB), 8 boxes of 64 columns each, 192 KB of the 227 KB (96 KB at DP =
+//   256, 72 KB at 192); K and V have separate barriers, so the
 //   next K tile loads while the consumers run the softmax and P.V, and the next
 //   V tile while they run the next S. No ping-pong and no overlap of S with P.V
 //   inside a consumer: the simple, correct first design. With one head the grid
@@ -259,15 +271,16 @@ __device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2])
 // tiles load while the consumers finish the current item, which hides each item's pipeline fill and epilogue.
 // kSoftmax: K1 (attention); without it K8 (S.V: raw scores rounded to bf16, no scale, O summed over every
 // key tile and rounded once; lse and scale_log2 unused). DP: the padded head dim (64 or 128); D <= DP the
-// real one, the columns of o written (a compile-time constant too, so D = 64 compiles to the kernel it was
-// before the padding came in).
-template <bool kSoftmax, int DP, int D>
+// real one (a multiple of 8), the columns of o written: DS when it is not 0 (D = 64 is built as a constant,
+// as it was before other head dims came in: a D taken at run time cost the main path a few percent), else
+// head_dim.
+template <bool kSoftmax, int DP, int DS>
 __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int H,
-    int Nq, int Nk, float scale_log2) {
-  static_assert(D <= DP && D % 16 == 0, "the real head dim");
+    int Nq, int Nk, int head_dim, float scale_log2) {
   using Cfg = FwdCfg<DP>;
+  const int D = DS > 0 ? DS : head_dim;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
   FwdSmem<DP>& sm = *reinterpret_cast<FwdSmem<DP>*>(hw::align_smem(smem_raw));
@@ -410,7 +423,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
 #pragma unroll
       for (int c = 0; c < DP / 8; ++c) {
         const int col = c * 8 + 2 * t;
-        if (c * 8 < D) {  // the columns past D are the padding's zeros (a compile-time test)
+        if (c * 8 < D) {  // the columns past D are the padding's zeros
           if (row0 < Nq)
             *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + col) =
                 hw::pack_bf16x2(acc[4 * c], acc[4 * c + 1]);
@@ -429,45 +442,83 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 512: the consumers split O's columns (see the note at the top)
+// bf16 at 128 < D <= 512: the consumers split O's columns (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int W_D = 512;                     // the head dim
 constexpr int W_BQ = 64;                     // query rows per work item, shared by both consumers
 constexpr int W_BK = 64;                     // keys per K / V tile
-constexpr int W_BOXES = W_D / BOX_COLS;      // 8 boxes of 64 columns per tile
 constexpr int W_BOX_BYTES = 64 * 128;        // one box: 64 rows of 128 bytes
-constexpr int W_TILE_BYTES = W_BQ * W_D * 2; // one Q, K or V tile (W_BQ == W_BK)
 
+// The kernel built for the padded head dim DP (192, 256 or 512): DP / 64 boxes per tile; consumer 0 owns the
+// first A0 boxes of O's columns, consumer 1 the rest (2 and 1 at DP = 192, 2 and 2 at 256, 4 and 4 at 512).
+template <int DP>
+struct WideCfg {
+  static constexpr int BOXES = DP / BOX_COLS;
+  static constexpr int A0 = (BOXES + 1) / 2;
+  static constexpr int TILE_BYTES = W_BQ * DP * 2;  // one Q, K or V tile (W_BQ == W_BK)
+};
+
+template <int DP>
 struct alignas(hw::SMEM_ALIGN) WideSmem {
-  __nv_bfloat16 q[W_BQ * W_D];
-  __nv_bfloat16 k[W_BK * W_D];
-  __nv_bfloat16 v[W_BK * W_D];
+  __nv_bfloat16 q[W_BQ * DP];
+  __nv_bfloat16 k[W_BK * DP];
+  __nv_bfloat16 v[W_BK * DP];
   uint64_t q_full, q_empty, k_full, k_empty, v_full, v_empty;
 };
-constexpr int wide_smem_bytes() { return sizeof(WideSmem) + hw::SMEM_ALIGN; }
-static_assert(wide_smem_bytes() <= 232448, "the block's shared memory");
-static_assert(wide_smem_bytes() >= hw::MIN_SMEM_BYTES, "one block per SM");
+template <int DP>
+constexpr int wide_smem_bytes() {
+  return sizeof(WideSmem<DP>) + hw::SMEM_ALIGN > hw::MIN_SMEM_BYTES ? sizeof(WideSmem<DP>) + hw::SMEM_ALIGN
+                                                                    : hw::MIN_SMEM_BYTES;
+}
+static_assert(wide_smem_bytes<512>() <= 232448, "the block's shared memory");
 
-// One box after another: `boxes` TMA boxes of 64 columns at rows row0 of head h, batch b, into consecutive
-// W_BOX_BYTES slots of dst.
+// One box after another: the DP / 64 TMA boxes of 64 columns at rows row0 of head h, batch b, into consecutive
+// W_BOX_BYTES slots of dst (boxes past D arrive as zeros).
+template <int DP>
 __device__ __forceinline__ void load_wide_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int h,
                                                int row0, int b) {
 #pragma unroll
-  for (int box = 0; box < W_BOXES; ++box)
+  for (int box = 0; box < WideCfg<DP>::BOXES; ++box)
     hw::tma_load_4d(dst + box * W_BQ * BOX_COLS, map, bar, box * BOX_COLS, h, row0, b);
+}
+
+// O += P V over NB boxes of this consumer's columns: 4 k-steps of 16 keys, each an m64n128 product per pair of
+// boxes and an m64n64 one for an odd last box, P from registers, V MN-major through the transpose bit. acc holds
+// box a's 64 columns in registers [32a, 32a + 32) (an m64n128 accumulator's first 32 registers are its first 64
+// columns).
+template <int NB, int N>
+__device__ __forceinline__ void wide_pv(float (&acc)[N], uint32_t (&pa)[W_BK / 16][4], uint32_t v_addr) {
+  static_assert(NB * 32 <= N, "the accumulator holds the boxes");
+  hw::fence_regs(acc);
+  hw::fence_regs(pa);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < W_BK / 16; ++kc) {
+#pragma unroll
+    for (int a = 0; a + 1 < NB; a += 2)
+      hw::wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(&acc[32 * a]), pa[kc],
+                                 hw::desc_mn_major(v_addr + a * W_BOX_BYTES + kc * 16 * 128, W_BOX_BYTES), 1);
+    if constexpr (NB % 2 == 1)
+      hw::wgmma_m64n64k16_rs<1>(*reinterpret_cast<float(*)[32]>(&acc[32 * (NB - 1)]), pa[kc],
+                                hw::desc_mn_major(v_addr + (NB - 1) * W_BOX_BYTES + kc * 16 * 128), 1);
+  }
+  hw::wgmma_commit();
 }
 
 // Persistent: gridDim.x blocks walk the (64-query tile, head, batch) items, query tile fastest. Warpgroup 0's
 // thread 0 loads each item's Q, then for each key tile K and V, each behind its own full/empty barrier pair (one
-// slot each). Consumer c (warpgroups 1 and 2) computes S over the full head dim, the online softmax, and O's
-// columns [256c, 256c + 256). With an LSE pointer, consumer 0 writes each row's logsumexp.
+// slot each). Consumer c (warpgroups 1 and 2) computes S over the full padded head dim, the online softmax, and
+// its boxes of O's columns. With an LSE pointer, consumer 0 writes each row's logsumexp. D <= DP is the real head
+// dim (a multiple of 8): o's row length and the columns written.
+template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int H,
-    int Nq, int Nk, float scale_log2) {
+    int Nq, int Nk, int D, float scale_log2) {
+  using Cfg = WideCfg<DP>;
+  constexpr int A0 = Cfg::A0, A1 = Cfg::BOXES - Cfg::A0;
   extern __shared__ uint8_t smem_raw[];
-  WideSmem& sm = *reinterpret_cast<WideSmem*>(hw::align_smem(smem_raw));
+  WideSmem<DP>& sm = *reinterpret_cast<WideSmem<DP>*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
   const int q_tiles = (Nq + W_BQ - 1) / W_BQ, n_items = q_tiles * H * B;
   const int n_tiles = (Nk + W_BK - 1) / W_BK;
@@ -490,35 +541,36 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
         hw::mbar_wait(&sm.q_empty, q_phase ^ 1);  // the first item finds the Q buffer free
-        hw::mbar_arrive_expect_tx(&sm.q_full, W_TILE_BYTES);
-        load_wide_tile(sm.q, &qmap, &sm.q_full, h, qt * W_BQ, b);
+        hw::mbar_arrive_expect_tx(&sm.q_full, Cfg::TILE_BYTES);
+        load_wide_tile<DP>(sm.q, &qmap, &sm.q_full, h, qt * W_BQ, b);
         q_phase ^= 1;
         for (int j = 0; j < n_tiles; ++j) {
           hw::mbar_wait(&sm.k_empty, kv_phase ^ 1);  // both consumers are done with the last K tile's S
-          hw::mbar_arrive_expect_tx(&sm.k_full, W_TILE_BYTES);
-          load_wide_tile(sm.k, &kmap, &sm.k_full, h, j * W_BK, b);
+          hw::mbar_arrive_expect_tx(&sm.k_full, Cfg::TILE_BYTES);
+          load_wide_tile<DP>(sm.k, &kmap, &sm.k_full, h, j * W_BK, b);
           hw::mbar_wait(&sm.v_empty, kv_phase ^ 1);  // ... and with the last V tile's P.V
-          hw::mbar_arrive_expect_tx(&sm.v_full, W_TILE_BYTES);
-          load_wide_tile(sm.v, &vmap, &sm.v_full, h, j * W_BK, b);
+          hw::mbar_arrive_expect_tx(&sm.v_full, Cfg::TILE_BYTES);
+          load_wide_tile<DP>(sm.v, &vmap, &sm.v_full, h, j * W_BK, b);
           kv_phase ^= 1;
         }
       }
     }
-  } else {  // consumer warpgroups: the item's 64 rows, half of O's columns each
+  } else {  // consumer warpgroups: the item's 64 rows, a share of O's columns each
     hw::setmaxnreg_inc<232>();
     const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
+    const int mine = cwg == 0 ? A0 : A1, box0 = cwg * A0;  // this consumer's boxes of O's columns
     const uint32_t q_addr = hw::smem_u32(sm.q), k_addr = hw::smem_u32(sm.k);
-    const uint32_t v_addr = hw::smem_u32(sm.v) + cwg * 4 * W_BOX_BYTES;  // this consumer's four boxes of V
+    const uint32_t v_addr = hw::smem_u32(sm.v) + box0 * W_BOX_BYTES;
     uint32_t q_phase = 0, kv_phase = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
       const int row0 = qt * W_BQ + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
       const int row1 = row0 + 8;
 
-      float acc0[64], acc1[64];  // O's columns [256c, 256c + 128) and [256c + 128, 256c + 256): m64n128 each
+      float acc[A0 * 32];  // O's columns of this consumer's boxes: box a in registers [32a, 32a + 32)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+      for (int i = 0; i < A0 * 32; ++i) acc[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};  // running max of rows row0 / row1 (log2 units)
       float l[2] = {0.f, 0.f};              // this thread's share of the running sums
       float sc[W_BK / 2];                   // S of this tile: m64n64
@@ -528,12 +580,12 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
       hw::mbar_wait(&sm.q_full, q_phase);
       q_phase ^= 1;
       for (int j = 0; j < n_tiles; ++j) {
-        // S = Q K^T: 32 k-steps of 16 over the 8 boxes, both operands K-major in shared memory
+        // S = Q K^T: DP / 16 k-steps of 16 over the boxes, both operands K-major in shared memory
         hw::mbar_wait(&sm.k_full, kv_phase);
         hw::fence_regs(sc);
         hw::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < W_D / 16; ++kk) {
+        for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t off = (kk / 4) * W_BOX_BYTES + (kk % 4) * 32;
           hw::wgmma_m64n64k16_ss<0, 0>(sc, hw::desc_k_major(q_addr + off), hw::desc_k_major(k_addr + off), kk > 0);
         }
@@ -545,25 +597,15 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
 
         online_softmax(sc, m, l, corr, j, Nk, t, scale_log2);
         hw::pack_a<W_BK>(pa, sc);
-        rescale(acc0, corr);
-        rescale(acc1, corr);
+        rescale(acc, corr);
 
-        // O += P V over this consumer's 256 columns: 4 k-steps of 16 keys, two m64n128 products each
         hw::mbar_wait(&sm.v_full, kv_phase);
-        hw::fence_regs(acc0);
-        hw::fence_regs(acc1);
-        hw::fence_regs(pa);
-        hw::wgmma_fence();
-#pragma unroll
-        for (int kc = 0; kc < W_BK / 16; ++kc) {
-          hw::wgmma_m64n128k16_rs<1>(acc0, pa[kc], hw::desc_mn_major(v_addr + kc * 16 * 128, W_BOX_BYTES), 1);
-          hw::wgmma_m64n128k16_rs<1>(acc1, pa[kc],
-                                     hw::desc_mn_major(v_addr + 2 * W_BOX_BYTES + kc * 16 * 128, W_BOX_BYTES), 1);
-        }
-        hw::wgmma_commit();
+        if (cwg == 0)  // warpgroup-uniform: each consumer's products over its own boxes
+          wide_pv<A0>(acc, pa, v_addr);
+        else
+          wide_pv<A1>(acc, pa, v_addr);
         hw::wgmma_wait<0>();
-        hw::fence_regs(acc0);
-        hw::fence_regs(acc1);
+        hw::fence_regs(acc);
         hw::mbar_arrive(&sm.v_empty);
         kv_phase ^= 1;
       }
@@ -573,19 +615,20 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
-      __nv_bfloat16* op = o + ((long long)b * Nq * H + h) * W_D + cwg * 256;  // o is contiguous (B, Nq, H, D)
+      __nv_bfloat16* op = o + ((long long)b * Nq * H + h) * D;  // o is contiguous (B, Nq, H, D)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = c * 8 + 2 * t;
-        if (row0 < Nq) {
-          __nv_bfloat16* p0 = op + (long long)row0 * H * W_D + col;
-          *reinterpret_cast<uint32_t*>(p0) = hw::pack_bf16x2(acc0[4 * c] / l[0], acc0[4 * c + 1] / l[0]);
-          *reinterpret_cast<uint32_t*>(p0 + 128) = hw::pack_bf16x2(acc1[4 * c] / l[0], acc1[4 * c + 1] / l[0]);
-        }
-        if (row1 < Nq) {
-          __nv_bfloat16* p1 = op + (long long)row1 * H * W_D + col;
-          *reinterpret_cast<uint32_t*>(p1) = hw::pack_bf16x2(acc0[4 * c + 2] / l[1], acc0[4 * c + 3] / l[1]);
-          *reinterpret_cast<uint32_t*>(p1 + 128) = hw::pack_bf16x2(acc1[4 * c + 2] / l[1], acc1[4 * c + 3] / l[1]);
+      for (int a = 0; a < A0; ++a) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int chunk = (box0 + a) * 64 + c * 8;  // the columns past D are the padding's zeros
+          if (a >= mine || chunk >= D) continue;
+          const float* x = &acc[32 * a + 4 * c];
+          if (row0 < Nq)
+            *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + chunk + 2 * t) =
+                hw::pack_bf16x2(x[0] / l[0], x[1] / l[0]);
+          if (row1 < Nq)
+            *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + chunk + 2 * t) =
+                hw::pack_bf16x2(x[2] / l[1], x[3] / l[1]);
         }
       }
       if (lse != nullptr && cwg == 0 && t == 0) {  // m is in log2 units of the scaled scores
@@ -605,22 +648,24 @@ constexpr int F32_THREADS = 128;
 constexpr int F32_BK = 32;    // key rows per shared-memory tile
 constexpr int F32_CHUNK = 16; // keys scored before each rescale of the accumulator
 
-// TPR threads per query row (1; 2 for D = 80, 96 and 128, neighbouring lanes each with half of the row's D; 8 for
-// D = 512), so a thread holds DT = D / TPR elements of q and of the accumulator: at most 64 of each. With TPR <= 2
-// a thread's columns are contiguous; with 8 they are 4-wide groups interleaved across the row's lanes, so the 8
-// lanes read 128 neighbouring bytes of a key or value row. KB: key rows per shared-memory tile (8 at D = 512, so
-// K and V stay within the 48 KB of static shared memory).
-template <int D, int TPR, int KB = F32_BK>
+// Built for a padded head dim DP (16, 32, 64, 128, 192, 256 or 512); D <= DP is the real one, a multiple of 4:
+// columns past D load as zeros and are not stored. TPR threads per query row (1 up to DP = 64; 2 at 128,
+// neighbouring lanes each with half of the row; 4 at 192 and 256; 8 at 512), so a thread holds DT = DP / TPR
+// elements of q and of the accumulator: at most 64 of each. With TPR <= 2 a thread's columns are contiguous; with
+// more they are 4-wide groups interleaved across the row's lanes, so the lanes of a row read neighbouring words of
+// a key or value row. KB: key rows per shared-memory tile (16 at DP = 192 and 256, 8 at 512, so K and V stay
+// within the 48 KB of static shared memory).
+template <int DP, int TPR, int KB = F32_BK>
 __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+    float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
     float scale_log2) {
-  constexpr int DT = D / TPR, ROWS = F32_THREADS / TPR;
+  constexpr int DT = DP / TPR, ROWS = F32_THREADS / TPR;
   constexpr int CHUNK = KB < F32_CHUNK ? KB : F32_CHUNK;
   constexpr int STEP = TPR > 2 ? 4 * TPR : 4;  // columns between a thread's 4-wide groups
   static_assert(DT % 4 == 0 && DT <= 64 && KB % CHUNK == 0, "a thread's share of the row");
-  __shared__ __align__(16) float k_s[KB][D];
-  __shared__ __align__(16) float v_s[KB][D];
+  __shared__ __align__(16) float k_s[KB][DP];
+  __shared__ __align__(16) float v_s[KB][DP];
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y;
@@ -633,8 +678,8 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
   const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n + d0;
 #pragma unroll
   for (int d = 0; d < DT; d += 4) {
-    const float4 x =
-        row < Nq ? *reinterpret_cast<const float4*>(qp + (d / 4) * STEP) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x = row < Nq && d0 + (d / 4) * STEP < D ? *reinterpret_cast<const float4*>(qp + (d / 4) * STEP)
+                                                         : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[d] = x.x, qr[d + 1] = x.y, qr[d + 2] = x.z, qr[d + 3] = x.w;
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
@@ -642,10 +687,10 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
 
   for (int k0 = 0; k0 < Nk; k0 += KB) {
     __syncthreads();
-    for (int c = tid; c < KB * D / 4; c += blockDim.x) {
-      const int r = c / (D / 4), d4 = (c % (D / 4)) * 4;
+    for (int c = tid; c < KB * DP / 4; c += blockDim.x) {
+      const int r = c / (DP / 4), d4 = (c % (DP / 4)) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < Nk) {
+      if (k0 + r < Nk && d4 < D) {
         kx = *reinterpret_cast<const float4*>(kp + (long long)(k0 + r) * ks.n + d4);
         vx = *reinterpret_cast<const float4*>(vp + (long long)(k0 + r) * vs.n + d4);
       }
@@ -701,33 +746,34 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
     float* op = o + (((long long)b * Nq + row) * H + h) * D + d0;
 #pragma unroll
     for (int d = 0; d < DT; d += 4)
-      *reinterpret_cast<float4*>(op + (d / 4) * STEP) =
-          make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
+      if (d0 + (d / 4) * STEP < D)
+        *reinterpret_cast<float4*>(op + (d / 4) * STEP) =
+            make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
     if (lse != nullptr && tid % TPR == 0) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
   }
 }
 
-template <int D, int TPR, int KB = F32_BK>
-void launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
+template <int DP, int TPR, int KB = F32_BK>
+void launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk, int D,
                 Strides qs, Strides ks, Strides vs, float scale_log2, cudaStream_t st) {
   constexpr int ROWS = F32_THREADS / TPR;
   const dim3 grid((Nq + ROWS - 1) / ROWS, H, B);
-  fa_fwd_f32_kernel<D, TPR, KB><<<grid, F32_THREADS, 0, st>>>(
+  fa_fwd_f32_kernel<DP, TPR, KB><<<grid, F32_THREADS, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Nq, Nk, qs, ks, vs, scale_log2);
+      static_cast<float*>(lse), H, Nq, Nk, D, qs, ks, vs, scale_log2);
 }
 
-// The bf16 kernel on its persistent grid: K1 (kSoftmax) or K8, built for the padded head dim DP and the real one
-// D. `layouts` as uc_flash_attention_fwd takes them.
-template <bool kSoftmax, int DP, int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
+// The bf16 kernel on its persistent grid: K1 (kSoftmax) or K8, built for the padded head dim DP (64 or 128) and
+// the real one DS (0: D at run time). `layouts` as uc_flash_attention_fwd takes them.
+template <bool kSoftmax, int DP, int DS>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk, int D,
                 const long long* layouts, float scale_log2, cudaStream_t st) {
   CUtensorMap qm, km, vm;
   int status = hw::encode_tile_map(&qm, q, layouts, BQ);
   if (status == 0) status = hw::encode_tile_map(&km, k, layouts + hw::LAYOUT_INTS, BK);
   if (status == 0) status = hw::encode_tile_map(&vm, v, layouts + 2 * hw::LAYOUT_INTS, BK);
   static bool smem_set[64];
-  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_kernel<kSoftmax, DP, D>, fwd_smem_bytes<DP>(), smem_set);
+  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_kernel<kSoftmax, DP, DS>, fwd_smem_bytes<DP>(), smem_set);
   if (status != 0) return status;
   const long long items = (long long)((Nq + BQ - 1) / BQ) * H * B;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -735,20 +781,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   status = hw::sm_count(&sms);
   if (status != 0) return status;
   const int grid = (int)(items < sms ? items : sms);
-  fa_fwd_bf16_kernel<kSoftmax, DP, D><<<grid, THREADS, fwd_smem_bytes<DP>(), st>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, scale_log2);
+  fa_fwd_bf16_kernel<kSoftmax, DP, DS><<<grid, THREADS, fwd_smem_bytes<DP>(), st>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, D, scale_log2);
   return 0;
 }
 
-// The D = 512 bf16 kernel on its persistent grid (boxes of 64 rows).
+// The column-split bf16 kernel built for DP (192, 256 or 512) on its persistent grid (boxes of 64 rows).
+template <int DP>
 int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
-                     const long long* layouts, float scale_log2, cudaStream_t st) {
+                     int D, const long long* layouts, float scale_log2, cudaStream_t st) {
   CUtensorMap qm, km, vm;
   int status = hw::encode_tile_map(&qm, q, layouts, W_BQ);
   if (status == 0) status = hw::encode_tile_map(&km, k, layouts + hw::LAYOUT_INTS, W_BK);
   if (status == 0) status = hw::encode_tile_map(&vm, v, layouts + 2 * hw::LAYOUT_INTS, W_BK);
   static bool smem_set[64];
-  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_wide_kernel, wide_smem_bytes(), smem_set);
+  if (status == 0) status = hw::allow_smem(fa_fwd_bf16_wide_kernel<DP>, wide_smem_bytes<DP>(), smem_set);
   if (status != 0) return status;
   const long long items = (long long)((Nq + W_BQ - 1) / W_BQ) * H * B;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -756,8 +803,8 @@ int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, void*
   status = hw::sm_count(&sms);
   if (status != 0) return status;
   const int grid = (int)(items < sms ? items : sms);
-  fa_fwd_bf16_wide_kernel<<<grid, THREADS, wide_smem_bytes(), st>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, scale_log2);
+  fa_fwd_bf16_wide_kernel<DP><<<grid, THREADS, wide_smem_bytes<DP>(), st>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, D, scale_log2);
   return 0;
 }
 
@@ -768,42 +815,50 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
   return Strides{L[6] / elem_bytes, L[5] / elem_bytes, L[4] / elem_bytes};
 }
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 32, 64, 80, 96, 128 or 512. `layouts` holds the tensor-map layouts
-// of q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of 64 columns and 128 rows, 64 rows at D = 512),
-// from which the fp32 kernel takes its element
-// strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a
+// dtype: 0 = float32, 1 = bfloat16; head_dim: a multiple of 8 up to 512 (ops/flash_attention.py pads any other
+// into a copy). `layouts` holds the tensor-map layouts of q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of
+// 64 columns and 128 rows, 64 rows above D = 128: ops/flash_attention.py fwd_rows), from which the fp32 kernel
+// takes its element strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a
 // contiguous (B, H, Nq) float32 tensor. Returns a cudaError_t.
 extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
                                       int B, int H, int Nq, int Nk, int head_dim, const long long* layouts,
                                       float scale, void* stream) {
   const int D = head_dim;
-  if ((D != 32 && D != 64 && D != 80 && D != 96 && D != 128 && D != 512) || B <= 0 || H <= 0 || Nq <= 0 ||
-      Nk <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (D < 8 || D > 512 || D % 8 != 0 || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   const long long *lq = layouts, *lk = layouts + hw::LAYOUT_INTS, *lv = layouts + 2 * hw::LAYOUT_INTS;
   const float scale_log2 = scale * LOG2E;  // exp(x) = exp2(x * log2(e))
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     int status;
-    switch (D) {
-      case 32: status = launch_bf16<true, 64, 32>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-      case 64: status = launch_bf16<true, 64, 64>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-      case 80: status = launch_bf16<true, 128, 80>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-      case 96: status = launch_bf16<true, 128, 96>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-      case 128: status = launch_bf16<true, 128, 128>(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-      default: status = launch_bf16_wide(q, k, v, o, lse, B, H, Nq, Nk, layouts, scale_log2, st); break;
-    }
+    if (D == 64)
+      status = launch_bf16<true, 64, 64>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+    else if (D < 64)
+      status = launch_bf16<true, 64, 0>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+    else if (D <= 128)
+      status = launch_bf16<true, 128, 0>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+    else if (D <= 192)
+      status = launch_bf16_wide<192>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+    else if (D <= 256)
+      status = launch_bf16_wide<256>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+    else
+      status = launch_bf16_wide<512>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
     if (status != 0) return status;
   } else if (dtype == 0) {
     const Strides qs = layout_strides(lq, 4), ks = layout_strides(lk, 4), vs = layout_strides(lv, 4);
-    switch (D) {
-      case 32: launch_f32<32, 1>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-      case 64: launch_f32<64, 1>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-      case 80: launch_f32<80, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-      case 96: launch_f32<96, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-      case 128: launch_f32<128, 2>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-      default: launch_f32<512, 8, 8>(q, k, v, o, lse, B, H, Nq, Nk, qs, ks, vs, scale_log2, st); break;
-    }
+    if (D <= 16)
+      launch_f32<16, 1>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    else if (D <= 32)
+      launch_f32<32, 1>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    else if (D <= 64)
+      launch_f32<64, 1>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    else if (D <= 128)
+      launch_f32<128, 2>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    else if (D <= 192)
+      launch_f32<192, 4, 16>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    else if (D <= 256)
+      launch_f32<256, 4, 16>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    else
+      launch_f32<512, 8, 8>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -816,8 +871,8 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
 extern "C" int uc_sv_only(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk,
                           int head_dim, const long long* layouts, void* stream) {
   if (head_dim != 64 || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
-  const int status = launch_bf16<false, 64, 64>(q, k, v, o, nullptr, B, H, Nq, Nk, layouts, 0.f,
-                                                 static_cast<cudaStream_t>(stream));
+  const int status = launch_bf16<false, 64, 64>(q, k, v, o, nullptr, B, H, Nq, Nk, 64, layouts, 0.f,
+                                                static_cast<cudaStream_t>(stream));
   return status != 0 ? status : (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Flash attention backward (non-causal, no mask) over (B, N, H, D) tensors, D = 64.
+// Flash attention backward (non-causal, no mask) over (B, N, H, D) tensors, D a multiple of 8 up to 256
+// (ops/flash_attention.py pads any other into a copy).
 //
 // Replaces: uniception_tpu/ops/flash_attention.py: _flash_attention_bwd_pallas
 //   with the bodies _fa_bwd_fused_kernel, _fa_bwd_dq_kernel and
@@ -47,18 +48,40 @@
 //     each wgmma group has its own fence, so ptxas never serialises them, and
 //     the two consumers take turns on the tensor cores (ping-pong).
 //   * fp32: full fp32 FMA on the CUDA cores, no TF32 (the Pallas kernels run
-//     fp32 at HIGHEST precision), the parity path. Two threads share a row,
-//     each holding half of D in registers, and add their halves of each dot
-//     product with one shuffle.
+//     fp32 at HIGHEST precision), the parity path. TPR threads share a row
+//     (2 up to DP = 64, 4 at 128, 8 at 256), each holding DP / TPR of its
+//     columns in registers, and add their parts of each dot product by a
+//     butterfly of shuffles; D at run time, columns past it loaded as zeros.
 //   * q/k/v/dO are read through 4-D tensor maps (D, H, N, B) with their byte
 //     strides (ops/flash_attention.py tma_layout), so the views of a fused qkv
 //     projection need no copy; o, lse and the outputs are contiguous. TMA
 //     fills rows past N with zeros: a padded query has zero q and dO, so it
 //     adds nothing to dk and dv; padded keys get p = 0 in dq (fp32: padded
 //     rows and keys get p = 0).
+//   * Head dims. D <= 64 runs the kernels above on one 64-column TMA box per
+//     tile (TMA writes zeros past D; D at run time, the columns written).
+//     64 < D <= 256 cannot: at DP = 128 a dk/dv consumer would hold k and v
+//     operands (64 registers), two DP-wide accumulators (128), s^T, dp^T (64)
+//     and p^T, ds^T (32), and at DP = 256 the accumulators alone are 256
+//     registers and Q + dO own tiles 128 KB. So D > 64 takes the column-chunk
+//     kernels (fa_bwd_dq_wide_kernel, fa_bwd_dkv_wide_kernel, built for the
+//     padded head dim DP = 128, 192 or 256): a work item is a 64-column chunk of
+//     the outputs of one 128-row own tile, chunk fastest so the blocks working at
+//     one time share their tiles in L2. Each recomputes s and dp (s^T and dp^T)
+//     over the whole DP with both wgmma operands in shared memory (the own tiles
+//     stay there for the item), then adds its chunk: dq += ds k[:, chunk] in dq,
+//     dv += p^T dO[:, chunk] and dk += ds^T q[:, chunk] in dk/dv, each chunk one
+//     64-column box of the loop tile read MN-major. Registers stay at one m64n64
+//     accumulator per output (32 each). The price is the recomputation: per
+//     chunk two products over DP plus one (dq) or two (dk/dv) over 64 columns,
+//     1.7x the minimum work at D = 128 and 2.5-3x at 256; and one issue order
+//     without ping-pong or overlap: the simple, correct first design. The ring
+//     of loop tiles has 4, 2 or 1 slots at DP = 128, 192, 256 (what 200 KB
+//     leaves beside the own tiles).
 //   * Later work: one fused pass when a single tile covers all keys
 //     (_fa_bwd_fused_kernel's 5-product shape), 128-row loop tiles, dq
-//     accumulated in the dk/dv pass (which needs atomics or a reduction).
+//     accumulated in the dk/dv pass (which needs atomics or a reduction), wider
+//     chunks and the pipeline of the D <= 64 kernels for D > 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,34 +99,45 @@ namespace hw = uc_hopper;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// delta[b, h, n] = sum_d dO[b, n, h, d] * O[b, n, h, d] in fp32. Each thread takes one 16-byte vector of a
-// row (8 bf16 or 4 fp32), so D / VEC neighbouring lanes share a row and add their sums by shuffle.
+// delta[b, h, n] = sum_d dO[b, n, h, d] * O[b, n, h, d] in fp32. Each thread takes 16-byte vectors of a row (8 bf16
+// or 4 fp32; D a multiple of the vector): `lanes` neighbouring lanes share a row (its vector count rounded up to a
+// power of two, at most 32; 8 at D = 64 in bf16, 4 rows a warp), each taking every lanes-th vector, and add their
+// sums by shuffle.
 template <typename T>
 __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
-                                                           float* __restrict__ delta, int H, int Nq, long long rows,
-                                                           Strides dos) {
-  constexpr int VEC = 16 / sizeof(T), LANES = D / VEC, ROWS_PER_WARP = 32 / LANES;
-  const int part = threadIdx.x % LANES, group = (threadIdx.x & 31) / LANES;
+                                                           float* __restrict__ delta, int H, int Nq, int D, int lanes,
+                                                           long long rows, Strides dos) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int vecs = D / VEC, rows_per_warp = 32 / lanes;
+  const int part = threadIdx.x % lanes, group = (threadIdx.x & 31) / lanes;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long step = (((long long)gridDim.x * blockDim.x) >> 5) * ROWS_PER_WARP;
-  for (long long r0 = warp * ROWS_PER_WARP; r0 < rows; r0 += step) {  // the same trip count for the whole warp
+  const long long step = (((long long)gridDim.x * blockDim.x) >> 5) * rows_per_warp;
+  for (long long r0 = warp * rows_per_warp; r0 < rows; r0 += step) {  // the same trip count for the whole warp
     const long long r = r0 + group;  // (b * Nq + n) * H + h, o's row order
     float s = 0.f;
     int b = 0, n = 0, h = 0;
     if (r < rows) {
       const long long bn = r / H;
       h = (int)(r - bn * H), n = (int)(bn % Nq), b = (int)(bn / Nq);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * dos.b + n * dos.n + h * dos.h + part * VEC);
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + r * D + part * VEC);
-      const T* de = reinterpret_cast<const T*>(&dv);
-      const T* oe = reinterpret_cast<const T*>(&ov);
+      for (int v = part; v < vecs; v += lanes) {
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * dos.b + n * dos.n + h * dos.h + v * VEC);
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + r * D + v * VEC);
+        const T* de = reinterpret_cast<const T*>(&dv);
+        const T* oe = reinterpret_cast<const T*>(&ov);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) s = fmaf(to_f(de[i]), to_f(oe[i]), s);
+        for (int i = 0; i < VEC; ++i) s = fmaf(to_f(de[i]), to_f(oe[i]), s);
+      }
     }
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    for (int off = lanes / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (r < rows && part == 0) delta[((long long)b * H + h) * Nq + n] = s;
   }
+}
+
+// The lanes of a row in fa_bwd_delta_kernel: its 16-byte vectors rounded up to a power of two, at most 32.
+int delta_lanes(int D, int elem_bytes) {
+  int lanes = 1;
+  while (lanes < 32 && lanes * 16 < D * elem_bytes) lanes <<= 1;
+  return lanes;
 }
 
 // ---------------------------------------------------------------------------
@@ -115,17 +149,18 @@ constexpr int CONSUMERS = THREADS - 128;
 constexpr int OWN = 128;                 // the block's own rows: queries in dq, keys in dk/dv (2 x 64)
 constexpr int LOOP = 64;                 // rows of each tile the block loops over
 constexpr int STAGES = 4;
-constexpr int OWN_BYTES = OWN * D * 2, LOOP_BYTES = LOOP * D * 2;
+constexpr int BOX = 64;                  // columns of a TMA box (128 bytes: one 128-byte swizzle row)
+constexpr int OWN_BYTES = OWN * BOX * 2, LOOP_BYTES = LOOP * BOX * 2;  // one box of an own / loop tile
 
 struct alignas(hw::SMEM_ALIGN) DqSmem {
-  __nv_bfloat16 q[OWN * D], dout[OWN * D];
-  __nv_bfloat16 k[STAGES][LOOP * D], v[STAGES][LOOP * D];
+  __nv_bfloat16 q[OWN * BOX], dout[OWN * BOX];
+  __nv_bfloat16 k[STAGES][LOOP * BOX], v[STAGES][LOOP * BOX];
   uint64_t own_full, own_empty, full[STAGES], empty[STAGES];
 };
 
 struct alignas(hw::SMEM_ALIGN) DkvSmem {
-  __nv_bfloat16 k[OWN * D], v[OWN * D];
-  __nv_bfloat16 q[STAGES][LOOP * D], dout[STAGES][LOOP * D];
+  __nv_bfloat16 k[OWN * BOX], v[OWN * BOX];
+  __nv_bfloat16 q[STAGES][LOOP * BOX], dout[STAGES][LOOP * BOX];
   float lse[STAGES][LOOP], delta[STAGES][LOOP];  // lse in log2 units; 0 past Nq
   uint64_t own_full, own_empty, full[STAGES], empty[STAGES];
 };
@@ -155,13 +190,13 @@ __device__ __forceinline__ void init_barriers(S& sm, int full_count) {
 // x = a b^T and y = c d^T for one consumer's 64 rows and a 64-row tile, 4 k-steps of 16 over D: a and c from
 // registers (the consumer's own rows, read once), b and d read K-major from shared memory (s and dp in dq;
 // s^T and dp^T in dk/dv); the first k-step overwrites x and y. One wgmma group, committed.
-__device__ __forceinline__ void issue_pair(float (&x)[LOOP / 2], float (&y)[LOOP / 2], const uint32_t (&a)[D / 16][4],
-                                           uint32_t b, const uint32_t (&c)[D / 16][4], uint32_t d) {
+__device__ __forceinline__ void issue_pair(float (&x)[LOOP / 2], float (&y)[LOOP / 2], const uint32_t (&a)[BOX / 16][4],
+                                           uint32_t b, const uint32_t (&c)[BOX / 16][4], uint32_t d) {
   hw::fence_regs(x);
   hw::fence_regs(y);
   hw::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < BOX / 16; ++kk) {
     hw::wgmma_m64n64k16_rs<0>(x, a[kk], hw::desc_k_major(b + kk * 32), kk > 0);
     hw::wgmma_m64n64k16_rs<0>(y, c[kk], hw::desc_k_major(d + kk * 32), kk > 0);
   }
@@ -170,19 +205,19 @@ __device__ __forceinline__ void issue_pair(float (&x)[LOOP / 2], float (&y)[LOOP
 
 // dq += ds k for one consumer's 64 rows: 4 k-steps of 16 keys, ds from registers, k read MN-major (rows =
 // keys). One wgmma group.
-__device__ __forceinline__ void issue_ds_k(float (&acc)[D / 2], uint32_t (&a)[LOOP / 16][4], uint32_t k_addr) {
+__device__ __forceinline__ void issue_ds_k(float (&acc)[BOX / 2], uint32_t (&a)[LOOP / 16][4], uint32_t k_addr) {
   hw::fence_regs(acc);
   hw::fence_regs(a);
   hw::wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < LOOP / 16; ++kc)
-    hw::wgmma_m64n64k16_rs<1>(acc, a[kc], hw::desc_mn_major(k_addr + kc * 16 * D * 2), 1);
+    hw::wgmma_m64n64k16_rs<1>(acc, a[kc], hw::desc_mn_major(k_addr + kc * 16 * BOX * 2), 1);
   hw::wgmma_commit();
 }
 
 // dv += p^T dO and dk += ds^T q for one consumer's 64 keys: 4 k-steps of 16 queries, p^T and ds^T from
 // registers, dO and q read MN-major (rows = queries). One wgmma group.
-__device__ __forceinline__ void issue_dkv(float (&dv_acc)[D / 2], float (&dk_acc)[D / 2], uint32_t (&pa)[LOOP / 16][4],
+__device__ __forceinline__ void issue_dkv(float (&dv_acc)[BOX / 2], float (&dk_acc)[BOX / 2], uint32_t (&pa)[LOOP / 16][4],
                                           uint32_t (&sa)[LOOP / 16][4], uint32_t do_addr, uint32_t q_addr) {
   hw::fence_regs(dv_acc);
   hw::fence_regs(dk_acc);
@@ -191,8 +226,8 @@ __device__ __forceinline__ void issue_dkv(float (&dv_acc)[D / 2], float (&dk_acc
   hw::wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < LOOP / 16; ++kc) {
-    hw::wgmma_m64n64k16_rs<1>(dv_acc, pa[kc], hw::desc_mn_major(do_addr + kc * 16 * D * 2), 1);
-    hw::wgmma_m64n64k16_rs<1>(dk_acc, sa[kc], hw::desc_mn_major(q_addr + kc * 16 * D * 2), 1);
+    hw::wgmma_m64n64k16_rs<1>(dv_acc, pa[kc], hw::desc_mn_major(do_addr + kc * 16 * BOX * 2), 1);
+    hw::wgmma_m64n64k16_rs<1>(dk_acc, sa[kc], hw::desc_mn_major(q_addr + kc * 16 * BOX * 2), 1);
   }
   hw::wgmma_commit();
 }
@@ -207,12 +242,15 @@ __device__ __forceinline__ Item decode(int item, int tiles, int H) {
 
 // dq: a persistent kernel whose work items are 128-query tiles; each loops over 64-key tiles. The producer
 // runs ahead across items (the consumers hold their q and dO rows in registers and release the own-tile
-// buffer at once), which hides each item's pipeline fill and epilogue.
+// buffer at once), which hides each item's pipeline fill and epilogue. D = DS when DS is not 0 (64, built as a
+// constant, as the forward's), else head_dim.
+template <int DS>
 __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_bf16_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B, int H,
-    int Nq, int Nk, float scale, float scale_log2) {
+    int Nq, int Nk, int head_dim, float scale, float scale_log2) {
+  const int D = DS > 0 ? DS : head_dim;
   extern __shared__ uint8_t smem_raw[];
   DqSmem& sm = *reinterpret_cast<DqSmem*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
@@ -264,9 +302,9 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_bf16_kernel(
         lse2[r] = rows[r] < Nq ? lse[stat + rows[r]] * LOG2E : 0.f;
         dl[r] = rows[r] < Nq ? delta[stat + rows[r]] : 0.f;
       }
-      float acc[D / 2];
+      float acc[BOX / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BOX / 2; ++i) acc[i] = 0.f;
       // ds = p * (dp - delta) * scale in place of s for the key tile at k0. Rows past Nq need no mask: TMA
       // zero-fills their q and dO, so dp = 0 and ds = 0 (and they are not written). Keys past Nk (the last
       // tile only) get p = 0: their k is zero, but exp2(-lse) alone could overflow.
@@ -283,10 +321,10 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_bf16_kernel(
       };
 
       // q and dO of this consumer's rows as register A operands; the own-tile buffer is then free.
-      uint32_t qa[D / 16][4], da[D / 16][4];
+      uint32_t qa[BOX / 16][4], da[BOX / 16][4];
       hw::mbar_wait(&sm.own_full, own_phase);
-      hw::load_a_frags(qa, sm.q + cwg * 64 * D, warp, lane);
-      hw::load_a_frags(da, sm.dout + cwg * 64 * D, warp, lane);
+      hw::load_a_frags(qa, sm.q + cwg * 64 * BOX, warp, lane);
+      hw::load_a_frags(da, sm.dout + cwg * 64 * BOX, warp, lane);
       hw::mbar_arrive(&sm.own_empty);
       own_phase ^= 1;
 
@@ -330,11 +368,11 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_bf16_kernel(
 
       __nv_bfloat16* op = dq + ((long long)it.b * Nq * H + it.h) * D;  // dq is contiguous (B, Nq, H, D)
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < BOX / 8; ++c) {
         const int col = c * 8 + 2 * t;
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          if (rows[r] < Nq)
+          if (rows[r] < Nq && c * 8 < D)  // the columns past D are TMA's zeros
             *reinterpret_cast<uint32_t*>(op + (long long)rows[r] * H * D + col) =
                 hw::pack_bf16x2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
       }
@@ -343,12 +381,14 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_bf16_kernel(
 }
 
 // dk and dv: a persistent kernel whose work items are 128-key tiles; each loops over 64-query tiles. The
-// producer runs ahead across items as in dq.
+// producer runs ahead across items as in dq; D as in dq.
+template <int DS>
 __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_bf16_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int B, int H, int Nq, int Nk, float scale, float scale_log2) {
+    __nv_bfloat16* __restrict__ dv, int B, int H, int Nq, int Nk, int head_dim, float scale, float scale_log2) {
+  const int D = DS > 0 ? DS : head_dim;
   extern __shared__ uint8_t smem_raw[];
   DkvSmem& sm = *reinterpret_cast<DkvSmem*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
@@ -403,9 +443,9 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_bf16_kernel(
       const bool last_item = item + gridDim.x >= n_items;
       const int key0 = it.tile * OWN + cwg * 64 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
       const int keys[2] = {key0, key0 + 8};
-      float dk_acc[D / 2], dv_acc[D / 2];
+      float dk_acc[BOX / 2], dv_acc[BOX / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      for (int i = 0; i < BOX / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
       // p^T in place of s^T and ds^T in place of dp^T for the query tile in slot s; the column is the
       // query. No mask: a query past Nq has q = dO = 0 (TMA's zero fill) and lse = delta = 0, so p = 1 meets
       // dO = 0 and ds = 0; a key past Nk only fills rows of dk and dv that are not written.
@@ -423,10 +463,10 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_bf16_kernel(
       };
 
       // k and v of this consumer's keys as register A operands; the own-tile buffer is then free.
-      uint32_t ka[D / 16][4], va[D / 16][4];
+      uint32_t ka[BOX / 16][4], va[BOX / 16][4];
       hw::mbar_wait(&sm.own_full, own_phase);
-      hw::load_a_frags(ka, sm.k + cwg * 64 * D, warp, lane);
-      hw::load_a_frags(va, sm.v + cwg * 64 * D, warp, lane);
+      hw::load_a_frags(ka, sm.k + cwg * 64 * BOX, warp, lane);
+      hw::load_a_frags(va, sm.v + cwg * 64 * BOX, warp, lane);
       hw::mbar_arrive(&sm.own_empty);
       own_phase ^= 1;
 
@@ -474,11 +514,307 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_bf16_kernel(
 
       const long long base = ((long long)it.b * Nk * H + it.h) * D;  // dk, dv are contiguous (B, Nk, H, D)
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < BOX / 8; ++c) {
         const int col = c * 8 + 2 * t;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          if (keys[r] < Nk) {
+          if (keys[r] < Nk && c * 8 < D) {  // the columns past D are TMA's zeros
+            const long long off = base + (long long)keys[r] * H * D + col;
+            *reinterpret_cast<uint32_t*>(dk + off) = hw::pack_bf16x2(dk_acc[4 * c + 2 * r], dk_acc[4 * c + 2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(dv + off) = hw::pack_bf16x2(dv_acc[4 * c + 2 * r], dv_acc[4 * c + 2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at 64 < D <= 256: column-chunk kernels (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int W_RING_BYTES = 200 * 1024;  // own tiles and the ring of loop tiles
+
+// The kernels built for the padded head dim DP (128, 192 or 256): DP / 64 boxes per tile.
+template <int DP>
+struct WideCfg {
+  static constexpr int BOXES = DP / BOX;
+  static constexpr int OWN_TILE = OWN * DP * 2, LOOP_TILE = LOOP * DP * 2;  // bytes of one own / loop tile
+  static constexpr int STAGES = (W_RING_BYTES - 2 * OWN_TILE) / (2 * LOOP_TILE);  // 4, 2 or 1
+  static_assert(STAGES >= 1, "a ring slot");
+};
+
+template <int DP>
+struct alignas(hw::SMEM_ALIGN) WideBwdSmem {
+  __nv_bfloat16 own0[OWN * DP], own1[OWN * DP];  // q and dO (dq), k and v (dk/dv)
+  __nv_bfloat16 loop0[WideCfg<DP>::STAGES][LOOP * DP], loop1[WideCfg<DP>::STAGES][LOOP * DP];  // k, v / q, dO
+  float lse[WideCfg<DP>::STAGES][LOOP], delta[WideCfg<DP>::STAGES][LOOP];  // dk/dv: lse in log2 units, 0 past Nq
+  uint64_t own_full, own_empty, full[WideCfg<DP>::STAGES], empty[WideCfg<DP>::STAGES];
+};
+
+// A tile's DP / 64 boxes of `rows` rows at rows row0 of head h, batch b, side by side in dst.
+template <int DP>
+__device__ __forceinline__ void load_boxes(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int rows,
+                                           int h, int row0, int b) {
+#pragma unroll
+  for (int box = 0; box < WideCfg<DP>::BOXES; ++box)
+    hw::tma_load_4d(dst + box * rows * BOX, map, bar, box * BOX, h, row0, b);
+}
+
+// x = a b^T and y = c d^T over the whole padded head dim for one consumer's 64 own rows and a 64-row loop tile:
+// DP / 16 k-steps of 16, every operand K-major in shared memory (box kk / 4, 32 bytes a k-step inside its swizzled
+// rows); a and c are the consumer's rows of the own tiles (OWN rows a box), b and d the loop tiles (LOOP rows a
+// box). One wgmma group, committed.
+template <int DP>
+__device__ __forceinline__ void issue_pair_ss(float (&x)[LOOP / 2], float (&y)[LOOP / 2], uint32_t a, uint32_t b,
+                                              uint32_t c, uint32_t d) {
+  hw::fence_regs(x);
+  hw::fence_regs(y);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t own = (kk / 4) * OWN * BOX * 2 + (kk % 4) * 32, loop = (kk / 4) * LOOP * BOX * 2 + (kk % 4) * 32;
+    hw::wgmma_m64n64k16_ss<0, 0>(x, hw::desc_k_major(a + own), hw::desc_k_major(b + loop), kk > 0);
+    hw::wgmma_m64n64k16_ss<0, 0>(y, hw::desc_k_major(c + own), hw::desc_k_major(d + loop), kk > 0);
+  }
+  hw::wgmma_commit();
+}
+
+// The persistent kernels' work item: (64-column chunk, 128-row own tile, head, batch), chunk fastest.
+struct WideItem {
+  int chunk, tile, h, b;
+};
+__device__ __forceinline__ WideItem decode_wide(int item, int chunks, int tiles, int H) {
+  const int rest = item / chunks;
+  return WideItem{item % chunks, rest % tiles, (rest / tiles) % H, rest / (tiles * H)};
+}
+
+// dq, D > 64: items of one 64-column chunk of dq over 128 queries, each looping over 64-key tiles. The own q and
+// dO stay in shared memory for the item (both products read them from there).
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B, int H,
+    int Nq, int Nk, int D, float scale, float scale_log2) {
+  using Cfg = WideCfg<DP>;
+  constexpr int ST = Cfg::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  WideBwdSmem<DP>& sm = *reinterpret_cast<WideBwdSmem<DP>*>(hw::align_smem(smem_raw));
+  const int tid = threadIdx.x;
+  const int chunks = (D + BOX - 1) / BOX, q_tiles = (Nq + OWN - 1) / OWN, n_items = chunks * q_tiles * H * B;
+  const int n_tiles = (Nk + LOOP - 1) / LOOP;
+  if (tid == 0) {
+    hw::mbar_init(&sm.own_full, 1);
+    hw::mbar_init(&sm.own_empty, CONSUMERS);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hw::mbar_init(&sm.full[s], 1);
+      hw::mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer
+    hw::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int s = 0;
+      uint32_t phase = 0, own_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const WideItem it = decode_wide(item, chunks, q_tiles, H);
+        hw::mbar_wait(&sm.own_empty, own_phase ^ 1);  // the consumers are done with the last item's own tiles
+        hw::mbar_arrive_expect_tx(&sm.own_full, 2 * Cfg::OWN_TILE);
+        load_boxes<DP>(sm.own0, &qmap, &sm.own_full, OWN, it.h, it.tile * OWN, it.b);
+        load_boxes<DP>(sm.own1, &domap, &sm.own_full, OWN, it.h, it.tile * OWN, it.b);
+        own_phase ^= 1;
+        for (int j = 0; j < n_tiles; ++j) {
+          hw::mbar_wait(&sm.empty[s], phase ^ 1);
+          hw::mbar_arrive_expect_tx(&sm.full[s], 2 * Cfg::LOOP_TILE);
+          load_boxes<DP>(sm.loop0[s], &kmap, &sm.full[s], LOOP, it.h, j * LOOP, it.b);
+          load_boxes<DP>(sm.loop1[s], &vmap, &sm.full[s], LOOP, it.h, j * LOOP, it.b);
+          if (++s == ST) s = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumers: 64 queries each
+    hw::setmaxnreg_inc<232>();
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_addr = hw::smem_u32(sm.own0) + cwg * 64 * BOX * 2, do_addr = hw::smem_u32(sm.own1) + cwg * 64 * BOX * 2;
+    int s = 0;
+    uint32_t phase = 0, own_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const WideItem it = decode_wide(item, chunks, q_tiles, H);
+      const int row0 = it.tile * OWN + cwg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+      const int rows[2] = {row0, row0 + 8};
+      const long long stat = ((long long)it.b * H + it.h) * Nq;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = rows[r] < Nq ? lse[stat + rows[r]] * LOG2E : 0.f;
+        dl[r] = rows[r] < Nq ? delta[stat + rows[r]] : 0.f;
+      }
+      float acc[BOX / 2];  // dq's chunk
+#pragma unroll
+      for (int i = 0; i < BOX / 2; ++i) acc[i] = 0.f;
+      float sc[LOOP / 2], dp[LOOP / 2];
+      uint32_t a[LOOP / 16][4];
+      hw::mbar_wait(&sm.own_full, own_phase);
+      own_phase ^= 1;
+      for (int j = 0; j < n_tiles; ++j) {
+        hw::mbar_wait(&sm.full[s], phase);
+        const uint32_t k_addr = hw::smem_u32(sm.loop0[s]);
+        issue_pair_ss<DP>(sc, dp, q_addr, k_addr, do_addr, hw::smem_u32(sm.loop1[s]));
+        hw::wgmma_wait<0>();
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+        const int k0 = j * LOOP;  // ds = p * (dp - delta) * scale; keys past Nk get p = 0, as in the D <= 64 kernel
+        const bool ragged = k0 + LOOP > Nk;
+#pragma unroll
+        for (int i = 0; i < LOOP / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = hw::exp2_ftz(fmaf(sc[i], scale_log2, -lse2[r]));
+          if (ragged && k0 + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) p = 0.f;
+          sc[i] = p * (dp[i] - dl[r]) * scale;
+        }
+        hw::pack_a<LOOP>(a, sc);
+        issue_ds_k(acc, a, k_addr + it.chunk * LOOP * BOX * 2);  // dq += ds k[:, chunk]: the chunk's box of k
+        hw::wgmma_wait<0>();
+        hw::fence_regs(acc);
+        hw::mbar_arrive(&sm.empty[s]);
+        if (++s == ST) s = 0, phase ^= 1;
+      }
+      hw::mbar_arrive(&sm.own_empty);
+
+      __nv_bfloat16* op = dq + ((long long)it.b * Nq * H + it.h) * D + it.chunk * BOX;  // dq: contiguous (B, Nq, H, D)
+#pragma unroll
+      for (int c = 0; c < BOX / 8; ++c) {
+        const int col = c * 8 + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (rows[r] < Nq && it.chunk * BOX + c * 8 < D)
+            *reinterpret_cast<uint32_t*>(op + (long long)rows[r] * H * D + col) =
+                hw::pack_bf16x2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dk and dv, D > 64: items of one 64-column chunk of dk and dv over 128 keys, each looping over 64-query tiles
+// (with their lse and delta, staged in the slot by the producer warp as in the D <= 64 kernel). The own k and v
+// stay in shared memory for the item.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int B, int H, int Nq, int Nk, int D, float scale, float scale_log2) {
+  using Cfg = WideCfg<DP>;
+  constexpr int ST = Cfg::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  WideBwdSmem<DP>& sm = *reinterpret_cast<WideBwdSmem<DP>*>(hw::align_smem(smem_raw));
+  const int tid = threadIdx.x;
+  const int chunks = (D + BOX - 1) / BOX, k_tiles = (Nk + OWN - 1) / OWN, n_items = chunks * k_tiles * H * B;
+  const int n_tiles = (Nq + LOOP - 1) / LOOP;
+  if (tid == 0) {
+    hw::mbar_init(&sm.own_full, 1);
+    hw::mbar_init(&sm.own_empty, CONSUMERS);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hw::mbar_init(&sm.full[s], 33);  // lane 0 with the TMA bytes, then the producer warp's 32 lanes
+      hw::mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer: warp 0
+    hw::setmaxnreg_dec<40>();
+    if (tid < 32) {
+      const int lane = tid;
+      int s = 0;
+      uint32_t phase = 0, own_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const WideItem it = decode_wide(item, chunks, k_tiles, H);
+        if (lane == 0) {
+          hw::mbar_wait(&sm.own_empty, own_phase ^ 1);
+          hw::mbar_arrive_expect_tx(&sm.own_full, 2 * Cfg::OWN_TILE);
+          load_boxes<DP>(sm.own0, &kmap, &sm.own_full, OWN, it.h, it.tile * OWN, it.b);
+          load_boxes<DP>(sm.own1, &vmap, &sm.own_full, OWN, it.h, it.tile * OWN, it.b);
+        }
+        own_phase ^= 1;
+        const long long stat = ((long long)it.b * H + it.h) * Nq;
+        for (int j = 0; j < n_tiles; ++j) {
+          hw::mbar_wait(&sm.empty[s], phase ^ 1);
+          if (lane == 0) {
+            hw::mbar_arrive_expect_tx(&sm.full[s], 2 * Cfg::LOOP_TILE);
+            load_boxes<DP>(sm.loop0[s], &qmap, &sm.full[s], LOOP, it.h, j * LOOP, it.b);
+            load_boxes<DP>(sm.loop1[s], &domap, &sm.full[s], LOOP, it.h, j * LOOP, it.b);
+          }
+#pragma unroll
+          for (int i = lane; i < LOOP; i += 32) {
+            const int qi = j * LOOP + i;
+            sm.lse[s][i] = qi < Nq ? lse[stat + qi] * LOG2E : 0.f;
+            sm.delta[s][i] = qi < Nq ? delta[stat + qi] : 0.f;
+          }
+          hw::mbar_arrive(&sm.full[s]);
+          if (++s == ST) s = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumers: 64 keys each
+    hw::setmaxnreg_inc<232>();
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t k_addr = hw::smem_u32(sm.own0) + cwg * 64 * BOX * 2, v_addr = hw::smem_u32(sm.own1) + cwg * 64 * BOX * 2;
+    int s = 0;
+    uint32_t phase = 0, own_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const WideItem it = decode_wide(item, chunks, k_tiles, H);
+      const int key0 = it.tile * OWN + cwg * 64 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+      const int keys[2] = {key0, key0 + 8};
+      float dk_acc[BOX / 2], dv_acc[BOX / 2];  // the chunk of dk and dv
+#pragma unroll
+      for (int i = 0; i < BOX / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      float st[LOOP / 2], dpt[LOOP / 2];
+      uint32_t pa[LOOP / 16][4], sa[LOOP / 16][4];
+      hw::mbar_wait(&sm.own_full, own_phase);
+      own_phase ^= 1;
+      for (int j = 0; j < n_tiles; ++j) {
+        hw::mbar_wait(&sm.full[s], phase);
+        const uint32_t q_addr = hw::smem_u32(sm.loop0[s]), do_addr = hw::smem_u32(sm.loop1[s]);
+        issue_pair_ss<DP>(st, dpt, k_addr, q_addr, v_addr, do_addr);
+        hw::wgmma_wait<0>();
+        hw::fence_regs(st);
+        hw::fence_regs(dpt);
+        // p^T and ds^T; no mask, as in the D <= 64 kernel (a query past Nq has q = dO = 0 and lse = delta = 0)
+#pragma unroll
+        for (int i = 0; i < LOOP / 2; ++i) {
+          const int qc = (i >> 2) * 8 + 2 * t + (i & 1);
+          const float p = hw::exp2_ftz(fmaf(st[i], scale_log2, -sm.lse[s][qc]));
+          dpt[i] = p * (dpt[i] - sm.delta[s][qc]) * scale;
+          st[i] = p;
+        }
+        hw::pack_a<LOOP>(pa, st);
+        hw::pack_a<LOOP>(sa, dpt);
+        const uint32_t box = it.chunk * LOOP * BOX * 2;  // the chunk's box of dO and q
+        issue_dkv(dv_acc, dk_acc, pa, sa, do_addr + box, q_addr + box);
+        hw::wgmma_wait<0>();
+        hw::fence_regs(dv_acc);
+        hw::fence_regs(dk_acc);
+        hw::mbar_arrive(&sm.empty[s]);
+        if (++s == ST) s = 0, phase ^= 1;
+      }
+      hw::mbar_arrive(&sm.own_empty);
+
+      const long long base = ((long long)it.b * Nk * H + it.h) * D + it.chunk * BOX;  // dk, dv: contiguous (B, Nk, H, D)
+#pragma unroll
+      for (int c = 0; c < BOX / 8; ++c) {
+        const int col = c * 8 + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (keys[r] < Nk && it.chunk * BOX + c * 8 < D) {
             const long long off = base + (long long)keys[r] * H * D + col;
             *reinterpret_cast<uint32_t*>(dk + off) = hw::pack_bf16x2(dk_acc[4 * c + 2 * r], dk_acc[4 * c + 2 * r + 1]);
             *reinterpret_cast<uint32_t*>(dv + off) = hw::pack_bf16x2(dv_acc[4 * c + 2 * r], dv_acc[4 * c + 2 * r + 1]);
@@ -493,46 +829,63 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_bf16_kernel(
 // fp32: CUDA cores, full precision
 // ---------------------------------------------------------------------------
 
-constexpr int F32_ROWS = 64;  // rows per block: two threads per row, each holding half of D
-constexpr int F32_TILE = 32;  // rows per staged shared-memory tile
-constexpr int HALF = D / 2;
+constexpr int F32_THREADS = 128;
 
-// A thread's half of a row: float4 chunks 2i + half (i = 0..7), interleaved
-// so that the two halves of a pair read different shared-memory banks.
-__device__ __forceinline__ int chunk(int i, int half) { return 8 * i + 4 * half; }
+// TPR lanes share a row, each holding DT = DP / TPR of its columns: 4-wide groups interleaved across the row's
+// lanes (group i of lane `part` is columns 4 (TPR i + part) .. + 3), so the lanes of a pair or quad read
+// neighbouring words of a shared-memory row. TILE rows per staged shared-memory tile (16 at DP = 256, so two
+// tiles stay within 48 KB of static shared memory).
+template <int DP, int TPR>
+struct F32Cfg {
+  static constexpr int DT = DP / TPR, ROWS = F32_THREADS / TPR, TILE = DP > 128 ? 16 : 32;
+  static_assert(DT % 4 == 0 && DT <= 32, "a thread's share of the row");
+};
 
-__device__ __forceinline__ void load_half(float x[HALF], const float* p, bool in, int half) {
+template <int TPR>
+__device__ __forceinline__ int chunk(int i, int part) { return 4 * (TPR * i + part); }
+
+template <int DP, int TPR>
+__device__ __forceinline__ void load_part(float (&x)[DP / TPR], const float* p, bool in, int part, int D) {
 #pragma unroll
-  for (int i = 0; i < HALF / 4; ++i) {
-    const float4 v = in ? *reinterpret_cast<const float4*>(p + chunk(i, half)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < DP / TPR / 4; ++i) {
+    const int c = chunk<TPR>(i, part);
+    const float4 v = in && c < D ? *reinterpret_cast<const float4*>(p + c) : make_float4(0.f, 0.f, 0.f, 0.f);
     x[4 * i] = v.x, x[4 * i + 1] = v.y, x[4 * i + 2] = v.z, x[4 * i + 3] = v.w;
   }
 }
 
-__device__ __forceinline__ void store_half(float* p, const float x[HALF], int half) {
+template <int DP, int TPR>
+__device__ __forceinline__ void store_part(float* p, const float (&x)[DP / TPR], int part, int D) {
 #pragma unroll
-  for (int i = 0; i < HALF / 4; ++i)
-    *reinterpret_cast<float4*>(p + chunk(i, half)) = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  for (int i = 0; i < DP / TPR / 4; ++i) {
+    const int c = chunk<TPR>(i, part);
+    if (c < D) *reinterpret_cast<float4*>(p + c) = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  }
 }
 
-// The full dot product of this thread's half row with a shared-memory row; the pair adds halves by shuffle.
-__device__ __forceinline__ float dot_pair(const float x[HALF], const float* row, int half) {
+// The full dot product of this thread's part of a row with a shared-memory row; the row's lanes add their parts
+// by a butterfly of shuffles, so all of them hold the same sum.
+template <int DP, int TPR>
+__device__ __forceinline__ float dot_part(const float (&x)[DP / TPR], const float* row, int part) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < HALF / 4; ++i) {
-    const float4 y = *reinterpret_cast<const float4*>(row + chunk(i, half));
+  for (int i = 0; i < DP / TPR / 4; ++i) {
+    const float4 y = *reinterpret_cast<const float4*>(row + chunk<TPR>(i, part));
     s = fmaf(x[4 * i], y.x, s);
     s = fmaf(x[4 * i + 1], y.y, s);
     s = fmaf(x[4 * i + 2], y.z, s);
     s = fmaf(x[4 * i + 3], y.w, s);
   }
-  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
 }
 
-__device__ __forceinline__ void axpy_half(float acc[HALF], float a, const float* row, int half) {
+template <int DP, int TPR>
+__device__ __forceinline__ void axpy_part(float (&acc)[DP / TPR], float a, const float* row, int part) {
 #pragma unroll
-  for (int i = 0; i < HALF / 4; ++i) {
-    const float4 y = *reinterpret_cast<const float4*>(row + chunk(i, half));
+  for (int i = 0; i < DP / TPR / 4; ++i) {
+    const float4 y = *reinterpret_cast<const float4*>(row + chunk<TPR>(i, part));
     acc[4 * i] = fmaf(a, y.x, acc[4 * i]);
     acc[4 * i + 1] = fmaf(a, y.y, acc[4 * i + 1]);
     acc[4 * i + 2] = fmaf(a, y.z, acc[4 * i + 2]);
@@ -540,13 +893,15 @@ __device__ __forceinline__ void axpy_half(float acc[HALF], float a, const float*
   }
 }
 
-// Stage rows [r0, r0 + F32_TILE) of two strided (rows x D) fp32 matrices; rows at or past n are zero.
-__device__ __forceinline__ void stage_pair_f32(float (*a_s)[D], float (*b_s)[D], const float* a, long long a_n,
-                                               const float* b, long long b_n, int r0, int n) {
-  for (int c = threadIdx.x; c < F32_TILE * D / 4; c += blockDim.x) {
-    const int r = c / (D / 4), d4 = (c % (D / 4)) * 4;
+// Stage rows [r0, r0 + TILE) of two strided (rows x D) fp32 matrices as (TILE, DP); rows at or past n and columns
+// at or past D are zero.
+template <int DP, int TILE>
+__device__ __forceinline__ void stage_pair_f32(float (*a_s)[DP], float (*b_s)[DP], const float* a, long long a_n,
+                                               const float* b, long long b_n, int r0, int n, int D) {
+  for (int c = threadIdx.x; c < TILE * DP / 4; c += blockDim.x) {
+    const int r = c / (DP / 4), d4 = (c % (DP / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-    if (r0 + r < n) {
+    if (r0 + r < n && d4 < D) {
       x = *reinterpret_cast<const float4*>(a + (long long)(r0 + r) * a_n + d4);
       y = *reinterpret_cast<const float4*>(b + (long long)(r0 + r) * b_n + d4);
     }
@@ -555,89 +910,145 @@ __device__ __forceinline__ void stage_pair_f32(float (*a_s)[D], float (*b_s)[D],
   }
 }
 
-__global__ void __launch_bounds__(2 * F32_ROWS) fa_bwd_dq_f32_kernel(
+template <int DP, int TPR>
+__global__ void __launch_bounds__(F32_THREADS) fa_bwd_dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-    float scale_log2) {
-  __shared__ __align__(16) float k_s[F32_TILE][D];
-  __shared__ __align__(16) float v_s[F32_TILE][D];
+    float* __restrict__ dq, int H, int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs, Strides dos,
+    float scale, float scale_log2) {
+  using Cfg = F32Cfg<DP, TPR>;
+  constexpr int DT = Cfg::DT, TILE = Cfg::TILE;
+  __shared__ __align__(16) float k_s[TILE][DP];
+  __shared__ __align__(16) float v_s[TILE][DP];
 
-  const int half = threadIdx.x & 1;
+  const int part = threadIdx.x % TPR;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * F32_ROWS + (threadIdx.x >> 1);
+  const int row = blockIdx.x * Cfg::ROWS + threadIdx.x / TPR;
   const bool in = row < Nq;
-  float qr[HALF], dor[HALF], acc[HALF];
-  load_half(qr, q + b * qs.b + h * qs.h + (long long)row * qs.n, in, half);
-  load_half(dor, dout + b * dos.b + h * dos.h + (long long)row * dos.n, in, half);
+  float qr[DT], dor[DT], acc[DT];
+  load_part<DP, TPR>(qr, q + b * qs.b + h * qs.h + (long long)row * qs.n, in, part, D);
+  load_part<DP, TPR>(dor, dout + b * dos.b + h * dos.h + (long long)row * dos.n, in, part, D);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DT; ++i) acc[i] = 0.f;
   const long long stat = ((long long)b * H + h) * Nq + row;
   const float lse2 = in ? lse[stat] * LOG2E : 0.f;
   const float dl = in ? delta[stat] : 0.f;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
 
-  for (int k0 = 0; k0 < Nk; k0 += F32_TILE) {
+  for (int k0 = 0; k0 < Nk; k0 += TILE) {
     __syncthreads();
-    stage_pair_f32(k_s, v_s, kp, ks.n, vp, vs.n, k0, Nk);
+    stage_pair_f32<DP, TILE>(k_s, v_s, kp, ks.n, vp, vs.n, k0, Nk, D);
     __syncthreads();
 #pragma unroll 2
-    for (int j = 0; j < F32_TILE; ++j) {
-      const float s = dot_pair(qr, k_s[j], half);
-      const float dp = dot_pair(dor, v_s[j], half);
+    for (int j = 0; j < TILE; ++j) {
+      const float s = dot_part<DP, TPR>(qr, k_s[j], part);
+      const float dp = dot_part<DP, TPR>(dor, v_s[j], part);
       const float p = (in && k0 + j < Nk) ? exp2f(fmaf(s, scale_log2, -lse2)) : 0.f;
-      axpy_half(acc, p * (dp - dl) * scale, k_s[j], half);
+      axpy_part<DP, TPR>(acc, p * (dp - dl) * scale, k_s[j], part);
     }
   }
-  if (in) store_half(dq + (((long long)b * Nq + row) * H + h) * D, acc, half);
+  if (in) store_part<DP, TPR>(dq + (((long long)b * Nq + row) * H + h) * D, acc, part, D);
 }
 
-__global__ void __launch_bounds__(2 * F32_ROWS) fa_bwd_dkv_f32_kernel(
+template <int DP, int TPR>
+__global__ void __launch_bounds__(F32_THREADS) fa_bwd_dkv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int H, int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
     Strides dos, float scale, float scale_log2) {
-  __shared__ __align__(16) float q_s[F32_TILE][D];
-  __shared__ __align__(16) float do_s[F32_TILE][D];
-  __shared__ float lse_s[F32_TILE], delta_s[F32_TILE];
+  using Cfg = F32Cfg<DP, TPR>;
+  constexpr int DT = Cfg::DT, TILE = Cfg::TILE;
+  __shared__ __align__(16) float q_s[TILE][DP];
+  __shared__ __align__(16) float do_s[TILE][DP];
+  __shared__ float lse_s[TILE], delta_s[TILE];
 
-  const int half = threadIdx.x & 1;
+  const int part = threadIdx.x % TPR;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int key = blockIdx.x * F32_ROWS + (threadIdx.x >> 1);
+  const int key = blockIdx.x * Cfg::ROWS + threadIdx.x / TPR;
   const bool in = key < Nk;
-  float kr[HALF], vr[HALF], dk_acc[HALF], dv_acc[HALF];
-  load_half(kr, k + b * ks.b + h * ks.h + (long long)key * ks.n, in, half);
-  load_half(vr, v + b * vs.b + h * vs.h + (long long)key * vs.n, in, half);
+  float kr[DT], vr[DT], dk_acc[DT], dv_acc[DT];
+  load_part<DP, TPR>(kr, k + b * ks.b + h * ks.h + (long long)key * ks.n, in, part, D);
+  load_part<DP, TPR>(vr, v + b * vs.b + h * vs.h + (long long)key * vs.n, in, part, D);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const float* qp = q + b * qs.b + h * qs.h;
   const float* dop = dout + b * dos.b + h * dos.h;
   const long long stat = ((long long)b * H + h) * Nq;
 
-  for (int q0 = 0; q0 < Nq; q0 += F32_TILE) {
+  for (int q0 = 0; q0 < Nq; q0 += TILE) {
     __syncthreads();
-    stage_pair_f32(q_s, do_s, qp, qs.n, dop, dos.n, q0, Nq);
-    for (int i = threadIdx.x; i < F32_TILE; i += blockDim.x) {
+    stage_pair_f32<DP, TILE>(q_s, do_s, qp, qs.n, dop, dos.n, q0, Nq, D);
+    for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
       const bool qin = q0 + i < Nq;
       lse_s[i] = qin ? lse[stat + q0 + i] * LOG2E : 0.f;
       delta_s[i] = qin ? delta[stat + q0 + i] : 0.f;
     }
     __syncthreads();
 #pragma unroll 2
-    for (int i = 0; i < F32_TILE; ++i) {
-      const float s = dot_pair(kr, q_s[i], half);
-      const float dp = dot_pair(vr, do_s[i], half);
+    for (int i = 0; i < TILE; ++i) {
+      const float s = dot_part<DP, TPR>(kr, q_s[i], part);
+      const float dp = dot_part<DP, TPR>(vr, do_s[i], part);
       const float p = (in && q0 + i < Nq) ? exp2f(fmaf(s, scale_log2, -lse_s[i])) : 0.f;
-      axpy_half(dv_acc, p, do_s[i], half);
-      axpy_half(dk_acc, p * (dp - delta_s[i]) * scale, q_s[i], half);
+      axpy_part<DP, TPR>(dv_acc, p, do_s[i], part);
+      axpy_part<DP, TPR>(dk_acc, p * (dp - delta_s[i]) * scale, q_s[i], part);
     }
   }
   if (in) {
     const long long off = (((long long)b * Nk + key) * H + h) * D;
-    store_half(dk + off, dk_acc, half);
-    store_half(dv + off, dv_acc, half);
+    store_part<DP, TPR>(dk + off, dk_acc, part, D);
+    store_part<DP, TPR>(dv + off, dv_acc, part, D);
   }
+}
+
+template <int DP, int TPR>
+void launch_bwd_f32(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                    const float* delta, float* dq, float* dk, float* dv, int B, int H, int Nq, int Nk, int D,
+                    Strides qs, Strides ks, Strides vs, Strides dos, float scale, float scale_log2, cudaStream_t st) {
+  constexpr int ROWS = F32Cfg<DP, TPR>::ROWS;
+  fa_bwd_dq_f32_kernel<DP, TPR><<<dim3((Nq + ROWS - 1) / ROWS, H, B), F32_THREADS, 0, st>>>(
+      q, k, v, dout, lse, delta, dq, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2);
+  fa_bwd_dkv_f32_kernel<DP, TPR><<<dim3((Nk + ROWS - 1) / ROWS, H, B), F32_THREADS, 0, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2);
+}
+
+// The bf16 dq and dk/dv kernels on their persistent grids: those of D <= 64 (DP = 64; DS = 64 or 0, as the
+// kernels take it), or the column-chunk kernels of DP = 128, 192 or 256. m: the eight tensor maps in
+// uc_flash_attention_bwd's order.
+template <int DP, int DS = 0>
+int launch_bwd_bf16(const CUtensorMap (&m)[8], const float* ls, const float* dl, __nv_bfloat16* dq,
+                    __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H, int Nq, int Nk, int D, float scale,
+                    float scale_log2, cudaStream_t st) {
+  int sms = 0;
+  int status = hw::sm_count(&sms);
+  if (status != 0) return status;
+  static bool dq_set[64], dkv_set[64];
+  const long long q_tiles = (Nq + OWN - 1) / OWN, k_tiles = (Nk + OWN - 1) / OWN;
+  if constexpr (DP == BOX) {
+    constexpr int DQ_SMEM = smem_bytes<DqSmem>(), DKV_SMEM = smem_bytes<DkvSmem>();
+    status = hw::allow_smem(fa_bwd_dq_bf16_kernel<DS>, DQ_SMEM, dq_set);
+    if (status == 0) status = hw::allow_smem(fa_bwd_dkv_bf16_kernel<DS>, DKV_SMEM, dkv_set);
+    if (status != 0) return status;
+    const long long dq_items = q_tiles * H * B, dkv_items = k_tiles * H * B;
+    if (dq_items > 0x7fffffff || dkv_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    fa_bwd_dq_bf16_kernel<DS><<<(int)(dq_items < sms ? dq_items : sms), THREADS, DQ_SMEM, st>>>(
+        m[0], m[1], m[2], m[3], ls, dl, dq, B, H, Nq, Nk, D, scale, scale_log2);
+    fa_bwd_dkv_bf16_kernel<DS><<<(int)(dkv_items < sms ? dkv_items : sms), THREADS, DKV_SMEM, st>>>(
+        m[6], m[4], m[5], m[7], ls, dl, dk, dv, B, H, Nq, Nk, D, scale, scale_log2);
+  } else {
+    constexpr int SMEM = smem_bytes<WideBwdSmem<DP>>();
+    status = hw::allow_smem(fa_bwd_dq_wide_kernel<DP>, SMEM, dq_set);
+    if (status == 0) status = hw::allow_smem(fa_bwd_dkv_wide_kernel<DP>, SMEM, dkv_set);
+    if (status != 0) return status;
+    const long long chunks = (D + BOX - 1) / BOX;
+    const long long dq_items = chunks * q_tiles * H * B, dkv_items = chunks * k_tiles * H * B;
+    if (dq_items > 0x7fffffff || dkv_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    fa_bwd_dq_wide_kernel<DP><<<(int)(dq_items < sms ? dq_items : sms), THREADS, SMEM, st>>>(
+        m[0], m[1], m[2], m[3], ls, dl, dq, B, H, Nq, Nk, D, scale, scale_log2);
+    fa_bwd_dkv_wide_kernel<DP><<<(int)(dkv_items < sms ? dkv_items : sms), THREADS, SMEM, st>>>(
+        m[6], m[4], m[5], m[7], ls, dl, dk, dv, B, H, Nq, Nk, D, scale, scale_log2);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -647,7 +1058,8 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
   return Strides{L[6] / elem_bytes, L[5] / elem_bytes, L[4] / elem_bytes};
 }
 
-// dtype: 0 = float32, 1 = bfloat16. `layouts` holds eight tensor-map layouts, 11 ints each (hopper.cuh
+// dtype: 0 = float32, 1 = bfloat16; head_dim: a multiple of 8 up to 256 (ops/flash_attention.py pads any other
+// into a copy). `layouts` holds eight tensor-map layouts, 11 ints each (hopper.cuh
 // LAYOUT_INTS): q, k, v, dO with the dq kernel's boxes (128 query rows, 64 key rows), then k, v, q, dO with
 // the dk/dv kernel's (128 key rows, 64 query rows); the fp32 kernels and the delta kernel take their element
 // strides from them (d has unit stride). o is a contiguous (B, Nq, H, D) tensor, lse a contiguous (B, H, Nq)
@@ -658,7 +1070,8 @@ extern "C" int uc_flash_attention_bwd(const void* q, const void* k, const void* 
                                       const void* lse, void* delta, void* dq, void* dk, void* dv, int dtype, int B,
                                       int H, int Nq, int Nk, int head_dim, const long long* layouts, float scale,
                                       void* stream) {
-  if (head_dim != D || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
+  const int D = head_dim;
+  if (D < 8 || D > 256 || D % 8 != 0 || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const long long* L[8];
   for (int i = 0; i < 8; ++i) L[i] = layouts + i * hw::LAYOUT_INTS;
@@ -671,7 +1084,8 @@ extern "C" int uc_flash_attention_bwd(const void* q, const void* k, const void* 
   const float* ls = static_cast<const float*>(lse);
 
   const long long rows = (long long)B * Nq * H;
-  const long long want = (rows * (D * es / 16) + 255) / 256;  // one 16-byte vector per thread
+  const int lanes = delta_lanes(D, es);
+  const long long want = (rows * lanes + 255) / 256;  // `lanes` threads per row
   const int delta_blocks = (int)(want < 65536 ? want : 65536);
   if (dtype == 1) {
     using bf = __nv_bfloat16;
@@ -680,34 +1094,39 @@ extern "C" int uc_flash_attention_bwd(const void* q, const void* k, const void* 
     const void* bases[8] = {q, k, v, dout, k, v, q, dout};
     int status = 0;
     for (int i = 0; i < 8 && status == 0; ++i) status = hw::encode_tile_map(&m[i], bases[i], L[i], boxes[i]);
-    static bool dq_set[64], dkv_set[64];
-    constexpr int DQ_SMEM = smem_bytes<DqSmem>(), DKV_SMEM = smem_bytes<DkvSmem>();
-    if (status == 0) status = hw::allow_smem(fa_bwd_dq_bf16_kernel, DQ_SMEM, dq_set);
-    if (status == 0) status = hw::allow_smem(fa_bwd_dkv_bf16_kernel, DKV_SMEM, dkv_set);
     if (status != 0) return status;
     fa_bwd_delta_kernel<bf><<<delta_blocks, 256, 0, st>>>(static_cast<const bf*>(dout), static_cast<const bf*>(o), dl,
-                                                            H, Nq, rows, dos);
-    int sms = 0;
-    status = hw::sm_count(&sms);
+                                                            H, Nq, D, lanes, rows, dos);
+    bf *gq = static_cast<bf*>(dq), *gk = static_cast<bf*>(dk), *gv = static_cast<bf*>(dv);
+    if (D == 64)
+      status = launch_bwd_bf16<64, 64>(m, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, scale, scale_log2, st);
+    else if (D < 64)
+      status = launch_bwd_bf16<64>(m, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, scale, scale_log2, st);
+    else if (D <= 128)
+      status = launch_bwd_bf16<128>(m, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, scale, scale_log2, st);
+    else if (D <= 192)
+      status = launch_bwd_bf16<192>(m, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, scale, scale_log2, st);
+    else
+      status = launch_bwd_bf16<256>(m, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, scale, scale_log2, st);
     if (status != 0) return status;
-    const long long dq_items = (long long)((Nq + OWN - 1) / OWN) * H * B;
-    const long long dkv_items = (long long)((Nk + OWN - 1) / OWN) * H * B;
-    if (dq_items > 0x7fffffff || dkv_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    fa_bwd_dq_bf16_kernel<<<(int)(dq_items < sms ? dq_items : sms), THREADS, DQ_SMEM, st>>>(
-        m[0], m[1], m[2], m[3], ls, dl, static_cast<bf*>(dq), B, H, Nq, Nk, scale, scale_log2);
-    fa_bwd_dkv_bf16_kernel<<<(int)(dkv_items < sms ? dkv_items : sms), THREADS, DKV_SMEM, st>>>(
-        m[6], m[4], m[5], m[7], ls, dl, static_cast<bf*>(dk), static_cast<bf*>(dv), B, H, Nq, Nk, scale, scale_log2);
   } else {
-    fa_bwd_delta_kernel<float><<<delta_blocks, 256, 0, st>>>(static_cast<const float*>(dout),
-                                                              static_cast<const float*>(o), dl, H, Nq, rows, dos);
-    fa_bwd_dq_f32_kernel<<<dim3((Nq + F32_ROWS - 1) / F32_ROWS, H, B), 2 * F32_ROWS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), ls, dl, static_cast<float*>(dq), H, Nq, Nk, qs, ks, vs, dos, scale,
-        scale_log2);
-    fa_bwd_dkv_f32_kernel<<<dim3((Nk + F32_ROWS - 1) / F32_ROWS, H, B), 2 * F32_ROWS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), ls, dl, static_cast<float*>(dk), static_cast<float*>(dv), H, Nq, Nk, qs, ks,
-        vs, dos, scale, scale_log2);
+    const auto *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+               *fv = static_cast<const float*>(v), *fdo = static_cast<const float*>(dout);
+    auto *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk), *gv = static_cast<float*>(dv);
+    fa_bwd_delta_kernel<float><<<delta_blocks, 256, 0, st>>>(fdo, static_cast<const float*>(o), dl, H, Nq, D, lanes,
+                                                              rows, dos);
+    if (D <= 16)
+      launch_bwd_f32<16, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2, st);
+    else if (D <= 32)
+      launch_bwd_f32<32, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2, st);
+    else if (D <= 64)
+      launch_bwd_f32<64, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2, st);
+    else if (D <= 128)
+      launch_bwd_f32<128, 4>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2,
+                             st);
+    else
+      launch_bwd_f32<256, 8>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2,
+                             st);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Fused qkv projection + 2D RoPE + attention (K5), self and cross, D = 64.
+// Fused qkv projection + 2D RoPE + attention (K5), self and cross, D a multiple of 4 up to 256.
 //
 // Replaces: uniception_tpu/ops/fused_attention.py: fused_qkv_rope_attention
 //   (body _fused_self_kernel) and fused_cross_rope_attention (body
@@ -57,6 +57,25 @@
 //   * The q/k/v round trip through device memory, which the Pallas design
 //     avoids, is 3 x 8.4 MB written and read back per encoder call, mostly
 //     from the 50 MB L2; its cost on the card is in PERF.md.
+//   * Head dims other than 64 (RADIO-h and Pixio-H's 80, any D % 4 == 0 up to
+//     256, the JAX fused rule). The epilogue above pairs u with v = u + 16 in
+//     a thread's registers because D = 64 puts each quarter's 16 pairs 16
+//     columns apart and a 128- or 256-column tile holds whole heads. At D = 80
+//     the partner of column j is j + 20, in another lane, and a tile straddles
+//     heads. So for D != 64 the wrapper (ops/fused_attention.py
+//     rope_pair_layout) hands the GEMM each section's weight (and fp32 bias)
+//     with its rows permuted into a padded head of DPAD = 32, 64, 128 or 256
+//     columns: rotation pair P (its u_Y / v_Y or u_X / v_X columns) at padded
+//     column 32 (P / 16) + P % 16 and its partner 16 further on, zero rows past
+//     the D / 2 pairs. The GEMM's tile width is a multiple of DPAD, so a tile
+//     holds whole padded heads, every pair is in one thread's registers again,
+//     and PadRopeEpilogue rotates it with the pair's frequency (the plain
+//     version's table, passed in) and writes u and v to their head columns.
+//     The cost: the per-call copy of the weights and DPAD / D of the GEMM's
+//     work (1.6x at D = 80), and two-byte stores. The scratch rows are D
+//     rounded up to 8 (zeros past D), so K1's tensor maps read it in place.
+//     fp32: the CUDA-core kernel takes a head of any such D per block, each
+//     thread up to 8 pairs of a quarter index.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +90,9 @@ namespace {
 using namespace uc_fa;
 namespace hw = uc_hopper;
 
-constexpr int QUARTER = D / 4;  // RoPE quarter: [u_Y v_Y u_X v_X] of 16 each
+constexpr int HD = 64;             // the head dim of BiasRopeEpilogue's register pairs
+constexpr int QUARTER = HD / 4;    // its RoPE quarter: [u_Y v_Y u_X v_X] of 16 each
+constexpr int MAX_D = 256;         // the widest head
 
 struct ProjArgs {
   const void* x;         // (M, C) rows, contiguous, M = B * N
@@ -80,8 +101,8 @@ struct ProjArgs {
   const int* pos;        // (B, N, 2) int32 (y, x), by strides; null when no section takes RoPE
   long long p_sb, p_sn, p_s2;
   int rope_mask;         // bit s: section s takes RoPE
-  void* out;             // (S, B, H, N, D) contiguous, in x's dtype
-  int M, N, C, H, S;
+  void* out;             // (S, B, H, N, DS) contiguous, in x's dtype
+  int M, N, C, H, S, D, DS;  // DS: the scratch's row, D rounded up to 8
   double base, f0;
 };
 
@@ -111,7 +132,7 @@ struct BiasRopeEpilogue {
   const int* pos;        // (B, N, 2) int32 (y, x) by strides; null when no section takes RoPE
   long long p_sb, p_sn, p_s2;
   int rope_mask;         // bit s: section s takes RoPE
-  __nv_bfloat16* out;    // (S, B, H, N, D) contiguous
+  __nv_bfloat16* out;    // (S, B, H, N, HD) contiguous
   int M, N, H;
   double base, f0;
 
@@ -132,8 +153,8 @@ struct BiasRopeEpilogue {
   template <int NA>
   __device__ __forceinline__ void operator()(const float (&acc)[NA], const State& st, int row0, int s, int col0,
                                              int t) const {
-    constexpr int HEADS = 2 * NA / D;
-    const int hd = H * D;
+    constexpr int HEADS = 2 * NA / HD;
+    const int hd = H * HD;
     const bool rope = (rope_mask >> s) & 1;
     const TB* b = s == 0 ? bias[0] : s == 1 ? bias[1] : bias[2];  // no dynamic index: no local copy
     __nv_bfloat16* o = out + (long long)s * M * hd;
@@ -167,7 +188,7 @@ struct BiasRopeEpilogue {
     }
 #pragma unroll
     for (int hh = 0; hh < HEADS; ++hh) {
-      const int c0 = col0 + hh * D;
+      const int c0 = col0 + hh * HD;
       if (c0 >= hd) break;  // past the section: TMA's zeros, never stored
       float bv[8][2];
 #pragma unroll
@@ -191,7 +212,7 @@ struct BiasRopeEpilogue {
                 rotate(y[half * 4 + j][e], y[half * 4 + j + 2][e], cs[i][half][j][e], sn[i][half][j][e]);
         }
         // the head's row: 8 chunks of 8 columns, two of 4 chunks transposed across the quad, a chunk per lane
-        __nv_bfloat16* orow = o + (((long long)bi[i] * H + c0 / D) * N + n[i]) * D;
+        __nv_bfloat16* orow = o + (((long long)bi[i] * H + c0 / HD) * N + n[i]) * HD;
 #pragma unroll
         for (int q = 0; q < 8; q += 4) {
           uint32_t w[4];
@@ -205,47 +226,136 @@ struct BiasRopeEpilogue {
   }
 };
 
+
+// D != 64 (bf16): the GEMM ran over each section's weight permuted into padded heads of DPAD columns
+// (ops/fused_attention.py rope_pair_layout): rotation pair P of a head sits at padded column 32 (P / 16) + P % 16,
+// its partner 16 columns on, so in each 32-column group of the tile chunks 0 and 1 hold u and chunks 2 and 3 their
+// v, in this thread's registers. The bias comes in the same padded layout (fp32). Each pair is rounded after the
+// bias, rotated by its frequency (inv_freq, the plain version's table, rounded cos/sin as K2 rounds them) and its
+// two columns written to the head's row of the (S, B, H, N, DS) scratch.
+struct PadRopeEpilogue {
+  struct State {};
+  const float* bias[3];  // per section, (H * DPAD,) in the padded layout, or null
+  const int* pos;        // (B, N, 2) int32 (y, x) by strides; null when no section takes RoPE
+  long long p_sb, p_sn, p_s2;
+  int rope_mask;         // bit s: section s takes RoPE
+  __nv_bfloat16* out;    // (S, B, H, N, DS) contiguous
+  int M, N, H, D, DS, DPAD;
+  const float* inv_freq;  // (D / 4,) fp32
+
+  __device__ State init(int) const { return State{}; }
+
+  template <int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NA], const State&, int row0, int s, int col0,
+                                             int t) const {
+    const int Q = D / 4, hw_ = H * DPAD;
+    const bool rope = (rope_mask >> s) & 1;
+    const float* b = s == 0 ? bias[0] : s == 1 ? bias[1] : bias[2];
+    __nv_bfloat16* o = out + (long long)s * M * H * DS;
+    int bi[2], n[2];
+    float p[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [row i][y, x]
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = min(row0 + 8 * i, M - 1);  // a row past M is never stored
+      bi[i] = m / N, n[i] = m - bi[i] * N;
+      if (rope) {
+        const int* pp = pos + bi[i] * p_sb + n[i] * p_sn;
+        p[i][0] = (float)__ldg(pp), p[i][1] = (float)__ldg(pp + p_s2);
+      }
+    }
+#pragma unroll
+    for (int g4 = 0; g4 < NA / 16; ++g4) {  // 32-column groups: registers [16 g4, 16 g4 + 16)
+      const int col = col0 + 32 * g4;
+      if (col >= hw_) break;  // past the section: TMA's zeros, never stored
+      const int h = col / DPAD, gi = (col - h * DPAD) / 32;
+#pragma unroll
+      for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int P = 16 * gi + 8 * mc + 2 * t + e;  // the rotation pair
+          if (P >= 2 * Q) continue;                    // the padding's zero rows
+          const int half = P >= Q, qi = P - half * Q;
+          const int du = 2 * half * Q + qi, dv = du + Q;
+          const int cu = col + 8 * mc + 2 * t + e;
+          const float bu = b != nullptr ? __ldg(b + cu) : 0.f, bv = b != nullptr ? __ldg(b + cu + 16) : 0.f;
+          const float freq = rope ? __ldg(inv_freq + qi) : 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float yu = round_bf16(__fadd_rn(acc[16 * g4 + 4 * mc + 2 * i + e], bu));
+            float yv = round_bf16(__fadd_rn(acc[16 * g4 + 4 * (mc + 2) + 2 * i + e], bv));
+            if (rope) {
+              float sv, cv;
+              sincosf(p[i][half] * freq, &sv, &cv);
+              rotate(yu, yv, round_bf16(cv), round_bf16(sv));
+            }
+            if (row0 + 8 * i < M) {
+              __nv_bfloat16* orow = o + (((long long)bi[i] * H + h) * N + n[i]) * DS;
+              orow[du] = __float2bfloat16_rn(yu);
+              orow[dv] = __float2bfloat16_rn(yv);
+            }
+          }
+        }
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Launch 1, fp32: CUDA-core GEMM, the same epilogue without rounding
 // ---------------------------------------------------------------------------
 
-constexpr int FM = 64, FK = 16;  // rows per block (x one head of 64 columns), k step
+constexpr int FM = 64, FK = 16;  // rows per block (x one head), k step
+constexpr int FJ = MAX_D / 32;     // rotation pairs per thread: tx + 16 j, j < FJ
 
+// A block: FM rows x one head of one section. Thread (ty, tx): rows 4 ty .. 4 ty + 3 and the rotation pairs
+// P = tx + 16 j (P < D / 2) of the head, each pair's u and v columns (u_Y / v_Y of quarter index P, or u_X / v_X
+// of P - D / 4), so the epilogue rotates in registers. At D = 64 these are columns tx + 16 j, j < 4, as before.
 __global__ void __launch_bounds__(256) proj_f32_kernel(const ProjArgs a) {
-  __shared__ __align__(16) float a_s[FK][FM + 4];  // x tile, transposed: [k][row]
-  __shared__ __align__(16) float b_s[FK][D + 4];   // W tile, transposed: [k][column]
-  __shared__ float inv_freq[QUARTER];
+  __shared__ __align__(16) float a_s[FK][FM + 4];      // x tile, transposed: [k][row]
+  __shared__ __align__(16) float b_s[FK][MAX_D + 4];   // W tile, transposed: [k][column]
+  __shared__ float inv_freq[MAX_D / 4];
 
-  // thread (ty, tx): rows 4 ty .. 4 ty + 3, columns tx + 16 j (j = 0..3: u_Y v_Y u_X v_X of quarter index tx)
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int D = a.D, Q = D / 4;
   const long long m0 = (long long)blockIdx.x * FM;
   const int hd = a.H * D, c0 = blockIdx.y * D;  // one head of one section
   const int s = c0 / hd, h = (c0 - s * hd) / D;
   const auto* x = static_cast<const float*>(a.x);
   const auto* w = static_cast<const float*>(a.w[s]) + (long long)h * D * a.C;
-  if (tid < QUARTER) inv_freq[tid] = (float)(a.f0 / pow(a.base, (double)tid / QUARTER));
+  for (int i = tid; i < Q; i += blockDim.x) inv_freq[i] = (float)(a.f0 / pow(a.base, (double)i / Q));
+  int du[FJ];  // the u column of each of this thread's pairs (the v column is du + Q); -1 past the pairs
+#pragma unroll
+  for (int j = 0; j < FJ; ++j) {
+    const int P = tx + 16 * j, half = P >= Q;
+    du[j] = P < 2 * Q ? 2 * half * Q + P - half * Q : -1;
+  }
 
-  const int lr = tid / 4, lk = (tid % 4) * 4;  // the row (and column) this thread stages, 4 k values
+  const int lr = tid / 4, lk = (tid % 4) * 4;  // the row (and columns) this thread stages, 4 k values
   const bool row_in = m0 + lr < a.M;
-  float acc[4][4] = {};
+  float acc[4][FJ][2] = {};
   for (int k0 = 0; k0 < a.C; k0 += FK) {
     const bool in_k = k0 + lk < a.C;  // C % 4 == 0
     const float4 xv = row_in && in_k ? *reinterpret_cast<const float4*>(x + (m0 + lr) * a.C + k0 + lk)
                                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 wv = in_k ? *reinterpret_cast<const float4*>(w + (long long)lr * a.C + k0 + lk)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
     a_s[lk][lr] = xv.x, a_s[lk + 1][lr] = xv.y, a_s[lk + 2][lr] = xv.z, a_s[lk + 3][lr] = xv.w;
-    b_s[lk][lr] = wv.x, b_s[lk + 1][lr] = wv.y, b_s[lk + 2][lr] = wv.z, b_s[lk + 3][lr] = wv.w;
+    for (int r = lr; r < D; r += FM) {  // the head's D weight rows
+      const float4 wv = in_k ? *reinterpret_cast<const float4*>(w + (long long)r * a.C + k0 + lk)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      b_s[lk][r] = wv.x, b_s[lk + 1][r] = wv.y, b_s[lk + 2][r] = wv.z, b_s[lk + 3][r] = wv.w;
+    }
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < FK; ++k) {
       const float4 av = *reinterpret_cast<const float4*>(&a_s[k][4 * ty]);
       const float ar[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bw = b_s[k][tx + 16 * j];
+      for (int j = 0; j < FJ; ++j) {
+        if (du[j] < 0) continue;
+        const float bu = b_s[k][du[j]], bv = b_s[k][du[j] + Q];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ar[i], bw, acc[i][j]);
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j][0] = fmaf(ar[i], bu, acc[i][j][0]);
+          acc[i][j][1] = fmaf(ar[i], bv, acc[i][j][1]);
+        }
       }
     }
     __syncthreads();
@@ -253,28 +363,29 @@ __global__ void __launch_bounds__(256) proj_f32_kernel(const ProjArgs a) {
 
   const bool rope = (a.rope_mask >> s) & 1;
   const float* bias = a.bias[s];
-  const float freq = inv_freq[tx];
-  auto* out = static_cast<float*>(a.out) + (long long)s * a.M * hd;
+  auto* out = static_cast<float*>(a.out) + (long long)s * a.M * a.H * a.DS;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long m = m0 + 4 * ty + i;
     if (m >= a.M) continue;
     const int b = (int)(m / a.N), n = (int)(m - (long long)b * a.N);
-    float y[4];
+    const int* pp = rope ? a.pos + b * a.p_sb + n * a.p_sn : nullptr;
+    float* orow = out + (((long long)b * a.H + h) * a.N + n) * a.DS;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = __fadd_rn(acc[i][j], bias != nullptr ? bias[h * D + tx + 16 * j] : 0.f);
-    if (rope) {
-      const int* pp = a.pos + b * a.p_sb + n * a.p_sn;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
+    for (int j = 0; j < FJ; ++j) {
+      if (du[j] < 0) continue;
+      const int dv = du[j] + Q;
+      float yu = __fadd_rn(acc[i][j][0], bias != nullptr ? bias[h * D + du[j]] : 0.f);
+      float yv = __fadd_rn(acc[i][j][1], bias != nullptr ? bias[h * D + dv] : 0.f);
+      if (rope) {
+        const int P = tx + 16 * j, half = P >= Q;
         float sn, cs;
-        sincosf((float)pp[half * a.p_s2] * freq, &sn, &cs);
-        rotate(y[2 * half], y[2 * half + 1], cs, sn);
+        sincosf((float)pp[half * a.p_s2] * inv_freq[P - half * Q], &sn, &cs);
+        rotate(yu, yv, cs, sn);
       }
+      orow[du[j]] = yu;
+      orow[dv] = yv;
     }
-    float* orow = out + (((long long)b * a.H + h) * a.N + n) * D;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = y[j];
   }
 }
 
@@ -291,33 +402,51 @@ int project_bf16(const hw::GemmMaps& m, const hw::GemmParams& g, const void* b0,
 }  // namespace
 
 // The projection. x: contiguous (B, N, C); w0..w2: the S sections' contiguous (H * D, C) weights (unused ones
-// null); b0..b2: their (H * D,) biases or null, float32, or bfloat16 with bias_bf16 = 1 (bfloat16 x only); pos:
-// (B, N, 2) int32 by strides (in elements), or null when rope_mask is 0; out: contiguous (S, B, H, N, D). x, w
-// and out share dtype (0 = float32, 1 = bfloat16); C % 8 == 0 (bfloat16) or C % 4 == 0 (float32); D = 64.
-// bfloat16 runs the GEMM with the tensor maps of `maps` (ops/gemm.py gemm_maps, 10 ints: x as A, each section's
-// weight as B) in tiles of bn = 128 or 256 columns; float32 ignores maps and bn. Returns a cudaError_t.
+// null), or with dpad > 0 their (H * dpad, C) permutation into padded heads (ops/fused_attention.py
+// rope_pair_layout); b0..b2: their (H * D,) biases (with dpad, (H * dpad,) permuted, float32) or null, float32, or
+// bfloat16 with bias_bf16 = 1 (bfloat16 x at D = 64 only); pos: (B, N, 2) int32 by strides (in elements), or null
+// when rope_mask is 0; out: contiguous (S, B, H, N, DS), DS = D rounded up to 8 (the columns past D are left as
+// they are). x, w and out share dtype (0 = float32, 1 = bfloat16); C % 8 == 0 (bfloat16) or C % 4 == 0
+// (float32); D % 4 == 0 up to 256. bfloat16 runs the GEMM with the tensor maps of `maps` (ops/gemm.py gemm_maps,
+// 10 ints: x as A, each section's weight as B) in tiles of bn = 128 or 256 columns (a multiple of dpad), at D = 64
+// on the weights as they are (dpad 0), at any other D on the permuted ones (dpad > 0) with inv_freq the (D / 4,)
+// float32 RoPE frequencies; float32 takes the weights as they are and ignores maps, bn, dpad and inv_freq.
+// Returns a cudaError_t.
 extern "C" int uc_fused_project(const void* x, const void* w0, const void* w1, const void* w2, const void* b0,
                                 const void* b1, const void* b2, const void* pos, long long p_sb, long long p_sn,
-                                long long p_s2, int rope_mask, void* out, int dtype, int B, int N, int C, int H, int S,
-                                double base, double f0, const long long* maps, int bn, int bias_bf16,
-                                void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || H <= 0 || S < 1 || S > 3 || (rope_mask != 0 && pos == nullptr) ||
-      (bias_bf16 && dtype != 1))
+                                long long p_s2, int rope_mask, void* out, int dtype, int B, int N, int C, int H, int D,
+                                int S, double base, double f0, const long long* maps, int bn, int bias_bf16, int dpad,
+                                const void* inv_freq, void* stream) {
+  if (B <= 0 || N <= 0 || C <= 0 || H <= 0 || S < 1 || S > 3 || D < 4 || D > MAX_D || D % 4 != 0 ||
+      (rope_mask != 0 && pos == nullptr) || (bias_bf16 && (dtype != 1 || dpad != 0)))
     return (int)cudaErrorInvalidValue;
   const void* ws[3] = {w0, w1, w2};
   for (int s = 0; s < S; ++s)
     if (ws[s] == nullptr) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * N;
   if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int DS = (D + 7) / 8 * 8;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hd = H * D;
   if (dtype == 1) {
+    const bool padded = dpad > 0;
+    if (padded ? (dpad % 32 != 0 || dpad < D || bn % dpad != 0 || (rope_mask != 0 && inv_freq == nullptr))
+               : D != HD)
+      return (int)cudaErrorInvalidValue;
+    const int hd = H * (padded ? dpad : D);
     if (C % 8 != 0 || maps == nullptr || maps[0] != C || maps[1] != M || maps[6] != hd) return (int)cudaErrorInvalidValue;
     hw::GemmParams g;
     int status = hw::gemm_params(&g, (int)M, hd, S, 2LL * C, bn, 1, nullptr);
     hw::GemmMaps m;
     if (status == 0) status = hw::encode_gemm_maps(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, ws, S, maps, bn);
     if (status != 0) return status;
+    if (padded) {
+      const PadRopeEpilogue epi{{static_cast<const float*>(b0), static_cast<const float*>(b1),
+                                 static_cast<const float*>(b2)},
+                                static_cast<const int*>(pos), p_sb, p_sn, p_s2, rope_mask,
+                                static_cast<__nv_bfloat16*>(out), (int)M, N, H, D, DS, dpad,
+                                static_cast<const float*>(inv_freq)};
+      return bn == 256 ? hw::launch_gemm<false, 256>(m, g, epi, st) : hw::launch_gemm<false, 128>(m, g, epi, st);
+    }
     return bias_bf16 ? project_bf16<__nv_bfloat16>(m, g, b0, b1, b2, pos, p_sb, p_sn, p_s2, rope_mask, out, N, H, base,
                                                     f0, bn, st)
                      : project_bf16<float>(m, g, b0, b1, b2, pos, p_sb, p_sn, p_s2, rope_mask, out, N, H, base, f0, bn,
@@ -326,7 +455,7 @@ extern "C" int uc_fused_project(const void* x, const void* w0, const void* w1, c
   if (dtype != 0 || C % 4 != 0 || S * H > 65535) return (int)cudaErrorInvalidValue;
   const ProjArgs a{x, {w0, w1, w2}, {static_cast<const float*>(b0), static_cast<const float*>(b1),
                    static_cast<const float*>(b2)}, static_cast<const int*>(pos), p_sb, p_sn, p_s2, rope_mask, out,
-                   (int)M, N, C, H, S, base, f0};
+                   (int)M, N, C, H, S, D, DS, base, f0};
   proj_f32_kernel<<<dim3((unsigned)((M + FM - 1) / FM), S * H), 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

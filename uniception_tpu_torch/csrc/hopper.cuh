@@ -736,14 +736,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Encode the bf16 tensor map of one (B, N, H, D) view from its layout, D a multiple of 16 up to 512, in boxes of
+// Encode the bf16 tensor map of one (B, N, H, D) view from its layout, D a multiple of 8 up to 512, in boxes of
 // 64 columns (one 128-byte swizzle row; a kernel loads a tile of D > 64 as D / 64 boxes rounded up, and TMA writes
 // zeros into the columns past D); `rows` is the box height the kernel was built for, and a layout with any other box is
 // refused (a box that does not match the kernel's expected transaction bytes would leave its barrier waiting
 // for ever). Returns a cudaError_t.
 inline int encode_tile_map(CUtensorMap* map, const void* base, const long long* layout, int rows) {
   const long long* L = layout;
-  if (L[0] < 16 || L[0] > 512 || L[0] % 16 || L[7] != 64 || L[8] != 1 || L[9] != rows || L[10] != 1)
+  if (L[0] < 8 || L[0] > 512 || L[0] % 8 || L[7] != 64 || L[8] != 1 || L[9] != rows || L[10] != 1)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)L[0], (cuuint64_t)L[1], (cuuint64_t)L[2], (cuuint64_t)L[3]};
   const cuuint64_t strides[3] = {(cuuint64_t)L[4], (cuuint64_t)L[5], (cuuint64_t)L[6]};

@@ -66,7 +66,7 @@ class MultiViewPointmapModel(nn.Module):
             raise ValueError(f"Invalid attention type: {attention_type}. Must be one of {sorted(INFO_SHARING)}.")
         if sequence_parallel is not None:
             raise NotImplementedError("sequence_parallel (ring attention over the V*T tokens) is multi-GPU work: "
-                                      "ROADMAP queue 1 item 15")
+                                      "ROADMAP queue 1 item 12")
         self.name = name
         self.num_views = num_views
         self.data_norm_type = data_norm_type

@@ -3,7 +3,7 @@
 The Cosmos image tokenizer CLI (counterpart of uniception_tpu/models/libs/cosmos_tokenizer/image_cli.py): autoencode
 an image through a CI or DI tokenizer and report the reconstruction error. Without ``--image`` the input is a seeded
 random 256 x 256 image, as in the JAX package. ``.png`` files are read and written without PIL
-(uniception_tpu_torch/utils/png.py); other formats need PIL.
+(uniception_tpu_torch/utils/png.py); palette, 16-bit and interlaced PNG files and other formats need PIL.
 
     python -m uniception_tpu_torch.models.libs.cosmos_tokenizer.image_cli --image in.png --output out.png
     python -m uniception_tpu_torch.models.libs.cosmos_tokenizer.image_cli --device cpu --tokenizer DI
@@ -18,12 +18,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _read(path: str) -> np.ndarray:
+    """An (H, W, 3) uint8 RGB array. A ``.png`` that utils/png.py does not read (palette, 16-bit, interlaced) and
+    every other format go through PIL, as the JAX CLI reads them; without PIL such a file raises, naming both."""
+    refused = None
     if path.lower().endswith(".png"):
         from uniception_tpu_torch.utils.png import read_png
 
-        return read_png(path)
-    from PIL import Image
-
+        try:
+            return read_png(path)
+        except ValueError as e:
+            refused = e
+    try:
+        from PIL import Image
+    except ImportError as e:
+        why = f"utils/png.py refuses it ({refused}) and " if refused else ""
+        raise ValueError(f"{path}: {why}PIL, which reads it, is not installed") from e
     return np.asarray(Image.open(path).convert("RGB"))
 
 

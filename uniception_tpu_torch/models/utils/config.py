@@ -25,9 +25,17 @@ The 3x3-conv lowering of the DPT head's eligible convs (nn/dpt_parts.py):
 (the hand-written conv kernel, the counterpart of "pallas").
 
 A CPU tensor always takes the plain versions. The GELU mode is "exact" (erf,
-parity with torch nn.GELU) or "tanh". All are set with the setters below;
-there are no environment variables.
+parity with torch nn.GELU) or "tanh". All are set with the setters below, and
+read at import from the JAX package's environment variables
+(uniception_tpu/models/utils/config.py): ``UNICEPTION_TPU_ATTN`` ("pallas" and
+"xla" are "kernel"; "fused", "naive"), ``UNICEPTION_TPU_ATTN_QUANT``,
+``UNICEPTION_TPU_CONV3X3`` ("pallas" is "kernel", "xla" is "torch") and
+``UNICEPTION_TPU_GELU``; each also takes the port's own names. An unknown value
+raises ``ValueError`` naming the variable (the JAX package warns and falls
+back to its default).
 """
+
+import os
 
 __all__ = [
     "get_attention_impl",
@@ -43,10 +51,25 @@ __all__ = [
 ]
 
 _VALID_IMPLS = ("kernel", "fused", "naive")
-_ATTN_IMPL = "kernel"
-_ATTN_QUANT = "none"
-_CONV3X3_IMPL = "torch"
-_GELU_MODE = "exact"
+
+
+def _from_env(var: str, default: str, names: dict) -> str:
+    """The setting an environment variable asks for, through ``names`` (the JAX package's value -> the port's);
+    ``default`` when it is unset. Raises ValueError, naming the variable, on any other value."""
+    value = os.environ.get(var)
+    if value is None:
+        return default
+    if value not in names:
+        raise ValueError(f"{var}={value!r} is not one of {sorted(names)}")
+    return names[value]
+
+
+_ATTN_IMPL = _from_env("UNICEPTION_TPU_ATTN", "kernel",
+                       {"pallas": "kernel", "xla": "kernel", "kernel": "kernel", "fused": "fused", "naive": "naive"})
+_ATTN_QUANT = _from_env("UNICEPTION_TPU_ATTN_QUANT", "none", {m: m for m in ("none", "int8", "int8pv")})
+_CONV3X3_IMPL = _from_env("UNICEPTION_TPU_CONV3X3", "torch",
+                          {"pallas": "kernel", "xla": "torch", "kernel": "kernel", "torch": "torch"})
+_GELU_MODE = _from_env("UNICEPTION_TPU_GELU", "exact", {"exact": "exact", "tanh": "tanh"})
 
 
 def get_attention_impl() -> str:

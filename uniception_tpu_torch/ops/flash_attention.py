@@ -26,6 +26,7 @@ FlashAttention-2 recurrence of the Pallas backward kernels).
       (:func:`flash_attention_int8_prep` launches the prep alone).
 """
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -50,22 +51,27 @@ __all__ = [
     "int8_pv_keys",
     "tma_layout",
     "fwd_rows",
+    "head_dim_rule",
+    "pad_head_dim",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64  # the head dim K3 (backward), K5 (fused), K6 (int8) and K8 (S.V) are built for
-HEAD_DIMS = (32, 64, 80, 96, 128, 512)  # the head dims K1 (forward) is built for; 512: the Cosmos tokenizer
-# A call at another head dim than its kernel takes raises, naming the ROADMAP item that would add it.
+# The head dims each attention kernel takes, in one place (head_dim_rule): K1 any D up to 512, K3 and K6 any D up
+# to 256, K5 any D % 4 == 0 up to 256 (the JAX package's fused rule); K8 only the sweep script's 64. A D that is not
+# a multiple of 8 is copied into a zero-padded one first (pad_head_dim). A call outside its kernel's rule raises,
+# naming the ROADMAP item that would widen it, and launches nothing.
+MAX_HEAD_DIM = {"K1": 512, "K3": 256, "K5": 256, "K6": 256, "K8": 64}
 HEAD_DIM_ITEM = "ROADMAP queue 2 item a"
-BOX_COLS = 64  # columns of each TMA box: one 128-byte swizzle row; a K1 tile of D > 64 is two boxes
+HEAD_DIM_ALIGN = 8  # a bf16 row of D elements is a 16-byte multiple: what a tensor map's strides need
+BOX_COLS = 64  # columns of each TMA box: one 128-byte swizzle row; a K1 tile of D > 64 is D / 64 boxes, rounded up
 INT8_MODES = ("int8", "int8pv")
-INT8_MAX_KEYS = 1024  # one key block: the Pallas int8 kernel's case at D = 64
+INT8_MAX_KEYS = 1024  # one key block: the Pallas int8 kernel's case (its _plan keeps 1024 keys up to D = 256)
 INT8_CHUNK = 128  # K6's key tile and prep chunk (csrc/flash_attention_int8.cu BK): the scratch's padding
 INT8_PREP_KEYS = 4  # keys per thread of K6's prep (PREP_KEYS): the first step of its k sum's fixed order
 # Rows of the TMA boxes the bf16 kernels are built for (csrc/flash_attention.cu BQ / BK,
 # csrc/flash_attention_bwd.cu OWN / LOOP); the C entry points refuse any other box.
 FWD_ROWS = 128  # K1: query and key tiles
-WIDE_HEAD_DIM, WIDE_ROWS = 512, 64  # K1 at D = 512 (its column-split kernel): 64-row query and key tiles
+WIDE_FROM, WIDE_ROWS = 128, 64  # K1 above D = 128 (its column-split kernel): 64-row query and key tiles
 BWD_OWN_ROWS, BWD_LOOP_ROWS = 128, 64  # K3: a block's own rows, and the rows of each tile it loops over
 TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below 2^40
 
@@ -153,10 +159,37 @@ def _layouts(*pairs):
     return _layout_array(*((t.shape, t.stride(), t.element_size(), rows) for t, rows in pairs))
 
 
-def _check(op, *tensors, head_dims=HEAD_DIMS):
-    """Raise on what the kernels do not take: q, k, v (and o, dO) of one device and dtype, a head dim of
-    ``head_dims`` (K1's by default; the other attention kernels pass (64,)), and what a TMA tensor map needs: a
-    16-byte aligned base and (b, n, h) byte strides that are multiples of 16 and below 2^40."""
+def head_dim_rule(op: str, kernel: str, head_dim: int):
+    """Raise unless ``kernel`` ("K1", "K3", "K5", "K6" or "K8") takes ``head_dim``: any D up to
+    :data:`MAX_HEAD_DIM` (K5: a multiple of 4, K8: 64 only). The error names :data:`HEAD_DIM_ITEM`."""
+    top = MAX_HEAD_DIM[kernel]
+    ok = 1 <= head_dim <= top and (kernel != "K5" or head_dim % 4 == 0) and (kernel != "K8" or head_dim == top)
+    if not ok:
+        rule = {"K5": f"a multiple of 4 up to {top}", "K8": f"{top}"}.get(kernel, f"1 to {top}")
+        raise ValueError(f"{op}: head dim {head_dim} not supported ({kernel} takes {rule}; other head dims: "
+                         f"{HEAD_DIM_ITEM})")
+
+
+def pad_head_dim(*tensors):
+    """The tensors with their head dim (the last) zero-padded to a multiple of :data:`HEAD_DIM_ALIGN`, as contiguous
+    copies, or the tensors themselves when it is one already. Zero columns change no dot product, so attention over
+    the padded q/k/v, with the caller's scale (that of the true D), gives the true output in its first D columns.
+    ``pad_head_dim.copies`` counts the calls that copied."""
+    d = tensors[0].shape[-1]
+    dp = -(-d // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
+    if dp == d:
+        return tensors
+    pad_head_dim.copies += 1
+    return tuple(torch.nn.functional.pad(t, (0, dp - d)) for t in tensors)
+
+
+pad_head_dim.copies = 0
+
+
+def _check(op, *tensors, kernel="K1"):
+    """Raise on what the kernels do not take: q, k, v (and o, dO) of one device and dtype, a head dim of ``kernel``'s
+    rule (:func:`head_dim_rule`) that is a multiple of 8 (the wrappers pad any other first), and what a TMA tensor
+    map needs: a 16-byte aligned base and (b, n, h) byte strides that are multiples of 16 and below 2^40."""
     q = tensors[0]
     for i, t in enumerate(tensors):
         name = ("q", "k", "v", "o", "dO")[i]
@@ -176,9 +209,9 @@ def _check(op, *tensors, head_dims=HEAD_DIMS):
         raise ValueError(f"{op}: dtype {q.dtype} not supported (float32, bfloat16)")
     k, v = tensors[1], tensors[2]
     B, _, H, D = q.shape
-    if D not in head_dims:
-        raise ValueError(f"{op}: head dim {D} not supported (the kernel is built for {', '.join(map(str, head_dims))}; "
-                         f"other head dims: {HEAD_DIM_ITEM})")
+    head_dim_rule(op, kernel, D)
+    if D % HEAD_DIM_ALIGN:
+        raise ValueError(f"{op}: head dim {D} is not a multiple of {HEAD_DIM_ALIGN} (pad_head_dim pads it)")
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
         raise ValueError(f"{op}: k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if B > 65535 or H > 65535:
@@ -197,27 +230,32 @@ def _on_cuda(op, t):
 def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool = False):
     """K1: the flash-attention forward kernel; a CPU tensor takes :func:`flash_attention_lse_ref`.
 
-    CUDA tensors (float32 or bfloat16, D of :data:`HEAD_DIMS`, unit stride on
-    D, 16-byte aligned strides) launch the kernel; anything else on a CUDA
-    device raises. Returns (out, lse): a contiguous (B, Nq, H, D) tensor in q's
-    dtype, and with ``with_lse`` the (B, H, Nq) fp32 logsumexp, else None.
-    ``flash_attention.launches`` counts the kernel launches,
-    ``flash_attention.lse_launches`` those that wrote the logsumexp.
+    CUDA tensors (float32 or bfloat16, D up to 512, unit stride on D, 16-byte
+    aligned strides; a D that is not a multiple of 8 is padded into a copy)
+    launch the kernel; anything else on a CUDA device raises. Returns (out,
+    lse): a contiguous (B, Nq, H, D) tensor in q's dtype, and with ``with_lse``
+    the (B, H, Nq) fp32 logsumexp, else None. ``flash_attention.launches``
+    counts the kernel launches, ``flash_attention.lse_launches`` those that
+    wrote the logsumexp.
     """
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention", q):
         out, lse = flash_attention_lse_ref(q, k, v, scale)
         return out, (lse if with_lse else None)
+    D = q.shape[-1]
+    head_dim_rule("flash_attention", "K1", D)
+    q, k, v = pad_head_dim(q, k, v)
     _check("flash_attention", q, k, v)
     out, lse = forward_launch(q, k, v, scale, with_lse)
     flash_attention.launches += 1
     flash_attention.lse_launches += with_lse
-    return out, lse
+    flash_attention.head_dims[D] += 1
+    return (out if out.shape[-1] == D else out[..., :D].contiguous()), lse
 
 
 def fwd_rows(head_dim: int) -> int:
-    "The rows of K1's TMA boxes at a head dim: 128, or 64 for the D = 512 kernel."
-    return WIDE_ROWS if head_dim == WIDE_HEAD_DIM else FWD_ROWS
+    "The rows of K1's TMA boxes at a head dim: 128, or 64 for the column-split kernel above D = 128."
+    return WIDE_ROWS if head_dim > WIDE_FROM else FWD_ROWS
 
 
 def forward_launch(q, k, v, scale: float, with_lse: bool = False):
@@ -243,16 +281,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     ``lse`` the forward's outputs, ``dout`` the output gradient (made
     contiguous when its layout does not fit the kernel). Returns contiguous
     (dq, dk, dv) in the input dtype. Anything the kernel does not take on a
-    CUDA device raises, a head dim other than 64 among it.
-    ``flash_attention_bwd.launches`` counts the calls (each launches the
-    delta, dq and dk/dv kernels).
+    CUDA device raises, a head dim above 256 among it; a D that is not a
+    multiple of 8 is padded into a copy. ``flash_attention_bwd.launches``
+    counts the calls (each launches the delta, dq and dk/dv kernels).
     """
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention_bwd", q):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, scale)
+    d = q.shape[-1]  # the caller's head dim; D below is the kernel's, rounded up to 8
+    head_dim_rule("flash_attention_bwd", "K3", d)
+    q, k, v, out, dout = pad_head_dim(q, k, v, out, dout)
     if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(s * dout.element_size() % 16 for s in dout.stride()[:3]):
         dout = dout.contiguous()
-    _check("flash_attention_bwd", q, k, v, out, dout, head_dims=(HEAD_DIM,))
+    _check("flash_attention_bwd", q, k, v, out, dout, kernel="K3")
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
     if out.shape != q.shape or not out.is_contiguous() or dout.shape != q.shape:
@@ -272,10 +313,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     )
     kernel_lib.check(status, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    flash_attention_bwd.head_dims[d] += 1
+    return (dq, dk, dv) if d == D else tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.head_dims = collections.Counter()  # launches by the caller's head dim
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -313,6 +356,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Op
 
 flash_attention.launches = 0
 flash_attention.lse_launches = 0
+flash_attention.head_dims = collections.Counter()  # launches by the caller's head dim
 
 
 def _int8_args(op, k, mode):
@@ -382,7 +426,7 @@ def flash_attention_int8_ref(q, k, v, scale: Optional[float] = None, mode: str =
     the row max over all keys. "int8": P.V in fp32 with p rounded to v's
     dtype; "int8pv": p8 = round(p * 127) and v quantized per (b, h), P.V in
     int32 times vs / 127. Both products are exact in fp32 (their integer sums
-    stay below 2^24 for D = 64 and at most 1024 keys). Returns (B, Nq, H, D)
+    stay below 2^24 for D up to 256 and at most 1024 keys). Returns (B, Nq, H, D)
     in q's dtype.
     """
     _int8_args("flash_attention_int8_ref", k, mode)
@@ -408,17 +452,23 @@ def flash_attention_int8_ref(q, k, v, scale: Optional[float] = None, mode: str =
     return (pv / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def int8_row_bytes(head_dim: int) -> int:
+    "The int8 row of K6's scratch (csrc/flash_attention_int8.cu row_bytes): D rounded up to 64, 128 or 256."
+    return 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+
+
 def _int8_scratch(k, mode):
-    "Empty K6 scratch for k's shape: (k8, kscale, v8t, vscale, stats)."
+    "Empty K6 scratch for k's shape: (k8, kscale, v8t, vscale, stats), rows of int8_row_bytes(D)."
     B, Nk, H, D = k.shape
     chunks = -(-Nk // INT8_CHUNK)
+    dk = int8_row_bytes(D)
     dev = k.device
-    k8 = torch.empty((B, H, chunks * INT8_CHUNK, D), dtype=torch.int8, device=dev)
+    k8 = torch.empty((B, H, chunks * INT8_CHUNK, dk), dtype=torch.int8, device=dev)
     kscale = torch.empty((B, H), dtype=torch.float32, device=dev)
     pv8 = mode == "int8pv"
-    v8t = torch.empty((B, H, D, chunks * INT8_CHUNK), dtype=torch.int8, device=dev) if pv8 else None
+    v8t = torch.empty((B, H, dk, chunks * INT8_CHUNK), dtype=torch.int8, device=dev) if pv8 else None
     vscale = torch.empty_like(kscale) if pv8 else None
-    stats = torch.empty((4, B, H, chunks, D), dtype=torch.float32, device=dev)
+    stats = torch.empty((4, B, H, chunks, dk), dtype=torch.float32, device=dev)
     return k8, kscale, v8t, vscale, stats
 
 
@@ -428,7 +478,7 @@ def _ptr(t):
 
 def _int8_cuda_args(op, q, k, v, mode):
     _int8_args(op, k, mode)
-    _check(op, q, k, v, head_dims=(HEAD_DIM,))
+    _check(op, q, k, v, kernel="K6")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{op}: dtype {q.dtype} not supported (bfloat16)")
 
@@ -436,20 +486,24 @@ def _int8_cuda_args(op, q, k, v, mode):
 def flash_attention_int8_prep(k: torch.Tensor, v: torch.Tensor, mode: str = "int8"):
     """K6's prep launches alone (the first two of every K6 call): (k8, kscale, v8t, vscale) as
     :func:`flash_attention_int8_prep_ref` returns them. A CPU tensor takes that plain version; CUDA tensors
-    (bfloat16, D = 64, read by stride) launch the prep or raise. ``flash_attention_int8_prep.launches`` counts
-    these calls (not those inside :func:`flash_attention_int8`)."""
+    (bfloat16, D up to 256, read by stride; a D that is not a multiple of 8 is padded into a copy) launch the prep
+    or raise; the scratch's columns (rows of v8t) past D are sliced off. ``flash_attention_int8_prep.launches``
+    counts these calls (not those inside :func:`flash_attention_int8`)."""
     if not _on_cuda("flash_attention_int8_prep", k):
         return flash_attention_int8_prep_ref(k, v, mode)
+    D = k.shape[-1]
+    head_dim_rule("flash_attention_int8_prep", "K6", D)
+    k, v = pad_head_dim(k, v)
     _int8_cuda_args("flash_attention_int8_prep", k, k, v, mode)
     k8, kscale, v8t, vscale, stats = _int8_scratch(k, mode)
     status = kernel_lib.library().uc_flash_attention_int8_prep(
         k.data_ptr(), v.data_ptr(), k8.data_ptr(), _ptr(v8t), stats.data_ptr(), kscale.data_ptr(), _ptr(vscale),
-        int(mode == "int8pv"), k.shape[0], k.shape[2], k.shape[1], _layouts((k, INT8_CHUNK), (v, INT8_CHUNK)),
-        torch.cuda.current_stream(k.device).cuda_stream,
+        int(mode == "int8pv"), k.shape[0], k.shape[2], k.shape[1], k.shape[3],
+        _layouts((k, INT8_CHUNK), (v, INT8_CHUNK)), torch.cuda.current_stream(k.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_int8_prep")
     flash_attention_int8_prep.launches += 1
-    return k8, kscale, v8t, vscale
+    return k8[..., :D], kscale, None if v8t is None else v8t[:, :, :D], vscale
 
 
 flash_attention_int8_prep.launches = 0
@@ -458,17 +512,21 @@ flash_attention_int8_prep.launches = 0
 def flash_attention_int8(q, k, v, scale: Optional[float] = None, mode: str = "int8") -> torch.Tensor:
     """K6: the int8 attention kernel (inference; one key block of at most 1024 keys).
 
-    CUDA tensors (bfloat16, D = 64, read by stride as for K1) launch the
-    kernel: the prep (the k mean, the scales and the int8 keys, and values in
-    "int8pv", over (b, h, key chunk) blocks), then the attention; anything
-    else on a CUDA device raises. A CPU tensor takes
-    :func:`flash_attention_int8_ref`. Returns a contiguous (B, Nq, H, D)
-    tensor. ``flash_attention_int8.launches`` counts the calls that launched it.
+    CUDA tensors (bfloat16, D up to 256, read by stride as for K1; a D that
+    is not a multiple of 8 is padded into a copy) launch the kernel: the prep
+    (the k mean, the scales and the int8 keys, and values in "int8pv", over
+    (b, h, key chunk) blocks), then the attention; anything else on a CUDA
+    device raises. A CPU tensor takes :func:`flash_attention_int8_ref`.
+    Returns a contiguous (B, Nq, H, D) tensor. ``flash_attention_int8.launches``
+    counts the calls that launched it.
     """
     _int8_args("flash_attention_int8", k, mode)
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention_int8", q):
         return flash_attention_int8_ref(q, k, v, scale, mode)
+    d = q.shape[-1]  # the caller's head dim; D below is the kernel's, rounded up to 8
+    head_dim_rule("flash_attention_int8", "K6", d)
+    q, k, v = pad_head_dim(q, k, v)
     _int8_cuda_args("flash_attention_int8", q, k, v, mode)
     B, Nq, H, D = q.shape
     k8, kscale, v8t, vscale, stats = _int8_scratch(k, mode)
@@ -481,7 +539,9 @@ def flash_attention_int8(q, k, v, scale: Optional[float] = None, mode: str = "in
     )
     kernel_lib.check(status, "flash_attention_int8")
     flash_attention_int8.launches += 1
-    return out
+    flash_attention_int8.head_dims[d] += 1
+    return out if d == D else out[..., :d].contiguous()
 
 
 flash_attention_int8.launches = 0
+flash_attention_int8.head_dims = collections.Counter()  # launches by the caller's head dim

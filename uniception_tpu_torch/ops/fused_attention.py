@@ -26,6 +26,8 @@ into one (C, 2*H*D) kernel per call); the product is the same.
       it: the JAX package's ``_fused_self_bwd`` / ``_fused_cross_bwd``.
 """
 
+import collections
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -33,15 +35,15 @@ import torch
 from uniception_tpu_torch.ops import kernel_lib
 from uniception_tpu_torch.ops.flash_attention import (
     _DTYPE_CODES,
-    HEAD_DIM,
-    HEAD_DIM_ITEM,
+    HEAD_DIM_ALIGN,
     FlashAttentionFunction,
     _on_cuda,
     flash_attention_ref,
     forward_launch,
+    head_dim_rule,
 )
-from uniception_tpu_torch.ops.gemm import gemm_plan, maps_array, sm_count
-from uniception_tpu_torch.ops.rope import rope_2d, rope_2d_kernel
+from uniception_tpu_torch.ops.gemm import TILE_N, gemm_plan, maps_array, sm_count
+from uniception_tpu_torch.ops.rope import _inv_freq, rope_2d, rope_2d_kernel
 
 __all__ = [
     "fused_qkv_rope_attention",
@@ -50,7 +52,10 @@ __all__ = [
     "fused_cross_rope_attention_ref",
     "FusedSelfAttentionFunction",
     "FusedCrossAttentionFunction",
+    "rope_pair_layout",
 ]
+
+PAD_WIDTHS = (32, 64, 128, 256)  # the padded heads of rope_pair_layout: each divides the GEMM's tile widths it takes
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
@@ -100,30 +105,64 @@ def fused_cross_rope_attention_ref(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, 
     return _attend_ref(xq, q, k, v, scale)
 
 
+def rope_pair_layout(head_dim: int):
+    """The padded head K5's bf16 projection computes at a head dim other than 64 (csrc/fused_attention.cu
+    PadRopeEpilogue): (dpad, src) with src[c] the head column at padded column c, or -1 for a zero row. Rotation pair
+    P < D / 2 (u_Y / v_Y of quarter index P, or u_X / v_X of quarter index P - D / 4) has its u column at
+    32 (P // 16) + P % 16 and its v 16 columns on, so a thread of the GEMM's epilogue holds both; dpad is the
+    narrowest of :data:`PAD_WIDTHS` that holds the pairs' 32-column groups."""
+    q = head_dim // 4
+    groups = -(-2 * q // 16)
+    dpad = next(w for w in PAD_WIDTHS if w >= 32 * groups)
+    src = [-1] * dpad
+    for p in range(2 * q):
+        half, qi = divmod(p, q)
+        col = 32 * (p // 16) + p % 16
+        src[col], src[col + 16] = 2 * half * q + qi, 2 * half * q + qi + q
+    return dpad, src
+
+
+@functools.lru_cache(maxsize=64)
+def _pad_index(head_dim: int, device) -> torch.Tensor:
+    "rope_pair_layout's source rows on the device, D for a zero row (one tensor per head dim and device, reused)."
+    return torch.tensor([head_dim if c < 0 else c for c in rope_pair_layout(head_dim)[1]], device=device)
+
+
+def _pad_heads(t: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    "A (H * D, ...) weight or bias with each head's rows in rope_pair_layout's order, zero rows where it has -1."
+    heads = t.reshape(num_heads, head_dim, *t.shape[1:])
+    heads = torch.cat([heads, heads.new_zeros((num_heads, 1, *t.shape[1:]))], dim=1)  # row D: the zero row
+    index = _pad_index(head_dim, t.device)
+    return heads.index_select(1, index).reshape(num_heads * index.numel(), *t.shape[1:]).contiguous()
+
+
 def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num_heads: int, base: float,
              f0: float) -> torch.Tensor:
-    """The projection launch alone (CUDA tensors): returns the (S, B, H, N, D)
-    scratch of the S = len(weights) sections in the compute dtype, the first
-    ``n_rope`` sections RoPE'd. Raises on what the kernel does not take."""
+    """The projection launch alone (CUDA tensors): returns the (S, B, H, N, DS) scratch of the S = len(weights)
+    sections in the compute dtype, the first ``n_rope`` sections RoPE'd, DS = D rounded up to 8 (zeros past D, so
+    K1's tensor maps read it in place). Raises on what the kernel does not take. A bf16 call at D != 64 hands the
+    GEMM the weights and biases in rope_pair_layout's padded heads, copied per call
+    (``fused_qkv_rope_attention.weight_copies`` counts them)."""
     op = "fused_attention"
     if x.dim() != 3 or x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{op}: x must be (B, N, C) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
     B, N, C = x.shape
-    hd = num_heads * HEAD_DIM
+    if weights[0].dim() != 2 or weights[0].shape[0] % num_heads:
+        raise ValueError(f"{op}: weight {tuple(weights[0].shape)} is not (H * D, C) for H = {num_heads}")
+    D = weights[0].shape[0] // num_heads
+    head_dim_rule(op, "K5", D)
+    hd = num_heads * D
     if C % (8 if x.dtype == torch.bfloat16 else 4):
         raise ValueError(f"{op}: C = {C} must be a multiple of 8 (bfloat16) or 4 (float32)")
     x = x.contiguous()
     ws = [w.contiguous() for w in weights]
     for w in ws:
-        if w.shape[1] != C or w.dtype != x.dtype or w.device != x.device:
-            raise ValueError(f"{op}: weight {tuple(w.shape)} {w.dtype} on {w.device} does not fit x {tuple(x.shape)}")
-        if w.shape[0] != hd:
-            raise ValueError(
-                f"{op}: head dim {w.shape[0] / num_heads:g} not supported (the kernel is built for {HEAD_DIM}; "
-                f"other head dims: {HEAD_DIM_ITEM})"
-            )
-    # bf16 biases of a bf16 call are read as they are (the kernel widens them to fp32, exactly): no cast per call
-    bias_bf16 = x.dtype == torch.bfloat16 and all(b is None or b.dtype == torch.bfloat16 for b in biases)
+        if w.shape != (hd, C) or w.dtype != x.dtype or w.device != x.device:
+            raise ValueError(f"{op}: weight {tuple(w.shape)} {w.dtype} on {w.device} does not fit x {tuple(x.shape)} "
+                             f"and {num_heads} heads of {D}")
+    padded = x.dtype == torch.bfloat16 and D != 64
+    # bf16 biases of a bf16 call at D = 64 are read as they are (the kernel widens them to fp32, exactly): no cast
+    bias_bf16 = x.dtype == torch.bfloat16 and not padded and all(b is None or b.dtype == torch.bfloat16 for b in biases)
     bs = [None if b is None else (b if bias_bf16 else b.to(torch.float32)).contiguous() for b in biases]
     for b in bs:
         if b is not None and (b.shape != (hd,) or b.device != x.device):
@@ -136,26 +175,38 @@ def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num
         if positions.shape != (B, N, 2) or positions.device != x.device:
             raise ValueError(f"{op}: positions must be ({B}, {N}, 2) on {x.device}, got {tuple(positions.shape)}")
     S = len(ws)
-    out = torch.empty((S, B, num_heads, N, HEAD_DIM), dtype=x.dtype, device=x.device)
+    ds = -(-D // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
+    out = (torch.empty if ds == D else torch.zeros)((S, B, num_heads, N, ds), dtype=x.dtype, device=x.device)
     pad = [None] * (3 - S)
-    maps, bn = None, 0
+    maps, bn, dpad, freq = None, 0, 0, None
+    if padded:
+        dpad = rope_pair_layout(D)[0]
+        ws = [_pad_heads(w, num_heads, D) for w in ws]
+        bs = [None if b is None else _pad_heads(b, num_heads, D) for b in bs]
+        freq = _inv_freq(D // 4, base, f0, x.device) if rope else None
+        fused_qkv_rope_attention.weight_copies += 1
     if x.dtype == torch.bfloat16:
-        bn = gemm_plan(B * N, hd, C, 2, sm_count(x.device.index or 0), sections=S, split_k=False)[0]
-        maps = maps_array(B * N, C, hd, 2, bn)
+        n = num_heads * (dpad or D)
+        widths = tuple(w for w in TILE_N if w % (dpad or 1) == 0)
+        bn = gemm_plan(B * N, n, C, 2, sm_count(x.device.index or 0), sections=S, split_k=False, widths=widths)[0]
+        maps = maps_array(B * N, C, n, 2, bn)
     status = kernel_lib.library().uc_fused_project(
         x.data_ptr(), *[w.data_ptr() for w in ws], *pad, *[None if b is None else b.data_ptr() for b in bs], *pad,
         positions.data_ptr() if rope else None, *(positions.stride() if rope else (0, 0, 0)), (1 << n_rope) - 1,
-        out.data_ptr(), _DTYPE_CODES[x.dtype], B, N, C, num_heads, S, float(base), float(f0), maps, bn,
-        int(bias_bf16), torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), _DTYPE_CODES[x.dtype], B, N, C, num_heads, D, S, float(base), float(f0), maps, bn,
+        int(bias_bf16), dpad, None if freq is None else freq.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernel_lib.check(status, "fused_attention (projection)")
     return out
 
 
-def _attend(q, k, v, scale: float) -> torch.Tensor:
-    """The attention launch: K1's kernel on the projection's scratch, read in place as (B, N, H, D) views of
-    q (B, H, Nq, D) and k/v (B, H, Nk, D). Returns (B, Nq, H*D)."""
+def _attend(q, k, v, scale: float, head_dim: Optional[int] = None) -> torch.Tensor:
+    """The attention launch: K1's kernel on the projection's scratch, read in place as (B, N, H, DS) views of
+    q (B, H, Nq, DS) and k/v (B, H, Nk, DS). Returns (B, Nq, H * D), D = ``head_dim`` (default DS)."""
     out, _ = forward_launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale)
+    if head_dim is not None and head_dim != out.shape[-1]:
+        out = out[..., :head_dim]
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
@@ -166,8 +217,9 @@ def _self_forward(x, wqkv, bqkv, positions, num_heads, scale, base, f0):
         raise ValueError(f"fused_qkv_rope_attention: wqkv must be (3*H*D, C), got {tuple(wqkv.shape)}")
     bs = (None,) * 3 if bqkv is None else bqkv.chunk(3)
     q, k, v = _project(x, wqkv.chunk(3), bs, positions, 0 if positions is None else 2, num_heads, base, f0)
-    out = _attend(q, k, v, scale)
+    out = _attend(q, k, v, scale, wqkv.shape[0] // (3 * num_heads))
     fused_qkv_rope_attention.launches += 1
+    fused_qkv_rope_attention.head_dims[wqkv.shape[0] // (3 * num_heads)] += 1
     return out
 
 
@@ -178,8 +230,9 @@ def _cross_forward(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, num_heads, scale
         raise ValueError(f"fused_cross_rope_attention: xkv {tuple(xkv.shape)} {xkv.dtype} does not fit xq")
     (q,) = _project(xq, (wq,), (bq,), qpos, int(qpos is not None), num_heads, base, f0)
     k, v = _project(xkv, (wk, wv), (bk, bv), kpos, int(kpos is not None), num_heads, base, f0)
-    out = _attend(q, k, v, scale)
+    out = _attend(q, k, v, scale, wq.shape[0] // num_heads)
     fused_cross_rope_attention.launches += 1
+    fused_cross_rope_attention.head_dims[wq.shape[0] // num_heads] += 1
     return out
 
 
@@ -279,8 +332,9 @@ def fused_qkv_rope_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional
     Returns:
         (B, N, H*D) attention output (before the output projection), in x's dtype.
 
-    CUDA tensors launch the kernel (D = 64, C a multiple of 8 in bf16 or 4 in
-    fp32) or raise; a CPU tensor takes :func:`fused_qkv_rope_attention_ref`.
+    CUDA tensors launch the kernel (D a multiple of 4 up to 256, C a multiple
+    of 8 in bf16 or 4 in fp32) or raise; a CPU tensor takes
+    :func:`fused_qkv_rope_attention_ref`.
     ``fused_qkv_rope_attention.launches`` counts the calls that launched it.
     """
     if _needs_grad(x, wqkv, bqkv):
@@ -310,4 +364,7 @@ def fused_cross_rope_attention(xq: torch.Tensor, xkv: torch.Tensor, wq: torch.Te
 
 
 fused_qkv_rope_attention.launches = 0
+fused_qkv_rope_attention.weight_copies = 0  # bf16 projections at D != 64, self and cross (_project)
 fused_cross_rope_attention.launches = 0
+fused_qkv_rope_attention.head_dims = collections.Counter()  # launches by head dim
+fused_cross_rope_attention.head_dims = collections.Counter()

@@ -38,7 +38,8 @@ def _kblocks(K: int, elem_bytes: int) -> int:
     return -(-K * elem_bytes // K_BLOCK_BYTES)
 
 
-def gemm_plan(M: int, N: int, K: int, elem_bytes: int, sms: int = SMS, sections: int = 1, split_k: bool = True):
+def gemm_plan(M: int, N: int, K: int, elem_bytes: int, sms: int = SMS, sections: int = 1, split_k: bool = True,
+              widths=TILE_N):
     """The GEMM's (bn, split) for M rows, ``sections`` x N columns and K values of ``elem_bytes`` bytes.
 
     An output tile is 128 rows by bn = 128 or 256 columns of one section; the
@@ -48,12 +49,13 @@ def gemm_plan(M: int, N: int, K: int, elem_bytes: int, sms: int = SMS, sections:
     ceil(items / sms) items, each costing its longest K range plus ITEM_STEPS
     (and, when split, SPLIT_STEPS times the fullest tile's share of 128 rows)
     k-blocks, times bn / 128: the plan is the one with the least such
-    makespan, then the fewest ranges, then the wider tile.
+    makespan, then the fewest ranges, then the wider tile. ``widths``: the tile
+    widths the caller takes (K5's padded heads of 256 columns take 256 only).
     """
     kblocks = _kblocks(K, elem_bytes)
     m_tiles = -(-M // TILE_M)
     best = None
-    for bn in TILE_N:
+    for bn in widths:
         tiles = m_tiles * sections * -(-N // bn)
         for split in range(1, (kblocks if split_k else 1) + 1):
             steps = -(-kblocks // split) + ITEM_STEPS + (SPLIT_STEPS * min(M, TILE_M) / TILE_M if split > 1 else 0)

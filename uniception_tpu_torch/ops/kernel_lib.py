@@ -111,11 +111,11 @@ def _declare(lib):
     lib.uc_int8_matmul.restype = I
     lib.uc_flash_attention_int8.argtypes = [P] * 9 + [I] * 6 + [P, F, P]
     lib.uc_flash_attention_int8.restype = I
-    lib.uc_flash_attention_int8_prep.argtypes = [P] * 7 + [I] * 4 + [P, P]
+    lib.uc_flash_attention_int8_prep.argtypes = [P] * 7 + [I] * 5 + [P, P]
     lib.uc_flash_attention_int8_prep.restype = I
     lib.uc_conv3x3.argtypes = [P, P, P, I, P, P, P, I, I, P]
     lib.uc_conv3x3.restype = I
-    lib.uc_fused_project.argtypes = [P] * 8 + [L] * 3 + [I, P] + [I] * 6 + [Dbl, Dbl, P, I, I, P]
+    lib.uc_fused_project.argtypes = [P] * 8 + [L] * 3 + [I, P] + [I] * 7 + [Dbl, Dbl, P, I, I, I, P, P]
     lib.uc_fused_project.restype = I
     lib.uc_sv_only.argtypes = [P] * 4 + [I] * 5 + [P, P]
     lib.uc_sv_only.restype = I

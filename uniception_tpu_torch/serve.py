@@ -23,10 +23,11 @@ DUSt3R serves buckets with ``landscape_only``: portrait views ride the ManyAR
 canvas and come back transposed (``extract_view`` unpacks them).
 
 ``--int8`` quantizes the trunk's linears after the bf16 cast (nn/quant.py).
-The int8 attention and the 3x3 conv kernel are chosen from Python
-(``config.set_attention_quant``, ``config.set_conv3x3_impl``), and so is the
-heads' dtype (``build_model``'s ``head_dtype``); the command line serves fp32
-heads with the bf16 attention kernel. Not ported from the JAX example: its
+``--attn``, ``--attn-quant``, ``--conv3x3`` and ``--gelu`` set the kernel
+selection (models/utils/config.py) over what the environment variables
+``UNICEPTION_TPU_ATTN``, ``_ATTN_QUANT``, ``_CONV3X3`` and ``_GELU`` chose at
+import; the heads' dtype is ``build_model``'s ``head_dtype`` (fp32 from the
+command line). Not ported from the JAX example: its
 XLA compile cache and AOT artifacts (``--compile-cache``, ``--save-artifact``,
 ``--artifact``), ``--no-scan`` (the port runs the loop layout and reads both)
 and ``--gptq``.
@@ -59,6 +60,7 @@ from uniception_tpu_torch.data.pipeline import make_frame_normalizer, prefetch_t
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
 from uniception_tpu_torch.models.factory.flow import UFMFlow
 from uniception_tpu_torch.models.factory.multiview import MultiViewPointmapModel
+from uniception_tpu_torch.models.utils import config
 from uniception_tpu_torch.nn.quant import quantize_linears, quantize_trunk
 from uniception_tpu_torch.utils.checkpoint import load_checkpoint
 from uniception_tpu_torch.utils.coldstart import (
@@ -411,12 +413,30 @@ def parse_args(argv=None):
                         "bf16: int8 attention, bf16 heads and the conv kernel are set from Python (see the module doc)")
     p.add_argument("--int8-policy", default="all", help="(--int8) mixed-precision trunk policy (nn/quant.py trunk_policy)")
     p.add_argument("--int8-asym", default="none", help="(--int8) which quantized layers use zero-point activations")
+    p.add_argument("--attn", choices=["kernel", "fused", "naive"], default=None,
+                   help="attention implementation (default: UNICEPTION_TPU_ATTN, else kernel)")
+    p.add_argument("--attn-quant", choices=["none", "int8", "int8pv"], default=None,
+                   help="int8 attention of the single-key-block calls (default: UNICEPTION_TPU_ATTN_QUANT, else none)")
+    p.add_argument("--conv3x3", choices=["torch", "kernel"], default=None,
+                   help="the DPT head's 3x3 convs (default: UNICEPTION_TPU_CONV3X3, else torch)")
+    p.add_argument("--gelu", choices=["exact", "tanh"], default=None,
+                   help="GELU mode (default: UNICEPTION_TPU_GELU, else exact)")
     p.add_argument("--device", default="cuda", help="cuda (default; fails without a GPU) or cpu")
     return p.parse_args(argv)
 
 
+def apply_kernel_flags(args):
+    "Set the kernel selection of the flags given (models/utils/config.py); a flag left out keeps its setting."
+    for flag, setter in (("attn", config.set_attention_impl), ("attn_quant", config.set_attention_quant),
+                         ("conv3x3", config.set_conv3x3_impl), ("gelu", config.set_gelu_mode)):
+        value = getattr(args, flag)
+        if value is not None:
+            setter(value)
+
+
 def main(argv=None):
     args = parse_args(argv)
+    apply_kernel_flags(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: pass --device cpu to serve on the CPU")

@@ -1,8 +1,9 @@
 """
 Times K4 (the int8 matmul) at the nine trunk shapes, K5 (the fused qkv +
-RoPE + attention, self and cross) at its three main-path shapes, and K1 (the
-flash-attention forward) and K8 (the S.V diagnostic) at K8's five shapes on
-the card, by CUDA-graph replay, with the kernel package imported from
+RoPE + attention, self and cross) at its three main-path shapes, K1 (the
+flash-attention forward) and K8 (the S.V diagnostic) at K8's five shapes, and
+K3 (the backward) and K6 (the int8 attention, both modes, and its prep alone)
+at the encoder's (4, 1024, 16, 64) on the card, by CUDA-graph replay, with the kernel package imported from
 ``--root``: this checkout or an unpacked earlier commit, so that two trees
 are compared on one card in one call (run them in turns: a, b, b, a). The
 shapes, inputs and timer are ``chip_smoke.py``'s. Prints the card's name and
@@ -43,7 +44,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}, "k1": {}, "k8": {}}
+    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}, "k1": {}, "k8": {}, "k3": {}, "k6": {}}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
     for name, M, K, N in cs.K4_SHAPES:
         x = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
@@ -60,6 +61,12 @@ def main():
         k, v = (torch.randn(B, Nk, H, 64, device="cuda", generator=gen).bfloat16() for _ in range(2))
         out["k1"][name] = cs.graph_ms(torch, lambda: fa.flash_attention(q, k, v))
         out["k8"][name] = cs.graph_ms(torch, lambda: sv.sv_only(q, k, v))
+    q, k, v, dout = (torch.randn(4, 1024, 16, 64, device="cuda", generator=gen).bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    out["k3"]["encoder 512"] = cs.graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout))
+    for mode in ("int8", "int8pv"):
+        out["k6"][f"encoder 512 {mode}"] = cs.graph_ms(torch, lambda: fa.flash_attention_int8(q, k, v, mode=mode))
+        out["k6"][f"encoder 512 {mode} prep"] = cs.graph_ms(torch, lambda: fa.flash_attention_int8_prep(k, v, mode))
     print(json.dumps(out))
     return 0
 

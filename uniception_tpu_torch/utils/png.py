@@ -76,7 +76,7 @@ def read_png(path: str) -> np.ndarray:
     ch = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     img = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    return np.repeat(img, 3, axis=2) if ch < 3 else img[..., :3].copy()
+    return np.repeat(img[..., :1], 3, axis=2) if ch < 3 else img[..., :3].copy()  # gray (+ alpha): channel 0
 
 
 def write_png(path: str, image: np.ndarray):
