@@ -234,6 +234,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    46. PE pool: PE-Core-G14 at 448 (8 of 50 blocks) through the vision
                tower's pooled forward: K1 8 at D = 96 and 1 at D = 192 (the
                attention pool), against the plain path.
+   47. redesigned kernels: K1's fp32 kernel (3xTF32 on wgmma) at every
+               padded head dim and at the fp32 paths' shapes (the Cosmos
+               tokenizer's (2, 4096, 1, 512), the fp32 DUSt3R trunk, DINOv2-L,
+               RADIO-h, the training example's D = 16), and K3's whole-width
+               kernels above D = 64 at every padded head dim and at ViT-L
+               training's D = 128, against their plain versions (K3 also bit
+               for bit across two calls), each timed beside the plain version,
+               SDPA (its backward alone for K3) and the bound; the fp32 K3
+               kernels beside SDPA's fp32 backward.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -335,8 +344,9 @@ K8_ULPS, K8_ULP_FLOOR = 2, 1.0
 # K1_MV_CONTROL_ULPS away, so the bar can see a lost tile; the phase prints both.
 K1_MV_ULPS, K1_MV_ULP_FLOOR, K1_MV_CONTROL_ULPS = 8, 1 / 64, 32
 K8_REL_TOL = 1e-3
-# Published peaks of the H100 SXM (dense) and its memory rate: the bound of each kernel's work.
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# Published peaks of the H100 SXM (dense) and its memory rate: the bound of each kernel's work. "tf32x3": fp32 products
+# taken as three TF32 products on the tensor cores (K1's fp32 kernel), 495 TFLOP/s over three.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # exp2 results per clock per SM on the MUFU at compute capability 9.0 (the CUDA C++ Programming Guide's table of
 # arithmetic instruction throughputs): with the card's SM count and an SM clock, an estimate of the time K1's
@@ -4246,6 +4256,87 @@ def phase_pe_pool(torch, np, serve, config, fa, counters, card):
     return total
 
 
+# Phase 47: the two redesigned kernels, K1's fp32 kernel (3xTF32 on wgmma) and K3's whole-width kernels above D = 64,
+# at every padded head dim each is built for and at the paths' shapes, (name, B, Nq, Nk, H, D): held against their
+# plain versions (K1 fp32 at K1_FP32_TOL, LSE_TOL and ZOO_K1_FP32_REL_TOL; K3 at K3_REL_TOL and bit for bit across two
+# calls), then timed by CUDA graphs beside the plain version, the library call (SDPA fp32; SDPA's backward alone) and
+# the bound. K1 fp32's bound takes its products at the TF32 rate over three (PEAK_OPS "tf32x3": each needed product
+# is three on the tensor cores), K3's at bf16. The fp32 K3 kernels (CUDA cores, unchanged) are timed beside SDPA's
+# fp32 backward at the training example's and the fp32 trunk's shapes.
+K47_K1_F32 = [("Cosmos CI8x8 512", 2, 4096, 4096, 1, 512), ("fp32 DUSt3R trunk", 4, 1024, 1024, 16, 64),
+              ("DINOv2-L 518", 2, 1374, 1374, 16, 64), ("RADIO-h 512", 2, 1033, 1033, 16, 80),
+              ("training example D = 16", 16, 4, 4, 4, 16), ("DP 32 (D = 32)", 2, 1024, 1024, 12, 32),
+              ("DP 128 (D = 128)", 1, 1029, 1029, 32, 128), ("DP 256 (D = 192)", 2, 1024, 1024, 8, 192),
+              ("DP 256 (D = 256)", 2, 1024, 1024, 4, 256)]
+K47_K3 = [("ViT-L 512 8 heads", 4, 1024, 1024, 8, 128), ("RADIO-h 512 D = 80", 2, 1033, 1033, 16, 80),
+          ("PE-G14 448 D = 96", 2, 1024, 1024, 16, 96), ("phase 41 D = 80", 2, 200, 520, 3, 80),
+          ("phase 41 D = 96", 2, 200, 520, 3, 96), ("phase 41 D = 128", 1, 130, 700, 2, 128),
+          ("DP 192 (D = 192)", 2, 1024, 1024, 8, 192), ("DP 256 (D = 256)", 2, 1024, 1024, 8, 256),
+          ("phase 41 D = 192", 2, 200, 520, 3, 192), ("phase 41 D = 256", 1, 130, 700, 2, 256)]
+K47_K3_F32 = [("training example D = 16", 16, 4, 4, 4, 16), ("fp32 DUSt3R trunk", 4, 1024, 1024, 16, 64)]
+
+
+def phase_redesigned(torch, fa, card):
+    """Phase 47: K47_K1_F32, K47_K3 and K47_K3_F32 against their plain versions, then timed. Returns ({"K1 fp32" |
+    "K3": worst max abs}, {"K1 fp32" | "K3" | "K3 fp32": {name: timing record}})."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 47)
+    worst, times = {"K1 fp32": 0.0, "K3": 0.0}, {"K1 fp32": {}, "K3": {}, "K3 fp32": {}}
+    for name, B, Nq, Nk, H, D in K47_K1_F32:
+        q, k, v = _hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.float32)
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        ref, ref_lse = fa.flash_attention_lse_ref(q, k, v)
+        err, lse_err = (out - ref).abs().max().item(), (lse - ref_lse).abs().max().item()
+        rel = ((out - ref).norm() / ref.norm()).item()
+        require(torch.equal(out, fa.flash_attention_fwd(q, k, v)[0]), f"47 K1 fp32 {name}: the logsumexp moved o")
+        require(err <= K1_FP32_TOL and lse_err <= LSE_TOL["fp32"] and rel <= ZOO_K1_FP32_REL_TOL,
+                f"47 K1 fp32 {name}: max abs {err}, logsumexp {lse_err}, ||err|| / ||plain|| {rel}")
+        worst["K1 fp32"] = max(worst["K1 fp32"], err)
+        ms = graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
+        plain_ms = graph_ms(torch, lambda: fa.flash_attention_ref(q, k, v))
+        lib_ms = graph_ms(torch, lambda: sdpa(q, k, v))
+        b = bound({"tf32x3": 4 * B * H * Nq * Nk * D}, (2 * Nq + 2 * Nk) * B * H * D * 4)
+        times["K1 fp32"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b)
+        print(f"[47 K1 fp32] {name} (B,Nq,Nk,H,D)=({B},{Nq},{Nk},{H},{D}): max abs {err:.2e} (tol {K1_FP32_TOL}), "
+              f"||err||/||plain|| {rel:.2e} (tol {ZOO_K1_FP32_REL_TOL}), logsumexp {lse_err:.2e} (tol "
+              f"{LSE_TOL['fp32']}); {ms:.4f} ms ({4 * B * H * Nq * Nk * D / ms / 1e9:.1f} TFLOP/s of the needed "
+              f"products), plain {plain_ms:.4f} ms, SDPA fp32 {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound "
+              f"{b[0]:.4f} ms ({b[1]}, 3xTF32 at {PEAK_OPS['tf32x3'] / 1e12:.0f} TFLOP/s), share of the bound "
+              f"{b[0] / ms:.3f} (CUDA graphs) on {card}")
+    for name, B, Nq, Nk, H, D in K47_K3:
+        q, k, v = _hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.bfloat16)
+        dout = torch.randn(B, Nq, H, D, device="cuda", generator=gen).bfloat16()
+        rels, abs_err = k3_errors(torch, fa, q, k, v, dout, f"47 K3 {name}")
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        fn = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout)  # noqa: E731
+        require(all(torch.equal(a, c) for a, c in zip(fn(), fn())), f"47 K3 {name}: two calls differ")
+        worst["K3"] = max(worst["K3"], abs_err)
+        ms = graph_ms(torch, fn)
+        plain_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout))
+        lib_ms = sdpa_bwd_ms(torch, q, k, v, dout)[0]
+        b = bound({"bf16": 10 * B * H * Nq * Nk * D}, (4 * Nq + 5 * Nk) * B * H * D * 2 + B * H * Nq * 4)
+        times["K3"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b)
+        print(f"[47 K3] {name} (B,Nq,Nk,H,D)=({B},{Nq},{Nk},{H},{D}) bf16: max|err|/max|plain| dq dk dv "
+              + " ".join(f"{r:.2e}" for r in rels) + f" (tol {K3_REL_TOL['bf16']}), two calls bit for bit; "
+              f"{ms:.4f} ms ({10 * B * H * Nq * Nk * D / ms / 1e9:.1f} TFLOP/s of the five products), plain "
+              f"{plain_ms:.4f} ms, SDPA backward alone {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b[0]:.4f} ms "
+              f"({b[1]}), share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+    for name, B, Nq, Nk, H, D in K47_K3_F32:
+        q, k, v = _hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.float32)
+        dout = torch.randn(B, Nq, H, D, device="cuda", generator=gen)
+        rels, _ = k3_errors(torch, fa, q, k, v, dout, f"47 K3 fp32 {name}")
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        ms = graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout))
+        plain_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout))
+        lib_ms = sdpa_bwd_ms(torch, q, k, v, dout)[0]
+        b = bound({"fp32": 10 * B * H * Nq * Nk * D}, (4 * Nq + 5 * Nk) * B * H * D * 4 + B * H * Nq * 4)
+        times["K3 fp32"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b)
+        print(f"[47 K3 fp32] {name} (B,Nq,Nk,H,D)=({B},{Nq},{Nk},{H},{D}): max|err|/max|plain| dq dk dv "
+              + " ".join(f"{r:.2e}" for r in rels) + f" (tol {K3_REL_TOL['fp32']}); {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA fp32 backward alone {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b[0]:.4f} "
+              f"ms ({b[1]}, FFMA at 67 TFLOP/s), share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+    return worst, times
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -4382,6 +4473,7 @@ def main():
         paths = {k: paths[k] + got[k] for k in counters}
     print(f"[46 head dims] launches over phases 42-46's counted runs: {paths} and training {new_train}; by head dim "
           f"{HD_SEEN}")
+    redesign_worst, redesign = phase_redesigned(torch, fa, card)
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -4392,9 +4484,9 @@ def main():
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
               + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"],
-              max(k1_err, hd_worst["K1"]), k1),
+              max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"]), k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
-              trained["flash_attention_bwd"] + new_train["K3"], max(k3_err, hd_worst["K3"]), k3),
+              trained["flash_attention_bwd"] + new_train["K3"], max(k3_err, hd_worst["K3"], redesign_worst["K3"]), k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
               launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
               + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"], k2_err, k2),
@@ -4420,6 +4512,11 @@ def main():
         fn, source, replaces = names[kernel]
         kernels.append(entry(f"{fn} D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))", source, replaces,
                              HD_SEEN.get(kernel, {}).get(D, 0), hd_worst[kernel], hd_times[kernel][name]))
+    # phase 47: K1's fp32 kernel at the training example's fp32 path (D = 16; phase 42's launches at that D, all fp32)
+    name, B, Nq, Nk, H, D = K47_K1_F32[4]
+    kernels.append(entry(f"flash_attention_fwd fp32 D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))", "flash_attention.cu",
+                         "uniception_tpu/ops/flash_attention.py:194", HD_SEEN.get("K1", {}).get(D, 0),
+                         redesign_worst["K1 fp32"], redesign["K1 fp32"][name]))
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

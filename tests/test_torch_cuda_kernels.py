@@ -15,7 +15,10 @@ above it (K1 above 512, K8 at any D but 64), the new paths' shapes, and K2 on th
 DINOv3 projection (a strided view); K7 at the DPT-Large head's shapes over
 DINOv2-L/14 at 518 and its 18 launches per head pass, K2 on the differential
 attention's sub-heads and a differential block against the plain path with
-exact launches. Every test here needs a CUDA device and skips without one.
+exact launches; K1's fp32 kernel (3xTF32) at every padded head dim, the Cosmos
+shape and the routing of D <= 16 to the CUDA-core kernel, with a dropped-tile
+control, and K3's whole-width kernels above D = 64, bit for bit across two
+calls. Every test here needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -38,6 +41,7 @@ from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
 from uniception_tpu_torch.ops import fused_attention as fused
 from uniception_tpu_torch.ops.conv3x3 import conv3x3_nhwc, conv3x3_plan, conv3x3_reference
 from uniception_tpu_torch.ops.flash_attention import (
+    F32_SMALL_HEAD_DIM,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -48,6 +52,7 @@ from uniception_tpu_torch.ops.flash_attention import (
     flash_attention_int8_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
+    tf32_workspace_floats,
 )
 from uniception_tpu_torch.ops.gemm import K_BLOCK_BYTES, gemm_plan
 from uniception_tpu_torch.ops.int8_matmul import int8_gemm, int8_matmul_dynamic, int8_matmul_dynamic_ref, quantize_rows
@@ -1519,3 +1524,85 @@ def test_cosmos_encoder_runs_on_k1_and_k7_with_exact_launches(gen):
         config.set_conv3x3_impl("torch")
     assert out.shape == (2, 16, 8, 8) and torch.isfinite(out).all()
     assert ((out.float() - plain.float()).norm() / plain.float().norm()).item() <= 2e-2
+
+
+# K1's fp32 kernel (3xTF32 on wgmma) and K3's whole-width kernels above D = 64, at every padded head dim each is built
+# for (K1 fp32: DP 32, 64, 128 with the row split, 256 and 512 with the column split; K3: DP 128, 192, 256) and D = 20
+# (padded into a copy), on strided views, with ragged key tiles: hundreds of keys and 1033 (17 tiles of 64, the last
+# of 9 keys).
+K1_F32_D = [8, 16, 20, 32, 40, 64, 72, 80, 96, 128, 136, 192, 200, 256, 264, 384, 504, 512]
+K3_WIDE_D = [72, 80, 96, 128, 136, 192, 200, 256]
+REDESIGN_SHAPES = [(2, 200, 520, 2), (1, 130, 1033, 3)]
+
+
+def _strided(gen, b, nq, nk, h, d, dtype):
+    q = torch.randn(b, nq, 3, h, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
+    kv = torch.randn(b, nk, 2, h, d, device="cuda", generator=gen).to(dtype)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("b,nq,nk,h", REDESIGN_SHAPES)
+@pytest.mark.parametrize("d", K1_F32_D)
+def test_flash_attention_fp32_at_every_padded_head_dim(gen, d, b, nq, nk, h, with_lse):
+    "K1 fp32 within 2e-5 max abs and 2e-6 norm-relative of its plain version, its logsumexp within 1e-5."
+    q, k, v = _strided(gen, b, nq, nk, h, d, torch.float32)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=with_lse)
+    ref, ref_lse = flash_attention_lse_ref(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.float32 and out.is_contiguous()
+    assert (out - ref).abs().max().item() <= FP32_TOL
+    assert ((out - ref).norm() / ref.norm()).item() <= K1_FP32_REL
+    if with_lse:
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL[torch.float32]
+        torch.testing.assert_close(out, flash_attention_fwd(q, k, v)[0], rtol=0, atol=0)
+    else:
+        assert lse is None
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_flash_attention_fp32_bar_sees_a_dropped_tile(gen, d):
+    "The control: the plain version without the last 64-key tile misses the bar the kernel meets."
+    q, k, v = _strided(gen, 2, 200, 520, 2, d, torch.float32)
+    ref = flash_attention_ref(q, k, v)
+    assert (flash_attention(q, k, v) - ref).abs().max().item() <= FP32_TOL
+    assert (flash_attention_ref(q, k[:, :-64], v[:, :-64]) - ref).abs().max().item() > 10 * FP32_TOL
+
+
+def test_flash_attention_fp32_at_the_cosmos_shape(gen):
+    "(2, 4096, 1, 512): the fp32 Cosmos autoencode's mid-block attention, with its logsumexp."
+    q, k, v = (torch.randn(2, 4096, 1, 512, device="cuda", generator=gen) for _ in range(3))
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    ref, ref_lse = flash_attention_lse_ref(q, k, v)
+    assert (out - ref).abs().max().item() <= FP32_TOL and (lse - ref_lse).abs().max().item() <= LSE_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("b,nq,nk,h", REDESIGN_SHAPES + [(1, 1033, 1033, 2)])
+@pytest.mark.parametrize("d", K3_WIDE_D)
+def test_flash_attention_bwd_wide_head_dims_are_right_and_deterministic(gen, d, b, nq, nk, h):
+    "K3 above D = 64 within the bf16 bar of its plain version on strided views, and bit-equal across two calls."
+    q, k, v = _strided(gen, b, nq, nk, h, d, torch.bfloat16)
+    dout = torch.randn(b, nq, h, d, device="cuda", generator=gen).bfloat16()
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    refs = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, lse, dout)))
+    for g, g2, r in zip(first, second, refs):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16 and g.is_contiguous()
+        assert _rel(g, r) <= BWD_REL_TOL[torch.bfloat16]
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 512])
+def test_flash_attention_fp32_routes_each_head_dim_to_its_kernel(gen, d):
+    """D <= 16 takes the CUDA-core kernel, which allocates nothing beside o (the 3xTF32 kernel's entry point refuses to
+    run without its workspace); every other D the 3xTF32 kernel with its split operands' workspace."""
+    q, k, v = _strided(gen, 2, 4, 4, 4, d, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, _ = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+    ws = 4 * tf32_workspace_floats(2, 4, 4, 4, d)
+    assert (extra < ws) if d <= F32_SMALL_HEAD_DIM else (extra >= ws), (extra, ws)
+    assert (out - flash_attention_ref(q, k, v)).abs().max().item() <= FP32_TOL

@@ -7,7 +7,11 @@ values in the order the score accumulators hold p, zeros past the keys); and
 K1's tile plan at every padded head dim it is built for (the box count and
 width, the zeros TMA writes past D and past N, the ring's shared memory), with
 its tiles loaded box by box and its online softmax emulated against the plain
-version; and the shared memory of K3's and K6's kernels at every head dim.
+version; K1's fp32 (3xTF32) plan at every padded head dim (boxes, V chunks, ring
+stages, shared memory, accumulator registers, the split pre-pass's workspace and
+its key order, which is the order P's register A operand holds the keys in); and
+K3's whole-width plan above D = 64 with its work items walked over every output
+row and column, and K6's shared memory at every head dim.
 """
 
 import re
@@ -21,6 +25,7 @@ from uniception_tpu_torch.ops.conv3x3 import ITEM_STEPS, TILE_PIXELS, conv3x3_ma
 from uniception_tpu_torch.ops.flash_attention import (
     BWD_LOOP_ROWS,
     BWD_OWN_ROWS,
+    F32_SMALL_HEAD_DIM,
     FWD_ROWS,
     INT8_CHUNK,
     MAX_HEAD_DIM,
@@ -29,6 +34,7 @@ from uniception_tpu_torch.ops.flash_attention import (
     fwd_rows,
     int8_pv_keys,
     int8_row_bytes,
+    tf32_workspace_floats,
     tma_layout,
 )
 
@@ -71,18 +77,71 @@ def k1_plan(head_dim):
     return dp, dp // box_cols, stages, max(struct + align, kib * unit)
 
 
+def k1_f32_plan(head_dim):
+    """K1's fp32 (3xTF32) kernel for a head dim (a multiple of 8), from csrc/flash_attention.cu (Tf32Cfg): a dict of
+    the padded head dim DP, the column split (above DP = 128), query rows per work item, 32-column S boxes and V chunks
+    of NC columns at this D, ring stages and slot bytes, dynamic shared memory, and the registers a consumer thread
+    holds in accumulators (O, S and one chain's products) against its setmaxnreg budget."""
+    box, = map(int, _constant("flash_attention.cu", r"constexpr int T_BOX = (\d+);"))
+    bk, = map(int, _constant("flash_attention.cu", r"constexpr int T_BK = (\d+);"))
+    ring, unit = map(int, _constant("flash_attention.cu", r"constexpr int T_RING_BYTES = (\d+) \* (\d+);"))
+    budget, = map(int, _constant("flash_attention.cu", r"fa_fwd_tf32_kernel\([\s\S]*?setmaxnreg_inc<(\d+)>"))
+    align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
+    small, = map(int, _constant("flash_attention.cu", r"constexpr int F32_SMALL_DP = (\d+);"))
+    assert small == F32_SMALL_HEAD_DIM
+    if head_dim <= small:  # the CUDA-core kernel: no tiles, no workspace
+        return dict(dp=small, kernel="small")
+    dp = next(p for p in (32, 64, 128, 256, 512) if head_dim <= p)
+    colsplit = dp > 128
+    rows, nc = (64 if colsplit else 128), min(dp, 64)
+    qbox, kbox, chunk = 2 * rows * 128, 2 * bk * 128, 4 * nc * 128
+    slot = max(kbox + (qbox if colsplit else 0), chunk)
+    q_bytes = 0 if colsplit else dp // box * qbox
+    xch = p_bytes = 2 * 64 * bk * 4 if colsplit else 0
+    stages = (ring * unit - q_bytes - xch - p_bytes) // slot
+    smem = stages * slot + q_bytes + xch + p_bytes + 8 * (2 + 2 * stages) + align
+    acc = dp // 4 if colsplit else dp // 2
+    return dict(kernel="tf32", dp=dp, colsplit=colsplit, rows=rows, boxes=-(-head_dim // box), nc=nc, chunks=-(-head_dim // nc),
+                stages=stages, slot=slot, smem=smem, regs=acc + bk // 2 + bk // 2, budget=budget)
+
+
 def k3_plan(head_dim):
-    """K3's bf16 column-chunk kernels above D = 64 (csrc/flash_attention_bwd.cu WideCfg, WideBwdSmem): (DP, ring
-    slots, dynamic shared memory bytes, 64-column chunks a work item covers one of)."""
+    """K3's bf16 whole-width kernels above D = 64 (csrc/flash_attention_bwd.cu WideCfg, WideBwdSmem): (DP, ring
+    slots, dynamic shared memory bytes, 128-column chunks a work item covers one of)."""
     ring, unit = map(int, _constant("flash_attention_bwd.cu", r"constexpr int W_RING_BYTES = (\d+) \* (\d+);"))
     own, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int OWN = (\d+);"))
     loop, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int LOOP = (\d+);"))
+    chunk, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int W_CHUNK = (\d+);"))
     align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
     assert (own, loop) == (BWD_OWN_ROWS, BWD_LOOP_ROWS)
     dp = next(p for p in (128, 192, 256) if head_dim <= p)
     stages = (ring * unit - 2 * own * dp * 2) // (2 * loop * dp * 2)
-    size = 2 * own * dp * 2 + stages * (2 * loop * dp * 2 + 2 * loop * 4) + 8 * (2 + 2 * stages)
-    return dp, stages, -(-size // align) * align + align, -(-head_dim // 64)
+    zeros = loop * 64 * 2 if dp == 192 else 16  # DP = 192's box of zeros (the last chunk's second atom)
+    size = 2 * own * dp * 2 + stages * (2 * loop * dp * 2 + 2 * loop * 4) + zeros + 8 * (2 + 2 * stages)
+    return dp, stages, -(-size // align) * align + align, -(-head_dim // chunk)
+
+
+def k3_items(B, H, n_own, D):
+    """The outputs K3's whole-width kernels write, as decode_wide and the consumers' stores compute them: per work item
+    (128-column chunk fastest, then the 128-row own tile, head, batch), each consumer thread's two rows and the columns
+    of its accumulator (an m64n128 product, or an m64n64 one for a chunk of 64 columns). Yields (b, h, rows, cols)."""
+    chunk_cols, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int W_CHUNK = (\d+);"))
+    chunks, tiles = -(-D // chunk_cols), -(-n_own // BWD_OWN_ROWS)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for item in range(chunks * tiles * H * B):
+        c, rest = item % chunks, item // chunks
+        tile, h, b = rest % tiles, (rest // tiles) % H, rest // (tiles * H)
+        wide = D - c * chunk_cols > 64
+        for cwg in range(2):
+            for warp in range(4):
+                row0 = tile * BWD_OWN_ROWS + cwg * 64 + warp * 16 + g
+                for r in (row0, row0 + 8):
+                    for cc in range(chunk_cols // 8 if wide else 8):
+                        for j in range(2):
+                            col = c * chunk_cols + cc * 8 + 2 * t + j
+                            keep = (r < n_own) & (c * chunk_cols + cc * 8 < D)
+                            yield b, h, r[keep], col[keep]
 
 
 def k6_plan(head_dim, pv8):
@@ -271,14 +330,68 @@ def test_k1_plan_pads_the_head_dim_into_64_column_boxes(d, plan):
         k1_plan(513)
 
 
-@pytest.mark.parametrize("d,plan", [(72, (128, 4, 2)), (128, (128, 4, 2)), (136, (192, 2, 3)), (192, (192, 2, 3)),
-                                    (200, (256, 1, 4)), (256, (256, 1, 4))])
+@pytest.mark.parametrize("d,plan", [(72, (128, 4, 1)), (128, (128, 4, 1)), (136, (192, 2, 2)), (192, (192, 2, 2)),
+                                    (200, (256, 1, 2)), (256, (256, 1, 2))])
 def test_k3_chunk_kernels_fit_the_block(d, plan):
     """K3 above D = 64: the own tiles (128 rows of q and dO, or k and v, over DP) and the ring of 64-row loop tiles fit
-    227 KB with 4, 2 and 1 slots at DP = 128, 192 and 256; a work item covers one of ceil(D / 64) column chunks."""
+    227 KB with 4, 2 and 1 slots at DP = 128, 192 and 256; a work item covers one of ceil(D / 128) column chunks, so
+    at DP = 128 s and dp are computed once, and at 192 and 256 twice (1.25-1.5x the minimum work, not 2.5-3x)."""
     dp, stages, smem, chunks = k3_plan(d)
     assert (dp, stages, chunks) == plan
     assert smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 3, 200, 72), (1, 2, 129, 128), (2, 1, 300, 136), (1, 2, 65, 192),
+                                     (1, 1, 130, 200), (2, 2, 64, 256)])
+def test_k3_work_items_write_every_output_once(b, h, n, d):
+    "The work items' decode and the consumers' stores cover every row and column of dq (or dk, dv) exactly once."
+    seen = np.zeros((b, h, n, d), np.int32)
+    for bi, hi, rows, cols in k3_items(b, h, n, d):
+        np.add.at(seen, (bi, hi, rows, cols), 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_k1_f32_plan_sends_the_smallest_heads_to_the_cuda_core_kernel(d):
+    "D <= 16 (the JAX training example's heads) takes the CUDA-core kernel, which needs no split workspace."
+    assert k1_f32_plan(d) == dict(dp=16, kernel="small")
+
+
+@pytest.mark.parametrize("d,dp,colsplit,stages", [(24, 32, False, 12), (32, 32, False, 12),
+                                                  (64, 64, False, 5), (80, 128, False, 3), (128, 128, False, 3),
+                                                  (136, 256, True, 5), (256, 256, True, 5), (264, 512, True, 5),
+                                                  (512, 512, True, 5)])
+def test_k1_f32_plan_fits_the_block_and_the_registers(d, dp, colsplit, stages):
+    """K1's fp32 kernel at every padded head dim: the ring (at least 3 slots) with the resident Q (row split) or the
+    partial-score and P buffers (column split) fits 227 KB, and O, S and one chain's products fit a consumer's
+    setmaxnreg budget: the column split halves O's columns per consumer where a 64 x DP fp32 O would not."""
+    plan = k1_f32_plan(d)
+    assert (plan["dp"], plan["colsplit"], plan["stages"]) == (dp, colsplit, stages)
+    assert plan["stages"] >= 3 and plan["smem"] <= SMEM_LIMIT
+    assert plan["regs"] <= plan["budget"]
+    assert plan["boxes"] == -(-d // 32) and plan["chunks"] * plan["nc"] >= d
+    if dp == 512:  # a full-width O of 64 rows would not fit beside S and a chain
+        assert dp // 2 + plan["regs"] - dp // 4 > plan["budget"]
+
+
+def test_k1_f32_workspace_and_key_order():
+    """The split pre-pass writes q and k as (2, B H, N, D) hi/lo planes and v transposed as (2, B H, D, Nk8) planes
+    (about 100 MB at the Cosmos shape); within each 8 keys Vt's column t holds key 2t and column t + 4 key 2t + 1,
+    which is where P's register A operand (csrc/hopper.cuh: its columns t and t + 4 of a k-step) takes the
+    accumulator's columns 2t and 2t + 1 (fa_fwd_tf32_kernel: register i of k-step kc from S register 4 kc + 2 (i & 1)
+    + (i >> 1)), so the k-step sums each key's p times that key's v."""
+    assert tf32_workspace_floats(2, 1, 4096, 4096, 512) * 4 == 2 * 2 * (4096 * 512 * 2 + 512 * 4096) * 4
+    assert tf32_workspace_floats(1, 2, 5, 13, 16) == 2 * 2 * (5 * 16 + 13 * 16 + 16 * 16)  # Nk8 = 16
+    src = (CSRC / "flash_attention.cu").read_text()
+    assert "return p < 4 ? 2 * p : 2 * p - 7;" in src and "sc[4 * kc + ((i & 1) << 1) + (i >> 1)]" in src
+    vt_key = [p * 2 if p < 4 else 2 * p - 7 for p in range(8)]
+    assert sorted(vt_key) == list(range(8))
+    for t in range(4):
+        for i in range(4):
+            s_reg = ((i & 1) << 1) + (i >> 1)  # S register 4 kc + s_reg: row g + 8 (s_reg >> 1), key 2t + (s_reg & 1)
+            key = 2 * t + (s_reg & 1)
+            a_col = t + 4 * (i >> 1)  # the A operand's column of register i
+            assert (s_reg >> 1) == (i & 1) and vt_key[a_col] == key
 
 
 @pytest.mark.parametrize("d", [16, 64, 72, 128, 136, 256])

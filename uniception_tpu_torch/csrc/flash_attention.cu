@@ -74,15 +74,7 @@
 //     exp2_ftz), as in the backward. With an LSE pointer (training), each row's logsumexp m + log(l)
 //     is written in fp32, (B, H, Nq) contiguous, for the backward (K3,
 //     flash_attention_bwd.cu); with a null pointer nothing more is written.
-//   * fp32: full fp32 FMA math on the CUDA cores, no TF32 (the TPU kernel runs
-//     fp32 at HIGHEST precision): the parity path. A thread holds its query row
-//     and its accumulator in registers, built per padded head dim (16, 32, 64,
-//     128, 192, 256, 512; D at run time, columns past it loaded as zeros): the
-//     whole row up to 64 (one row per thread), half of it up to 128 (two
-//     neighbouring lanes per row, whose partial dot products meet in one
-//     shuffle; both then hold the same score, so the softmax stays exact), a
-//     quarter up to 256, an eighth at 512, so no D spills the 2 x D registers a
-//     row needs.
+//   * fp32: see "fp32" below.
 //   * Later work: a third consumer warpgroup, a TMA store of the output, P.V at
 //     N = D where the swizzle allows it.
 //
@@ -108,11 +100,62 @@
 //   V tile while they run the next S. No ping-pong and no overlap of S with P.V
 //   inside a consumer: the simple, correct first design. With one head the grid
 //   is B * Nq / 64 items (32 at B = 2, N = 1024: a quarter of the 132 SMs); a
-//   split over the keys is later work. fp32 at D = 512: the fp32 kernel below
-//   with eight lanes per query row (their partial dot products meet in a
-//   three-step butterfly of shuffles, so all eight hold the same score), each
-//   lane's 64 columns interleaved in 4-wide groups so the lanes of a row read
-//   neighbouring words of a key row, and 8-key shared-memory tiles (32 KB).
+//   split over the keys is later work.
+//
+// fp32 (fa_fwd_tf32_kernel<DP>, DP = 32, 64, 128, 256 or 512; D at run time; D <= 16
+//   takes fa_fwd_f32_small_kernel below, one CUDA-core thread a query row: at the
+//   JAX training example's 4 tokens a head its single launch is twice as fast): the
+//   Pallas kernel runs fp32 at Precision.HIGHEST (a multi-pass product on the
+//   TPU). Full fp32 on the CUDA cores peaks at 67 TFLOP/s, and the earlier
+//   kernel there reached 15% of it (6.80 ms at (2,4096,1,512), 3.8x SDPA fp32):
+//   a 128-thread block served 16 query rows, so every byte of K and V was read
+//   for 16 queries, and every FMA waited on a shared-memory load.
+//   What bounds it now: the tensor cores' TF32 rate, 495 TFLOP/s, at three
+//   products for each needed one (165 TFLOP/s of the needed products), and at
+//   DP = 512 the 64-row work items' L2 traffic.
+//   * Numerics (error-compensated TF32, "3xTF32"): each operand x is split into
+//     hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and each product is taken as
+//     hi.hi' + hi.lo' + lo.hi' (about 22 of fp32's 24 bits; lo.lo' is below fp32's
+//     rounding). wgmma reads the top 19 bits of an operand, so hi and lo are
+//     formed explicitly, each in a tile of its own. The tensor cores sum a chain
+//     of products with truncation toward zero, a bias: chained over a whole key
+//     tile's P.V it reached 7.7e-6 of ||O|| (the bar is 2e-6), and chained over a
+//     32-column box of S and a tile's P.V it still moved an fp32 training step's
+//     near-cancelling gradients (attention biases) 8x farther from the plain path
+//     than FMA does (1.6e-4 against the 1e-4 bar; an unbiased error cancels in
+//     them, a bias adds up). So every 8-wide k-step is a chain of its own (the two
+//     correction products first, hi.hi last) into fresh registers, added to S or O
+//     in fp32 with round to nearest: 0.7-0.9e-6 of ||O||, and 3.1e-5 on that step
+//     (FMA: 2.0e-5). The row split alternates two chain buffers so one k-step's
+//     products run while the other's are added; the column split has one.
+//     The softmax runs in fp32 on the accumulators as in bf16 (online_softmax);
+//     P is split in registers before P.V. tests/test_torch_tf32_split.py emulates
+//     these numerics on the CPU against the plain version and the Pallas kernel.
+//   * Layouts: tf32 wgmma takes only K-major shared-memory operands. A split
+//     pre-pass (tf32_split_kernel, launched by the same entry point) writes q
+//     and k as (2, B H, N, D) hi/lo planes and v transposed, (2, B H, D, Nk8)
+//     (keys contiguous: K-major as the B operand of P.V, and in vt_key order
+//     within each 8 keys, the order P's register A operand holds them in), into
+//     a workspace the wrapper allocates (ops/flash_attention.py
+//     tf32_workspace_floats; 100 MB at (2,4096,1,512)). The kernel reads it
+//     through 3-D fp32 tensor maps in 32-column (128-byte) boxes.
+//   * Shape: the bf16 kernels' persistent grid, TMA producer and ring of full /
+//     empty mbarriers, two consumer warpgroups. Up to DP = 128 a work item is
+//     128 query rows, 64 per consumer, with the item's Q resident in shared
+//     memory and the ring carrying each key tile's ceil(D / 32) K boxes (hi and
+//     lo) and ceil(D / 64) V chunks (64 of O's columns, hi and lo): every byte of K
+//     and V serves 128 queries. S is m64n64k8 with both operands in shared
+//     memory, P.V m64n64k8 (m64n32k8 at DP = 32) with P from registers. Above 128
+//     a 64 x DP fp32 O does not fit a consumer's registers (256 at DP = 512), so
+//     both consumers share 64 query rows: consumer c takes the S boxes and V
+//     chunks of parity c, the two exchange their partial scores through shared
+//     memory (S0 + S1 == S1 + S0, so both hold the same S and P), and P goes to
+//     shared memory (consumer 0 its hi part, consumer 1 its lo part) so that the
+//     registers hold O's 128 columns; the ring then carries Q's boxes with K's.
+//     No product is computed twice. The plan per DP is in
+//     tests/test_torch_kernel_layouts.py (k1_f32_plan).
+//   * Measured (H100 80GB HBM3, 700 W, CUDA graphs; chip_smoke.py phase 47):
+//     see PERF.md section 6.
 //
 // K8, the S.V diagnostic, is the same bf16 kernel at D = DP = 64 with the softmax
 // compiled out (fa_fwd_bf16_kernel<false, 64, 64>, entry point uc_sv_only):
@@ -641,53 +684,462 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores, full precision
+// fp32: error-compensated TF32 (3xTF32) on wgmma (see "fp32" in the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int F32_THREADS = 128;
-constexpr int F32_BK = 32;    // key rows per shared-memory tile
-constexpr int F32_CHUNK = 16; // keys scored before each rescale of the accumulator
+constexpr int T_BOX = 32;               // fp32 columns of a TMA box: one 128-byte swizzle row
+constexpr int T_BK = 64;                // keys per key tile
+constexpr int T_RING_BYTES = 224 * 1024;  // the resident Q, the exchange buffers and the ring
+constexpr int T_PREP_THREADS = 256;
 
-// Built for a padded head dim DP (16, 32, 64, 128, 192, 256 or 512); D <= DP is the real one, a multiple of 4:
-// columns past D load as zeros and are not stored. TPR threads per query row (1 up to DP = 64; 2 at 128,
-// neighbouring lanes each with half of the row; 4 at 192 and 256; 8 at 512), so a thread holds DT = DP / TPR
-// elements of q and of the accumulator: at most 64 of each. With TPR <= 2 a thread's columns are contiguous; with
-// more they are 4-wide groups interleaved across the row's lanes, so the lanes of a row read neighbouring words of
-// a key or value row. KB: key rows per shared-memory tile (16 at DP = 192 and 256, 8 at 512, so K and V stay
-// within the 48 KB of static shared memory).
-template <int DP, int TPR, int KB = F32_BK>
-__global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
-    float scale_log2) {
-  constexpr int DT = DP / TPR, ROWS = F32_THREADS / TPR;
-  constexpr int CHUNK = KB < F32_CHUNK ? KB : F32_CHUNK;
-  constexpr int STEP = TPR > 2 ? 4 * TPR : 4;  // columns between a thread's 4-wide groups
-  static_assert(DT % 4 == 0 && DT <= 64 && KB % CHUNK == 0, "a thread's share of the row");
-  __shared__ __align__(16) float k_s[KB][DP];
-  __shared__ __align__(16) float v_s[KB][DP];
+// The position of key p (0-7) of an 8-key group in the split, transposed values (Vt): P's register A operand holds
+// the accumulator's columns 2t and 2t + 1 of each 8-key k-step in its columns t and t + 4, so Vt's column t holds key
+// 2t and column t + 4 key 2t + 1. The product sums over the keys, so the order changes nothing else.
+__host__ __device__ constexpr int vt_key(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
 
+// The kernel built for the padded head dim DP (32, 64, 128, 256 or 512). Up to 128 a work item is 128 query rows,
+// 64 per consumer, each consumer computing all of S and O for its rows, with the item's Q resident in shared memory,
+// the ring carrying K boxes and V chunks, and P as register A operands. Above 128 (COLSPLIT) a work item is 64 query
+// rows shared by both consumers: consumer c takes the S boxes and V chunks of parity c (partial scores exchanged
+// through shared memory, so both hold the same S and P), the ring carries Q with K, and P goes through shared memory
+// (consumer 0 writes its hi part, consumer 1 its lo part), which leaves the registers to O's 128 columns.
+template <int DP>
+struct Tf32Cfg {
+  static constexpr bool COLSPLIT = DP > 128;
+  static constexpr int ROWS = COLSPLIT ? 64 : 128;                 // query rows per work item
+  static constexpr int NC = DP < 64 ? DP : 64;                     // O columns per V chunk
+  static constexpr int MAX_CHUNKS = DP / NC;
+  static constexpr int QBOX = 2 * ROWS * 128;                      // one Q box, hi and lo
+  static constexpr int KBOX = 2 * T_BK * 128;                      // one K box, hi and lo
+  static constexpr int CHUNK = 4 * NC * 128;                       // one V chunk: hi and lo, two 32-key boxes each
+  static constexpr int SBOX = KBOX + (COLSPLIT ? QBOX : 0);        // what one S box of the ring carries
+  static constexpr int SLOT = SBOX > CHUNK ? SBOX : CHUNK;
+  static constexpr int Q_BYTES = COLSPLIT ? 0 : (DP / T_BOX) * QBOX;  // the item's Q (row split)
+  static constexpr int XCH_BYTES = COLSPLIT ? 2 * 64 * T_BK * 4 : 0;  // partial S of each consumer
+  static constexpr int P_BYTES = COLSPLIT ? 2 * 64 * T_BK * 4 : 0;    // P in tf32 hi and lo, two 32-key boxes each
+  static constexpr int STAGES = (T_RING_BYTES - Q_BYTES - XCH_BYTES - P_BYTES) / SLOT;
+  static constexpr int ACC = COLSPLIT ? DP / 4 : DP / 2;             // O registers per consumer thread
+  static constexpr int BAR_OFF = STAGES * SLOT + Q_BYTES + XCH_BYTES + P_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + hw::SMEM_ALIGN;
+  static_assert(STAGES >= 3 && SMEM <= 232448, "the block's shared memory");
+};
+
+// The split pre-pass. Blocks [0, qb) split q, [qb, qb + kb) k, the rest transpose v. q and k are written as
+// (2, B * H, N, D) planes, hi = tf32(x) in plane bh and lo = tf32(x - hi) in plane B * H + bh; v as (2, B * H, D, Nk8)
+// planes of Vt, keys padded to Nk8 = Nk rounded up to 8 (zeros) and in vt_key order within each 8 keys.
+__global__ void __launch_bounds__(T_PREP_THREADS) tf32_split_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ ws,
+    int B, int H, int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs, long long qb, long long kb) {
+  const long long BH = (long long)B * H, Nk8 = (Nk + 7) / 8 * 8;
+  float* qw = ws;
+  float* kw = qw + 2 * BH * Nq * D;
+  float* vw = kw + 2 * BH * Nk * D;
+  const long long blk = blockIdx.x;
+  if (blk < qb + kb) {  // q or k: one float4 a thread
+    const bool is_q = blk < qb;
+    const int N = is_q ? Nq : Nk;
+    const Strides s = is_q ? qs : ks;
+    const float* src = is_q ? q : k;
+    float* dst = is_q ? qw : kw;
+    const long long e = (is_q ? blk : blk - qb) * T_PREP_THREADS + threadIdx.x, d4s = D / 4;
+    if (e >= BH * N * d4s) return;
+    const long long r = e / d4s;  // (b, n, h) in (B, N, H) order: the source's
+    const int d = (int)(e - r * d4s) * 4, h = (int)(r % H), n = (int)((r / H) % N), b = (int)(r / ((long long)H * N));
+    const float4 x = *reinterpret_cast<const float4*>(src + b * s.b + n * s.n + h * s.h + d);
+    const float4 hi = make_float4(hw::tf32_rna(x.x), hw::tf32_rna(x.y), hw::tf32_rna(x.z), hw::tf32_rna(x.w));
+    const float4 lo = make_float4(hw::tf32_rna(x.x - hi.x), hw::tf32_rna(x.y - hi.y), hw::tf32_rna(x.z - hi.z),
+                                  hw::tf32_rna(x.w - hi.w));
+    const long long off = ((long long)b * H + h) * N * D + (long long)n * D + d;
+    *reinterpret_cast<float4*>(dst + off) = hi;
+    *reinterpret_cast<float4*>(dst + BH * N * D + off) = lo;
+    return;
+  }
+  // v: a 32-key x 32-column tile through shared memory, read along D and written along the keys
+  __shared__ float tile[32][33];
+  const long long vblk = blk - qb - kb, k_tiles = (Nk8 + 31) / 32, d_tiles = (D + 31) / 32;
+  const int kt = (int)(vblk % k_tiles), dt = (int)((vblk / k_tiles) % d_tiles);
+  const long long bh = vblk / (k_tiles * d_tiles);
+  const int b = (int)(bh / H), h = (int)(bh % H), x = threadIdx.x & 31, y = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = y; r < 32; r += T_PREP_THREADS / 32) {
+    const int key = kt * 32 + r, d = dt * 32 + x;
+    tile[r][x] = key < Nk && d < D ? v[b * vs.b + (long long)key * vs.n + h * vs.h + d] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = y; r < 32; r += T_PREP_THREADS / 32) {
+    const int d = dt * 32 + r, kp = kt * 32 + x;
+    if (d >= D || kp >= Nk8) continue;
+    const float val = tile[(x & ~7) | vt_key(x & 7)][r];
+    const float hi = hw::tf32_rna(val);
+    const long long off = bh * D * Nk8 + (long long)d * Nk8 + kp;
+    vw[off] = hi;
+    vw[BH * D * Nk8 + off] = hw::tf32_rna(val - hi);
+  }
+}
+
+// Each 8-wide k-step of S and of P.V is a chain of three products into fresh registers, added to S or O in fp32 with
+// round to nearest (see "Numerics" under fp32 in the note at the top: the tensor cores' chained sums truncate).
+
+// x = the three products of k-step kk (8 columns of a 32-column box) of Q K^T for one consumer's 64 rows and a 64-key
+// tile: hi.lo, lo.hi, then hi.hi, both operands K-major in shared memory. One wgmma group, committed.
+__device__ __forceinline__ void tf32_s_kstep(float (&x)[T_BK / 2], uint32_t qh, uint32_t ql, uint32_t kh, uint32_t kl,
+                                             int kk) {
+  hw::fence_regs(x);
+  hw::wgmma_fence();
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(qh + kk * 32), hw::desc_k_major(kl + kk * 32), 0);
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(ql + kk * 32), hw::desc_k_major(kh + kk * 32), 1);
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(qh + kk * 32), hw::desc_k_major(kh + kk * 32), 1);
+  hw::wgmma_commit();
+}
+
+// x = the three products of k-step kc (8 keys) of P V[:, chunk]: Phi.Vlo, Plo.Vhi, then Phi.Vhi, P from registers (the
+// row split), Vt K-major (its NC rows are O's columns; two 32-key boxes per part). One wgmma group, committed.
+template <int NC>
+__device__ __forceinline__ void tf32_pv_kstep_rs(float (&x)[NC / 2], uint32_t (&ph)[4], uint32_t (&pl)[4], uint32_t vh,
+                                                 uint32_t vl, int kc) {
+  const uint32_t off = (kc / 4) * NC * 128 + (kc % 4) * 32;
+  hw::fence_regs(x);
+  hw::wgmma_fence();
+  if constexpr (NC == 64) {
+    hw::wgmma_m64n64k8_tf32_rs(x, ph, hw::desc_k_major(vl + off), 0);
+    hw::wgmma_m64n64k8_tf32_rs(x, pl, hw::desc_k_major(vh + off), 1);
+    hw::wgmma_m64n64k8_tf32_rs(x, ph, hw::desc_k_major(vh + off), 1);
+  } else {
+    hw::wgmma_m64n32k8_tf32_rs(x, ph, hw::desc_k_major(vl + off), 0);
+    hw::wgmma_m64n32k8_tf32_rs(x, pl, hw::desc_k_major(vh + off), 1);
+    hw::wgmma_m64n32k8_tf32_rs(x, ph, hw::desc_k_major(vh + off), 1);
+  }
+  hw::wgmma_commit();
+}
+
+// The same with P read K-major from shared memory (the column split): its hi part at ph, its lo part at pl, each two
+// 32-key boxes of 64 rows. One wgmma group, committed.
+__device__ __forceinline__ void tf32_pv_kstep_ss(float (&x)[32], uint32_t ph, uint32_t pl, uint32_t vh, uint32_t vl,
+                                                 int kc) {
+  const uint32_t off = (kc / 4) * 64 * 128 + (kc % 4) * 32;  // the same offset in P's and in Vt's boxes
+  hw::fence_regs(x);
+  hw::wgmma_fence();
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(ph + off), hw::desc_k_major(vl + off), 0);
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(pl + off), hw::desc_k_major(vh + off), 1);
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(ph + off), hw::desc_k_major(vh + off), 1);
+  hw::wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void add_chain(float (&acc)[N], float (&x)[N]) {
+  hw::fence_regs(x);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += x[i];
+}
+
+// Persistent: gridDim.x blocks walk the (query tile, head, batch) items, query tile fastest. Per key tile the producer
+// loads ceil(D / 32) S boxes (K, and Q above DP = 128) and ceil(D / NC) V chunks into the ring, in that order; each
+// consumer accumulates S over its boxes, runs the online softmax on it (bf16's online_softmax: the same fp32 steps),
+// splits P into hi and lo in registers and adds P.V over its chunks. D <= DP is the real head dim, a multiple of 8.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) fa_fwd_tf32_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, float* __restrict__ lse, int B, int H, int Nq,
+    int Nk, int D, float scale_log2) {
+  using Cfg = Tf32Cfg<DP>;
+  constexpr bool COLSPLIT = Cfg::COLSPLIT;
+  constexpr int ROWS = Cfg::ROWS, NC = Cfg::NC, STAGES = Cfg::STAGES;
+  constexpr bool TWO = !COLSPLIT;  // two chain buffers of each kind: the column split's O leaves no room
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = hw::align_smem(smem_raw);
+  uint8_t* ring = base;
+  uint8_t* qres = base + STAGES * Cfg::SLOT;
+  float* xch = reinterpret_cast<float*>(qres + Cfg::Q_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + Cfg::BAR_OFF);
+  uint64_t *q_full = bars, *q_empty = bars + 1, *full = bars + 2, *empty = bars + 2 + STAGES;
   const int tid = threadIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * ROWS + tid / TPR;
-  const int d0 = TPR > 2 ? (tid % TPR) * 4 : (tid % TPR) * DT;  // the column of this thread's first group
+  const int BH = B * H;
+  const int q_tiles = (Nq + ROWS - 1) / ROWS, n_items = q_tiles * H * B;
+  const int n_tiles = (Nk + T_BK - 1) / T_BK, n_boxes = (D + T_BOX - 1) / T_BOX, n_chunks = (D + NC - 1) / NC;
+
+  if (tid == 0) {
+    hw::mbar_init(q_full, 1);
+    hw::mbar_init(q_empty, THREADS - 128);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], THREADS - 128);  // every consumer thread releases the slot
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    hw::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int s = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int qt = item % q_tiles, bh = item / q_tiles;  // bh = b * H + h
+        if constexpr (!COLSPLIT) {
+          hw::mbar_wait(q_empty, q_phase ^ 1);  // the first item finds the Q buffer free
+          hw::mbar_arrive_expect_tx(q_full, n_boxes * Cfg::QBOX);
+          for (int c = 0; c < n_boxes; ++c) {
+            hw::tma_load_3d(qres + c * Cfg::QBOX, &qmap, q_full, c * T_BOX, qt * ROWS, bh);
+            hw::tma_load_3d(qres + c * Cfg::QBOX + ROWS * 128, &qmap, q_full, c * T_BOX, qt * ROWS, BH + bh);
+          }
+          q_phase ^= 1;
+        }
+        for (int j = 0; j < n_tiles; ++j) {
+          for (int c = 0; c < n_boxes; ++c) {
+            uint8_t* slot = ring + s * Cfg::SLOT;
+            hw::mbar_wait(&empty[s], phase ^ 1);  // the first pass over the ring finds every slot free
+            hw::mbar_arrive_expect_tx(&full[s], Cfg::SBOX);
+            hw::tma_load_3d(slot, &kmap, &full[s], c * T_BOX, j * T_BK, bh);
+            hw::tma_load_3d(slot + T_BK * 128, &kmap, &full[s], c * T_BOX, j * T_BK, BH + bh);
+            if constexpr (COLSPLIT) {
+              hw::tma_load_3d(slot + Cfg::KBOX, &qmap, &full[s], c * T_BOX, qt * ROWS, bh);
+              hw::tma_load_3d(slot + Cfg::KBOX + ROWS * 128, &qmap, &full[s], c * T_BOX, qt * ROWS, BH + bh);
+            }
+            if (++s == STAGES) s = 0, phase ^= 1;
+          }
+          for (int v = 0; v < n_chunks; ++v) {
+            uint8_t* slot = ring + s * Cfg::SLOT;
+            hw::mbar_wait(&empty[s], phase ^ 1);
+            hw::mbar_arrive_expect_tx(&full[s], Cfg::CHUNK);
+#pragma unroll
+            for (int part = 0; part < 2; ++part)  // hi, lo
+#pragma unroll
+              for (int half = 0; half < 2; ++half)  // keys [0, 32), [32, 64) of the tile
+                hw::tma_load_3d(slot + (2 * part + half) * NC * 128, &vmap, &full[s], j * T_BK + half * 32, v * NC,
+                                part * BH + bh);
+            if (++s == STAGES) s = 0, phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroups
+    hw::setmaxnreg_inc<232>();
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31, lt = ctid & 127;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t ring_addr = hw::smem_u32(ring), q_addr = hw::smem_u32(qres) + (COLSPLIT ? 0 : cwg * 64 * 128);
+    float* pbuf = xch + Cfg::XCH_BYTES / 4;  // the column split's P: hi (2 boxes), then lo
+    const uint32_t p_addr = hw::smem_u32(pbuf);
+    int s = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int qt = item % q_tiles, bh = item / q_tiles, b = bh / H, h = bh % H;
+      const int row0 = qt * ROWS + (COLSPLIT ? 0 : cwg * 64) + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+      const int row1 = row0 + 8;
+      float acc[Cfg::ACC];  // O: chunk a of this consumer in registers [a NC / 2, (a + 1) NC / 2)
+#pragma unroll
+      for (int i = 0; i < Cfg::ACC; ++i) acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+      if constexpr (!COLSPLIT) hw::mbar_wait(q_full, q_phase);
+
+      for (int j = 0; j < n_tiles; ++j) {
+        // S, and the chain buffers of S's and of P.V's k-steps (two of each in the row split, one in the column split)
+        float sc[T_BK / 2], x0[T_BK / 2], x1[TWO ? T_BK / 2 : 1], y0[NC / 2], y1[TWO ? NC / 2 : 1];
+#pragma unroll
+        for (int i = 0; i < T_BK / 2; ++i) sc[i] = 0.f;
+        for (int c = 0; c < n_boxes; ++c) {
+          hw::mbar_wait(&full[s], phase);
+          if (!COLSPLIT || (c & 1) == cwg) {  // warpgroup-uniform
+            const uint32_t slot = ring_addr + s * Cfg::SLOT;
+            const uint32_t qh = COLSPLIT ? slot + Cfg::KBOX : q_addr + c * Cfg::QBOX, ql = qh + ROWS * 128;
+            const uint32_t kh = slot, kl = slot + T_BK * 128;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              if constexpr (TWO) {  // k-step kk into x0 or x1 while the other one's products are added
+                if (kk & 1) tf32_s_kstep(x1, qh, ql, kh, kl, kk); else tf32_s_kstep(x0, qh, ql, kh, kl, kk);
+                if (kk > 0) {
+                  hw::wgmma_wait<1>();
+                  if (kk & 1) add_chain(sc, x0); else add_chain(sc, x1);
+                }
+              } else {
+                tf32_s_kstep(x0, qh, ql, kh, kl, kk);
+                hw::wgmma_wait<0>();
+                add_chain(sc, x0);
+              }
+            }
+            if constexpr (TWO) {
+              hw::wgmma_wait<0>();
+              add_chain(sc, x1);
+            }
+          }
+          hw::mbar_arrive(&empty[s]);
+          if (++s == STAGES) s = 0, phase ^= 1;
+        }
+        if constexpr (!COLSPLIT) {
+          if (j == n_tiles - 1) hw::mbar_arrive(q_empty);  // the item's last read of Q
+        } else {  // the partial scores of the other consumer's boxes: S0 + S1 == S1 + S0, so both hold the same S
+          float* mine = xch + cwg * (T_BK / 2) * 128;
+          const float* other = xch + (cwg ^ 1) * (T_BK / 2) * 128;
+#pragma unroll
+          for (int i = 0; i < T_BK / 2; ++i) mine[i * 128 + lt] = sc[i];
+          hw::named_bar_sync(1, 256);
+#pragma unroll
+          for (int i = 0; i < T_BK / 2; ++i) sc[i] += other[i * 128 + lt];
+        }
+
+        online_softmax(sc, m, l, corr, j, Nk, t, scale_log2);
+        rescale(acc, corr);
+        // P in tf32 hi and lo, k-step kc's columns t and t + 4 holding keys 2t and 2t + 1 (vt_key): as register A
+        // operands (row split), or written K-major into the 128-byte-swizzled boxes of pbuf (column split: consumer
+        // 0 the hi part, consumer 1 the lo part)
+        uint32_t ph[T_BK / 8][4], pl[T_BK / 8][4];
+#pragma unroll
+        for (int kc = 0; kc < T_BK / 8; ++kc)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = sc[4 * kc + ((i & 1) << 1) + (i >> 1)];
+            const float hi = hw::tf32_rna(p);
+            if constexpr (COLSPLIT) {
+              const int row = warp * 16 + g + 8 * (i & 1), pos = (kc % 4) * 8 + t + 4 * (i >> 1);  // pos in its box
+              const int word = (((pos >> 2) ^ (row & 7)) << 2) | (pos & 3);
+              pbuf[cwg * 64 * T_BK + (kc / 4) * 64 * 32 + row * 32 + word] = cwg == 0 ? hi : hw::tf32_rna(p - hi);
+            } else {
+              ph[kc][i] = __float_as_uint(hi);
+              pl[kc][i] = __float_as_uint(hw::tf32_rna(p - hi));
+            }
+          }
+        if constexpr (COLSPLIT) {
+          hw::fence_proxy_async();  // the writes above are wgmma operands
+          hw::named_bar_sync(2, 256);
+        }
+
+#pragma unroll
+        for (int v = 0; v < Cfg::MAX_CHUNKS; ++v) {
+          if (v >= n_chunks) break;
+          hw::mbar_wait(&full[s], phase);
+          if (!COLSPLIT || (v & 1) == cwg) {
+            const uint32_t vh = ring_addr + s * Cfg::SLOT, vl = vh + 2 * NC * 128;
+            float(&o_chunk)[NC / 2] = *reinterpret_cast<float(*)[NC / 2]>(&acc[(COLSPLIT ? v >> 1 : v) * (NC / 2)]);
+#pragma unroll
+            for (int kc = 0; kc < T_BK / 8; ++kc) {
+              if constexpr (COLSPLIT) {
+                tf32_pv_kstep_ss(y0, p_addr, p_addr + 64 * T_BK * 4, vh, vl, kc);
+                hw::wgmma_wait<0>();
+                add_chain(o_chunk, y0);
+              } else {  // k-step kc into y0 or y1 while the other one's products are added
+                if (kc & 1) tf32_pv_kstep_rs<NC>(y1, ph[kc], pl[kc], vh, vl, kc);
+                else tf32_pv_kstep_rs<NC>(y0, ph[kc], pl[kc], vh, vl, kc);
+                if (kc > 0) {
+                  hw::wgmma_wait<1>();
+                  if (kc & 1) add_chain(o_chunk, y0); else add_chain(o_chunk, y1);
+                }
+              }
+            }
+            if constexpr (!COLSPLIT) {
+              hw::wgmma_wait<0>();
+              add_chain(o_chunk, y1);
+            }
+          }
+          hw::mbar_arrive(&empty[s]);
+          if (++s == STAGES) s = 0, phase ^= 1;
+        }
+      }
+      if constexpr (!COLSPLIT) q_phase ^= 1;
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      float* op = o + ((long long)b * Nq * H + h) * D;  // o is contiguous (B, Nq, H, D)
+#pragma unroll
+      for (int a = 0; a < Cfg::ACC / (NC / 2); ++a) {
+        const int chunk = COLSPLIT ? 2 * a + cwg : a;
+#pragma unroll
+        for (int c = 0; c < NC / 8; ++c) {
+          const int col = chunk * NC + c * 8 + 2 * t;  // the columns past D are the padding's zeros
+          if (col >= D) continue;
+          const float* x = &acc[a * (NC / 2) + 4 * c];
+          if (row0 < Nq) *reinterpret_cast<float2*>(op + (long long)row0 * H * D + col) = make_float2(x[0] / l[0], x[1] / l[0]);
+          if (row1 < Nq) *reinterpret_cast<float2*>(op + (long long)row1 * H * D + col) = make_float2(x[2] / l[1], x[3] / l[1]);
+        }
+      }
+      if (lse != nullptr && (!COLSPLIT || cwg == 0) && t == 0) {  // m is in log2 units of the scaled scores
+        float* lp = lse + ((long long)b * H + h) * Nq;
+        if (row0 < Nq) lp[row0] = m[0] * LN2 + logf(l[0]);
+        if (row1 < Nq) lp[row1] = m[1] * LN2 + logf(l[1]);
+      }
+    }
+  }
+}
+
+// The split pre-pass and the kernel built for DP on its persistent grid. ws: the workspace of
+// ops/flash_attention.py tf32_workspace_floats (2 B H (Nq D + Nk D + D Nk8) floats).
+template <int DP>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, void* lse, void* ws, int B, int H, int Nq,
+                int Nk, int D, Strides qs, Strides ks, Strides vs, float scale_log2, cudaStream_t st) {
+  using Cfg = Tf32Cfg<DP>;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const long long BH = (long long)B * H, Nk8 = (Nk + 7) / 8 * 8;
+  const long long qb = (BH * Nq * (D / 4) + T_PREP_THREADS - 1) / T_PREP_THREADS;
+  const long long kb = (BH * Nk * (D / 4) + T_PREP_THREADS - 1) / T_PREP_THREADS;
+  const long long vb = BH * ((Nk8 + 31) / 32) * ((D + 31) / 32);
+  const long long items = (long long)((Nq + Cfg::ROWS - 1) / Cfg::ROWS) * H * B;
+  if (qb + kb + vb > 0x7fffffff || items > 0x7fffffff || 2 * BH > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  float* qw = static_cast<float*>(ws);
+  float* kw = qw + 2 * BH * Nq * D;
+  float* vw = kw + 2 * BH * Nk * D;
+  CUtensorMap qm, km, vm;
+  const cuuint64_t qd[3] = {(cuuint64_t)D, (cuuint64_t)Nq, (cuuint64_t)(2 * BH)};
+  const cuuint64_t qst[2] = {(cuuint64_t)D * 4, (cuuint64_t)Nq * D * 4};
+  const cuuint32_t qbox[3] = {T_BOX, Cfg::ROWS, 1};
+  const cuuint64_t kd[3] = {(cuuint64_t)D, (cuuint64_t)Nk, (cuuint64_t)(2 * BH)};
+  const cuuint64_t kst[2] = {(cuuint64_t)D * 4, (cuuint64_t)Nk * D * 4};
+  const cuuint32_t kbox[3] = {T_BOX, T_BK, 1};
+  const cuuint64_t vd[3] = {(cuuint64_t)Nk8, (cuuint64_t)D, (cuuint64_t)(2 * BH)};
+  const cuuint64_t vst[2] = {(cuuint64_t)Nk8 * 4, (cuuint64_t)D * Nk8 * 4};
+  const cuuint32_t vbox[3] = {T_BOX, Cfg::NC, 1};
+  constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int status = hw::encode_map(&qm, F32, 3, qw, qd, qst, qbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (status == 0) status = hw::encode_map(&km, F32, 3, kw, kd, kst, kbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (status == 0) status = hw::encode_map(&vm, F32, 3, vw, vd, vst, vbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  static bool smem_set[64];
+  if (status == 0) status = hw::allow_smem(fa_fwd_tf32_kernel<DP>, Cfg::SMEM, smem_set);
+  int sms = 0;
+  if (status == 0) status = hw::sm_count(&sms);
+  if (status != 0) return status;
+  tf32_split_kernel<<<(unsigned)(qb + kb + vb), T_PREP_THREADS, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qw, B, H, Nq, Nk, D,
+      qs, ks, vs, qb, kb);
+  fa_fwd_tf32_kernel<DP><<<(int)(items < sms ? items : sms), THREADS, Cfg::SMEM, st>>>(
+      qm, km, vm, static_cast<float*>(o), static_cast<float*>(lse), B, H, Nq, Nk, D, scale_log2);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at D <= 16: CUDA cores, full precision (see "fp32" in the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 128;  // query rows per block: one a thread
+constexpr int F32_BK = 32;        // key rows per shared-memory tile
+constexpr int F32_CHUNK = 16;     // keys scored before each rescale of the accumulator
+constexpr int F32_SMALL_DP = 16;  // the head dims this kernel takes (D <= 16, columns past D loaded as zeros)
+
+// The JAX training example's heads (D = 16) over a few tokens: a thread holds its query row and its accumulator in
+// registers, K and V pass through shared memory in 32-key tiles. One launch and no split operands: at 4 tokens the
+// 3xTF32 kernel's pre-pass and 128-row tiles cost more than the products. D <= 16 is a multiple of 4.
+__global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_small_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int H, int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs, float scale_log2) {
+  constexpr int DP = F32_SMALL_DP;
+  __shared__ __align__(16) float k_s[F32_BK][DP];
+  __shared__ __align__(16) float v_s[F32_BK][DP];
+  const int tid = threadIdx.x, b = blockIdx.z, h = blockIdx.y, row = blockIdx.x * F32_THREADS + tid;
   const float* kp = k + b * ks.b + h * ks.h;
   const float* vp = v + b * vs.b + h * vs.h;
-
-  float qr[DT], acc[DT];
-  const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n + d0;
+  float qr[DP], acc[DP];
+  const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n;
 #pragma unroll
-  for (int d = 0; d < DT; d += 4) {
-    const float4 x = row < Nq && d0 + (d / 4) * STEP < D ? *reinterpret_cast<const float4*>(qp + (d / 4) * STEP)
-                                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int d = 0; d < DP; d += 4) {
+    const float4 x = row < Nq && d < D ? *reinterpret_cast<const float4*>(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
     qr[d] = x.x, qr[d + 1] = x.y, qr[d + 2] = x.z, qr[d + 3] = x.w;
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += KB) {
+  for (int k0 = 0; k0 < Nk; k0 += F32_BK) {
     __syncthreads();
-    for (int c = tid; c < KB * DP / 4; c += blockDim.x) {
+    for (int c = tid; c < F32_BK * DP / 4; c += blockDim.x) {
       const int r = c / (DP / 4), d4 = (c % (DP / 4)) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < Nk && d4 < D) {
@@ -698,25 +1150,21 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
       *reinterpret_cast<float4*>(&v_s[r][d4]) = vx;
     }
     __syncthreads();
-
 #pragma unroll 1
-    for (int c0 = 0; c0 < KB; c0 += CHUNK) {
-      float s[CHUNK];
+    for (int c0 = 0; c0 < F32_BK; c0 += F32_CHUNK) {
+      float s[F32_CHUNK];
       float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < CHUNK; ++i) {
+      for (int i = 0; i < F32_CHUNK; ++i) {
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < DT; d += 4) {  // the rows of a warp read the same key row: a shared-memory broadcast
-          const float4 kx = *reinterpret_cast<const float4*>(&k_s[c0 + i][d0 + (d / 4) * STEP]);
+        for (int d = 0; d < DP; d += 4) {  // the rows of a warp read the same key row: a shared-memory broadcast
+          const float4 kx = *reinterpret_cast<const float4*>(&k_s[c0 + i][d]);
           dot = fmaf(qr[d], kx.x, dot);
           dot = fmaf(qr[d + 1], kx.y, dot);
           dot = fmaf(qr[d + 2], kx.z, dot);
           dot = fmaf(qr[d + 3], kx.w, dot);
         }
-        // a butterfly over the row's lanes: every lane ends with the same sum (a + b == b + a at each step)
-#pragma unroll
-        for (int x = 1; x < TPR; x <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, x);
         s[i] = k0 + c0 + i < Nk ? dot * scale_log2 : -INFINITY;
         mx = fmaxf(mx, s[i]);
       }
@@ -725,14 +1173,14 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
       m = m_new;
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < DT; ++d) acc[d] *= corr;
+      for (int d = 0; d < DP; ++d) acc[d] *= corr;
 #pragma unroll
-      for (int i = 0; i < CHUNK; ++i) {
+      for (int i = 0; i < F32_CHUNK; ++i) {
         const float p = exp2f(s[i] - m);
         l += p;
 #pragma unroll
-        for (int d = 0; d < DT; d += 4) {
-          const float4 vx = *reinterpret_cast<const float4*>(&v_s[c0 + i][d0 + (d / 4) * STEP]);
+        for (int d = 0; d < DP; d += 4) {
+          const float4 vx = *reinterpret_cast<const float4*>(&v_s[c0 + i][d]);
           acc[d] = fmaf(p, vx.x, acc[d]);
           acc[d + 1] = fmaf(p, vx.y, acc[d + 1]);
           acc[d + 2] = fmaf(p, vx.z, acc[d + 2]);
@@ -741,26 +1189,13 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(
       }
     }
   }
-
   if (row < Nq) {
-    float* op = o + (((long long)b * Nq + row) * H + h) * D + d0;
+    float* op = o + (((long long)b * Nq + row) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < DT; d += 4)
-      if (d0 + (d / 4) * STEP < D)
-        *reinterpret_cast<float4*>(op + (d / 4) * STEP) =
-            make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
-    if (lse != nullptr && tid % TPR == 0) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
+    for (int d = 0; d < DP; d += 4)
+      if (d < D) *reinterpret_cast<float4*>(op + d) = make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
+    if (lse != nullptr) lse[((long long)b * H + h) * Nq + row] = m * LN2 + logf(l);
   }
-}
-
-template <int DP, int TPR, int KB = F32_BK>
-void launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk, int D,
-                Strides qs, Strides ks, Strides vs, float scale_log2, cudaStream_t st) {
-  constexpr int ROWS = F32_THREADS / TPR;
-  const dim3 grid((Nq + ROWS - 1) / ROWS, H, B);
-  fa_fwd_f32_kernel<DP, TPR, KB><<<grid, F32_THREADS, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Nq, Nk, D, qs, ks, vs, scale_log2);
 }
 
 // The bf16 kernel on its persistent grid: K1 (kSoftmax) or K8, built for the padded head dim DP (64 or 128) and
@@ -817,12 +1252,13 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim: a multiple of 8 up to 512 (ops/flash_attention.py pads any other
 // into a copy). `layouts` holds the tensor-map layouts of q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of
-// 64 columns and 128 rows, 64 rows above D = 128: ops/flash_attention.py fwd_rows), from which the fp32 kernel
-// takes its element strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null, a
-// contiguous (B, H, Nq) float32 tensor. Returns a cudaError_t.
-extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
-                                      int B, int H, int Nq, int Nk, int head_dim, const long long* layouts,
-                                      float scale, void* stream) {
+// 64 columns and 128 rows, 64 rows above D = 128: ops/flash_attention.py fwd_rows), from which the fp32 kernel's
+// pre-pass takes its element strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null,
+// a contiguous (B, H, Nq) float32 tensor; ws, for float32 only, the split operands' workspace
+// (ops/flash_attention.py tf32_workspace_floats), else null. Returns a cudaError_t.
+extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* ws,
+                                      int dtype, int B, int H, int Nq, int Nk, int head_dim,
+                                      const long long* layouts, float scale, void* stream) {
   const int D = head_dim;
   if (D < 8 || D > 512 || D % 8 != 0 || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   const long long *lq = layouts, *lk = layouts + hw::LAYOUT_INTS, *lv = layouts + 2 * hw::LAYOUT_INTS;
@@ -845,20 +1281,22 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
     if (status != 0) return status;
   } else if (dtype == 0) {
     const Strides qs = layout_strides(lq, 4), ks = layout_strides(lk, 4), vs = layout_strides(lv, 4);
-    if (D <= 16)
-      launch_f32<16, 1>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    int status = 0;
+    if (D <= F32_SMALL_DP)
+      fa_fwd_f32_small_kernel<<<dim3((Nq + F32_THREADS - 1) / F32_THREADS, H, B), F32_THREADS, 0, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<float*>(o), static_cast<float*>(lse), H, Nq, Nk, D, qs, ks, vs, scale_log2);
     else if (D <= 32)
-      launch_f32<32, 1>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+      status = launch_tf32<32>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
     else if (D <= 64)
-      launch_f32<64, 1>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+      status = launch_tf32<64>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
     else if (D <= 128)
-      launch_f32<128, 2>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
-    else if (D <= 192)
-      launch_f32<192, 4, 16>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+      status = launch_tf32<128>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
     else if (D <= 256)
-      launch_f32<256, 4, 16>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+      status = launch_tf32<256>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
     else
-      launch_f32<512, 8, 8>(q, k, v, o, lse, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+      status = launch_tf32<512>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, qs, ks, vs, scale_log2, st);
+    if (status != 0) return status;
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -60,28 +60,45 @@
 //     rows and keys get p = 0).
 //   * Head dims. D <= 64 runs the kernels above on one 64-column TMA box per
 //     tile (TMA writes zeros past D; D at run time, the columns written).
-//     64 < D <= 256 cannot: at DP = 128 a dk/dv consumer would hold k and v
-//     operands (64 registers), two DP-wide accumulators (128), s^T, dp^T (64)
-//     and p^T, ds^T (32), and at DP = 256 the accumulators alone are 256
-//     registers and Q + dO own tiles 128 KB. So D > 64 takes the column-chunk
-//     kernels (fa_bwd_dq_wide_kernel, fa_bwd_dkv_wide_kernel, built for the
-//     padded head dim DP = 128, 192 or 256): a work item is a 64-column chunk of
-//     the outputs of one 128-row own tile, chunk fastest so the blocks working at
-//     one time share their tiles in L2. Each recomputes s and dp (s^T and dp^T)
-//     over the whole DP with both wgmma operands in shared memory (the own tiles
-//     stay there for the item), then adds its chunk: dq += ds k[:, chunk] in dq,
-//     dv += p^T dO[:, chunk] and dk += ds^T q[:, chunk] in dk/dv, each chunk one
-//     64-column box of the loop tile read MN-major. Registers stay at one m64n64
-//     accumulator per output (32 each). The price is the recomputation: per
-//     chunk two products over DP plus one (dq) or two (dk/dv) over 64 columns,
-//     1.7x the minimum work at D = 128 and 2.5-3x at 256; and one issue order
-//     without ping-pong or overlap: the simple, correct first design. The ring
-//     of loop tiles has 4, 2 or 1 slots at DP = 128, 192, 256 (what 200 KB
-//     leaves beside the own tiles).
+//   * 64 < D <= 256 (fa_bwd_dq_wide_kernel, fa_bwd_dkv_wide_kernel, built for
+//     the padded head dim DP = 128, 192 or 256): whole-width accumulators. The
+//     kernels they replace covered one 64-column chunk per work item,
+//     recomputing s and dp over the whole DP for each (1.7x the minimum work at
+//     D = 128, 2.5-3x at 256), in one issue order without overlap: 186 TFLOP/s
+//     of the five products at (4,1024,1024,8,128), 1.99x SDPA's backward. What
+//     bounds these kernels is the tensor cores' issue and, for the products
+//     with both operands in shared memory, its bandwidth; not HBM. A work item
+//     now covers 128 output columns: one chunk at DP = 128 (no recomputation),
+//     two at 192 and 256 (s and dp twice: 1.25-1.5x the minimum), chunk fastest
+//     so blocks working at one time share their tiles in L2. Each chunk is one
+//     m64n128 product per k-step, its B operand the chunk's two 64-column boxes
+//     read MN-major as the operand's two atoms; at DP = 192 the last chunk is one
+//     box wide and its second atom is a box of zeros, because a run-time choice
+//     between an m64n128 and an m64n64 product on one accumulator made ptxas
+//     serialise every wgmma of the kernel (C7520; 0.264 -> 0.141 ms at
+//     (2,1024,1024,8,192) when removed). A dq consumer holds dq's chunk (64
+//     registers), s and dp (64) and ds as bf16 A fragments (16); at DP = 128 also
+//     q and dO as register A operands (64), read once per item, so the own
+//     tiles are free for the next item's loads at once (above 128 they stay in
+//     shared memory). A dk/dv consumer holds dk's and dv's chunks (128), s^T and
+//     dp^T (64), then p^T and ds^T as bf16 A fragments (32); k and v stay in
+//     shared memory. Neither has the registers to overlap tile j + 1's s and dp
+//     with tile j's register-A products, as the D <= 64 kernels do: tried in dq
+//     at DP = 128, ptxas serialised the products (C7512) and spilled, and it ran
+//     slower (0.1381-0.1402 against 0.1331-0.1350 ms at (4,1024,1024,8,128)). So
+//     each consumer finishes tile j before it issues tile j + 1, and the two
+//     consumers issue independently: strict turns (ping-pong), as in the D <= 64
+//     kernels, measured 0.1644 against 0.1396 ms there (dq 0.0794 against 0.0561).
+//     The producer warpgroup gives up its registers
+//     (setmaxnreg.dec). The ring of 64-row loop tiles has 4, 2 or 1 slots at DP =
+//     128, 192, 256 (what 200 KB leaves beside the own tiles). The plan and a
+//     walk of the work items over every output row and column are in
+//     tests/test_torch_kernel_layouts.py (k3_plan, k3_items). Measured on the
+//     card: PERF.md section 6 (chip_smoke.py phase 47).
 //   * Later work: one fused pass when a single tile covers all keys
 //     (_fa_bwd_fused_kernel's 5-product shape), 128-row loop tiles, dq
-//     accumulated in the dk/dv pass (which needs atomics or a reduction), wider
-//     chunks and the pipeline of the D <= 64 kernels for D > 64.
+//     accumulated in the dk/dv pass (which needs atomics or a reduction), the
+//     own tiles of the next item loaded while the last one finishes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -530,12 +547,14 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at 64 < D <= 256: column-chunk kernels (see the note at the top)
+// bf16 at 64 < D <= 256: whole-width accumulators on the pipeline above (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int W_RING_BYTES = 200 * 1024;  // own tiles and the ring of loop tiles
+constexpr int W_CHUNK = 128;              // output columns a work item covers: two 64-column boxes
 
-// The kernels built for the padded head dim DP (128, 192 or 256): DP / 64 boxes per tile.
+// The kernels built for the padded head dim DP (128, 192 or 256): DP / 64 boxes per tile; a work item covers one
+// 128-column chunk of its outputs (the last one 64 columns at DP = 192).
 template <int DP>
 struct WideCfg {
   static constexpr int BOXES = DP / BOX;
@@ -548,9 +567,32 @@ template <int DP>
 struct alignas(hw::SMEM_ALIGN) WideBwdSmem {
   __nv_bfloat16 own0[OWN * DP], own1[OWN * DP];  // q and dO (dq), k and v (dk/dv)
   __nv_bfloat16 loop0[WideCfg<DP>::STAGES][LOOP * DP], loop1[WideCfg<DP>::STAGES][LOOP * DP];  // k, v / q, dO
+  // DP = 192: one 64-column box of zeros, the second atom of the last chunk's products (see issue_chunk)
+  __nv_bfloat16 zeros[DP == 192 ? LOOP * BOX : 8];
   float lse[WideCfg<DP>::STAGES][LOOP], delta[WideCfg<DP>::STAGES][LOOP];  // dk/dv: lse in log2 units, 0 past Nq
   uint64_t own_full, own_empty, full[WideCfg<DP>::STAGES], empty[WideCfg<DP>::STAGES];
 };
+
+// Zero DP = 192's box of zeros (every thread a part) before the block's first product reads it; the caller then
+// synchronises the block.
+template <int DP>
+__device__ __forceinline__ void zero_box(WideBwdSmem<DP>& sm) {
+  if constexpr (DP == 192) {
+    for (int i = threadIdx.x; i < LOOP * BOX / 8; i += blockDim.x) reinterpret_cast<uint4*>(sm.zeros)[i] = uint4{0, 0, 0, 0};
+    hw::fence_proxy_async();
+  }
+}
+
+// The byte offset from a chunk's first box in a loop tile (at m_addr) to its second: the next box, or at DP = 192
+// for the last chunk, which is one box wide, the box of zeros, so that every chunk is one m64n128 product (a run-time
+// choice between an m64n128 and an m64n64 product on one accumulator makes ptxas serialise every wgmma).
+template <int DP>
+__device__ __forceinline__ uint32_t second_atom(const WideBwdSmem<DP>& sm, uint32_t m_addr, int chunk) {
+  if constexpr (DP == 192) {
+    if (chunk == 1) return hw::smem_u32(sm.zeros) - m_addr;
+  }
+  return LOOP * BOX * 2;
+}
 
 // A tile's DP / 64 boxes of `rows` rows at rows row0 of head h, batch b, side by side in dst.
 template <int DP>
@@ -580,7 +622,36 @@ __device__ __forceinline__ void issue_pair_ss(float (&x)[LOOP / 2], float (&y)[L
   hw::wgmma_commit();
 }
 
-// The persistent kernels' work item: (64-column chunk, 128-row own tile, head, batch), chunk fastest.
+// The same with a and c from registers (the consumer's own rows of a DP = 128 tile, read once per item): only b and
+// d are read from shared memory. One wgmma group, committed.
+template <int DP>
+__device__ __forceinline__ void issue_pair_rs(float (&x)[LOOP / 2], float (&y)[LOOP / 2],
+                                              const uint32_t (&a)[DP / 16][4], uint32_t b,
+                                              const uint32_t (&c)[DP / 16][4], uint32_t d) {
+  hw::fence_regs(x);
+  hw::fence_regs(y);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t loop = (kk / 4) * LOOP * BOX * 2 + (kk % 4) * 32;
+    hw::wgmma_m64n64k16_rs<0>(x, a[kk], hw::desc_k_major(b + loop), kk > 0);
+    hw::wgmma_m64n64k16_rs<0>(y, c[kk], hw::desc_k_major(d + loop), kk > 0);
+  }
+  hw::wgmma_commit();
+}
+
+// acc += a m[:, chunk] over 4 k-steps of 16 loop rows: a from registers (ds or p^T, ds^T in bf16), m read MN-major
+// from the chunk's boxes of a loop tile (m_addr: its first box; LOOP rows a box; `atom`: the byte offset of its
+// second, second_atom), one m64n128 product per k-step. Not committed: the caller may add another product to the group.
+__device__ __forceinline__ void issue_chunk(float (&acc)[W_CHUNK / 2], uint32_t (&a)[LOOP / 16][4], uint32_t m_addr,
+                                            uint32_t atom) {
+#pragma unroll
+  for (int kc = 0; kc < LOOP / 16; ++kc)
+    hw::wgmma_m64n128k16_rs<1>(acc, a[kc], hw::desc_mn_major(m_addr + kc * 16 * BOX * 2, atom), 1);
+}
+
+// The persistent kernels' work item: (128-column chunk, 128-row own tile, head, batch), chunk fastest, so the blocks
+// working at one time share their own and loop tiles in L2.
 struct WideItem {
   int chunk, tile, h, b;
 };
@@ -589,8 +660,10 @@ __device__ __forceinline__ WideItem decode_wide(int item, int chunks, int tiles,
   return WideItem{item % chunks, rest % tiles, (rest / tiles) % H, rest / (tiles * H)};
 }
 
-// dq, D > 64: items of one 64-column chunk of dq over 128 queries, each looping over 64-key tiles. The own q and
-// dO stay in shared memory for the item (both products read them from there).
+// dq, D > 64: items of one 128-column chunk of dq over 128 queries, each looping over 64-key tiles: tile j's s and dp,
+// then ds, then dq += ds k[:, chunk], before tile j + 1's products are issued (overlapping tile j + 1's s and dp with
+// tile j's dq product, as the D <= 64 kernel does, takes more registers than a consumer has here: ptxas then
+// serialised the products and spilled). The two consumers issue independently (PERF.md section 6).
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -602,7 +675,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
   extern __shared__ uint8_t smem_raw[];
   WideBwdSmem<DP>& sm = *reinterpret_cast<WideBwdSmem<DP>*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
-  const int chunks = (D + BOX - 1) / BOX, q_tiles = (Nq + OWN - 1) / OWN, n_items = chunks * q_tiles * H * B;
+  const int chunks = (D + W_CHUNK - 1) / W_CHUNK, q_tiles = (Nq + OWN - 1) / OWN, n_items = chunks * q_tiles * H * B;
   const int n_tiles = (Nk + LOOP - 1) / LOOP;
   if (tid == 0) {
     hw::mbar_init(&sm.own_full, 1);
@@ -614,6 +687,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
     }
     hw::fence_barrier_init();
   }
+  zero_box<DP>(sm);
   __syncthreads();
 
   if (tid < 128) {  // producer
@@ -646,6 +720,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
     uint32_t phase = 0, own_phase = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const WideItem it = decode_wide(item, chunks, q_tiles, H);
+      const uint32_t box = 2 * it.chunk * LOOP * BOX * 2;  // the chunk's first box in a loop tile
       const int row0 = it.tile * OWN + cwg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
       const int rows[2] = {row0, row0 + 8};
       const long long stat = ((long long)it.b * H + it.h) * Nq;
@@ -655,21 +730,11 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
         lse2[r] = rows[r] < Nq ? lse[stat + rows[r]] * LOG2E : 0.f;
         dl[r] = rows[r] < Nq ? delta[stat + rows[r]] : 0.f;
       }
-      float acc[BOX / 2];  // dq's chunk
+      float acc[W_CHUNK / 2];  // dq's chunk: m64n128
 #pragma unroll
-      for (int i = 0; i < BOX / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < W_CHUNK / 2; ++i) acc[i] = 0.f;
       float sc[LOOP / 2], dp[LOOP / 2];
-      uint32_t a[LOOP / 16][4];
-      hw::mbar_wait(&sm.own_full, own_phase);
-      own_phase ^= 1;
-      for (int j = 0; j < n_tiles; ++j) {
-        hw::mbar_wait(&sm.full[s], phase);
-        const uint32_t k_addr = hw::smem_u32(sm.loop0[s]);
-        issue_pair_ss<DP>(sc, dp, q_addr, k_addr, do_addr, hw::smem_u32(sm.loop1[s]));
-        hw::wgmma_wait<0>();
-        hw::fence_regs(sc);
-        hw::fence_regs(dp);
-        const int k0 = j * LOOP;  // ds = p * (dp - delta) * scale; keys past Nk get p = 0, as in the D <= 64 kernel
+      auto ds_tile = [&](int k0) {  // ds = p * (dp - delta) * scale; keys past Nk get p = 0, as in the D <= 64 kernel
         const bool ragged = k0 + LOOP > Nk;
 #pragma unroll
         for (int i = 0; i < LOOP / 2; ++i) {
@@ -678,22 +743,60 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
           if (ragged && k0 + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) p = 0.f;
           sc[i] = p * (dp[i] - dl[r]) * scale;
         }
+      };
+      auto issue_dq = [&](uint32_t (&a)[LOOP / 16][4], int slot) {
+        hw::fence_regs(acc);
+        hw::fence_regs(a);
+        hw::wgmma_fence();
+        const uint32_t m_addr = hw::smem_u32(sm.loop0[slot]) + box;
+        issue_chunk(acc, a, m_addr, second_atom<DP>(sm, m_addr, it.chunk));
+        hw::wgmma_commit();
+      };
+
+      uint32_t a[LOOP / 16][4];  // ds in bf16: the register A operand of ds k
+      hw::mbar_wait(&sm.own_full, own_phase);
+      own_phase ^= 1;
+      // DP = 128: q and dO as register A operands, read once, so the own tiles are free for the next item's loads at
+      // once; above, they stay in shared memory for the item (the registers hold dq's chunk, s, dp and ds).
+      constexpr int QF = DP == 128 ? DP / 16 : 1;
+      uint32_t qa[QF][4], da[QF][4];
+      if constexpr (DP == 128) {
+#pragma unroll
+        for (int bx = 0; bx < DP / BOX; ++bx) {
+          hw::load_a_frags(*reinterpret_cast<uint32_t(*)[4][4]>(&qa[4 * bx]), sm.own0 + (bx * OWN + cwg * 64) * BOX,
+                           warp, lane);
+          hw::load_a_frags(*reinterpret_cast<uint32_t(*)[4][4]>(&da[4 * bx]), sm.own1 + (bx * OWN + cwg * 64) * BOX,
+                           warp, lane);
+        }
+        hw::mbar_arrive(&sm.own_empty);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        hw::mbar_wait(&sm.full[s], phase);
+        if constexpr (DP == 128)
+          issue_pair_rs<DP>(sc, dp, qa, hw::smem_u32(sm.loop0[s]), da, hw::smem_u32(sm.loop1[s]));
+        else
+          issue_pair_ss<DP>(sc, dp, q_addr, hw::smem_u32(sm.loop0[s]), do_addr, hw::smem_u32(sm.loop1[s]));
+        hw::wgmma_wait<0>();
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+        if (DP != 128 && j == n_tiles - 1) hw::mbar_arrive(&sm.own_empty);  // the item's last read of q and dO
+        ds_tile(j * LOOP);
         hw::pack_a<LOOP>(a, sc);
-        issue_ds_k(acc, a, k_addr + it.chunk * LOOP * BOX * 2);  // dq += ds k[:, chunk]: the chunk's box of k
+        issue_dq(a, s);
         hw::wgmma_wait<0>();
         hw::fence_regs(acc);
         hw::mbar_arrive(&sm.empty[s]);
         if (++s == ST) s = 0, phase ^= 1;
       }
-      hw::mbar_arrive(&sm.own_empty);
 
-      __nv_bfloat16* op = dq + ((long long)it.b * Nq * H + it.h) * D + it.chunk * BOX;  // dq: contiguous (B, Nq, H, D)
+      __nv_bfloat16* op = dq + ((long long)it.b * Nq * H + it.h) * D + it.chunk * W_CHUNK;  // dq: contiguous (B, Nq, H, D)
 #pragma unroll
-      for (int c = 0; c < BOX / 8; ++c) {
+      for (int c = 0; c < W_CHUNK / 8; ++c) {
         const int col = c * 8 + 2 * t;
+        if (it.chunk * W_CHUNK + c * 8 >= D) continue;  // the columns past D: the zero fill's, or the box of zeros'
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          if (rows[r] < Nq && it.chunk * BOX + c * 8 < D)
+          if (rows[r] < Nq)
             *reinterpret_cast<uint32_t*>(op + (long long)rows[r] * H * D + col) =
                 hw::pack_bf16x2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
       }
@@ -701,9 +804,11 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dq_wide_kernel(
   }
 }
 
-// dk and dv, D > 64: items of one 64-column chunk of dk and dv over 128 keys, each looping over 64-query tiles
-// (with their lse and delta, staged in the slot by the producer warp as in the D <= 64 kernel). The own k and v
-// stay in shared memory for the item.
+// dk and dv, D > 64: items of one 128-column chunk of dk and dv over 128 keys, each looping over 64-query tiles
+// (with their lse and delta, staged in the slot by the producer warp as in the D <= 64 kernel). A consumer holds its
+// keys' dk and dv chunks (m64n128 each), so tile j's s^T and dp^T are formed and used before tile j + 1's are issued
+// (no overlap inside a consumer; the two consumers issue independently). s^T and dp^T read the own k and v from shared
+// memory over the whole DP.
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -715,7 +820,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
   extern __shared__ uint8_t smem_raw[];
   WideBwdSmem<DP>& sm = *reinterpret_cast<WideBwdSmem<DP>*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
-  const int chunks = (D + BOX - 1) / BOX, k_tiles = (Nk + OWN - 1) / OWN, n_items = chunks * k_tiles * H * B;
+  const int chunks = (D + W_CHUNK - 1) / W_CHUNK, k_tiles = (Nk + OWN - 1) / OWN, n_items = chunks * k_tiles * H * B;
   const int n_tiles = (Nq + LOOP - 1) / LOOP;
   if (tid == 0) {
     hw::mbar_init(&sm.own_full, 1);
@@ -727,6 +832,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
     }
     hw::fence_barrier_init();
   }
+  zero_box<DP>(sm);
   __syncthreads();
 
   if (tid < 128) {  // producer: warp 0
@@ -772,22 +878,24 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
     uint32_t phase = 0, own_phase = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const WideItem it = decode_wide(item, chunks, k_tiles, H);
+      const uint32_t box = 2 * it.chunk * LOOP * BOX * 2;  // the chunk's first box in a loop tile
       const int key0 = it.tile * OWN + cwg * 64 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
       const int keys[2] = {key0, key0 + 8};
-      float dk_acc[BOX / 2], dv_acc[BOX / 2];  // the chunk of dk and dv
+      float dk_acc[W_CHUNK / 2], dv_acc[W_CHUNK / 2];  // the chunk of dk and dv
 #pragma unroll
-      for (int i = 0; i < BOX / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-      float st[LOOP / 2], dpt[LOOP / 2];
-      uint32_t pa[LOOP / 16][4], sa[LOOP / 16][4];
+      for (int i = 0; i < W_CHUNK / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
       hw::mbar_wait(&sm.own_full, own_phase);
       own_phase ^= 1;
       for (int j = 0; j < n_tiles; ++j) {
+        float st[LOOP / 2], dpt[LOOP / 2];
+        uint32_t pa[LOOP / 16][4], sa[LOOP / 16][4];
         hw::mbar_wait(&sm.full[s], phase);
         const uint32_t q_addr = hw::smem_u32(sm.loop0[s]), do_addr = hw::smem_u32(sm.loop1[s]);
         issue_pair_ss<DP>(st, dpt, k_addr, q_addr, v_addr, do_addr);
         hw::wgmma_wait<0>();
         hw::fence_regs(st);
         hw::fence_regs(dpt);
+        if (j == n_tiles - 1) hw::mbar_arrive(&sm.own_empty);  // the item's last read of k and v
         // p^T and ds^T; no mask, as in the D <= 64 kernel (a query past Nq has q = dO = 0 and lse = delta = 0)
 #pragma unroll
         for (int i = 0; i < LOOP / 2; ++i) {
@@ -798,23 +906,29 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
         }
         hw::pack_a<LOOP>(pa, st);
         hw::pack_a<LOOP>(sa, dpt);
-        const uint32_t box = it.chunk * LOOP * BOX * 2;  // the chunk's box of dO and q
-        issue_dkv(dv_acc, dk_acc, pa, sa, do_addr + box, q_addr + box);
+        hw::fence_regs(dv_acc);
+        hw::fence_regs(dk_acc);
+        hw::fence_regs(pa);
+        hw::fence_regs(sa);
+        hw::wgmma_fence();
+        issue_chunk(dv_acc, pa, do_addr + box, second_atom<DP>(sm, do_addr + box, it.chunk));  // dv += p^T dO[:, chunk]
+        issue_chunk(dk_acc, sa, q_addr + box, second_atom<DP>(sm, q_addr + box, it.chunk));   // dk += ds^T q[:, chunk]
+        hw::wgmma_commit();
         hw::wgmma_wait<0>();
         hw::fence_regs(dv_acc);
         hw::fence_regs(dk_acc);
         hw::mbar_arrive(&sm.empty[s]);
         if (++s == ST) s = 0, phase ^= 1;
       }
-      hw::mbar_arrive(&sm.own_empty);
 
-      const long long base = ((long long)it.b * Nk * H + it.h) * D + it.chunk * BOX;  // dk, dv: contiguous (B, Nk, H, D)
+      const long long base = ((long long)it.b * Nk * H + it.h) * D + it.chunk * W_CHUNK;  // dk, dv: contiguous (B, Nk, H, D)
 #pragma unroll
-      for (int c = 0; c < BOX / 8; ++c) {
+      for (int c = 0; c < W_CHUNK / 8; ++c) {
         const int col = c * 8 + 2 * t;
+        if (it.chunk * W_CHUNK + c * 8 >= D) continue;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          if (keys[r] < Nk && it.chunk * BOX + c * 8 < D) {
+          if (keys[r] < Nk) {
             const long long off = base + (long long)keys[r] * H * D + col;
             *reinterpret_cast<uint32_t*>(dk + off) = hw::pack_bf16x2(dk_acc[4 * c + 2 * r], dk_acc[4 * c + 2 * r + 1]);
             *reinterpret_cast<uint32_t*>(dv + off) = hw::pack_bf16x2(dv_acc[4 * c + 2 * r], dv_acc[4 * c + 2 * r + 1]);
@@ -1013,7 +1127,7 @@ void launch_bwd_f32(const float* q, const float* k, const float* v, const float*
 }
 
 // The bf16 dq and dk/dv kernels on their persistent grids: those of D <= 64 (DP = 64; DS = 64 or 0, as the
-// kernels take it), or the column-chunk kernels of DP = 128, 192 or 256. m: the eight tensor maps in
+// kernels take it), or the whole-width kernels of DP = 128, 192 or 256 (128-column chunks). m: the eight tensor maps in
 // uc_flash_attention_bwd's order.
 template <int DP, int DS = 0>
 int launch_bwd_bf16(const CUtensorMap (&m)[8], const float* ls, const float* dl, __nv_bfloat16* dq,
@@ -1040,7 +1154,7 @@ int launch_bwd_bf16(const CUtensorMap (&m)[8], const float* ls, const float* dl,
     status = hw::allow_smem(fa_bwd_dq_wide_kernel<DP>, SMEM, dq_set);
     if (status == 0) status = hw::allow_smem(fa_bwd_dkv_wide_kernel<DP>, SMEM, dkv_set);
     if (status != 0) return status;
-    const long long chunks = (D + BOX - 1) / BOX;
+    const long long chunks = (D + W_CHUNK - 1) / W_CHUNK;
     const long long dq_items = chunks * q_tiles * H * B, dkv_items = chunks * k_tiles * H * B;
     if (dq_items > 0x7fffffff || dkv_items > 0x7fffffff) return (int)cudaErrorInvalidValue;
     fa_bwd_dq_wide_kernel<DP><<<(int)(dq_items < sms ? dq_items : sms), THREADS, SMEM, st>>>(

@@ -51,6 +51,7 @@ __all__ = [
     "int8_pv_keys",
     "tma_layout",
     "fwd_rows",
+    "tf32_workspace_floats",
     "head_dim_rule",
     "pad_head_dim",
 ]
@@ -74,6 +75,9 @@ FWD_ROWS = 128  # K1: query and key tiles
 WIDE_FROM, WIDE_ROWS = 128, 64  # K1 above D = 128 (its column-split kernel): 64-row query and key tiles
 BWD_OWN_ROWS, BWD_LOOP_ROWS = 128, 64  # K3: a block's own rows, and the rows of each tile it loops over
 TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below 2^40
+# K1 fp32: D up to 16 (the JAX training example's heads) takes the CUDA-core kernel, every other D the 3xTF32 kernel
+# and its split operands' workspace (csrc/flash_attention.cu F32_SMALL_DP, fa_fwd_tf32_kernel)
+F32_SMALL_HEAD_DIM = 16
 
 
 def _scale(q, scale):
@@ -258,6 +262,12 @@ def fwd_rows(head_dim: int) -> int:
     return WIDE_ROWS if head_dim > WIDE_FROM else FWD_ROWS
 
 
+def tf32_workspace_floats(B: int, H: int, Nq: int, Nk: int, D: int) -> int:
+    """The floats of K1's fp32 workspace (csrc/flash_attention.cu tf32_split_kernel): q and k split into tf32 hi and
+    lo, (2, B H, N, D) each, then v split and transposed, (2, B H, D, Nk8) with Nk8 = Nk rounded up to 8."""
+    return 2 * B * H * (Nq * D + Nk * D + D * (-(-Nk // 8) * 8))
+
+
 def forward_launch(q, k, v, scale: float, with_lse: bool = False):
     """K1's launch on CUDA q/k/v that :func:`flash_attention_fwd` would take, unchecked and uncounted: the
     wrapper that calls it (K1's own, or K5's attention launch, ops/fused_attention.py) counts its launches.
@@ -265,9 +275,13 @@ def forward_launch(q, k, v, scale: float, with_lse: bool = False):
     B, Nq, H, D = q.shape
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device) if with_lse else None
+    ws = None
+    if q.dtype == torch.float32 and D > F32_SMALL_HEAD_DIM:  # the split operands of the 3xTF32 kernel's pre-pass
+        ws = torch.empty(tf32_workspace_floats(B, H, Nq, k.shape[1], D), dtype=torch.float32, device=q.device)
     status = kernel_lib.library().uc_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D, _layouts(*((t, fwd_rows(D)) for t in (q, k, v))),
+        None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D,
+        _layouts(*((t, fwd_rows(D)) for t in (q, k, v))),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel_lib.check(status, "flash_attention_fwd")

@@ -3,7 +3,9 @@ Times K4 (the int8 matmul) at the nine trunk shapes, K5 (the fused qkv +
 RoPE + attention, self and cross) at its three main-path shapes, K1 (the
 flash-attention forward) and K8 (the S.V diagnostic) at K8's five shapes, and
 K3 (the backward) and K6 (the int8 attention, both modes, and its prep alone)
-at the encoder's (4, 1024, 16, 64) on the card, by CUDA-graph replay, with the kernel package imported from
+at the encoder's (4, 1024, 16, 64), K1's fp32 kernel at chip_smoke.py's
+K47_K1_F32 shapes (``k1_f32``) and K3 above D = 64 at its K47_K3 shapes
+(``k3_wide``) on the card, by CUDA-graph replay, with the kernel package imported from
 ``--root``: this checkout or an unpacked earlier commit, so that two trees
 are compared on one card in one call (run them in turns: a, b, b, a). The
 shapes, inputs and timer are ``chip_smoke.py``'s. Prints the card's name and
@@ -44,7 +46,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}, "k1": {}, "k8": {}, "k3": {}, "k6": {}}
+    out = {"root": os.path.relpath(root, REPO), "k4": {}, "k5": {}, "k1": {}, "k8": {}, "k3": {}, "k6": {},
+           "k1_f32": {}, "k3_wide": {}}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
     for name, M, K, N in cs.K4_SHAPES:
         x = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
@@ -67,6 +70,14 @@ def main():
     for mode in ("int8", "int8pv"):
         out["k6"][f"encoder 512 {mode}"] = cs.graph_ms(torch, lambda: fa.flash_attention_int8(q, k, v, mode=mode))
         out["k6"][f"encoder 512 {mode} prep"] = cs.graph_ms(torch, lambda: fa.flash_attention_int8_prep(k, v, mode))
+    for name, B, Nq, Nk, H, D in cs.K47_K1_F32:
+        q, k, v = cs._hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.float32)
+        out["k1_f32"][name] = cs.graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
+    for name, B, Nq, Nk, H, D in cs.K47_K3:
+        q, k, v = cs._hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.bfloat16)
+        dout = torch.randn(B, Nq, H, D, device="cuda", generator=gen).bfloat16()
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        out["k3_wide"][name] = cs.graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout))
     print(json.dumps(out))
     return 0
 
