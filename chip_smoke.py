@@ -243,6 +243,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                for bit across two calls), each timed beside the plain version,
                SDPA (its backward alone for K3) and the bound; the fp32 K3
                kernels beside SDPA's fp32 backward.
+   48. int8 transforms: DUSt3R ViT-L 512 with linear heads through the
+               int8 weight-transform path (calibrate_gptq, nn/gptq.py,
+               nn/smooth.py): Hessians and activation maxima of the 289
+               trunk linears over 2 calibration pairs (RandomState(7)) of the
+               bf16 model through K1 and K2 (72 and 144 per forward), every H
+               finite and symmetric, and the capture's seconds; SmoothQuant
+               (alpha 0.25) and QuaRot on an fp32 copy leave the kernel path's
+               outputs within phase 5's fp32 bar, and the analytically updated
+               Hessians of three layers equal a fresh fp32 capture on the
+               transformed model; GPTQ of every layer in fp32 on the card (its
+               seconds, the median and worst H-metric ratio against RTN), three
+               layers (d_in 768, 1024, 4096) against float64 on the CPU; the
+               ladder RTN, + smooth, + rotate, GPTQ, GPTQ + smooth + rotate on 2
+               held-out pairs (RandomState(42)) through K4, K1 and K2 with
+               exact launches, each rung's pts3d bill against the fp32 plain
+               path (GPTQ's below RTN's); every K4 call of the last rung
+               against its plain version (equal codes, ulps);
+               serve.build_model(int8, gptq=npz) bit for bit the in-memory
+               GPTQ model's codes, serve_frames of RTN and of GPTQ + smooth +
+               rotate (pairs/s, peak memory), and convert_checkpoints --int8
+               --gptq to an .nsv (in a temporary directory inside the
+               checkout, removed at the end) read back bit for bit.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -4337,6 +4359,292 @@ def phase_redesigned(torch, fa, card):
     return worst, times
 
 
+# Phase 48: the int8 weight-transform path at DUSt3R ViT-L 512 (linear heads). One layer of each kind the transforms'
+# Hessian updates touch (d_in 1024, 768, 768), and three of d_in 768, 1024 and 4096 for GPTQ on the card against the
+# CPU in float64.
+TRANSFORM_LAYERS = ("encoder.enc_blocks.0.attn.qkv", "info_sharing.multi_view_branches.0.5.attn.proj",
+                    "info_sharing.multi_view_branches.1.7.cross_attn.proj")
+GPTQ_CPU_LAYERS = ("info_sharing.multi_view_branches.0.0.attn.qkv", "encoder.enc_blocks.0.attn.qkv",
+                   "encoder.enc_blocks.0.mlp.fc2")
+SMOOTH_ALPHA, CALIB_PAIRS, HELD_OUT_PAIRS, HELD_OUT_SEED = 0.25, 2, 2, 42
+# An analytically updated Hessian against a fresh capture on the transformed model, max |a - b| / max |b|: the bar of
+# the JAX package's test_hessian_updates_match_fresh_capture. Both captures are fp32 (TF32 off): a bf16 model's
+# activations move with the bf16 rounding of the transformed weights, about 2^-9 relative, which is more than the bar.
+HESSIAN_UPDATE_REL_TOL = 1e-3
+# GPTQ in fp32 on the card against the same in float64 on the CPU: the H-metric error of the codes within 1%.
+GPTQ_H_ERR_REL_TOL = 1e-2
+# An fp32 Hessian is symmetric up to the GEMM's summation order: max |H - H^T| / max |H|.
+HESSIAN_SYM_REL_TOL = 1e-6
+
+
+def phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card, k4_serving):
+    """DUSt3R ViT-L 512 with linear heads, seeded: the int8 weight-transform path (calibrate_gptq, nn/gptq.py,
+    nn/smooth.py) on the card. (a) Hessians and activation maxima over 2 calibration pairs (RandomState(7)) of the bf16
+    model through K1 and K2, exact launches; (b) SmoothQuant(0.25) + QuaRot on an fp32 copy leave the kernel path's
+    outputs, and the analytic Hessian updates equal a fresh capture; (c) GPTQ of every captured layer in fp32 on the
+    card, three layers against float64 on the CPU; (d) the ladder RTN, + smooth, + rotate, GPTQ, GPTQ + smooth + rotate
+    on 2 held-out pairs (RandomState(42)) through K4/K1/K2 against the fp32 plain path; (e) every K4 call of the last
+    rung against its plain version; (f) serve.build_model(int8, gptq=npz), serve_frames of RTN and the last rung, and
+    convert_checkpoints --int8 --gptq to an .nsv read back. Returns the launches of the counted runs."""
+    import shutil
+    import tempfile
+
+    from uniception_tpu_torch import calibrate_gptq, convert_checkpoints
+    from uniception_tpu_torch.nn import gptq, smooth
+    from uniception_tpu_torch.utils.coldstart import load_native_state
+
+    dims = (ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS)
+    embed = 1 if ENC_DIM != DEC_DIM else 0  # proj_embed: one layer, run once per view
+    k4_want = ENC_DEPTH * 4 + 2 * embed + DEC_DEPTH * 2 * 8
+    layers_want = k4_want - embed
+    want = {k: 0 for k in counters}
+    want.update(K1=ENC_DEPTH + DEC_DEPTH * 2 * 2, K2=2 * ENC_DEPTH + DEC_DEPTH * 2 * 4)
+    total = {k: 0 for k in counters}
+
+    def counted(label, fn, forwards, k4=0):
+        _reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        got = _read(counters)
+        expect = {k: v * forwards for k, v in dict(want, K4=k4).items()}
+        require(got == expect, f"48 {label}: launches {got}, want {expect}")
+        for k in total:
+            total[k] += got[k]
+        return out, got
+
+    def seeded(dtype):
+        return serve.build_model(IMG, *dims, device="cuda", dtype=dtype, seed=SEED)
+
+    def bf16_of(float_model):
+        "The serving model's bf16 cast of ``float_model`` (heads fp32, as build_model's)."
+        m = seeded(torch.bfloat16)
+        m.load_state_dict(float_model.state_dict())
+        return m
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    rng = np.random.RandomState(HELD_OUT_SEED)
+    held = [tuple(torch.from_numpy(rng.randn(1, 3, IMG, IMG).astype(np.float32)).cuda() for _ in range(2))
+            for _ in range(HELD_OUT_PAIRS)]
+
+    @torch.no_grad()
+    def outputs(m, impl="kernel"):
+        "pts3d, conf (view 1), pts3d_in_other_view, conf (view 2) of the held-out pairs, concatenated."
+        config.set_attention_impl(impl)
+        try:
+            res = [m.forward_pair(a, b) for a, b in held]
+        finally:
+            config.set_attention_impl("kernel")
+        return [torch.cat([r[v][k] for r in res]) for k, v in (("pts3d", 0), ("conf", 0),
+                                                               ("pts3d_in_other_view", 1), ("conf", 1))]
+
+    def capture_layers(m, paths, pair):
+        "fp32 (or the model's dtype) Hessians of the linears at ``paths``, over one pair."
+        for part in ("encoder", "info_sharing"):
+            gptq.install_hessian_capture(getattr(m, part), predicate=lambda p, _, s=part: f"{s}.{p}" in paths)
+        with torch.no_grad():
+            m.forward_pair(*pair)
+        return gptq.harvest_hessians(m)
+
+    # (a) the capture, on the bf16 model through the kernels
+    float_model = seeded(torch.float32)
+    cal = bf16_of(float_model)
+    pairs = list(calibrate_gptq.calibration_pairs(IMG, CALIB_PAIRS, "cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (hessians, amax, n_pairs), _ = counted("capture", lambda: calibrate_gptq.capture(cal, pairs, "all"), CALIB_PAIRS)
+    capture_s = time.perf_counter() - t0
+    finite = all(torch.isfinite(h).all().item() for h in hessians.values())
+    asym = max(((h - h.t()).abs().max() / h.abs().max()).item() for h in hessians.values())
+    print(f"[48 transforms] (a) captured {len(hessians)} trunk linears (policy all) over {n_pairs} pairs of "
+          f"{IMG}x{IMG} (RandomState(7)) through the kernels in {capture_s:.2f}s (install, forwards, harvest; "
+          f"synchronised): K1 {want['K1']} and K2 {want['K2']} per forward; every H finite {finite}, max |H - H^T| / "
+          f"max |H| {asym:.2e} (tol {HESSIAN_SYM_REL_TOL}) on {card}")
+    require(len(hessians) == layers_want, f"48: {len(hessians)} layers captured, want {layers_want}")
+    require(finite and asym <= HESSIAN_SYM_REL_TOL, f"48: a Hessian is non-finite or not symmetric ({asym})")
+
+    # (b) the transforms are identities on the fp32 function; the Hessian updates equal a fresh capture
+    ref = outputs(float_model)
+    h3 = capture_layers(float_model, TRANSFORM_LAYERS, held[0])
+    moved = seeded(torch.float32)
+    folds = smooth.smooth_trunk(moved, amax, alpha=SMOOTH_ALPHA, hessians=h3)
+    rotations = smooth.rotate_trunk(moved, hessians=h3, seed=0)
+    out = outputs(moved)
+    fresh = capture_layers(moved, TRANSFORM_LAYERS, held[0])
+    del moved
+    errs = [rel(a, b) for a, b in zip(out, ref)]
+    h_errs = {p: ((h3[p] - fresh[p]).abs().max() / fresh[p].abs().max()).item() for p in TRANSFORM_LAYERS}
+    print(f"[48 transforms] (b) smooth_trunk(alpha {SMOOTH_ALPHA}) {folds} folds + rotate_trunk(seed 0) {rotations} "
+          f"rotations on the fp32 model (TF32 off), kernel path before vs after on the held-out pairs, rel: pts3d "
+          f"{errs[0]:.2e}, conf {errs[1]:.2e}, pts3d_in_other_view {errs[2]:.2e}, conf2 {errs[3]:.2e} (tol "
+          f"{MODEL_FP32_REL_TOL}); analytic Hessian updates vs a fresh fp32 capture on the transformed model, max |a - "
+          f"b| / max |b|: " + ", ".join(f"{p} {e:.2e}" for p, e in h_errs.items()) + f" (tol {HESSIAN_UPDATE_REL_TOL})")
+    require(max(errs) <= MODEL_FP32_REL_TOL, f"48: the transforms moved the fp32 outputs by {errs}")
+    require(max(h_errs.values()) <= HESSIAN_UPDATE_REL_TOL, f"48: Hessian updates off a fresh capture: {h_errs}")
+
+    # (c) GPTQ of every captured layer in fp32 on the card; three layers against float64 on the CPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes, ratios = calibrate_gptq.gptq_layers(cal, hessians, dtype=torch.float32, diag_every=1, log=lambda s: None)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t0
+    values = sorted(ratios.values())
+    median, worst = float(np.median(values)), values[-1]
+    linears = dict(cal.named_modules())
+    for p in GPTQ_CPU_LAYERS:
+        w, H = linears[p].weight.detach().t().cpu().double(), hessians[p].cpu()
+        t0 = time.perf_counter()
+        q64, s64 = gptq.gptq_int8(w, H)
+        cpu_s = time.perf_counter() - t0
+        q32, s32 = (t.cpu() for t in codes[p])
+        e_card, e_cpu = calibrate_gptq.h_error(w, q32, s32, H), calibrate_gptq.h_error(w, q64, s64, H)
+        share = (q32 == q64).double().mean().item()
+        print(f"[48 transforms] (c) {p} (d_in {w.shape[0]}): fp32 codes on the card vs float64 on the CPU "
+              f"({cpu_s:.1f}s): scales equal {torch.equal(s32, s64)}, codes equal {share:.6f}, H-metric error "
+              f"{e_card:.6e} vs {e_cpu:.6e} ({abs(e_card - e_cpu) / e_cpu:.2e}, tol {GPTQ_H_ERR_REL_TOL})")
+        require(abs(e_card - e_cpu) <= GPTQ_H_ERR_REL_TOL * e_cpu, f"48: GPTQ on the card off float64 at {p}")
+    print(f"[48 transforms] (c) GPTQ of {len(codes)} layers in fp32 on the card in {gptq_s:.2f}s (blocksize 128, "
+          f"percdamp 0.01; with the H-metric diagnostic on every layer); H-metric error ratio gptq/rtn over every "
+          f"layer: median {median:.4f}, worst {worst:.4f}, best {values[0]:.4f} on {card}")
+    require(len(codes) == layers_want and median < 1.0, f"48: GPTQ median H-ratio {median} over {len(codes)} layers")
+
+    # (d) the ladder, each rung a bf16 cast of the (transformed) float model, quantized, through K4, K1 and K2
+    plain = outputs(float_model, "naive")
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_gptq_", dir=REPO)
+    try:
+        npz = os.path.join(tmp, "gptq_dust3r.npz")
+        calibrate_gptq.save_codes(npz, codes)
+        bills, kept = {}, {}
+        ladder = (("RTN", None, False, False), ("RTN + smooth", SMOOTH_ALPHA, False, False),
+                  ("RTN + rotate", None, True, False), ("GPTQ", None, False, True),
+                  ("GPTQ + smooth + rotate", SMOOTH_ALPHA, True, True))
+        for name, alpha, rotate, with_gptq in ladder:
+            rung_codes, extra = codes, ""
+            if alpha is None and not rotate:
+                m = bf16_of(float_model)
+            else:
+                h = {k: v.clone() for k, v in hessians.items()} if with_gptq else None
+                f = seeded(torch.float32)
+                if alpha is not None:
+                    smooth.smooth_trunk(f, amax, alpha=alpha, hessians=h)
+                if rotate:
+                    smooth.rotate_trunk(f, hessians=h, seed=0)
+                m = bf16_of(f)
+                del f
+                if with_gptq:  # GPTQ on the transformed weights against the analytically updated Hessians
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rung_codes, _ = calibrate_gptq.gptq_layers(m, h, dtype=torch.float32, diag_every=0)
+                    torch.cuda.synchronize()
+                    extra = f"; its GPTQ pass {time.perf_counter() - t0:.2f}s"
+                    del h
+            n_q = quant.quantize_trunk(m, "all")
+            n_g = gptq.apply_gptq(m, rung_codes) if with_gptq else 0
+            require(n_q == len(hessians) and n_g in (0, n_q), f"48 {name}: {n_q} quantized, {n_g} GPTQ layers")
+            out, got = counted(name, lambda: outputs(m), HELD_OUT_PAIRS, k4_want)
+            require(all(torch.isfinite(o).all().item() for o in out), f"48 {name}: non-finite output")
+            bills[name] = [rel(a, b) for a, b in zip(out, plain)]
+            print(f"[48 transforms] (d) {name:24s} pts3d bill vs the fp32 plain path {bills[name][0]:.4e} "
+                  f"(pts3d_in_other_view {bills[name][2]:.4e}, conf {bills[name][1]:.4e}); {n_q} int8 layers, "
+                  f"{n_g} with GPTQ codes; K4 {got['K4'] // HELD_OUT_PAIRS} per forward (phase 15: {k4_serving}), "
+                  f"K1 {got['K1'] // HELD_OUT_PAIRS}, K2 {got['K2'] // HELD_OUT_PAIRS}{extra}")
+            if name in ("RTN", "GPTQ", "GPTQ + smooth + rotate"):
+                kept[name] = m
+            del m
+        require(k4_serving in (None, k4_want), f"48: phase 15's int8-linear rung ran {k4_serving} K4 per forward")
+        require(bills["GPTQ"][0] < bills["RTN"][0], f"48: GPTQ's bill {bills['GPTQ'][0]} is not below RTN's")
+        del cal, hessians, float_model
+        torch.cuda.empty_cache()
+
+        # (e) every K4 call of the last rung against its plain version on the same activations
+        real, ulps, shares = quant.int8_matmul_dynamic, [], []
+
+        def k4_checked(x, w_q, w_scale, bias=None, out_dtype=None):
+            out = real(x, w_q, w_scale, bias, out_dtype)
+            ref = i8.int8_matmul_dynamic_ref(x, w_q, w_scale, bias, out_dtype)
+            x2 = x.reshape(-1, w_q.shape[0]).contiguous()
+            x_q = torch.empty(x2.shape, dtype=torch.int8, device=x.device)  # the kernel's codes, from its C entry
+            i8._launch(x2, x_q, torch.empty(x2.shape[0], device=x.device), w_q.t().contiguous(), w_scale, bias,
+                       out.dtype, None)
+            shares.append((x_q == i8.quantize_rows(x2)[0]).double().mean().item())
+            ulps.append(_ulps(out, ref, 7 if out.dtype == torch.bfloat16 else 23))
+            return out
+
+        quant.int8_matmul_dynamic = k4_checked
+        try:
+            with torch.no_grad():
+                kept["GPTQ + smooth + rotate"].forward_pair(*held[0])
+        finally:
+            quant.int8_matmul_dynamic = real
+        print(f"[48 transforms] (e) every K4 call of one GPTQ + smooth + rotate forward ({len(ulps)} calls) against "
+              f"its plain version on the same input: int8 codes equal, worst share {min(shares):.6f}; output max "
+              f"{max(ulps):.2f} ulp (tol {K4_ULPS})")
+        require(len(ulps) == k4_want and min(shares) == 1.0 and max(ulps) <= K4_ULPS,
+                f"48: K4 against its plain version: {len(ulps)} calls, codes {min(shares)}, {max(ulps)} ulp")
+
+        # (f) the serving entry points and the converter with the calibrated codes
+        served = serve.build_model(IMG, *dims, device="cuda", seed=SEED, int8=True, gptq=npz)
+        mine, theirs = served.state_dict(), kept.pop("GPTQ").state_dict()
+        w_q_keys = [k for k in mine if k.endswith(".w_q")]
+        require(len(w_q_keys) == layers_want and all(torch.equal(mine[k], theirs[k]) for k in w_q_keys),
+                "48: serve.build_model(gptq=...) codes differ from the in-memory GPTQ model's")
+        same = all(torch.equal(mine[k], theirs[k]) for k in mine)
+        print(f"[48 transforms] (f) serve.build_model(int8=True, gptq={os.path.basename(npz)}): {len(w_q_keys)} w_q "
+              f"bit-equal to the in-memory GPTQ rung's; every tensor equal {same}")
+        del theirs
+        pth, nsv = os.path.join(tmp, "dust3r.pth"), os.path.join(tmp, "dust3r_int8_gptq.nsv")
+        f = seeded(torch.float32)
+        torch.save({"model": {k: v.detach().cpu() for k, v in f.state_dict().items()}}, pth)
+        del f
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        convert_checkpoints.main(["--serving", "--int8", "--gptq", npz, "--img-size", str(IMG), "--enc-depth",
+                                  str(ENC_DEPTH), "--enc-dim", str(ENC_DIM), "--enc-heads", str(ENC_HEADS),
+                                  "--dec-depth", str(DEC_DEPTH), "--dec-dim", str(DEC_DIM), "--dec-heads",
+                                  str(DEC_HEADS), pth, nsv])
+        convert_s = time.perf_counter() - t0
+        _, meta = load_native_state(nsv)
+        loaded = serve.build_model(IMG, *dims, device="cuda", checkpoint=nsv).state_dict()
+        trunk = [k for k in mine if k.startswith(("encoder.", "info_sharing."))]  # the converter casts heads to bf16
+        bad = [k for k in trunk if not torch.equal(loaded[k], mine[k])]
+        print(f"[48 transforms] (f) convert_checkpoints --serving --int8 --gptq on the card in {convert_s:.1f}s: "
+              f"meta quant_gptq_layers {meta.get('quant_gptq_layers')}, quant_layers {meta.get('quant_layers')}; read "
+              f"back by serve.build_model(checkpoint=...), {len(trunk) - len(bad)} of {len(trunk)} trunk tensors "
+              f"bit-equal to serve.build_model(int8, gptq)'s ({os.path.getsize(nsv)} bytes)")
+        require(meta.get("quant_gptq_layers") == layers_want, f"48: the .nsv meta says {meta.get('quant_gptq_layers')}")
+        require(not bad, f"48: {len(bad)} trunk tensors of the converted .nsv differ, e.g. {bad[:3]}")
+        del served, mine, loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # serving: RTN against GPTQ + smooth + rotate, each alone on the card, in turns (a, b, b, a)
+    frames = np.random.RandomState(SEED).randint(0, 256, size=(2 * BATCH * (SERVE_BATCHES + 1), IMG, IMG, 3),
+                                                 dtype=np.uint8)
+    served = {}
+    for name in ("RTN", "GPTQ + smooth + rotate", "GPTQ + smooth + rotate", "RTN"):
+        for other in kept:
+            kept[other].to("cuda" if other == name else "cpu")
+        torch.cuda.empty_cache()
+        fn = serve.make_serving_fn(kept[name], "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, pairs, seconds = serve.serve_frames(fn, frames, BATCH, "cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        require(all(torch.isfinite(o).all().item() for o in out), f"48 {name}: non-finite serving output")
+        served.setdefault(name, []).append((pairs / seconds, peak))
+        del out, fn
+    for name, runs in served.items():
+        print(f"[48 transforms] (f) serve_frames {name}: " + ", ".join(f"{r:.3f}" for r, _ in runs) + f" pairs/s at "
+              f"{IMG}x{IMG} batch {BATCH}, {BATCH * (SERVE_BATCHES + 1)} pairs after one warm-up batch per run (CUDA "
+              f"events; runs in turns RTN, transformed, transformed, RTN); max_memory_allocated "
+              + ", ".join(f"{p} bytes ({p / 2**30:.3f} GiB)" for _, p in runs) + f" on {card}")
+    del kept
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -4474,6 +4782,10 @@ def main():
     print(f"[46 head dims] launches over phases 42-46's counted runs: {paths} and training {new_train}; by head dim "
           f"{HD_SEEN}")
     redesign_worst, redesign = phase_redesigned(torch, fa, card)
+    # phase 15's int8-linear rung served SERVE_BATCHES + 1 batches after one warm-up: its K4 launches per forward
+    transforms = phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card,
+                                       rungs["int8-linear"]["launches"]["K4"] / (SERVE_BATCHES + 2))
+    print(f"[48 transforms] launches over phase 48's counted runs: {transforms}")
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -4483,15 +4795,15 @@ def main():
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
-              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"],
+              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"] + transforms["K1"],
               max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"]), k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
               trained["flash_attention_bwd"] + new_train["K3"], max(k3_err, hd_worst["K3"], redesign_worst["K3"]), k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
               launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
-              + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"], k2_err, k2),
-        entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50", served["K4"], k4_err,
-              k4),
+              + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"] + transforms["K2"], k2_err, k2),
+        entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50",
+              served["K4"] + transforms["K4"], k4_err, k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
               fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"] + dino["K5-self"] + paths["K5-self"],
               max(k5_err["self"], hd_worst["K5"]), k5["self"]),

@@ -18,7 +18,8 @@ attention's sub-heads and a differential block against the plain path with
 exact launches; K1's fp32 kernel (3xTF32) at every padded head dim, the Cosmos
 shape and the routing of D <= 16 to the CUDA-core kernel, with a dropped-tile
 control, and K3's whole-width kernels above D = 64, bit for bit across two
-calls. Every test here needs a CUDA device and skips without one.
+calls; GPTQ (nn/gptq.py) on the card against its CPU float64 version, and a K4
+forward on calibrated codes. Every test here needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -1606,3 +1607,53 @@ def test_flash_attention_fp32_routes_each_head_dim_to_its_kernel(gen, d):
     ws = 4 * tf32_workspace_floats(2, 4, 4, 4, d)
     assert (extra < ws) if d <= F32_SMALL_HEAD_DIM else (extra >= ws), (extra, ws)
     assert (out - flash_attention_ref(q, k, v)).abs().max().item() <= FP32_TOL
+
+
+# --- the int8 weight-transform path (nn/gptq.py) on the card --------------------------------------------------------
+
+
+@pytest.mark.parametrize("d_in,d_out,dtype", [(768, 256, torch.float32), (1024, 384, torch.float32),
+                                              (300, 96, torch.float64)])
+def test_gptq_int8_on_cuda_matches_the_cpu_float64_version(gen, d_in, d_out, dtype):
+    from uniception_tpu_torch.calibrate_gptq import h_error
+    from uniception_tpu_torch.nn.gptq import gptq_int8
+
+    w = (torch.randn(d_in, d_out, device="cuda", generator=gen) * 0.05).bfloat16().float()  # a bf16 model's weight
+    mix = torch.randn(d_in, d_in, device="cuda", generator=gen) / d_in**0.5 + 0.5 * torch.eye(d_in, device="cuda")
+    x = torch.randn(4 * d_in, d_in, device="cuda", generator=gen) @ mix
+    H = (x.t().double() @ x.double()) / x.shape[0]
+    q, s = gptq_int8(w, H, dtype=dtype)
+    assert q.is_cuda and q.dtype == torch.int8 and s.dtype == torch.float32 and tuple(q.shape) == (d_in, d_out)
+    q64, s64 = gptq_int8(w.cpu().double(), H.cpu())
+    assert torch.equal(s.cpu(), s64)  # the scale of a bf16 weight is one rounding of the same quotient
+    share = (q.cpu() == q64).double().mean().item()
+    assert share >= (0.999 if dtype == torch.float64 else 0.98), share
+    e_card, e_cpu = h_error(w.cpu().double(), q.cpu(), s.cpu(), H.cpu()), h_error(w.cpu().double(), q64, s64, H.cpu())
+    assert abs(e_card - e_cpu) <= 1e-2 * e_cpu, (e_card, e_cpu)
+
+
+def test_apply_gptq_then_a_k4_forward(gen):
+    from uniception_tpu_torch.nn.gptq import apply_gptq, gptq_int8
+    from uniception_tpu_torch.nn.quant import quantize_linears
+
+    lin = LinearX(256, 320, generator=gen, device="cuda").bfloat16()
+    holder = torch.nn.Sequential(lin)
+    mix = torch.randn(256, 256, device="cuda", generator=gen) / 16 + 0.5 * torch.eye(256, device="cuda")
+    x = (torch.randn(3 * 70, 256, device="cuda", generator=gen) @ mix).reshape(3, 70, 256).bfloat16()  # channels covary
+    xf = x.reshape(-1, 256).double()
+    q, s = gptq_int8(lin.weight.detach().t(), xf.t() @ xf / xf.shape[0], dtype=torch.float32)
+    with torch.no_grad():
+        ref_full = lin(x).float()
+    assert quantize_linears(holder, min_params=0) == 1
+    layer = holder[0]
+    rtn_out = layer(x).float()
+    assert apply_gptq(holder, {"0": (q.cpu().numpy(), s.cpu().numpy())}) == 1
+    assert torch.equal(layer.w_q, q.t().contiguous()) and torch.equal(layer.w_scale, s)
+    before = int8_matmul_dynamic.launches
+    out = layer(x)
+    assert int8_matmul_dynamic.launches == before + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (3, 70, 320)
+    plain = int8_matmul_dynamic_ref(x, layer.w_q.t(), layer.w_scale, layer.bias)
+    assert _ulps(out, plain, 7) <= 1
+    # the calibrated codes serve closer to the float layer than RTN's on the inputs they were calibrated on
+    assert (out.float() - ref_full).norm() < (rtn_out - ref_full).norm()

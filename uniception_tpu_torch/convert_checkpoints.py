@@ -5,6 +5,7 @@ Convert checkpoints (counterpart of scripts/convert_checkpoints.py).
     python -m uniception_tpu_torch.convert_checkpoints --dust3r vanilla_dust3r.pth output.npz
     python -m uniception_tpu_torch.convert_checkpoints --serving --head dpt input.pth dust3r.nsv
     python -m uniception_tpu_torch.convert_checkpoints --serving --model flow --int8 input.npz ufm.nsv
+    python -m uniception_tpu_torch.convert_checkpoints --serving --int8 --gptq gptq_dust3r.npz input.pth dust3r.nsv
 
 Without ``--serving``: a torch-layout ``.pth``/``.pt``/``.bin``/``.npz`` (the
 reference's ``{"model": state_dict, **metadata}``) becomes the ``.npz``
@@ -18,7 +19,10 @@ names the packed container, ``.npz`` the numpy zip. ``--int8`` quantizes the
 trunk offline in the JAX converter's order (every parameter cast to bf16,
 then ``quantize_trunk``) and records ``quant``, ``quant_layers``,
 ``quant_policy`` and ``quant_asym`` in the metadata as it does, so the file
-serves int8 in either package. Not ported: ``--gptq``.
+serves int8 in either package. ``--gptq PATH`` (with ``--int8``) then embeds
+calibrated GPTQ codes (nn/gptq.py) in place of the RTN codes and records their
+count as ``quant_gptq_layers``; it works on the card by default (``--device``),
+as the calibration and serving do, and refuses without one.
 """
 
 import argparse
@@ -97,6 +101,12 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true", help="(--serving) w8a8-quantize the trunk linears offline")
     p.add_argument("--int8-policy", default="all", help="(--int8) mixed-precision trunk policy (nn/quant.py)")
     p.add_argument("--int8-asym", default="none", help="(--int8) layers with zero-point activation quantization")
+    p.add_argument("--gptq", default=None,
+                   help="(--int8) npz of calibrated GPTQ codes (python -m uniception_tpu_torch.calibrate_gptq): embed "
+                        "them in place of the RTN codes")
+    p.add_argument("--device", default=None,
+                   help="where the model is built and quantized: cuda (the default with --gptq; fails without a "
+                        "GPU) or cpu (the default otherwise)")
     return p.parse_args(argv)
 
 
@@ -115,6 +125,12 @@ def main(argv=None):
     if args.f32 and args.int8:
         raise SystemExit("--f32 and --int8 are exclusive: the int8 trunk is quantized from bf16 parameters, "
                          "as serving quantizes it")
+    if args.gptq and not args.int8:
+        raise SystemExit("--gptq requires --int8: the codes replace the int8 trunk's RTN codes")
+    device = torch.device(args.device or ("cuda" if args.gptq else "cpu"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available: pass --device cpu to convert on the CPU")
+    from uniception_tpu_torch.nn.gptq import apply_gptq, load_gptq_npz
     from uniception_tpu_torch.nn.quant import quantize_trunk
     from uniception_tpu_torch.serve import make_model
     from uniception_tpu_torch.utils.coldstart import abstract_construct, materialize, save_native_state
@@ -128,13 +144,17 @@ def main(argv=None):
         args.model, (args.img_size, args.img_size), dims, dtype=dtype, head=args.head, head_dtype=None,
         landscape_only=False,
     ))
-    materialize(model, state_dict=state, ignore=model.checkpoint_alias_patterns(), device="cpu")
+    materialize(model, state_dict=state, ignore=model.checkpoint_alias_patterns(), device=device)
     save_dtype = None if args.f32 else torch.bfloat16
     if args.int8:
         # the JAX converter's order: every parameter cast to bf16 first, then the trunk quantized
         model.to(torch.bfloat16)
         n_q = quantize_trunk(model, args.int8_policy, asym=args.int8_asym)
-        meta = {**meta, "quant": "int8-w8a8-dynamic", "quant_layers": n_q, "quant_gptq_layers": 0,
+        n_gptq = 0
+        if args.gptq:
+            n_gptq = apply_gptq(model, load_gptq_npz(args.gptq))
+            print(f"embedded GPTQ codes for {n_gptq} layers from {args.gptq}")
+        meta = {**meta, "quant": "int8-w8a8-dynamic", "quant_layers": n_q, "quant_gptq_layers": n_gptq,
                 "quant_policy": args.int8_policy, "quant_asym": args.int8_asym}
         save_dtype = None  # each tensor already has its serving dtype (fp32 scales and int8 biases' fp32)
     save_native_state(args.output, model, dtype=save_dtype, layout="loop" if args.no_scan else "scan", **meta)

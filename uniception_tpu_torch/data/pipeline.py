@@ -90,8 +90,8 @@ def make_frame_normalizer(data_norm_type: str, device):
     memory on CUDA, then ``(x / 255 - mean) / std`` on the device."""
     device = torch.device(device)
     norm = IMAGE_NORMALIZATION_DICT[data_norm_type]
-    mean = torch.tensor(norm.mean, dtype=torch.float32, device=device).view(1, 3, 1, 1)
-    std = torch.tensor(norm.std, dtype=torch.float32, device=device).view(1, 3, 1, 1)
+    mean = norm.mean.to(device).view(1, 3, 1, 1)
+    std = norm.std.to(device).view(1, 3, 1, 1)
 
     def prep(frames_u8):
         x = torch.as_tensor(frames_u8)

@@ -52,6 +52,7 @@ __all__ = [
     "encoder_factory",
     "feature_returner_encoder_factory",
     "get_available_encoders",
+    "print_available_encoder_models",
     "is_ported",
     "EncoderGlobalRepInput",
     "EncoderGlobalRepOutput",
@@ -187,6 +188,12 @@ def feature_returner_encoder_factory(encoder_str: str, seed: int = 0, **kwargs) 
 def get_available_encoders():
     "Registry keys, ported or not (reference encoders/__init__.py get_available_encoders)."
     return sorted(ENCODER_CONFIGS)
+
+
+def print_available_encoder_models():
+    "Print every registry key, one per line (JAX ``print_available_encoder_models``)."
+    for name in get_available_encoders():
+        print(name)
 
 
 def _make_encoder_test(encoder_str: str, seed: int = 0, **kwargs) -> UniCeptionEncoderBase:

@@ -10,6 +10,8 @@ import torch
 from torch import nn
 
 __all__ = [
+    "InfoSharingInput",
+    "InfoSharingOutput",
     "MultiViewTransformerInput",
     "MultiViewTransformerOutput",
     "MultiSetTransformerInput",
@@ -18,8 +20,16 @@ __all__ = [
 ]
 
 
+class InfoSharingInput:
+    "Base of the info-sharing inputs (JAX ``InfoSharingInput``)."
+
+
+class InfoSharingOutput:
+    "Base of the info-sharing outputs (JAX ``InfoSharingOutput``)."
+
+
 @dataclass
-class MultiViewTransformerInput:
+class MultiViewTransformerInput(InfoSharingInput):
     """Multi-view transformer input.
 
     features: per-view (batch, input_embed_dim, feat_h, feat_w).
@@ -38,7 +48,7 @@ class MultiViewTransformerInput:
 
 
 @dataclass
-class MultiViewTransformerOutput:
+class MultiViewTransformerOutput(InfoSharingOutput):
     "Multi-view transformer output: per-view BCHW features and the extra tokens' features (batch, dim, n)."
 
     features: List[torch.Tensor]
@@ -47,7 +57,7 @@ class MultiViewTransformerOutput:
 
 
 @dataclass
-class MultiSetTransformerInput:
+class MultiSetTransformerInput(InfoSharingInput):
     "Multi-set transformer input: per-set (batch, input_embed_dim, num_tokens), and global extra tokens."
 
     features: List[torch.Tensor]
@@ -55,7 +65,7 @@ class MultiSetTransformerInput:
 
 
 @dataclass
-class MultiSetTransformerOutput:
+class MultiSetTransformerOutput(InfoSharingOutput):
     "Multi-set transformer output: per-set (batch, dim, num_tokens), and the extra tokens' features."
 
     features: List[torch.Tensor]

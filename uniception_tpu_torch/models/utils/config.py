@@ -33,6 +33,13 @@ read at import from the JAX package's environment variables
 ``UNICEPTION_TPU_GELU``; each also takes the port's own names. An unknown value
 raises ``ValueError`` naming the variable (the JAX package warns and falls
 back to its default).
+
+Fast init (``fast_init``, ``UNICEPTION_TPU_FAST_INIT=1``): the initializers of
+nn/common.py (``xavier_uniform``, ``trunc_normal``, ``LinearX``) fill zeros
+instead of drawing, for a model whose weights a checkpoint overwrites at once,
+as in the JAX package. The port's checkpoint cold start goes further: it
+builds on the ``meta`` device (utils/coldstart.py ``abstract_construct``),
+where nothing is drawn or stored, and it builds there under fast init.
 """
 
 import os
@@ -48,6 +55,9 @@ __all__ = [
     "set_gelu_mode",
     "use_fused_attn",
     "set_fused_attn",
+    "get_fast_init",
+    "set_fast_init",
+    "fast_init",
 ]
 
 _VALID_IMPLS = ("kernel", "fused", "naive")
@@ -132,3 +142,35 @@ def use_fused_attn() -> bool:
 def set_fused_attn(enable: bool = True):
     "Select the kernels ('kernel') or every kernel's plain version ('naive'), mirroring the reference API."
     set_attention_impl("kernel" if enable else "naive")
+
+
+_FAST_INIT = os.environ.get("UNICEPTION_TPU_FAST_INIT", "0") == "1"
+
+
+def get_fast_init() -> bool:
+    "True when fast (zeros) initialization is on: the checkpoint-loading construction path."
+    return _FAST_INIT
+
+
+def set_fast_init(enable: bool = True):
+    "Turn fast zeros initialization on or off."
+    global _FAST_INIT
+    _FAST_INIT = bool(enable)
+
+
+class fast_init:
+    "Context manager: construct models with zeros init (then load weights); restores the previous setting."
+
+    def __init__(self, enable: bool = True):
+        self.enable = enable
+
+    def __enter__(self):
+        global _FAST_INIT
+        self.prev = _FAST_INIT
+        _FAST_INIT = bool(self.enable)
+        return self
+
+    def __exit__(self, *exc):
+        global _FAST_INIT
+        _FAST_INIT = self.prev
+        return False

@@ -1,7 +1,8 @@
 """
 Small shared NN utilities (counterpart of uniception_tpu/nn/common.py):
 Identity, GELU by the configured mode, the reference's Linear init with an
-optional compute dtype, the truncated-normal init, gradient checkpointing, and
+optional compute dtype, the xavier-uniform and truncated-normal inits (zeros
+under fast init, models/utils/config.py), gradient checkpointing, and
 the counterparts of flax's ``nnx.Linear`` and ``nnx.Conv`` (lecun-normal init;
 the conv on channels-last activations) for the modules the JAX package builds
 from them directly, and flax's ``nnx.GroupNorm``.
@@ -21,10 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from uniception_tpu_torch.models.utils.config import get_gelu_mode
+from uniception_tpu_torch.models.utils.config import get_fast_init, get_gelu_mode
 
-__all__ = ["Identity", "gelu_exact", "trunc_normal", "Linear", "LinearX", "remat_call", "lecun_normal", "flax_linear",
-           "ChannelsLastConv", "GroupNorm"]
+__all__ = ["Identity", "gelu_exact", "xavier_uniform", "trunc_normal", "Linear", "LinearX", "remat_call",
+           "lecun_normal", "flax_linear", "ChannelsLastConv", "GroupNorm"]
 
 Identity = nn.Identity
 
@@ -34,11 +35,23 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if get_gelu_mode() == "tanh" else "none")
 
 
+def xavier_uniform(shape, dtype: torch.dtype = torch.float32, *, generator: Optional[torch.Generator] = None,
+                   device=None) -> torch.Tensor:
+    """A new tensor of ``shape`` (torch's layout: (out, in, *kernel)) drawn uniform in +-sqrt(6 / (fan_in +
+    fan_out)) from ``generator``: the JAX package's ``xavier_uniform`` (its nn/common.py:42), and zeros under fast
+    init (models/utils/config.py ``fast_init``), as there."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    with torch.no_grad():
+        return t.zero_() if get_fast_init() else nn.init.xavier_uniform_(t, generator=generator)
+
+
 def trunc_normal(tensor: torch.Tensor, std: float = 0.02, *, generator: Optional[torch.Generator] = None):
     """Fill ``tensor`` in place with ``std`` times a unit normal truncated to (-2, 2), so values lie within two
     ``std`` (their standard deviation is 0.88 ``std``): ``jax.nn.initializers.truncated_normal(stddev=std)``, the
-    JAX package's ``trunc_normal`` (its nn/common.py:54). Returns the tensor."""
+    JAX package's ``trunc_normal`` (its nn/common.py:54); zeros under fast init. Returns the tensor."""
     with torch.no_grad():
+        if get_fast_init():
+            return tensor.zero_()
         nn.init.trunc_normal_(tensor, 0.0, 1.0, -2.0, 2.0, generator=generator)
         return tensor.mul_(std)
 
@@ -69,11 +82,14 @@ def LinearX(
     generator: Optional[torch.Generator] = None,
 ) -> Linear:
     """:class:`Linear` with the reference's init scheme: xavier-uniform
-    weight, zero bias (reference: encoders/croco.py:136-145 et al.).
-    ``dtype`` is the compute dtype."""
+    weight (zeros under fast init), zero bias (reference:
+    encoders/croco.py:136-145 et al.). ``dtype`` is the compute dtype."""
     lin = Linear(in_features, out_features, bias=bias, device=device, dtype=dtype)
     with torch.no_grad():
-        nn.init.xavier_uniform_(lin.weight, generator=generator)
+        if get_fast_init():
+            lin.weight.zero_()
+        else:
+            nn.init.xavier_uniform_(lin.weight, generator=generator)
         if bias:
             lin.bias.zero_()
     return lin

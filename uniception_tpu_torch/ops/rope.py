@@ -14,7 +14,10 @@ gradient: the transpose of a rotation is the rotation by the opposite angle
 
 Two implementations over (B, N, H, D) tokens and (B, N, 2) integer (y, x)
 positions:
-    * :func:`rope_2d` — plain PyTorch, the reference for the kernel;
+    * :func:`rope_2d` — plain PyTorch, the reference for the kernel (and
+      :func:`rope_precompute_cos_sin` / :func:`rope_2d_from_cos_sin`, the JAX
+      package's plain pair with tables computed once and the rotation in the
+      token dtype);
     * :func:`rope_2d_kernel` — the hand-written CUDA kernel (csrc/rope.cu) for
       CUDA tensors, through :class:`Rope2DFunction` when a gradient is
       needed; on a CPU tensor it takes :func:`rope_2d`.
@@ -25,7 +28,8 @@ import torch
 from uniception_tpu_torch.models.utils.config import get_attention_impl
 from uniception_tpu_torch.ops import kernel_lib
 
-__all__ = ["rope_2d", "rope_2d_kernel", "Rope2DFunction", "Rope2D"]
+__all__ = ["rope_2d", "rope_precompute_cos_sin", "rope_2d_from_cos_sin", "rope_2d_kernel", "Rope2DFunction",
+           "Rope2D"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,6 +38,30 @@ def _inv_freq(quarter: int, base: float, f0: float, device) -> torch.Tensor:
     # computed in float64 and rounded once, exactly as the kernel computes its table
     q = torch.arange(quarter, dtype=torch.float64, device=device)
     return (f0 / base ** (q / quarter)).to(torch.float32)
+
+
+def rope_precompute_cos_sin(positions: torch.Tensor, head_dim: int, base: float = 100.0, f0: float = 1.0):
+    """(cos, sin) tables of shape (B, N, 2, D/4) in fp32 for (B, N, 2) integer
+    (y, x) positions: axis 2 indexes (y, x), the last axis the quarter's
+    frequencies (JAX ``rope_precompute_cos_sin``)."""
+    if head_dim % 4 != 0:
+        raise ValueError(f"head dim {head_dim} must be a multiple of 4 for RoPE2D")
+    quarter = head_dim // 4
+    ang = positions.to(torch.float32)[..., None] * _inv_freq(quarter, base, f0, positions.device)
+    return ang.cos(), ang.sin()
+
+
+def rope_2d_from_cos_sin(tokens: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """RoPE2D of (B, N, H, D) tokens from precomputed (B, N, 2, D/4) tables,
+    computed in the tokens' dtype (JAX ``rope_2d_from_cos_sin``)."""
+    B, N, H, D = tokens.shape
+    Q = D // 4
+    dt = tokens.dtype
+    t = tokens.reshape(B, N, H, 2, 2, Q)
+    u, v = t[..., 0, :], t[..., 1, :]
+    c = cos[:, :, None].to(dt)  # (B, N, 1, 2, Q)
+    s = sin[:, :, None].to(dt)
+    return torch.stack([u * c - v * s, v * c + u * s], dim=-2).reshape(B, N, H, D)
 
 
 def rope_2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0, f0: float = 1.0) -> torch.Tensor:

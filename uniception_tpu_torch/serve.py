@@ -27,14 +27,18 @@ canvas and come back transposed (``extract_view`` unpacks them).
 selection (models/utils/config.py) over what the environment variables
 ``UNICEPTION_TPU_ATTN``, ``_ATTN_QUANT``, ``_CONV3X3`` and ``_GELU`` chose at
 import; the heads' dtype is ``build_model``'s ``head_dtype`` (fp32 from the
-command line). Not ported from the JAX example: its
-XLA compile cache and AOT artifacts (``--compile-cache``, ``--save-artifact``,
-``--artifact``), ``--no-scan`` (the port runs the loop layout and reads both)
-and ``--gptq``.
+command line). ``--gptq PATH`` overwrites the int8 trunk's codes with
+calibrated GPTQ codes (``python -m uniception_tpu_torch.calibrate_gptq``, or
+the JAX package's ``scripts/calibrate_gptq.py``: the npz crosses unchanged);
+it needs an int8 model (``--int8`` or a quantized checkpoint). Not ported from
+the JAX example: its XLA compile cache and AOT artifacts (``--compile-cache``,
+``--save-artifact``, ``--artifact``) and ``--no-scan`` (the port runs the
+loop layout and reads both).
 
 Usage:
     python -m uniception_tpu_torch.serve --img-size 512 --batch 2 --pairs 8
     python -m uniception_tpu_torch.serve --head dpt --int8
+    python -m uniception_tpu_torch.serve --int8 --gptq gptq_dust3r.npz
     python -m uniception_tpu_torch.serve --model flow --head dpt --buckets --pairs 10
     python -m uniception_tpu_torch.serve --checkpoint dust3r.nsv --buckets
     python -m uniception_tpu_torch.serve --device cpu --img-size 32 \\
@@ -61,6 +65,7 @@ from uniception_tpu_torch.models.factory.dust3r import DUSt3R
 from uniception_tpu_torch.models.factory.flow import UFMFlow
 from uniception_tpu_torch.models.factory.multiview import MultiViewPointmapModel
 from uniception_tpu_torch.models.utils import config
+from uniception_tpu_torch.nn.gptq import apply_gptq, load_gptq_npz
 from uniception_tpu_torch.nn.quant import quantize_linears, quantize_trunk
 from uniception_tpu_torch.utils.checkpoint import load_checkpoint
 from uniception_tpu_torch.utils.coldstart import (
@@ -82,6 +87,9 @@ __all__ = [
     "serve_bucketed",
     "main",
 ]
+
+
+_GPTQ_NEEDS_INT8 = "--gptq requires an int8-quantized model (--int8 or a quantized checkpoint)"
 
 
 def make_model(model: str, img_size, dims, *, dtype, head, head_dtype, landscape_only, device=None, generator=None,
@@ -144,6 +152,7 @@ def build_model(
     landscape_only: bool = False,
     num_views: int = 4,
     attention_type: str = "alternating",
+    gptq: Optional[str] = None,
 ) -> nn.Module:
     """The serving model: ``model`` "dust3r" (ManyAR patch embed), "flow"
     (``UFMFlow``) or "multiview" (``MultiViewPointmapModel`` over ``num_views``
@@ -158,9 +167,14 @@ def build_model(
     under ``int8_policy`` are then quantized to int8, those under
     ``int8_asym`` with zero-point activations (nn/quant.py trunk_policy); a
     native checkpoint quantized offline is served int8 as its meta says.
-    The returned module's ``quant_spec`` is (policy, asym), or None when not
-    quantized.
+    ``gptq`` names an npz of calibrated codes (nn/gptq.py load_gptq_npz) that
+    then overwrite the quantized layers' codes; it needs an int8 model and
+    raises SystemExit, before any model is built where it can tell, without
+    one. The returned module's ``quant_spec`` is (policy, asym), or None when
+    not quantized.
     """
+    if gptq and not int8 and (checkpoint is None or not is_native_state(checkpoint)):
+        raise SystemExit(_GPTQ_NEEDS_INT8)
     device = torch.device(device)
     size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
     dims = (enc_depth, enc_dim, enc_heads, dec_depth, dec_dim, dec_heads)
@@ -175,6 +189,8 @@ def build_model(
     elif is_native_state(checkpoint):
         arrays, meta = load_native_state(checkpoint)
         pre_quantized = meta.get("quant") is not None
+        if gptq and not (int8 or pre_quantized):
+            raise SystemExit(_GPTQ_NEEDS_INT8)
         if pre_quantized:
             quant_spec = (meta.get("quant_policy", "all"), meta.get("quant_asym", "none"))
             if not int8:
@@ -198,6 +214,9 @@ def build_model(
         materialize(m, state_dict=ckpt["model"], ignore=m.checkpoint_alias_patterns(), device=device)
         if int8:
             quantize_trunk(m, int8_policy, asym=int8_asym)
+    if gptq:
+        n_g = apply_gptq(m, load_gptq_npz(gptq))
+        print(f"GPTQ codes applied to {n_g} layers from {gptq}")
     m.quant_spec = quant_spec
     return m.eval()
 
@@ -413,6 +432,9 @@ def parse_args(argv=None):
                         "bf16: int8 attention, bf16 heads and the conv kernel are set from Python (see the module doc)")
     p.add_argument("--int8-policy", default="all", help="(--int8) mixed-precision trunk policy (nn/quant.py trunk_policy)")
     p.add_argument("--int8-asym", default="none", help="(--int8) which quantized layers use zero-point activations")
+    p.add_argument("--gptq", default=None,
+                   help="(--int8) npz of calibrated GPTQ codes (python -m uniception_tpu_torch.calibrate_gptq, or the "
+                        "JAX package's scripts/calibrate_gptq.py): the same kernels and scales, better int8 codes")
     p.add_argument("--attn", choices=["kernel", "fused", "naive"], default=None,
                    help="attention implementation (default: UNICEPTION_TPU_ATTN, else kernel)")
     p.add_argument("--attn-quant", choices=["none", "int8", "int8pv"], default=None,
@@ -445,6 +467,7 @@ def main(argv=None):
         args.img_size, args.enc_depth, args.enc_dim, args.enc_heads, args.dec_depth, args.dec_dim, args.dec_heads,
         device=device, head=args.head, int8=args.int8, int8_policy=args.int8_policy, int8_asym=args.int8_asym,
         model=args.model, checkpoint=args.checkpoint, landscape_only=args.buckets and args.model == "dust3r",
+        gptq=args.gptq,
     )
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     source = args.checkpoint or "seeded random weights"

@@ -96,10 +96,13 @@ def _skipped(path: str) -> bool:
 
 
 def abstract_construct(thunk: Callable[[], nn.Module]) -> nn.Module:
-    """Build a module on the ``meta`` device: its tensors have shapes and
-    dtypes but no storage, and no initializer computes anything. The thunk
-    must not name a device of its own."""
-    with torch.device("meta"):
+    """Build a module on the ``meta`` device, under fast init
+    (models/utils/config.py): its tensors have shapes and dtypes but no
+    storage, and no initializer computes anything. The thunk must not name a
+    device of its own."""
+    from uniception_tpu_torch.models.utils.config import fast_init
+
+    with torch.device("meta"), fast_init(True):
         return thunk()
 
 
