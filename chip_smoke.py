@@ -265,6 +265,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                rotate (pairs/s, peak memory), and convert_checkpoints --int8
                --gptq to an .nsv (in a temporary directory inside the
                checkout, removed at the end) read back bit for bit.
+   49. cosmos video: CV8x8x8 and DV8x16x16 through CausalVideoTokenizer at
+               the published widths over 17-frame clips (RandomState(0)):
+               CV at 512 x 2 bf16 and x 1 fp32, DV at 512 x 2 bf16, CV at
+               1024 x 1 bf16, against the plain path with exact launches (K1
+               2 per autoencode at D = 512, the mid blocks; no K7 with the
+               3x3-conv kernel on) and every K1 call held against its plain
+               version on the same activations (bf16 in ulps with the
+               dropped-tile control, fp32 at phase 47's bars); latents,
+               reconstructions no farther from the fp32 path than the plain
+               path's, DV's FSQ indices that flip, frames/s, device ms and
+               peak memory; the video CLI once on the card;
+   50. PE language: PE-Core-L14-336 CLIP through CLIP.from_config in bf16
+               and fp32 on 8 images and 8 token sequences: encode_image
+               (K1 24 at D = 64, 1 at D = 128) and encode_text (no kernel)
+               against the plain path, the logit scale; the Llama
+               BaseTransformer (1024 wide, 16 heads over 4 kv heads, 8
+               layers, 2 x 1024 tokens) with mask=None (K1 8) and "causal"
+               (none); images/s, texts/s and device ms; then K1 at the new
+               shapes of both phases beside its plain version, SDPA and the
+               bound.
 
 The line before the last is a JSON object with each kernel's launches on the
 serving, training and diagnostic runs, its error against the plain version,
@@ -3540,10 +3560,13 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def cosmos_calls_checked(torch, fa, c3, record):
+def cosmos_calls_checked(torch, fa, c3, record, control=False):
     """A context in which every K7 and K1 call of the Cosmos path is held against its plain version on the same
     activations: K7 in bf16 ulps at |plain| >= 1/16 (K7_ULPS), K1 in bf16 ulps of max(|plain|, 1/64) (K1_MV_ULPS) or
-    fp32 max abs (K1_FP32_TOL). ``record`` collects the worst of each; the launches count as before."""
+    fp32 max abs (K1_FP32_TOL). ``record`` collects the worst of each; the launches count as before. With
+    ``control``, each bf16 K1 call also records (least over the calls, "K1 control") how far the plain version without
+    the last key tile of K1 at D = 512 lands from the plain version, and each fp32 call ||out - plain|| / ||plain||
+    ("K1 rel")."""
     import contextlib
 
     import uniception_tpu_torch.nn.dpt_parts as dpt_parts
@@ -3561,6 +3584,13 @@ def cosmos_calls_checked(torch, fa, c3, record):
         err = (_ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR) if q.dtype == torch.bfloat16 else
                (out - ref).abs().max().item())
         record["K1"] = max(record.get("K1", 0.0), err)
+        if control and q.dtype == torch.bfloat16:
+            lost = k.shape[1] % fa.WIDE_ROWS or fa.WIDE_ROWS
+            dropped = _ulps(fa.flash_attention_ref(q, k[:, :-lost], v[:, :-lost], scale), ref, 7,
+                            floor=K1_MV_ULP_FLOOR)
+            record["K1 control"] = min(record.get("K1 control", math.inf), dropped)
+        elif control:
+            record["K1 rel"] = max(record.get("K1 rel", 0.0), ((out - ref).norm() / ref.norm()).item())
         return out
 
     @contextlib.contextmanager
@@ -4645,6 +4675,284 @@ def phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card, k
     return total
 
 
+# --- Phases 49-50: the Cosmos causal video tokenizer and PE's language side -------------------------------------------
+
+# Phase 49: (tokenizer, spatial compression, side, batch, dtype) through CausalVideoTokenizer at the published widths
+# (CV8x8x8: FACTORIZED, haar patch 4, 16 latent channels; DV8x16x16: FSQ levels 8, 8, 8, 5, 5, 5), temporal
+# compression 8, clips of VIDEO_FRAMES frames (5 after the 3D patching, 3 latent frames). The configs'
+# attn_resolutions ([32] at resolution 1024) match no pyramid level (the encoder's 256, 128, 64; the decoder's 64, 128,
+# 256), so only the two mid blocks attend: K1 VIDEO_K1 times per autoencode at D = 512 over B * 3 latent frames of
+# (side / sc)^2 tokens. The 3D convs are F.conv3d (no K7, even under the 3x3-conv kernel); the causal temporal
+# attention is the explicit einsum.
+VIDEO_RUNS = [("CV", 8, 512, 2, "bf16"), ("CV", 8, 512, 1, "fp32"), ("DV", 16, 512, 2, "bf16"),
+              ("CV", 8, 1024, 1, "bf16")]
+VIDEO_FRAMES, VIDEO_TEMPORAL, VIDEO_LATENT_FRAMES, VIDEO_K1 = 17, 8, 3, 2
+# K1 at the paths' shapes, (name, B, Nq, Nk, H, D, dtypes): the video mid blocks (B * 3 latent frames), PE-Core-L14-336's
+# vision blocks over 8 images of 577 tokens and its attention pool (one probe over 577 keys, 8 heads of 128), and the
+# Llama BaseTransformer at batch 2 (16 query heads, the 4 kv heads repeated). CV at 1024 runs in bf16 only: its fp32
+# output, an average over 16384 keys, is small enough that the fp32 sums' 5.5e-7 read 2.6e-6 of its norm, above phase
+# 47's norm-relative bar, which no fp32 path at that key count is held to (phase 38 holds (1, 16384) at max abs).
+BOTH = ("bf16", "fp32")
+K1_NEW_SHAPES = [("CV8x8x8 512 x2", 6, 4096, 4096, 1, 512, BOTH), ("DV8x16x16 512 x2", 6, 1024, 1024, 1, 512, BOTH),
+                 ("CV8x8x8 1024 x1", 3, 16384, 16384, 1, 512, ("bf16",)),
+                 ("PE-Core-L14 blocks", 8, 577, 577, 16, 64, BOTH), ("PE-Core-L14 pool", 8, 1, 577, 8, 128, BOTH),
+                 ("Llama 1024 GQA", 2, 1024, 1024, 16, 64, BOTH)]
+# Phase 50: PE-Core-L14-336 CLIP (ViT-L/14 at 336: 24 blocks, 16 heads of 64, a cls token, the attention pool of 8
+# heads of 128; the text tower: 24 blocks of 1024, 16 heads, a context of 32), 8 images and 8 token sequences
+PE_CLIP, PE_CLIP_BATCH, PE_EOT = "PE-Core-L14-336", 8, 49407
+LLAMA_BATCH, LLAMA_DIM, LLAMA_HEADS, LLAMA_KV_HEADS = 2, 1024, 16, 4
+
+
+def new_k1_times(torch, fa, card, seed):
+    """K1 at K1_NEW_SHAPES, q, k and v strided views of one tensor: bf16 in ulps of max(|plain|, 1/64) (the control
+    without the last key tile), fp32 at phase 47's bars; each timed by CUDA graphs beside the plain version, SDPA (at D
+    = 512 its memory-efficient backend alone, which the default call runs) and the bound. Returns {name: {"bf16" |
+    "fp32": timing record}} and the worst bf16 max abs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    times, worst = {}, 0.0
+    for name, B, Nq, Nk, H, D, dtypes in K1_NEW_SHAPES:
+        times[name] = {}
+        lost = Nk % (fa.WIDE_ROWS if D > fa.WIDE_FROM else 128) or min(Nk - 1, 64)
+        for dt in (getattr(torch, {"bf16": "bfloat16", "fp32": "float32"}[d]) for d in dtypes):
+            q = torch.randn(B, Nq, 3, H, D, device="cuda", generator=gen).to(dt)[:, :, 0]
+            k, v = torch.randn(B, Nk, 2, H, D, device="cuda", generator=gen).to(dt).unbind(2)
+            out, ref = fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v)
+            tag = f"49-50 K1 {name} ({B},{Nq},{Nk},{H},{D}) {'bf16' if dt == torch.bfloat16 else 'fp32'}"
+            if dt == torch.bfloat16:
+                err = _ulps(out, ref, 7, floor=K1_MV_ULP_FLOOR)
+                control = _ulps(fa.flash_attention_ref(q, k[:, :-lost], v[:, :-lost]), ref, 7, floor=K1_MV_ULP_FLOOR)
+                worst = max(worst, (out.float() - ref.float()).abs().max().item())
+                require(err <= K1_MV_ULPS and control >= K1_MV_CONTROL_ULPS, f"{tag}: {err} ulps (tol {K1_MV_ULPS}), "
+                        f"the control {control} (>= {K1_MV_CONTROL_ULPS})")
+                check = f"{err:.2f} ulps (tol {K1_MV_ULPS}), the control without the last {lost} keys {control:.1f}"
+                b = attention_bound(B, Nq, Nk, H, D)
+            else:
+                err, rel = (out - ref).abs().max().item(), ((out - ref).norm() / ref.norm()).item()
+                require(err <= K1_FP32_TOL and rel <= ZOO_K1_FP32_REL_TOL, f"{tag}: max abs {err}, rel {rel}")
+                check = f"max abs {err:.2e} (tol {K1_FP32_TOL}), ||err|| / ||plain|| {rel:.2e}"
+                b = bound({"tf32x3": 4 * B * H * Nq * Nk * D}, (2 * Nq + 2 * Nk) * B * H * D * 4)
+            del out, ref
+            ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v), iters=5)
+            plain_ms = graph_ms(torch, lambda: fa.flash_attention_ref(q, k, v), iters=3)
+            lib_ms, lib_name = graph_ms(torch, lambda: sdpa(q, k, v), iters=5), "default"
+            if D > 256:  # flash takes D <= 256: the default call runs the memory-efficient backend, timed alone
+                try:
+                    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                        lib_ms, lib_name = graph_ms(torch, lambda: sdpa(q, k, v), iters=5), "memory-efficient"
+                except RuntimeError:  # it does not take these inputs: the default call's time stands
+                    pass
+            times[name]["bf16" if dt == torch.bfloat16 else "fp32"] = dict(ms=ms, plain_ms=plain_ms,
+                                                                           library_ms=lib_ms, bound=b)
+            print(f"[{tag}] {check}; {ms:.4f} ms ({4 * B * H * Nq * Nk * D / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.4f} ms, SDPA ({lib_name}) {lib_ms:.4f} ms ({ms / lib_ms:.3f}x), bound {b[0]:.4f} ms "
+                  f"({b[1]}), share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    return times, worst
+
+
+def phase_cosmos_video(torch, np, config, fa, c3, counters, card):
+    """Phase 49: CV and DV through CausalVideoTokenizer at VIDEO_RUNS (seed 0, clips from RandomState(0) clipped to
+    [-1, 1], the published widths, nothing cut), the 3x3-conv kernel switched on: one autoencode with exact launches
+    (K1 VIDEO_K1, nothing else) with every K1 call held against its plain version on the same activations (bf16 in
+    ulps with the dropped-tile control, fp32 at phase 47's bars); the kernel path against the plain path (attention
+    "naive") on the same weights: the pre-quantization latent within COSMOS_REL_TOL, the reconstruction (DV: the
+    decoder on the plain path's indices) within COSMOS_REC_REL_TOL in bf16 (COSMOS_REL_TOL in fp32) and no farther
+    from the fp32 plain path than COSMOS_RUNG_SLACK x the plain bf16 path's distance; DV's FSQ indices that flip;
+    frames/s, device ms and peak memory; the video CLI once on the card. Returns the launches."""
+    from uniception_tpu_torch.models.libs.cosmos_tokenizer.video_lib import CausalVideoTokenizer
+
+    total = {k: 0 for k in counters}
+
+    def nrel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    for kind, comp, side, B, dt in VIDEO_RUNS:
+        tag = f"49 {kind}{VIDEO_TEMPORAL}x{comp}x{comp} {VIDEO_FRAMES}x{side}^2 x{B} {dt}"
+        bf16 = dt == "bf16"
+        tok = CausalVideoTokenizer(kind, comp, VIDEO_TEMPORAL, device="cuda",
+                                   dtype=torch.bfloat16 if bf16 else None, seed=SEED)
+        clip = np.random.RandomState(SEED).randn(B, 3, VIDEO_FRAMES, side, side).astype(np.float32).clip(-1, 1)
+        x = torch.from_numpy(clip).cuda()
+
+        def latent(t):  # the encoder's continuous output: CV's latent, DV's before the FSQ
+            with torch.no_grad():
+                return t.model.quant_conv(t.model.encoder(x))
+
+        config.set_conv3x3_impl("kernel")
+        try:
+            config.set_attention_impl("naive")
+            try:
+                plain_lat, plain_enc = latent(tok), tok.encode(x)
+                plain_auto = tok.autoencode(x)
+                plain_rec = plain_auto if kind == "CV" else tok.decode(plain_enc[0]).float().cpu().numpy()
+                exact = None
+                if bf16:  # the same weights in fp32 on the plain path: where the bf16 rung itself lands
+                    twin = CausalVideoTokenizer(kind, comp, VIDEO_TEMPORAL, device="cuda", seed=SEED)
+                    exact = twin.autoencode(x) if kind == "CV" else twin.decode(plain_enc[0]).cpu().numpy()
+                    del twin
+                torch.cuda.synchronize()
+            finally:
+                config.set_attention_impl("kernel")
+            want = {**{k: 0 for k in counters}, "K1": VIDEO_K1}
+            calls = {}
+            fa.flash_attention.head_dims.clear()
+            with cosmos_calls_checked(torch, fa, c3, calls, control=True):
+                out = counted_forward(torch, counters, lambda: tok.autoencode(x), tag, want, total)
+            dims = dict(fa.flash_attention.head_dims)
+            require(dims == {COSMOS_D: VIDEO_K1}, f"{tag}: K1 by head dim {dims}")
+            if bf16:
+                print(f"[{tag}] every K1 call against its plain version on the same activations: {calls['K1']:.2f} "
+                      f"ulps of max(|plain|, 1/64) (tol {K1_MV_ULPS}); the plain version without the last key tile "
+                      f"{calls['K1 control']:.1f} ulps at the least (>= {K1_MV_CONTROL_ULPS})")
+                require(calls["K1"] <= K1_MV_ULPS and calls["K1 control"] >= K1_MV_CONTROL_ULPS, f"{tag}: {calls}")
+            else:
+                print(f"[{tag}] every K1 call against its plain version on the same activations: max abs "
+                      f"{calls['K1']:.2e} (tol {K1_FP32_TOL}), ||err|| / ||plain|| {calls['K1 rel']:.2e} (tol "
+                      f"{ZOO_K1_FP32_REL_TOL})")
+                require(calls["K1"] <= K1_FP32_TOL and calls["K1 rel"] <= ZOO_K1_FP32_REL_TOL, f"{tag}: {calls}")
+            require(out.shape == clip.shape and np.isfinite(out).all(), f"{tag}: reconstruction {out.shape}")
+            tol = COSMOS_REL_TOL[dt]
+            lat = latent(tok)
+            grid = side // comp
+            require(tuple(lat.shape) == (B, 16 if kind == "CV" else 6, VIDEO_LATENT_FRAMES, grid, grid),
+                    f"{tag}: latent {tuple(lat.shape)}")
+            rel_lat = _rel(lat, plain_lat)
+            detail = f"latent {tuple(lat.shape)} {rel_lat:.3e} (tol {tol})"
+            require(rel_lat <= tol, f"{tag}: latent kernels vs plain {rel_lat} > {tol}")
+            if kind == "CV":
+                rec, what = out, "reconstruction"
+            else:
+                idx, codes = tok.encode(x)
+                flips = (idx != plain_enc[0]).float().mean().item()
+                detail += (f"; FSQ indices {tuple(idx.shape)}: {flips:.4%} flip (printed, not held); codes "
+                           f"{_rel(codes, plain_enc[1]):.3e}; the reconstruction through the flipped indices "
+                           f"{nrel(out, plain_auto):.3e}")
+                rec, what = tok.decode(plain_enc[0]).float().cpu().numpy(), "decoder on the plain path's indices"
+            rel_rec = nrel(rec, plain_rec)
+            rec_tol = tol if exact is None else COSMOS_REC_REL_TOL
+            rung = ""
+            if exact is not None:
+                d_plain, d_kernel = nrel(plain_rec, exact), nrel(rec, exact)
+                rung = (f"; from the fp32 plain path: the plain path {d_plain:.3e}, the kernels {d_kernel:.3e} "
+                        f"(<= {COSMOS_RUNG_SLACK} x the plain path's)")
+                require(d_kernel <= COSMOS_RUNG_SLACK * d_plain, f"{tag}: the kernels land {d_kernel} from the fp32 "
+                        f"path, the plain path {d_plain}")
+            print(f"[{tag}] kernels vs plain path ||kernel - plain|| / ||plain||: {detail}; {what} {rel_rec:.3e} "
+                  f"(tol {rec_tol}){rung}; mean |recon - input| {np.abs(out - clip).mean():.4f}")
+            require(rel_rec <= rec_tol, f"{tag}: {what} kernels vs plain {rel_rec} > {rec_tol}")
+            forward_timing(torch, lambda: tok.autoencode(x), B * VIDEO_FRAMES, "frames",
+                           f"{B} clips of {VIDEO_FRAMES} frames per autoencode", tag, card)
+        finally:
+            config.set_conv3x3_impl("torch")
+        del tok, x, plain_lat, plain_enc, plain_auto, plain_rec, exact, out, rec, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "uniception_tpu_torch.models.libs.cosmos_tokenizer.video_cli", "--device", "cuda",
+           "--frames", str(VIDEO_FRAMES), "--size", "512", "--dtype", "bfloat16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    fmt = (r"autoencode: input \(1, 3, 17, 512, 512\) -> recon \(1, 3, 17, 512, 512\), mean abs err \d+\.\d{4}")
+    import re
+
+    require(proc.returncode == 0 and re.fullmatch(fmt, line), f"49 CLI: rc {proc.returncode}\n{proc.stdout}\n"
+            f"{proc.stderr[-2000:]}")
+    print(f"[49 CLI] {' '.join(cmd[2:])} on the card in {time.perf_counter() - t0:.1f} s (process start, build check, "
+          f"weights, one autoencode): {line}")
+    return total
+
+
+def phase_pe_language(torch, np, config, fa, counters, card):
+    """Phase 50: PE-Core-L14-336 CLIP through CLIP.from_config (seed 0) in bf16 and fp32 on PE_CLIP_BATCH images at
+    336^2 and as many token sequences of the context's 32 ids (RandomState(0); each row's EOT its highest id):
+    encode_image with exact launches (K1 24 at D = 64, 1 at D = 128) and encode_text with none, each against the plain
+    path (attention "naive"), the logit scale unchanged; the Llama BaseTransformer (1024 wide, 16 heads over 4 kv
+    heads, the args' 8 layers and max_seqlen 1024) at batch 2: mask=None with K1 once a layer against the plain path,
+    mask="causal" with no launch; images/s, texts/s and device ms. Returns the launches and K1's by head dim."""
+    from uniception_tpu_torch.models.libs.perception_encoder.pe import CLIP, PE_TEXT_CONFIG, PE_VISION_CONFIG
+    from uniception_tpu_torch.models.libs.perception_encoder.transformer import BaseTransformer, BaseTransformerArgs
+
+    total, by_dim = {k: 0 for k in counters}, {}
+    none = {k: 0 for k in counters}
+    vcfg, tcfg = PE_VISION_CONFIG[PE_CLIP], PE_TEXT_CONFIG[PE_CLIP]
+
+    def seen(dims):
+        for d, n in dims.items():
+            by_dim[d] = by_dim.get(d, 0) + n
+
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.randn(PE_CLIP_BATCH, 3, vcfg.image_size, vcfg.image_size).astype(np.float32)).cuda()
+    ids = rng.randint(1, PE_EOT, (PE_CLIP_BATCH, tcfg.context_length))
+    ids[np.arange(PE_CLIP_BATCH), rng.randint(1, tcfg.context_length, PE_CLIP_BATCH)] = PE_EOT
+    text = torch.from_numpy(ids).cuda()
+    for dt in ("bf16", "fp32"):
+        tol = MODEL_REL_TOL if dt == "bf16" else MODEL_FP32_REL_TOL
+        model = CLIP.from_config(PE_CLIP, device="cuda", dtype=torch.bfloat16 if dt == "bf16" else None,
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+        heads = vcfg.width // vcfg.heads
+        tag = f"50 CLIP {PE_CLIP} {dt}"
+        fa.flash_attention.head_dims.clear()
+
+        def enc_image():
+            with torch.inference_mode():
+                return [model.encode_image(images)]
+
+        def enc_text():
+            with torch.inference_mode():
+                return [model.encode_text(text)]
+
+        img = impl_against(torch, config, counters, enc_image, f"{tag} encode_image",
+                           {**none, "K1": vcfg.layers + 1}, total, tol, "kernel", "naive")
+        dims = dict(fa.flash_attention.head_dims)
+        require(dims == {heads: vcfg.layers, vcfg.width // vcfg.attn_pooler_heads: 1}, f"{tag}: K1 by head dim {dims}")
+        seen(dims)
+        txt = impl_against(torch, config, counters, enc_text, f"{tag} encode_text", none, total, tol, "kernel",
+                           "naive")
+        with torch.inference_mode():
+            scale = model()[2].item()
+        require(img[0].shape == (PE_CLIP_BATCH, vcfg.output_dim) and txt[0].shape == (PE_CLIP_BATCH, tcfg.output_dim)
+                and math.isclose(scale, 1 / 0.07, rel_tol=1e-6), f"{tag}: {img[0].shape}, {txt[0].shape}, {scale}")
+        print(f"[{tag}] image features {tuple(img[0].shape)}, text features {tuple(txt[0].shape)}, exp(logit_scale) "
+              f"{scale:.6f} (1 / 0.07); K1 by head dim {dims}")
+        forward_timing(torch, enc_image, PE_CLIP_BATCH, "images", f"{PE_CLIP_BATCH} images at 336^2", f"{tag} image",
+                       card, top=6)
+        forward_timing(torch, enc_text, PE_CLIP_BATCH, "texts", f"{PE_CLIP_BATCH} texts of {tcfg.context_length}",
+                       f"{tag} text", card, top=6)
+        del model, img, txt
+        torch.cuda.empty_cache()
+
+    args = BaseTransformerArgs(dim=LLAMA_DIM, n_heads=LLAMA_HEADS, n_kv_heads=LLAMA_KV_HEADS)
+    h = torch.from_numpy(rng.randn(LLAMA_BATCH, args.max_seqlen, LLAMA_DIM).astype(np.float32)).cuda()
+    for dt in ("bf16", "fp32"):
+        tol = MODEL_REL_TOL if dt == "bf16" else MODEL_FP32_REL_TOL
+        model = BaseTransformer(args, device="cuda", dtype=torch.bfloat16 if dt == "bf16" else None,
+                                generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+        tag = f"50 BaseTransformer {LLAMA_DIM} x{args.n_layers} GQA {LLAMA_HEADS}/{LLAMA_KV_HEADS} x{LLAMA_BATCH} {dt}"
+        x = h.to(torch.bfloat16) if dt == "bf16" else h
+
+        def run(mask):
+            with torch.inference_mode():
+                return [model(x, mask=mask)]
+
+        fa.flash_attention.head_dims.clear()
+        impl_against(torch, config, counters, lambda: run(None), f"{tag} mask=None", {**none, "K1": args.n_layers},
+                     total, tol, "kernel", "naive")
+        dims = dict(fa.flash_attention.head_dims)
+        require(dims == {LLAMA_DIM // LLAMA_HEADS: args.n_layers}, f"{tag}: K1 by head dim {dims}")
+        seen(dims)
+        out = counted_forward(torch, counters, lambda: run("causal"), f"{tag} mask=causal", none, total)
+        require(torch.isfinite(out[0]).all().item(), f"{tag}: causal output not finite")
+        forward_timing(torch, lambda: run(None), LLAMA_BATCH, "sequences", f"{LLAMA_BATCH} x {args.max_seqlen} tokens",
+                       f"{tag} mask=None", card, top=6)
+        del model, x, out
+        torch.cuda.empty_cache()
+    return total, by_dim
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -4786,6 +5094,11 @@ def main():
     transforms = phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card,
                                        rungs["int8-linear"]["launches"]["K4"] / (SERVE_BATCHES + 2))
     print(f"[48 transforms] launches over phase 48's counted runs: {transforms}")
+    video = phase_cosmos_video(torch, np, config, fa, c3, counters, card)
+    language, language_dims = phase_pe_language(torch, np, config, fa, counters, card)
+    new_k1, new_k1_worst = new_k1_times(torch, fa, card, SEED + 49)
+    print(f"[50 language] launches over phases 49-50's counted runs: video {video}, language {language} (K1 by head "
+          f"dim {language_dims})")
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -4795,8 +5108,8 @@ def main():
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
-              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"] + transforms["K1"],
-              max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"]), k1),
+              + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"] + transforms["K1"]
+              + video["K1"] + language["K1"], max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"], new_k1_worst), k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
               trained["flash_attention_bwd"] + new_train["K3"], max(k3_err, hd_worst["K3"], redesign_worst["K3"]), k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
@@ -4829,6 +5142,13 @@ def main():
     kernels.append(entry(f"flash_attention_fwd fp32 D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))", "flash_attention.cu",
                          "uniception_tpu/ops/flash_attention.py:194", HD_SEEN.get("K1", {}).get(D, 0),
                          redesign_worst["K1 fp32"], redesign["K1 fp32"][name]))
+    # phases 49-50: K1 at the video tokenizer's and CLIP's shapes, launches from those phases' runs at that head dim
+    for name, B, Nq, Nk, H, D, _ in K1_NEW_SHAPES:
+        n = video["K1"] if D == COSMOS_D else language_dims.get(D, 0)
+        for dt, rec in new_k1[name].items():
+            kernels.append(entry(f"flash_attention_fwd {dt} D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))",
+                                 "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194", n, new_k1_worst,
+                                 rec))
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

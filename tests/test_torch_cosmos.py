@@ -4,7 +4,8 @@ distributions (the Gaussian's draw injected from JAX), every quantizer (FSQ and 
 VQ, LFQ), the 2D Encoder and Decoder at a small config (spatial compression 8 and 16, haar and rearrange), the CI
 and DI networks, CosmosEncoder through encoder_factory, CosmosSingleChannel and CosmosFeature with their adaptors,
 ImageTokenizer at the full CI config at 64 x 64 (as tests/models/test_tokenizer_libs.py runs it), the array helpers,
-strict checkpoint loading, the 3D stand-ins that raise, the PNG codec and the image CLI in a subprocess. Each JAX
+strict checkpoint loading, the PNG codec and the image CLI in a subprocess (the video path is
+tests/test_torch_cosmos_video.py's). Each JAX
 module is built from seeded numpy weights and carried across by ``state_dict_from_module`` ->
 ``load_state_dict_numpy`` (strict); inputs come from numpy. The heads and the encoder run at the CI config
 narrowed in both packages' tables (channels 32, multipliers [2, 4]); the tokenizer at its published widths.
@@ -35,7 +36,6 @@ from uniception_tpu.utils.torch_compat import state_dict_from_module
 from uniception_tpu_torch.models import encoders
 from uniception_tpu_torch.models.encoders.base import ViTEncoderInput
 from uniception_tpu_torch.models.libs.cosmos_tokenizer import image_lib, networks, utils
-from uniception_tpu_torch.models.libs.cosmos_tokenizer import modules as tmodules
 from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules import distributions as tdist
 from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules import layers2d as tlayers
 from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules import patching as tpatching
@@ -285,19 +285,6 @@ def test_discrete_image_network_matches_jax(quantizer):
     _close(out.quant_loss, want.quant_loss)
     if quantizer != "LFQ":  # LFQ has no indices -> codes in either package
         _close(net.decode(out.quant_info), _jax_decode(jnet, want.quant_info))
-
-
-def test_video_networks_and_3d_types_raise_naming_their_roadmap_item():
-    "CV and DV, and the 3D encoder and decoder types, are stand-ins: none silently builds a 2D class."
-    assert list(networks.TokenizerConfigs.__members__) == list(jnetworks.TokenizerConfigs.__members__)
-    assert list(networks.TokenizerModels.__members__) == list(jnetworks.TokenizerModels.__members__)
-    for cls in (networks.TokenizerModels.CV.value, networks.TokenizerModels.DV.value,
-                *(m.value for m in tmodules.Encoder3DType), *(m.value for m in tmodules.Decoder3DType)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-            cls(z_channels=16)
-    assert [m.name for m in tmodules.Encoder3DType] == ["BASE", "FACTORIZED"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        utils.load_model("CV", device="cpu")
 
 
 def test_configs_are_the_jax_packages():

@@ -19,7 +19,10 @@ exact launches; K1's fp32 kernel (3xTF32) at every padded head dim, the Cosmos
 shape and the routing of D <= 16 to the CUDA-core kernel, with a dropped-tile
 control, and K3's whole-width kernels above D = 64, bit for bit across two
 calls; GPTQ (nn/gptq.py) on the card against its CPU float64 version, and a K4
-forward on calibrated codes. Every test here needs a CUDA device and skips without one.
+forward on calibrated codes; K1 at the Cosmos video tokenizer's mid-block shapes
+with a dropped-tile control, its 3D spatial attention block on one K1 launch,
+and PE's masked attentions (the text tower's, the Llama Attention's causal one)
+on no kernel. Every test here needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -1657,3 +1660,86 @@ def test_apply_gptq_then_a_k4_forward(gen):
     assert _ulps(out, plain, 7) <= 1
     # the calibrated codes serve closer to the float layer than RTN's on the inputs they were calibrated on
     assert (out.float() - ref_full).norm() < (rtn_out - ref_full).norm()
+
+
+# The Cosmos video tokenizer's mid-block attention (one head of D = 512 over each latent frame's grid, B * T frames):
+# CV8x8x8 over 17-frame 512^2 clips at batch 2 (6 frames of 64^2 tokens) and DV8x16x16 (6 frames of 32^2), held as
+# chip_smoke.py phase 49 holds them: bf16 in ulps of max(|plain|, 1/64) with the last 64-key tile dropped as the
+# control, fp32 at the fp32 bars.
+VIDEO_K1_CONTROL_ULPS = 32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n", [(6, 4096), (6, 1024)], ids=["CV8x8x8-512", "DV8x16x16-512"])
+def test_flash_attention_d512_at_the_video_tokenizer_shapes(gen, b, n, dtype):
+    q, k, v = torch.randn(b, n, 3, 1, 512, device="cuda", generator=gen).to(dtype).unbind(2)
+    before = flash_attention.launches
+    out, ref = flash_attention(q, k, v), flash_attention_ref(q, k, v)
+    assert flash_attention.launches == before + 1
+    if dtype == torch.bfloat16:
+        assert _ulps(out, ref, 7, floor=K1_ULP_FLOOR) <= K1_ULPS
+        control = flash_attention_ref(q, k[:, :-64], v[:, :-64])
+        assert _ulps(control, ref, 7, floor=K1_ULP_FLOOR) >= VIDEO_K1_CONTROL_ULPS
+    else:
+        assert (out - ref).abs().max().item() <= FP32_TOL and ((out - ref).norm() / ref.norm()).item() <= K1_FP32_REL
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_video_spatial_attention_block_launches_one_k1(gen, dtype, b):
+    """A layers3d CausalAttnBlock at the mid blocks' width (C = 512) over 3 frames of 16 x 16: one K1 launch for the
+    B * T frames (at B = 1 the fold's reshape is a view, made contiguous for K1), against the plain path; the causal
+    temporal block beside it launches none."""
+    from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules.layers3d import (CausalAttnBlock,
+                                                                                      CausalTemporalAttnBlock)
+
+    kw = dict(dtype=dtype if dtype == torch.bfloat16 else None, device="cuda", generator=gen)
+    spatial, temporal = CausalAttnBlock(512, **kw).eval(), CausalTemporalAttnBlock(512, **kw).eval()
+    x = torch.randn(b, 512, 3, 16, 16, device="cuda", generator=gen).to(dtype)
+    with torch.no_grad():
+        config.set_attention_impl("naive")
+        try:
+            plain = spatial(x)
+        finally:
+            config.set_attention_impl("kernel")
+        before = flash_attention.launches
+        out = spatial(x)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        temporal(x)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert _rel_norm(out, plain) <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_attentions_launch_no_kernel(gen, dtype):
+    """PE's masked SelfAttention (the text tower's) and the Llama Attention with mask="causal" run the explicit fp32
+    einsum and launch no kernel; the Llama Attention without a mask launches K1 once (GQA: the kv heads repeated)."""
+    from uniception_tpu_torch.models.libs.perception_encoder.pe import SelfAttention
+    from uniception_tpu_torch.models.libs.perception_encoder.transformer import Attention, RotaryEmbedding, causal_mask
+
+    kw = dict(dtype=dtype, device="cuda", generator=gen)
+    pe_attn = SelfAttention(1024, 16, **kw).eval()
+    llama = Attention(1024, 64, 16, 4, 10000.0, **kw).eval()
+    cos, sin = RotaryEmbedding(10000.0, 64, 64, device="cuda")(seqlen=64)
+    x = torch.randn(2, 32, 1024, device="cuda", generator=gen).to(dtype)
+    y = torch.randn(2, 64, 1024, device="cuda", generator=gen).to(dtype)
+    counters = (flash_attention, fused.fused_qkv_rope_attention, flash_attention_int8, rope_2d_kernel)
+    with torch.no_grad():
+        before = [f.launches for f in counters]
+        a = pe_attn(x, attn_mask=causal_mask(32, "cuda"))
+        b = llama(y, cos, sin, mask="causal")
+        torch.cuda.synchronize()
+        assert [f.launches for f in counters] == before
+        c = llama(y, cos, sin)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before[0] + 1
+        config.set_attention_impl("naive")
+        try:
+            plain = llama(y, cos, sin)
+        finally:
+            config.set_attention_impl("kernel")
+    assert all(torch.isfinite(t).all() for t in (a, b, c))
+    assert _rel_norm(c, plain) <= (2e-2 if dtype == torch.bfloat16 else 1e-5)

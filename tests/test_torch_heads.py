@@ -68,7 +68,7 @@ def seeded_jax(ctor, seed=0):
         elif attr in ("scale", "gamma") or (attr == "weight" and len(shape) == 1):
             arr = 1.0 + rng.randn(*shape) * 0.2
         else:
-            fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else shape[0]
+            fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else (shape[0] if shape else 1)
             arr = rng.randn(*shape) * 0.5 / np.sqrt(max(fan_in, 1))
         var.set_value(jnp.asarray(arr.astype(np.float32)))
     return jmod

@@ -66,7 +66,7 @@ def test_import_everything_without_jax_or_nvcc():
                  "models.info_sharing.alternating_attention_transformer", "nn.lora", "train", "models.encoders",
                  "models.encoders.vit", "models.encoders.dinov2", "models.encoders.dune",
                  "models.encoders.patch_embedder", "models.encoders.list", "models.encoders.image_normalizations",
-                 "models.info_sharing", "models.utils.unported", "convert_dino_to_info_sharing",
+                 "models.info_sharing", "convert_dino_to_info_sharing",
                  "models.encoders.radio", "models.encoders.eradio", "models.encoders.dinov3",
                  "models.encoders.perception_encoder", "models.encoders.pixio", "models.encoders.dense_rep_encoder",
                  "models.encoders.global_rep_encoder", "models.libs.perception_encoder.pe",
@@ -75,7 +75,10 @@ def test_import_everything_without_jax_or_nvcc():
                  "models.prediction_heads.global_head", "models.prediction_heads.moge_conv",
                  "models.info_sharing.diff_cross_attention_transformer", "models.encoders.cosmos",
                  "models.prediction_heads.cosmos", "models.libs.cosmos_tokenizer.image_lib",
-                 "models.libs.cosmos_tokenizer.image_cli", "models.libs.cosmos_tokenizer.modules.layers2d", "utils.png"):
+                 "models.libs.cosmos_tokenizer.image_cli", "models.libs.cosmos_tokenizer.modules.layers2d", "utils.png",
+                 "models.libs.cosmos_tokenizer.modules.layers3d", "models.libs.cosmos_tokenizer.video_lib",
+                 "models.libs.cosmos_tokenizer.video_cli", "models.libs.cosmos_tokenizer.networks.continuous_video",
+                 "models.libs.cosmos_tokenizer.networks.discrete_video", "models.libs.perception_encoder.transformer"):
         assert f"uniception_tpu_torch.{name}" in report["modules"]
     assert report["jax"] == []
     assert report["uniception_tpu"] == []  # not even its jax-free modules (utils/checkpoint.py, data/bucketing.py)

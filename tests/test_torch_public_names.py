@@ -28,12 +28,8 @@ OMITTED = {
         "activation_sharding", "get_sequence_parallel", "sequence_parallel", "set_activation_sharding",
         "set_sequence_parallel")},
     "nn/quant.py": {"force_xla_int8": "ROADMAP queue 1 item 12"},
-    "models/libs/perception_encoder/pe.py": {n: "ROADMAP queue 1 item 6" for n in (
-        "CLIP", "PETextConfig", "PE_TEXT_CONFIG", "TextTransformer")},
-    "models/libs/cosmos_tokenizer/modules/patching.py": {n: "ROADMAP queue 1 item 17" for n in (
-        "Patcher3D", "UnPatcher3D")},
 }
-LABEL = re.compile(r"^(ROADMAP queue 1 item (4|6|12|17)|Not ported: .+)$")
+LABEL = re.compile(r"^(ROADMAP queue 1 item (4|12)|Not ported: .+)$")
 
 
 def _public(path, port):
@@ -81,7 +77,9 @@ def _shared_modules():
 
 def test_every_shared_module_has_the_jax_public_names():
     shared = list(_shared_modules())
-    assert {"nn/gptq.py", "nn/smooth.py", "utils/viz.py", "utils/debug.py", "ops/rope.py"} <= set(shared)
+    assert {"nn/gptq.py", "nn/smooth.py", "utils/viz.py", "utils/debug.py", "ops/rope.py",
+            "models/libs/perception_encoder/transformer.py", "models/libs/cosmos_tokenizer/modules/layers3d.py",
+            "models/libs/cosmos_tokenizer/video_lib.py"} <= set(shared)
     missing = {}
     for rel in shared:
         lacking = _public(os.path.join(JAX_ROOT, rel), False) - _public(os.path.join(PORT_ROOT, rel), True)

@@ -2,9 +2,8 @@
 Encoder registry and factories (counterpart of uniception_tpu/models/encoders/__init__.py; reference
 uniception/models/encoders/__init__.py:37-140).
 
-``ENCODER_CONFIGS`` lists every key of the JAX package's registry, and the port builds each. A key whose encoder
-the port did not build would hold a stand-in class (``models/utils/unported.py``) that raises NotImplementedError
-naming its ROADMAP item (:func:`is_ported`); an unknown key raises ValueError. ``python -m
+``ENCODER_CONFIGS`` lists every key of the JAX package's registry, and the port builds each (:func:`is_ported`: a
+stand-in class would carry a ``roadmap_item``; none is left); an unknown key raises ValueError. ``python -m
 uniception_tpu_torch.models.encoders.list`` prints the table.
 
 The factories are entry points: they build on the card unless the caller passes ``device="cpu"`` (or another

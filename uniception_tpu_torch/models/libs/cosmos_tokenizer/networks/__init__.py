@@ -1,8 +1,7 @@
 """
 The Cosmos tokenizer network registry (counterpart of uniception_tpu/models/libs/cosmos_tokenizer/networks/__init__.py;
-reference uniception/models/libs/cosmos_tokenizer/networks/__init__.py:28-39). All four configs are listed; the
-image networks (CI, DI) build, the causal-video ones (CV, DV) are stand-ins that raise NotImplementedError naming
-their ROADMAP item.
+reference uniception/models/libs/cosmos_tokenizer/networks/__init__.py:28-39): the image networks (CI, DI) and the
+causal-video ones (CV, DV), whose published configs use the FACTORIZED encoder and decoder.
 """
 
 from enum import Enum
@@ -14,10 +13,10 @@ from uniception_tpu_torch.models.libs.cosmos_tokenizer.networks.configs import (
     discrete_image as discrete_image_dict,
     discrete_video as discrete_video_dict,
 )
-from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules import COSMOS_3D
 from uniception_tpu_torch.models.libs.cosmos_tokenizer.networks.continuous_image import ContinuousImageTokenizer
+from uniception_tpu_torch.models.libs.cosmos_tokenizer.networks.continuous_video import CausalContinuousVideoTokenizer
 from uniception_tpu_torch.models.libs.cosmos_tokenizer.networks.discrete_image import DiscreteImageTokenizer
-from uniception_tpu_torch.models.utils.unported import not_ported
+from uniception_tpu_torch.models.libs.cosmos_tokenizer.networks.discrete_video import CausalDiscreteVideoTokenizer
 
 
 class TokenizerConfigs(Enum):
@@ -30,5 +29,5 @@ class TokenizerConfigs(Enum):
 class TokenizerModels(Enum):
     CI = ContinuousImageTokenizer
     DI = DiscreteImageTokenizer
-    CV = not_ported("CausalContinuousVideoTokenizer (Cosmos CV)", COSMOS_3D)
-    DV = not_ported("CausalDiscreteVideoTokenizer (Cosmos DV)", COSMOS_3D)
+    CV = CausalContinuousVideoTokenizer
+    DV = CausalDiscreteVideoTokenizer

@@ -1,8 +1,8 @@
 """
 The Cosmos tokenizer network configs (counterpart of uniception_tpu/models/libs/cosmos_tokenizer/networks/configs.py;
-reference uniception/models/libs/cosmos_tokenizer/networks/configs.py:27-110), verbatim. The image configs (CI, DI)
-build; the causal-video ones (CV, DV) name the 3D encoder and decoder types, whose members raise until the 3D path
-is ported (ROADMAP queue 1 item 17).
+reference uniception/models/libs/cosmos_tokenizer/networks/configs.py:27-110), verbatim: the image configs (CI, DI)
+and the causal-video ones (CV8x8x8 as an AE, DV8x16x16 with FSQ levels 8, 8, 8, 5, 5, 5; the FACTORIZED encoder and
+decoder, haar patch 4).
 """
 
 from uniception_tpu_torch.models.libs.cosmos_tokenizer.modules import (

@@ -1,9 +1,9 @@
 """
 Cosmos tokenizer utilities (counterpart of uniception_tpu/models/libs/cosmos_tokenizer/utils.py; reference
-uniception/models/libs/cosmos_tokenizer/utils.py:34-126): :func:`load_model` builds a CI or DI tokenizer from its
-config and loads a checkpoint strictly (the JAX package loads with ``strict=False``; ROADMAP queue 3 records the
-difference); the array helpers keep the [-1, 1] image convention. The video networks (CV, DV) raise until the 3D
-path is ported (ROADMAP queue 1 item 17); the padding helpers are plain tensor code and need none of it.
+uniception/models/libs/cosmos_tokenizer/utils.py:34-126): :func:`load_model` builds an image (CI, DI) or causal
+video (CV, DV) tokenizer from its config and loads a checkpoint strictly (the JAX package loads with ``strict=False``;
+ROADMAP queue 3 records the difference); the array helpers keep the [-1, 1] convention, and the padding helpers bring
+a (B, C, T, H, W) clip to 1 + k * temporal_multiple frames.
 """
 
 from typing import Optional
@@ -20,7 +20,7 @@ __all__ = ["load_model", "numpy2tensor", "tensor2numpy", "pad_video_batch", "unp
 
 def load_model(tokenizer_type: str, checkpoint_path: Optional[str] = None, *, device="cuda", dtype=None, seed: int = 0,
                generator: Optional[torch.Generator] = None, **overrides):
-    """Build a tokenizer of the config ``tokenizer_type`` ("CI" or "DI"; "CV" and "DV" raise) with ``overrides``, on
+    """Build a tokenizer of the config ``tokenizer_type`` ("CI", "DI", "CV" or "DV") with ``overrides``, on
     ``device`` (default: the card; raises without one), computing in ``dtype`` (None: fp32), weights drawn from
     ``generator`` (default: seeded with ``seed``); then load ``checkpoint_path`` strictly."""
     cfg = dict(TokenizerConfigs[tokenizer_type].value)

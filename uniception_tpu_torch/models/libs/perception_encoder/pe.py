@@ -1,7 +1,7 @@
 """
-Meta Perception Encoder (PE) vision transformer (counterpart of the vision side of
+Meta Perception Encoder (PE): the vision transformer, the text transformer and CLIP (counterpart of
 uniception_tpu/models/libs/perception_encoder/pe.py; reference
-uniception/models/libs/perception_encoder/vision_encoder/pe.py:33-563 and rope.py:36-322).
+uniception/models/libs/perception_encoder/vision_encoder/pe.py:33-752 and rope.py:36-322).
 
 A CLIP-style ViT: an optional cls token, an absolute PE table interpolated bilinearly off its grid, axial 2-D RoPE
 with interleaved pairs (lucidrains' convention: per-axis frequencies repeated over adjacent channel pairs, the x
@@ -11,9 +11,16 @@ fp32, as in JAX: its interleaved layout is not K2's quarter layout. The attentio
 
 State-dict keys are the torch model's (transformer.resblocks.N.attn.in_proj_weight / out_proj, mlp.c_fc / c_proj,
 ln_1 / ln_2, ls_1.gamma, class_embedding, positional_embedding, conv1, proj); the packed in_proj weight is torch's
-(3E, E) layout. The language side (``TextTransformer``, ``CLIP``, transformer.py) is not ported: no encoder runs it.
+(3E, E) layout.
+
+The text tower (``TextTransformer``) is a causal-masked CLIP transformer over token ids with EOT (argmax) pooling and a
+projection; its keys are the torch model's (token_embedding.weight, positional_embedding, transformer.resblocks.*,
+ln_final, text_projection). A masked attention (``attn_mask``, an additive (L, L) fp32 mask) is the JAX package's
+explicit einsum with fp32 logits and softmax (pe.py:180-184), so the text tower launches no kernel of ours. ``CLIP``
+joins the two towers with a logit scale.
 """
 
+import math
 from dataclasses import asdict, dataclass, replace
 from typing import List, Optional, Union
 
@@ -23,18 +30,18 @@ from torch import nn
 
 from uniception_tpu_torch.nn.blocks import LayerNorm
 from uniception_tpu_torch.nn.common import ChannelsLastConv, flax_linear, gelu_exact
+from uniception_tpu_torch.models.libs.perception_encoder.transformer import causal_mask, masked_attention
 from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
 
 __all__ = [
     "PEConfig",
+    "PETextConfig",
     "PE_VISION_CONFIG",
-    "PERope2D",
-    "SelfAttention",
-    "PELayerScale",
-    "ResidualAttentionBlock",
-    "Transformer",
-    "AttentionPooling",
+    "PE_TEXT_CONFIG",
     "VisionTransformer",
+    "TextTransformer",
+    "CLIP",
+    "PERope2D",
 ]
 
 
@@ -84,6 +91,25 @@ PE_VISION_CONFIG["PE-Lang-L14-448"] = replace(
 PE_VISION_CONFIG["PE-Spatial-G14-448"] = replace(
     PE_VISION_CONFIG["PE-Core-G14-448"], image_size=448, pool_type="none", use_ln_post=False, output_dim=None,
 )
+
+
+@dataclass
+class PETextConfig:
+    "Text tower config (reference config.py:56-67)."
+
+    context_length: int
+    width: int
+    heads: int
+    layers: int
+    output_dim: int
+    mlp_ratio: float = 4.0
+    vocab_size: int = 49408
+
+
+PE_TEXT_CONFIG = {}
+PE_TEXT_CONFIG["PE-Core-G14-448"] = PETextConfig(context_length=72, width=1280, heads=20, layers=24, output_dim=1280)
+PE_TEXT_CONFIG["PE-Core-L14-336"] = PETextConfig(context_length=32, width=1024, heads=16, layers=24, output_dim=1024)
+PE_TEXT_CONFIG["PE-Core-B16-224"] = PE_TEXT_CONFIG["PE-Core-L14-336"]
 
 
 def _rotate_half_interleaved(x: torch.Tensor) -> torch.Tensor:
@@ -148,14 +174,18 @@ class SelfAttention(nn.Module):
         self.out_proj = flax_linear(embed_dim, embed_dim, device=device, dtype=dtype, generator=generator)
         self.rope = rope
 
-    def forward(self, x: torch.Tensor, grid_hw=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid_hw=None, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        "attn_mask: an optional additive (N, N) mask (torch's convention), computed as JAX does (no kernel)."
         B, N, E = x.shape
         proj = torch.nn.functional.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         # q/k/v stay strided views of the projection: K1 reads them by stride
         q, k, v = proj.reshape(B, N, 3, self.num_heads, self.head_dim).unbind(2)
         if self.rope is not None:
             q, k = self.rope(q, k, grid_hw)
-        attn = scaled_dot_product_attention(q, k, v, scale=self.scale)
+        if attn_mask is not None:
+            attn = masked_attention(q, k, v, self.scale, attn_mask)
+        else:
+            attn = scaled_dot_product_attention(q, k, v, scale=self.scale)
         return self.out_proj(attn.reshape(B, N, E))
 
 
@@ -196,8 +226,8 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(d_model, eps=1e-5, device=device, dtype=dtype)
         self.mlp = _PEMlp(d_model, int(d_model * mlp_ratio), **kw)
 
-    def forward(self, x, grid_hw=None):
-        x = x + self.ls_1(self.attn(self.ln_1(x), grid_hw=grid_hw))
+    def forward(self, x, grid_hw=None, attn_mask=None):
+        x = x + self.ls_1(self.attn(self.ln_1(x), grid_hw=grid_hw, attn_mask=attn_mask))
         return x + self.ls_2(self.mlp(self.ln_2(x)))
 
 
@@ -220,22 +250,22 @@ class Transformer(nn.Module):
         self.layers = ((self.layers + layer_idx) % self.layers) + 1
         self.resblocks = self.resblocks[: self.layers]
 
-    def forward(self, x, grid_hw=None, layer_idx: int = -1):
+    def forward(self, x, grid_hw=None, layer_idx: int = -1, attn_mask=None):
         "Run the blocks up to and including block ``layer_idx``."
         stop_idx = (self.layers + layer_idx) % self.layers
         for i, blk in enumerate(self.resblocks):
-            x = blk(x, grid_hw=grid_hw)
+            x = blk(x, grid_hw=grid_hw, attn_mask=attn_mask)
             if i == stop_idx:
                 break
         return x
 
-    def forward_intermediate(self, x, grid_hw=None, intermediate_layers: Union[int, List[int]] = 1):
+    def forward_intermediate(self, x, grid_hw=None, intermediate_layers: Union[int, List[int]] = 1, attn_mask=None):
         "The outputs of the blocks in ``intermediate_layers`` (an int n: the one block n from the end)."
         if isinstance(intermediate_layers, int):
             intermediate_layers = [len(self.resblocks) - intermediate_layers]
         outs = []
         for i, blk in enumerate(self.resblocks):
-            x = blk(x, grid_hw=grid_hw)
+            x = blk(x, grid_hw=grid_hw, attn_mask=attn_mask)
             if i in intermediate_layers:
                 outs.append(x)
         return outs
@@ -424,3 +454,131 @@ class VisionTransformer(nn.Module):
         "The pooled (and projected) image embedding."
         x = self._pool(self.forward_features(x, norm=True, **kwargs))
         return x @ self.proj.to(x.dtype) if self.proj_dim is not None else x
+
+
+class TextTransformer(nn.Module):
+    """The CLIP text tower (pe.py:463-556): token and position embeddings, causal-masked PE blocks (no RoPE), the final
+    LayerNorm, a pool (``argmax``: each row's EOT, its highest id; ``first``, ``last`` or ``none``) and the projection
+    (a (width, output_dim) matrix, or a linear layer with ``proj_bias``). ``dtype`` is the compute dtype (None: the
+    parameters'); the JAX module computes in its parameters' dtype."""
+
+    def __init__(self, context_length: int = 72, vocab_size: int = 49408, width: int = 512, heads: int = 8,
+                 layers: int = 12, mlp_ratio: float = 4.0, ls_init_value: Optional[float] = None,
+                 output_dim: int = 1280, no_causal_mask: bool = False, pad_id: int = 0, pool_type: str = "argmax", proj_bias: bool = False,
+                 output_tokens: bool = False, use_ln_post: bool = True, *, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None, **_ignore):
+        super().__init__()
+        assert pool_type in ("first", "last", "argmax", "none")
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.pool_type = pool_type
+        self.output_tokens = output_tokens
+        self.num_pos = self.context_length = context_length
+        self.vocab_size = vocab_size
+        self.width = width
+        self.output_dim = output_dim
+        self.heads = heads
+        self.pad_id = pad_id
+        self.layers = layers
+        self.causal = not no_causal_mask
+        self.compute_dtype = dtype
+
+        self.token_embedding = nn.Embedding(vocab_size, width, device=device)
+        with torch.no_grad():  # flax's Embed init: variance 1 / width
+            self.token_embedding.weight.normal_(0.0, width**-0.5, generator=generator)
+        self.positional_embedding = nn.Parameter(0.01 * torch.randn(self.num_pos, width, device=device,
+                                                                    generator=generator))
+        self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value=ls_init_value, **kw)
+        self.ln_final = LayerNorm(width, eps=1e-5, device=device, dtype=dtype) if use_ln_post else nn.Identity()
+        if proj_bias:
+            self.text_projection = flax_linear(width, output_dim, **kw)
+        else:
+            self.text_projection = nn.Parameter(width**-0.5 * torch.randn(width, output_dim, device=device,
+                                                                          generator=generator))
+
+    def text_global_pool(self, x: torch.Tensor, text: Optional[torch.Tensor] = None, pool_type: str = "argmax"):
+        "(pooled, tokens) by ``pool_type`` (pe.py:516-528); ``argmax`` takes each row's highest id, the EOT token."
+        if pool_type == "first":
+            return x[:, 0], x[:, 1:]
+        if pool_type == "last":
+            return x[:, -1], x[:, :-1]
+        if pool_type == "argmax":
+            assert text is not None
+            return x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)], x
+        return x, x
+
+    def forward(self, text: torch.Tensor):
+        "text: (B, L) token ids -> the (B, output_dim) pooled embedding (and the tokens with ``output_tokens``)."
+        seq_len = text.shape[1]
+        x = self.token_embedding(text)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        attn_mask = causal_mask(seq_len, x.device) if self.causal else None
+        x = x + self.positional_embedding[:seq_len].to(x.dtype)
+        x = self.ln_final(self.transformer(x, attn_mask=attn_mask))
+        pooled, tokens = self.text_global_pool(x, text, pool_type=self.pool_type)
+        if isinstance(self.text_projection, nn.Module):
+            pooled = self.text_projection(pooled)
+        else:
+            pooled = pooled @ self.text_projection.to(pooled.dtype)
+        return (pooled, tokens) if self.output_tokens else pooled
+
+
+def _l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=axis, keepdim=True).clamp_min(eps)
+
+
+class CLIP(TextTransformer):
+    """The joint image-text model (pe.py:563-608): the text tower itself, ``visual`` (the vision tower) and the logit
+    scale. ``dtype`` is the compute dtype of both towers (None: the parameters'), ``generator`` draws the weights."""
+
+    def __init__(self, vision_cfg: PEConfig, text_cfg: PETextConfig, init_logit_scale: float = math.log(1 / 0.07), *,
+                 device=None, dtype=None, generator: Optional[torch.Generator] = None):
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        super().__init__(**text_cfg.__dict__, **kw)
+        self.visual = VisionTransformer(**vision_cfg.__dict__, **kw)
+        self.image_size = self.visual.image_size
+        self.logit_scale = nn.Parameter(torch.tensor(init_logit_scale, device=device))
+
+    def encode_image(self, image: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+        x = self.visual(image)
+        return _l2_normalize(x) if normalize else x
+
+    def encode_video(self, video: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+        "video: (B, N, C, H, W) -> the mean of the frames' embeddings."
+        b, n, c, h, w = video.shape
+        feats = self.encode_image(video.reshape(b * n, c, h, w), normalize=normalize)
+        return feats.reshape(b, n, -1).mean(dim=1)
+
+    def encode_text(self, text: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+        x = TextTransformer.forward(self, text)
+        return _l2_normalize(x) if normalize else x
+
+    def forward(self, image: Optional[torch.Tensor] = None, text: Optional[torch.Tensor] = None):
+        "(normalized image features or None, normalized text features or None, exp(logit_scale))."
+        image_features = self.encode_image(image, normalize=True) if image is not None else None
+        text_features = self.encode_text(text, normalize=True) if text is not None else None
+        return image_features, text_features, self.logit_scale.exp()
+
+    @classmethod
+    def from_config(cls, name: str, pretrained: bool = False, checkpoint_path: Optional[str] = None, **kwargs):
+        """Build the CLIP of a name in both PE_VISION_CONFIG and PE_TEXT_CONFIG; ``kwargs`` are the constructor's
+        (device, dtype, generator). ``pretrained`` loads ``checkpoint_path`` strictly (its ``state_dict`` or
+        ``weights`` entry where it has one, "module." prefixes dropped); without a file it raises."""
+        if name not in PE_VISION_CONFIG or name not in PE_TEXT_CONFIG:
+            raise RuntimeError(f"{name} not found in configs.")
+        if pretrained and checkpoint_path is None:
+            raise ValueError(f"offline build: the {name} CLIP checkpoint is not in the repository; pass "
+                             "checkpoint_path explicitly")
+        model = cls(PE_VISION_CONFIG[name], PE_TEXT_CONFIG[name], **kwargs)
+        if pretrained:
+            from uniception_tpu_torch.utils.checkpoint import load_checkpoint
+            from uniception_tpu_torch.utils.weights import load_state_dict_numpy
+
+            sd = load_checkpoint(checkpoint_path)
+            sd = next(sd[k] for k in ("state_dict", "weights", "model") if k in sd)
+            load_state_dict_numpy(model, {k.replace("module.", ""): v for k, v in sd.items()})
+        return model
+
+    @classmethod
+    def available_configs(cls):
+        return [k for k in PE_VISION_CONFIG if k in PE_TEXT_CONFIG]

@@ -145,18 +145,23 @@ class GroupNorm(nn.GroupNorm):
     the scale folded into the reciprocal deviation as flax folds it, the output in the compute ``dtype`` (None: the
     input's). The statistics are two full-width reductions: torch's native group norm reduces each (sample, group)
     row in one thread block, which at MoGe's one-group norms over 296^2 maps is two blocks for the whole card. MoGe's
-    conv head and the Cosmos tokenizer's ``Normalize`` (32 groups) share it."""
+    conv head, the Cosmos tokenizer's ``Normalize`` (32 groups) and its video ``CausalNormalize`` share it."""
 
     def __init__(self, num_channels: int, num_groups: int, *, dtype=None, device=None):
         super().__init__(num_groups, num_channels, eps=1e-6, device=device)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames: bool = False) -> torch.Tensor:
+        """x: (B, C, *spatial). With ``frames`` a (B, C, T, *spatial) tensor takes its statistics per frame, as the
+        norm of the frames folded into the batch does, without the copies of the fold."""
         dt = self.compute_dtype or x.dtype
         B, C, G = x.shape[0], x.shape[1], self.num_groups
-        xg = x.float().reshape(B, G, C // G, -1)
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        var = (xg.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(1, G, C // G, 1)
-        out = (xg - mean) * mul + self.bias.float().view(1, G, C // G, 1)
+        if frames:
+            xg, dims, shape = x.float().reshape(B, G, C // G, x.shape[2], -1), (2, 4), (1, G, C // G, 1, 1)
+        else:
+            xg, dims, shape = x.float().reshape(B, G, C // G, -1), (2, 3), (1, G, C // G, 1)
+        mean = xg.mean(dim=dims, keepdim=True)
+        var = (xg.square().mean(dim=dims, keepdim=True) - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(shape)
+        out = (xg - mean) * mul + self.bias.float().view(shape)
         return out.reshape(x.shape).to(dt)
