@@ -241,8 +241,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernels above D = 64 at every padded head dim and at ViT-L
                training's D = 128, against their plain versions (K3 also bit
                for bit across two calls), each timed beside the plain version,
-               SDPA (its backward alone for K3) and the bound; the fp32 K3
-               kernels beside SDPA's fp32 backward.
+               SDPA (its backward alone for K3) and the bound; K3's fp32
+               kernels (3xTF32 on wgmma above D = 16) at D = 16, 32, 64, 80,
+               128, 192 and 256 (K3's fp32 bar, bit for bit across two calls)
+               beside SDPA's fp32 backward and the 3xTF32 bound; K1's wide
+               bf16 kernel (D > 128: S once, a split over the keys) at PE-G14's
+               pool (2, 1, 1025, 8, 192), D = 256 and the Cosmos image and
+               video shapes at D = 512 (8 bf16 ulps, the plain version without
+               its last 64 keys at least 32 away, the logsumexp, bit for bit
+               across two calls) beside SDPA and the bound; then one timed
+               fp32-trunk ViT-L 512 training step (K3 fp32 72 a step, its
+               device ms and share by torch.profiler).
    48. int8 transforms: DUSt3R ViT-L 512 with linear heads through the
                int8 weight-transform path (calibrate_gptq, nn/gptq.py,
                nn/smooth.py): Hessians and activation maxima of the 289
@@ -482,7 +491,7 @@ def phase_build(kernel_lib):
     kernel_lib.library()
     print(f"[2 build] {path.relative_to(REPO)} in {time.perf_counter() - t0:.1f}s")
     for line in kernel_lib.BUILD_LOG.splitlines():
-        if "Function properties" in line or "Used" in line or "spill" in line:
+        if "Function properties" in line or "Used" in line or "spill" in line or "C75" in line:
             print(f"    {line.strip()}")
 
 
@@ -1274,7 +1283,7 @@ def phase_serving_rungs(torch, np, serve, config, counters, card, bf16_linear):
 # The device kernels of each hand-written kernel on the serving paths, by the names the profiler gives them. Under
 # "fused" K1's kernel is K5's attention launch; K4's GEMM and K5's projection are the shared GEMM with their epilogues.
 PROFILE_KERNELS = {"K1 (under fused: K5's attention launch)": ("fa_fwd_bf16",), "K2": ("rope2d",),
-                   "K3": ("fa_bwd_",), "K4": ("quant_rows_kernel", "DequantBiasEpilogue"),
+                   "K3": ("fa_bwd_", "k3_split"), "K4": ("quant_rows_kernel", "DequantBiasEpilogue"),
                    "K5 projection": ("BiasRopeEpilogue", "PadRopeEpilogue"), "K6": ("fa8_",), "K7": ("conv3x3",)}
 
 
@@ -2039,12 +2048,20 @@ def mv_want(attention_type, rung, counters):
     return want
 
 
+K1_SEEN = {}  # (dtype, B, Nq, Nk, H, D) -> K1's launches over the counted forwards, for the kernels line's shapes
+
+
 def counted_forward(torch, counters, fwd, label, want, total):
-    "One eager forward with the counts from 0; they must be ``want`` exactly; added to ``total``."
+    """One eager forward with the counts from 0; they must be ``want`` exactly; added to ``total``, and K1's launches
+    by dtype and shape to K1_SEEN."""
     _reset(counters)
+    shapes = counters["K1"].shapes if "K1" in counters else {}
+    shapes.clear()
     out = fwd()
     torch.cuda.synchronize()
     got = _read(counters)
+    for key, n in shapes.items():
+        K1_SEEN[key] = K1_SEEN.get(key, 0) + n
     print(f"[{label}] launches per forward {got} (want {want})")
     require(got == want, f"{label}: launches {got}, want {want}")
     for k in total:
@@ -4308,13 +4325,15 @@ def phase_pe_pool(torch, np, serve, config, fa, counters, card):
     return total
 
 
-# Phase 47: the two redesigned kernels, K1's fp32 kernel (3xTF32 on wgmma) and K3's whole-width kernels above D = 64,
-# at every padded head dim each is built for and at the paths' shapes, (name, B, Nq, Nk, H, D): held against their
-# plain versions (K1 fp32 at K1_FP32_TOL, LSE_TOL and ZOO_K1_FP32_REL_TOL; K3 at K3_REL_TOL and bit for bit across two
-# calls), then timed by CUDA graphs beside the plain version, the library call (SDPA fp32; SDPA's backward alone) and
-# the bound. K1 fp32's bound takes its products at the TF32 rate over three (PEAK_OPS "tf32x3": each needed product
-# is three on the tensor cores), K3's at bf16. The fp32 K3 kernels (CUDA cores, unchanged) are timed beside SDPA's
-# fp32 backward at the training example's and the fp32 trunk's shapes.
+# Phase 47: the redesigned kernels, K1's fp32 kernel (3xTF32 on wgmma), K3's whole-width kernels above D = 64, K1's
+# wide bf16 kernel (D > 128: S once, split over the keys) and K3's fp32 kernel (3xTF32 on wgmma), at every padded head
+# dim each is built for and at the paths' shapes, (name, B, Nq, Nk, H, D): held against their plain versions (K1 fp32
+# at K1_FP32_TOL, LSE_TOL and ZOO_K1_FP32_REL_TOL; K3 at K3_REL_TOL and bit for bit across two calls; the wide K1 at
+# K1_MV_ULPS with the plain version without its last 64 keys at least K1_MV_CONTROL_ULPS away, LSE_TOL, and bit for
+# bit across two calls), then timed by CUDA graphs beside the plain version, the library call (SDPA; SDPA fp32; SDPA's
+# backward alone) and the bound. The fp32 kernels' bound takes their products at the TF32 rate over three (PEAK_OPS
+# "tf32x3": each needed product is three on the tensor cores), K3 fp32 at D = 16 (the CUDA-core kernel) at the FFMA
+# rate, the bf16 kernels' at bf16. Then one fp32-trunk ViT-L 512 training step (phase_train_fp32_step).
 K47_K1_F32 = [("Cosmos CI8x8 512", 2, 4096, 4096, 1, 512), ("fp32 DUSt3R trunk", 4, 1024, 1024, 16, 64),
               ("DINOv2-L 518", 2, 1374, 1374, 16, 64), ("RADIO-h 512", 2, 1033, 1033, 16, 80),
               ("training example D = 16", 16, 4, 4, 4, 16), ("DP 32 (D = 32)", 2, 1024, 1024, 12, 32),
@@ -4325,14 +4344,26 @@ K47_K3 = [("ViT-L 512 8 heads", 4, 1024, 1024, 8, 128), ("RADIO-h 512 D = 80", 2
           ("phase 41 D = 96", 2, 200, 520, 3, 96), ("phase 41 D = 128", 1, 130, 700, 2, 128),
           ("DP 192 (D = 192)", 2, 1024, 1024, 8, 192), ("DP 256 (D = 256)", 2, 1024, 1024, 8, 256),
           ("phase 41 D = 192", 2, 200, 520, 3, 192), ("phase 41 D = 256", 1, 130, 700, 2, 256)]
-K47_K3_F32 = [("training example D = 16", 16, 4, 4, 4, 16), ("fp32 DUSt3R trunk", 4, 1024, 1024, 16, 64)]
+K47_K3_F32 = [("training example D = 16", 16, 4, 4, 4, 16), ("fp32 DUSt3R trunk", 4, 1024, 1024, 16, 64),
+              ("DP 32 (D = 32)", 2, 1024, 1024, 12, 32), ("RADIO-h 512 D = 80", 2, 1033, 1033, 16, 80),
+              ("ViT-L 512 8 heads D = 128", 4, 1024, 1024, 8, 128), ("DP 256 (D = 192)", 2, 1024, 1024, 8, 192),
+              ("DP 256 (D = 256)", 2, 1024, 1024, 8, 256)]
+# The wide K1's shapes: PE-G14's pool (one probe over the 1024 patch tokens phase 46 runs, and over 1025 as timed since
+# PR 16), D = 256 (no path), the Cosmos image and video shapes.
+K47_K1_WIDE = [("PE-G14 448 pool", 2, 1, 1025, 8, 192), ("PE-G14 448 pool as run", 2, 1, 1024, 8, 192),
+               ("DP 256 (D = 256)", 2, 1024, 1024, 4, 256), ("Cosmos CI16x16 512", 2, 1024, 1024, 1, 512),
+               ("DV8x16x16 512 x2", 6, 1024, 1024, 1, 512), ("Cosmos CI8x8 512", 2, 4096, 4096, 1, 512),
+               ("CV8x8x8 512 x2", 6, 4096, 4096, 1, 512)]
+K47_WIDE_CONTROL_KEYS = 64  # the wide K1's control: its plain version without the last 64 keys (one key tile)
 
 
 def phase_redesigned(torch, fa, card):
-    """Phase 47: K47_K1_F32, K47_K3 and K47_K3_F32 against their plain versions, then timed. Returns ({"K1 fp32" |
-    "K3": worst max abs}, {"K1 fp32" | "K3" | "K3 fp32": {name: timing record}})."""
+    """Phase 47: K47_K1_F32, K47_K3, K47_K3_F32 and K47_K1_WIDE against their plain versions, then timed. Returns
+    ({"K1 fp32" | "K3" | "K3 fp32" | "K1 wide": worst max abs}, {"K1 fp32" | "K3" | "K3 fp32" | "K1 wide": {name:
+    timing record}})."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 47)
-    worst, times = {"K1 fp32": 0.0, "K3": 0.0}, {"K1 fp32": {}, "K3": {}, "K3 fp32": {}}
+    worst = {"K1 fp32": 0.0, "K3": 0.0, "K3 fp32": 0.0, "K1 wide": 0.0}
+    times = {"K1 fp32": {}, "K3": {}, "K3 fp32": {}, "K1 wide": {}}
     for name, B, Nq, Nk, H, D in K47_K1_F32:
         q, k, v = _hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.float32)
         out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
@@ -4375,18 +4406,77 @@ def phase_redesigned(torch, fa, card):
     for name, B, Nq, Nk, H, D in K47_K3_F32:
         q, k, v = _hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.float32)
         dout = torch.randn(B, Nq, H, D, device="cuda", generator=gen)
-        rels, _ = k3_errors(torch, fa, q, k, v, dout, f"47 K3 fp32 {name}")
+        rels, abs_err = k3_errors(torch, fa, q, k, v, dout, f"47 K3 fp32 {name}")
         out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-        ms = graph_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout))
+        fn = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout)  # noqa: E731
+        require(all(torch.equal(a, c) for a, c in zip(fn(), fn())), f"47 K3 fp32 {name}: two calls differ")
+        worst["K3 fp32"] = max(worst["K3 fp32"], abs_err)
+        ms = graph_ms(torch, fn)
         plain_ms = graph_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout))
         lib_ms = sdpa_bwd_ms(torch, q, k, v, dout)[0]
-        b = bound({"fp32": 10 * B * H * Nq * Nk * D}, (4 * Nq + 5 * Nk) * B * H * D * 4 + B * H * Nq * 4)
+        rate = "fp32" if D <= fa.F32_SMALL_HEAD_DIM else "tf32x3"  # D <= 16: the CUDA-core kernel
+        b = bound({rate: 10 * B * H * Nq * Nk * D}, (4 * Nq + 5 * Nk) * B * H * D * 4 + B * H * Nq * 4)
         times["K3 fp32"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b)
         print(f"[47 K3 fp32] {name} (B,Nq,Nk,H,D)=({B},{Nq},{Nk},{H},{D}): max|err|/max|plain| dq dk dv "
-              + " ".join(f"{r:.2e}" for r in rels) + f" (tol {K3_REL_TOL['fp32']}); {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, SDPA fp32 backward alone {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b[0]:.4f} "
-              f"ms ({b[1]}, FFMA at 67 TFLOP/s), share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
+              + " ".join(f"{r:.2e}" for r in rels) + f" (tol {K3_REL_TOL['fp32']}), two calls bit for bit; {ms:.4f} "
+              f"ms ({10 * B * H * Nq * Nk * D / ms / 1e9:.1f} TFLOP/s of the five products), plain {plain_ms:.4f} ms, "
+              f"SDPA fp32 backward alone {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b[0]:.4f} ms ({b[1]}, "
+              f"{'FFMA at 67' if rate == 'fp32' else '3xTF32 at 165'} TFLOP/s), share of the bound {b[0] / ms:.3f} "
+              f"(CUDA graphs) on {card}")
+    for name, B, Nq, Nk, H, D in K47_K1_WIDE:
+        q, k, v = _hd_qkv(torch, gen, B, Nq, Nk, H, D, torch.bfloat16)
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        again = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]), f"47 K1 wide {name}: two calls differ")
+        require(torch.equal(out, fa.flash_attention_fwd(q, k, v)[0]), f"47 K1 wide {name}: the logsumexp moved o")
+        ref, ref_lse = fa.flash_attention_lse_ref(q, k, v)
+        ulps = _ulps(out, ref, 7, K1_MV_ULP_FLOOR)
+        lost = K47_WIDE_CONTROL_KEYS
+        ctrl = _ulps(fa.flash_attention_ref(q, k[:, :-lost], v[:, :-lost]), ref, 7, K1_MV_ULP_FLOOR)
+        lse_err = (lse - ref_lse).abs().max().item()
+        require(ulps <= K1_MV_ULPS and ctrl >= K1_MV_CONTROL_ULPS and lse_err <= LSE_TOL["bf16"],
+                f"47 K1 wide {name}: {ulps} ulps (control {ctrl}), logsumexp {lse_err}")
+        worst["K1 wide"] = max(worst["K1 wide"], (out.float() - ref.float()).abs().max().item())
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tps = fa.k1_wide_tiles_per_split(B, H, Nq, Nk, sms)
+        ms = graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
+        plain_ms = graph_ms(torch, lambda: fa.flash_attention_ref(q, k, v))
+        lib_ms = graph_ms(torch, lambda: sdpa(q, k, v))
+        b = attention_bound(B, Nq, Nk, H, D)
+        times["K1 wide"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b)
+        print(f"[47 K1 wide] {name} (B,Nq,Nk,H,D)=({B},{Nq},{Nk},{H},{D}) bf16, {-(-Nk // 64 // tps)} key split(s) "
+              f"of {tps} tiles: {ulps:.2f} bf16 ulps (tol {K1_MV_ULPS}; the plain version without its last {lost} "
+              f"keys {ctrl:.1f}, >= {K1_MV_CONTROL_ULPS}), logsumexp {lse_err:.2e} (tol {LSE_TOL['bf16']}), two calls "
+              f"bit for bit; {ms:.4f} ms ({4 * B * H * Nq * Nk * D / ms / 1e9:.1f} TFLOP/s of the needed products), "
+              f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b[0]:.4f} ms ({b[1]}), "
+              f"share of the bound {b[0] / ms:.3f} (CUDA graphs) on {card}")
     return worst, times
+
+
+def phase_train_fp32_step(torch, train, serve_mod, training, fa, build_train, card):
+    """Phase 47, the fp32 path: the ViT-L 512 training step with the fp32 trunk (bf16 off, batch BATCH pairs) through
+    make_train_step, K3 fp32 at every attention (D = 64): its launches counted, ms/step by CUDA events and device ms
+    by torch.profiler with K3's share. Returns K3's launches in the counted step."""
+    model = build_train(None)
+    ctx = training.make_train_step(model, learning_rate=1e-4)
+    batch = _train_batch(torch, train, serve_mod, model)
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.head_dims.clear()
+    loss = ctx.step(*batch)
+    torch.cuda.synchronize()
+    n, dims = fa.flash_attention_bwd.launches, dict(fa.flash_attention_bwd.head_dims)
+    want = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    require(math.isfinite(loss.item()) and n == want and dims == {ENC_DIM // ENC_HEADS: want},
+            f"47 fp32 step: loss {loss.item()}, K3 {n} calls by head dim {dims} (want {want})")
+    ms = cuda_ms(torch, lambda: ctx.step(*batch), warmup=1, iters=3)
+    events = profile_device(torch, lambda: [ctx.step(*batch) for _ in range(2)], 2, "step", "47 fp32 step", 8)
+    total = sum(e.self_device_time_total for e in events) / 1e3 / 2
+    k3 = sum(e.self_device_time_total for e in events if any(k in e.key for k in PROFILE_KERNELS["K3"])) / 1e3 / 2
+    print(f"[47 fp32 step] ViT-L 512 training step, fp32 trunk, batch {BATCH} pairs: {ms:.2f} ms/step (CUDA events), "
+          f"{total:.2f} device ms, of it K3 fp32 {k3:.2f} ms ({100 * k3 / total:.1f}%) in {n} calls on {card}")
+    del ctx, model
+    torch.cuda.empty_cache()
+    return n
 
 
 # Phase 48: the int8 weight-transform path at DUSt3R ViT-L 512 (linear heads). One layer of each kind the transforms'
@@ -4689,11 +4779,13 @@ VIDEO_RUNS = [("CV", 8, 512, 2, "bf16"), ("CV", 8, 512, 1, "fp32"), ("DV", 16, 5
 VIDEO_FRAMES, VIDEO_TEMPORAL, VIDEO_LATENT_FRAMES, VIDEO_K1 = 17, 8, 3, 2
 # K1 at the paths' shapes, (name, B, Nq, Nk, H, D, dtypes): the video mid blocks (B * 3 latent frames), PE-Core-L14-336's
 # vision blocks over 8 images of 577 tokens and its attention pool (one probe over 577 keys, 8 heads of 128), and the
-# Llama BaseTransformer at batch 2 (16 query heads, the 4 kv heads repeated). CV at 1024 runs in bf16 only: its fp32
+# Llama BaseTransformer at batch 2 (16 query heads, the 4 kv heads repeated); CV 512 x1 is phase 49's fp32 run, the
+# fp32 timings at the x2 shapes no path runs (they have no kernels-line entry). CV at 1024 runs in bf16 only: its fp32
 # output, an average over 16384 keys, is small enough that the fp32 sums' 5.5e-7 read 2.6e-6 of its norm, above phase
 # 47's norm-relative bar, which no fp32 path at that key count is held to (phase 38 holds (1, 16384) at max abs).
 BOTH = ("bf16", "fp32")
 K1_NEW_SHAPES = [("CV8x8x8 512 x2", 6, 4096, 4096, 1, 512, BOTH), ("DV8x16x16 512 x2", 6, 1024, 1024, 1, 512, BOTH),
+                 ("CV8x8x8 512 x1", 3, 4096, 4096, 1, 512, ("fp32",)),
                  ("CV8x8x8 1024 x1", 3, 16384, 16384, 1, 512, ("bf16",)),
                  ("PE-Core-L14 blocks", 8, 577, 577, 16, 64, BOTH), ("PE-Core-L14 pool", 8, 1, 577, 8, 128, BOTH),
                  ("Llama 1024 GQA", 2, 1024, 1024, 16, 64, BOTH)]
@@ -5090,6 +5182,7 @@ def main():
     print(f"[46 head dims] launches over phases 42-46's counted runs: {paths} and training {new_train}; by head dim "
           f"{HD_SEEN}")
     redesign_worst, redesign = phase_redesigned(torch, fa, card)
+    fp32_step_k3 = phase_train_fp32_step(torch, train, serve, training, fa, build_train, card)
     # phase 15's int8-linear rung served SERVE_BATCHES + 1 batches after one warm-up: its K4 launches per forward
     transforms = phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card,
                                        rungs["int8-linear"]["launches"]["K4"] / (SERVE_BATCHES + 2))
@@ -5099,6 +5192,7 @@ def main():
     new_k1, new_k1_worst = new_k1_times(torch, fa, card, SEED + 49)
     print(f"[50 language] launches over phases 49-50's counted runs: video {video}, language {language} (K1 by head "
           f"dim {language_dims})")
+    print(f"[K1 shapes] launches by (dtype, B, Nq, Nk, H, D) over the counted forwards: {K1_SEEN}")
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -5111,7 +5205,8 @@ def main():
               + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"] + transforms["K1"]
               + video["K1"] + language["K1"], max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"], new_k1_worst), k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
-              trained["flash_attention_bwd"] + new_train["K3"], max(k3_err, hd_worst["K3"], redesign_worst["K3"]), k3),
+              trained["flash_attention_bwd"] + new_train["K3"] + fp32_step_k3,
+              max(k3_err, hd_worst["K3"], redesign_worst["K3"], redesign_worst["K3 fp32"]), k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
               launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
               + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"] + transforms["K2"], k2_err, k2),
@@ -5142,13 +5237,29 @@ def main():
     kernels.append(entry(f"flash_attention_fwd fp32 D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))", "flash_attention.cu",
                          "uniception_tpu/ops/flash_attention.py:194", HD_SEEN.get("K1", {}).get(D, 0),
                          redesign_worst["K1 fp32"], redesign["K1 fp32"][name]))
-    # phases 49-50: K1 at the video tokenizer's and CLIP's shapes, launches from those phases' runs at that head dim
+    # phase 47: K3's fp32 kernels at the training example's D = 16 (phase 42's launches at that D, all fp32) and the
+    # fp32 trunk's D = 64 (the fp32 step's launches); the wide K1 at each shape the counted forwards launched it at in
+    # bf16 (PE-G14's pool in phase 46, the Cosmos shapes in phases 39-40 and 49), with that shape's launches
+    for name, n in ((K47_K3_F32[0][0], HD_SEEN.get("K3", {}).get(16, 0)), (K47_K3_F32[1][0], fp32_step_k3)):
+        B, Nq, Nk, H, D = next(x[1:] for x in K47_K3_F32 if x[0] == name)
+        kernels.append(entry(f"flash_attention_bwd fp32 D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))",
+                             "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436", n,
+                             redesign_worst["K3 fp32"], redesign["K3 fp32"][name]))
+    for name, B, Nq, Nk, H, D in K47_K1_WIDE:
+        n = K1_SEEN.get((torch.bfloat16, B, Nq, Nk, H, D), 0)
+        if n:
+            kernels.append(entry(f"flash_attention_fwd wide D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))",
+                                 "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194", n,
+                                 redesign_worst["K1 wide"], redesign["K1 wide"][name]))
+    # phases 49-50: K1 at the video tokenizer's and CLIP's shapes, with the launches the counted forwards made at that
+    # dtype and shape (a timed dtype and shape that no path runs has no entry)
     for name, B, Nq, Nk, H, D, _ in K1_NEW_SHAPES:
-        n = video["K1"] if D == COSMOS_D else language_dims.get(D, 0)
         for dt, rec in new_k1[name].items():
-            kernels.append(entry(f"flash_attention_fwd {dt} D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))",
-                                 "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194", n, new_k1_worst,
-                                 rec))
+            n = K1_SEEN.get(({"bf16": torch.bfloat16, "fp32": torch.float32}[dt], B, Nq, Nk, H, D), 0)
+            if n:
+                kernels.append(entry(f"flash_attention_fwd {dt} D={D} ({name}, ({B},{Nq},{Nk},{H},{D}))",
+                                     "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194", n,
+                                     new_k1_worst, rec))
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

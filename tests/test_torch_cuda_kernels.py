@@ -22,7 +22,11 @@ calls; GPTQ (nn/gptq.py) on the card against its CPU float64 version, and a K4
 forward on calibrated codes; K1 at the Cosmos video tokenizer's mid-block shapes
 with a dropped-tile control, its 3D spatial attention block on one K1 launch,
 and PE's masked attentions (the text tower's, the Llama Attention's causal one)
-on no kernel. Every test here needs a CUDA device and skips without one.
+on no kernel; K1's wide bf16 kernel (S once, key splits and their combine) at
+every padded head dim above 128 and K3's fp32 kernel (3xTF32) at every padded
+head dim, on strided views, with dropped-tile controls, bit for bit across two
+calls, and K3's routing of D <= 16 to its CUDA-core kernel. Every test here
+needs a CUDA device and skips without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -56,6 +60,9 @@ from uniception_tpu_torch.ops.flash_attention import (
     flash_attention_int8_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
+    k1_wide_tiles_per_split,
+    k1_wide_workspace_floats,
+    k3_tf32_workspace_floats,
     tf32_workspace_floats,
 )
 from uniception_tpu_torch.ops.gemm import K_BLOCK_BYTES, gemm_plan
@@ -1743,3 +1750,136 @@ def test_masked_attentions_launch_no_kernel(gen, dtype):
             config.set_attention_impl("kernel")
     assert all(torch.isfinite(t).all() for t in (a, b, c))
     assert _rel_norm(c, plain) <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+# --- K1's wide bf16 kernel (S once, split over the keys) and K3's fp32 kernel (3xTF32 on wgmma) -------------------
+# K1 above D = 128 at every padded head dim (D = 136, 200 and 264 padded into DP = 192, 256 and 512) on strided views,
+# at shapes with key splits (PE-G's pool: one query over 1025 keys; a few hundred rows over ragged key counts) and
+# without (272 units fill two waves over 520 keys), in bf16 ulps of max(|plain|, 1/64), the plain version without its
+# last 64 keys the control. The 8-ulp bar holds from a few hundred keys: at 260 keys and 16,480 rows D = 136 read 8.41
+# ulps, this kernel and its earlier design alike (p rounded to bf16 against the running max, the plain version against
+# the final one; tests/test_torch_k1_wide.py emulates it), so that shape is held to the bound of p's rounding
+# (ROADMAP queue 3). K3 fp32 at every padded head dim at K3's fp32 bar with a dropped-tile control; both bit for bit
+# across two calls.
+K1_WIDE_D = [136, 192, 200, 256, 264, 512]
+K1_WIDE_SHAPES = [(2, 1, 1025, 8), (2, 200, 520, 2), (1, 130, 1033, 3), (2, 300, 300, 1), (2, 1030, 520, 8)]
+K1_WIDE_ULPS, K1_WIDE_ULP_FLOOR, K1_WIDE_CONTROL_ULPS = 8, 1 / 64, 32
+K3_F32_D = [16, 20, 24, 32, 40, 64, 72, 80, 96, 128, 136, 192, 200, 256]
+K3_F32_SHAPES = REDESIGN_SHAPES + [(1, 1, 70, 2), (2, 130, 7, 3)]
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("b,nq,nk,h", K1_WIDE_SHAPES)
+@pytest.mark.parametrize("d", K1_WIDE_D)
+def test_flash_attention_wide_is_right_and_deterministic(gen, d, b, nq, nk, h, with_lse):
+    "K1's wide kernel within 8 ulps of its plain version, its control at least 32 away; two calls bit for bit."
+    q, k, v = _strided(gen, b, nq, nk, h, d, torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=with_lse)
+    again, again_lse = flash_attention_fwd(q, k, v, with_lse=with_lse)
+    ref, ref_lse = flash_attention_lse_ref(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    ulps = _ulps(out, ref, 7, K1_WIDE_ULP_FLOOR)
+    control = _ulps(flash_attention_ref(q, k[:, :-64], v[:, :-64]), ref, 7, K1_WIDE_ULP_FLOOR)
+    assert ulps <= K1_WIDE_ULPS and control >= K1_WIDE_CONTROL_ULPS, (ulps, control)
+    assert torch.equal(out, again)
+    if with_lse:
+        assert (lse - ref_lse).abs().max().item() <= LSE_TOL[torch.bfloat16] and torch.equal(lse, again_lse)
+        assert torch.equal(out, flash_attention_fwd(q, k, v)[0])
+    else:
+        assert lse is None
+
+
+def _p_rounding_bound(q, k, v, ref, out):
+    """Per element, the most o can differ from the plain version when each p is rounded to either of its bf16
+    neighbours (2^-8 of p between the two) and both outputs are rounded to bf16 (at most 2^-8 of |o| each):
+    2^-8 (sum_j p_j |v_j| / l + |plain| + |o|) (tests/test_torch_k1_wide.py p_rounding_bound)."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    pv = torch.einsum("bhnm,bmhd->bnhd", p, v.float().abs()) / p.sum(-1).transpose(1, 2)[..., None]
+    return 2.0**-8 * (pv + ref.float().abs() + out.float().abs())
+
+
+@pytest.mark.parametrize("d", K1_WIDE_D)
+def test_flash_attention_wide_at_few_keys_stays_within_the_rounding_of_p(gen, d):
+    """At (2, 1030, 260, 8), where K1's 8-ulp bar read 8.41 at D = 136 on an H100 for this kernel and for its earlier
+    design alike (p rounded to bf16 against the running max, the plain version against the final max): every element
+    within the bound of p's rounding, the control (the plain version without the last 64 keys) at least 8 times past
+    it at some element, the logsumexp within LSE_TOL; two calls bit for bit."""
+    q, k, v = _strided(gen, 2, 1030, 260, 8, d, torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    again, again_lse = flash_attention_fwd(q, k, v, with_lse=True)
+    ref, ref_lse = flash_attention_lse_ref(q, k, v)
+    err = (out.float() - ref.float()).abs() / _p_rounding_bound(q, k, v, ref, out)
+    control = flash_attention_ref(q, k[:, :-64], v[:, :-64])
+    ctrl = (control.float() - ref.float()).abs() / _p_rounding_bound(q, k, v, ref, control)
+    assert err.max().item() <= 1 and ctrl.max().item() >= 8, (err.max().item(), ctrl.max().item())
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL[torch.bfloat16]
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+def test_flash_attention_counts_launches_by_dtype_and_shape(gen):
+    """flash_attention.shapes counts K1's calls by (dtype, B, Nq, Nk, H, D), D the caller's (136 padded to 192 counts
+    as 136), on the wide kernel and off it."""
+    flash_attention.shapes.clear()
+    for d, dtype in ((192, torch.bfloat16), (136, torch.bfloat16), (192, torch.bfloat16), (512, torch.float32),
+                     (64, torch.bfloat16)):
+        flash_attention_fwd(*_strided(gen, 2, 70, 130, 3, d, dtype))
+    torch.cuda.synchronize()
+    assert dict(flash_attention.shapes) == {(torch.bfloat16, 2, 70, 130, 3, 192): 2,
+                                            (torch.bfloat16, 2, 70, 130, 3, 136): 1,
+                                            (torch.float32, 2, 70, 130, 3, 512): 1,
+                                            (torch.bfloat16, 2, 70, 130, 3, 64): 1}
+
+
+@pytest.mark.parametrize("b,nq,nk,h", [(2, 1, 1025, 8), (2, 1030, 520, 8)])
+def test_flash_attention_wide_splits_the_keys_only_below_a_wave(gen, b, nq, nk, h):
+    """The pool's 16 units split the keys and allocate the splits' workspace; 272 units (two waves) do not."""
+    q, k, v = _strided(gen, b, nq, nk, h, 192, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tps = k1_wide_tiles_per_split(b, h, nq, nk, sms)
+    ws = 4 * k1_wide_workspace_floats(b, h, nq, nk, 192, tps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, _ = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+    assert (ws > 0 and extra >= ws) if nq == 1 else (ws == 0 and extra < 4096), (tps, ws, extra)
+
+
+@pytest.mark.parametrize("b,nq,nk,h", K3_F32_SHAPES)
+@pytest.mark.parametrize("d", K3_F32_D)
+def test_flash_attention_bwd_fp32_is_right_and_deterministic(gen, d, b, nq, nk, h):
+    "K3 fp32 within 1e-5 of max |plain| per gradient on strided views, its dq's control over 10x that; two calls equal."
+    q, k, v = _strided(gen, b, nq, nk, h, d, torch.float32)
+    dout = torch.randn(b, nq, h, d, device="cuda", generator=gen)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    for g, g2, r in zip(first, second, refs):
+        assert g.shape == r.shape and g.dtype == torch.float32 and g.is_contiguous()
+        assert _rel(g, r) <= BWD_REL_TOL[torch.float32]
+        assert torch.equal(g, g2)
+    if nk > 64:  # the plain dq without the last 64 keys' terms
+        lost = flash_attention_bwd_ref(q, k[:, :-64], v[:, :-64], out, lse, dout)[0]
+        assert _rel(lost, refs[0]) > 10 * BWD_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 256])
+def test_flash_attention_bwd_fp32_routes_each_head_dim_to_its_kernel(gen, d):
+    """D <= 16 takes the CUDA-core kernels, which allocate nothing beside delta and the gradients; every other D the
+    3xTF32 kernels with their split operands' workspace."""
+    q, k, v = _strided(gen, 2, 4, 4, 4, d, torch.float32)
+    dout = torch.randn(2, 4, 4, d, device="cuda", generator=gen)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - sum(g.numel() * g.element_size() for g in grads)
+    ws = 4 * k3_tf32_workspace_floats(2, 4, 4, 4, d)
+    assert (extra < ws) if d <= F32_SMALL_HEAD_DIM else (extra >= ws), (extra, ws)
+    for g, r in zip(grads, flash_attention_bwd_ref(q, k, v, out, lse, dout)):
+        assert _rel(g, r) <= BWD_REL_TOL[torch.float32]

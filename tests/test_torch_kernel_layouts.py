@@ -11,7 +11,12 @@ version; K1's fp32 (3xTF32) plan at every padded head dim (boxes, V chunks, ring
 stages, shared memory, accumulator registers, the split pre-pass's workspace and
 its key order, which is the order P's register A operand holds the keys in); and
 K3's whole-width plan above D = 64 with its work items walked over every output
-row and column, and K6's shared memory at every head dim.
+row and column, and K6's shared memory at every head dim; K1's wide bf16 plan
+above D = 128 (k1_wide_plan: shared memory, registers, the key splits, the
+clusters of two CTAs, the splits' workspace) with its units walked over every key
+and every output row and column; and K3's fp32 (3xTF32) plan at every padded head
+dim (k3_f32_plan: shared memory, registers, the ring, the workspace's planes and
+their row order) with its units walked over every output row and column.
 """
 
 import re
@@ -29,11 +34,15 @@ from uniception_tpu_torch.ops.flash_attention import (
     FWD_ROWS,
     INT8_CHUNK,
     MAX_HEAD_DIM,
+    WIDE_ROWS,
     flash_attention_int8_prep_ref,
     flash_attention_lse_ref,
     fwd_rows,
     int8_pv_keys,
     int8_row_bytes,
+    k1_wide_tiles_per_split,
+    k1_wide_workspace_floats,
+    k3_tf32_workspace_floats,
     tf32_workspace_floats,
     tma_layout,
 )
@@ -56,8 +65,7 @@ def k1_plan(head_dim):
     """K1's bf16 tiling for a head dim (a multiple of 8: the wrapper pads any other), from csrc/flash_attention.cu
     (FwdCfg, FwdSmem, fwd_smem_bytes; WideCfg, WideSmem and wide_smem_bytes above D = 128): (padded head dim DP,
     TMA boxes of BOX_COLS columns per Q, K or V tile, K / V ring stages, dynamic shared memory bytes). DP is 64 up to
-    D = 64, 128 up to 128 (128-row tiles), then 192, 256 and 512 on the column-split kernel (64-row tiles, one K and
-    one V slot, each with its own barriers)."""
+    D = 64, 128 up to 128 (128-row tiles), then 192, 256 and 512 on the wide kernel (64-row tiles, k1_wide_plan)."""
     if not 1 <= head_dim <= MAX_HEAD_DIM["K1"]:
         raise ValueError(f"head dim {head_dim} not supported (other head dims: ROADMAP queue 2 item a)")
     box_cols, = map(int, _constant("flash_attention.cu", r"constexpr int BOX_COLS = (\d+);"))
@@ -67,10 +75,8 @@ def k1_plan(head_dim):
     kib, unit = map(int, _constant("hopper.cuh", r"constexpr int MIN_SMEM_BYTES = (\d+) \* (\d+);"))
     dp = next(p for p in (64, 128, 192, 256, 512) if head_dim <= p)
     if dp > 128:
-        wide_rows, = map(int, _constant("flash_attention.cu", r"constexpr int W_BQ = (\d+);"))
-        tiles = 3 * wide_rows * dp * 2  # Q, K and V, bf16
-        struct = -(-(tiles + 8 * 6) // align) * align  # + six mbarriers
-        return dp, dp // box_cols, 1, max(struct + align, kib * unit)
+        wide = k1_wide_plan(head_dim)
+        return dp, dp // box_cols, wide["stages"], wide["smem"]
     stages = big if dp == 128 else small
     tiles = rows * dp * 2 * (1 + 2 * stages)  # Q, and K and V per stage, bf16
     struct = -(-(tiles + 8 * (2 + 2 * stages)) // align) * align  # + the mbarriers, padded to the struct's alignment
@@ -103,6 +109,118 @@ def k1_f32_plan(head_dim):
     acc = dp // 4 if colsplit else dp // 2
     return dict(kernel="tf32", dp=dp, colsplit=colsplit, rows=rows, boxes=-(-head_dim // box), nc=nc, chunks=-(-head_dim // nc),
                 stages=stages, slot=slot, smem=smem, regs=acc + bk // 2 + bk // 2, budget=budget)
+
+
+def k1_wide_plan(head_dim):
+    """K1's wide bf16 kernel above D = 128 (csrc/flash_attention.cu WideCfg, WideSmem): a dict of the padded head dim,
+    the rows of a unit (shared by both consumers), whether S is computed once (S's k-steps split between the consumers,
+    their partial scores exchanged) or by each consumer whole, S's k-steps of 16 per consumer, O's boxes of consumer 0
+    (consumer 1 the rest; at DP = 192 one, beside a box of zeros), the K / V ring slots, the dynamic shared memory (Q,
+    K and V, the box of zeros, the partial scores, the barriers) and the registers a consumer thread holds in O, S and
+    P (bf16) against its setmaxnreg budget."""
+    rows, = map(int, _constant("flash_attention.cu", r"constexpr int W_BQ = (\d+);"))
+    keys, = map(int, _constant("flash_attention.cu", r"constexpr int W_BK = (\d+);"))
+    sonce, = map(int, _constant("flash_attention.cu", r"SONCE = DP == (\d+);"))
+    s512, s256, s192 = map(int, _constant("flash_attention.cu", r"STAGES = DP == 512 \? (\d+) : DP == 256 \? (\d+) : (\d+);"))
+    budget, = map(int, _constant("flash_attention.cu", r"fa_fwd_bf16_wide_kernel\([\s\S]*?setmaxnreg_inc<(\d+)>"))
+    align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
+    kib, unit = map(int, _constant("hopper.cuh", r"constexpr int MIN_SMEM_BYTES = (\d+) \* (\d+);"))
+    assert rows == keys == WIDE_ROWS
+    dp = next(p for p in (192, 256, 512) if head_dim <= p)
+    stages = {512: s512, 256: s256, 192: s192}[dp]
+    once = dp == sonce
+    tile = rows * dp * 2
+    zeros = keys * 64 * 2 if dp == 192 else 16
+    xch = 2 * rows * keys * 4 if once else 4
+    struct = -(-(tile * (1 + 2 * stages) + zeros + xch + 8 * (2 + 4 * stages)) // align) * align
+    boxes = (dp // 64 + 1) // 2
+    return dict(dp=dp, rows=rows, once=once, ksteps=dp // 32 if once else dp // 16, boxes=boxes, stages=stages,
+                smem=max(struct + align, kib * unit),
+                regs=boxes * 32 + keys // 2 + keys // 4, budget=budget)
+
+
+def k1_wide_items(B, H, Nq, Nk, D, tps):
+    """What K1's wide kernel reads and writes, as wide_unit and the consumers' stores compute them: per unit (a 64-row
+    query tile, then the key split, head, batch), its key tiles and each consumer thread's rows and columns of o (or
+    of its split's fp32 O). Yields (split, b, h, key tiles, rows, cols)."""
+    wide = k1_wide_plan(D)
+    q_tiles, n_tiles = -(-Nq // WIDE_ROWS), -(-Nk // WIDE_ROWS)
+    splits = -(-n_tiles // tps)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for u in range(q_tiles * splits * H * B):
+        rest = u // q_tiles
+        qt, split, hb = u % q_tiles, rest % splits, rest // splits
+        tiles = range(split * tps, min(split * tps + tps, n_tiles))
+        for cwg in range(2):
+            for a in range(wide["boxes"]):
+                for c in range(8):
+                    col0 = (cwg * wide["boxes"] + a) * 64 + c * 8
+                    if col0 >= D:  # the padding's columns, and consumer 1's box of zeros at DP = 192
+                        continue
+                    for warp in range(4):
+                        row0 = qt * WIDE_ROWS + warp * 16 + g
+                        for r in (row0, row0 + 8):
+                            for j in range(2):
+                                keep = r < Nq
+                                yield split, hb // H, hb % H, tiles, r[keep], (col0 + 2 * t + j)[keep]
+
+
+def k3_f32_plan(head_dim, dkv):
+    """K3's fp32 (3xTF32) kernels (csrc/flash_attention_bwd.cu Tf32BwdCfg), dq (dkv False) or dk/dv: a dict of the
+    padded head dim, whether the unit's own tiles stay resident, the output columns a unit covers (NCO) and a piece
+    (NP), the D columns an S step covers, the ring's slots and slot bytes, the dynamic shared memory, and the registers
+    a consumer thread holds (the output's chunk, S, dP and a chain of S's k-steps, a piece's chain, a k-step's hi and lo
+    A operand) against its setmaxnreg budget. D <= 16 keeps the CUDA-core kernels: dict(kernel="small")."""
+    box, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int F_BOX = (\d+);"))
+    own, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int F_OWN = (\d+);"))
+    loop, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int F_LOOP = (\d+);"))
+    ring, kib = map(int, _constant("flash_attention_bwd.cu", r"constexpr int F_RING_BYTES = (\d+) \* (\d+);"))
+    small, = map(int, _constant("flash_attention_bwd.cu", r"constexpr int F32_SMALL_DP = (\d+);"))
+    res_max, = map(int, _constant("flash_attention_bwd.cu", r"static constexpr bool RES = DP <= (\d+);"))
+    dkv_nco, dq_nco = map(int, _constant("flash_attention_bwd.cu", r"NCO = DKV \? \(DP < (\d+) \? DP : \d+\) : "
+                                                                     r"\(DP < (\d+) \? DP : \d+\);"))
+    budget, = map(int, _constant("flash_attention_bwd.cu", r"fa_bwd_tf32_kernel\([\s\S]*?setmaxnreg_inc<(\d+)>"))
+    align, = map(int, _constant("hopper.cuh", r"constexpr int SMEM_ALIGN = (\d+);"))
+    assert small == F32_SMALL_HEAD_DIM and (own, loop) == (BWD_OWN_ROWS, BWD_LOOP_ROWS)
+    if head_dim <= small:
+        return dict(kernel="small")
+    dp = next(p for p in (32, 64, 128, 256) if head_dim <= p)
+    res = dp <= res_max
+    nco = min(dp, dkv_nco if dkv else dq_nco)
+    np_ = min(dp, 64)
+    sc = dp if res else box
+    own_box, loop_box, piece = 2 * own * 128, 2 * loop * 128, 2 * 2 * np_ * 128
+    sstep = (sc // box) * loop_box if res else own_box + loop_box
+    slot = max(sstep, piece)
+    own_bytes = 2 * (dp // box) * own_box if res else 0
+    stages = (ring * kib - own_bytes) // slot
+    smem = own_bytes + stages * slot + 8 * (2 + 2 * stages) + align
+    acc = (2 if dkv else 1) * nco // 2
+    return dict(kernel="tf32", dp=dp, res=res, nco=nco, np=np_, sc=sc, slot=slot, stages=stages, smem=smem,
+                regs=acc + 3 * (loop // 2) + np_ // 2 + 8, budget=budget)
+
+
+def k3_f32_items(B, H, n_own, D, dkv):
+    """The outputs K3's fp32 kernels write, as f32_item and the consumers' stores compute them: per unit (NCO-column
+    chunk fastest, then the 128-row own tile, then b * H + h), each consumer thread's two rows and the columns of its
+    chunk below D. Yields (b, h, rows, cols)."""
+    nco = k3_f32_plan(D, dkv)["nco"]
+    chunks, tiles = -(-D // nco), -(-n_own // BWD_OWN_ROWS)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for item in range(chunks * tiles * B * H):
+        chunk, tile, bh = item % chunks, (item // chunks) % tiles, item // (chunks * tiles)
+        for cwg in range(2):
+            for warp in range(4):
+                row0 = tile * BWD_OWN_ROWS + cwg * 64 + warp * 16 + g
+                for r in (row0, row0 + 8):
+                    for c in range(nco // 8):
+                        if chunk * nco + c * 8 >= D:
+                            continue
+                        for j in range(2):
+                            keep = r < n_own
+                            yield bh // H, bh % H, r[keep], (chunk * nco + c * 8 + 2 * t + j)[keep]
 
 
 def k3_plan(head_dim):
@@ -304,13 +422,13 @@ def test_int8_prep_ref_layout(nk, mode):
 
 @pytest.mark.parametrize("d,plan", [(8, (64, 1, 3)), (16, (64, 1, 3)), (32, (64, 1, 3)), (64, (64, 1, 3)),
                                     (72, (128, 2, 2)), (80, (128, 2, 2)), (96, (128, 2, 2)), (128, (128, 2, 2)),
-                                    (136, (192, 3, 1)), (192, (192, 3, 1)), (200, (256, 4, 1)), (256, (256, 4, 1)),
+                                    (136, (192, 3, 3)), (192, (192, 3, 3)), (200, (256, 4, 2)), (256, (256, 4, 2)),
                                     (264, (512, 8, 1)), (512, (512, 8, 1))])
 def test_k1_plan_pads_the_head_dim_into_64_column_boxes(d, plan):
     """Every D up to 64 takes one 64-column box per tile (DP = 64), up to 128 two (DP = 128) with a two-stage ring: the
     shared memory fits the block's 227 KB, and a third stage at DP = 128 would leave under 2 KB. Above 128 a 128-row Q
-    tile with two K/V stages does not fit, so DP = 192, 256 and 512 take the column-split kernel's 64-row tiles, one K
-    and one V slot (at 512 a second slot of either would not fit). Only a head dim above 512 raises."""
+    tile with two K/V stages does not fit, so DP = 192, 256 and 512 take the wide kernel's 64-row tiles, three, two and
+    one K and V slots (at 512 a second slot of either would not fit). Only a head dim above 512 raises."""
     dp, boxes, stages, smem = k1_plan(d)
     assert (dp, boxes, stages) == plan
     assert smem <= SMEM_LIMIT
@@ -455,3 +573,85 @@ def test_k1_tiles_of_every_head_dim_compute_attention(d):
     got = _emulate_k1(q, k, v, scale)
     ref = flash_attention_lse_ref(*(torch.from_numpy(a)[None, :, None] for a in (q, k, v)), scale)[0][0, :, 0]
     assert np.abs(got - ref.numpy()).max() <= 1e-5
+
+
+@pytest.mark.parametrize("d", [136, 192, 200, 256, 264, 512])
+def test_k1_wide_plan_fits_the_block_and_the_registers(d):
+    """K1's wide kernel: 64-row units shared by both consumers; at DP = 512 S computed once (its k-steps split evenly
+    between the consumers, the partial scores exchanged: 64 KB of Q, K and V each plus 32 KB leave one K and one V
+    slot, a second would not fit); at 192 and 256 each consumer computes the whole S (measured faster there, PERF.md
+    section 6) with three and two K / V slots. Each fits 227 KB, O's boxes, S and P a consumer's setmaxnreg
+    budget."""
+    plan = k1_wide_plan(d)
+    assert plan["smem"] <= SMEM_LIMIT and plan["regs"] <= plan["budget"]
+    assert plan["stages"] == {192: 3, 256: 2, 512: 1}[plan["dp"]] and plan["once"] == (plan["dp"] == 512)
+    assert plan["ksteps"] * 16 * (2 if plan["once"] else 1) == plan["dp"]
+    if plan["dp"] == 512:
+        assert plan["smem"] + 2 * WIDE_ROWS * plan["dp"] * 2 > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d", [(2, 8, 1, 1025, 192), (1, 2, 130, 700, 256), (2, 1, 1024, 1024, 512),
+                                         (1, 1, 300, 1029, 512), (2, 3, 200, 520, 200), (1, 1, 65, 64, 136)])
+def test_k1_wide_units_take_every_key_once_and_write_every_output_once(b, h, nq, nk, d):
+    """Under the wrapper's plan (and with one tile a split): every query tile of every (b, h) is a unit of every key
+    split, the splits' key tiles cover every key tile once, every row and column of o (or of each split's fp32 O in the
+    workspace) is written once, and the workspace holds what the splits write (k1_wide_workspace_floats)."""
+    n_tiles = -(-nk // WIDE_ROWS)
+    for tps in sorted({k1_wide_tiles_per_split(b, h, nq, nk), 1}):
+        splits = -(-n_tiles // tps)
+        seen = np.zeros((splits, b, h, nq, d), np.int32)
+        keys = {}
+        for split, bi, hi, tiles, rows, cols in k1_wide_items(b, h, nq, nk, d, tps):
+            np.add.at(seen, (split, bi, hi, rows, cols), 1)
+            keys.setdefault((bi, hi, split), set(tiles))
+        assert (seen == 1).all()
+        for bi in range(b):
+            for hi in range(h):
+                got = sorted(t for split in range(splits) for t in keys[(bi, hi, split)])
+                assert got == list(range(n_tiles))
+        floats = k1_wide_workspace_floats(b, h, nq, nk, d, tps)
+        assert floats == (0 if splits == 1 else splits * b * h * nq * (d + 2))
+
+
+@pytest.mark.parametrize("d", [24, 32, 40, 64, 72, 128, 136, 256])
+@pytest.mark.parametrize("dkv", [False, True])
+def test_k3_f32_plan_fits_the_block_and_the_registers(d, dkv):
+    """K3's fp32 kernels at every padded head dim: up to DP = 64 the own tiles (two tensors, hi and lo, 128 rows) stay
+    resident beside a ring of at least 3 slots; above they travel through the ring with the loop boxes. dq keeps its
+    whole width up to DP = 128 (128-column chunks above), dk and dv up to 64 (64-column chunks above): both within 227
+    KB and the setmaxnreg budget, where whole-width dk and dv at DP = 128 would not fit the registers."""
+    plan = k3_f32_plan(d, dkv)
+    assert plan["stages"] >= 3 and plan["smem"] <= SMEM_LIMIT and plan["regs"] <= plan["budget"]
+    assert plan["res"] == (plan["dp"] <= 64)
+    assert plan["nco"] == min(plan["dp"], 64 if dkv else 128)
+    if dkv and plan["dp"] == 128:
+        assert plan["regs"] + plan["dp"] // 2 * 2 - plan["nco"] // 2 * 2 > plan["budget"]
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_k3_f32_plan_sends_the_smallest_heads_to_the_cuda_core_kernels(d):
+    assert k3_f32_plan(d, False) == k3_f32_plan(d, True) == dict(kernel="small")
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 3, 200, 24), (1, 2, 129, 64), (2, 1, 300, 80), (1, 2, 65, 192),
+                                     (1, 1, 130, 200), (2, 2, 64, 256)])
+@pytest.mark.parametrize("dkv", [False, True])
+def test_k3_f32_units_write_every_output_once(b, h, n, d, dkv):
+    "The fp32 kernels' units and the consumers' stores cover every row and column of dq (or dk, dv) exactly once."
+    seen = np.zeros((b, h, n, d), np.int32)
+    for bi, hi, rows, cols in k3_f32_items(b, h, n, d, dkv):
+        np.add.at(seen, (bi, hi, rows, cols), 1)
+    assert (seen == 1).all()
+
+
+def test_k3_f32_workspace_planes_and_row_order():
+    """The split pre-pass writes q, dO, k and v as (2, B H, N, D) hi/lo planes and q, dO and k transposed as (2, B H, D,
+    N8) planes (14 planes of 16.8 MB at the fp32 trunk's (4, 1024, 16, 64): 235 MB); within each 8 rows of a transposed
+    plane, column t holds row 2t and column t + 4 row 2t + 1, where the register A operand of p, ds or their transposes
+    takes the accumulator's columns 2t and 2t + 1 (fa_bwd_tf32_kernel: register i of k-step kc from register
+    4 kc + 2 (i & 1) + (i >> 1)), so each k-step sums each row's term with that row's operand."""
+    assert k3_tf32_workspace_floats(4, 16, 1024, 1024, 64) * 4 == 14 * 4 * 16 * 1024 * 64 * 4
+    assert k3_tf32_workspace_floats(1, 2, 5, 13, 16) == 2 * 2 * (2 * 5 * 16 + 2 * 13 * 16 + 16 * (2 * 8 + 16))
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert "return p < 4 ? 2 * p : 2 * p - 7;" in src and "a[4 * kc + ((i & 1) << 1) + (i >> 1)]" in src
+    assert "tile[(x & ~7) | t_key(x & 7)][r]" in src

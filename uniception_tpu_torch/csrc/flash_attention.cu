@@ -78,29 +78,42 @@
 //   * Later work: a third consumer warpgroup, a TMA store of the output, P.V at
 //     N = D where the swizzle allows it.
 //
-// 128 < D <= 512 (bf16, fa_fwd_bf16_wide_kernel<DP>, DP = 192, 256 or 512): the
-//   kernel above cannot hold it. At D = 512 a consumer's 64 x 512 fp32 accumulator
-//   would be 256 registers a thread and its Q operands 128 more, over the 255 a
-//   thread may have; at DP = 256 Q (128 rows, 64 KB) and two K/V stages (128 KB)
-//   leave no room, and O, S, P and Q's operands need 288 registers. So the two
-//   consumer warpgroups split O's columns instead of the query rows: a work item
-//   is 64 query rows of one (b, h), and consumer 0 owns O's first ceil(DP / 128)
-//   boxes of 64 columns, consumer 1 the rest (at D = 512 [256c, 256c + 256), two
-//   m64n128 accumulators, 128 registers; at DP = 192 two boxes and one, the odd
-//   box an m64n64 product). Each consumer computes the same
-//   S = Q.K^T over the full DP (DP / 16 wgmma m64n64k16 with both operands in shared
-//   memory: Q is too wide for registers), so both hold the same scores and run
-//   the same online softmax with no exchange, then O += P.V over its own boxes of
-//   V (wgmma m64n128k16 per pair of boxes, P from registers, V MN-major through
-//   the transpose bit). That is 1.5x the minimum tensor-core work (S twice).
-//   Shared memory at D = 512: Q (64 KB), one 64-key K tile (64 KB) and one V tile
-//   (64 KB), 8 boxes of 64 columns each, 192 KB of the 227 KB (96 KB at DP =
-//   256, 72 KB at 192); K and V have separate barriers, so the
-//   next K tile loads while the consumers run the softmax and P.V, and the next
-//   V tile while they run the next S. No ping-pong and no overlap of S with P.V
-//   inside a consumer: the simple, correct first design. With one head the grid
-//   is B * Nq / 64 items (32 at B = 2, N = 1024: a quarter of the 132 SMs); a
-//   split over the keys is later work.
+// 128 < D <= 512 (bf16, fa_fwd_bf16_wide_kernel<DP>, DP = 192, 256 or 512): the kernel above cannot hold it. At
+//   D = 512 a consumer's 64 x 512 fp32 accumulator would be 256 registers a thread and its Q operands 128 more, over the
+//   255 a thread may have; at DP = 256 Q (128 rows, 64 KB) and two 128-key K/V stages (128 KB) leave no room. So the
+//   two consumer warpgroups split O's columns: a work unit is 64 query rows of one (b, h), consumer 0 owns O's first
+//   ceil(DP / 128) boxes of 64 columns, consumer 1 the rest (at D = 512 [256c, 256c + 256), two m64n128 accumulators,
+//   128 registers; at DP = 192 box 2, whose m64n128 product takes a box of zeros as its second atom, so that both
+//   consumers issue the same instruction: a run-time choice between an m64n128 and an m64n64 product on one
+//   accumulator made ptxas serialise every wgmma of K3's wide kernels, C7520). S = Q.K^T is wgmma m64n64k16 with Q
+//   and K read K-major from shared memory (Q is too wide for registers); P.V takes P from registers and V MN-major
+//   through the transpose bit.
+//   * S once at DP = 512: consumer c takes S's k-steps [16c, 16c + 16), and the two add each other's partial scores
+//     through shared memory (two 64 x 64 fp32 buffers, named barriers for full and free). S0 + S1 == S1 + S0, so both
+//     hold the same bits and run the same online softmax with no further exchange. At DP = 192 and 256 each consumer
+//     computes the whole S (the same bits in both, 1.5x the tensor-core work): there S once measured slower (0.0305-
+//     0.0322 against 0.0274-0.0279 ms at (2,1024,1024,4,256), H100, PERF.md section 6), since the exchange holds the
+//     two consumers in step and neither one's softmax then overlaps the other's products.
+//   * What bounds it: neither the tensor cores nor the loads alone. At (2,4096,1,512) a 64-key tile takes 2.4 us
+//     against 1.1 us of tensor-core work; without the exchange and the softmax (a diagnostic, its output wrong) 0.13
+//     ms against 0.15, without the K and V loads 0.14: the tile's chain S -> exchange -> softmax -> P.V runs in turn.
+//     Overlapping the next S with P.V there needs S and P beside O's 128 registers: ptxas spilled 208 bytes and it ran
+//     1.3x slower. A cluster of two CTAs sharing each K and V tile by TMA multicast (half the L2 reads) ran 1.4x
+//     slower, and 128-row units (64 per consumer, O over every column) at DP = 192-256 1.2x slower.
+//   * Each consumer runs a tile's S, softmax and P.V in turn. Issuing tile j's S before tile j - 1's P.V (the order
+//     of the kernel above) measured slower at PE-G's pool (DP = 192) and 1-2% faster on a synthetic DP = 256 shape
+//     that no path runs in bf16, so it is not built. Warps 0, 1 and 2 of the producer warpgroup each load one operand
+//     (Q, K, V), so a load waits only on its own slot; K and V have rings of three slots at DP = 192, two at 256, one
+//     at 512 (there Q, K and V take 192 KB and the exchange 32 KB of the 227 KB).
+//   * A split over the keys when the units would fill less than a wave of the SMs (ops/flash_attention.py
+//     k1_wide_tiles_per_split: PE-G's attention pool has 16 units of one query each, (2,1024,1,512) 32): a unit is
+//     then (64 query rows, a range of key tiles); each writes its fp32 O, unnormalised, its row max and its row sum
+//     into a workspace the wrapper allocates (k1_wide_workspace_floats), and fa_wide_combine_kernel merges the splits
+//     in split order into o and, when asked, the logsumexp (K3's input at D = 192 and 256). No atomics: two calls
+//     give the same bits.
+//   The plan (shared memory per DP, the registers, the splits and the workspace) is in
+//   tests/test_torch_kernel_layouts.py (k1_wide_plan), the schedule emulated in tests/test_torch_k1_wide.py.
+//   Measured: PERF.md section 6 (chip_smoke.py phase 47).
 //
 // fp32 (fa_fwd_tf32_kernel<DP>, DP = 32, 64, 128, 256 or 512; D at run time; D <= 16
 //   takes fa_fwd_f32_small_kernel below, one CUDA-core thread a query row: at the
@@ -485,35 +498,46 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at 128 < D <= 512: the consumers split O's columns (see the note at the top)
+// bf16 at 128 < D <= 512 (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int W_BQ = 64;                     // query rows per work item, shared by both consumers
+constexpr int W_BQ = 64;                     // query rows per work unit, shared by both consumers
 constexpr int W_BK = 64;                     // keys per K / V tile
 constexpr int W_BOX_BYTES = 64 * 128;        // one box: 64 rows of 128 bytes
+constexpr int W_XCH_FULL = 1, W_XCH_FREE = 2;  // named barriers of the score exchange (W_XCH_FREE + consumer)
 
-// The kernel built for the padded head dim DP (192, 256 or 512): DP / 64 boxes per tile; consumer 0 owns the
-// first A0 boxes of O's columns, consumer 1 the rest (2 and 1 at DP = 192, 2 and 2 at 256, 4 and 4 at 512).
+// The kernel built for the padded head dim DP (192, 256 or 512): DP / 64 boxes per tile; consumer 0 owns the first A0
+// boxes of O's columns, consumer 1 the rest (2 and 1 at DP = 192, beside a box of zeros, so that both issue the same
+// m64n128 products; 2 and 2 at 256, 4 and 4 at 512). SONCE: each S computed once, consumer c taking S's k-steps
+// [c KH, c KH + KH) and the two exchanging their partial scores; else each consumer computes the whole S (the same
+// bits in both). The K / V ring has what the block's memory leaves room for.
 template <int DP>
 struct WideCfg {
   static constexpr int BOXES = DP / BOX_COLS;
   static constexpr int A0 = (BOXES + 1) / 2;
-  static constexpr int TILE_BYTES = W_BQ * DP * 2;  // one Q, K or V tile (W_BQ == W_BK)
+  static constexpr bool SONCE = DP == 512;
+  static constexpr int KH = SONCE ? DP / 32 : DP / 16;       // S's k-steps of 16 per consumer
+  static constexpr int STAGES = DP == 512 ? 1 : DP == 256 ? 2 : 3;
+  static constexpr int TILE_BYTES = W_BQ * DP * 2;           // one Q, K or V tile (W_BQ == W_BK)
 };
 
 template <int DP>
 struct alignas(hw::SMEM_ALIGN) WideSmem {
   __nv_bfloat16 q[W_BQ * DP];
-  __nv_bfloat16 k[W_BK * DP];
-  __nv_bfloat16 v[W_BK * DP];
-  uint64_t q_full, q_empty, k_full, k_empty, v_full, v_empty;
+  __nv_bfloat16 k[WideCfg<DP>::STAGES][W_BK * DP];
+  __nv_bfloat16 v[WideCfg<DP>::STAGES][W_BK * DP];
+  __nv_bfloat16 zeros[DP == 192 ? W_BK * BOX_COLS : 8];   // DP = 192: consumer 1's second atom of P.V
+  float xch[WideCfg<DP>::SONCE ? 2 * W_BQ * W_BK : 1];   // SONCE: each consumer's partial scores of a tile
+  uint64_t q_full, q_empty, k_full[WideCfg<DP>::STAGES], k_empty[WideCfg<DP>::STAGES], v_full[WideCfg<DP>::STAGES],
+      v_empty[WideCfg<DP>::STAGES];
 };
 template <int DP>
 constexpr int wide_smem_bytes() {
   return sizeof(WideSmem<DP>) + hw::SMEM_ALIGN > hw::MIN_SMEM_BYTES ? sizeof(WideSmem<DP>) + hw::SMEM_ALIGN
                                                                     : hw::MIN_SMEM_BYTES;
 }
-static_assert(wide_smem_bytes<512>() <= 232448, "the block's shared memory");
+static_assert(wide_smem_bytes<512>() <= 232448 && wide_smem_bytes<256>() <= 232448 && wide_smem_bytes<192>() <= 232448,
+              "the block's shared memory");
 
 // One box after another: the DP / 64 TMA boxes of 64 columns at rows row0 of head h, batch b, into consecutive
 // W_BOX_BYTES slots of dst (boxes past D arrive as zeros).
@@ -525,90 +549,154 @@ __device__ __forceinline__ void load_wide_tile(__nv_bfloat16* dst, const CUtenso
     hw::tma_load_4d(dst + box * W_BQ * BOX_COLS, map, bar, box * BOX_COLS, h, row0, b);
 }
 
-// O += P V over NB boxes of this consumer's columns: 4 k-steps of 16 keys, each an m64n128 product per pair of
-// boxes and an m64n64 one for an odd last box, P from registers, V MN-major through the transpose bit. acc holds
-// box a's 64 columns in registers [32a, 32a + 32) (an m64n128 accumulator's first 32 registers are its first 64
-// columns).
-template <int NB, int N>
-__device__ __forceinline__ void wide_pv(float (&acc)[N], uint32_t (&pa)[W_BK / 16][4], uint32_t v_addr) {
-  static_assert(NB * 32 <= N, "the accumulator holds the boxes");
-  hw::fence_regs(acc);
-  hw::fence_regs(pa);
+// This consumer's S = Q K^T for the unit's rows and a key tile: KH k-steps of 16 over the padded head dim (SONCE: its
+// half, [c KH, c KH + KH); else all of them), both operands K-major in shared memory (box k / 4, 32 bytes a k-step
+// inside its swizzled rows); the first overwrites S. One wgmma group, committed.
+template <int DP>
+__device__ __forceinline__ void wide_s(float (&sc)[W_BK / 2], uint32_t q_addr, uint32_t k_addr, int c) {
+  using Cfg = WideCfg<DP>;
+  hw::fence_regs(sc);
   hw::wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < W_BK / 16; ++kc) {
-#pragma unroll
-    for (int a = 0; a + 1 < NB; a += 2)
-      hw::wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(&acc[32 * a]), pa[kc],
-                                 hw::desc_mn_major(v_addr + a * W_BOX_BYTES + kc * 16 * 128, W_BOX_BYTES), 1);
-    if constexpr (NB % 2 == 1)
-      hw::wgmma_m64n64k16_rs<1>(*reinterpret_cast<float(*)[32]>(&acc[32 * (NB - 1)]), pa[kc],
-                                hw::desc_mn_major(v_addr + (NB - 1) * W_BOX_BYTES + kc * 16 * 128), 1);
+  for (int kk = 0; kk < Cfg::KH; ++kk) {
+    const int k = (Cfg::SONCE ? c * Cfg::KH : 0) + kk;
+    const uint32_t off = (k / 4) * W_BOX_BYTES + (k % 4) * 32;
+    hw::wgmma_m64n64k16_ss<0, 0>(sc, hw::desc_k_major(q_addr + off), hw::desc_k_major(k_addr + off), kk > 0);
   }
   hw::wgmma_commit();
 }
 
-// Persistent: gridDim.x blocks walk the (64-query tile, head, batch) items, query tile fastest. Warpgroup 0's
-// thread 0 loads each item's Q, then for each key tile K and V, each behind its own full/empty barrier pair (one
-// slot each). Consumer c (warpgroups 1 and 2) computes S over the full padded head dim, the online softmax, and
-// its boxes of O's columns. With an LSE pointer, consumer 0 writes each row's logsumexp. D <= DP is the real head
-// dim (a multiple of 8): o's row length and the columns written.
+// O += P V over this consumer's A0 boxes of O's columns: 4 k-steps of 16 keys, one m64n128 product per pair of boxes,
+// P from registers, V MN-major through the transpose bit (v_addr: the consumer's first box; atom: the byte offset of
+// the second atom of its last pair, the box of zeros for consumer 1 at DP = 192). acc holds box a's 64 columns in
+// registers [32a, 32a + 32). One wgmma group, committed.
+template <int DP>
+__device__ __forceinline__ void wide_pv(float (&acc)[WideCfg<DP>::A0 * 32], uint32_t (&pa)[W_BK / 16][4],
+                                        uint32_t v_addr, uint32_t atom) {
+  constexpr int A0 = WideCfg<DP>::A0;
+  static_assert(A0 % 2 == 0, "pairs of boxes");
+  hw::fence_regs(acc);
+  hw::fence_regs(pa);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < W_BK / 16; ++kc)
+#pragma unroll
+    for (int a = 0; a < A0; a += 2)
+      hw::wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(&acc[32 * a]), pa[kc],
+                                 hw::desc_mn_major(v_addr + a * W_BOX_BYTES + kc * 16 * 128,
+                                                   a + 2 < A0 ? W_BOX_BYTES : atom), 1);
+  hw::wgmma_commit();
+}
+
+// SONCE: the other consumer's partial scores of this tile added to this one's through shared memory: both then hold
+// the same bits (S0 + S1 == S1 + S0), so both run the same online softmax with no further exchange. Consumer c writes
+// its partial once the other has read its last one (barrier W_XCH_FREE + c, which the other arrives at after each
+// read), then both wait for both partials (W_XCH_FULL). `grant`: false on the block's last exchange, whose read nobody
+// waits for.
+__device__ __forceinline__ void exchange_scores(float (&sc)[W_BK / 2], float* xch, int c, int lt, bool grant) {
+  hw::named_bar_sync(W_XCH_FREE + c, 256);
+  float* mine = xch + c * W_BQ * W_BK;
+  const float* other = xch + (c ^ 1) * W_BQ * W_BK;
+#pragma unroll
+  for (int i = 0; i < W_BK / 2; ++i) mine[i * 128 + lt] = sc[i];
+  hw::named_bar_sync(W_XCH_FULL, 256);
+#pragma unroll
+  for (int i = 0; i < W_BK / 2; ++i) sc[i] += other[i * 128 + lt];
+  if (grant) hw::named_bar_arrive(W_XCH_FREE + (c ^ 1), 256);
+}
+
+// The work unit `u`: (64-query tile, key split, head, batch), query tile fastest; its key tiles [t0, t1).
+struct WideUnit {
+  int qt, split, h, b, t0, t1;
+};
+__device__ __forceinline__ WideUnit wide_unit(int u, int q_tiles, int splits, int H, int tps, int n_tiles) {
+  const int rest = u / q_tiles, split = rest % splits, hb = rest / splits;
+  const int t0 = split * tps, t1 = t0 + tps < n_tiles ? t0 + tps : n_tiles;
+  return WideUnit{u % q_tiles, split, hb % H, hb / H, t0, t1};
+}
+
+// Persistent: gridDim.x blocks walk the units (64-query tile, key split of `tps` key tiles, head, batch). The
+// producer warpgroup's warps 0, 1 and 2 each load one operand: each unit's Q, and each key tile's K and V into their
+// rings, so that no load waits on another operand's release. Each consumer (warpgroups 1 and 2) computes S (SONCE: its
+// half, exchanged with the other's), runs the online softmax and adds P V over its boxes of O's columns, each tile's
+// steps in turn. With one split, o (and the logsumexp, with an LSE pointer) is written here; with more, each
+// unit writes its fp32 O, unnormalised, and its row max (log2 units) and sum into ws for fa_wide_combine_kernel. D <=
+// DP is the real head dim (a multiple of 8): o's row length and the columns written.
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int H,
-    int Nq, int Nk, int D, float scale_log2) {
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    float* __restrict__ ws, int B, int H, int Nq, int Nk, int D, int tps, float scale_log2) {
   using Cfg = WideCfg<DP>;
-  constexpr int A0 = Cfg::A0, A1 = Cfg::BOXES - Cfg::A0;
+  constexpr int A0 = Cfg::A0, ST = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
   WideSmem<DP>& sm = *reinterpret_cast<WideSmem<DP>*>(hw::align_smem(smem_raw));
   const int tid = threadIdx.x;
-  const int q_tiles = (Nq + W_BQ - 1) / W_BQ, n_items = q_tiles * H * B;
-  const int n_tiles = (Nk + W_BK - 1) / W_BK;
+  const int q_tiles = (Nq + W_BQ - 1) / W_BQ, n_tiles = (Nk + W_BK - 1) / W_BK, splits = (n_tiles + tps - 1) / tps;
+  const int n_units = q_tiles * splits * H * B;
 
   if (tid == 0) {
     hw::mbar_init(&sm.q_full, 1);
-    hw::mbar_init(&sm.k_full, 1);
-    hw::mbar_init(&sm.v_full, 1);
     hw::mbar_init(&sm.q_empty, THREADS - 128);  // every consumer thread releases each buffer
-    hw::mbar_init(&sm.k_empty, THREADS - 128);
-    hw::mbar_init(&sm.v_empty, THREADS - 128);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hw::mbar_init(&sm.k_full[s], 1);
+      hw::mbar_init(&sm.v_full[s], 1);
+      hw::mbar_init(&sm.k_empty[s], THREADS - 128);
+      hw::mbar_init(&sm.v_empty[s], THREADS - 128);
+    }
     hw::fence_barrier_init();
+  }
+  if constexpr (DP == 192) {
+    for (int i = tid; i < W_BK * BOX_COLS / 8; i += THREADS) reinterpret_cast<uint4*>(sm.zeros)[i] = uint4{0, 0, 0, 0};
+    hw::fence_proxy_async();
   }
   __syncthreads();
 
-  if (tid < 128) {  // producer warpgroup: one thread issues every load
+  if (tid < 128) {  // producer warpgroup: lane 0 of warps 0, 1, 2 loads Q, K, V
     hw::setmaxnreg_dec<40>();
-    if (tid == 0) {
-      uint32_t q_phase = 0, kv_phase = 0;
-      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
-        hw::mbar_wait(&sm.q_empty, q_phase ^ 1);  // the first item finds the Q buffer free
-        hw::mbar_arrive_expect_tx(&sm.q_full, Cfg::TILE_BYTES);
-        load_wide_tile<DP>(sm.q, &qmap, &sm.q_full, h, qt * W_BQ, b);
-        q_phase ^= 1;
-        for (int j = 0; j < n_tiles; ++j) {
-          hw::mbar_wait(&sm.k_empty, kv_phase ^ 1);  // both consumers are done with the last K tile's S
-          hw::mbar_arrive_expect_tx(&sm.k_full, Cfg::TILE_BYTES);
-          load_wide_tile<DP>(sm.k, &kmap, &sm.k_full, h, j * W_BK, b);
-          hw::mbar_wait(&sm.v_empty, kv_phase ^ 1);  // ... and with the last V tile's P.V
-          hw::mbar_arrive_expect_tx(&sm.v_full, Cfg::TILE_BYTES);
-          load_wide_tile<DP>(sm.v, &vmap, &sm.v_full, h, j * W_BK, b);
-          kv_phase ^= 1;
+    const int role = tid >> 5;
+    if ((tid & 31) == 0 && role < 3) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const WideUnit w = wide_unit(u, q_tiles, splits, H, tps, n_tiles);
+        if (role == 0) {
+          hw::mbar_wait(&sm.q_empty, phase ^ 1);  // the first unit finds the Q buffer free
+          hw::mbar_arrive_expect_tx(&sm.q_full, Cfg::TILE_BYTES);
+          load_wide_tile<DP>(sm.q, &qmap, &sm.q_full, w.h, w.qt * W_BQ, w.b);
+          phase ^= 1;
+          continue;
+        }
+        for (int j = w.t0; j < w.t1; ++j) {
+          uint64_t* empty = role == 1 ? &sm.k_empty[s] : &sm.v_empty[s];
+          uint64_t* full = role == 1 ? &sm.k_full[s] : &sm.v_full[s];
+          hw::mbar_wait(empty, phase ^ 1);  // the first pass over the ring finds every slot free
+          hw::mbar_arrive_expect_tx(full, Cfg::TILE_BYTES);
+          load_wide_tile<DP>(role == 1 ? sm.k[s] : sm.v[s], role == 1 ? &kmap : &vmap, full, w.h, j * W_BK, w.b);
+          if (++s == ST) s = 0, phase ^= 1;
         }
       }
     }
-  } else {  // consumer warpgroups: the item's 64 rows, a share of O's columns each
+  } else {  // consumer warpgroups: the unit's 64 rows, a share of O's columns each
     hw::setmaxnreg_inc<232>();
-    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31;
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31, lt = ctid & 127;
     const int g = lane >> 2, t = lane & 3;
-    const int mine = cwg == 0 ? A0 : A1, box0 = cwg * A0;  // this consumer's boxes of O's columns
-    const uint32_t q_addr = hw::smem_u32(sm.q), k_addr = hw::smem_u32(sm.k);
-    const uint32_t v_addr = hw::smem_u32(sm.v) + box0 * W_BOX_BYTES;
-    uint32_t q_phase = 0, kv_phase = 0;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const int qt = item % q_tiles, h = (item / q_tiles) % H, b = item / (q_tiles * H);
-      const int row0 = qt * W_BQ + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+    const int box0 = cwg * A0;  // this consumer's first box of O's columns
+    const uint32_t q_addr = hw::smem_u32(sm.q);
+    auto v_box = [&](int s) { return hw::smem_u32(sm.v[s]) + box0 * W_BOX_BYTES; };
+    // the byte offset from the consumer's last pair's first box to its second: the next box, or the box of zeros
+    auto atom = [&](int s) -> uint32_t {
+      if (DP == 192 && cwg == 1) return hw::smem_u32(sm.zeros) - v_box(s);
+      return W_BOX_BYTES;
+    };
+    if constexpr (Cfg::SONCE) hw::named_bar_arrive(W_XCH_FREE + (cwg ^ 1), 256);  // the first partial's grant
+    int ks = 0, vs = 0;
+    uint32_t kph = 0, vph = 0, q_phase = 0;
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const WideUnit w = wide_unit(u, q_tiles, splits, H, tps, n_tiles);
+      const bool last_unit = u + gridDim.x >= n_units;
+      const int row0 = w.qt * W_BQ + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
       const int row1 = row0 + 8;
 
       float acc[A0 * 32];  // O's columns of this consumer's boxes: box a in registers [32a, 32a + 32)
@@ -622,35 +710,24 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
 
       hw::mbar_wait(&sm.q_full, q_phase);
       q_phase ^= 1;
-      for (int j = 0; j < n_tiles; ++j) {
-        // S = Q K^T: DP / 16 k-steps of 16 over the boxes, both operands K-major in shared memory
-        hw::mbar_wait(&sm.k_full, kv_phase);
-        hw::fence_regs(sc);
-        hw::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          const uint32_t off = (kk / 4) * W_BOX_BYTES + (kk % 4) * 32;
-          hw::wgmma_m64n64k16_ss<0, 0>(sc, hw::desc_k_major(q_addr + off), hw::desc_k_major(k_addr + off), kk > 0);
-        }
-        hw::wgmma_commit();
+      for (int j = w.t0; j < w.t1; ++j) {  // each tile's S, softmax and P.V in turn
+        hw::mbar_wait(&sm.k_full[ks], kph);
+        wide_s<DP>(sc, q_addr, hw::smem_u32(sm.k[ks]), cwg);
         hw::wgmma_wait<0>();
         hw::fence_regs(sc);
-        hw::mbar_arrive(&sm.k_empty);
-        if (j == n_tiles - 1) hw::mbar_arrive(&sm.q_empty);  // the item's last read of Q
-
+        hw::mbar_arrive(&sm.k_empty[ks]);
+        if (j == w.t1 - 1) hw::mbar_arrive(&sm.q_empty);  // the unit's last read of Q
+        if (++ks == ST) ks = 0, kph ^= 1;
+        if constexpr (Cfg::SONCE) exchange_scores(sc, sm.xch, cwg, lt, !(last_unit && j == w.t1 - 1));
         online_softmax(sc, m, l, corr, j, Nk, t, scale_log2);
         hw::pack_a<W_BK>(pa, sc);
         rescale(acc, corr);
-
-        hw::mbar_wait(&sm.v_full, kv_phase);
-        if (cwg == 0)  // warpgroup-uniform: each consumer's products over its own boxes
-          wide_pv<A0>(acc, pa, v_addr);
-        else
-          wide_pv<A1>(acc, pa, v_addr);
+        hw::mbar_wait(&sm.v_full[vs], vph);
+        wide_pv<DP>(acc, pa, v_box(vs), atom(vs));
         hw::wgmma_wait<0>();
         hw::fence_regs(acc);
-        hw::mbar_arrive(&sm.v_empty);
-        kv_phase ^= 1;
+        hw::mbar_arrive(&sm.v_empty[vs]);
+        if (++vs == ST) vs = 0, vph ^= 1;
       }
 
 #pragma unroll
@@ -658,29 +735,78 @@ __global__ void __launch_bounds__(THREADS, 1) fa_fwd_bf16_wide_kernel(
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
-      __nv_bfloat16* op = o + ((long long)b * Nq * H + h) * D;  // o is contiguous (B, Nq, H, D)
+      const bool split = splits > 1;
+      const long long stat = ((long long)w.b * H + w.h) * Nq;  // the row's (b, h, n) index, less n
+      const long long rows = (long long)B * H * Nq;
+      // one split: o is contiguous (B, Nq, H, D); more: the unit's fp32 O in ws, (splits, B, H, Nq, D)
+      __nv_bfloat16* op = o + ((long long)w.b * Nq * H + w.h) * D;
+      float* wp = split ? ws + ((long long)w.split * rows + stat) * D : nullptr;
 #pragma unroll
       for (int a = 0; a < A0; ++a) {
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const int chunk = (box0 + a) * 64 + c * 8;  // the columns past D are the padding's zeros
-          if (a >= mine || chunk >= D) continue;
+          const int col = (box0 + a) * 64 + c * 8;  // the columns past D are the padding's zeros
+          if (col >= D) continue;
           const float* x = &acc[32 * a + 4 * c];
-          if (row0 < Nq)
-            *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + chunk + 2 * t) =
-                hw::pack_bf16x2(x[0] / l[0], x[1] / l[0]);
-          if (row1 < Nq)
-            *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + chunk + 2 * t) =
-                hw::pack_bf16x2(x[2] / l[1], x[3] / l[1]);
+          if (split) {
+            if (row0 < Nq) *reinterpret_cast<float2*>(wp + (long long)row0 * D + col + 2 * t) = make_float2(x[0], x[1]);
+            if (row1 < Nq) *reinterpret_cast<float2*>(wp + (long long)row1 * D + col + 2 * t) = make_float2(x[2], x[3]);
+          } else {
+            if (row0 < Nq)
+              *reinterpret_cast<uint32_t*>(op + (long long)row0 * H * D + col + 2 * t) =
+                  hw::pack_bf16x2(x[0] / l[0], x[1] / l[0]);
+            if (row1 < Nq)
+              *reinterpret_cast<uint32_t*>(op + (long long)row1 * H * D + col + 2 * t) =
+                  hw::pack_bf16x2(x[2] / l[1], x[3] / l[1]);
+          }
         }
       }
-      if (lse != nullptr && cwg == 0 && t == 0) {  // m is in log2 units of the scaled scores
-        float* lp = lse + ((long long)b * H + h) * Nq;
-        if (row0 < Nq) lp[row0] = m[0] * LN2 + logf(l[0]);
-        if (row1 < Nq) lp[row1] = m[1] * LN2 + logf(l[1]);
+      if (cwg == 0 && t == 0) {  // m is in log2 units of the scaled scores
+        if (split) {
+          float* mp = ws + (long long)splits * rows * D + (long long)w.split * rows + stat;
+          float* lp = mp + (long long)splits * rows;
+          if (row0 < Nq) mp[row0] = m[0], lp[row0] = l[0];
+          if (row1 < Nq) mp[row1] = m[1], lp[row1] = l[1];
+        } else if (lse != nullptr) {
+          float* lp = lse + stat;
+          if (row0 < Nq) lp[row0] = m[0] * LN2 + logf(l[0]);
+          if (row1 < Nq) lp[row1] = m[1] * LN2 + logf(l[1]);
+        }
       }
     }
   }
+}
+
+constexpr int COMBINE_THREADS = 256;
+
+// The key splits merged, in split order: per row, M = max m_s, L = sum l_s 2^(m_s - M), o = sum O_s 2^(m_s - M) / L in
+// bf16 and, with an LSE pointer, M ln 2 + log L. One thread a row's 4 columns; ws as fa_fwd_bf16_wide_kernel writes it.
+__global__ void __launch_bounds__(COMBINE_THREADS) fa_wide_combine_kernel(const float* __restrict__ ws,
+                                                                          __nv_bfloat16* __restrict__ o,
+                                                                          float* __restrict__ lse, int B, int H, int Nq,
+                                                                          int D, int splits) {
+  const long long rows = (long long)B * H * Nq, d4 = D / 4;
+  const long long e = (long long)blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (e >= rows * d4) return;
+  const long long r = e / d4;  // (b, h, n)
+  const int c = (int)(e - r * d4) * 4;
+  const float* mp = ws + (long long)splits * rows * D + r;
+  const float* lp = mp + (long long)splits * rows;
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, mp[s * rows]);
+  float L = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float wgt = hw::exp2_ftz(mp[s * rows] - M);
+    L += lp[s * rows] * wgt;
+    const float4 x = __ldg(reinterpret_cast<const float4*>(ws + (s * rows + r) * D + c));
+    acc.x += x.x * wgt, acc.y += x.y * wgt, acc.z += x.z * wgt, acc.w += x.w * wgt;
+  }
+  const int n = (int)(r % Nq), h = (int)((r / Nq) % H), b = (int)(r / ((long long)Nq * H));
+  __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(o + (((long long)b * Nq + n) * H + h) * D + c);
+  op[0] = __floats2bfloat162_rn(acc.x / L, acc.y / L);
+  op[1] = __floats2bfloat162_rn(acc.z / L, acc.w / L);
+  if (lse != nullptr && c == 0) lse[r] = M * LN2 + logf(L);
 }
 
 // ---------------------------------------------------------------------------
@@ -1221,10 +1347,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   return 0;
 }
 
-// The column-split bf16 kernel built for DP (192, 256 or 512) on its persistent grid (boxes of 64 rows).
+// The wide bf16 kernel built for DP (192, 256 or 512) on its persistent grid (boxes of 64 rows), over key splits of
+// `tps` 64-key tiles (ops/flash_attention.py k1_wide_tiles_per_split), then, with more than one split, the combine.
+// ws: with more than one split, the workspace of ops/flash_attention.py k1_wide_workspace_floats.
 template <int DP>
-int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq, int Nk,
-                     int D, const long long* layouts, float scale_log2, cudaStream_t st) {
+int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, void* lse, void* ws, int B, int H, int Nq,
+                     int Nk, int D, int tps, const long long* layouts, float scale_log2, cudaStream_t st) {
+  const int n_tiles = (Nk + W_BK - 1) / W_BK;
+  if (tps < 1 || tps > n_tiles) return (int)cudaErrorInvalidValue;
+  const int splits = (n_tiles + tps - 1) / tps;
+  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   int status = hw::encode_tile_map(&qm, q, layouts, W_BQ);
   if (status == 0) status = hw::encode_tile_map(&km, k, layouts + hw::LAYOUT_INTS, W_BK);
@@ -1232,14 +1364,20 @@ int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, void*
   static bool smem_set[64];
   if (status == 0) status = hw::allow_smem(fa_fwd_bf16_wide_kernel<DP>, wide_smem_bytes<DP>(), smem_set);
   if (status != 0) return status;
-  const long long items = (long long)((Nq + W_BQ - 1) / W_BQ) * H * B;
-  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const long long units = (long long)((Nq + W_BQ - 1) / W_BQ) * splits * H * B;
+  const long long combine_threads = (long long)B * H * Nq * (D / 4);
+  if (units > 0x7fffffff || combine_threads / COMBINE_THREADS >= 0x7fffffff) return (int)cudaErrorInvalidValue;
   int sms = 0;
   status = hw::sm_count(&sms);
   if (status != 0) return status;
-  const int grid = (int)(items < sms ? items : sms);
+  const int grid = (int)(units < sms ? units : sms);
   fa_fwd_bf16_wide_kernel<DP><<<grid, THREADS, wide_smem_bytes<DP>(), st>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Nq, Nk, D, scale_log2);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), static_cast<float*>(ws), B, H, Nq, Nk, D,
+      tps, scale_log2);
+  if (splits > 1)
+    fa_wide_combine_kernel<<<(unsigned)((combine_threads + COMBINE_THREADS - 1) / COMBINE_THREADS), COMBINE_THREADS,
+                             0, st>>>(static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(o),
+                                      static_cast<float*>(lse), B, H, Nq, D, splits);
   return 0;
 }
 
@@ -1254,10 +1392,12 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
 // into a copy). `layouts` holds the tensor-map layouts of q, k and v, 11 ints each (hopper.cuh LAYOUT_INTS; boxes of
 // 64 columns and 128 rows, 64 rows above D = 128: ops/flash_attention.py fwd_rows), from which the fp32 kernel's
 // pre-pass takes its element strides; d has unit stride. o is a contiguous (B, Nq, H, D) tensor; lse, when not null,
-// a contiguous (B, H, Nq) float32 tensor; ws, for float32 only, the split operands' workspace
-// (ops/flash_attention.py tf32_workspace_floats), else null. Returns a cudaError_t.
+// a contiguous (B, H, Nq) float32 tensor. tps: bf16 above D = 128, the 64-key tiles of each key split (all of them
+// for one split; ops/flash_attention.py k1_wide_tiles_per_split), else ignored. ws: for float32, the split operands'
+// workspace (ops/flash_attention.py tf32_workspace_floats); for bf16 above D = 128 with more than one key split, the
+// splits' workspace (k1_wide_workspace_floats); else null. Returns a cudaError_t.
 extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* ws,
-                                      int dtype, int B, int H, int Nq, int Nk, int head_dim,
+                                      int dtype, int B, int H, int Nq, int Nk, int head_dim, int tps,
                                       const long long* layouts, float scale, void* stream) {
   const int D = head_dim;
   if (D < 8 || D > 512 || D % 8 != 0 || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
@@ -1273,11 +1413,11 @@ extern "C" int uc_flash_attention_fwd(const void* q, const void* k, const void* 
     else if (D <= 128)
       status = launch_bf16<true, 128, 0>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
     else if (D <= 192)
-      status = launch_bf16_wide<192>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+      status = launch_bf16_wide<192>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, tps, layouts, scale_log2, st);
     else if (D <= 256)
-      status = launch_bf16_wide<256>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+      status = launch_bf16_wide<256>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, tps, layouts, scale_log2, st);
     else
-      status = launch_bf16_wide<512>(q, k, v, o, lse, B, H, Nq, Nk, D, layouts, scale_log2, st);
+      status = launch_bf16_wide<512>(q, k, v, o, lse, ws, B, H, Nq, Nk, D, tps, layouts, scale_log2, st);
     if (status != 0) return status;
   } else if (dtype == 0) {
     const Strides qs = layout_strides(lq, 4), ks = layout_strides(lk, 4), vs = layout_strides(lv, 4);

@@ -47,11 +47,7 @@
 //     j-1's register-A products, and forms tile j's p and ds while those run;
 //     each wgmma group has its own fence, so ptxas never serialises them, and
 //     the two consumers take turns on the tensor cores (ping-pong).
-//   * fp32: full fp32 FMA on the CUDA cores, no TF32 (the Pallas kernels run
-//     fp32 at HIGHEST precision), the parity path. TPR threads share a row
-//     (2 up to DP = 64, 4 at 128, 8 at 256), each holding DP / TPR of its
-//     columns in registers, and add their parts of each dot product by a
-//     butterfly of shuffles; D at run time, columns past it loaded as zeros.
+//   * fp32: see "fp32" below.
 //   * q/k/v/dO are read through 4-D tensor maps (D, H, N, B) with their byte
 //     strides (ops/flash_attention.py tma_layout), so the views of a fused qkv
 //     projection need no copy; o, lse and the outputs are contiguous. TMA
@@ -99,6 +95,37 @@
 //     (_fa_bwd_fused_kernel's 5-product shape), 128-row loop tiles, dq
 //     accumulated in the dk/dv pass (which needs atomics or a reduction), the
 //     own tiles of the next item loaded while the last one finishes.
+//
+// fp32 (fa_bwd_tf32_kernel<DP, DKV>, DP = 32, 64, 128 or 256; D at run time; D <= 16 keeps the CUDA-core kernels at
+//   the end of this file, one row per pair of lanes: at the JAX training example's (16,4,4,4,16) they took 0.0122 ms
+//   against the 3xTF32 kernels' 0.0182-0.0187 on an H100, PERF.md section 6): the Pallas kernels run fp32 at
+//   Precision.HIGHEST. The CUDA-core kernels this replaces above D = 16 (one row per 2-8 lanes, a shuffle for every
+//   dot product, each K/V row read for 64 queries) reached 0.30 of the FFMA peak at the fp32 trunk's
+//   (4,1024,1024,16,64), 1.66x SDPA's fp32 backward. What bounds it now: the tensor cores' TF32 rate at three products
+//   for each needed one (165 TFLOP/s of the five needed products), and the waits of the per-k-step chains below.
+//   * Numerics: K1's fp32 kernel's (flash_attention.cu): each operand split into hi = tf32(x) and lo = tf32(x - hi),
+//     each product taken as hi.lo' + lo.hi' + hi.hi' in that order, every 8-wide k-step a chain of its own into fresh
+//     registers added to S, dP or the gradient in fp32 with round to nearest (chained sums truncate: chained over a
+//     tile they biased fp32 training's near-cancelling gradients). p and ds are split in registers before the
+//     products they feed; delta, p and ds as above. Within a 32-column box, and within a piece, the k-steps alternate
+//     between two chain buffers (and two sets of A operands), so one k-step's products run while the last one's are
+//     added. tests/test_torch_tf32_split.py emulates these numerics down to the tensor cores' truncation.
+//   * Layouts: tf32 wgmma takes only K-major shared-memory operands, and three of the five products contract over
+//     the rows (dq = ds k over the keys, dv = p^T dO and dk = ds^T q over the queries). A split pre-pass
+//     (k3_split_kernel, launched by the same entry point) writes q, dO, k and v as (2, B H, N, D) hi/lo planes and
+//     q, dO and k transposed, (2, B H, D, N8), rows contiguous and in t_key order within each 8 (the order the
+//     register A operand of p, ds and their transposes holds them in), into a workspace the wrapper allocates
+//     (ops/flash_attention.py k3_tf32_workspace_floats: 14 planes, 235 MB at the fp32 trunk's shape).
+//   * Shape: the passes above (delta, then dq over 128-query units looping over 64-key tiles, then dk/dv over
+//     128-key units looping over 64-query tiles), persistent, a TMA producer and two consumer warpgroups of 64 own
+//     rows each, both reading every slot of the ring. S and dP are m64n64k8 products with both operands in shared
+//     memory; the output products take p, ds or their transposes from registers and the transposed planes in pieces
+//     of 64 (at DP = 32, 32) output columns. Up to DP = 64 the unit's own tiles (two tensors, hi and lo) stay resident
+//     and a slot carries a loop tile's boxes; above, the own boxes travel through the ring beside the loop boxes (256
+//     KB of them would not fit). A unit covers dq's whole width up to DP = 128 (128-column chunks above) and dk's and
+//     dv's up to 64 (64-column chunks above: both whole at DP = 128 would not fit the registers). The plan is in
+//     tests/test_torch_kernel_layouts.py (k3_f32_plan, k3_f32_items). Measured: PERF.md section 6 (chip_smoke.py
+//     phase 47).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -940,18 +967,527 @@ __global__ void __launch_bounds__(THREADS, 1) fa_bwd_dkv_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores, full precision
+// fp32 at D > 16: error-compensated TF32 (3xTF32) on wgmma (see "fp32" in the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int F_BOX = 32;                  // fp32 columns of a TMA box: one 128-byte swizzle row
+constexpr int F_OWN = 128;                 // own rows per unit: 64 per consumer
+constexpr int F_LOOP = 64;                 // rows of each loop tile
+constexpr int F_RING_BYTES = 224 * 1024;   // the resident own tiles and the ring
+constexpr int F_PREP_THREADS = 256;
+constexpr int F32_SMALL_DP = 16;           // D <= 16 keeps the CUDA-core kernels below
+
+// The position of loop row p (0-7) of an 8-row group in a transposed plane: the register A operand of an 8-wide
+// k-step holds the accumulator's columns 2t and 2t + 1 in its columns t and t + 4 (flash_attention.cu vt_key).
+__host__ __device__ constexpr int t_key(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
+
+// The kernels built for the padded head dim DP (32, 64, 128 or 256), dq (DKV false) or dk/dv (DKV true). A unit is
+// 128 own rows (64 per consumer) and NCO of the output's columns; the loop tiles are 64 rows. Up to DP = 64 (RES) the
+// unit's own tiles, both tensors in hi and lo, stay in shared memory, and a ring slot carries SC columns of a loop tile
+// (an S step) or NP rows of a transposed plane (a piece of the output product); above, the own boxes travel through the
+// ring with the loop boxes, 32 columns an S step.
+template <int DP, bool DKV>
+struct Tf32BwdCfg {
+  static constexpr bool RES = DP <= 64;
+  static constexpr int NCO = DKV ? (DP < 64 ? DP : 64) : (DP < 128 ? DP : 128);  // output columns a unit covers
+  static constexpr int NP = DP < 64 ? DP : 64;          // output columns a piece
+  static constexpr int SC = RES ? DP : F_BOX;           // D columns an S step
+  static constexpr int OWN_BOX = 2 * F_OWN * 128;       // a 32-column box of an own tensor, hi and lo
+  static constexpr int LOOP_BOX = 2 * F_LOOP * 128;     // a 32-column box of a loop tensor, hi and lo
+  static constexpr int PIECE = 2 * 2 * NP * 128;        // NP rows of a transposed plane over a loop tile, hi and lo
+  static constexpr int SSTEP = RES ? (SC / F_BOX) * LOOP_BOX : OWN_BOX + LOOP_BOX;
+  static constexpr int SLOT = SSTEP > PIECE ? SSTEP : PIECE;
+  static constexpr int OWN_BYTES = RES ? 2 * (DP / F_BOX) * OWN_BOX : 0;
+  static constexpr int STAGES = (F_RING_BYTES - OWN_BYTES) / SLOT;
+  static constexpr int BAR_OFF = OWN_BYTES + STAGES * SLOT;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + hw::SMEM_ALIGN;
+  static constexpr int ACC = (DKV ? 2 : 1) * NCO / 2;    // accumulator registers a consumer thread
+  static_assert(STAGES >= 3 && SMEM <= 232448, "the block's shared memory");
+};
+
+// x = the three products of k-step kk (8 columns of a 32-column box) of A B^T for one consumer's 64 rows and a 64-row
+// loop tile: hi.lo, lo.hi, then hi.hi, both operands K-major in shared memory. One wgmma group, committed.
+__device__ __forceinline__ void tf32_ss_kstep(float (&x)[F_LOOP / 2], uint32_t ah, uint32_t al, uint32_t bh, uint32_t bl,
+                                              int kk) {
+  hw::fence_regs(x);
+  hw::wgmma_fence();
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(ah + kk * 32), hw::desc_k_major(bl + kk * 32), 0);
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(al + kk * 32), hw::desc_k_major(bh + kk * 32), 1);
+  hw::wgmma_m64n64k8_tf32_ss(x, hw::desc_k_major(ah + kk * 32), hw::desc_k_major(bh + kk * 32), 1);
+  hw::wgmma_commit();
+}
+
+// x = the three products of k-step kc (8 loop rows) of X^T-piece: a hi and lo from registers, the piece's transposed
+// plane K-major (bh: its hi part, bl: its lo part, each two 32-row boxes of NP rows). One wgmma group, committed.
+template <int NP>
+__device__ __forceinline__ void tf32_rs_kstep(float (&y)[NP / 2], uint32_t (&ah)[4], uint32_t (&al)[4], uint32_t bh,
+                                              uint32_t bl, int kc) {
+  const uint32_t off = (kc / 4) * NP * 128 + (kc % 4) * 32;
+  hw::fence_regs(y);
+  hw::wgmma_fence();
+  if constexpr (NP == 64) {
+    hw::wgmma_m64n64k8_tf32_rs(y, ah, hw::desc_k_major(bl + off), 0);
+    hw::wgmma_m64n64k8_tf32_rs(y, al, hw::desc_k_major(bh + off), 1);
+    hw::wgmma_m64n64k8_tf32_rs(y, ah, hw::desc_k_major(bh + off), 1);
+  } else {
+    hw::wgmma_m64n32k8_tf32_rs(y, ah, hw::desc_k_major(bl + off), 0);
+    hw::wgmma_m64n32k8_tf32_rs(y, al, hw::desc_k_major(bh + off), 1);
+    hw::wgmma_m64n32k8_tf32_rs(y, ah, hw::desc_k_major(bh + off), 1);
+  }
+  hw::wgmma_commit();
+}
+
+// The chain in x added to acc in fp32 (round to nearest), once it has landed: the chain issued last may still run
+// (PENDING = 1) or none (0).
+template <int PENDING, int N>
+__device__ __forceinline__ void add_products(float* acc, float (&x)[N]) {
+  hw::wgmma_wait<PENDING>();
+  hw::fence_regs(x);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += x[i];
+}
+
+// acc = A B^T over the first D columns, for one consumer's 64 own rows and the loop tile in the ring: ceil(D / SC) S
+// steps of the ring, each 8-wide k-step its own chain (tf32_ss_kstep) added to acc. Within a 32-column box the k-steps
+// alternate between the chain buffers x0 and x1, so that one k-step's products run while the last one's are added.
+// own: the own tensor's hi boxes (RES; its lo boxes F_OWN rows further, boxes OWN_BOX apart), else unused (the own
+// box is in the slot).
+template <int DP, bool DKV>
+__device__ __forceinline__ void tf32_bwd_product(float (&acc)[F_LOOP / 2], float (&x0)[F_LOOP / 2],
+                                                 float (&x1)[F_LOOP / 2], uint64_t* full, uint64_t* empty,
+                                                 uint32_t ring, uint32_t own, int cwg, int D, int& s,
+                                                 uint32_t& phase) {
+  using Cfg = Tf32BwdCfg<DP, DKV>;
+#pragma unroll
+  for (int i = 0; i < F_LOOP / 2; ++i) acc[i] = 0.f;
+  const int steps = (D + Cfg::SC - 1) / Cfg::SC;
+  for (int c = 0; c < steps; ++c) {
+    hw::mbar_wait(&full[s], phase);
+    const uint32_t slot = ring + s * Cfg::SLOT;
+#pragma unroll
+    for (int bx = 0; bx < Cfg::SC / F_BOX; ++bx) {
+      if (c * Cfg::SC + bx * F_BOX >= D) break;  // warpgroup-uniform: boxes past D are zeros
+      const uint32_t ah = (Cfg::RES ? own + (c * Cfg::SC / F_BOX + bx) * Cfg::OWN_BOX : slot) + cwg * 64 * 128;
+      const uint32_t bh = Cfg::RES ? slot + bx * Cfg::LOOP_BOX : slot + Cfg::OWN_BOX;
+      const uint32_t al = ah + F_OWN * 128, bl = bh + F_LOOP * 128;
+      tf32_ss_kstep(x0, ah, al, bh, bl, 0);
+      tf32_ss_kstep(x1, ah, al, bh, bl, 1);
+      add_products<1>(acc, x0);
+      tf32_ss_kstep(x0, ah, al, bh, bl, 2);
+      add_products<1>(acc, x1);
+      tf32_ss_kstep(x1, ah, al, bh, bl, 3);
+      add_products<1>(acc, x0);
+      add_products<0>(acc, x1);
+    }
+    hw::mbar_arrive(&empty[s]);
+    if (++s == Cfg::STAGES) s = 0, phase ^= 1;
+  }
+}
+
+// A k-step's register A operand: its columns t and t + 4 hold the accumulator's columns 2t and 2t + 1 (t_key), split
+// into tf32 hi and lo.
+__device__ __forceinline__ void split_a(uint32_t (&ah)[4], uint32_t (&al)[4], const float (&a)[F_LOOP / 2], int kc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = a[4 * kc + ((i & 1) << 1) + (i >> 1)];
+    const float hi = hw::tf32_rna(v);
+    ah[i] = __float_as_uint(hi);
+    al[i] = __float_as_uint(hw::tf32_rna(v - hi));
+  }
+}
+
+// Keeps a k-step's A operand registers live (unchanged) up to this point: after the wait that retires its products.
+__device__ __forceinline__ void keep(uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(ah[i]), "+r"(al[i])::"memory");
+}
+
+// acc[piece] += a^T-piece: the NP columns of the piece in the ring slot, 8 k-steps of 8 loop rows, a (an m64n64
+// accumulator: p, ds, or their transposes) split into tf32 hi and lo in registers before each k-step's products. The
+// k-steps alternate between two chain buffers and two sets of A operands, each kept until its products have landed.
+template <int DP, bool DKV>
+__device__ __forceinline__ void tf32_bwd_piece(float* acc, const float (&a)[F_LOOP / 2], uint64_t* full, uint64_t* empty,
+                                               uint32_t ring, int& s, uint32_t& phase) {
+  using Cfg = Tf32BwdCfg<DP, DKV>;
+  constexpr int NP = Cfg::NP;
+  float y0[NP / 2], y1[NP / 2];
+  uint32_t ah0[4], al0[4], ah1[4], al1[4];
+  hw::mbar_wait(&full[s], phase);
+  const uint32_t bh = ring + s * Cfg::SLOT, bl = bh + 2 * NP * 128;
+  split_a(ah0, al0, a, 0);
+  tf32_rs_kstep<NP>(y0, ah0, al0, bh, bl, 0);
+#pragma unroll
+  for (int kc = 1; kc < F_LOOP / 8; ++kc) {
+    if (kc & 1) {
+      split_a(ah1, al1, a, kc);
+      tf32_rs_kstep<NP>(y1, ah1, al1, bh, bl, kc);
+      add_products<1>(acc, y0);
+      keep(ah0, al0);
+    } else {
+      split_a(ah0, al0, a, kc);
+      tf32_rs_kstep<NP>(y0, ah0, al0, bh, bl, kc);
+      add_products<1>(acc, y1);
+      keep(ah1, al1);
+    }
+  }
+  add_products<0>(acc, y1);  // k-step 7's chain
+  keep(ah1, al1);
+  hw::mbar_arrive(&empty[s]);
+  if (++s == Cfg::STAGES) s = 0, phase ^= 1;
+}
+
+// The work unit `item` of the fp32 kernels: (output chunk, own tile, b * H + h), chunk fastest.
+struct F32Item {
+  int chunk, tile, bh;
+};
+__device__ __forceinline__ F32Item f32_item(int item, int chunks, int tiles) {
+  return F32Item{item % chunks, (item / chunks) % tiles, item / (chunks * tiles)};
+}
+
+// dq (DKV false): units of 128 queries, looping over 64-key tiles; dk and dv (DKV true): units of 128 keys, looping
+// over 64-query tiles. maps: the own tensors' row planes (q, dO; or k, v) in 128-row boxes, the loop tensors' (k, v; or
+// q, dO) in 64-row boxes, and the transposed planes of the output products' B operands (kT; or dOT, qT) in NP-row
+// boxes. Per loop tile each consumer computes S and dP (tf32_bwd_product), p and ds in fp32 (the Pallas kernels'
+// numerics; keys past Nk, or queries past Nq, get p = 0), then its output products piece by piece. D <= DP is the
+// real head dim, a multiple of 8.
+template <int DP, bool DKV>
+__global__ void __launch_bounds__(THREADS, 1) fa_bwd_tf32_kernel(
+    const __grid_constant__ CUtensorMap own0, const __grid_constant__ CUtensorMap own1,
+    const __grid_constant__ CUtensorMap loop0, const __grid_constant__ CUtensorMap loop1,
+    const __grid_constant__ CUtensorMap tr0, const __grid_constant__ CUtensorMap tr1,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ out0,
+    float* __restrict__ out1, int B, int H, int Nq, int Nk, int D, float scale, float scale_log2) {
+  using Cfg = Tf32BwdCfg<DP, DKV>;
+  constexpr int ST = Cfg::STAGES, NCO = Cfg::NCO, NP = Cfg::NP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = hw::align_smem(smem_raw);
+  uint8_t* own = base;                       // RES: own0's boxes (hi, lo), then own1's
+  uint8_t* ring = base + Cfg::OWN_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + Cfg::BAR_OFF);
+  uint64_t *own_full = bars, *own_empty = bars + 1, *full = bars + 2, *empty = bars + 2 + ST;
+  const int tid = threadIdx.x, BH = B * H;
+  const int n_own = DKV ? Nk : Nq, n_loop = DKV ? Nq : Nk;
+  const int chunks = (D + NCO - 1) / NCO, own_tiles = (n_own + F_OWN - 1) / F_OWN;
+  const int n_items = chunks * own_tiles * BH, n_tiles = (n_loop + F_LOOP - 1) / F_LOOP;
+  const int n_boxes = (D + F_BOX - 1) / F_BOX;
+
+  if (tid == 0) {
+    hw::mbar_init(own_full, 1);
+    hw::mbar_init(own_empty, CONSUMERS);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], CONSUMERS);  // every consumer thread releases the slot
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    hw::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int s = 0;
+      uint32_t phase = 0, own_phase = 0;
+      auto slot = [&]() {
+        uint8_t* p = ring + s * Cfg::SLOT;
+        hw::mbar_wait(&empty[s], phase ^ 1);  // the first pass over the ring finds every slot free
+        return p;
+      };
+      auto next = [&]() {
+        if (++s == ST) s = 0, phase ^= 1;
+      };
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const F32Item it = f32_item(item, chunks, own_tiles);
+        const int r0 = it.tile * F_OWN;
+        if constexpr (Cfg::RES) {
+          hw::mbar_wait(own_empty, own_phase ^ 1);  // the first unit finds the own tiles free
+          hw::mbar_arrive_expect_tx(own_full, 2 * n_boxes * Cfg::OWN_BOX);
+          for (int t = 0; t < 2; ++t)
+            for (int c = 0; c < n_boxes; ++c)
+              for (int part = 0; part < 2; ++part)  // hi, lo
+                hw::tma_load_3d(own + (t * (DP / F_BOX) + c) * Cfg::OWN_BOX + part * F_OWN * 128, t ? &own1 : &own0,
+                                own_full, c * F_BOX, r0, part * BH + it.bh);
+          own_phase ^= 1;
+        }
+        const int pieces = ((D - it.chunk * NCO < NCO ? D - it.chunk * NCO : NCO) + NP - 1) / NP;
+        for (int j = 0; j < n_tiles; ++j) {
+          for (int t = 0; t < 2; ++t) {  // S's steps, then dP's
+            for (int c = 0; c < (D + Cfg::SC - 1) / Cfg::SC; ++c) {
+              uint8_t* p = slot();
+              hw::mbar_arrive_expect_tx(&full[s], Cfg::SSTEP);
+              if constexpr (Cfg::RES) {
+                for (int bx = 0; bx < Cfg::SC / F_BOX; ++bx)
+                  for (int part = 0; part < 2; ++part)
+                    hw::tma_load_3d(p + bx * Cfg::LOOP_BOX + part * F_LOOP * 128, t ? &loop1 : &loop0, &full[s],
+                                    c * Cfg::SC + bx * F_BOX, j * F_LOOP, part * BH + it.bh);
+              } else {
+                for (int part = 0; part < 2; ++part) {
+                  hw::tma_load_3d(p + part * F_OWN * 128, t ? &own1 : &own0, &full[s], c * F_BOX, r0,
+                                  part * BH + it.bh);
+                  hw::tma_load_3d(p + Cfg::OWN_BOX + part * F_LOOP * 128, t ? &loop1 : &loop0, &full[s], c * F_BOX,
+                                  j * F_LOOP, part * BH + it.bh);
+                }
+              }
+              next();
+            }
+          }
+          for (int pc = 0; pc < pieces; ++pc) {
+            for (int t = 0; t < (DKV ? 2 : 1); ++t) {  // dq: kT; dk/dv: dOT (dv), then qT (dk)
+              uint8_t* p = slot();
+              hw::mbar_arrive_expect_tx(&full[s], Cfg::PIECE);
+              for (int part = 0; part < 2; ++part)
+                for (int half = 0; half < 2; ++half)  // loop rows [0, 32), [32, 64) of the tile
+                  hw::tma_load_3d(p + (2 * part + half) * NP * 128, t ? &tr1 : &tr0, &full[s],
+                                  j * F_LOOP + half * 32, it.chunk * NCO + pc * NP, part * BH + it.bh);
+              next();
+            }
+          }
+        }
+      }
+    }
+  } else {  // consumers: 64 own rows each
+    hw::setmaxnreg_inc<232>();
+    const int ctid = tid - 128, cwg = ctid >> 7, warp = (ctid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t ring_addr = hw::smem_u32(ring), own_addr = hw::smem_u32(own);
+    int s = 0;
+    uint32_t phase = 0, own_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const F32Item it = f32_item(item, chunks, own_tiles);
+      const int row0 = it.tile * F_OWN + cwg * 64 + warp * 16 + g;  // this thread's own rows: row0 and row0 + 8
+      const int rows[2] = {row0, row0 + 8};
+      const long long stat = (long long)it.bh * Nq;
+      float st0[2] = {0.f, 0.f}, st1[2] = {0.f, 0.f};  // dq: lse (log2 units) and delta of the own rows
+      if constexpr (!DKV) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (rows[r] < Nq) st0[r] = lse[stat + rows[r]] * LOG2E, st1[r] = delta[stat + rows[r]];
+      }
+      const int pieces = ((D - it.chunk * NCO < NCO ? D - it.chunk * NCO : NCO) + NP - 1) / NP;
+      float acc[Cfg::ACC];  // dq's chunk; or dv's (first NCO / 2) and dk's
+#pragma unroll
+      for (int i = 0; i < Cfg::ACC; ++i) acc[i] = 0.f;
+      if constexpr (Cfg::RES) hw::mbar_wait(own_full, own_phase);
+
+      for (int j = 0; j < n_tiles; ++j) {
+        float sc[F_LOOP / 2], dp[F_LOOP / 2], x0[F_LOOP / 2], x1[F_LOOP / 2];
+        const uint32_t own1_addr = own_addr + (DP / F_BOX) * Cfg::OWN_BOX;
+        tf32_bwd_product<DP, DKV>(sc, x0, x1, full, empty, ring_addr, own_addr, cwg, D, s, phase);
+        tf32_bwd_product<DP, DKV>(dp, x0, x1, full, empty, ring_addr, own1_addr, cwg, D, s, phase);
+        if (Cfg::RES && j == n_tiles - 1) hw::mbar_arrive(own_empty);  // the unit's last read of its own tiles
+        if constexpr (!DKV) {  // p = exp(s scale - lse), ds = p (dp - delta) scale; keys past Nk get p = 0
+          const bool ragged = (j + 1) * F_LOOP > Nk;
+#pragma unroll
+          for (int i = 0; i < F_LOOP / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            float p = hw::exp2_ftz(fmaf(sc[i], scale_log2, -st0[r]));
+            if (ragged && j * F_LOOP + (i >> 2) * 8 + 2 * t + (i & 1) >= Nk) p = 0.f;
+            sc[i] = p * (dp[i] - st1[r]) * scale;
+          }
+#pragma unroll
+          for (int pc = 0; pc < NCO / NP; ++pc)  // unrolled, so that acc's indices are constants
+            if (pc < pieces) tf32_bwd_piece<DP, DKV>(&acc[pc * (NP / 2)], sc, full, empty, ring_addr, s, phase);
+        } else {  // p^T and ds^T: the column is the query, its lse and delta from the forward
+#pragma unroll
+          for (int i = 0; i < F_LOOP / 2; ++i) {
+            const int qc = j * F_LOOP + (i >> 2) * 8 + 2 * t + (i & 1);
+            const bool in = qc < Nq;
+            const float l2 = in ? lse[stat + qc] * LOG2E : 0.f, dl = in ? delta[stat + qc] : 0.f;
+            const float p = in ? hw::exp2_ftz(fmaf(sc[i], scale_log2, -l2)) : 0.f;
+            dp[i] = p * (dp[i] - dl) * scale;
+            sc[i] = p;
+          }
+          static_assert(!DKV || NCO == NP, "one piece of dv and of dk a unit");
+          if (pieces > 0) {
+            tf32_bwd_piece<DP, DKV>(&acc[0], sc, full, empty, ring_addr, s, phase);   // dv += p^T dO
+            tf32_bwd_piece<DP, DKV>(&acc[NCO / 2], dp, full, empty, ring_addr, s, phase);  // dk += ds^T q
+          }
+        }
+      }
+      if constexpr (Cfg::RES) own_phase ^= 1;
+
+      // the outputs: contiguous (B, N, H, D) fp32, columns past D not written
+      const int b = it.bh / H, h = it.bh % H;
+#pragma unroll
+      for (int o = 0; o < (DKV ? 2 : 1); ++o) {
+        float* gp = (o == 0 ? out0 : out1) + ((long long)b * n_own * H + h) * D + it.chunk * NCO;
+#pragma unroll
+        for (int c = 0; c < NCO / 8; ++c) {
+          if (it.chunk * NCO + c * 8 >= D) continue;
+          const float* xv = &acc[o * (NCO / 2) + 4 * c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (rows[r] < n_own)
+              *reinterpret_cast<float2*>(gp + (long long)rows[r] * H * D + c * 8 + 2 * t) =
+                  make_float2(xv[2 * r], xv[2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// One operand of the split pre-pass: a strided (B, N, H, D) fp32 tensor, the workspace planes it is written to and
+// its blocks of the pre-pass's grid.
+struct SplitJob {
+  const float* src;
+  Strides s;
+  float* dst;
+  int n;
+  long long blocks;
+};
+constexpr int F_ROW_JOBS = 4, F_JOBS = 7;  // q, dO, k, v as row planes; then q, dO, k transposed
+struct SplitJobs {
+  SplitJob job[F_JOBS];
+};
+
+// The split pre-pass: job i takes blocks [sum of the earlier jobs' blocks, + its own). A row job writes its tensor as
+// (2, B * H, N, D) planes, hi = tf32(x) in plane bh and lo = tf32(x - hi) in plane B * H + bh, one float4 a thread; a
+// transposed job as (2, B * H, D, N8) planes (N8 = N rounded up to 8, zeros past N), the rows in t_key order within
+// each 8, a 32 x 32 tile through shared memory a block.
+__global__ void __launch_bounds__(F_PREP_THREADS) k3_split_kernel(const SplitJobs jobs, int B, int H, int D) {
+  long long blk = blockIdx.x;
+  int jid = 0;
+  SplitJob J = jobs.job[0];
+#pragma unroll
+  for (int i = 0; i + 1 < F_JOBS; ++i) {
+    if (jid == i && blk >= J.blocks) {
+      blk -= J.blocks;
+      jid = i + 1;
+      J = jobs.job[i + 1];
+    }
+  }
+  const long long BH = (long long)B * H;
+  if (jid < F_ROW_JOBS) {
+    const long long e = blk * F_PREP_THREADS + threadIdx.x, d4s = D / 4;
+    if (e >= BH * J.n * d4s) return;
+    const long long r = e / d4s;  // (b, n, h) in (B, N, H) order: the source's
+    const int d = (int)(e - r * d4s) * 4, h = (int)(r % H), n = (int)((r / H) % J.n), b = (int)(r / ((long long)H * J.n));
+    const float4 x = *reinterpret_cast<const float4*>(J.src + b * J.s.b + n * J.s.n + h * J.s.h + d);
+    const float4 hi = make_float4(hw::tf32_rna(x.x), hw::tf32_rna(x.y), hw::tf32_rna(x.z), hw::tf32_rna(x.w));
+    const float4 lo = make_float4(hw::tf32_rna(x.x - hi.x), hw::tf32_rna(x.y - hi.y), hw::tf32_rna(x.z - hi.z),
+                                  hw::tf32_rna(x.w - hi.w));
+    const long long off = ((long long)b * H + h) * J.n * D + (long long)n * D + d;
+    *reinterpret_cast<float4*>(J.dst + off) = hi;
+    *reinterpret_cast<float4*>(J.dst + BH * J.n * D + off) = lo;
+    return;
+  }
+  __shared__ float tile[32][33];
+  const long long N8 = (J.n + 7) / 8 * 8, n_tiles = (N8 + 31) / 32, d_tiles = (D + 31) / 32;
+  const int nt = (int)(blk % n_tiles), dt = (int)((blk / n_tiles) % d_tiles);
+  const long long bh = blk / (n_tiles * d_tiles);
+  const int b = (int)(bh / H), h = (int)(bh % H), x = threadIdx.x & 31, y = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = y; r < 32; r += F_PREP_THREADS / 32) {
+    const int n = nt * 32 + r, d = dt * 32 + x;
+    tile[r][x] = n < J.n && d < D ? J.src[b * J.s.b + (long long)n * J.s.n + h * J.s.h + d] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = y; r < 32; r += F_PREP_THREADS / 32) {
+    const int d = dt * 32 + r, np = nt * 32 + x;
+    if (d >= D || np >= N8) continue;
+    const float val = tile[(x & ~7) | t_key(x & 7)][r];
+    const float hi = hw::tf32_rna(val);
+    const long long off = bh * D * N8 + (long long)d * N8 + np;
+    J.dst[off] = hi;
+    J.dst[BH * D * N8 + off] = hw::tf32_rna(val - hi);
+  }
+}
+
+// The fp32 workspace (ops/flash_attention.py k3_tf32_workspace_floats): the row planes of q, dO, k and v, then the
+// transposed planes of q, dO and k.
+struct F32Planes {
+  float *q, *dout, *k, *v, *qt, *dot, *kt;
+};
+inline F32Planes f32_planes(float* ws, long long BH, int Nq, int Nk, int D) {
+  const long long Nq8 = (Nq + 7) / 8 * 8;
+  F32Planes p;
+  p.q = ws;
+  p.dout = p.q + 2 * BH * Nq * D;
+  p.k = p.dout + 2 * BH * Nq * D;
+  p.v = p.k + 2 * BH * Nk * D;
+  p.qt = p.v + 2 * BH * Nk * D;
+  p.dot = p.qt + 2 * BH * D * Nq8;
+  p.kt = p.dot + 2 * BH * D * Nq8;
+  return p;
+}
+
+// The 3-D fp32 tensor map of (2 B H) planes of `rows` x `cols` (cols contiguous) in boxes of 32 columns and `box_rows`
+// rows, 128-byte swizzled.
+inline int plane_map(CUtensorMap* map, const float* base, long long planes, long long rows, long long cols,
+                     int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)(rows * cols * 4)};
+  const cuuint32_t box[3] = {F_BOX, (cuuint32_t)box_rows, 1};
+  return hw::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The split pre-pass, then the dq and the dk/dv 3xTF32 kernels built for DP on their persistent grids.
+template <int DP>
+int launch_bwd_tf32(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                    const float* delta, float* dq, float* dk, float* dv, void* ws, int B, int H, int Nq, int Nk, int D,
+                    Strides qs, Strides ks, Strides vs, Strides dos, float scale, float scale_log2, cudaStream_t st) {
+  using DqCfg = Tf32BwdCfg<DP, false>;
+  using DkvCfg = Tf32BwdCfg<DP, true>;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const long long BH = (long long)B * H, Nq8 = (Nq + 7) / 8 * 8, Nk8 = (Nk + 7) / 8 * 8;
+  const F32Planes p = f32_planes(static_cast<float*>(ws), BH, Nq, Nk, D);
+  SplitJobs jobs;
+  const float* srcs[F_JOBS] = {q, dout, k, v, q, dout, k};
+  const Strides strides[F_JOBS] = {qs, dos, ks, vs, qs, dos, ks};
+  float* dsts[F_JOBS] = {p.q, p.dout, p.k, p.v, p.qt, p.dot, p.kt};
+  const int ns[F_JOBS] = {Nq, Nq, Nk, Nk, Nq, Nq, Nk};
+  long long total = 0;
+  for (int i = 0; i < F_JOBS; ++i) {
+    const long long n8 = (ns[i] + 7) / 8 * 8;
+    const long long blocks = i < F_ROW_JOBS ? (BH * ns[i] * (D / 4) + F_PREP_THREADS - 1) / F_PREP_THREADS
+                                            : BH * ((n8 + 31) / 32) * ((D + 31) / 32);
+    jobs.job[i] = SplitJob{srcs[i], strides[i], dsts[i], ns[i], blocks};
+    total += blocks;
+  }
+  const long long dq_items = (long long)((D + DqCfg::NCO - 1) / DqCfg::NCO) * ((Nq + F_OWN - 1) / F_OWN) * BH;
+  const long long dkv_items = (long long)((D + DkvCfg::NCO - 1) / DkvCfg::NCO) * ((Nk + F_OWN - 1) / F_OWN) * BH;
+  if (total > 0x7fffffff || dq_items > 0x7fffffff || dkv_items > 0x7fffffff || 2 * BH > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[10];  // dq: q, dO (own), k, v (loop), kT; dk/dv: k, v (own), q, dO (loop), dOT, qT
+  int status = plane_map(&m[0], p.q, 2 * BH, Nq, D, F_OWN);
+  if (status == 0) status = plane_map(&m[1], p.dout, 2 * BH, Nq, D, F_OWN);
+  if (status == 0) status = plane_map(&m[2], p.k, 2 * BH, Nk, D, F_LOOP);
+  if (status == 0) status = plane_map(&m[3], p.v, 2 * BH, Nk, D, F_LOOP);
+  if (status == 0) status = plane_map(&m[4], p.kt, 2 * BH, D, Nk8, DqCfg::NP);
+  if (status == 0) status = plane_map(&m[5], p.k, 2 * BH, Nk, D, F_OWN);
+  if (status == 0) status = plane_map(&m[6], p.v, 2 * BH, Nk, D, F_OWN);
+  if (status == 0) status = plane_map(&m[7], p.q, 2 * BH, Nq, D, F_LOOP);
+  if (status == 0) status = plane_map(&m[8], p.dout, 2 * BH, Nq, D, F_LOOP);
+  if (status == 0) status = plane_map(&m[9], p.dot, 2 * BH, D, Nq8, DkvCfg::NP);
+  CUtensorMap qt_map;
+  if (status == 0) status = plane_map(&qt_map, p.qt, 2 * BH, D, Nq8, DkvCfg::NP);
+  static bool dq_set[64], dkv_set[64];
+  if (status == 0) status = hw::allow_smem(fa_bwd_tf32_kernel<DP, false>, DqCfg::SMEM, dq_set);
+  if (status == 0) status = hw::allow_smem(fa_bwd_tf32_kernel<DP, true>, DkvCfg::SMEM, dkv_set);
+  int sms = 0;
+  if (status == 0) status = hw::sm_count(&sms);
+  if (status != 0) return status;
+  k3_split_kernel<<<(unsigned)total, F_PREP_THREADS, 0, st>>>(jobs, B, H, D);
+  fa_bwd_tf32_kernel<DP, false><<<(int)(dq_items < sms ? dq_items : sms), THREADS, DqCfg::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[4], lse, delta, dq, nullptr, B, H, Nq, Nk, D, scale, scale_log2);
+  fa_bwd_tf32_kernel<DP, true><<<(int)(dkv_items < sms ? dkv_items : sms), THREADS, DkvCfg::SMEM, st>>>(
+      m[5], m[6], m[7], m[8], m[9], qt_map, lse, delta, dv, dk, B, H, Nq, Nk, D, scale, scale_log2);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at D <= 16: CUDA cores, full precision (see "fp32" in the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int F32_THREADS = 128;
 
 // TPR lanes share a row, each holding DT = DP / TPR of its columns: 4-wide groups interleaved across the row's
-// lanes (group i of lane `part` is columns 4 (TPR i + part) .. + 3), so the lanes of a pair or quad read
-// neighbouring words of a shared-memory row. TILE rows per staged shared-memory tile (16 at DP = 256, so two
-// tiles stay within 48 KB of static shared memory).
+// lanes (group i of lane `part` is columns 4 (TPR i + part) .. + 3), so the lanes of a pair read neighbouring words
+// of a shared-memory row. TILE rows per staged shared-memory tile.
 template <int DP, int TPR>
 struct F32Cfg {
-  static constexpr int DT = DP / TPR, ROWS = F32_THREADS / TPR, TILE = DP > 128 ? 16 : 32;
+  static constexpr int DT = DP / TPR, ROWS = F32_THREADS / TPR, TILE = 32;
   static_assert(DT % 4 == 0 && DT <= 32, "a thread's share of the row");
 };
 
@@ -1178,10 +1714,11 @@ static Strides layout_strides(const long long* L, int elem_bytes) {
 // the dk/dv kernel's (128 key rows, 64 query rows); the fp32 kernels and the delta kernel take their element
 // strides from them (d has unit stride). o is a contiguous (B, Nq, H, D) tensor, lse a contiguous (B, H, Nq)
 // float32 tensor from the forward, delta a (B, H, Nq) float32 scratch tensor; dq (B, Nq, H, D) and dk, dv
-// (B, Nk, H, D) are contiguous outputs in the input dtype. Launches the delta, dq and dk/dv kernels on the
-// stream. Returns a cudaError_t.
+// (B, Nk, H, D) are contiguous outputs in the input dtype; ws, for float32 above D = 16, the split operands' workspace
+// (ops/flash_attention.py k3_tf32_workspace_floats), else null. Launches the delta kernel, (fp32 above D = 16) the
+// split pre-pass, and the dq and dk/dv kernels on the stream. Returns a cudaError_t.
 extern "C" int uc_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                      const void* lse, void* delta, void* dq, void* dk, void* dv, int dtype, int B,
+                                      const void* lse, void* delta, void* dq, void* dk, void* dv, void* ws, int dtype, int B,
                                       int H, int Nq, int Nk, int head_dim, const long long* layouts, float scale,
                                       void* stream) {
   const int D = head_dim;
@@ -1229,18 +1766,23 @@ extern "C" int uc_flash_attention_bwd(const void* q, const void* k, const void* 
     auto *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk), *gv = static_cast<float*>(dv);
     fa_bwd_delta_kernel<float><<<delta_blocks, 256, 0, st>>>(fdo, static_cast<const float*>(o), dl, H, Nq, D, lanes,
                                                               rows, dos);
-    if (D <= 16)
-      launch_bwd_f32<16, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2, st);
+    int status = 0;
+    if (D <= F32_SMALL_DP)
+      launch_bwd_f32<F32_SMALL_DP, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale,
+                                      scale_log2, st);
     else if (D <= 32)
-      launch_bwd_f32<32, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2, st);
+      status = launch_bwd_tf32<32>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, ws, B, H, Nq, Nk, D, qs, ks, vs, dos, scale,
+                                   scale_log2, st);
     else if (D <= 64)
-      launch_bwd_f32<64, 2>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2, st);
+      status = launch_bwd_tf32<64>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, ws, B, H, Nq, Nk, D, qs, ks, vs, dos, scale,
+                                   scale_log2, st);
     else if (D <= 128)
-      launch_bwd_f32<128, 4>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2,
-                             st);
+      status = launch_bwd_tf32<128>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, ws, B, H, Nq, Nk, D, qs, ks, vs, dos, scale,
+                                    scale_log2, st);
     else
-      launch_bwd_f32<256, 8>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, B, H, Nq, Nk, D, qs, ks, vs, dos, scale, scale_log2,
-                             st);
+      status = launch_bwd_tf32<256>(fq, fk, fv, fdo, ls, dl, gq, gk, gv, ws, B, H, Nq, Nk, D, qs, ks, vs, dos, scale,
+                                    scale_log2, st);
+    if (status != 0) return status;
   }
   return (int)cudaGetLastError();
 }

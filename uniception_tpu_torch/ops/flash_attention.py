@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from uniception_tpu_torch.ops import kernel_lib
+from uniception_tpu_torch.ops.gemm import sm_count
 from uniception_tpu_torch.ops.int8_matmul import absmax_scale
 
 __all__ = [
@@ -52,6 +53,9 @@ __all__ = [
     "tma_layout",
     "fwd_rows",
     "tf32_workspace_floats",
+    "k1_wide_tiles_per_split",
+    "k1_wide_workspace_floats",
+    "k3_tf32_workspace_floats",
     "head_dim_rule",
     "pad_head_dim",
 ]
@@ -72,11 +76,17 @@ INT8_PREP_KEYS = 4  # keys per thread of K6's prep (PREP_KEYS): the first step o
 # Rows of the TMA boxes the bf16 kernels are built for (csrc/flash_attention.cu BQ / BK,
 # csrc/flash_attention_bwd.cu OWN / LOOP); the C entry points refuse any other box.
 FWD_ROWS = 128  # K1: query and key tiles
-WIDE_FROM, WIDE_ROWS = 128, 64  # K1 above D = 128 (its column-split kernel): 64-row query and key tiles
+WIDE_FROM, WIDE_ROWS = 128, 64  # K1 above D = 128 (its wide kernel): 64-row query and key tiles
+# K1's wide kernel splits the keys when its units fill less than a wave of the SMs (k1_wide_tiles_per_split). The
+# fixed costs of a unit in 64-key tiles (a tile's K and V are 128 KB at D = 512): its Q load and epilogue, and with
+# key splits its fp32 O written to the workspace and read back by the combine
+WIDE_UNIT_COST_TILES, WIDE_SPLIT_COST_TILES = 1, 1
+H100_SMS = 132
 BWD_OWN_ROWS, BWD_LOOP_ROWS = 128, 64  # K3: a block's own rows, and the rows of each tile it loops over
 TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below 2^40
-# K1 fp32: D up to 16 (the JAX training example's heads) takes the CUDA-core kernel, every other D the 3xTF32 kernel
-# and its split operands' workspace (csrc/flash_attention.cu F32_SMALL_DP, fa_fwd_tf32_kernel)
+# K1 and K3 fp32: D up to 16 (the JAX training example's heads) takes the CUDA-core kernels, every other D the 3xTF32
+# kernels and their split operands' workspace (csrc/flash_attention.cu and flash_attention_bwd.cu F32_SMALL_DP,
+# fa_fwd_tf32_kernel, fa_bwd_tf32_kernel)
 F32_SMALL_HEAD_DIM = 16
 
 
@@ -239,8 +249,10 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
     launch the kernel; anything else on a CUDA device raises. Returns (out,
     lse): a contiguous (B, Nq, H, D) tensor in q's dtype, and with ``with_lse``
     the (B, H, Nq) fp32 logsumexp, else None. ``flash_attention.launches``
-    counts the kernel launches, ``flash_attention.lse_launches`` those that
-    wrote the logsumexp.
+    counts the calls that launched the kernel (in bf16 above D = 128 with a
+    split over the keys, the kernel and the splits' combine),
+    ``flash_attention.lse_launches`` those that wrote the logsumexp, and
+    ``flash_attention.shapes`` the calls by (dtype, B, Nq, Nk, H, D).
     """
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention", q):
@@ -254,6 +266,7 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
     flash_attention.launches += 1
     flash_attention.lse_launches += with_lse
     flash_attention.head_dims[D] += 1
+    flash_attention.shapes[q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2], D] += 1
     return (out if out.shape[-1] == D else out[..., :D].contiguous()), lse
 
 
@@ -268,6 +281,40 @@ def tf32_workspace_floats(B: int, H: int, Nq: int, Nk: int, D: int) -> int:
     return 2 * B * H * (Nq * D + Nk * D + D * (-(-Nk // 8) * 8))
 
 
+def k3_tf32_workspace_floats(B: int, H: int, Nq: int, Nk: int, D: int) -> int:
+    """The floats of K3's fp32 workspace (csrc/flash_attention_bwd.cu k3_split_kernel): q, dO, k and v split into tf32
+    hi and lo, (2, B H, N, D) each, then q, dO and k split and transposed, (2, B H, D, N8) with N8 = N rounded up to 8
+    (the rows contiguous: the B operands of dk, dv and dq, whose products sum over the rows)."""
+    nq8, nk8 = -(-Nq // 8) * 8, -(-Nk // 8) * 8
+    return 2 * B * H * (2 * Nq * D + 2 * Nk * D + D * (2 * nq8 + nk8))
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_wide_tiles_per_split(B: int, H: int, Nq: int, Nk: int, sms: int = H100_SMS) -> int:
+    """The 64-key tiles of each key split of K1's wide kernel (bf16, D > 128; csrc/flash_attention.cu
+    fa_fwd_bf16_wide_kernel), all of them (one split) unless its B H ceil(Nq / 64) units fill less than a wave of
+    ``sms`` SMs. Then the count that gives the least cost: waves of units times the tiles a unit takes with its fixed
+    costs (WIDE_UNIT_COST_TILES, and WIDE_SPLIT_COST_TILES with more than one split), the fewest splits on a tie. Every
+    split holds at least one tile, so every key lands in exactly one split."""
+    n_tiles, units = -(-Nk // WIDE_ROWS), B * H * -(-Nq // WIDE_ROWS)
+    if units >= sms:
+        return n_tiles
+    best = None
+    for tps in range(n_tiles, 0, -1):
+        splits = -(-n_tiles // tps)
+        cost = -(-units * splits // sms) * (tps + WIDE_UNIT_COST_TILES + (splits > 1) * WIDE_SPLIT_COST_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, tps)
+    return best[1]
+
+
+def k1_wide_workspace_floats(B: int, H: int, Nq: int, Nk: int, D: int, tps: int) -> int:
+    """The floats of K1's wide-kernel workspace with ``tps`` tiles a key split (0 for one split): each split's fp32 O,
+    unnormalised, (splits, B, H, Nq, D), then its row max (log2 units) and row sum, (splits, B, H, Nq) each."""
+    splits = -(-(-(-Nk // WIDE_ROWS)) // tps)
+    return 0 if splits == 1 else splits * B * H * Nq * (D + 2)
+
+
 def forward_launch(q, k, v, scale: float, with_lse: bool = False):
     """K1's launch on CUDA q/k/v that :func:`flash_attention_fwd` would take, unchecked and uncounted: the
     wrapper that calls it (K1's own, or K5's attention launch, ops/fused_attention.py) counts its launches.
@@ -275,12 +322,18 @@ def forward_launch(q, k, v, scale: float, with_lse: bool = False):
     B, Nq, H, D = q.shape
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device) if with_lse else None
-    ws = None
+    Nk = k.shape[1]
+    ws, tps, floats = None, 0, 0
     if q.dtype == torch.float32 and D > F32_SMALL_HEAD_DIM:  # the split operands of the 3xTF32 kernel's pre-pass
-        ws = torch.empty(tf32_workspace_floats(B, H, Nq, k.shape[1], D), dtype=torch.float32, device=q.device)
+        floats = tf32_workspace_floats(B, H, Nq, Nk, D)
+    elif q.dtype == torch.bfloat16 and D > WIDE_FROM:  # the wide kernel's key splits
+        tps = k1_wide_tiles_per_split(B, H, Nq, Nk, sm_count(q.device.index or 0))
+        floats = k1_wide_workspace_floats(B, H, Nq, Nk, D, tps)
+    if floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=q.device)
     status = kernel_lib.library().uc_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Nq, k.shape[1], D,
+        None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Nq, Nk, D, tps,
         _layouts(*((t, fwd_rows(D)) for t in (q, k, v))),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -297,7 +350,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     (dq, dk, dv) in the input dtype. Anything the kernel does not take on a
     CUDA device raises, a head dim above 256 among it; a D that is not a
     multiple of 8 is padded into a copy. ``flash_attention_bwd.launches``
-    counts the calls (each launches the delta, dq and dk/dv kernels).
+    counts the calls (each launches the delta, dq and dk/dv kernels, and in
+    fp32 above D = 16 first the split pre-pass of the 3xTF32 kernels, into a
+    workspace of :func:`k3_tf32_workspace_floats`).
     """
     scale = _scale(q, scale)
     if not _on_cuda("flash_attention_bwd", q):
@@ -318,9 +373,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     dq = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Nk, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Nk, H, D), dtype=q.dtype, device=q.device)
+    ws = None
+    if q.dtype == torch.float32 and D > F32_SMALL_HEAD_DIM:  # the split operands of the 3xTF32 kernels' pre-pass
+        ws = torch.empty(k3_tf32_workspace_floats(B, H, Nq, Nk, D), dtype=torch.float32, device=q.device)
     status = kernel_lib.library().uc_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Nq, Nk, D,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], B,
+        H, Nq, Nk, D,
         _layouts((q, BWD_OWN_ROWS), (k, BWD_LOOP_ROWS), (v, BWD_LOOP_ROWS), (dout, BWD_OWN_ROWS),  # dq kernel
                  (k, BWD_OWN_ROWS), (v, BWD_OWN_ROWS), (q, BWD_LOOP_ROWS), (dout, BWD_LOOP_ROWS)),  # dk/dv kernel
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
@@ -371,6 +430,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Op
 flash_attention.launches = 0
 flash_attention.lse_launches = 0
 flash_attention.head_dims = collections.Counter()  # launches by the caller's head dim
+flash_attention.shapes = collections.Counter()  # launches by (dtype, B, Nq, Nk, H, D), the caller's head dim
 
 
 def _int8_args(op, k, mode):

@@ -99,9 +99,9 @@ def build() -> Path:
 
 def _declare(lib):
     P, I, L, F, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
-    lib.uc_flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, F, P]
+    lib.uc_flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, P]
     lib.uc_flash_attention_fwd.restype = I
-    lib.uc_flash_attention_bwd.argtypes = [P] * 10 + [I] * 6 + [P, F, P]
+    lib.uc_flash_attention_bwd.argtypes = [P] * 11 + [I] * 6 + [P, F, P]
     lib.uc_flash_attention_bwd.restype = I
     lib.uc_tensor_map_encode_ns.argtypes = [P, P, I]
     lib.uc_tensor_map_encode_ns.restype = Dbl
