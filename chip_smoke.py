@@ -293,12 +293,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                layers, 2 x 1024 tokens) with mask=None (K1 8) and "causal"
                (none); images/s, texts/s and device ms; then K1 at the new
                shapes of both phases beside its plain version, SDPA and the
-               bound.
+               bound;
+   51. artifacts: DUSt3R ViT-L 512, batch 2 pairs, seeded weights in a
+               scan-layout .nsv (a temporary directory inside the checkout,
+               removed at the end), through serving artifacts
+               (utils/export.py): int8-linear (K4 290, K1 72, K2 144), the
+               landscape_only DPT with bf16 heads on K7 at 384x512 and
+               336x512 with a portrait row in each view (both head passes),
+               int8-DPT and "fused" (cut to 4 + 4 blocks at full width);
+               each artifact loaded and bound in a fresh process that
+               imports no model code, its outputs bit for bit the eager
+               make_serving_fn's and its launches per kernel the eager
+               call's; export seconds, bytes, time to the first result
+               against serve.build_model(checkpoint=.nsv) + a forward, and
+               pairs/s of both printed, each timed window alone on the host.
 
-The line before the last is a JSON object with each kernel's launches on the
-serving, training and diagnostic runs, its error against the plain version,
-its time, the plain version's, the least time the card could take for the
-same work (``bound_ms``, from the card's published peaks) and one PyTorch
+Every phase prints its seconds (``[seconds] phase_...``). The line before
+the last is a JSON object with each kernel's launches on the serving,
+training and diagnostic runs, its error against the plain version, its
+time, the plain version's, the least time the card could take for the same
+work (``bound_ms``, from the card's published peaks) and one PyTorch
 call's time where one computes the same function (``library_ms``, else
 null); the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA
 GPU; exits non-zero without one.
@@ -1392,13 +1406,13 @@ class K5Case:
             if plain:
                 return (fa._project_ref(xq, (wq,), (bq,), qpos, (rope,), H, 100.0, 1.0)
                         + fa._project_ref(xkv, (wk, wv), (bk, bv), kpos, (rope, False), H, 100.0, 1.0))
-            sections = (*fa._project(xq, (wq,), (bq,), qpos, int(rope), H, 100.0, 1.0),
-                        *fa._project(xkv, (wk, wv), (bk, bv), kpos, int(rope), H, 100.0, 1.0))
+            sections = (*fa._project(xq, (wq,), (bq,), qpos, int(rope), H, 100.0, 1.0, 64, False),
+                        *fa._project(xkv, (wk, wv), (bk, bv), kpos, int(rope), H, 100.0, 1.0, 64, False))
         else:
             x, w, b, pos = a[:4]
             if plain:
                 return fa._project_ref(x, w.chunk(3), b.chunk(3), pos, (rope, rope, False), H, 100.0, 1.0)
-            sections = fa._project(x, w.chunk(3), b.chunk(3), pos, 2 * rope, H, 100.0, 1.0)
+            sections = fa._project(x, w.chunk(3), b.chunk(3), pos, 2 * rope, H, 100.0, 1.0, 64, False)
         return [t.transpose(1, 2) for t in sections]
 
     def linear_qkv(self, F, a):
@@ -5045,6 +5059,258 @@ def phase_pe_language(torch, np, config, fa, counters, card):
     return total, by_dim
 
 
+# Phase 51: the serving artifacts (utils/export.py). Each case: (label, build_model options, attention impl,
+# attention quant, conv3x3 impl, canvases, depth cut (encoder, decoder) or None, per-forward launches it must make
+# at full depth or None (then: the eager call's, every listed kernel above 0)). int8-linear is bench.py's default
+# rung; the landscape DPT serves two bucket canvases of the 512 family with a portrait row in each batch.
+ART_CUT = (4, 4)
+ART_CASES = [
+    ("int8-linear", dict(head="linear", int8=True), "kernel", "none", "torch", ((IMG, IMG),), None,
+     {"K4": 290, "K1": 72, "K2": 144}),
+    ("landscape DPT bf16 heads", dict(head="dpt", head_bf16=True, landscape_only=True), "kernel", "none", "kernel",
+     ((384, 512), (336, 512)), None, None),
+    ("int8-DPT", dict(head="dpt", head_bf16=True, int8=True), "kernel", "int8", "kernel", ((IMG, IMG),), ART_CUT,
+     None),
+    ("fused", dict(head="linear"), "fused", "none", "torch", ((IMG, IMG),), ART_CUT, {"K5-self": 48, "K5-cross": 24}),
+]
+ART_KERNELS = {"int8-linear": ("K1", "K2", "K4"), "landscape DPT bf16 heads": ("K1", "K2", "K7"),
+               "int8-DPT": ("K2", "K4", "K6", "K7"), "fused": ("K5-self", "K5-cross")}
+# A fresh process for one artifact. It starts early (interpreter, torch, CUDA context, kernel library), says
+# "ready", and imports the artifact's loader and the checkpoint reader only when its job arrives on stdin: it loads
+# the artifact and the .nsv, binds and serves, while the parent waits. It reports the outputs' bits against the
+# eager call's, the launches of its first forward, its time to the first result (load + load_native_state + bind +
+# forward, synchronised) and pairs/s over SERVE_BATCHES batches after one warm-up (CUDA events).
+ARTIFACT_WORKER = r"""
+import json, sys, time
+t_start = time.perf_counter()
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False  # main()'s, under which the artifact was traced: bind checks them
+torch.backends.cudnn.allow_tf32 = False
+from uniception_tpu_torch.ops import conv3x3, flash_attention, fused_attention, int8_matmul, kernel_lib, rope
+counters = {"K1": flash_attention.flash_attention, "K2": rope.rope_2d_kernel, "K4": int8_matmul.int8_matmul_dynamic,
+            "K5-self": fused_attention.fused_qkv_rope_attention,
+            "K5-cross": fused_attention.fused_cross_rope_attention, "K6": flash_attention.flash_attention_int8,
+            "K7": conv3x3.conv3x3_nhwc}
+torch.zeros(1, device="cuda")
+kernel_lib.library()
+torch.cuda.synchronize()
+ready = time.perf_counter() - t_start
+print("ready", flush=True)
+art_path, nsv_path, case_path, batches = sys.stdin.readline().split()
+case = torch.load(case_path)  # the frames and the eager outputs, outside the timed window
+t0 = time.perf_counter()
+from uniception_tpu_torch.utils.export import load_serving_artifact
+from uniception_tpu_torch.utils.coldstart import load_native_state
+imports = time.perf_counter() - t0
+art = load_serving_artifact(art_path)
+arrays, _ = load_native_state(nsv_path)
+loaded = time.perf_counter() - t0
+t0 = time.perf_counter()
+fn = art.bind(arrays)
+for c in counters.values():
+    c.launches = 0
+out = fn(*case["inputs"])
+torch.cuda.synchronize()
+served = time.perf_counter() - t0
+launches = {k: c.launches for k, c in counters.items()}
+equal = len(out) == len(case["ref"]) and all(torch.equal(o.cpu(), r) for o, r in zip(out, case["ref"]))
+fn(*case["inputs"])
+torch.cuda.synchronize()
+start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(int(batches)):
+    fn(*case["inputs"])
+stop.record()
+torch.cuda.synchronize()
+seconds = start.elapsed_time(stop) / 1e3
+forbidden = ("models.factory", "models.encoders", "models.info_sharing", "models.prediction_heads", ".nn")
+model_code = sorted(m for m in sys.modules if m.startswith("uniception_tpu_torch") and any(f in m for f in forbidden))
+print(json.dumps({"equal": equal, "launches": launches, "first_s": loaded + served, "load_s": loaded - imports,
+                  "imports_s": imports,
+                  "bind_forward_s": served, "start_s": ready, "nodes": len(art.exported.graph.nodes),
+                  "pairs_per_s": int(batches) * case["inputs"][0].shape[0] / seconds, "model_code": model_code}))
+"""
+
+
+class ArtifactProcess:
+    "One fresh process of ARTIFACT_WORKER: started at once, then given one artifact (see the worker's comment)."
+
+    def __init__(self, env):
+        self.proc = subprocess.Popen([sys.executable, "-c", ARTIFACT_WORKER], stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+
+    def wait_ready(self):
+        "Wait for the process's start (interpreter, torch, CUDA, kernel library) to end."
+        line = self.proc.stdout.readline().strip()
+        if line != "ready":
+            self.proc.kill()
+            out, err = self.proc.communicate()
+            require(False, f"an artifact process failed to start:\n{line}{out[-3000:]}\n{err[-3000:]}")
+
+    def send(self, line):
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+
+    def result(self, label):
+        "Wait for the report: a dict, or a raise with the process's output."
+        try:
+            out, err = self.proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, err = self.proc.communicate()
+        require(self.proc.returncode == 0, f"{label}: the artifact's process failed:\n{out[-3000:]}\n{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+
+def _events_pairs_per_s(torch, call, pairs, batches):
+    "pairs/s of ``call`` (one batch of ``pairs``) over ``batches`` calls after one warm-up, by CUDA events."
+    call()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(batches):
+        call()
+    stop.record()
+    torch.cuda.synchronize()
+    return batches * pairs / (start.elapsed_time(stop) / 1e3)
+
+
+def _art_inputs(torch, np, hw, portrait, seed):
+    "Seeded uint8 frames of canvas hw (BATCH pairs) and their true shapes, the second row portrait when asked."
+    rng = np.random.RandomState(seed)
+    frames = [torch.from_numpy(rng.randint(0, 256, (BATCH, hw[0], hw[1], 3), np.uint8)) for _ in range(2)]
+    ts = torch.tensor([hw, hw[::-1] if portrait else hw], dtype=torch.int32)
+    return [*frames, ts, ts.clone()]
+
+
+def phase_artifacts(torch, np, serve, config, counters, card):
+    """DUSt3R ViT-L 512 through serving artifacts (utils/export.py): for each case of ART_CASES, the model from
+    seed SEED and its scan-layout .nsv in a temporary directory; per canvas the eager make_serving_fn call (exact
+    launches), the export (seconds, bytes), then a fresh process (ArtifactProcess) that loads the artifact, binds the
+    .nsv and must give the eager outputs bit for bit with the same launches per kernel and no model module imported.
+    The fresh processes start together at the outset, while this process builds the first model; every timed
+    window comes after they have all started and runs alone on the host: this process's eager pairs/s, its cold
+    start and the export, then one fresh process's load, bind and serving while this process waits. Printed: export
+    seconds, the artifact's size, time to the first result of the artifact and of serve.build_model(checkpoint=.nsv)
+    + a first forward (this process, as phase 19 times it), pairs/s of both."""
+    import shutil
+    import tempfile
+
+    from uniception_tpu_torch.utils.coldstart import save_native_state
+    from uniception_tpu_torch.utils.export import save_serving_artifact
+
+    print(f"[51 artifacts] torch {torch.__version__} on {card}")
+    total = {k: 0 for k in counters}
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_art_", dir=REPO)
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    workers = [ArtifactProcess(env) for case in ART_CASES for _ in case[5]]
+    starting = list(workers)  # not yet waited for
+    try:
+        for c, (label, opts, impl, quant, conv, canvases, cut, want) in enumerate(ART_CASES):
+            enc, dec = cut or (ENC_DEPTH, DEC_DEPTH)
+            if cut:
+                print(f"[51 artifacts] {label}: depth cut to {enc} encoder and {dec} decoder blocks at full width")
+            opts = dict(opts)
+            if opts.pop("head_bf16", False):
+                opts["head_dtype"] = torch.bfloat16
+            config.set_attention_impl(impl)
+            config.set_attention_quant(quant)
+            config.set_conv3x3_impl(conv)
+            try:
+                dims = (IMG, enc, ENC_DIM, ENC_HEADS, dec, DEC_DIM, DEC_HEADS)
+                model = serve.build_model(*dims, device="cuda", seed=SEED, **opts)
+                nsv = os.path.join(tmp, f"m{c}.nsv")
+                meta = {}
+                if model.quant_spec is not None:
+                    meta = {"quant": "int8-w8a8-dynamic", "quant_policy": model.quant_spec[0],
+                            "quant_asym": model.quant_spec[1]}
+                save_native_state(nsv, model, layout="scan", **meta)
+                fn = serve.make_serving_fn(model, "cuda")
+                for i, hw in enumerate(canvases):
+                    inputs = _art_inputs(torch, np, hw, opts.get("landscape_only", False), SEED + 51 + i)
+                    torch.cuda.synchronize()
+                    _reset(counters)
+                    ref = fn(*inputs)
+                    torch.cuda.synchronize()
+                    eager = _read(counters)
+                    if want is not None and not cut:
+                        require(all(eager[k] == n for k, n in want.items()), f"{label}: eager launches {eager}")
+                    require(all(eager[k] > 0 for k in ART_KERNELS[label]), f"{label}: eager launches {eager}")
+                    while starting:  # the timed windows begin: every fresh process has started
+                        starting.pop(0).wait_ready()
+                    eager_pps = _events_pairs_per_s(torch, lambda: fn(*inputs), BATCH, SERVE_BATCHES)
+                    cold = ""
+                    if i == 0:  # the eager cold start from the same .nsv, as phase 19 times it, and its outputs
+                        del model, fn
+                        torch.cuda.empty_cache()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        model = serve.build_model(*dims, device="cuda", checkpoint=nsv,
+                                                  **{k: v for k, v in opts.items() if k != "int8"})
+                        fn = serve.make_serving_fn(model, "cuda")
+                        again = fn(*inputs)
+                        torch.cuda.synchronize()
+                        cold = f", eager build_model(checkpoint=.nsv) + forward {time.perf_counter() - t0:.2f} s"
+                        require(all(torch.equal(a, b) for a, b in zip(again, ref)),
+                                f"{label}: build_model(checkpoint=.nsv) differs from the seeded model")
+                    case_path = os.path.join(tmp, f"case{c}_{i}.pt")
+                    torch.save({"inputs": inputs, "ref": [r.cpu() for r in ref]}, case_path)
+                    art = os.path.join(tmp, f"m{c}_{i}.ptexp")
+                    t0 = time.perf_counter()
+                    save_serving_artifact(art, model, serve.artifact_inputs(model, BATCH, hw, "cuda"),
+                                          method=serve.serving_method(model, "cuda"), case=label, canvas=list(hw))
+                    export_s = time.perf_counter() - t0
+                    proc = workers.pop(0)
+                    proc.send(f"{art} {nsv} {case_path} {SERVE_BATCHES}")
+                    got = proc.result(label)
+                    print(f"[51 artifacts] {label} {hw[0]}x{hw[1]} batch {BATCH}: export {export_s:.2f} s, "
+                          f"{os.path.getsize(art)} bytes (.nsv {os.path.getsize(nsv)}); eager pairs/s {eager_pps:.3f}"
+                          f"{cold}; fresh process: outputs equal to eager bit for bit {got['equal']}, launches "
+                          f"{got['launches']} (eager {eager}), model modules imported {got['model_code']}, "
+                          f"{got['nodes']} nodes; time to first result {got['first_s']:.2f} s (the loader's imports "
+                          f"{got['imports_s']:.2f} s, load + load_native_state {got['load_s']:.2f} s, bind + forward "
+                          f"{got['bind_forward_s']:.2f} s, synchronised; the interpreter, torch, CUDA and the kernel "
+                          f"library {got['start_s']:.2f} s before, all processes starting together), pairs/s "
+                          f"artifact {got['pairs_per_s']:.3f} (CUDA events over {SERVE_BATCHES} batches after one "
+                          f"warm-up) on {card}")
+                    require(got["equal"] and got["launches"] == eager and not got["model_code"],
+                            f"{label} {hw}: the artifact's process disagrees: {got}")
+                    total = {k: total[k] + got["launches"][k] for k in counters}
+                del model, fn
+                torch.cuda.empty_cache()
+            finally:
+                config.set_attention_impl("kernel")
+                config.set_attention_quant("none")
+                config.set_conv3x3_impl("torch")
+    finally:
+        for proc in workers:
+            if proc.proc.poll() is None:
+                proc.proc.kill()
+                proc.proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def _timed_phases(namespace):
+    "Wrap every phase_* function of ``namespace`` to print its seconds when it returns."
+    import functools
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                print(f"[seconds] {name}: {time.perf_counter() - t0:.1f} s")
+
+        return timed
+
+    for name, fn in list(namespace.items()):
+        if name.startswith("phase_") and callable(fn):
+            namespace[name] = wrap(name, fn)
+
+
 def main():
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
@@ -5076,6 +5342,7 @@ def main():
     from uniception_tpu_torch.parallel import training
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    _timed_phases(globals())
     card = phase_card()
     phase_build(kernel_lib)
     k1_err, k1 = phase_flash_attention(torch, fa, kernel_lib)
@@ -5193,6 +5460,9 @@ def main():
     print(f"[50 language] launches over phases 49-50's counted runs: video {video}, language {language} (K1 by head "
           f"dim {language_dims})")
     print(f"[K1 shapes] launches by (dtype, B, Nq, Nk, H, D) over the counted forwards: {K1_SEEN}")
+    artifacts = phase_artifacts(torch, np, serve, config, counters, card)
+    print(f"[51 artifacts] launches over phase 51's loaded programs' first forwards: {artifacts}")
+    served = {k: served[k] + artifacts[k] for k in counters}
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -5213,10 +5483,11 @@ def main():
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50",
               served["K4"] + transforms["K4"], k4_err, k4),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
-              fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"] + dino["K5-self"] + paths["K5-self"],
+              fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"] + dino["K5-self"] + paths["K5-self"]
+              + artifacts["K5-self"],
               max(k5_err["self"], hd_worst["K5"]), k5["self"]),
         entry("fused_cross_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:325",
-              fused_path["K5-cross"] + new_train["K5-cross"], k5_err["cross"], k5["cross"]),
+              fused_path["K5-cross"] + new_train["K5-cross"] + artifacts["K5-cross"], k5_err["cross"], k5["cross"]),
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"] + dino["K6"] + paths["K6"], max(k6_err, hd_worst["K6"]), k6),
         entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47",

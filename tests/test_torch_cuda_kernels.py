@@ -702,7 +702,7 @@ def test_fused_projection_scratch_matches_plain(gen, b, n, grid, c, h, rope, bia
     w = (torch.randn(3 * hd, c, device="cuda", generator=gen) * c**-0.5).bfloat16()
     bias = (torch.randn(3 * hd, device="cuda", generator=gen) * 0.1).to(bias_dtype)
     pos = make_patch_positions(b, *grid, device="cuda") if rope else None
-    got = fused._project(x, w.chunk(3), bias.chunk(3), pos, 2 if rope else 0, h, 100.0, 1.0)
+    got = fused._project(x, w.chunk(3), bias.chunk(3), pos, 2 if rope else 0, h, 100.0, 1.0, 64, False)
     want = fused._project_ref(x, w.chunk(3), bias.chunk(3), pos, (rope, rope, False), h, 100.0, 1.0)
     assert got.shape == (3, b, h, n, 64)
     for name, g, w_ in zip("qkv", got, want):
@@ -1883,3 +1883,104 @@ def test_flash_attention_bwd_fp32_routes_each_head_dim_to_its_kernel(gen, d):
     assert (extra < ws) if d <= F32_SMALL_HEAD_DIM else (extra >= ws), (extra, ws)
     for g, r in zip(grads, flash_attention_bwd_ref(q, k, v, out, lse, dout)):
         assert _rel(g, r) <= BWD_REL_TOL[torch.float32]
+
+
+def _exported(fn, *args):
+    "fn(*args) through torch.export: traced, saved, loaded and run (the serving artifact's round trip)."
+    import io
+
+    class Program(torch.nn.Module):
+        def forward(self, *a):
+            return fn(*a)
+
+    with torch.no_grad():
+        program = torch.export.export(Program(), args, strict=False)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    loaded = torch.export.load(io.BytesIO(buf.getvalue()))
+    ops = [str(n.target) for n in loaded.graph.nodes if str(n.target).startswith("uniception.")]
+    return loaded.module()(*args), ops
+
+
+def _op_case(gen, name):
+    "(function, arguments, the op's name) of each custom op at a DUSt3R ViT-L 512 serving shape."
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(bf)  # noqa: E731
+    q, k, v = _strided(gen, 2, 1024, 1024, 16, 64, bf)
+    pos = make_patch_positions(2, 32, 32, device="cuda").to(torch.int32)
+    if name == "rope2d":
+        return (lambda t, p: rope_2d_kernel(t, p)), (q, pos)
+    if name == "flash_attention_fwd":
+        return (lambda a, b, c: flash_attention_fwd(a, b, c)[0]), (q, k, v)
+    if name == "flash_attention_fwd_lse":
+        return (lambda a, b, c: flash_attention_fwd(a, b, c, with_lse=True)), (q, k, v)
+    if name in ("flash_attention_int8", "flash_attention_int8pv"):
+        mode = "int8" if name == "flash_attention_int8" else "int8pv"
+        return (lambda a, b, c: flash_attention_int8(a, b, c, mode=mode)), (q, k, v)
+    if name == "flash_attention_int8_prep":
+        return (lambda b, c: flash_attention_int8_prep(b, c, "int8pv")), (k, v)
+    if name == "int8_matmul":
+        w_q = torch.randint(-127, 128, (4096, 1024), device="cuda", generator=gen, dtype=torch.int8)
+        w_scale = torch.rand(1, 4096, device="cuda", generator=gen) * 1e-2 + 1e-4
+        return (lambda x, w, s, b: int8_matmul_dynamic(x, w.t(), s, b)), (rnd(2, 1024, 1024), w_q, w_scale,
+                                                                          torch.randn(4096, device="cuda"))
+    if name == "conv3x3":
+        return conv3x3_nhwc, (rnd(2, 64, 64, 256), rnd(3, 3, 256, 256) * 0.05, torch.randn(256, device="cuda"))
+    if name == "fused_self_attention":
+        return (lambda x, w, b, p: fused.fused_qkv_rope_attention(x, w, b, p, 16, 0.125)), (
+            rnd(2, 1024, 1024), rnd(3072, 1024) * 0.03, rnd(3072), pos)
+    return (lambda xq, xkv, wq, wk, wv, p: fused.fused_cross_rope_attention(xq, xkv, wq, wk, wv, None, None, None, p,
+                                                                            p, 12, 0.125)), (
+        rnd(2, 1024, 768), rnd(2, 1024, 768), *(rnd(768, 768) * 0.03 for _ in range(3)), pos)
+
+
+OPS = ["rope2d", "flash_attention_fwd", "flash_attention_fwd_lse", "flash_attention_int8", "flash_attention_int8pv",
+       "flash_attention_int8_prep", "int8_matmul", "conv3x3", "fused_self_attention", "fused_cross_attention"]
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_custom_op_under_export_gives_the_kernels_bits(gen, name):
+    """Each kernel's custom op traced by torch.export (its fake kernel), saved, loaded and replayed: one
+    ``uniception::`` node, the eager call's bits, and one counted launch per replay as per eager call."""
+    fn, args = _op_case(gen, name)
+    counters = (flash_attention, rope_2d_kernel, int8_matmul_dynamic, conv3x3_nhwc, flash_attention_int8,
+                flash_attention_int8_prep, fused.fused_qkv_rope_attention, fused.fused_cross_rope_attention)
+    before = [c.launches for c in counters]
+    eager = fn(*args)
+    eager_counts = [c.launches - b for c, b in zip(counters, before)]
+    before = [c.launches for c in counters]
+    got, ops = _exported(fn, *args)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == eager_counts and sum(eager_counts) == 1
+    op = {"flash_attention_int8pv": "flash_attention_int8", "fused_self_attention": "fused_self_attention"}.get(name,
+                                                                                                                  name)
+    assert ops == [f"uniception.{op}.default"], ops
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(eager)
+    for a, b in zip(got, eager):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+NARROW_FEW_KEYS_D = [64, 80, 128]  # DP 64, 128, 128: K1's narrow kernels (128-row tiles)
+
+
+@pytest.mark.parametrize("d", NARROW_FEW_KEYS_D)
+def test_flash_attention_narrow_at_few_keys(gen, d):
+    """K1's narrow kernels at (2, 1030, 260, 8), the shape where the wide kernel (64-key tiles) reads 8.41 ulps: with
+    128-key tiles the running max sees more of the keys at once, and on an H100 they read 6.00 (D = 64), 7.50 (80)
+    and 7.00 (128) ulps, so they are held to K1's 8-ulp bar, and to the bound of p's rounding (0.41-0.44 of it), with
+    the dropped-tile control far outside both."""
+    q, k, v = _strided(gen, 2, 1030, 260, 8, d, torch.bfloat16)
+    out = flash_attention_fwd(q, k, v)[0]
+    ref = flash_attention_ref(q, k, v)
+    ulps = _ulps(out, ref, 7, K1_WIDE_ULP_FLOOR)
+    err = ((out.float() - ref.float()).abs() / _p_rounding_bound(q, k, v, ref, out)).max().item()
+    control = flash_attention_ref(q, k[:, :-64], v[:, :-64])
+    ctrl_ulps = _ulps(control, ref, 7, K1_WIDE_ULP_FLOOR)
+    ctrl = ((control.float() - ref.float()).abs() / _p_rounding_bound(q, k, v, ref, control)).max().item()
+    print(f"K1 D={d} at (2,1030,260,8): {ulps:.2f} ulps (control {ctrl_ulps:.1f}), {err:.3f} of p's rounding bound "
+          f"(control {ctrl:.1f})")
+    assert ulps <= K1_WIDE_ULPS and err <= 1 and ctrl >= 8 and ctrl_ulps >= K1_WIDE_CONTROL_ULPS, (ulps, err,
+                                                                                                ctrl_ulps, ctrl)
+    assert torch.equal(out, flash_attention_fwd(q, k, v)[0])

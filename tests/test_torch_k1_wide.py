@@ -180,3 +180,26 @@ def test_k1_wide_few_keys_miss_the_ulp_bar_by_p_rounding_against_the_running_max
     control = flash_attention_lse_ref(q, k[:, :-64], v[:, :-64], scale)[0]
     ctrl = (control.float() - ref.float()).abs() / p_rounding_bound(q, k, v, scale, ref, control)
     assert ctrl.max().item() >= 8
+
+
+@pytest.mark.parametrize("block_k,over_bar", [(64, True), (128, False), (1024, False)])
+def test_pallas_k1_few_keys_reads_as_far_from_the_plain_version_as_its_key_tiles_make_it(block_k, over_bar):
+    """The JAX package's Pallas K1 in interpret mode rounds p to bf16 against the running max as well
+    (uniception_tpu/ops/flash_attention.py:82, :87), so at (2, 1030, 260, 8), D = 136, it stands as far from the
+    final-max plain version as the port's kernel: over K1's 8-ulp bar with the wide kernel's 64-key tiles (9 ulps, as
+    the emulation; the card read 8.41), at the bar with 128-key tiles, and well inside it with its own one-block plan
+    (the running max is then the final max). Every tiling stays within the bound of p's rounding: the kernel follows
+    the reference, and the bar at few keys is what p's rounding allows."""
+    rng = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rng.randn(2, n, 8, 136).astype(np.float32)).bfloat16() for n in (1030, 260, 260))
+    scale = 136**-0.5
+    ref = flash_attention_lse_ref(q, k, v, scale)[0]
+    jout, _ = _flash_attention_impl(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v)),
+                                    scale, 1024, block_k)
+    jout = torch.from_numpy(np.array(jout.astype(jnp.float32))).bfloat16()
+    ulps = _ulps(jout, ref)
+    assert (ulps > K1_ULPS) == over_bar and ulps <= 9, ulps
+    if not over_bar and block_k == 1024:
+        assert ulps <= K1_ULPS / 2, ulps
+    bound = (jout.float() - ref.float()).abs() / p_rounding_bound(q, k, v, scale, ref, jout)
+    assert bound.max().item() <= 1

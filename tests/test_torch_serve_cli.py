@@ -136,3 +136,39 @@ def test_serve_an_image_dir(tmp_path, capsys, monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL", None)  # as on a machine without Pillow
     with pytest.raises(SystemExit, match="PIL"):
         serve.main(["--device", "cpu", "--img-size", "64", "--image-dir", str(tmp_path), *TINY])
+
+
+@pytest.mark.parametrize("model,head,buckets", [("dust3r", "linear", True), ("flow", "dpt", False)])
+def test_serve_save_artifact_then_artifact(tmp_path, capsys, model, head, buckets):
+    """--save-artifact writes one artifact (square) or one per bucket canvas at <root>.<h>x<w><ext>; --artifact
+    binds them all to the one converted .nsv and serves the same outputs as the model built from it, bit for bit.
+    The DPT head's artifacts (K7's layouts, both landscape passes) are tests/test_torch_export.py's."""
+    src, _ = _pth(tmp_path, model=model, head=head)
+    nsv, art = str(tmp_path / "m.nsv"), str(tmp_path / "m.ptexp")
+    convert_checkpoints.main([src, nsv, "--serving", "--head", head, "--model", model, *CONVERT])
+    common = ["--device", "cpu", "--img-size", "64", "--pairs", "4", "--batch", "2", "--head", head, "--model",
+              model, "--checkpoint", nsv, *TINY] + (["--buckets"] if buckets else [])
+    paths = serve.main(common + ["--save-artifact", art])
+    want = ([serve.bucket_artifact_path(art, hw) for hw in serve.scaled_buckets(64, portrait=model == "flow")]
+            if buckets else [art])
+    assert paths == want and all(os.path.isfile(p) for p in paths)
+    assert "serving artifact written to" in capsys.readouterr().out
+    eager = serve.main(common)
+    served = serve.main(common + ["--artifact", art])
+    assert "(no model construction)" in capsys.readouterr().out
+    if buckets:
+        assert served["per_bucket"] == eager["per_bucket"] and served["batches"] == eager["batches"]
+        eager, served = eager["last"][0], served["last"][0]
+    assert len(served) == len(eager) and all(torch.equal(a, b) for a, b in zip(served, eager))
+
+
+def test_serve_artifact_refusals(tmp_path):
+    "--artifact needs a native --checkpoint, and takes no --gptq (the JAX example's two refusals)."
+    args = ["--device", "cpu", "--img-size", "32", *TINY, "--artifact", str(tmp_path / "m.ptexp")]
+    with pytest.raises(SystemExit, match="--artifact requires --checkpoint to be a native serving checkpoint"):
+        serve.main(args)
+    src, _ = _pth(tmp_path)
+    with pytest.raises(SystemExit, match="--artifact requires --checkpoint to be a native serving checkpoint"):
+        serve.main(args + ["--checkpoint", src])
+    with pytest.raises(SystemExit, match="--gptq cannot be applied at serve time on the --artifact path"):
+        serve.main(args + ["--checkpoint", src, "--gptq", str(tmp_path / "codes.npz")])

@@ -53,6 +53,7 @@ from uniception_tpu_torch.models.prediction_heads.dpt import (
 from uniception_tpu_torch.models.prediction_heads.linear import LinearFeature
 from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
 from uniception_tpu_torch.ops.rope import Rope2D
+from uniception_tpu_torch.ops.serving_operands import exporting
 from uniception_tpu_torch.utils.checkpoint import load_checkpoint
 from uniception_tpu_torch.utils.weights import load_state_dict_numpy
 
@@ -311,7 +312,9 @@ class DUSt3R(nn.Module):
         if true_shape is None:
             return out
         is_port = true_shape[:, 0] > true_shape[:, 1]
-        if not bool(is_port.any()):  # every row landscape: the second pass would be discarded
+        # every row landscape: the second pass would be discarded. An exported program has no host branch on the
+        # data: it runs both passes and selects, as the JAX package does
+        if not exporting() and not bool(is_port.any()):
             return out
 
         def regrid(f):

@@ -23,6 +23,7 @@ from torch import nn
 
 from uniception_tpu_torch.models.utils.config import get_attention_impl, get_conv3x3_impl
 from uniception_tpu_torch.ops.conv3x3 import conv3x3_nhwc, conv3x3_reference
+from uniception_tpu_torch.ops.serving_operands import exporting, weight_layout
 
 __all__ = [
     "make_scratch_convs",
@@ -46,6 +47,11 @@ DPT_ADAPTER_CHECKPOINT_ALIASES = (r"scratch\.layer_rn\.", r"(^|\.)act_postproces
 
 # Sequential whose children sit at "0", "1", ...: the reference's nn.Sequential keys.
 Seq = nn.Sequential
+
+
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    "An OIHW conv weight as K7 reads it: a contiguous bf16 (3, 3, C, Co) copy."
+    return w.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
@@ -101,9 +107,11 @@ class Conv2dTorch(nn.Conv2d):
         w = self.weight
         if torch.is_grad_enabled() and w.requires_grad:
             return w.to(torch.bfloat16).permute(2, 3, 1, 0)
+        if exporting():  # an exported program takes the copy from its prepare program (ops/serving_operands.py)
+            return weight_layout("k7_hwio", _hwio, w)
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         if getattr(self, "_hwio_key", None) != key:
-            self._hwio = w.detach().to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+            self._hwio = _hwio(w.detach())
             self._hwio_key = key
         return self._hwio
 

@@ -9,7 +9,8 @@ uniception_tpu/ops/conv3x3.py), for the DPT head's eligible convs.
       csrc/conv3x3.cu, tiled by :func:`conv3x3_plan`) for CUDA tensors,
       through :class:`Conv3x3Function`,
       whose backward is the exact gradient of the plain conv (the JAX custom
-      VJP, :98-131); a CPU tensor takes the plain version.
+      VJP, :98-131); a CPU tensor takes the plain version. The launch is the
+      custom op ``uniception::conv3x3``, which an exported program replays.
 
 Layouts are the JAX package's: x (B, H, W, C), w (3, 3, C, Co) (HWIO), b (Co,).
 """
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from uniception_tpu_torch.ops import kernel_lib
 from uniception_tpu_torch.ops.gemm import SMS, sm_count
+from uniception_tpu_torch.ops.serving_operands import kernel_op
 
 __all__ = ["conv3x3_nhwc", "conv3x3_reference", "conv3x3_plan", "conv3x3_maps", "Conv3x3Function"]
 
@@ -127,7 +129,7 @@ class Conv3x3Function(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w, b)
-        return _conv3x3_kernel(x, w, b)
+        return conv3x3_op(x, w, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -152,15 +154,30 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = N
     read as HWIO and the bias in its own dtype (float32 or bfloat16), so a
     bfloat16 contiguous weight costs no copy. A CPU tensor takes
     :func:`conv3x3_reference`. Returns
-    (B, H, W, Co) in x's dtype. ``conv3x3_nhwc.launches`` counts the launches.
+    (B, H, W, Co) in x's dtype. The launch is the custom op
+    ``uniception::conv3x3``. ``conv3x3_nhwc.launches`` counts the launches.
     """
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w, b)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_nhwc: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
-        return Conv3x3Function.apply(x, w, b)
+        # a CPU tensor differentiates the plain version itself
+        return conv3x3_reference(x, w, b) if x.device.type == "cpu" else Conv3x3Function.apply(x, w, b)
+    return conv3x3_op(x, w, b)
+
+
+@kernel_op("conv3x3")
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    "K7 as one op: :func:`conv3x3_reference` on a CPU tensor, else the checked and counted launch."
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w, b).contiguous()
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_nhwc: unsupported device {x.device}")
     return _conv3x3_kernel(x, w, b)
+
+
+@conv3x3_op.register_fake
+def _(x, w, b):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
 
 
 conv3x3_nhwc.launches = 0

@@ -24,6 +24,14 @@ FlashAttention-2 recurrence of the Pallas backward kernels).
       csrc/flash_attention_int8.cu) and its plain version, built on
       :func:`flash_attention_int8_prep_ref`, the plain version of K6's prep
       (:func:`flash_attention_int8_prep` launches the prep alone).
+
+Each launch of K1, K6 and K6's prep is a custom op of the ``uniception``
+namespace (``torch.library``), whose real implementation checks, launches and
+counts (or takes the plain version on a CPU tensor) and whose fake kernel
+gives ``torch.export`` the outputs' shapes, so an exported program replays the
+launches (utils/export.py); an eager call runs the implementation without the
+op's dispatch (ops/serving_operands.py ``kernel_op``). K3 is not on the
+serving path and launches directly.
 """
 
 import collections
@@ -36,6 +44,7 @@ import torch
 from uniception_tpu_torch.ops import kernel_lib
 from uniception_tpu_torch.ops.gemm import sm_count
 from uniception_tpu_torch.ops.int8_matmul import absmax_scale
+from uniception_tpu_torch.ops.serving_operands import kernel_op
 
 __all__ = [
     "flash_attention",
@@ -248,26 +257,62 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None, with_lse: bool =
     aligned strides; a D that is not a multiple of 8 is padded into a copy)
     launch the kernel; anything else on a CUDA device raises. Returns (out,
     lse): a contiguous (B, Nq, H, D) tensor in q's dtype, and with ``with_lse``
-    the (B, H, Nq) fp32 logsumexp, else None. ``flash_attention.launches``
-    counts the calls that launched the kernel (in bf16 above D = 128 with a
-    split over the keys, the kernel and the splits' combine),
-    ``flash_attention.lse_launches`` those that wrote the logsumexp, and
-    ``flash_attention.shapes`` the calls by (dtype, B, Nq, Nk, H, D).
+    the (B, H, Nq) fp32 logsumexp, else None. The launch is the custom op
+    ``uniception::flash_attention_fwd`` (``_lse`` with the logsumexp).
+    ``flash_attention.launches`` counts the calls that launched the kernel (in
+    bf16 above D = 128 with a split over the keys, the kernel and the splits'
+    combine), ``flash_attention.lse_launches`` those that wrote the
+    logsumexp, and ``flash_attention.shapes`` the calls by (dtype, B, Nq, Nk,
+    H, D).
     """
     scale = _scale(q, scale)
+    D = q.shape[-1]
+    if _on_cuda("flash_attention", q):
+        head_dim_rule("flash_attention", "K1", D)
+        q, k, v = pad_head_dim(q, k, v)
+    if with_lse:
+        return flash_attention_fwd_lse_op(q, k, v, scale, D)
+    return flash_attention_fwd_op(q, k, v, scale, D), None
+
+
+def _fwd_impl(q, k, v, scale: float, head_dim: int, with_lse: bool):
+    """The real implementation of K1's ops: the plain version on a CPU tensor, else the checked and counted launch,
+    its output cut to the caller's ``head_dim``."""
     if not _on_cuda("flash_attention", q):
         out, lse = flash_attention_lse_ref(q, k, v, scale)
-        return out, (lse if with_lse else None)
-    D = q.shape[-1]
-    head_dim_rule("flash_attention", "K1", D)
-    q, k, v = pad_head_dim(q, k, v)
+        return out.contiguous(), lse
     _check("flash_attention", q, k, v)
     out, lse = forward_launch(q, k, v, scale, with_lse)
     flash_attention.launches += 1
     flash_attention.lse_launches += with_lse
-    flash_attention.head_dims[D] += 1
-    flash_attention.shapes[q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2], D] += 1
-    return (out if out.shape[-1] == D else out[..., :D].contiguous()), lse
+    flash_attention.head_dims[head_dim] += 1
+    flash_attention.shapes[q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2], head_dim] += 1
+    return (out if out.shape[-1] == head_dim else out[..., :head_dim].contiguous()), lse
+
+
+@kernel_op("flash_attention_fwd")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                           head_dim: int) -> torch.Tensor:
+    "K1 without the logsumexp as one op, on q/k/v padded to the kernel's head dim; ``head_dim`` is the caller's."
+    return _fwd_impl(q, k, v, scale, head_dim, False)[0]
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, scale, head_dim):
+    return q.new_empty((*q.shape[:3], head_dim))
+
+
+@kernel_op("flash_attention_fwd_lse")
+def flash_attention_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                               head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    "K1 with the (B, H, Nq) fp32 logsumexp as one op (:func:`flash_attention_fwd_op`'s arguments)."
+    return _fwd_impl(q, k, v, scale, head_dim, True)
+
+
+@flash_attention_fwd_lse_op.register_fake
+def _(q, k, v, scale, head_dim):
+    B, Nq, H, _ = q.shape
+    return q.new_empty((B, Nq, H, head_dim)), q.new_empty((B, H, Nq), dtype=torch.float32)
 
 
 def fwd_rows(head_dim: int) -> int:
@@ -561,13 +606,28 @@ def flash_attention_int8_prep(k: torch.Tensor, v: torch.Tensor, mode: str = "int
     """K6's prep launches alone (the first two of every K6 call): (k8, kscale, v8t, vscale) as
     :func:`flash_attention_int8_prep_ref` returns them. A CPU tensor takes that plain version; CUDA tensors
     (bfloat16, D up to 256, read by stride; a D that is not a multiple of 8 is padded into a copy) launch the prep
-    or raise; the scratch's columns (rows of v8t) past D are sliced off. ``flash_attention_int8_prep.launches``
-    counts these calls (not those inside :func:`flash_attention_int8`)."""
-    if not _on_cuda("flash_attention_int8_prep", k):
-        return flash_attention_int8_prep_ref(k, v, mode)
+    or raise; the scratch's columns (rows of v8t) past D are sliced off. The launch is the custom op
+    ``uniception::flash_attention_int8_prep``. ``flash_attention_int8_prep.launches`` counts these calls (not those
+    inside :func:`flash_attention_int8`)."""
+    _int8_args("flash_attention_int8_prep", k, mode)
     D = k.shape[-1]
-    head_dim_rule("flash_attention_int8_prep", "K6", D)
-    k, v = pad_head_dim(k, v)
+    if _on_cuda("flash_attention_int8_prep", k):
+        head_dim_rule("flash_attention_int8_prep", "K6", D)
+        k, v = pad_head_dim(k, v)
+    k8, kscale, v8t, vscale = flash_attention_int8_prep_op(k, v, mode, D)
+    return (k8, kscale, v8t, vscale) if mode == "int8pv" else (k8, kscale, None, None)
+
+
+@kernel_op("flash_attention_int8_prep")
+def flash_attention_int8_prep_op(k: torch.Tensor, v: torch.Tensor, mode: str,
+                                 head_dim: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's prep as one op, on k/v padded to the kernel's head dim; ``head_dim`` is the caller's. In "int8" mode
+    v8t and vscale are empty."""
+    if not _on_cuda("flash_attention_int8_prep", k):
+        k8, kscale, v8t, vscale = flash_attention_int8_prep_ref(k, v, mode)
+        if v8t is None:
+            v8t, vscale = k8.new_empty(0), kscale.new_empty(0)
+        return k8, kscale, v8t, vscale
     _int8_cuda_args("flash_attention_int8_prep", k, k, v, mode)
     k8, kscale, v8t, vscale, stats = _int8_scratch(k, mode)
     status = kernel_lib.library().uc_flash_attention_int8_prep(
@@ -577,7 +637,22 @@ def flash_attention_int8_prep(k: torch.Tensor, v: torch.Tensor, mode: str = "int
     )
     kernel_lib.check(status, "flash_attention_int8_prep")
     flash_attention_int8_prep.launches += 1
-    return k8[..., :D], kscale, None if v8t is None else v8t[:, :, :D], vscale
+    if v8t is None:
+        return k8[..., :head_dim], kscale, k8.new_empty(0), kscale.new_empty(0)
+    return k8[..., :head_dim], kscale, v8t[:, :, :head_dim], vscale
+
+
+@flash_attention_int8_prep_op.register_fake
+def _(k, v, mode, head_dim):
+    B, Nk, H, D = k.shape
+    nk_pad = -(-Nk // INT8_CHUNK) * INT8_CHUNK
+    cols = int8_row_bytes(D) if k.device.type == "cuda" else head_dim  # the kernel's scratch rows, sliced
+    k8 = k.new_empty((B, H, nk_pad, cols), dtype=torch.int8)[..., :head_dim]
+    kscale = k.new_empty((B, H), dtype=torch.float32)
+    if mode != "int8pv":
+        return k8, kscale, k.new_empty(0, dtype=torch.int8), k.new_empty(0, dtype=torch.float32)
+    v8t = k.new_empty((B, H, cols, nk_pad), dtype=torch.int8)[:, :, :head_dim]
+    return k8, kscale, v8t, k.new_empty((B, H), dtype=torch.float32)
 
 
 flash_attention_int8_prep.launches = 0
@@ -591,16 +666,25 @@ def flash_attention_int8(q, k, v, scale: Optional[float] = None, mode: str = "in
     (the k mean, the scales and the int8 keys, and values in "int8pv", over
     (b, h, key chunk) blocks), then the attention; anything else on a CUDA
     device raises. A CPU tensor takes :func:`flash_attention_int8_ref`.
-    Returns a contiguous (B, Nq, H, D) tensor. ``flash_attention_int8.launches``
+    Returns a contiguous (B, Nq, H, D) tensor. The launch is the custom op
+    ``uniception::flash_attention_int8``. ``flash_attention_int8.launches``
     counts the calls that launched it.
     """
     _int8_args("flash_attention_int8", k, mode)
     scale = _scale(q, scale)
+    d = q.shape[-1]  # the caller's head dim; the kernel's is rounded up to 8
+    if _on_cuda("flash_attention_int8", q):
+        head_dim_rule("flash_attention_int8", "K6", d)
+        q, k, v = pad_head_dim(q, k, v)
+    return flash_attention_int8_op(q, k, v, scale, mode, d)
+
+
+@kernel_op("flash_attention_int8")
+def flash_attention_int8_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mode: str,
+                            head_dim: int) -> torch.Tensor:
+    "K6 as one op (prep and attention), on q/k/v padded to the kernel's head dim; ``head_dim`` is the caller's."
     if not _on_cuda("flash_attention_int8", q):
-        return flash_attention_int8_ref(q, k, v, scale, mode)
-    d = q.shape[-1]  # the caller's head dim; D below is the kernel's, rounded up to 8
-    head_dim_rule("flash_attention_int8", "K6", d)
-    q, k, v = pad_head_dim(q, k, v)
+        return flash_attention_int8_ref(q, k, v, scale, mode).contiguous()
     _int8_cuda_args("flash_attention_int8", q, k, v, mode)
     B, Nq, H, D = q.shape
     k8, kscale, v8t, vscale, stats = _int8_scratch(k, mode)
@@ -613,8 +697,13 @@ def flash_attention_int8(q, k, v, scale: Optional[float] = None, mode: str = "in
     )
     kernel_lib.check(status, "flash_attention_int8")
     flash_attention_int8.launches += 1
-    flash_attention_int8.head_dims[d] += 1
-    return out if d == D else out[..., :d].contiguous()
+    flash_attention_int8.head_dims[head_dim] += 1
+    return out if head_dim == D else out[..., :head_dim].contiguous()
+
+
+@flash_attention_int8_op.register_fake
+def _(q, k, v, scale, mode, head_dim):
+    return q.new_empty((*q.shape[:3], head_dim))
 
 
 flash_attention_int8.launches = 0

@@ -23,7 +23,12 @@ into one (C, 2*H*D) kernel per call); the product is the same.
       whose backward recomputes the forward through the unfused kernel path
       (the projection as a matmul, K2 through ``Rope2DFunction``, K1 with its
       logsumexp and K3 through ``FlashAttentionFunction``) and differentiates
-      it: the JAX package's ``_fused_self_bwd`` / ``_fused_cross_bwd``.
+      it: the JAX package's ``_fused_self_bwd`` / ``_fused_cross_bwd``. Each K5
+      call is one custom op (``uniception::fused_self_attention``,
+      ``uniception::fused_cross_attention``) that an exported program replays;
+      the padded heads of a bf16 call at D != 64 are made before it, through
+      ops/serving_operands.py, so an exported program takes them from its
+      ``prepare`` program instead of remaking them per call.
 """
 
 import collections
@@ -44,6 +49,7 @@ from uniception_tpu_torch.ops.flash_attention import (
 )
 from uniception_tpu_torch.ops.gemm import TILE_N, gemm_plan, maps_array, sm_count
 from uniception_tpu_torch.ops.rope import _inv_freq, rope_2d, rope_2d_kernel
+from uniception_tpu_torch.ops.serving_operands import exporting, kernel_op, weight_layout
 
 __all__ = [
     "fused_qkv_rope_attention",
@@ -122,36 +128,56 @@ def rope_pair_layout(head_dim: int):
     return dpad, src
 
 
-@functools.lru_cache(maxsize=64)
-def _pad_index(head_dim: int, device) -> torch.Tensor:
-    "rope_pair_layout's source rows on the device, D for a zero row (one tensor per head dim and device, reused)."
+def _pad_rows(head_dim: int, device) -> torch.Tensor:
+    "rope_pair_layout's source rows on the device, D for a zero row."
     return torch.tensor([head_dim if c < 0 else c for c in rope_pair_layout(head_dim)[1]], device=device)
+
+
+_pad_index = functools.lru_cache(maxsize=64)(_pad_rows)  # one tensor per head dim and device, reused
 
 
 def _pad_heads(t: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
     "A (H * D, ...) weight or bias with each head's rows in rope_pair_layout's order, zero rows where it has -1."
     heads = t.reshape(num_heads, head_dim, *t.shape[1:])
     heads = torch.cat([heads, heads.new_zeros((num_heads, 1, *t.shape[1:]))], dim=1)  # row D: the zero row
-    index = _pad_index(head_dim, t.device)
+    # under export the index is a constant of the traced program, never a tensor of the cache
+    index = _pad_rows(head_dim, t.device) if exporting() else _pad_index(head_dim, t.device)
     return heads.index_select(1, index).reshape(num_heads * index.numel(), *t.shape[1:]).contiguous()
 
 
+def _padded_section(t: Optional[torch.Tensor], num_heads: int, head_dim: int, bias: bool):
+    """A weight (or an fp32-cast bias) of ``num_heads`` heads in rope_pair_layout's padded heads: a layout that an
+    exported program takes from its ``prepare`` program (ops/serving_operands.py)."""
+    if t is None:
+        return None
+    fn = (lambda b: _pad_heads(b.float().contiguous(), num_heads, head_dim)) if bias else (  # noqa: E731
+        lambda w: _pad_heads(w.contiguous(), num_heads, head_dim))
+    return weight_layout(f"k5_padded_{'bias' if bias else 'weight'}:{num_heads}:{head_dim}", fn, t)
+
+
+def _pads(x, head_dim: int) -> bool:
+    "Whether K5 computes ``x``'s projection on rope_pair_layout's padded heads: a bf16 CUDA call at D != 64."
+    return x.device.type == "cuda" and x.dtype == torch.bfloat16 and head_dim != 64
+
+
 def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num_heads: int, base: float,
-             f0: float) -> torch.Tensor:
+             f0: float, head_dim: int, padded: bool) -> torch.Tensor:
     """The projection launch alone (CUDA tensors): returns the (S, B, H, N, DS) scratch of the S = len(weights)
     sections in the compute dtype, the first ``n_rope`` sections RoPE'd, DS = D rounded up to 8 (zeros past D, so
-    K1's tensor maps read it in place). Raises on what the kernel does not take. A bf16 call at D != 64 hands the
-    GEMM the weights and biases in rope_pair_layout's padded heads, copied per call
-    (``fused_qkv_rope_attention.weight_copies`` counts them)."""
+    K1's tensor maps read it in place), D = ``head_dim``. Raises on what the kernel does not take. A bf16 call at
+    D != 64 takes the weights and biases in rope_pair_layout's padded heads (fp32 biases, from
+    :func:`_padded_section`), and ``padded`` must say they come so."""
     op = "fused_attention"
     if x.dim() != 3 or x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{op}: x must be (B, N, C) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
     B, N, C = x.shape
-    if weights[0].dim() != 2 or weights[0].shape[0] % num_heads:
-        raise ValueError(f"{op}: weight {tuple(weights[0].shape)} is not (H * D, C) for H = {num_heads}")
-    D = weights[0].shape[0] // num_heads
+    D = head_dim
     head_dim_rule(op, "K5", D)
-    hd = num_heads * D
+    if padded != _pads(x, D):
+        raise ValueError(f"{op}: a bf16 projection at D != 64 takes padded heads, and only it (D = {D}, {x.dtype}, "
+                         f"padded {padded})")
+    dpad = rope_pair_layout(D)[0] if padded else 0
+    hd = num_heads * (dpad or D)
     if C % (8 if x.dtype == torch.bfloat16 else 4):
         raise ValueError(f"{op}: C = {C} must be a multiple of 8 (bfloat16) or 4 (float32)")
     x = x.contiguous()
@@ -160,7 +186,6 @@ def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num
         if w.shape != (hd, C) or w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{op}: weight {tuple(w.shape)} {w.dtype} on {w.device} does not fit x {tuple(x.shape)} "
                              f"and {num_heads} heads of {D}")
-    padded = x.dtype == torch.bfloat16 and D != 64
     # bf16 biases of a bf16 call at D = 64 are read as they are (the kernel widens them to fp32, exactly): no cast
     bias_bf16 = x.dtype == torch.bfloat16 and not padded and all(b is None or b.dtype == torch.bfloat16 for b in biases)
     bs = [None if b is None else (b if bias_bf16 else b.to(torch.float32)).contiguous() for b in biases]
@@ -178,13 +203,9 @@ def _project(x, weights: Sequence, biases: Sequence, positions, n_rope: int, num
     ds = -(-D // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
     out = (torch.empty if ds == D else torch.zeros)((S, B, num_heads, N, ds), dtype=x.dtype, device=x.device)
     pad = [None] * (3 - S)
-    maps, bn, dpad, freq = None, 0, 0, None
-    if padded:
-        dpad = rope_pair_layout(D)[0]
-        ws = [_pad_heads(w, num_heads, D) for w in ws]
-        bs = [None if b is None else _pad_heads(b, num_heads, D) for b in bs]
-        freq = _inv_freq(D // 4, base, f0, x.device) if rope else None
-        fused_qkv_rope_attention.weight_copies += 1
+    maps, bn, freq = None, 0, None
+    if padded and rope:
+        freq = _inv_freq(D // 4, base, f0, x.device)
     if x.dtype == torch.bfloat16:
         n = num_heads * (dpad or D)
         widths = tuple(w for w in TILE_N if w % (dpad or 1) == 0)
@@ -211,29 +232,78 @@ def _attend(q, k, v, scale: float, head_dim: Optional[int] = None) -> torch.Tens
 
 
 def _self_forward(x, wqkv, bqkv, positions, num_heads, scale, base, f0):
-    if not _on_cuda("fused_qkv_rope_attention", x):
-        return fused_qkv_rope_attention_ref(x, wqkv, bqkv, positions, num_heads, scale, base, f0)
-    if wqkv.dim() != 2 or wqkv.shape[0] % 3:
+    "K5-self through its op: the weights in padded heads first where the kernel takes them so (:func:`_pads`)."
+    _on_cuda("fused_qkv_rope_attention", x)
+    if wqkv.dim() != 2 or wqkv.shape[0] % (3 * num_heads):
         raise ValueError(f"fused_qkv_rope_attention: wqkv must be (3*H*D, C), got {tuple(wqkv.shape)}")
+    D = wqkv.shape[0] // (3 * num_heads)
+    padded = _pads(x, D)
+    if x.device.type == "cuda":
+        head_dim_rule("fused_attention", "K5", D)
+    if padded:  # the three sections are 3H heads of D rows: padding each head pads each section
+        fused_qkv_rope_attention.weight_copies += 1
+        wqkv, bqkv = _padded_section(wqkv, 3 * num_heads, D, False), _padded_section(bqkv, 3 * num_heads, D, True)
+    return fused_self_op(x, wqkv, bqkv, positions, num_heads, D, scale, base, f0, padded)
+
+
+@kernel_op("fused_self_attention")
+def fused_self_op(x: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[torch.Tensor], positions: Optional[torch.Tensor],
+                  num_heads: int, head_dim: int, scale: float, base: float, f0: float, padded: bool) -> torch.Tensor:
+    """K5-self as one op (the projection launch, then K1's kernel on its scratch): the plain version on a CPU
+    tensor, else the checked and counted launches. With ``padded`` the weights come in padded heads."""
+    if not _on_cuda("fused_qkv_rope_attention", x):
+        return fused_qkv_rope_attention_ref(x, wqkv, bqkv, positions, num_heads, scale, base, f0).contiguous()
     bs = (None,) * 3 if bqkv is None else bqkv.chunk(3)
-    q, k, v = _project(x, wqkv.chunk(3), bs, positions, 0 if positions is None else 2, num_heads, base, f0)
-    out = _attend(q, k, v, scale, wqkv.shape[0] // (3 * num_heads))
+    q, k, v = _project(x, wqkv.chunk(3), bs, positions, 0 if positions is None else 2, num_heads, base, f0,
+                       head_dim, padded)
+    out = _attend(q, k, v, scale, head_dim)
     fused_qkv_rope_attention.launches += 1
-    fused_qkv_rope_attention.head_dims[wqkv.shape[0] // (3 * num_heads)] += 1
+    fused_qkv_rope_attention.head_dims[head_dim] += 1
     return out
+
+
+@fused_self_op.register_fake
+def _(x, wqkv, bqkv, positions, num_heads, head_dim, scale, base, f0, padded):
+    return x.new_empty((*x.shape[:2], num_heads * head_dim))
 
 
 def _cross_forward(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, num_heads, scale, base, f0):
+    "K5-cross through its op: the weights in padded heads first where the kernel takes them so (:func:`_pads`)."
+    _on_cuda("fused_cross_rope_attention", xq)
+    D = wq.shape[0] // num_heads
+    padded = _pads(xq, D)
+    if xq.device.type == "cuda":
+        head_dim_rule("fused_attention", "K5", D)
+    if padded:  # one copy for each projection launch, q's and k/v's
+        fused_qkv_rope_attention.weight_copies += 2
+        wq, wk, wv = (_padded_section(w, num_heads, D, False) for w in (wq, wk, wv))
+        bq, bk, bv = (_padded_section(b, num_heads, D, True) for b in (bq, bk, bv))
+    return fused_cross_op(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, num_heads, D, scale, base, f0, padded)
+
+
+@kernel_op("fused_cross_attention")
+def fused_cross_op(xq: torch.Tensor, xkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                   bq: Optional[torch.Tensor], bk: Optional[torch.Tensor], bv: Optional[torch.Tensor],
+                   qpos: Optional[torch.Tensor], kpos: Optional[torch.Tensor], num_heads: int, head_dim: int,
+                   scale: float, base: float, f0: float, padded: bool) -> torch.Tensor:
+    """K5-cross as one op (the q and the k/v projection launches, then K1's kernel): the plain version on a CPU
+    tensor, else the checked and counted launches. With ``padded`` the weights come in padded heads."""
     if not _on_cuda("fused_cross_rope_attention", xq):
-        return fused_cross_rope_attention_ref(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, num_heads, scale, base, f0)
+        return fused_cross_rope_attention_ref(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, num_heads, scale, base,
+                                              f0).contiguous()
     if xkv.dtype != xq.dtype or xkv.device != xq.device or xkv.dim() != 3 or xkv.shape[0] != xq.shape[0]:
         raise ValueError(f"fused_cross_rope_attention: xkv {tuple(xkv.shape)} {xkv.dtype} does not fit xq")
-    (q,) = _project(xq, (wq,), (bq,), qpos, int(qpos is not None), num_heads, base, f0)
-    k, v = _project(xkv, (wk, wv), (bk, bv), kpos, int(kpos is not None), num_heads, base, f0)
-    out = _attend(q, k, v, scale, wq.shape[0] // num_heads)
+    (q,) = _project(xq, (wq,), (bq,), qpos, int(qpos is not None), num_heads, base, f0, head_dim, padded)
+    k, v = _project(xkv, (wk, wv), (bk, bv), kpos, int(kpos is not None), num_heads, base, f0, head_dim, padded)
+    out = _attend(q, k, v, scale, head_dim)
     fused_cross_rope_attention.launches += 1
-    fused_cross_rope_attention.head_dims[wq.shape[0] // num_heads] += 1
+    fused_cross_rope_attention.head_dims[head_dim] += 1
     return out
+
+
+@fused_cross_op.register_fake
+def _(xq, xkv, wq, wk, wv, bq, bk, bv, qpos, kpos, num_heads, head_dim, scale, base, f0, padded):
+    return xq.new_empty((*xq.shape[:2], num_heads * head_dim))
 
 
 def _unfused_projection(x, w, b):
@@ -364,7 +434,7 @@ def fused_cross_rope_attention(xq: torch.Tensor, xkv: torch.Tensor, wq: torch.Te
 
 
 fused_qkv_rope_attention.launches = 0
-fused_qkv_rope_attention.weight_copies = 0  # bf16 projections at D != 64, self and cross (_project)
+fused_qkv_rope_attention.weight_copies = 0  # projections whose weights were copied into padded heads (bf16, D != 64)
 fused_cross_rope_attention.launches = 0
 fused_qkv_rope_attention.head_dims = collections.Counter()  # launches by head dim
 fused_cross_rope_attention.head_dims = collections.Counter()

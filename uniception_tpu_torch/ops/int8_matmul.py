@@ -28,6 +28,7 @@ import torch
 
 from uniception_tpu_torch.ops import kernel_lib
 from uniception_tpu_torch.ops.gemm import TILE_M, gemm_plan, maps_array, sm_count
+from uniception_tpu_torch.ops.serving_operands import kernel_op
 
 __all__ = ["int8_matmul_dynamic", "int8_matmul_dynamic_ref", "int8_gemm", "absmax_scale", "quantize_rows", "int8_dot"]
 
@@ -80,9 +81,18 @@ def int8_matmul_dynamic(x, w_q, w_scale, bias=None, out_dtype: Optional[torch.dt
 
     A CPU tensor takes :func:`int8_matmul_dynamic_ref`. On CUDA anything the
     kernel does not take (K % 16 != 0, other dtypes, an unaligned x) raises.
+    The launch is the custom op ``uniception::int8_matmul``.
     ``int8_matmul_dynamic.launches`` counts the kernel launches.
     """
-    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu" and torch.is_grad_enabled() and x.requires_grad:
+        return int8_matmul_dynamic_ref(x, w_q, w_scale, bias, out_dtype)  # differentiated as the plain version
+    return int8_matmul_op(x, w_q, w_scale, bias, out_dtype or x.dtype)
+
+
+@kernel_op("int8_matmul")
+def int8_matmul_op(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    "K4 (the rows' quantization, then the GEMM) as one op: :func:`int8_matmul_dynamic` with its ``out_dtype`` given."
     if x.device.type == "cpu":
         return int8_matmul_dynamic_ref(x, w_q, w_scale, bias, out_dtype)
     if x.device.type != "cuda":
@@ -111,6 +121,11 @@ def int8_matmul_dynamic(x, w_q, w_scale, bias=None, out_dtype: Optional[torch.dt
     out = _launch(x2, x_q, a_scale, w_nk, w_scale, bias, out_dtype, None)
     int8_matmul_dynamic.launches += 1
     return out.reshape(*x.shape[:-1], N)
+
+
+@int8_matmul_op.register_fake
+def _(x, w_q, w_scale, bias, out_dtype):
+    return x.new_empty((*x.shape[:-1], w_q.shape[1]), dtype=out_dtype)
 
 
 def _launch(x2, x_q, a_scale, w_nk, w_scale, bias, out_dtype, plan):

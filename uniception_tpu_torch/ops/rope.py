@@ -20,13 +20,16 @@ positions:
       token dtype);
     * :func:`rope_2d_kernel` — the hand-written CUDA kernel (csrc/rope.cu) for
       CUDA tensors, through :class:`Rope2DFunction` when a gradient is
-      needed; on a CPU tensor it takes :func:`rope_2d`.
+      needed; on a CPU tensor it takes :func:`rope_2d`. Each launch is the
+      custom op ``uniception::rope2d`` (a fake kernel gives its output's
+      shape to ``torch.export``), so an exported program replays it.
 """
 
 import torch
 
 from uniception_tpu_torch.models.utils.config import get_attention_impl
 from uniception_tpu_torch.ops import kernel_lib
+from uniception_tpu_torch.ops.serving_operands import kernel_op
 
 __all__ = ["rope_2d", "rope_precompute_cos_sin", "rope_2d_from_cos_sin", "rope_2d_kernel", "Rope2DFunction",
            "Rope2D"]
@@ -121,6 +124,17 @@ def _rope_launch(tokens: torch.Tensor, positions: torch.Tensor, base: float, f0:
     return out
 
 
+@kernel_op("rope2d")
+def rope2d_op(tokens: torch.Tensor, positions: torch.Tensor, base: float, f0: float, backward: bool) -> torch.Tensor:
+    "K2 as one op: :func:`_rope_launch` (counted as a forward or a ``backward`` launch)."
+    return _rope_launch(tokens, positions, base, f0, backward)
+
+
+@rope2d_op.register_fake
+def _(tokens, positions, base, f0, backward):
+    return tokens.new_empty(tokens.shape)
+
+
 class Rope2DFunction(torch.autograd.Function):
     """RoPE2D whose backward is the same kernel with -F0; positions get no gradient."""
 
@@ -128,12 +142,12 @@ class Rope2DFunction(torch.autograd.Function):
     def forward(ctx, tokens, positions, base, f0):
         ctx.save_for_backward(positions)
         ctx.base, ctx.f0 = base, f0
-        return _rope_launch(tokens, positions, base, f0, backward=False)
+        return rope2d_op(tokens, positions, base, f0, False)
 
     @staticmethod
     def backward(ctx, grad):
         (positions,) = ctx.saved_tensors
-        return _rope_launch(grad, positions, ctx.base, -ctx.f0, backward=True), None, None, None
+        return rope2d_op(grad, positions, ctx.base, -ctx.f0, True), None, None, None
 
 
 def rope_2d_kernel(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0, f0: float = 1.0) -> torch.Tensor:
@@ -147,7 +161,7 @@ def rope_2d_kernel(tokens: torch.Tensor, positions: torch.Tensor, base: float = 
     """
     if torch.is_grad_enabled() and tokens.requires_grad:
         return Rope2DFunction.apply(tokens, positions, float(base), float(f0))
-    return _rope_launch(tokens, positions, base, f0, backward=False)
+    return rope2d_op(tokens, positions, float(base), float(f0), False)
 
 
 rope_2d_kernel.launches = 0

@@ -30,10 +30,19 @@ import; the heads' dtype is ``build_model``'s ``head_dtype`` (fp32 from the
 command line). ``--gptq PATH`` overwrites the int8 trunk's codes with
 calibrated GPTQ codes (``python -m uniception_tpu_torch.calibrate_gptq``, or
 the JAX package's ``scripts/calibrate_gptq.py``: the npz crosses unchanged);
-it needs an int8 model (``--int8`` or a quantized checkpoint). Not ported from
-the JAX example: its XLA compile cache and AOT artifacts (``--compile-cache``,
-``--save-artifact``, ``--artifact``) and ``--no-scan`` (the port runs the
-loop layout and reads both).
+it needs an int8 model (``--int8`` or a quantized checkpoint).
+
+``--save-artifact PATH`` exports the serving computation (normalization and
+forward_pair, at ``--batch`` pairs of the square canvas, or with ``--buckets``
+one artifact per canvas at ``<root>.<h>x<w><ext>``) through utils/export.py:
+``torch.export`` programs whose kernels are the ``uniception::`` custom ops,
+the weights left out. ``--artifact PATH`` serves such artifacts bound to a
+native ``--checkpoint`` (every canvas's artifact binds the one ``.nsv``): no
+model is built (utils/export.py's loader imports no model code). It refuses
+any other checkpoint, and ``--gptq`` (embed the codes in the checkpoint
+instead). Not ported from the JAX example: its XLA compile cache
+(``--compile-cache``) and ``--no-scan`` (the port runs the loop layout and
+reads both).
 
 Usage:
     python -m uniception_tpu_torch.serve --img-size 512 --batch 2 --pairs 8
@@ -41,6 +50,8 @@ Usage:
     python -m uniception_tpu_torch.serve --int8 --gptq gptq_dust3r.npz
     python -m uniception_tpu_torch.serve --model flow --head dpt --buckets --pairs 10
     python -m uniception_tpu_torch.serve --checkpoint dust3r.nsv --buckets
+    python -m uniception_tpu_torch.serve --head dpt --save-artifact dust3r.ptexp
+    python -m uniception_tpu_torch.serve --artifact dust3r.ptexp --checkpoint dust3r.nsv
     python -m uniception_tpu_torch.serve --device cpu --img-size 32 \\
         --enc-depth 2 --enc-dim 64 --enc-heads 4 --dec-depth 2 --dec-dim 48 --dec-heads 4
 """
@@ -85,10 +96,21 @@ __all__ = [
     "scaled_buckets",
     "synthetic_pairs",
     "serve_bucketed",
+    "serving_method",
+    "artifact_inputs",
+    "bucket_artifact_path",
+    "save_artifacts",
+    "bind_artifact",
     "main",
 ]
 
 
+ARTIFACT_EXT = ".ptexp"
+_ARTIFACT_NEEDS_NSV = ("--artifact requires --checkpoint to be a native serving checkpoint (.nsv, or an .npz from "
+                       "python -m uniception_tpu_torch.convert_checkpoints --serving)")
+_GPTQ_WITH_ARTIFACT = ("--gptq cannot be applied at serve time on the --artifact path; embed the codes in the serving "
+                       "checkpoint instead (convert_checkpoints --serving --int8 --gptq codes.npz): they then ride the "
+                       "bound arrays")
 _GPTQ_NEEDS_INT8 = "--gptq requires an int8-quantized model (--int8 or a quantized checkpoint)"
 
 
@@ -221,6 +243,20 @@ def build_model(
     return m.eval()
 
 
+def _serve_pair(model, prep, img1_u8, img2_u8, true_shape1=None, true_shape2=None):
+    "The served computation: on-device normalization, then forward_pair; the outputs as make_serving_fn gives them."
+    img1, img2 = prep(img1_u8), prep(img2_u8)
+    if isinstance(model, UFMFlow):
+        res = model.forward_pair(img1, img2)
+        return res["flow"], res["flow_conf"]
+    B, _, H, W = img1.shape
+    canvas = torch.tensor([H, W], dtype=torch.int32).expand(B, 2)
+    ts1 = canvas if true_shape1 is None else torch.as_tensor(true_shape1)
+    ts2 = canvas if true_shape2 is None else torch.as_tensor(true_shape2)
+    res1, res2 = model.forward_pair(img1, img2, true_shape1=ts1, true_shape2=ts2)
+    return res1["pts3d"], res1["conf"], res2["pts3d_in_other_view"], res2["conf"]
+
+
 def make_serving_fn(model: nn.Module, device):
     """Return ``serve(img1_u8, img2_u8, true_shape1=None, true_shape2=None)``.
 
@@ -230,23 +266,30 @@ def make_serving_fn(model: nn.Module, device):
     (pts3d, conf, pts3d_in_other_view, conf2), UFMFlow (flow, flow_conf): BHWC
     fp32 tensors on ``device``.
     """
-    device = torch.device(device)
-    prep = make_frame_normalizer(model.data_norm_type, device)
+    prep = make_frame_normalizer(model.data_norm_type, torch.device(device))
 
     @torch.inference_mode()
     def serve(img1_u8, img2_u8, true_shape1=None, true_shape2=None):
-        img1, img2 = prep(img1_u8), prep(img2_u8)
-        if isinstance(model, UFMFlow):
-            res = model.forward_pair(img1, img2)
-            return res["flow"], res["flow_conf"]
-        B, _, H, W = img1.shape
-        canvas = torch.tensor([H, W], dtype=torch.int32).expand(B, 2)
-        ts1 = canvas if true_shape1 is None else torch.as_tensor(true_shape1)
-        ts2 = canvas if true_shape2 is None else torch.as_tensor(true_shape2)
-        res1, res2 = model.forward_pair(img1, img2, true_shape1=ts1, true_shape2=ts2)
-        return res1["pts3d"], res1["conf"], res2["pts3d_in_other_view"], res2["conf"]
+        return _serve_pair(model, prep, img1_u8, img2_u8, true_shape1, true_shape2)
 
     return serve
+
+
+def serving_method(model: nn.Module, device):
+    """The computation of :func:`make_serving_fn` as ``fn(m, img1_u8, img2_u8[, true_shape1, true_shape2])``, the
+    ``method`` that utils/export.py traces for a serving artifact (frames as uint8 device tensors)."""
+    prep = make_frame_normalizer(model.data_norm_type, torch.device(device))
+    return lambda m, *inputs: _serve_pair(m, prep, *inputs)
+
+
+def artifact_inputs(model: nn.Module, batch: int, hw, device):
+    """Example inputs of a serving artifact for ``batch`` pairs of canvas ``hw``: two uint8 (B, h, w, 3) frames on
+    ``device`` and, for DUSt3R, two (B, 2) int32 true shapes on the CPU (the canvas)."""
+    frame = torch.zeros((batch, hw[0], hw[1], 3), dtype=torch.uint8, device=device)
+    if isinstance(model, UFMFlow):
+        return frame, frame.clone()
+    ts = torch.tensor(hw, dtype=torch.int32).expand(batch, 2).contiguous()
+    return frame, frame.clone(), ts, ts.clone()
 
 
 def _timed(device):
@@ -374,8 +417,14 @@ def serve_bucketed(model: nn.Module, device, pairs, batch: int, buckets):
     def run(hw, c1, c2, t1, t2):
         if flow:  # the JAX server builds each bucket's model with img_size = the bucket: the adaptor's base shape
             model.adaptor.value_adaptor.base_shape = list(hw)
+            return serve(c1, c2)
         return serve(c1, c2, t1, t2)
 
+    return _bucket_loop(run, flow, device, pairs, batch, buckets)
+
+
+def _bucket_loop(run, flow: bool, device, pairs, batch: int, buckets):
+    "serve_bucketed's loop over ``run(hw, c1, c2, t1, t2)`` (the flow model's pairs get portrait canvases)."
     stop = _timed(device)
     for hw in buckets:
         z = np.zeros((batch, hw[0], hw[1], 3), np.uint8)
@@ -403,6 +452,49 @@ def serve_bucketed(model: nn.Module, device, pairs, batch: int, buckets):
         stats["last"] = (out, t2, meta)
     stats["seconds"] = stop()
     return stats
+
+
+def bucket_artifact_path(base: str, hw) -> str:
+    "The artifact of canvas ``hw`` for ``--buckets``: ``<root>.<h>x<w><ext>`` (the JAX example's naming)."
+    root, ext = os.path.splitext(base)
+    return f"{root}.{hw[0]}x{hw[1]}{ext or ARTIFACT_EXT}"
+
+
+def save_artifacts(model: nn.Module, path: str, batch: int, buckets, device, **meta):
+    """Export the serving computation of ``model`` (make_serving_fn's, frames of ``batch`` pairs) through
+    utils/export.py: one artifact at ``path`` for the square canvas of ``meta["img_size"]`` when ``buckets`` is None,
+    else one per bucket canvas at :func:`bucket_artifact_path`. The flow model's adaptor takes each canvas as its base
+    shape, as serve_bucketed sets it. Returns the paths."""
+    from uniception_tpu_torch.utils.export import save_serving_artifact
+
+    paths = []
+    for hw in buckets or [(meta["img_size"],) * 2]:
+        if isinstance(model, UFMFlow):
+            model.adaptor.value_adaptor.base_shape = list(hw)
+        p = path if buckets is None else bucket_artifact_path(path, hw)
+        save_serving_artifact(p, model, artifact_inputs(model, batch, hw, device),
+                              method=serving_method(model, device), batch=batch, canvas=list(hw), **meta)
+        paths.append(p)
+    return paths
+
+
+def bind_artifact(path: str, arrays, device):
+    """``serve(img1_u8, img2_u8, true_shape1=None, true_shape2=None)`` of an artifact bound to native ``arrays``,
+    with make_serving_fn's outputs (the true shapes default to the canvas; the flow model takes none)."""
+    from uniception_tpu_torch.utils.export import load_serving_artifact
+
+    art = load_serving_artifact(path)
+    fn = art.bind(arrays, device)
+    flow = art.meta.get("model_name") == "flow"
+
+    def serve(img1_u8, img2_u8, true_shape1=None, true_shape2=None):
+        if flow:
+            return fn(img1_u8, img2_u8)
+        canvas = torch.tensor(np.shape(img1_u8)[1:3], dtype=torch.int32).expand(np.shape(img1_u8)[0], 2)
+        return fn(img1_u8, img2_u8, canvas if true_shape1 is None else true_shape1,
+                  canvas if true_shape2 is None else true_shape2)
+
+    return serve
 
 
 def parse_args(argv=None):
@@ -444,6 +536,14 @@ def parse_args(argv=None):
     p.add_argument("--gelu", choices=["exact", "tanh"], default=None,
                    help="GELU mode (default: UNICEPTION_TPU_GELU, else exact)")
     p.add_argument("--device", default="cuda", help="cuda (default; fails without a GPU) or cpu")
+    p.add_argument("--save-artifact", default=None, metavar="PATH",
+                   help="export the serving computation to a serving artifact (utils/export.py: torch.export, the "
+                        "weights left out) and exit; with --buckets one per canvas at <root>.<h>x<w><ext>. Serve it "
+                        "with --artifact and a native --checkpoint")
+    p.add_argument("--artifact", default=None, metavar="PATH",
+                   help="serve from a serving artifact (the --save-artifact path): no model construction; needs "
+                        "--checkpoint to be a native serving checkpoint (.nsv). The kernel selection is the one the "
+                        "artifact was traced with")
     return p.parse_args(argv)
 
 
@@ -458,10 +558,16 @@ def apply_kernel_flags(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.gptq and args.artifact:  # the artifact binds the checkpoint's arrays: no model to apply codes to
+        raise SystemExit(_GPTQ_WITH_ARTIFACT)
     apply_kernel_flags(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: pass --device cpu to serve on the CPU")
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    buckets = scaled_buckets(args.img_size, portrait=args.model == "flow") if args.buckets else None
+    if args.artifact is not None:
+        return _serve_artifacts(args, device, where, buckets)
     t_build = _timed(device)
     model = build_model(
         args.img_size, args.enc_depth, args.enc_dim, args.enc_heads, args.dec_depth, args.dec_dim, args.dec_heads,
@@ -469,38 +575,76 @@ def main(argv=None):
         model=args.model, checkpoint=args.checkpoint, landscape_only=args.buckets and args.model == "dust3r",
         gptq=args.gptq,
     )
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     source = args.checkpoint or "seeded random weights"
     print(f"{args.model} ({args.head} head) from {source} in {t_build():.2f}s on {where}")
+    if args.save_artifact is not None:
+        stop = _timed(device)
+        paths = save_artifacts(model, args.save_artifact, args.batch, buckets, device, img_size=args.img_size,
+                               head=args.head, int8=model.quant_spec is not None, model_name=args.model)
+        for p in paths:
+            print(f"serving artifact written to {p} ({os.path.getsize(p)} bytes)")
+        print(f"{len(paths)} serving artifact(s) in {stop():.2f}s: pair with a native serving checkpoint "
+              "(convert_checkpoints --serving) and serve with --artifact")
+        return paths
     if args.buckets:
-        buckets = scaled_buckets(args.img_size, portrait=args.model == "flow")
         pairs = image_dir_pairs(args.image_dir) if args.image_dir else synthetic_pairs(args.pairs, args.img_size)
-        stats = serve_bucketed(model, device, pairs, args.batch, buckets)
-        print(f"{len(buckets)} buckets warmed in {stats['warm_seconds']:.2f}s: {list(buckets)}")
-        if stats["pairs"] == 0:
-            print("no pairs to serve (need >= 2 frames in --image-dir)")
-            return stats
-        counts = {f"{h}x{w}": n for (h, w), n in stats["per_bucket"].items()}
-        print(f"{stats['pairs']} pairs in {stats['seconds']:.2f}s = {stats['pairs'] / stats['seconds']:.2f} pairs/s "
-              f"across {len(counts)} buckets {counts} (host resizing included)")
-        out, t2, _ = stats["last"]
-        if args.model == "flow":
-            print("flow:", tuple(out[0][0].shape), "flow_conf:", tuple(out[1][0].shape))
-        else:
-            print("pts3d_in_other_view (native orientation):", extract_view(out[2][0], t2[0]).shape)
-        return stats
+        return _report_buckets(args, serve_bucketed(model, device, pairs, args.batch, buckets), buckets)
+    out, pairs, seconds = serve_frames(make_serving_fn(model, device), _frames(args), args.batch, device)
+    return _report_frames(args, out, pairs, seconds, where)
+
+
+def _frames(args):
     if args.image_dir:
-        frames = np.stack([_open_rgb(f, args.img_size) for f in _image_files(args.image_dir)])
-    else:
-        rng = np.random.RandomState(0)
-        frames = rng.randint(0, 256, size=(2 * args.pairs, args.img_size, args.img_size, 3), dtype=np.uint8)
-    out, pairs, seconds = serve_frames(make_serving_fn(model, device), frames, args.batch, device)
+        return np.stack([_open_rgb(f, args.img_size) for f in _image_files(args.image_dir)])
+    rng = np.random.RandomState(0)
+    return rng.randint(0, 256, size=(2 * args.pairs, args.img_size, args.img_size, 3), dtype=np.uint8)
+
+
+def _report_frames(args, out, pairs, seconds, where):
     print(f"{pairs} pairs in {seconds:.3f}s = {pairs / seconds:.2f} pairs/s on {where} (after one warm-up batch)")
     if args.model == "flow":
         print("flow:", tuple(out[0].shape), "flow_conf:", tuple(out[1].shape))
     else:
         print("pts3d:", tuple(out[0].shape), "conf:", tuple(out[1].shape))
     return out
+
+
+def _report_buckets(args, stats, buckets):
+    print(f"{len(buckets)} buckets warmed in {stats['warm_seconds']:.2f}s: {list(buckets)}")
+    if stats["pairs"] == 0:
+        print("no pairs to serve (need >= 2 frames in --image-dir)")
+        return stats
+    counts = {f"{h}x{w}": n for (h, w), n in stats["per_bucket"].items()}
+    print(f"{stats['pairs']} pairs in {stats['seconds']:.2f}s = {stats['pairs'] / stats['seconds']:.2f} pairs/s "
+          f"across {len(counts)} buckets {counts} (host resizing included)")
+    out, t2, _ = stats["last"]
+    if args.model == "flow":
+        print("flow:", tuple(out[0][0].shape), "flow_conf:", tuple(out[1][0].shape))
+    else:
+        print("pts3d_in_other_view (native orientation):", extract_view(out[2][0], t2[0]).shape)
+    return stats
+
+
+def _serve_artifacts(args, device, where, buckets):
+    "--artifact: bind the artifact (one per bucket canvas) to the native checkpoint and serve; no model is built."
+    if not (args.checkpoint and is_native_state(args.checkpoint)):
+        raise SystemExit(_ARTIFACT_NEEDS_NSV)
+    stop = _timed(device)
+    arrays, _ = load_native_state(args.checkpoint)
+    if buckets is None:
+        serve = bind_artifact(args.artifact, arrays, device)
+        print(f"serving artifact {args.artifact} bound to {args.checkpoint} in {stop():.2f}s on {where} "
+              "(no model construction)")
+        out, pairs, seconds = serve_frames(serve, _frames(args), args.batch, device)
+        return _report_frames(args, out, pairs, seconds, where)
+    served = {hw: bind_artifact(bucket_artifact_path(args.artifact, hw), arrays, device) for hw in buckets}
+    print(f"{len(buckets)} per-bucket serving artifacts bound to {args.checkpoint} in {stop():.2f}s on {where} "
+          "(no model construction)")
+    flow = args.model == "flow"
+    pairs = image_dir_pairs(args.image_dir) if args.image_dir else synthetic_pairs(args.pairs, args.img_size)
+    stats = _bucket_loop(lambda hw, c1, c2, t1, t2: served[hw](c1, c2, t1, t2), flow, device, pairs, args.batch,
+                         buckets)
+    return _report_buckets(args, stats, buckets)
 
 
 if __name__ == "__main__":

@@ -65,6 +65,7 @@ __all__ = [
     "load_native_state",
     "is_native_state",
     "PackedNativeState",
+    "ship_native",
 ]
 
 _META_KEY = "__native_state_meta__"
@@ -376,6 +377,23 @@ def _ship(blobs: Dict[str, torch.Tensor], device: torch.device) -> Dict[str, tor
             out[name] = pinned.to(device, non_blocking=True)
         else:
             out[name] = host.to(device, copy=True)  # the module never holds views of a memory map
+    return out
+
+
+def ship_native(arrays: Mapping, paths: Sequence[str], device) -> Dict[str, torch.Tensor]:
+    """The entries ``paths`` of native state (:func:`load_native_state`'s mapping) on ``device``, in the file's
+    layout and dtype: one host-to-device copy per dtype section, as :func:`materialize` ships them, then views."""
+    if isinstance(arrays, PackedNativeState):
+        shipped = {arrays.index[p][0] for p in paths}
+        host = {n: _torch_view(b, n) for n, b in arrays.blobs.items() if n in shipped}
+        index = arrays.index
+    else:
+        host, index = _pack({p: torch.as_tensor(arrays[p]) for p in paths})
+    dev = _ship(host, torch.device(device))
+    out = {}
+    for p in paths:
+        name, shape, eoff = index[p]
+        out[p] = dev[name][eoff : eoff + int(np.prod(shape))].view(shape)
     return out
 
 
