@@ -306,7 +306,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                make_serving_fn's and its launches per kernel the eager
                call's; export seconds, bytes, time to the first result
                against serve.build_model(checkpoint=.nsv) + a forward, and
-               pairs/s of both printed, each timed window alone on the host.
+               pairs/s of both printed, each timed window alone on the host;
+   52-54. multi-GPU serving (uniception_tpu_torch/parallel/), in a world of
+               2 rank processes on the one card (spawned; gloo, every
+               collective staged through pinned host buffers, printed as the
+               transport; the kernels launch on the card in each rank):
+               make_infer_fn(data=2) at every serving rung bit for bit the
+               unsharded make_serving_fn on each pair, make_infer_fn(data=1,
+               model_axis=2, use_tp=True) at bf16-linear and int8-linear (K4 on
+               all-reduced row scales) against the unsharded batch (52); the
+               ring over the 8 x 1024-token global stream in bf16 ulps against
+               the plain softmax and one K1 call, with its dropped-tile control,
+               and MultiViewPointmapModel(sequence_parallel=...) at 4 views of
+               512 against its unsharded forward (53); pipeline_blocks over 4
+               ViT-L blocks, 2 stages x 4 microbatches, bit for bit the loop per
+               microbatch (54); then a world of 4 ranks: the ring over 4 and
+               pipeline_blocks as pp x tp (2 stages x 2 tensor-parallel ranks)
+               against the loop; each with its launches per rank, its time and
+               the share of one profiled call inside the collectives;
+   55. chain:  ChainPipeline(dust3r_chain_stages) at DUSt3R ViT-L 512, three
+               stages on the card's streams, 4 microbatches streamed, bit for
+               bit forward_pair with equal launches, pairs/s both ways.
 
 Every phase prints its seconds (``[seconds] phase_...``). The line before
 the last is a JSON object with each kernel's launches on the serving,
@@ -1006,6 +1026,54 @@ def phase_int8_matmul(torch, F, i8, gemm):
         print(line)
     k4_split_probe(torch, i8, gemm, gen, sms)
     return worst_abs, main
+
+
+K4_SCALED_SHAPES = [  # (layer, M, K share, N): the row-parallel layers of DUSt3R ViT-L 512 at 2-way TP, batch 2 pairs
+    ("enc proj", 4096, 512, 1024), ("enc fc2", 4096, 2048, 1024), ("dec proj", 2048, 384, 768),
+    ("dec fc2", 2048, 1536, 768),
+]
+
+
+def phase_int8_matmul_scaled(torch, i8):
+    """K4 on given row scales, up to its int32 sums (``int8_matmul_scaled``), at the shapes a rank of 2-way tensor
+    parallelism gives each row-parallel layer: x is one rank's half of each bf16 row, the scales the whole row's
+    abs-max / 127 (larger than the half's own on about half the rows). Its codes, read back through an identity
+    weight, and its sums are held exactly against the plain version; at the rows' own scales one dequantization of
+    the sums is K4's output bit for bit. Returns (max |err|, the timings of the first shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    main = None
+    for name, M, K, N in K4_SCALED_SHAPES:
+        row = torch.randn(M, 2 * K, device="cuda", generator=gen).to(torch.bfloat16)
+        x = row[:, :K].contiguous()  # rank 0's share
+        a_scale = i8.absmax_scale(row.float().abs().amax(dim=-1))
+        own = i8.absmax_scale(x.float().abs().amax(dim=-1))
+        w_q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8).t()  # (K, N) view
+        before = i8.int8_matmul_scaled.launches
+        out, ref = i8.int8_matmul_scaled(x, a_scale, w_q), i8.int8_matmul_scaled_ref(x, a_scale, w_q)
+        require(i8.int8_matmul_scaled.launches == before + 1, "int8_matmul_scaled did not count its launch")
+        codes = i8.int8_matmul_scaled(x, a_scale, torch.eye(K, device="cuda", dtype=torch.int8))
+        codes_equal = torch.equal(codes, i8.quantize_rows_scaled(x, a_scale).int())
+        larger = (a_scale > own).float().mean().item()
+        require(out.dtype == torch.int32 and torch.equal(out, ref), f"K4 scaled {name}: sums differ from the plain "
+                f"version (max |diff| {(out - ref).abs().max().item()})")
+        require(codes_equal, f"K4 scaled {name}: the kernel's codes differ from quantize_rows_scaled")
+        require(larger > 0.25, f"K4 scaled {name}: the whole rows' scales exceed the share's on only {larger}")
+        w_scale = torch.rand(1, N, device="cuda", generator=gen) * 1e-3 + 1e-5
+        once = (i8.int8_matmul_scaled(x, own, w_q).float() * (own.reshape(-1, 1) * w_scale)).to(torch.bfloat16)
+        require(torch.equal(once, i8.int8_matmul_dynamic(x, w_q, w_scale)),
+                f"K4 scaled {name}: one dequantization of the sums at the rows' own scales is not K4's output")
+        ms = graph_ms(torch, lambda: i8.int8_matmul_scaled(x, a_scale, w_q))
+        plain_ms = graph_ms(torch, lambda: i8.int8_matmul_scaled_ref(x, a_scale, w_q))
+        lib_ms = graph_ms(torch, lambda: torch._int_mm(i8.quantize_rows_scaled(x, a_scale), w_q))
+        b = bound({"int8": 2 * M * K * N}, M * K * 2 + M * 4 + K * N + M * N * 4)
+        print(f"[11 K4 scaled] {name:8s} M={M} K={K} N={N} bf16, scales of the whole row (above the share's own on "
+              f"{larger:.3f} of the rows): codes equal {codes_equal}, int32 sums equal to the plain version, at the "
+              f"rows' own scales one dequantization = K4 bit for bit; kernel {ms:.4f} ms "
+              f"({2 * M * K * N / 1e9 / ms:.1f} TOP/s), plain {plain_ms:.4f} ms, quantize_rows_scaled + torch._int_mm "
+              f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; CUDA graph)")
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=b)
+    return 0.0, main
 
 
 def k6_check(out, ref, exact):
@@ -5291,6 +5359,515 @@ def phase_artifacts(torch, np, serve, config, counters, card):
     return total
 
 
+# --- phases 52-55: the multi-GPU serving layer (parallel/) -------------------------------------------------------
+#
+# Phases 52-54 run in a world of RANKS rank processes on this one card (multiprocessing's spawn; NCCL refuses two
+# ranks on one card, so the process group is gloo and every collective crosses through pinned host buffers: the
+# transport, printed, while every kernel launches on the card). Phase 55 is one process, its three stages on the
+# card's three streams.
+RANKS = 2
+RING_VIEWS, RING_TOKENS, RING_HEADS = 8, 1024, 16  # the multi-view global stream at ViT-L width (H16, D64), bf16
+RING_EXTRA_ULPS = 2  # each chunk's output is rounded to bf16 once more before the fp32 combine: at most ~1 ulp
+MV_SP_VIEWS = 4
+PP_BLOCKS, PP_STAGES, PP_MICROBATCHES, PP_BATCH = 4, 2, 4, 8
+CHAIN_MICROBATCHES = 4
+INT8_FLIP_MAX, INT8_FLIP_MEDIAN = 2e-2, 1e-3  # tests/parallel/test_inference.py's quant-flip bar, linear adaptors
+DP_RUNGS = [  # (name, build_model options, attention impl, attention quant, conv3x3 impl)
+    ("bf16-linear", {}, "kernel", "none", "torch"),
+    ("fused", {}, "fused", "none", "torch"),
+    ("int8-linear", dict(int8=True), "kernel", "none", "torch"),
+    ("bf16-DPT", dict(head="dpt"), "kernel", "none", "torch"),
+    ("int8-DPT", dict(head="dpt", int8=True, head_bf16=True), "kernel", "int8", "kernel"),
+]
+TP_RUNGS = [("bf16-linear", {}), ("int8-linear", dict(int8=True))]
+
+
+def _comm_share(torch, fn):
+    """(wall ms, ms inside comm:: spans, share) of one call of fn under torch.profiler: the host's time inside the
+    collectives, a staged copy's wait for the card's earlier work included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    inside = sum(e.cpu_time_total for e in prof.key_averages() if e.key.startswith("comm::")) / 1e3
+    return wall, inside, inside / wall
+
+
+def _wall_ms(torch, comm, fn, n=3):
+    "Wall ms per call of fn over n calls after one warm-up, every rank starting together (a barrier), synchronised."
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _linear_adaptor(model):
+    "Linear pointmaps and sigmoid confidences (the JAX tests' int8 setting), so no exp amplifies a quantum flip."
+    from uniception_tpu_torch.models.prediction_heads.adaptors import PointMapWithConfidenceAdaptor
+
+    model.adaptor = PointMapWithConfidenceAdaptor("pointmap", "linear", -math.inf, math.inf, "sigmoid", 0.0, 1.0)
+    return model
+
+
+def _rank_serving(torch, np, serve, config, comm, counters):
+    """Phase 52 on one rank: make_infer_fn(data=RANKS) at every serving rung against the unsharded make_serving_fn
+    on each pair alone (the shapes a rank runs: bit for bit), then make_infer_fn(data=1, model_axis=RANKS,
+    use_tp=True) at bf16-linear and int8-linear against the unsharded batch (linear adaptors)."""
+    from uniception_tpu_torch.ops import int8_matmul as i8
+    from uniception_tpu_torch.parallel.inference import make_infer_fn
+
+    frames = np.random.RandomState(SEED + 52).randint(0, 256, size=(2 * BATCH, IMG, IMG, 3), dtype=np.uint8)
+    u1, u2 = torch.from_numpy(frames[0::2]), torch.from_numpy(frames[1::2])
+    out = {"dp": {}, "tp": {}}
+
+    def build(opts):
+        opts = dict(opts)
+        head_dtype = torch.bfloat16 if opts.pop("head_bf16", False) else None
+        return serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                                 seed=SEED, head_dtype=head_dtype, **opts)
+
+    for name, opts, impl, quant, conv in DP_RUNGS:
+        config.set_attention_impl(impl)
+        config.set_attention_quant(quant)
+        config.set_conv3x3_impl(conv)
+        try:
+            model = build(opts)
+            fn = serve.make_serving_fn(model, "cuda")
+            ref = [torch.cat(parts) for parts in zip(*[fn(u1[i:i + 1], u2[i:i + 1]) for i in range(BATCH)])]
+            ctx, params = make_infer_fn(model, forward=serve.serving_method(model, "cuda"), data=RANKS)
+            s1, s2 = ctx.shard((u1, u2))
+            _reset(counters)
+            comm.calls.clear()
+            got = ctx.infer(params, s1, s2)
+            torch.cuda.synchronize()
+            launches, calls = _read(counters), dict(comm.calls)
+            bits = all(torch.equal(a, b) for a, b in zip(got, ref))
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+            ms = _wall_ms(torch, comm, lambda: ctx.infer(params, s1, s2))
+            share = _comm_share(torch, lambda: ctx.infer(params, s1, s2)) if name == "bf16-linear" else None
+            out["dp"][name] = dict(bits=bits, err=err, launches=launches, calls=calls, ms=ms, share=share,
+                                   shapes=[tuple(t.shape) for t in got])
+            del model, fn, ref, ctx, params, got
+            torch.cuda.empty_cache()
+        finally:
+            config.set_attention_impl("kernel")
+            config.set_attention_quant("none")
+            config.set_conv3x3_impl("torch")
+
+    for name, opts in TP_RUNGS:
+        model = _linear_adaptor(build(opts))
+        ref = serve.make_serving_fn(model, "cuda")(u1, u2)
+        ctx, params = make_infer_fn(model, forward=serve.serving_method(model, "cuda"), data=1, model_axis=RANKS,
+                                    use_tp=True)
+        s1, s2 = ctx.shard((u1, u2))
+        _reset(counters)
+        i8.int8_matmul_scaled.launches = 0
+        comm.calls.clear()
+        got = ctx.infer(params, s1, s2)
+        torch.cuda.synchronize()
+        launches, calls = _read(counters), dict(comm.calls)
+        launches["K4-scaled"] = i8.int8_matmul_scaled.launches
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item() for a, b in zip(got, ref)]
+        flips = [((a.float() - b.float()).abs() / b.float().abs().max()) for a, b in zip(got, ref)]
+        qkv = params.encoder.enc_blocks[0].attn.qkv
+        out["tp"][name] = dict(
+            rel=max(rel), flip_max=max(f.max().item() for f in flips),
+            bits=all(torch.equal(a, b) for a, b in zip(got, ref)),
+            flip_median=max(f.flatten().median().item() for f in flips), launches=launches, calls=calls,
+            qkv=tuple((qkv.w_q if hasattr(qkv, "w_q") else qkv.weight).shape),
+            heads=params.encoder.enc_blocks[0].attn.num_heads,
+            ms=_wall_ms(torch, comm, lambda: ctx.infer(params, s1, s2)),
+            share=_comm_share(torch, lambda: ctx.infer(params, s1, s2)))
+        del model, ref, ctx, params, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_ring(torch, np, serve, config, fa, comm, counters):
+    """Phase 53 on one rank: ring_attention_sharded over the 8 x 1024-token global stream (H16, D64, bf16) against
+    one K1 call on the whole sequence and the plain softmax, in bf16 ulps of max(|plain|, 1/64) with the last 128
+    keys dropped as the control; then MultiViewPointmapModel(sequence_parallel=...) at 4 views of 512, global
+    attention, against its unsharded forward."""
+    from uniception_tpu_torch.parallel.mesh import make_mesh
+    from uniception_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    mesh = make_mesh(data=RANKS, model=1)
+    n = RING_VIEWS * RING_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    q, k, v = (torch.randn(1, n, RING_HEADS, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    fa.flash_attention.lse_launches = 0
+    _reset(counters)
+    ring = ring_attention_sharded(q, k, v, mesh, "data")
+    torch.cuda.synchronize()
+    lse_launches, launches = fa.flash_attention.lse_launches, _read(counters)
+    whole = fa.flash_attention_fwd(q, k, v)[0]
+    ulps, ctrl, k1_ulps = [], [], []
+    for h in range(0, RING_HEADS, 4):  # the plain softmax a few heads at a time
+        sl = slice(h, h + 4)
+        qf, kf, vf = (t[:, :, sl].float() for t in (q, k, v))
+        plain = fa.flash_attention_lse_ref(qf, kf, vf)[0]
+        ulps.append(_ulps(ring[:, :, sl], plain, 7, K1_MV_ULP_FLOOR))
+        k1_ulps.append(_ulps(whole[:, :, sl], plain, 7, K1_MV_ULP_FLOOR))
+        ctrl.append(_ulps(fa.flash_attention_lse_ref(qf, kf[:, :-128], vf[:, :-128])[0], plain, 7, K1_MV_ULP_FLOOR))
+        del qf, kf, vf, plain
+    ring_vs_k1 = _ulps(ring, whole, 7, K1_MV_ULP_FLOOR)
+    ms = _wall_ms(torch, comm, lambda: ring_attention_sharded(q, k, v, mesh, "data"), n=5)
+    k1_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
+    share = _comm_share(torch, lambda: ring_attention_sharded(q, k, v, mesh, "data"))
+    out = dict(ulps=max(ulps), k1_ulps=max(k1_ulps), ctrl=min(ctrl), ring_vs_k1=ring_vs_k1, lse=lse_launches,
+               launches=launches, ms=ms, k1_ms=k1_ms, share=share)
+    del q, k, v, ring, whole
+    torch.cuda.empty_cache()
+
+    prep = serve.make_frame_normalizer("dust3r", "cuda")
+    frames = np.random.RandomState(SEED + 53).randint(0, 256, size=(MV_SP_VIEWS, IMG, IMG, 3), dtype=np.uint8)
+    imgs = [prep(frames[i:i + 1]) for i in range(MV_SP_VIEWS)]
+    model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                              seed=SEED, model="multiview", num_views=MV_SP_VIEWS, attention_type="global")
+    with torch.inference_mode():
+        ref = model(imgs)
+        model.sequence_parallel = (mesh, "data")
+        fa.flash_attention.lse_launches = 0
+        _reset(counters)
+        comm.calls.clear()
+        got = model(imgs)
+        torch.cuda.synchronize()
+        mv = dict(lse=fa.flash_attention.lse_launches, launches=_read(counters), exchanges=comm.calls["exchange"])
+        mv["rel"] = max(((a[key] - b[key]).norm() / b[key].norm()).item() for a, b in zip(got, ref)
+                        for key in ("pts3d", "conf"))
+        mv["ms"] = _wall_ms(torch, comm, lambda: model(imgs))
+        model.sequence_parallel = None
+        mv["ms_unsharded"] = _wall_ms(torch, comm, lambda: model(imgs))
+    out["mv"] = mv
+    del model, ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_pipeline(torch, np, comm, counters):
+    """Phase 54 on one rank: pipeline_blocks over PP_BLOCKS ViT-L blocks (1024 wide, 16 heads, RoPE, bf16) in
+    PP_STAGES stages x PP_MICROBATCHES microbatches against the loop on each microbatch (the same shapes: bit for
+    bit) and on the whole batch (bf16 bar)."""
+    from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
+    from uniception_tpu_torch.nn.blocks import SelfAttentionBlock
+    from uniception_tpu_torch.ops.rope import Rope2D
+    from uniception_tpu_torch.parallel.mesh import Mesh
+    from uniception_tpu_torch.parallel.pipeline import pipeline_blocks, shard_stacked_state
+
+    def blocks():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 54)
+        return torch.nn.ModuleList([
+            SelfAttentionBlock(ENC_DIM, ENC_HEADS, qkv_bias=True, custom_positional_encoding=Rope2D(100.0),
+                               device="cuda", generator=gen) for _ in range(PP_BLOCKS)]).to(torch.bfloat16).eval()
+
+    full, staged = blocks(), blocks()
+    mesh = Mesh(np.arange(RANKS), ("stage",))
+    shard_stacked_state(staged, mesh)
+    side = IMG // 16  # the 512 image's 32 x 32 patch grid
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 540)
+    x = torch.randn(PP_BATCH, side * side, ENC_DIM, device="cuda", generator=gen).to(torch.bfloat16)
+    pos = make_patch_positions(PP_BATCH, side, side, device="cuda")
+    with torch.inference_mode():
+        _reset(counters)
+        comm.calls.clear()
+        got = pipeline_blocks(staged, x, pos, mesh=mesh, num_microbatches=PP_MICROBATCHES)
+        torch.cuda.synchronize()
+        launches, calls = _read(counters), dict(comm.calls)
+
+        def loop(h, p):
+            for blk in full:
+                h = blk(h, p)
+            return h
+
+        mb = PP_BATCH // PP_MICROBATCHES
+        per_mb = torch.cat([loop(x[i:i + mb], pos[i:i + mb]) for i in range(0, PP_BATCH, mb)])
+        whole = loop(x, pos)
+        bits = torch.equal(got, per_mb)
+        rel = ((got.float() - whole.float()).norm() / whole.float().norm()).item()
+        ms = _wall_ms(torch, comm, lambda: pipeline_blocks(staged, x, pos, mesh=mesh, num_microbatches=PP_MICROBATCHES))
+        loop_ms = cuda_ms(torch, lambda: loop(x, pos), warmup=1, iters=3)
+        share = _comm_share(torch, lambda: pipeline_blocks(staged, x, pos, mesh=mesh, num_microbatches=PP_MICROBATCHES))
+    held = [i for i, b in enumerate(staged) if not isinstance(b, torch.nn.Identity)]
+    return dict(bits=bits, rel=rel, launches=launches, calls=calls, ms=ms, loop_ms=loop_ms, share=share, held=held)
+
+
+def _rank_world4(_):
+    """Phases 53-54 at 4 ranks on one rank of a second world: the ring over 4 ranks, and pipeline_blocks as pp x tp
+    (2 stages x 2 tensor-parallel ranks, each holding half of its stage's blocks' heads and hidden columns)."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
+    from uniception_tpu_torch.nn.blocks import SelfAttentionBlock
+    from uniception_tpu_torch.ops import conv3x3 as c3
+    from uniception_tpu_torch.ops import flash_attention as fa
+    from uniception_tpu_torch.ops import fused_attention as fused
+    from uniception_tpu_torch.ops import int8_matmul as i8
+    from uniception_tpu_torch.ops import rope
+    from uniception_tpu_torch.parallel import comm
+    from uniception_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from uniception_tpu_torch.parallel.pipeline import pipeline_blocks, shard_stacked_state
+    from uniception_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    counters = _kernel_counters(fa, rope, i8, c3, fused)
+    out = {"rank": comm.rank(), "world": comm.world_size()}
+    n = RING_VIEWS * RING_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    q, k, v = (torch.randn(1, n, RING_HEADS, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    mesh = make_mesh(data=-1, model=1)
+    fa.flash_attention.lse_launches = 0
+    _reset(counters)
+    ring = ring_attention_sharded(q, k, v, mesh, "data")
+    torch.cuda.synchronize()
+    out["ring_lse"], launches = fa.flash_attention.lse_launches, _read(counters)
+    ulps = []
+    for h in range(0, RING_HEADS, 4):
+        sl = slice(h, h + 4)
+        ulps.append(_ulps(ring[:, :, sl], fa.flash_attention_lse_ref(*(t[:, :, sl].float() for t in (q, k, v)))[0], 7,
+                          K1_MV_ULP_FLOOR))
+    out["ring_ulps"] = max(ulps)
+    out["ring_ms"] = _wall_ms(torch, comm, lambda: ring_attention_sharded(q, k, v, mesh, "data"), n=3)
+    del q, k, v, ring
+    torch.cuda.empty_cache()
+
+    def blocks():
+        g = torch.Generator(device="cuda").manual_seed(SEED + 54)
+        return torch.nn.ModuleList([
+            SelfAttentionBlock(ENC_DIM, ENC_HEADS, qkv_bias=True, custom_positional_encoding=rope.Rope2D(100.0),
+                               device="cuda", generator=g) for _ in range(PP_BLOCKS)]).to(torch.bfloat16).eval()
+
+    full, staged = blocks(), blocks()
+    mesh = Mesh(np.arange(comm.world_size()).reshape(PP_STAGES, -1), ("stage", "model"))
+    shard_stacked_state(staged, mesh, model_axis="model")
+    side = IMG // 16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 540)
+    x = torch.randn(PP_BATCH, side * side, ENC_DIM, device="cuda", generator=g).to(torch.bfloat16)
+    pos = make_patch_positions(PP_BATCH, side, side, device="cuda")
+    with torch.inference_mode():
+        comm.calls.clear()
+        _reset(counters)
+        got = pipeline_blocks(staged, x, pos, mesh=mesh, model_axis="model", num_microbatches=PP_MICROBATCHES)
+        torch.cuda.synchronize()
+        for k_, n_ in _read(counters).items():
+            launches[k_] += n_
+        calls = dict(comm.calls)
+        h = x
+        for blk in full:
+            h = blk(h, pos)
+        out["pp_tp_rel"] = ((got.float() - h.float()).norm() / h.float().norm()).item()
+        out["pp_tp_ms"] = _wall_ms(torch, comm, lambda: pipeline_blocks(
+            staged, x, pos, mesh=mesh, model_axis="model", num_microbatches=PP_MICROBATCHES))
+    held = [i for i, b in enumerate(staged) if not isinstance(b, torch.nn.Identity)]
+    out.update(launches=launches, pp_tp_calls=calls, held=held, qkv=tuple(staged[held[0]].attn.qkv.weight.shape))
+    return out
+
+
+def _rank_world(_):
+    "Phases 52-54 on one rank of the world (a spawned process; chip_smoke.py's module is its main module)."
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from uniception_tpu_torch import serve
+    from uniception_tpu_torch.models.utils import config
+    from uniception_tpu_torch.ops import conv3x3 as c3
+    from uniception_tpu_torch.ops import flash_attention as fa
+    from uniception_tpu_torch.ops import fused_attention as fused
+    from uniception_tpu_torch.ops import int8_matmul as i8
+    from uniception_tpu_torch.ops import rope
+    from uniception_tpu_torch.parallel import comm
+
+    counters = _kernel_counters(fa, rope, i8, c3, fused)
+    out = {"rank": comm.rank(), "world": comm.world_size(), "backend": comm.backend(), "transport": comm.transport(),
+           "device": str(comm.device())}
+    for name, run in (("serving", lambda: _rank_serving(torch, np, serve, config, comm, counters)),
+                      ("ring", lambda: _rank_ring(torch, np, serve, config, fa, comm, counters)),
+                      ("pipeline", lambda: _rank_pipeline(torch, np, comm, counters))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name]["seconds"] = time.perf_counter() - t0
+    out["jax_free"] = not any(m == "jax" or m.startswith(("jax.", "uniception_tpu.")) for m in sys.modules)
+    return out
+
+
+def phase_parallel_world(torch, card):
+    """Phases 52-54: a world of RANKS rank processes on this card (spawned; gloo, the collectives through pinned host
+    buffers) runs the sharded serving, the ring and the pipeline (``_rank_world``); every rank's results are held
+    here. Returns the launches the ranks' counted main-path runs made, summed over the ranks."""
+    from uniception_tpu_torch.parallel import comm
+
+    ranks = comm.spawn(_rank_world, RANKS, None, backend="gloo", device="cuda", timeout=900)
+    r0 = ranks[0]
+    print(f"[52 world] {r0['world']} rank processes on {r0['device']}, backend {r0['backend']}, transport: "
+          f"{r0['transport']}; the kernels launch on the card in each rank")
+    require(all(r["world"] == RANKS and r["jax_free"] for r in ranks), "a rank imported JAX or saw another world")
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    for r in ranks:
+        s = r["serving"]
+        for name, d in s["dp"].items():
+            add(d["launches"])
+            require(d["bits"], f"52 DP rank {r['rank']} {name}: not bit for bit the unsharded per-pair serving "
+                                f"(max |diff| {d['err']})")
+            require(d["shapes"] == [(BATCH, IMG, IMG, 3), (BATCH, IMG, IMG, 1)] * 2, f"52 DP {name}: {d['shapes']}")
+        for name, d in s["tp"].items():
+            add(d["launches"])
+    for name, d in r0["serving"]["dp"].items():
+        extra = ""
+        if d["share"]:
+            extra = (f"; one profiled call {d['share'][0]:.2f} ms, {d['share'][1]:.2f} ms of it inside the collectives "
+                     f"(share {d['share'][2]:.3f})")
+        print(f"[52 DP] {name}: make_infer_fn(data={RANKS}) vs the unsharded make_serving_fn per pair: bit for bit "
+              f"on every rank; {BATCH} pairs in {d['ms']:.2f} ms = {BATCH / d['ms'] * 1e3:.3f} pairs/s (both ranks "
+              f"on one card, wall clock over 3 calls); launches per rank {d['launches']}, collectives {d['calls']}"
+              f"{extra} on {card}")
+    for name, d in r0["serving"]["tp"].items():
+        bar = f"||tp - unsharded|| / ||unsharded|| {d['rel']:.3e} (tol {MODEL_REL_TOL})"
+        bar += f"; bit for bit the unsharded batch: {d['bits']}"
+        if name.startswith("int8"):
+            bar += (f"; JAX's quant-flip measure: max {d['flip_max']:.3e}, median {d['flip_median']:.3e} of the output "
+                    f"scale (bar {INT8_FLIP_MAX}, {INT8_FLIP_MEDIAN}); the row-parallel layers' int32 sums reduced "
+                    f"exactly: K4 on given row scales {d['launches']['K4-scaled']} launches per rank")
+        print(f"[52 TP] {name}: make_infer_fn(data=1, model_axis={RANKS}, use_tp=True) vs the unsharded batch, linear "
+              f"adaptors: {bar}; a rank holds qkv {d['qkv']}, {d['heads']} heads; {BATCH} pairs in {d['ms']:.2f} ms = "
+              f"{BATCH / d['ms'] * 1e3:.3f} pairs/s; launches per rank {d['launches']}; collectives per forward "
+              f"{d['calls']}; one profiled call {d['share'][0]:.2f} ms, {d['share'][1]:.2f} ms inside the collectives "
+              f"(share {d['share'][2]:.3f}) on {card}")
+    for r in ranks:
+        for name, d in r["serving"]["tp"].items():
+            require(d["qkv"] == (3 * ENC_DIM // RANKS, ENC_DIM) and d["heads"] == ENC_HEADS // RANKS,
+                    f"52 TP {name}: rank holds qkv {d['qkv']}, {d['heads']} heads")
+            require(d["rel"] <= MODEL_REL_TOL, f"52 TP {name}: {d['rel']} > {MODEL_REL_TOL}")
+            if name.startswith("int8"):
+                require(d["flip_max"] < INT8_FLIP_MAX and d["flip_median"] < INT8_FLIP_MEDIAN,
+                        f"52 TP {name}: JAX's quant-flip bar: max {d['flip_max']}, median {d['flip_median']}")
+                require(d["bits"], f"52 TP {name}: the exact int32 reduce is not the unsharded batch bit for bit")
+                require(0 < d["launches"]["K4-scaled"] == d["calls"]["all_reduce"] // 2,
+                        f"52 TP {name}: K4 on given scales {d['launches']['K4-scaled']} launches, all-reduces "
+                        f"{d['calls']}")
+    for r in ranks:
+        g = r["ring"]
+        add(g["launches"])
+        add(g["mv"]["launches"])
+        require(g["lse"] == RANKS, f"53 ring rank {r['rank']}: {g['lse']} K1 launches with the logsumexp")
+        require(g["ulps"] <= K1_MV_ULPS + RING_EXTRA_ULPS and g["ctrl"] >= K1_MV_CONTROL_ULPS,
+                f"53 ring rank {r['rank']}: {g['ulps']} ulps (bar {K1_MV_ULPS} + {RING_EXTRA_ULPS}), control "
+                f"{g['ctrl']}")
+        require(g["mv"]["rel"] <= MODEL_REL_TOL and g["mv"]["lse"] > 0 and g["mv"]["exchanges"] > 0,
+                f"53 multi-view SP rank {r['rank']}: {g['mv']}")
+    g = r0["ring"]
+    n = RING_VIEWS * RING_TOKENS
+    b = attention_bound(1, n, n, RING_HEADS)
+    print(f"[53 ring] ring_attention_sharded over {RANKS} ranks, (1,{n},{RING_HEADS},64) bf16 ({RING_VIEWS} views x "
+          f"{RING_TOKENS} tokens): {g['ulps']:.2f} ulps of max(|plain|, 1/64) from the plain softmax (bar "
+          f"{K1_MV_ULPS} + {RING_EXTRA_ULPS} for the combine's extra rounding of each chunk's bf16 output; one K1 call "
+          f"on the whole sequence {g['k1_ulps']:.2f}; ring vs that K1 call {g['ring_vs_k1']:.2f}; the plain version "
+          f"without the last 128 keys {g['ctrl']:.1f} >= {K1_MV_CONTROL_ULPS}); K1 with its logsumexp {g['lse']} "
+          f"launches per rank; {g['ms']:.3f} ms a call (wall, both ranks on one card) against one K1 call "
+          f"{g['k1_ms']:.3f} ms (bound {b[0]:.4f} ms); one profiled call {g['share'][0]:.2f} ms, {g['share'][1]:.2f} "
+          f"ms inside the collectives (share {g['share'][2]:.3f}) on {card}")
+    mv = g["mv"]
+    print(f"[53 multi-view SP] MultiViewPointmapModel(sequence_parallel=(mesh, 'data')) at {MV_SP_VIEWS} views of "
+          f"{IMG}, global attention, vs its unsharded forward: ||sp - unsharded|| / ||unsharded|| max {mv['rel']:.3e} "
+          f"(tol {MODEL_REL_TOL}); per rank K1+LSE {mv['lse']}, exchanges {mv['exchanges']}, launches "
+          f"{mv['launches']}; {mv['ms']:.2f} ms a forward (unsharded on the same rank {mv['ms_unsharded']:.2f} ms) "
+          f"on {card}")
+    for r in ranks:
+        p = r["pipeline"]
+        add(p["launches"])
+        per = PP_BLOCKS // PP_STAGES
+        require(p["bits"] and p["rel"] <= MODEL_REL_TOL, f"54 pipeline rank {r['rank']}: bits {p['bits']}, {p['rel']}")
+        require(p["held"] == list(range(r["rank"] * per, (r["rank"] + 1) * per)), f"54 pipeline: held {p['held']}")
+        require(p["launches"]["K1"] == per * PP_MICROBATCHES, f"54 pipeline: launches {p['launches']}")
+    p = r0["pipeline"]
+    print(f"[54 pipeline] pipeline_blocks over {PP_BLOCKS} ViT-L blocks (1024 wide, 16 heads, RoPE, bf16), "
+          f"{PP_STAGES} stages x {PP_MICROBATCHES} microbatches, batch {PP_BATCH} x 1024 tokens: bit for bit the loop "
+          f"per microbatch, ||pp - loop on the batch|| / ||loop|| {p['rel']:.3e}; launches per rank {p['launches']}, "
+          f"collectives {p['calls']}; {p['ms']:.2f} ms a call against the loop's {p['loop_ms']:.2f} ms on one rank; "
+          f"one profiled call {p['share'][0]:.2f} ms, {p['share'][1]:.2f} ms inside the collectives (share "
+          f"{p['share'][2]:.3f}) on {card}")
+    ranks4 = comm.spawn(_rank_world4, 2 * RANKS, None, backend="gloo", device="cuda", timeout=600)
+    for r in ranks4:
+        add(r["launches"])
+        per = PP_BLOCKS // PP_STAGES
+        stage = r["rank"] // (len(ranks4) // PP_STAGES)
+        require(r["ring_lse"] == len(ranks4) and r["ring_ulps"] <= K1_MV_ULPS + RING_EXTRA_ULPS,
+                f"53 ring at {len(ranks4)} ranks, rank {r['rank']}: {r['ring_lse']} launches, {r['ring_ulps']} ulps")
+        require(r["pp_tp_rel"] <= MODEL_REL_TOL and r["held"] == list(range(stage * per, (stage + 1) * per))
+                and r["qkv"] == (3 * ENC_DIM // 2, ENC_DIM), f"54 pp x tp rank {r['rank']}: {r}")
+    r = ranks4[0]
+    print(f"[54 world of {len(ranks4)}] the ring over {len(ranks4)} ranks: {r['ring_ulps']:.2f} ulps of max(|plain|, "
+          f"1/64) (bar {K1_MV_ULPS} + {RING_EXTRA_ULPS}), K1+LSE {r['ring_lse']} launches per rank, {r['ring_ms']:.3f} ms "
+          f"a call; pipeline_blocks as pp x tp ({PP_STAGES} stages x 2 ranks, a rank holds qkv {r['qkv']}): "
+          f"||pp x tp - loop|| / ||loop|| {r['pp_tp_rel']:.3e} (tol {MODEL_REL_TOL}), collectives {r['pp_tp_calls']}, "
+          f"{r['pp_tp_ms']:.2f} ms a call; launches per rank {r['launches']} on {card}")
+    print(f"[54 world] rank seconds: " + ", ".join(
+        f"rank {r['rank']}: serving {r['serving']['seconds']:.1f}, ring {r['ring']['seconds']:.1f}, pipeline "
+        f"{r['pipeline']['seconds']:.1f}" for r in ranks))
+    return total
+
+
+def phase_chain(torch, np, serve, counters, card):
+    """Phase 55: ChainPipeline(dust3r_chain_stages(model)) at DUSt3R ViT-L 512 (bf16 trunk, linear heads), its three
+    stages on the card's streams (one card: the stages wrap onto it), CHAIN_MICROBATCHES microbatches of BATCH pairs
+    streamed; against forward_pair on each, bit for bit with equal launches. Returns the chain's launches."""
+    from uniception_tpu_torch.parallel.chain import ChainPipeline, dust3r_chain_results, dust3r_chain_stages
+
+    model = serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
+                              seed=SEED)
+    prep = serve.make_frame_normalizer("dust3r", "cuda")
+    frames = np.random.RandomState(SEED + 55).randint(0, 256, size=(2 * BATCH * CHAIN_MICROBATCHES, IMG, IMG, 3),
+                                                      dtype=np.uint8)
+    batches = [(prep(frames[2 * BATCH * i:2 * BATCH * (i + 1):2]), prep(frames[2 * BATCH * i + 1:2 * BATCH * (i + 1):2]))
+               for i in range(CHAIN_MICROBATCHES)]
+    pipe = ChainPipeline(dust3r_chain_stages(model))
+
+    def sequential():
+        with torch.inference_mode():
+            return [model.forward_pair(a, b) for a, b in batches]
+
+    _reset(counters)
+    refs = sequential()
+    torch.cuda.synchronize()
+    want = _read(counters)
+    _reset(counters)
+    outs = pipe.run(batches)
+    torch.cuda.synchronize()
+    got = _read(counters)
+    for (r1, r2), o in zip(refs, outs):
+        c1, c2 = dust3r_chain_results(o)
+        require(all(torch.equal(c[k], r[k]) for c, r in ((c1, r1), (c2, r2)) for k in r),
+                "55 chain: not bit for bit forward_pair")
+    require(got == want, f"55 chain: launches {got} != forward_pair's {want}")
+    seq_ms = cuda_ms(torch, sequential, warmup=1, iters=3)
+    chain_ms = cuda_ms(torch, lambda: pipe.run(batches), warmup=1, iters=3)
+    pairs = BATCH * CHAIN_MICROBATCHES
+    print(f"[55 chain] ChainPipeline(dust3r_chain_stages) on {[str(d) for d in pipe.devices]} (a stream each), "
+          f"{CHAIN_MICROBATCHES} microbatches of {BATCH} pairs: bit for bit forward_pair with its launches {got}; "
+          f"{pairs / chain_ms * 1e3:.3f} pairs/s streamed against {pairs / seq_ms * 1e3:.3f} sequential "
+          f"(CUDA events over 3 after one warm-up) on {card}")
+    del model, pipe, refs, outs
+    torch.cuda.empty_cache()
+    return got
+
+
 def _timed_phases(namespace):
     "Wrap every phase_* function of ``namespace`` to print its seconds when it returns."
     import functools
@@ -5379,6 +5956,7 @@ def main():
     import torch.nn.functional as F
 
     k4_err, k4 = phase_int8_matmul(torch, F, i8, gemm)
+    k4s_err, k4s = phase_int8_matmul_scaled(torch, i8)
     k6_err, k6 = phase_int8_attention(torch, fa)
     k7_err, k7 = phase_conv3x3(torch, F, c3)
     counters = _kernel_counters(fa, rope, i8, c3, fused)
@@ -5462,7 +6040,11 @@ def main():
     print(f"[K1 shapes] launches by (dtype, B, Nq, Nk, H, D) over the counted forwards: {K1_SEEN}")
     artifacts = phase_artifacts(torch, np, serve, config, counters, card)
     print(f"[51 artifacts] launches over phase 51's loaded programs' first forwards: {artifacts}")
-    served = {k: served[k] + artifacts[k] for k in counters}
+    world = phase_parallel_world(torch, card)
+    chained = phase_chain(torch, np, serve, counters, card)
+    print(f"[55 parallel] launches over phases 52-54's counted runs (every rank) and phase 55's chain: {world}, "
+          f"{chained}")
+    served = {k: served[k] + artifacts[k] + world.get(k, 0) + chained[k] for k in counters}
 
     def entry(name, source, replaces, n, err, m):
         return {"name": name, "route": "cuda", "source": f"uniception_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -5482,12 +6064,15 @@ def main():
               + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"] + transforms["K2"], k2_err, k2),
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50",
               served["K4"] + transforms["K4"], k4_err, k4),
+        entry("int8_matmul_scaled (K4 on given row scales, int32 sums; TP row-parallel layers)", "int8_matmul.cu",
+              "uniception_tpu/ops/int8_matmul.py:50", world.get("K4-scaled", 0), k4s_err, k4s),
         entry("fused_qkv_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:244",
               fused_path["K5-self"] + multiview["K5-self"] + new_train["K5-self"] + dino["K5-self"] + paths["K5-self"]
-              + artifacts["K5-self"],
+              + artifacts["K5-self"] + world.get("K5-self", 0),
               max(k5_err["self"], hd_worst["K5"]), k5["self"]),
         entry("fused_cross_rope_attention", "fused_attention.cu", "uniception_tpu/ops/fused_attention.py:325",
-              fused_path["K5-cross"] + new_train["K5-cross"] + artifacts["K5-cross"], k5_err["cross"], k5["cross"]),
+              fused_path["K5-cross"] + new_train["K5-cross"] + artifacts["K5-cross"] + world.get("K5-cross", 0),
+              k5_err["cross"], k5["cross"]),
         entry("flash_attention_int8", "flash_attention_int8.cu", "uniception_tpu/ops/flash_attention.py:130",
               served["K6"] + dino["K6"] + paths["K6"], max(k6_err, hd_worst["K6"]), k6),
         entry("conv3x3_nhwc", "conv3x3.cu", "uniception_tpu/ops/conv3x3.py:47",

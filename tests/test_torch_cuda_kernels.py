@@ -25,8 +25,11 @@ and PE's masked attentions (the text tower's, the Llama Attention's causal one)
 on no kernel; K1's wide bf16 kernel (S once, key splits and their combine) at
 every padded head dim above 128 and K3's fp32 kernel (3xTF32) at every padded
 head dim, on strided views, with dropped-tile controls, bit for bit across two
-calls, and K3's routing of D <= 16 to its CUDA-core kernel. Every test here
-needs a CUDA device and skips without one.
+calls, and K3's routing of D <= 16 to its CUDA-core kernel; K4's
+quantization launch on given row scales (a tensor-parallel row-parallel
+layer's), and the ring attention's logsumexp combine of K1 calls over key
+chunks against one K1 call. Every test here needs a CUDA device and skips
+without one.
 
 On a machine with a GPU and without jax, run them without the repo's
 conftest (which configures jax):
@@ -66,7 +69,16 @@ from uniception_tpu_torch.ops.flash_attention import (
     tf32_workspace_floats,
 )
 from uniception_tpu_torch.ops.gemm import K_BLOCK_BYTES, gemm_plan
-from uniception_tpu_torch.ops.int8_matmul import int8_gemm, int8_matmul_dynamic, int8_matmul_dynamic_ref, quantize_rows
+from uniception_tpu_torch.ops.int8_matmul import (
+    absmax_scale,
+    int8_gemm,
+    int8_matmul_dynamic,
+    int8_matmul_dynamic_ref,
+    int8_matmul_scaled,
+    int8_matmul_scaled_ref,
+    quantize_rows,
+    quantize_rows_scaled,
+)
 from uniception_tpu_torch.ops.rope import Rope2D, rope_2d, rope_2d_kernel
 from uniception_tpu_torch.ops.sv_only import sv_only, sv_only_ref
 
@@ -363,6 +375,64 @@ def test_int8_matmul_matches_plain(gen, m, k, n, bias, dtype):
     assert _ulps(out, ref, 7 if dtype == torch.bfloat16 else 23) <= 1
     # a contiguous (K, N) weight is taken too (copied to the kernel's layout)
     assert torch.equal(int8_matmul_dynamic(x, w_q.contiguous(), w_scale, b), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(300, 512, 200), (4096, 512, 1024), (4096, 2048, 1024), (5, 48, 7)])
+def test_int8_matmul_on_given_row_scales(gen, m, k, n, dtype):
+    """K4 with the row scales given (a row-parallel layer's share of each row, quantized with the whole row's
+    abs-max, here up to 3x the share's own), up to its int32 sums: its quantization launch makes the plain codes,
+    exactly (read back through an identity weight), the sums are the plain version's at every tile width and split
+    of the K loop, and at the rows' own scales one dequantization of the sums gives K4's output bit for bit."""
+    from uniception_tpu_torch.ops.gemm import sm_count
+    from uniception_tpu_torch.ops.int8_matmul import _launch
+
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+    grow = 1 + 2 * torch.rand(m, device="cuda", generator=gen)
+    grow[::3] = 1.0  # some rows at their own abs-max
+    a_scale = absmax_scale(x.float().abs().amax(dim=-1) * grow)
+    w_nk = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int8)
+    before = int8_matmul_scaled.launches
+    out = int8_matmul_scaled(x, a_scale, w_nk.t())
+    assert int8_matmul_scaled.launches == before + 1
+    assert out.dtype == torch.int32 and torch.equal(out, int8_matmul_scaled_ref(x, a_scale, w_nk.t()))
+    eye = torch.eye(k, device="cuda", dtype=torch.int8)
+    assert torch.equal(int8_matmul_scaled(x, a_scale, eye), quantize_rows_scaled(x, a_scale).int())
+    splits = range(1, min(2, -(-k // K_BLOCK_BYTES)) + 1)  # none empty
+    for plan in {(bn, split) for bn in (128, 256) for split in splits} | {gemm_plan(m, n, k, 1, sm_count(0))}:
+        x_q = torch.empty(m, k, dtype=torch.int8, device="cuda")
+        got = _launch(x, x_q, a_scale.clone(), w_nk, None, None, torch.int32, plan, with_quant=2)
+        assert torch.equal(got, out), plan
+    own = absmax_scale(x.float().abs().amax(dim=-1, keepdim=True))
+    w_scale = torch.rand(1, n, device="cuda", generator=gen) * 1e-2 + 1e-4
+    once = (int8_matmul_scaled(x, own, w_nk.t()).float() * (own * w_scale)).to(dtype)
+    assert torch.equal(once, int8_matmul_dynamic(x, w_nk.t(), w_scale))
+
+
+def test_ring_combine_of_k1_chunks_matches_one_k1_call(gen):
+    """The ring's arithmetic on one card: K1 with its logsumexp on each of 4 key chunks of the 8 x 1024-token global
+    stream's shape, combined in fp32 by the logsumexps (parallel/ring_attention.py combine_lse), against one K1
+    call and the plain softmax in bf16 ulps of max(|plain|, 1/64): within K1's 8 plus 2 for each chunk's output
+    rounded to bf16 before the combine; the plain version without the last 128 keys is >= 32 away."""
+    from uniception_tpu_torch.parallel.ring_attention import combine_lse
+
+    n, h = 8192, 4
+    q, k, v = (torch.randn(1, n, h, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    before = flash_attention.lse_launches
+    out = lse = None
+    for c in range(4):
+        sl = slice(c * n // 4, (c + 1) * n // 4)
+        o, l = flash_attention_fwd(q, k[:, sl].contiguous(), v[:, sl].contiguous(), with_lse=True)
+        out, lse = (o.float(), l) if out is None else combine_lse(out, lse, o, l)
+    assert flash_attention.lse_launches == before + 4
+    ring = out.to(torch.bfloat16)
+    whole, whole_lse = flash_attention_fwd(q, k, v, with_lse=True)
+    plain = flash_attention_ref(q.float(), k.float(), v.float())
+    assert _ulps(whole, plain, 7, 1 / 64) <= 8
+    assert _ulps(ring, plain, 7, 1 / 64) <= 10
+    assert (lse - whole_lse).abs().max().item() <= LSE_TOL[torch.bfloat16]
+    control = flash_attention_ref(q.float(), k[:, :-128].float(), v[:, :-128].float())
+    assert _ulps(control, plain, 7, 1 / 64) >= 32
 
 
 @pytest.mark.parametrize("k", [16, 48, 4096])

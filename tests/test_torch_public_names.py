@@ -24,10 +24,10 @@ JAX_ROOT, PORT_ROOT = os.path.join(REPO, "uniception_tpu"), os.path.join(REPO, "
 # Names the JAX package exports and the port does not, each with why: a ROADMAP queue 1 item or "Not ported".
 OMITTED = {
     "ops/rope.py": {"rope_2d_pallas": "Not ported: the port's kernel entry is rope_2d_kernel (K2, csrc/rope.cu)"},
-    "ops/attention.py": {n: "ROADMAP queue 1 item 12" for n in (
-        "activation_sharding", "get_sequence_parallel", "sequence_parallel", "set_activation_sharding",
-        "set_sequence_parallel")},
-    "nn/quant.py": {"force_xla_int8": "ROADMAP queue 1 item 12"},
+    "ops/attention.py": {n: "ROADMAP queue 1 item 12" for n in ("activation_sharding", "set_activation_sharding")},
+    "nn/quant.py": {"force_xla_int8": "Not ported: XLA-only (Pallas does not SPMD-partition; K4 runs on each rank's "
+                                      "shards)"},
+    "parallel/mesh.py": {n: "ROADMAP queue 1 item 12" for n in ("zero1_shard_state", "fsdp_shard_state")},
 }
 LABEL = re.compile(r"^(ROADMAP queue 1 item (4|12)|Not ported: .+)$")
 

@@ -188,8 +188,8 @@ def test_preemption_guard_refuses_several_processes(tmp_path):
         assert guard.requested and guard.should_stop()
         torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
         try:
-            with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-                guard.should_stop()
+            # a world of one keeps the local flag; across ranks the flags are ORed (tests/test_torch_parallel_serving.py)
+            assert guard.should_stop()
         finally:
             torch.distributed.destroy_process_group()
     finally:

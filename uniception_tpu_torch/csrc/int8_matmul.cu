@@ -1,5 +1,6 @@
 // Int8 matmul with dynamic per-row activation quantization:
-// y = (round(x / a_scale) @ w_q) * (a_scale * w_scale) + bias, int32 accumulation.
+// y = (round(x / a_scale) @ w_q) * (a_scale * w_scale) + bias, int32 accumulation. A second mode takes the row
+// scales given and writes the int32 sums (a tensor-parallel row-parallel layer's share of the product).
 //
 // Replaces: uniception_tpu/ops/int8_matmul.py: int8_matmul_dynamic (body
 //   _kernel), which Int8Linear (nn/quant.py) calls for its symmetric dynamic
@@ -80,25 +81,32 @@ __device__ __forceinline__ void load8(const float* p, float f[8]) {
   f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
 }
 
-// A warp per row of x: a_scale, then the row's int8 codes.
-template <typename TX>
+// A warp per row of x: a_scale, then the row's int8 codes. GIVEN: the row's scale is read from ascale (a
+// tensor-parallel row-parallel layer's, from the abs-max of the whole row over the ranks) instead of computed.
+template <typename TX, bool GIVEN>
 __global__ void __launch_bounds__(THREADS) quant_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq,
                                                              float* __restrict__ ascale, int M, int K) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * QROWS + (threadIdx.x >> 5);
   if (row >= M) return;
   const TX* xr = x + row * K;
-  float amax = 0.f;
-  for (int c = lane * 8; c < K; c += 32 * 8) {
-    float f[8];
-    load8(xr + c, f);
+  float s;
+  if constexpr (GIVEN) {
+    s = ascale[row];
+  } else {
+    float amax = 0.f;
+    for (int c = lane * 8; c < K; c += 32 * 8) {
+      float f[8];
+      load8(xr + c, f);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i]));
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    s = absmax_scale(amax);
+    if (lane == 0) ascale[row] = s;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float s = absmax_scale(amax), rc = __frcp_rn(s);
-  if (lane == 0) ascale[row] = s;
+  const float rc = __frcp_rn(s);
   for (int c = lane * 8; c < K; c += 32 * 8) {  // the row again, from L1
     float f[8];
     load8(xr + c, f);
@@ -186,9 +194,46 @@ struct DequantBiasEpilogue {
   }
 };
 
+// The int32 epilogue (out dtype code 2): the exact sums, stored as they are. A tensor-parallel row-parallel layer's
+// share of the product (parallel/mesh.py RowParallel) is summed over the ranks in int32, exactly, and dequantized
+// once after, so it gives the unsharded layer's bits.
+struct Int32Epilogue {
+  struct State {};
+  int* out;
+  int M, N;
+
+  __device__ State init(int) const { return {}; }
+
+  template <int NA>
+  __device__ __forceinline__ void operator()(const int (&acc)[NA], State, int row0, int, int col0, int t) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= M) continue;
+      int* orow = out + (long long)row * N;
+#pragma unroll
+      for (int c = 0; c < NA / 4; ++c) {
+        const int col = col0 + 8 * c + 2 * t;
+        if (col >= N) continue;
+        const int a = acc[4 * c + 2 * i], b = acc[4 * c + 2 * i + 1];
+        if ((N & 1) == 0) {  // col is even, so the pair is in range and 8-byte aligned
+          *reinterpret_cast<int2*>(orow + col) = make_int2(a, b);
+        } else {
+          orow[col] = a;
+          if (col + 1 < N) orow[col + 1] = b;
+        }
+      }
+    }
+  }
+};
+
 template <typename TX>
-void quantize(const void* x, int8_t* xq, float* ascale, int M, int K, cudaStream_t st) {
-  quant_rows_kernel<TX><<<(M + QROWS - 1) / QROWS, THREADS, 0, st>>>(static_cast<const TX*>(x), xq, ascale, M, K);
+void quantize(const void* x, int8_t* xq, float* ascale, int M, int K, bool given, cudaStream_t st) {
+  const dim3 grid((M + QROWS - 1) / QROWS);
+  if (given)
+    quant_rows_kernel<TX, true><<<grid, THREADS, 0, st>>>(static_cast<const TX*>(x), xq, ascale, M, K);
+  else
+    quant_rows_kernel<TX, false><<<grid, THREADS, 0, st>>>(static_cast<const TX*>(x), xq, ascale, M, K);
 }
 
 template <typename TO, int BN>
@@ -199,19 +244,28 @@ int gemm(const hw::GemmMaps& maps, const hw::GemmParams& g, const float* ascale,
   return hw::launch_gemm<true, BN>(maps, g, epi, st);
 }
 
+template <int BN>
+int gemm_int32(const hw::GemmMaps& maps, const hw::GemmParams& g, void* out, int N, cudaStream_t st) {
+  const Int32Epilogue epi{static_cast<int*>(out), g.M, N};
+  return hw::launch_gemm<true, BN>(maps, g, epi, st);
+}
+
 }  // namespace
 
 // x: contiguous (M, K), dtype code 0 = float32, 1 = bfloat16; w_q: contiguous (N, K) int8; w_scale: (N,)
-// float32; bias: (N,) float32 or null; out: contiguous (M, N) in out_dtype (same codes). Scratch: xq, (M, K)
+// float32; bias: (N,) float32 or null; out: contiguous (M, N) in out_dtype (same codes, and 2: the int32 sums, with
+// w_scale and bias unused). Scratch: xq, (M, K)
 // int8, and ascale, (M,) float32, both 16-byte aligned. `maps`: the GEMM's tensor maps (ops/gemm.py gemm_maps,
 // 10 ints) for the plan's bn (128 or 256) and split; with split > 1, ws is a zeroed int32 workspace of M * N
 // values and then one per tile. with_quant = 0 skips the rows' quantization and runs the GEMM alone on the codes
-// and scales already in xq and ascale (x is then unused). K % 16 == 0. Returns a cudaError_t.
+// and scales already in xq and ascale (x is then unused); 1 quantizes the rows with their own scales, written to
+// ascale; 2 quantizes them with the scales already in ascale (at least each row's abs-max / 127). K % 16 == 0.
+// Returns a cudaError_t.
 extern "C" int uc_int8_matmul(const void* x, const void* wq, const void* wscale, const void* bias, void* out,
                               void* xq, void* ascale, void* ws, const long long* maps, int x_dtype, int out_dtype,
                               int M, int N, int K, int bn, int split, int with_quant, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0) return (int)cudaErrorInvalidValue;
-  if ((x_dtype != 0 && x_dtype != 1) || (out_dtype != 0 && out_dtype != 1)) return (int)cudaErrorInvalidValue;
+  if ((x_dtype != 0 && x_dtype != 1) || out_dtype < 0 || out_dtype > 2) return (int)cudaErrorInvalidValue;
   if (maps[0] != K || maps[1] != M || maps[2] != K || maps[6] != N) return (int)cudaErrorInvalidValue;
   hw::GemmParams g;
   int status = hw::gemm_params(&g, M, N, 1, K, bn, split, static_cast<int*>(ws));
@@ -222,14 +276,17 @@ extern "C" int uc_int8_matmul(const void* x, const void* wq, const void* wscale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(xq);
   float* a = static_cast<float*>(ascale);
+  if (with_quant < 0 || with_quant > 2) return (int)cudaErrorInvalidValue;
   if (with_quant) {
     if (x_dtype == 1)
-      quantize<__nv_bfloat16>(x, q, a, M, K, st);
+      quantize<__nv_bfloat16>(x, q, a, M, K, with_quant == 2, st);
     else
-      quantize<float>(x, q, a, M, K, st);
+      quantize<float>(x, q, a, M, K, with_quant == 2, st);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (out_dtype == 2)
+    return bn == 256 ? gemm_int32<256>(m, g, out, N, st) : gemm_int32<128>(m, g, out, N, st);
   if (out_dtype == 1)
     return bn == 256 ? gemm<__nv_bfloat16, 256>(m, g, a, wscale, bias, out, N, st)
                      : gemm<__nv_bfloat16, 128>(m, g, a, wscale, bias, out, N, st);

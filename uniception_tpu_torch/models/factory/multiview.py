@@ -26,6 +26,7 @@ from uniception_tpu_torch.models.info_sharing.global_attention_transformer impor
 from uniception_tpu_torch.models.prediction_heads.adaptors import PointMapWithConfidenceAdaptor
 from uniception_tpu_torch.models.prediction_heads.base import AdaptorInput, PredictionHeadInput
 from uniception_tpu_torch.models.prediction_heads.linear import LinearFeature
+from uniception_tpu_torch.ops.attention import sequence_parallel as sequence_parallel_ctx
 
 __all__ = ["MultiViewPointmapModel"]
 
@@ -64,10 +65,10 @@ class MultiViewPointmapModel(nn.Module):
         super().__init__()
         if attention_type not in INFO_SHARING:
             raise ValueError(f"Invalid attention type: {attention_type}. Must be one of {sorted(INFO_SHARING)}.")
-        if sequence_parallel is not None:
-            raise NotImplementedError("sequence_parallel (ring attention over the V*T tokens) is multi-GPU work: "
-                                      "ROADMAP queue 1 item 12")
         self.name = name
+        # (mesh, axis): the info-sharing pass runs under ring attention over the V*T tokens split on that mesh axis
+        # (ops/attention.py sequence_parallel); every rank of the axis passes the same views and gets every output
+        self.sequence_parallel = sequence_parallel
         self.num_views = num_views
         self.data_norm_type = data_norm_type
         self.img_size = img_size
@@ -137,8 +138,12 @@ class MultiViewPointmapModel(nn.Module):
         H, W = views[0].shape[-2:]
         images = ViTEncoderInput(image=torch.cat(views, dim=0), data_norm_type=self.data_norm_type)
         feats = self.encoder(images).features
-        out = self.info_sharing(MultiViewTransformerInput(features=list(feats.chunk(self.num_views, dim=0))),
-                                generator=generator)
+        info_in = MultiViewTransformerInput(features=list(feats.chunk(self.num_views, dim=0)))
+        if self.sequence_parallel is not None:
+            with sequence_parallel_ctx(*self.sequence_parallel):
+                out = self.info_sharing(info_in, generator=generator)
+        else:
+            out = self.info_sharing(info_in, generator=generator)
         results = []
         for feat in out.features:
             head_out = self.head(PredictionHeadInput(last_feature=feat.float()))

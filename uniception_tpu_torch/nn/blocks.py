@@ -41,7 +41,7 @@ from torch import nn
 
 from uniception_tpu_torch.models.utils.config import get_attention_impl
 from uniception_tpu_torch.nn.common import LinearX, gelu_exact
-from uniception_tpu_torch.ops.attention import scaled_dot_product_attention
+from uniception_tpu_torch.ops.attention import get_sequence_parallel, scaled_dot_product_attention
 from uniception_tpu_torch.ops.fused_attention import fused_cross_rope_attention, fused_qkv_rope_attention
 from uniception_tpu_torch.ops.rope import Rope2D
 
@@ -274,9 +274,11 @@ def _fused_attention_applicable(mod, n_kv: int) -> bool:
     int8-quantized one has no float weight to fuse), no qk-norm (the kernel
     projects straight into RoPE and attention, with no norm between), a
     positional encoding that is absent or RoPE2D, a head dim that is a multiple
-    of 4, and at most 2048 keys. The port has no latent attention or sequence
-    parallelism, so the JAX package's checks of those fall away."""
-    if get_attention_impl() != "fused":
+    of 4, and at most 2048 keys; and not while sequence parallelism is set
+    (JAX nn/blocks.py:249: the ring takes the attention). The port has no latent
+    attention, so the JAX package's check of that falls away. Under tensor
+    parallelism the kernel runs on the rank's local heads."""
+    if get_attention_impl() != "fused" or get_sequence_parallel() is not None:
         return False
     pe = mod.custom_positional_encoding
     projs = [getattr(mod, a) for a in ("qkv", "projq", "projk", "projv") if hasattr(mod, a)]

@@ -23,8 +23,17 @@ Under the "fused" implementation the attention layers inside the fused
 contract never reach this function (nn/blocks.py sends them to K5); a call
 that does reach it takes exact attention (K1), never K6, whatever the quant
 mode, as the JAX package sends such a call to ``_xla_attention``.
+
+Sequence parallelism (:func:`set_sequence_parallel`, :func:`sequence_parallel`):
+while a (mesh, axis) is set, a call whose Dv equals Dq and whose query and key
+token counts the axis divides goes to the ring (parallel/ring_attention.py
+``ring_attention_sharded``: each rank attends its share of the queries to every
+key chunk as the chunks rotate, K1 with its logsumexp on each), exactly where
+the JAX package routes it (its ops/attention.py:171-182); every other call takes
+the usual route.
 """
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -38,7 +47,31 @@ from uniception_tpu_torch.ops.flash_attention import (
 )
 
 __all__ = ["scaled_dot_product_attention", "single_key_block", "uses_int8_attention", "einsum_attention",
-           "expand_kv_heads"]
+           "expand_kv_heads", "set_sequence_parallel", "get_sequence_parallel", "sequence_parallel"]
+
+_SEQ_PARALLEL = None  # (mesh, axis_name) or None
+
+
+def set_sequence_parallel(mesh=None, axis_name: str = "data"):
+    "Enable (mesh, axis) or disable (mesh=None) ring-attention sequence parallelism."
+    global _SEQ_PARALLEL
+    _SEQ_PARALLEL = None if mesh is None else (mesh, axis_name)
+
+
+def get_sequence_parallel():
+    return _SEQ_PARALLEL
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis_name: str = "data"):
+    "Context manager form of :func:`set_sequence_parallel`."
+    global _SEQ_PARALLEL
+    prev = _SEQ_PARALLEL
+    _SEQ_PARALLEL = (mesh, axis_name)
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL = prev
 
 
 def _round_up(x: int, m: int) -> int:
@@ -114,6 +147,15 @@ def scaled_dot_product_attention(
     impl = impl or get_attention_impl()
     if impl not in ("kernel", "fused", "naive"):
         raise ValueError(f"Invalid attention impl {impl!r}")
+    if _SEQ_PARALLEL is not None and v.shape[-1] == q.shape[-1]:
+        mesh, axis = _SEQ_PARALLEL
+        n = mesh.shape[axis]
+        if q.shape[1] % n == 0 and k.shape[1] % n == 0:
+            from uniception_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+            if k.shape[2] != q.shape[2]:
+                k, v = expand_kv_heads(q.shape[2], k), expand_kv_heads(q.shape[2], v)
+            return ring_attention_sharded(q, k, v, mesh, axis, scale=scale, impl=impl)
     # Dv != Dq (differential attention's Dv = 2 Dq) takes the explicit einsum path on every impl and device, as
     # in the JAX package (uniception_tpu/ops/attention.py:190); no kernel takes it there either.
     if v.shape[-1] != q.shape[-1]:

@@ -473,14 +473,23 @@ class PreemptionGuard:
     step-indexed ``data.pipeline.DeterministicSampler`` a preempted and
     resumed run is bit-identical to an uninterrupted one.
 
-    One process only: agreeing on a stop across processes needs a collective
-    (JAX ``parallel/training.py`` ORs the flags over hosts), so
-    :meth:`should_stop` raises once ``torch.distributed`` is initialised.
+    Several processes (``torch.distributed`` initialised): a signal may reach
+    only some ranks, or reach them at different step boundaries, so
+    :meth:`should_stop` ORs the flags over the world (an all-reduce MAX of
+    each rank's flag) every ``sync_every`` calls, as the JAX package's
+    ``PreemptionGuard`` does over hosts, and every rank stops at the same step.
+    Whether a call joins the collective is decided by the call counter alone,
+    which is the same on every rank: a signalled rank waits for the next sync
+    boundary like the others (a rank that joined a collective the others skip
+    would deadlock).
     """
 
-    def __init__(self, signals=None):
+    def __init__(self, signals=None, sync_every: int = 1):
         self._requested = False
         self._prev = {}
+        self._sync_every = max(1, int(sync_every))
+        self._calls = 0
+        self._synced_stop = False
         for s in signals if signals is not None else (signal.SIGTERM, signal.SIGINT):
             self._prev[s] = signal.signal(s, self._handler)
 
@@ -489,15 +498,24 @@ class PreemptionGuard:
 
     @property
     def requested(self) -> bool:
-        "This process's flag."
+        "This process's flag (no cross-process sync)."
         return self._requested
 
     def should_stop(self) -> bool:
-        "True once a stop signal has arrived."
-        if torch.distributed.is_available() and torch.distributed.is_initialized():
-            raise NotImplementedError("PreemptionGuard across processes (a collective OR of the stop flags) is "
-                                      "multi-GPU work: ROADMAP queue 1 item 12")
-        return self._requested
+        "True once a stop signal has arrived at any participating process."
+        if self._synced_stop:
+            return True
+        dist = torch.distributed
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return self._requested
+        self._calls += 1
+        if self._calls % self._sync_every:
+            return False
+        from uniception_tpu_torch.parallel import comm
+
+        flag = torch.tensor([int(self._requested)], dtype=torch.int32, device=comm.device())
+        self._synced_stop = bool(comm.all_reduce(flag, "max").item())
+        return self._synced_stop
 
     def close(self):
         "Restore the signal handlers installed before."
