@@ -2508,9 +2508,20 @@ def phase_k3_long(torch, fa, card):
         torch.cuda.empty_cache()
 
 
+# Phases 24-26 (the DPT, mixed-aspect and flow training steps) run at full width with the depth cut to
+# TRAIN_PATH_DEPTH (encoder, decoder) since PR 23, to keep the script inside its time limit as phases 56-59 came in
+# (the full depth was held in PR 11-22's runs); the DPT heads then hook decoder depths 0 and 2.
+TRAIN_PATH_DEPTH = (4, 4)
+TRAIN_PATH_ATTN = TRAIN_PATH_DEPTH[0] + TRAIN_PATH_DEPTH[1] * 2 * 2  # attention layers a step: encoder, each view's two
+
+
 def _dpt_model(torch, DUSt3R, size, **kw):
-    "DUSt3R ViT-L with bf16-computing DPT heads (K7) over fp32 parameters, head remat on, from SEED."
+    """DUSt3R ViT-L with bf16-computing DPT heads (K7) over fp32 parameters, head remat on, from SEED, at
+    TRAIN_PATH_DEPTH."""
+    print(f"[24-26 train] depth cut to {TRAIN_PATH_DEPTH[0]} encoder and {TRAIN_PATH_DEPTH[1]} decoder blocks at full "
+          f"width")
     return DUSt3R(name="dust3r_train_dpt", img_size=size, patch_embed_cls="ManyAR_PatchEmbed", pred_head_type="dpt",
+                  enc_depth=TRAIN_PATH_DEPTH[0], info_sharing_depth=TRAIN_PATH_DEPTH[1],
                   head_gradient_checkpointing=True, head_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
                   generator=torch.Generator(device="cuda").manual_seed(SEED), **kw)
 
@@ -2539,7 +2550,7 @@ def phase_train_dpt(torch, np, train, serve, training, config, DUSt3R, tc, card)
     loss_fn = _pair_loss(training)
     check_train_grads(torch, config, model, loss_fn, args, "24 train DPT")
     ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
-    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    attn = TRAIN_PATH_ATTN
     torch.cuda.reset_peak_memory_stats()
     launches = counted_step(torch, tc, ctx, args, train_want(tc, attn, attn, 2 * k7_train_launches(IMG, IMG, True)),
                             "24 train DPT")
@@ -2580,7 +2591,7 @@ def phase_train_mixed_ar(torch, np, train, serve, training, config, DUSt3R, tc, 
     loss_fn = _pair_loss(training)
     check_train_grads(torch, config, model, loss_fn, args, "25 train mixed-AR DPT")
     ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
-    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    attn = TRAIN_PATH_ATTN
     k7 = 2 * (k7_train_launches(h, w, True) + k7_train_launches(w, h, True))
     torch.cuda.reset_peak_memory_stats()
     launches = counted_step(torch, tc, ctx, args, train_want(tc, attn, attn, k7, passes=2), "25 train mixed-AR DPT")
@@ -2593,8 +2604,8 @@ def phase_train_mixed_ar(torch, np, train, serve, training, config, DUSt3R, tc, 
 def phase_train_flow(torch, np, train, serve, training, config, UFMFlow, tc, card):
     "UFMFlow 512 DPT (bf16 head on K7, head remat on) on train.synthetic_flow_dataset: ~10% NaN-sentinel targets."
     model = UFMFlow(name="ufm_train", img_size=(IMG, IMG), pred_head_type="dpt", head_gradient_checkpointing=True,
-                    head_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+                    enc_depth=TRAIN_PATH_DEPTH[0], info_sharing_depth=TRAIN_PATH_DEPTH[1], head_dtype=torch.bfloat16,
+                    dtype=torch.bfloat16, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
     data = train.synthetic_flow_dataset(BATCH, IMG, SEED)
     prep = serve.make_frame_normalizer(model.data_norm_type, "cuda")
     args = (prep(data["img1"]), prep(data["img2"]), torch.from_numpy(data["flow"]).cuda(),
@@ -2608,7 +2619,7 @@ def phase_train_flow(torch, np, train, serve, training, config, UFMFlow, tc, car
     print(f"[26 train flow] {invalid:.3f} of the pixels invalid, their targets NaN")
     check_train_grads(torch, config, model, loss_fn, args, "26 train flow DPT")
     ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=1e-4)
-    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    attn = TRAIN_PATH_ATTN
     want = train_want(tc, attn, attn, k7_train_launches(IMG, IMG, True))
     # the flow head reads view 1's decoder branch: view 2's last block (self and cross attention) gets no gradient
     want.update({"K3": attn - 2, "K2-bwd": 2 * (attn - 2)})
@@ -4092,6 +4103,9 @@ TRAIN_EXAMPLE_FLAGS = ["--device", "cuda", "--seed", str(SEED)]
 # Phase 43: training at ViT-L 512's width (1024 wide, 24 deep encoder and decoder, batch 2 pairs, bf16 trunk over fp32
 # parameters) at 8 heads (D = 128) and 32 (D = 32).
 VITL_TRAIN_HEADS = [8, 32]
+# The counted and timed steps' depth (encoder and decoder, the training CLI's one --depth): 24 until PR 22, cut since
+# PR 23 to keep the script inside its time limit as phases 56-59 came in.
+VITL_TRAIN_DEPTH = 8
 VITL_CHECK_DEPTH = 4  # the gradient check against the plain path at this depth: the plain attention's (B, H, N, N) fp32
 # scores, saved for its backward in every layer, do not fit the card at 24 + 24 blocks and 32 heads
 PE_POOL_HEADS = 8  # PE-Core-G14's attention pool: 8 heads of 1536 / 8 = 192
@@ -4154,7 +4168,7 @@ def phase_train_example(torch, train, config, fa, tc, card):
 def phase_train_vitl_heads(torch, train, serve, training, config, fa, tc, card):
     """Phase 43 (path b): training at ViT-L 512's width at 8 and 32 heads, bf16, built by the training CLI's own
     builder and loss: one step's loss and gradients together against the plain path at the bf16 bars (depth cut to
-    VITL_CHECK_DEPTH), then at depth 24 a step's exact launches (K1 with its logsumexp, K3 and K2 at D = 128 or 32),
+    VITL_CHECK_DEPTH), then at depth VITL_TRAIN_DEPTH a step's exact launches (K1 with its logsumexp, K3 and K2 at D = 128 or 32),
     ms/step, device ms and peak memory. Returns the launches."""
     total = {}
     for heads in VITL_TRAIN_HEADS:
@@ -4176,12 +4190,12 @@ def phase_train_vitl_heads(torch, train, serve, training, config, fa, tc, card):
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        args = train.parse_args(flags(ENC_DEPTH))
+        args = train.parse_args(flags(VITL_TRAIN_DEPTH))
         model = train.build_model(args, torch.device("cuda"))
         loss_fn = train._loss_fn(args)
         batch = _train_batch(torch, train, serve, model)
         ctx = training.make_train_step(model, loss_fn=loss_fn, learning_rate=args.lr)
-        attn = ENC_DEPTH + ENC_DEPTH * 2 * 2
+        attn = VITL_TRAIN_DEPTH + VITL_TRAIN_DEPTH * 2 * 2
         _clear_head_dims(fa.flash_attention, fa.flash_attention_bwd)
         _tadd(total, counted_step(torch, tc, ctx, batch, train_want(tc, attn, attn), label))
         dims = _head_dims(fa.flash_attention, fa.flash_attention_bwd)
@@ -4577,6 +4591,9 @@ HESSIAN_UPDATE_REL_TOL = 1e-3
 GPTQ_H_ERR_REL_TOL = 1e-2
 # An fp32 Hessian is symmetric up to the GEMM's summation order: max |H - H^T| / max |H|.
 HESSIAN_SYM_REL_TOL = 1e-6
+# Phase 48 runs at full width with the depth cut (encoder, decoder) since PR 23, to keep the script inside its time
+# limit as phases 56-59 came in (the full depth was held in PR 18-22's runs): TRANSFORM_LAYERS' decoder block 7 is kept.
+TRANSFORM_DEPTH = (4, 8)
 
 
 def phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card, k4_serving):
@@ -4595,12 +4612,14 @@ def phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card, k
     from uniception_tpu_torch.nn import gptq, smooth
     from uniception_tpu_torch.utils.coldstart import load_native_state
 
-    dims = (ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS)
+    enc_depth, dec_depth = TRANSFORM_DEPTH
+    print(f"[48 transforms] depth cut to {enc_depth} encoder and {dec_depth} decoder blocks at full width")
+    dims = (enc_depth, ENC_DIM, ENC_HEADS, dec_depth, DEC_DIM, DEC_HEADS)
     embed = 1 if ENC_DIM != DEC_DIM else 0  # proj_embed: one layer, run once per view
-    k4_want = ENC_DEPTH * 4 + 2 * embed + DEC_DEPTH * 2 * 8
+    k4_want = enc_depth * 4 + 2 * embed + dec_depth * 2 * 8
     layers_want = k4_want - embed
     want = {k: 0 for k in counters}
-    want.update(K1=ENC_DEPTH + DEC_DEPTH * 2 * 2, K2=2 * ENC_DEPTH + DEC_DEPTH * 2 * 4)
+    want.update(K1=enc_depth + dec_depth * 2 * 2, K2=2 * enc_depth + dec_depth * 2 * 4)
     total = {k: 0 for k in counters}
 
     def counted(label, fn, forwards, k4=0):
@@ -4754,7 +4773,8 @@ def phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card, k
             if name in ("RTN", "GPTQ", "GPTQ + smooth + rotate"):
                 kept[name] = m
             del m
-        require(k4_serving in (None, k4_want), f"48: phase 15's int8-linear rung ran {k4_serving} K4 per forward")
+        k4_full = ENC_DEPTH * 4 + 2 * embed + DEC_DEPTH * 2 * 8  # phase 15's rung runs the full depth
+        require(k4_serving in (None, k4_full), f"48: phase 15's int8-linear rung ran {k4_serving} K4 per forward")
         require(bills["GPTQ"][0] < bills["RTN"][0], f"48: GPTQ's bill {bills['GPTQ'][0]} is not below RTN's")
         del cal, hessians, float_model
         torch.cuda.empty_cache()
@@ -4802,8 +4822,8 @@ def phase_int8_transforms(torch, np, serve, config, quant, i8, counters, card, k
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         convert_checkpoints.main(["--serving", "--int8", "--gptq", npz, "--img-size", str(IMG), "--enc-depth",
-                                  str(ENC_DEPTH), "--enc-dim", str(ENC_DIM), "--enc-heads", str(ENC_HEADS),
-                                  "--dec-depth", str(DEC_DEPTH), "--dec-dim", str(DEC_DIM), "--dec-heads",
+                                  str(enc_depth), "--enc-dim", str(ENC_DIM), "--enc-heads", str(ENC_HEADS),
+                                  "--dec-depth", str(dec_depth), "--dec-dim", str(DEC_DIM), "--dec-heads",
                                   str(DEC_HEADS), pth, nsv])
         convert_s = time.perf_counter() - t0
         _, meta = load_native_state(nsv)
@@ -5132,11 +5152,12 @@ def phase_pe_language(torch, np, config, fa, counters, card):
 # at full depth or None (then: the eager call's, every listed kernel above 0)). int8-linear is bench.py's default
 # rung; the landscape DPT serves two bucket canvases of the 512 family with a portrait row in each batch.
 ART_CUT = (4, 4)
+# Every case is cut to ART_CUT blocks (since PR 23, to keep the script's run inside its limit as phases 56-59 came
+# in; the full-depth int8-linear and landscape DPT artifacts were held bit for bit in PR 21-22's runs).
 ART_CASES = [
-    ("int8-linear", dict(head="linear", int8=True), "kernel", "none", "torch", ((IMG, IMG),), None,
-     {"K4": 290, "K1": 72, "K2": 144}),
+    ("int8-linear", dict(head="linear", int8=True), "kernel", "none", "torch", ((IMG, IMG),), ART_CUT, None),
     ("landscape DPT bf16 heads", dict(head="dpt", head_bf16=True, landscape_only=True), "kernel", "none", "kernel",
-     ((384, 512), (336, 512)), None, None),
+     ((384, 512), (336, 512)), ART_CUT, None),
     ("int8-DPT", dict(head="dpt", head_bf16=True, int8=True), "kernel", "int8", "kernel", ((IMG, IMG),), ART_CUT,
      None),
     ("fused", dict(head="linear"), "fused", "none", "torch", ((IMG, IMG),), ART_CUT, {"K5-self": 48, "K5-cross": 24}),
@@ -5380,6 +5401,9 @@ DP_RUNGS = [  # (name, build_model options, attention impl, attention quant, con
     ("int8-DPT", dict(head="dpt", int8=True, head_bf16=True), "kernel", "int8", "kernel"),
 ]
 TP_RUNGS = [("bf16-linear", {}), ("int8-linear", dict(int8=True))]
+# Phase 52's rungs run at full width with the depth cut to (encoder, decoder) since PR 23, to keep the script inside its
+# time limit as phases 56-59 came in (the full depth was held bit for bit in PR 22's runs).
+SERVE_WORLD_DEPTH = (4, 4)
 
 
 def _comm_share(torch, fn):
@@ -5433,8 +5457,8 @@ def _rank_serving(torch, np, serve, config, comm, counters):
     def build(opts):
         opts = dict(opts)
         head_dtype = torch.bfloat16 if opts.pop("head_bf16", False) else None
-        return serve.build_model(IMG, ENC_DEPTH, ENC_DIM, ENC_HEADS, DEC_DEPTH, DEC_DIM, DEC_HEADS, device="cuda",
-                                 seed=SEED, head_dtype=head_dtype, **opts)
+        return serve.build_model(IMG, SERVE_WORLD_DEPTH[0], ENC_DIM, ENC_HEADS, SERVE_WORLD_DEPTH[1], DEC_DIM, DEC_HEADS,
+                                 device="cuda", seed=SEED, head_dtype=head_dtype, **opts)
 
     for name, opts, impl, quant, conv in DP_RUNGS:
         config.set_attention_impl(impl)
@@ -5671,6 +5695,11 @@ def _rank_world4(_):
             staged, x, pos, mesh=mesh, model_axis="model", num_microbatches=PP_MICROBATCHES))
     held = [i for i, b in enumerate(staged) if not isinstance(b, torch.nn.Identity)]
     out.update(launches=launches, pp_tp_calls=calls, held=held, qkv=tuple(staged[held[0]].attn.qkv.weight.shape))
+    del full, staged
+    torch.cuda.empty_cache()
+    # phase 59's pp x tp: the pipeline's gradients with each stage's blocks tensor-parallel over 2 ranks
+    out["pp_tp_grads"] = _pp_grads(torch, np, comm, _train_counters(fa, rope, c3, fused), (PP_STAGES, 2),
+                                   ("stage", "model"), "model")
     return out
 
 
@@ -5812,6 +5841,20 @@ def phase_parallel_world(torch, card):
                 f"53 ring at {len(ranks4)} ranks, rank {r['rank']}: {r['ring_lse']} launches, {r['ring_ulps']} ulps")
         require(r["pp_tp_rel"] <= MODEL_REL_TOL and r["held"] == list(range(stage * per, (stage + 1) * per))
                 and r["qkv"] == (3 * ENC_DIM // 2, ENC_DIM), f"54 pp x tp rank {r['rank']}: {r}")
+    for r in ranks4:
+        g = r["pp_tp_grads"]
+        add(g["launches"])
+        per = PP_BLOCKS // PP_STAGES
+        stage = r["rank"] // (len(ranks4) // PP_STAGES)
+        require(g["held"] == list(range(stage * per, (stage + 1) * per)) and g["launches"]["K3"] == per * PP_MICROBATCHES
+                and g["dx"] <= MODEL_REL_TOL and g["glob"] <= MODEL_REL_TOL and g["worst"] <= TRAIN_BF16_REL_TOL,
+                f"59 pp x tp gradients rank {r['rank']}: {g}")
+    g = ranks4[0]["pp_tp_grads"]
+    print(f"[59 pp x tp gradients] pipeline_blocks under autograd, {PP_STAGES} stages x 2 tensor-parallel ranks, "
+          f"{PP_MICROBATCHES} microbatches, against the loop: input {g['dx']:.3e}, the stage's {g['n']} parameter "
+          f"gradients (gathered whole) together {g['glob']:.3e} (tol {MODEL_REL_TOL}), worst {g['worst']:.3e}; "
+          f"launches per rank {g['launches']}, collectives {g['calls']}; {g['ms']:.2f} ms forward and backward on "
+          f"{card}")
     r = ranks4[0]
     print(f"[54 world of {len(ranks4)}] the ring over {len(ranks4)} ranks: {r['ring_ulps']:.2f} ulps of max(|plain|, "
           f"1/64) (bar {K1_MV_ULPS} + {RING_EXTRA_ULPS}), K1+LSE {r['ring_lse']} launches per rank, {r['ring_ms']:.3f} ms "
@@ -5868,6 +5911,635 @@ def phase_chain(torch, np, serve, counters, card):
     return got
 
 
+# Phases 56-59: training across ranks. Phases 56-58 and 59's pipeline run in one world of RANKS rank processes on this
+# card (spawned; gloo, every collective staged through pinned host buffers, as phases 52-54); 59's pp x tp runs in
+# phase 54's world of 4. The model is main()'s build_train: DUSt3R ViT-L 512 (the CroCo encoder 24 x 1024, 16 heads
+# of 64, 2D RoPE; the 12-deep 768-wide decoder; linear heads), bf16 compute over fp32 parameters and AdamW (--bf16's
+# path), global batch BATCH pairs (one a rank). The single-process reference runs here before the world starts; the
+# ranks write their gathered parameters to a temporary directory in the checkout, held here against it.
+TRAIN_WORLD_STEPS, TP_TRAIN_STEPS = 3, 2
+TRAIN_WORLD_LR = 1e-4
+# Parameter updates after AdamW steps, sharded against one process, ||(got - init) - (ref - init)|| / ||ref - init||:
+# Adam's update follows a near-zero gradient's sign, so bf16 rounding (batch 1 against batch 2, TP's partial sums)
+# moves the updates by several percent while the parameters move by 3e-4 to 6e-4 relative (measured on an H100 80GB
+# HBM3, 700 W: DP 4.196e-2, TP 1.060e-1). The bar is twice the larger. Phase 56's control (DP without the gradients'
+# all-reduce over "data") must fail it and the parameter bar. Adam is blind to a gradient's scale, so the grad-norm
+# metric is held too, at phase 10's bar for all bf16 gradients; the losses at phase 10's loss bar.
+TRAIN_UPDATE_REL_TOL = 0.2
+# ||got - ref|| / ||ref|| of the parameters after the steps: measured DP 3.010e-4, TP 5.833e-4 (H100 80GB HBM3, 700 W);
+# the steps themselves move the parameters by more than this bar (printed), so a step that never updates fails it
+TRAIN_WORLD_PARAM_TOL = 2e-3
+# A rank's state under ZeRO-1 (moments) and FSDP (parameters and moments): at most DP's / RANKS plus this share of DP's
+# for the leaves the data rule leaves whole; its peak at least this share of the state bytes it does not hold below DP's
+# (measured 1.30 and 1.44 of them, H100 80GB HBM3, 700 W: AdamW's temporaries are per block too)
+SHARD_WHOLE_SHARE, SHARD_PEAK_SHARE = 0.05, 0.75
+RING_GRAD_EXTRA_ULPS = 2  # each chunk's dq, dk, dv share leaves K3 in bf16 and is added in fp32: one more rounding each
+CLI_STEPS = 3
+CLI_FLAGS = ["--device", "cuda", "--backend", "gloo", "--seed", str(SEED)]  # the JAX example's widths (the defaults)
+
+
+def _train_model(torch, seed=SEED):
+    "main()'s build_train(torch.bfloat16): DUSt3R ViT-L 512 for bench_train, fp32 parameters, bf16 compute."
+    from uniception_tpu_torch.models.factory.dust3r import DUSt3R
+
+    return DUSt3R(name="dust3r_train", img_size=(IMG, IMG), patch_embed_cls="ManyAR_PatchEmbed", dtype=torch.bfloat16,
+                  device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _whole_params(ctx):
+    "{name: the whole parameter} of a train context, gathered over the world (every rank takes part)."
+    from uniception_tpu_torch.parallel import training
+
+    tensors, _, layouts, _ = training._state_tensors(ctx)
+    return {k[len("params."):]: (training._whole(ctx.mesh, t, layouts[k]) if layouts else t).detach()
+            for k, t in tensors.items() if k.startswith("params.")}
+
+
+def _state_bytes(ctx):
+    "(parameter bytes, AdamW moment bytes) this rank holds."
+    return (sum(p.numel() * p.element_size() for p in ctx.model.parameters()),
+            sum(t.numel() * t.element_size() for t in ctx.optimizer.mu + ctx.optimizer.nu))
+
+
+def _rank_dp_control(torch, train, serve, training, tmp):
+    """Phase 56's control: DP with the gradients' all-reduce over "data" left out (each rank updates from its own
+    pair's share of the loss), TRAIN_WORLD_STEPS steps; rank 0 writes its parameters for the parent, which holds them
+    to the bars DP passes and which this run must fail."""
+    from uniception_tpu_torch.parallel import comm
+    from uniception_tpu_torch.parallel.mesh import shard_batch
+
+    model = _train_model(torch)
+    ctx = training.make_train_step(model, learning_rate=TRAIN_WORLD_LR)
+    batch = shard_batch(_train_batch(torch, train, serve, model), ctx.mesh)
+    reduce, training._bucketed = training._bucketed, lambda tensors, _: list(tensors)
+    try:
+        losses = [float(ctx.step(*batch)) for _ in range(TRAIN_WORLD_STEPS)]
+    finally:
+        training._bucketed = reduce
+    if comm.rank() == 0:
+        torch.save(_whole_params(ctx), os.path.join(tmp, "dp_control.pt"))
+    del model, ctx, batch
+    torch.cuda.empty_cache()
+    return dict(losses=losses)
+
+
+def _rank_dp_modes(torch, train, serve, training, comm, tc, tmp):
+    """Phase 56 on one rank: DP, ZeRO-1 and FSDP, TRAIN_WORLD_STEPS steps each on this rank's pair of the global batch;
+    per mode the losses, launches per step, collectives, peak memory above the mode's start, the bytes of the state
+    it holds, and ZeRO-1's and FSDP's losses, parameters and moments against DP's bit for bit. Rank 0 writes DP's
+    parameters for the parent's reference."""
+    from uniception_tpu_torch.parallel.mesh import data_slice, shard_batch
+
+    out, dp = {}, None
+    for mode in ("dp", "zero1", "fsdp"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_setup = time.perf_counter()
+        model = _train_model(torch)
+        ctx = training.make_train_step(model, learning_rate=TRAIN_WORLD_LR, zero1=mode == "zero1", fsdp=mode == "fsdp",
+                                       metrics=True)
+        batch = shard_batch(_train_batch(torch, train, serve, model), ctx.mesh)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t_setup
+        comm.calls.clear()
+        _treset(tc)
+        t0 = time.perf_counter()
+        steps = [ctx.step(*batch) for _ in range(TRAIN_WORLD_STEPS)]
+        losses, norms = [float(x) for x, _ in steps], [float(a["grad_norm"]) for _, a in steps]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, calls = _tread(tc), dict(comm.calls)
+        peak = torch.cuda.max_memory_allocated() - base
+        rec = dict(losses=losses, norms=norms, launches=launches, calls=calls, peak=peak, state=_state_bytes(ctx),
+                   ms=seconds * 1e3 / TRAIN_WORLD_STEPS, setup=t_setup)
+        t_check = time.perf_counter()
+        params = _whole_params(ctx)  # DP's stay on the card (6.3 GB a rank with its moments) for the bit comparisons
+        moments = list(zip(ctx.optimizer.mu, ctx.optimizer.nu))
+        if mode == "dp":
+            dp = (losses, params, moments, ctx.names)
+            if comm.rank() == 0:
+                torch.save(params, os.path.join(tmp, "dp_final.pt"))
+        else:  # bit for bit DP: the losses, the whole parameters, this rank's block of each moment
+            rec["bits_losses"] = losses == dp[0]
+            rec["bits_params"] = all(torch.equal(params[n], dp[1][n]) for n in params)
+            dims = ctx.data_dims
+            mesh = ctx.mesh
+            rec["bits_moments"] = all(
+                torch.equal(m, dm if d is None else data_slice(dm, d, mesh)) and
+                torch.equal(v, dv if d is None else data_slice(dv, d, mesh))
+                for (m, v), (dm, dv), d in zip(moments, dp[2], dims))
+        rec["check"] = time.perf_counter() - t_check
+        if mode != "dp":  # the bytes of the leaves the data rule leaves whole (parameters under FSDP, moments)
+            rec["whole"] = (sum(p.numel() * p.element_size() for p, g in zip(ctx.params, ctx.gathers) if g is None)
+                            if mode == "fsdp" else rec["state"][0],
+                            sum(m.numel() * m.element_size() + v.numel() * v.element_size()
+                                for (m, v), d in zip(moments, ctx.data_dims) if d is None))
+        out[mode] = rec
+        del model, ctx, batch, params, moments
+    del dp
+    out["control"] = _rank_dp_control(torch, train, serve, training, tmp)
+    return out
+
+
+def _rank_tp(torch, train, serve, training, comm, fa, tc, tmp):
+    """Phase 57 on one rank: model_axis=RANKS, use_tp, TP_TRAIN_STEPS steps on the whole global batch; the local
+    qkv and heads, the K1 shapes (local heads), launches and all-reduces per step. Rank 0 writes the gathered
+    parameters."""
+    model = _train_model(torch)
+    ctx = training.make_train_step(model, learning_rate=TRAIN_WORLD_LR, model_axis=RANKS, use_tp=True, metrics=True)
+    batch = _train_batch(torch, train, serve, model)
+    attn = model.encoder.enc_blocks[0].attn
+    comm.calls.clear()
+    _treset(tc)
+    fa.flash_attention.shapes.clear()
+    t0 = time.perf_counter()
+    steps = [ctx.step(*batch) for _ in range(TP_TRAIN_STEPS)]
+    losses, norms = [float(x) for x, _ in steps], [float(a["grad_norm"]) for _, a in steps]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, calls = _tread(tc), dict(comm.calls)
+    heads = sorted({key[4] for key in fa.flash_attention.shapes})
+    params = _whole_params(ctx)
+    if comm.rank() == 0:
+        torch.save(params, os.path.join(tmp, "tp_final.pt"))
+    out = dict(losses=losses, norms=norms, launches=launches, calls=calls, heads=heads, qkv=tuple(attn.qkv.weight.shape),
+               num_heads=attn.num_heads, ms=seconds * 1e3 / TP_TRAIN_STEPS, peak=torch.cuda.max_memory_allocated())
+    del model, ctx, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_ring_grads(torch, np, training, comm, fa, tc):
+    """Phase 58 on one rank: dq, dk, dv of ring_attention_sharded at (1, RING_VIEWS x RING_TOKENS, RING_HEADS, 64) bf16
+    against one K3 call on the whole sequence (from one K1 call with its logsumexp), in bf16 ulps of max(|K3|, 1/64),
+    with the controls: dq without the last 128 keys, dk and dv without the last 128 queries. Then the multi-view model
+    under sequence parallelism: its parameter gradients against its unsharded step."""
+    from uniception_tpu_torch.models.factory.multiview import MultiViewPointmapModel
+    from uniception_tpu_torch.parallel.mesh import make_mesh
+    from uniception_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    mesh = make_mesh(data=RANKS, model=1)
+    n = RING_VIEWS * RING_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 58)
+    q, k, v, dout = (torch.randn(1, n, RING_HEADS, 64, device="cuda", generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _treset(tc)
+    comm.calls.clear()
+    ring = ring_attention_sharded(*leaves, mesh, "data")
+    grads = torch.autograd.grad(ring, leaves, dout)
+    torch.cuda.synchronize()
+    launches, exchanges = _tread(tc), comm.calls["exchange"]
+    out_w, lse_w = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    whole = fa.flash_attention_bwd(q, k, v, out_w, lse_w, dout)
+    ctrl = [fa.flash_attention_bwd(q, k[:, :-128], v[:, :-128], out_w, lse_w, dout)[0],
+            *fa.flash_attention_bwd(q[:, :-128], k, v, out_w[:, :-128].contiguous(), lse_w[..., :-128].contiguous(),
+                                    dout[:, :-128])[1:]]
+    ulps = [_ulps(g, w, 7, K1_MV_ULP_FLOOR) for g, w in zip(grads, whole)]
+    ctrl_ulps = [_ulps(c, w, 7, K1_MV_ULP_FLOOR) for c, w in zip(ctrl, whole)]
+
+    def ring_step():
+        ls = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.autograd.grad(ring_attention_sharded(*ls, mesh, "data"), ls, dout)
+
+    def k1_k3():
+        o, l = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        fa.flash_attention_bwd(q, k, v, o, l, dout)
+
+    ms = _wall_ms(torch, comm, ring_step, n=3)
+    whole_ms = cuda_ms(torch, k1_k3, warmup=1, iters=5)
+    out = dict(ulps=ulps, ctrl=ctrl_ulps, launches=launches, exchanges=exchanges, ms=ms, whole_ms=whole_ms)
+    del q, k, v, dout, leaves, ring, grads, whole, ctrl
+    torch.cuda.empty_cache()
+
+    from uniception_tpu_torch import serve
+
+    rng = np.random.RandomState(SEED + 58)
+    prep = serve.make_frame_normalizer("dust3r", "cuda")
+    imgs = [prep(rng.randint(0, 256, (1, IMG, IMG, 3), np.uint8)) for _ in range(MV_SP_VIEWS)]
+    targets = [torch.from_numpy(rng.randn(1, IMG, IMG, 3).astype(np.float32)).cuda() for _ in range(MV_SP_VIEWS)]
+    model = MultiViewPointmapModel(name="mv_sp_train", num_views=MV_SP_VIEWS, img_size=(IMG, IMG),
+                                   attention_type="global", dtype=torch.bfloat16, device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def grads_of(sp):
+        model.sequence_parallel = (mesh, "data") if sp else None
+        loss = training.multiview_confidence_loss(model(imgs), targets)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _treset(tc)
+    comm.calls.clear()
+    loss_sp, g_sp = grads_of(True)
+    torch.cuda.synchronize()
+    mv = dict(launches=_tread(tc), exchanges=comm.calls["exchange"])
+    loss_ref, g_ref = grads_of(False)
+    rel = [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item() for a, b in zip(g_sp, g_ref)]
+    flat = lambda gs: torch.cat([g.float().flatten() for g in gs])  # noqa: E731
+    mv.update(loss_rel=abs(loss_sp.item() - loss_ref.item()) / abs(loss_ref.item()), worst=max(rel),
+              glob=((flat(g_sp) - flat(g_ref)).norm() / flat(g_ref).norm()).item(), n=len(params))
+    out["mv"] = mv
+    model.sequence_parallel = None
+    del model, params, g_sp, g_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_grads(torch, np, comm, tc, shape, axes, model_axis=None):
+    """pipeline_blocks under autograd over PP_BLOCKS ViT-L blocks (bf16, RoPE), PP_STAGES stages x PP_MICROBATCHES
+    microbatches, against the loop of the same blocks: the input gradient and this rank's stage parameters' gradients
+    (under TP gathered whole), ||pp - loop|| / ||loop|| each, worst and all together; launches of the counted run."""
+    from uniception_tpu_torch.models.utils.positional_encoding import make_patch_positions
+    from uniception_tpu_torch.nn.blocks import SelfAttentionBlock
+    from uniception_tpu_torch.ops.rope import Rope2D
+    from uniception_tpu_torch.parallel import training
+    from uniception_tpu_torch.parallel.mesh import Mesh
+    from uniception_tpu_torch.parallel.pipeline import pipeline_blocks, shard_stacked_state
+
+    def blocks():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 59)
+        return torch.nn.ModuleList([
+            SelfAttentionBlock(ENC_DIM, ENC_HEADS, qkv_bias=True, custom_positional_encoding=Rope2D(100.0),
+                               device="cuda", generator=gen) for _ in range(PP_BLOCKS)]).to(torch.bfloat16)
+
+    full, staged = blocks(), blocks()
+    mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
+    shard_stacked_state(staged, mesh, model_axis=model_axis)
+    side = IMG // 16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 590)
+    x = torch.randn(PP_BATCH, side * side, ENC_DIM, device="cuda", generator=gen).to(torch.bfloat16)
+    cot = torch.randn(PP_BATCH, side * side, ENC_DIM, device="cuda", generator=gen).to(torch.bfloat16)
+    pos = make_patch_positions(PP_BATCH, side, side, device="cuda")
+    held = []
+    for mname, m in staged.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            held.append((f"{mname}.{pname}".replace(".inner.", "."), p, getattr(m, "tp_layout", {}).get(pname)))
+    xs = x.clone().requires_grad_(True)
+    comm.calls.clear()
+    _treset(tc)
+    y = pipeline_blocks(staged, xs, pos, mesh=mesh, model_axis=model_axis, num_microbatches=PP_MICROBATCHES)
+    got = torch.autograd.grad(y, [xs] + [p for _, p, _ in held], cot)
+    torch.cuda.synchronize()
+    launches, calls = _tread(tc), dict(comm.calls)
+    got_params = {n: (training._whole(mesh, g, (tp, None)) if tp is not None else g)
+                  for (n, _, tp), g in zip(held, got[1:])}
+    xl = x.clone().requires_grad_(True)
+    h = xl
+    for blk in full:
+        h = blk(h, pos)
+    named = dict(full.named_parameters())
+    ref = torch.autograd.grad(h, [xl] + [named[n] for n in got_params], cot)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    rels = [rel(g, r) for g, r in zip(got_params.values(), ref[1:])]
+    flat = lambda gs: torch.cat([g.float().flatten() for g in gs])  # noqa: E731
+    out = dict(dx=rel(got[0], ref[0]), worst=max(rels), glob=rel(flat(list(got_params.values())), flat(ref[1:])),
+               n=len(rels), launches=launches, calls=calls,
+               held=sorted({int(n.split(".")[0]) for n in got_params}))
+    out["ms"] = _wall_ms(torch, comm, lambda: torch.autograd.grad(pipeline_blocks(
+        staged, x.clone().requires_grad_(True), pos, mesh=mesh, model_axis=model_axis,
+        num_microbatches=PP_MICROBATCHES).float().sum(), [p for _, p, _ in held]), n=2)
+    del full, staged, x, y, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_train_world(tmp):
+    "Phases 56-59 on one rank of the world (a spawned process; chip_smoke.py's module is its main module)."
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from uniception_tpu_torch import serve, train
+    from uniception_tpu_torch.ops import conv3x3 as c3
+    from uniception_tpu_torch.ops import flash_attention as fa
+    from uniception_tpu_torch.ops import fused_attention as fused
+    from uniception_tpu_torch.ops import rope
+    from uniception_tpu_torch.parallel import comm, training
+
+    tc = _train_counters(fa, rope, c3, fused)
+    out = {"rank": comm.rank(), "world": comm.world_size(), "backend": comm.backend(), "transport": comm.transport(),
+           "device": str(comm.device())}
+    for name, run in (("dp", lambda: _rank_dp_modes(torch, train, serve, training, comm, tc, tmp)),
+                      ("tp", lambda: _rank_tp(torch, train, serve, training, comm, fa, tc, tmp)),
+                      ("ring", lambda: _rank_ring_grads(torch, np, training, comm, fa, tc)),
+                      ("pp", lambda: _pp_grads(torch, np, comm, tc, (PP_STAGES,), ("stage",)))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name]["seconds"] = time.perf_counter() - t0
+        comm.all_reduce(torch.zeros(1, device="cuda"))  # every rank done (and rank 0's files whole) before the next
+    out["jax_free"] = not any(m == "jax" or m.startswith(("jax.", "uniception_tpu.")) for m in sys.modules)
+    return out
+
+
+def _rel_update(torch, got, ref, init):
+    """(||(got - init) - (ref - init)|| / ||ref - init|| over every parameter together, the worst parameter's,
+    ||got - ref|| / ||ref||, and how far the reference's steps moved the parameters, ||ref - init|| / ||ref||). Adam's
+    update follows a near-zero gradient's sign, so bf16 rounding moves the updates far more than the parameters."""
+    num = den = pnum = pden = 0.0
+    worst = (0.0, "")
+    for n, r in ref.items():
+        g, r, i = got[n].cuda().double(), r.cuda().double(), init[n].cuda().double()
+        a, b = (g - r).norm().item() ** 2, (r - i).norm().item() ** 2
+        num, den, pnum, pden = num + a, den + b, pnum + a, pden + r.norm().item() ** 2
+        worst = max(worst, ((a / max(b, 1e-60)) ** 0.5, n))
+    return (num / den) ** 0.5, worst, (pnum / pden) ** 0.5, (den / pden) ** 0.5
+
+
+def phase_parallel_training(torch, np, train, serve, training, card):
+    """Phases 56-59: the single-process reference (TRAIN_WORLD_STEPS steps of make_train_step on the global batch),
+    then the world of RANKS ranks (``_rank_train_world``), every rank's results held here. Returns the launches of the
+    ranks' counted runs, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    from uniception_tpu_torch.parallel import comm
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_train_", dir=REPO)
+    try:
+        model = _train_model(torch)
+        init = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        ctx = training.make_train_step(model, learning_rate=TRAIN_WORLD_LR, metrics=True)
+        batch = _train_batch(torch, train, serve, model)
+        ref_losses, ref_norms, snaps = [], [], {}
+        for s in range(TRAIN_WORLD_STEPS):
+            loss, aux = ctx.step(*batch)
+            ref_losses.append(float(loss))
+            ref_norms.append(float(aux["grad_norm"]))
+            if s + 1 in (TP_TRAIN_STEPS, TRAIN_WORLD_STEPS):
+                snaps[s + 1] = {n: p.detach().cpu() for n, p in zip(ctx.names, ctx.params)}
+        ref_state = _state_bytes(ctx)
+        del model, ctx, batch
+        torch.cuda.empty_cache()
+        ranks = comm.spawn(_rank_train_world, RANKS, tmp, backend="gloo", device="cuda", timeout=900)
+        dp_final = torch.load(os.path.join(tmp, "dp_final.pt"), map_location="cpu", weights_only=True)
+        tp_final = torch.load(os.path.join(tmp, "tp_final.pt"), map_location="cpu", weights_only=True)
+        control = torch.load(os.path.join(tmp, "dp_control.pt"), map_location="cpu", weights_only=True)
+        dp_rel, dp_worst, dp_prel, moved = _rel_update(torch, dp_final, snaps[TRAIN_WORLD_STEPS], init)
+        tp_rel, tp_worst, tp_prel, tp_moved = _rel_update(torch, tp_final, snaps[TP_TRAIN_STEPS], init)
+        ctl_rel, _, ctl_prel, _ = _rel_update(torch, control, snaps[TRAIN_WORLD_STEPS], init)
+        del dp_final, tp_final, control, snaps, init
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    failed = []  # every check of the phase runs and prints before the phase fails
+
+    def check(cond, msg):
+        if not cond:
+            failed.append(msg)
+            print(f"[56-59 FAILED] {msg}")
+
+    check(all(r["world"] == RANKS and r["jax_free"] for r in ranks), "a rank imported JAX or saw another world")
+    print(f"[56 world] {r0['world']} rank processes on {r0['device']}, backend {r0['backend']}, transport: "
+          f"{r0['transport']}; the kernels launch on the card in each rank; rank seconds: " + ", ".join(
+              f"rank {r['rank']}: dp modes {r['dp']['seconds']:.1f}, tp {r['tp']['seconds']:.1f}, ring "
+              f"{r['ring']['seconds']:.1f}, pipeline {r['pp']['seconds']:.1f}" for r in ranks))
+    total = {}
+
+    def add(launches):
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+
+    attn = ENC_DEPTH + 2 * 2 * DEC_DEPTH  # the encoder over both views, each view's self and cross layers
+    per_step = train_want(_train_counters(*([None] * 4)), attn, attn)
+    want = {key: n * TRAIN_WORLD_STEPS for key, n in per_step.items()}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["dp"]["dp"]["losses"], ref_losses))
+    modes = ("dp", "zero1", "fsdp")
+    for r in ranks:
+        dp_p, dp_m = r["dp"]["dp"]["state"]
+        for mode in modes:
+            d = r["dp"][mode]
+            add(d["launches"])
+            check(d["launches"] == want, f"56 {mode} rank {r['rank']}: launches {d['launches']}, want {want}")
+            check(all(math.isfinite(x) for x in d["losses"]), f"56 {mode}: non-finite loss {d['losses']}")
+            if mode == "dp":
+                continue
+            check(d["bits_losses"] and d["bits_params"] and d["bits_moments"],
+                  f"56 {mode} rank {r['rank']}: not DP bit for bit {d}")
+            # the rank holds its blocks: DP's bytes over RANKS, the leaves the rule leaves whole excepted, and its
+            # peak falls below DP's by most of what it does not hold
+            (p, m), (wp, wm) = d["state"], d["whole"]
+            want_p = dp_p if mode == "zero1" else (dp_p - wp) // RANKS + wp
+            check(p == want_p and m == (dp_m - wm) // RANKS + wm and wm <= SHARD_WHOLE_SHARE * dp_m
+                  and (mode == "zero1" or wp <= SHARD_WHOLE_SHARE * dp_p),
+                  f"56 {mode} rank {r['rank']}: holds {d['state']} bytes (whole leaves {d['whole']}) against DP's "
+                  f"{(dp_p, dp_m)}")
+            not_held = dp_p + dp_m - p - m
+            check(r["dp"]["dp"]["peak"] - d["peak"] >= SHARD_PEAK_SHARE * not_held > 0,
+                  f"56 {mode} rank {r['rank']}: peak {d['peak']} against DP's {r['dp']['dp']['peak']}, "
+                  f"{not_held} bytes of state not held")
+        check(r["dp"]["dp"]["losses"] == r0["dp"]["dp"]["losses"], "56: the ranks' global losses differ")
+    norm_rel = max(abs(a - b) / b for a, b in zip(r0["dp"]["dp"]["norms"], ref_norms))
+    check(loss_rel <= TRAIN_BF16_LOSS_TOL and norm_rel <= TRAIN_BF16_GLOBAL_TOL and dp_rel <= TRAIN_UPDATE_REL_TOL
+          and dp_prel <= TRAIN_WORLD_PARAM_TOL, f"56 DP vs the single-process step: losses {loss_rel}, grad norms "
+          f"{norm_rel}, parameters {dp_prel}, parameter updates {dp_rel}")
+    check(ctl_rel > TRAIN_UPDATE_REL_TOL and ctl_prel > TRAIN_WORLD_PARAM_TOL,
+          f"56 control (DP without the data all-reduce) passes the bars: updates {ctl_rel}, parameters {ctl_prel}")
+    for mode in modes:
+        d = r0["dp"][mode]
+        extra = ""
+        if mode != "dp":
+            saved = (r0["dp"]["dp"]["peak"] - d["peak"]) / 2**30
+            not_held = (sum(r0["dp"]["dp"]["state"]) - sum(d["state"])) / 2**30
+            extra = (f"; bit for bit DP (losses, parameters, moments) on every rank: {d['bits_params']}; "
+                     f"{saved:.3f} GiB less peak than DP, {not_held:.3f} GiB of state not held (bar "
+                     f"{SHARD_PEAK_SHARE} of it); leaves left whole {d['whole']} bytes")
+        print(f"[56 {mode}] make_train_step(data={RANKS}{', zero1' if mode == 'zero1' else ''}"
+              f"{', fsdp' if mode == 'fsdp' else ''}) at DUSt3R ViT-L 512, {BATCH} pairs ({BATCH // RANKS} a rank), "
+              f"{TRAIN_WORLD_STEPS} AdamW steps: losses {['%.6f' % x for x in d['losses']]}; {d['ms']:.1f} ms/step "
+              f"(wall, both ranks on one card; set-up {d['setup']:.1f} s, gathers and checks {d['check']:.1f} s); per rank per {TRAIN_WORLD_STEPS} steps launches {d['launches']}, "
+              f"collectives {d['calls']}; peak memory above the mode's start {[rk['dp'][mode]['peak'] for rk in ranks]} "
+              f"bytes; state held (parameters, moments) {d['state']} bytes{extra} on {card}")
+    print(f"[56 DP vs single process] losses {['%.6f' % x for x in ref_losses]} (one process, {BATCH} pairs): worst "
+          f"step rel {loss_rel:.3e} (bar {TRAIN_BF16_LOSS_TOL}); grad norms {['%.6f' % x for x in ref_norms]}, DP's "
+          f"worst rel {norm_rel:.3e} (bar {TRAIN_BF16_GLOBAL_TOL}: Adam's update is blind to a gradient's scale, the "
+          f"norm is not); parameters after {TRAIN_WORLD_STEPS} steps ||dp - one|| / ||one|| {dp_prel:.3e} (bar "
+          f"{TRAIN_WORLD_PARAM_TOL}; the steps moved them ||one - init|| / ||one|| {moved:.3e}); their updates "
+          f"||(dp - init) - (one - init)|| / ||one - init|| {dp_rel:.3e}, worst parameter {dp_worst[0]:.3e} "
+          f"({dp_worst[1]}) (bar {TRAIN_UPDATE_REL_TOL}); the single process holds {ref_state} bytes of parameters "
+          f"and moments")
+    print(f"[56 control] DP without the gradients' all-reduce over \"data\" (each rank's own pair), losses "
+          f"{['%.6f' % x for x in r0['dp']['control']['losses']]}: updates {ctl_rel:.3e} (must exceed "
+          f"{TRAIN_UPDATE_REL_TOL}), parameters {ctl_prel:.3e} (must exceed {TRAIN_WORLD_PARAM_TOL}) on {card}")
+
+    tp = r0["tp"]
+    tp_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tp["losses"], ref_losses))
+    row_parallel = 2 * ENC_DEPTH + 2 * 3 * DEC_DEPTH  # forward all-reduces: attn.proj and fc2; self, cross proj, fc2
+    for r in ranks:
+        d = r["tp"]
+        add(d["launches"])
+        check(d["launches"] == {key: n * TP_TRAIN_STEPS for key, n in per_step.items()},
+                f"57 TP rank {r['rank']}: launches {d['launches']}")
+        check(d["qkv"] == (3 * ENC_DIM // RANKS, ENC_DIM) and d["num_heads"] == ENC_HEADS // RANKS,
+                f"57 TP rank {r['rank']}: qkv {d['qkv']}, {d['num_heads']} heads")
+        check(d["heads"] == sorted({ENC_HEADS // RANKS, DEC_HEADS // RANKS}), f"57 TP: K1 at heads {d['heads']}")
+        check(d["calls"].get("all_reduce", 0) >= 2 * row_parallel * TP_TRAIN_STEPS, f"57 TP: {d['calls']}")
+    tp_norm_rel = max(abs(a - b) / b for a, b in zip(tp["norms"], ref_norms))
+    check(tp_loss_rel <= TRAIN_BF16_LOSS_TOL and tp_norm_rel <= TRAIN_BF16_GLOBAL_TOL
+          and tp_prel <= TRAIN_WORLD_PARAM_TOL and tp_rel <= TRAIN_UPDATE_REL_TOL, f"57 TP vs the unsharded step: losses {tp_loss_rel}, grad norms "
+          f"{tp_norm_rel}, parameters {tp_prel}, parameter updates {tp_rel}")
+    print(f"[57 TP] make_train_step(data=1, model_axis={RANKS}, use_tp=True), {TP_TRAIN_STEPS} steps on {BATCH} pairs: "
+          f"losses {['%.6f' % x for x in tp['losses']]} vs the unsharded step's: worst rel {tp_loss_rel:.3e} (bar "
+          f"{TRAIN_BF16_LOSS_TOL}); grad norms worst rel {tp_norm_rel:.3e} (bar {TRAIN_BF16_GLOBAL_TOL}); parameters "
+          f"{tp_prel:.3e} (bar {TRAIN_WORLD_PARAM_TOL}; the steps moved them {tp_moved:.3e}); updates {tp_rel:.3e}, worst {tp_worst[0]:.3e} ({tp_worst[1]}) (bar "
+          f"{TRAIN_UPDATE_REL_TOL}); "
+          f"a rank holds qkv {tp['qkv']}, {tp['num_heads']} heads, K1 at {tp['heads']} heads; per rank per "
+          f"{TP_TRAIN_STEPS} steps launches {tp['launches']}, collectives {tp['calls']} ({row_parallel} row-parallel "
+          f"all-reduces a forward, the column-parallel inputs' in the backward); {tp['ms']:.1f} ms/step; peak "
+          f"{[r['tp']['peak'] for r in ranks]} bytes on {card}")
+
+    n = RING_VIEWS * RING_TOKENS
+    for r in ranks:
+        g = r["ring"]
+        add(g["launches"])
+        check(g["launches"]["K1-LSE"] == RANKS and g["launches"]["K3"] == RANKS,
+                f"58 ring rank {r['rank']}: launches {g['launches']}")
+        check(max(g["ulps"]) <= K3_MV_ULPS + RING_GRAD_EXTRA_ULPS and min(g["ctrl"]) >= K3_MV_CONTROL_ULPS,
+                f"58 ring rank {r['rank']}: ulps {g['ulps']}, controls {g['ctrl']}")
+        mv = g["mv"]
+        add(mv["launches"])
+        check(mv["exchanges"] > 0 and mv["launches"]["K3"] > 0, f"58 multi-view SP rank {r['rank']}: {mv}")
+        check(mv["loss_rel"] <= TRAIN_BF16_LOSS_TOL and mv["glob"] <= TRAIN_BF16_GLOBAL_TOL
+                and mv["worst"] <= TRAIN_BF16_REL_TOL, f"58 multi-view SP rank {r['rank']}: {mv}")
+    g = r0["ring"]
+    print(f"[58 ring gradients] ring_attention_sharded under autograd over {RANKS} ranks, (1,{n},{RING_HEADS},64) bf16: "
+          f"dq, dk, dv {['%.2f' % u for u in g['ulps']]} ulps of max(|K3|, 1/64) from one K3 call on the whole sequence "
+          f"(bar {K3_MV_ULPS} + {RING_GRAD_EXTRA_ULPS}: each chunk's share rounded to bf16 once more before the fp32 "
+          f"sum); controls (dq without the last 128 keys, dk and dv without the last 128 queries) "
+          f"{['%.1f' % u for u in g['ctrl']]} >= {K3_MV_CONTROL_ULPS}; per rank K1+LSE {g['launches']['K1-LSE']}, K3 "
+          f"{g['launches']['K3']}, exchanges {g['exchanges']}; {g['ms']:.2f} ms forward and backward (wall, both ranks "
+          f"on one card) against K1+LSE and K3 on the whole sequence {g['whole_ms']:.3f} ms on {card}")
+    mv = g["mv"]
+    print(f"[58 multi-view SP training] MultiViewPointmapModel(sequence_parallel) at {MV_SP_VIEWS} views of {IMG}, "
+          f"global attention, bf16: loss rel {mv['loss_rel']:.3e} (tol {TRAIN_BF16_LOSS_TOL}), parameter gradients vs "
+          f"its unsharded step: all together {mv['glob']:.3e} (tol {TRAIN_BF16_GLOBAL_TOL}), worst of {mv['n']} "
+          f"{mv['worst']:.3e} (tol {TRAIN_BF16_REL_TOL}); per rank launches {mv['launches']}, exchanges "
+          f"{mv['exchanges']} on {card}")
+
+    per = PP_BLOCKS // PP_STAGES
+    for r in ranks:
+        p = r["pp"]
+        add(p["launches"])
+        check(p["held"] == list(range(r["rank"] * per, (r["rank"] + 1) * per)), f"59 pipeline: held {p['held']}")
+        check(p["launches"]["K3"] == per * PP_MICROBATCHES and p["launches"]["K1-LSE"] == per * PP_MICROBATCHES,
+                f"59 pipeline: launches {p['launches']}")
+        check(p["dx"] <= MODEL_REL_TOL and p["glob"] <= MODEL_REL_TOL and p["worst"] <= TRAIN_BF16_REL_TOL,
+                f"59 pipeline rank {r['rank']}: {p}")
+    p = r0["pp"]
+    print(f"[59 pipeline gradients] pipeline_blocks under autograd over {PP_BLOCKS} ViT-L blocks (bf16, RoPE), "
+          f"{PP_STAGES} stages x {PP_MICROBATCHES} microbatches, against the loop's gradients: input {p['dx']:.3e}, "
+          f"the stage's {p['n']} parameter gradients together {p['glob']:.3e} (tol {MODEL_REL_TOL}), worst "
+          f"{p['worst']:.3e}; launches per rank {p['launches']}, collectives {p['calls']}; {p['ms']:.2f} ms forward and "
+          f"backward (wall) on {card}")
+    require(not failed, "; ".join(failed))
+    return total
+
+
+class TrainCLI:
+    """Phase 59's CLI runs, started at construction so that their start-up (interpreter, torch, CUDA context, kernel
+    library) overlaps phases 56-58's world: ``python -m torch.distributed.run --nproc-per-node RANKS -m
+    uniception_tpu_torch.train`` on the card (gloo) with --zero1, --fsdp and --tp RANKS for CLI_STEPS steps at the JAX
+    example's widths, and an --fsdp run of 1 step, resumed for the rest as soon as it exits (a thread). Each run's
+    output goes to a log in a temporary directory of the checkout."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_cli_", dir=REPO)
+        self.t0 = time.perf_counter()
+        # the --fsdp run saves at its end: it is the uninterrupted run the resumed one is held against; the --tp run
+        # keeps an EMA of its parameter shards and saves it whole
+        self.cases = {"zero1": ["--zero1"], "fsdp": ["--fsdp", "--ckpt-dir", os.path.join(self.tmp, "whole")],
+                      "tp": ["--tp", str(RANKS), "--ema", "0.5", "--ckpt-dir", os.path.join(self.tmp, "tp")]}
+        self.procs = {name: self._start(flags + ["--steps", str(CLI_STEPS)], name) for name, flags in self.cases.items()}
+        self.procs["part"] = self._start(["--fsdp", "--steps", "1", "--ckpt-dir", os.path.join(self.tmp, "part")], "part")
+
+        def resume():
+            self.procs["part"].wait()
+            self.procs["resumed"] = self._start(["--fsdp", "--steps", str(CLI_STEPS - 1), "--ckpt-dir",
+                                                 os.path.join(self.tmp, "part"), "--resume"], "resumed")
+
+        self.resumer = threading.Thread(target=resume, name="train_cli_resume")
+        self.resumer.start()
+
+    def _start(self, flags, name):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(RANKS), "-m",
+               "uniception_tpu_torch.train"] + CLI_FLAGS + flags
+        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+        with open(os.path.join(self.tmp, f"{name}.log"), "w") as log:
+            return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def finish(self):
+        "{name: (exit code, output)} of every run, each waited for (killed after 300 s)."
+        self.resumer.join(timeout=300)
+        out = {}
+        for name, p in self.procs.items():
+            try:
+                code = p.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                code = p.wait()
+            with open(os.path.join(self.tmp, f"{name}.log")) as log:
+                out[name] = (code, log.read())
+        return out
+
+    def close(self):
+        "Stop what still runs and remove the temporary directory."
+        import shutil
+
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_train_cli(torch, card, cli):
+    """Phase 59's CLI (``TrainCLI``, started before phases 56-58): every run exits 0, rank 0 alone prints its mesh and
+    finite losses, the --fsdp run resumed after 1 step writes the train state of the uninterrupted --fsdp run, bit
+    for bit, and the --tp run's EMA is written whole (the unsharded train state's names and shapes, finite, apart
+    from the last parameters)."""
+    try:
+        runs = cli.finish()
+        seconds = time.perf_counter() - cli.t0
+        for name, (code, log) in runs.items():
+            require(code == 0, f"59 CLI {name}: exit {code}\n{log[-3000:]}")
+        for name in cli.cases:
+            log = runs[name][1]
+            losses = [float(line.split()[3]) for line in log.splitlines() if line.startswith("step ")]
+            require(losses and all(math.isfinite(x) for x in losses) and log.count("params=") == 1,
+                    f"59 CLI {name}: {log[-2000:]}")
+            mesh = next(line for line in log.splitlines() if line.startswith("params="))
+            print(f"[59 CLI {name}] torchrun --nproc-per-node {RANKS} -m uniception_tpu_torch.train "
+                  f"{' '.join(CLI_FLAGS + cli.cases[name])} --steps {CLI_STEPS}: exit 0, losses "
+                  f"{['%.4f' % x for x in losses]}; {mesh.split(' on ', 2)[-1]}")
+        a, b = (torch.load(os.path.join(cli.tmp, d, "train_state.pt"), weights_only=True) for d in ("whole", "part"))
+        same = ({k: v for k, v in a.items() if k != "tensors"} == {k: v for k, v in b.items() if k != "tensors"}
+                and sorted(a["tensors"]) == sorted(b["tensors"])
+                and all(torch.equal(v, b["tensors"][k]) for k, v in a["tensors"].items()))
+        require(same and "resumed from" in runs["resumed"][1], "59 CLI: the --fsdp resume is not the uninterrupted run")
+        tp, ema = ({k: v for k, v in torch.load(os.path.join(cli.tmp, d, "train_state.pt"),
+                                                weights_only=True)["tensors"].items() if k.startswith("params.")}
+                   for d in ("tp", "tp_ema"))
+        require(sorted(ema) == sorted(tp) and all(v.shape == tp[k].shape and bool(v.isfinite().all())
+                                                  for k, v in ema.items())
+                and not all(torch.equal(v, tp[k]) for k, v in ema.items()),
+                f"59 CLI --tp --ema: the EMA is not the whole parameters' ({len(ema)} tensors against {len(tp)})")
+        print(f"[59 CLI resume] --fsdp 1 step, saved (rank 0: the unsharded train state, {len(a['tensors'])} tensors), "
+              f"--resume {CLI_STEPS - 1} more: the train state bit for bit the {CLI_STEPS}-step --fsdp run's; --tp "
+              f"{RANKS} --ema: {len(ema)} whole tensors written; "
+              f"{len(runs)} torchrun runs (each {RANKS} ranks on the card, started with phases 56-58) done "
+              f"{seconds:.1f} s after their start on {card}")
+    finally:
+        cli.close()
+
+
 def _timed_phases(namespace):
     "Wrap every phase_* function of ``namespace`` to print its seconds when it returns."
     import functools
@@ -5889,6 +6561,7 @@ def _timed_phases(namespace):
 
 
 def main():
+    t_start = time.perf_counter()
     if not os.path.isfile(os.path.join(REPO, "uniception_tpu_torch", "csrc", "flash_attention.cu")):
         print("chip_smoke: run from a checkout that holds uniception_tpu_torch/", file=sys.stderr)
         return 2
@@ -6042,8 +6715,16 @@ def main():
     print(f"[51 artifacts] launches over phase 51's loaded programs' first forwards: {artifacts}")
     world = phase_parallel_world(torch, card)
     chained = phase_chain(torch, np, serve, counters, card)
-    print(f"[55 parallel] launches over phases 52-54's counted runs (every rank) and phase 55's chain: {world}, "
-          f"{chained}")
+    print(f"[55 parallel] launches over phases 52-54's counted runs (every rank; 59's pp x tp gradients in the world "
+          f"of 4) and phase 55's chain: {world}, {chained}")
+    cli = TrainCLI()  # phase 59's CLI runs start now: their start-up overlaps phases 56-58
+    try:
+        trained_world = phase_parallel_training(torch, np, train, serve, training, card)
+    except BaseException:
+        cli.close()
+        raise
+    phase_train_cli(torch, card, cli)
+    print(f"[59 training] launches over phases 56-59's counted runs (every rank): {trained_world}")
     served = {k: served[k] + artifacts[k] + world.get(k, 0) + chained[k] for k in counters}
 
     def entry(name, source, replaces, n, err, m):
@@ -6055,13 +6736,15 @@ def main():
         entry("flash_attention_fwd", "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194",
               launches["flash_attention_fwd"] + trained["flash_attention_fwd"] + served["K1"] + new_train["K1"]
               + dino["K1"] + zoo["K1"] + heads["K1"] + diff["K1"] + cosmos["K1"] + paths["K1"] + transforms["K1"]
-              + video["K1"] + language["K1"], max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"], new_k1_worst), k1),
+              + video["K1"] + language["K1"] + trained_world["K1"],
+              max(k1_err, hd_worst["K1"], redesign_worst["K1 fp32"], new_k1_worst), k1),
         entry("flash_attention_bwd", "flash_attention_bwd.cu", "uniception_tpu/ops/flash_attention.py:436",
-              trained["flash_attention_bwd"] + new_train["K3"] + fp32_step_k3,
+              trained["flash_attention_bwd"] + new_train["K3"] + fp32_step_k3 + trained_world["K3"] + world.get("K3", 0),
               max(k3_err, hd_worst["K3"], redesign_worst["K3"], redesign_worst["K3 fp32"]), k3),
         entry("rope2d", "rope.cu", "uniception_tpu/ops/rope.py:126",
               launches["rope2d"] + trained["rope2d_fwd"] + trained["rope2d_bwd"] + served["K2"] + new_train["K2"]
-              + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"] + transforms["K2"], k2_err, k2),
+              + new_train["K2-bwd"] + zoo["K2"] + diff["K2"] + paths["K2"] + transforms["K2"] + trained_world["K2"]
+              + trained_world["K2-bwd"] + world.get("K2-bwd", 0), k2_err, k2),
         entry("int8_matmul_dynamic", "int8_matmul.cu", "uniception_tpu/ops/int8_matmul.py:50",
               served["K4"] + transforms["K4"], k4_err, k4),
         entry("int8_matmul_scaled (K4 on given row scales, int32 sums; TP row-parallel layers)", "int8_matmul.cu",
@@ -6117,6 +6800,7 @@ def main():
                                      "flash_attention.cu", "uniception_tpu/ops/flash_attention.py:194", n,
                                      new_k1_worst, rec))
     require(all(k["launches"] > 0 for k in kernels), f"a kernel was never launched on its path: {kernels}")
+    print(f"[seconds] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

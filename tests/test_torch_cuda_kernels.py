@@ -1077,6 +1077,34 @@ def test_attention_backward_at_multiview_global_lengths(gen, n):
         assert _ulps(c, r, 7, floor=K1_MV_ULP_FLOOR) >= 4 * K3_MV_ULPS, name
 
 
+def test_k3_on_one_ring_chunk_from_the_global_logsumexp(gen):
+    """The ring's backward (parallel/ring_attention.py): K3 on the queries and one key chunk, given the output and
+    logsumexp of attention over every key (two chunks of 2048), gives that chunk's share of dq and its dk and dv,
+    in bf16 ulps of the plain backward from the same global output and logsumexp; the two chunks' dq added in fp32
+    are the whole sequence's within the bar and the one extra rounding of each share. Control: the plain backward
+    from the chunk's own logsumexp (a local softmax) lands far off."""
+    n, half = 4096, 2048
+    q, k, v = _strided_qkv(gen, 1, half, n, 16, torch.bfloat16)
+    dout = torch.randn(1, half, 16, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    qf, of, df = (t.float() for t in (q, out, dout))
+    dq_sum = torch.zeros_like(qf)
+    for c in range(2):
+        kc, vc = k[:, c * half:(c + 1) * half], v[:, c * half:(c + 1) * half]
+        before = flash_attention_bwd.launches
+        grads = flash_attention_bwd(q, kc, vc, out, lse, dout)
+        assert flash_attention_bwd.launches == before + 1
+        refs = flash_attention_bwd_ref(qf, kc.float(), vc.float(), of, lse, df)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            assert _ulps(g, r, 7, floor=K1_MV_ULP_FLOOR) <= K3_MV_ULPS, (c, name)
+        o_c, l_c = flash_attention_lse_ref(qf, kc.float(), vc.float())
+        local = flash_attention_bwd_ref(qf, kc.float(), vc.float(), o_c, l_c, df)
+        assert _ulps(local[2], refs[2], 7, floor=K1_MV_ULP_FLOOR) >= 4 * K3_MV_ULPS
+        dq_sum += grads[0].float()
+    whole = flash_attention_bwd_ref(qf, k.float(), v.float(), of, lse, df)[0]
+    assert _ulps(dq_sum, whole, 7, floor=K1_MV_ULP_FLOOR) <= K3_MV_ULPS + 2
+
+
 def test_narrow_dpt_lora_training_matches_plain_and_resumes(gen, tmp_path):
     """A narrow DUSt3R with bf16 DPT heads (K7 forward, cuDNN backward) and LoRA on the trunk: one step's loss and
     adapter gradients through the kernels against the plain path at chip_smoke.py's bf16 training bars; then the

@@ -24,10 +24,12 @@ JAX_ROOT, PORT_ROOT = os.path.join(REPO, "uniception_tpu"), os.path.join(REPO, "
 # Names the JAX package exports and the port does not, each with why: a ROADMAP queue 1 item or "Not ported".
 OMITTED = {
     "ops/rope.py": {"rope_2d_pallas": "Not ported: the port's kernel entry is rope_2d_kernel (K2, csrc/rope.cu)"},
-    "ops/attention.py": {n: "ROADMAP queue 1 item 12" for n in ("activation_sharding", "set_activation_sharding")},
+    # JAX pins GSPMD's layout of the attention activations to batch-on-data (and heads-on-model under TP); in the
+    # port every rank already holds exactly its batch rows and, under TP, its heads, so there is no layout to pin
+    "ops/attention.py": {n: "Not ported: XLA-only (GSPMD's attention activation layout; each rank holds its rows "
+                            "and heads)" for n in ("activation_sharding", "set_activation_sharding")},
     "nn/quant.py": {"force_xla_int8": "Not ported: XLA-only (Pallas does not SPMD-partition; K4 runs on each rank's "
                                       "shards)"},
-    "parallel/mesh.py": {n: "ROADMAP queue 1 item 12" for n in ("zero1_shard_state", "fsdp_shard_state")},
 }
 LABEL = re.compile(r"^(ROADMAP queue 1 item (4|12)|Not ported: .+)$")
 

@@ -3,7 +3,10 @@ The port's training entry point (``python -m uniception_tpu_torch.train``) on th
 tests/examples/test_train_example.py drives examples/train_dust3r.py: save then --resume equals an uninterrupted
 run bit for bit, SIGTERM under --preempt-safe saves at the step boundary, exits 0 and resumes bit for bit,
 --ckpt-every's asynchronous saves land and read back, a save cut short leaves the previous checkpoint, the
-argument errors and the flags the port does not take, and smokes of --mixed-ar, --lora and --model flow.
+argument errors and the flags the port does not take, and smokes of --mixed-ar, --lora and --model flow. Then the
+sharded flags: --zero1 and --fsdp in a world of one, and under torchrun (2 gloo ranks on the CPU, all runs started
+together) --zero1, --fsdp and --tp 2, an --fsdp run saved at step 2 and resumed, bit for bit the uninterrupted
+one, and --ema under --fsdp and --tp 2, written whole.
 """
 
 import os
@@ -99,11 +102,11 @@ def test_ckpt_every_saves_in_the_background_and_each_lands(tmp_path, monkeypatch
     ckpt = str(tmp_path / "ckpt")
     calls = []
 
-    def recording(path, state, step=0, wait=True):
+    def recording(path, state, step=0, wait=True, **kw):
         if calls and not calls[-1][1]:  # the loop waited on the previous save before this one
             assert _state(path)["step"] == calls[-1][0]
         calls.append((step, wait))
-        return training.save_train_state(path, state, step=step, wait=wait)
+        return training.save_train_state(path, state, step=step, wait=wait, **kw)
 
     monkeypatch.setattr(train, "save_train_state", recording)
     train.main(BASE + ["--steps", "4", "--ckpt-every", "1", "--ckpt-dir", ckpt, "--ema", "0.9"])
@@ -164,23 +167,25 @@ ARG_ERRORS = {
     "lora_and_freeze": (["--lora", "4", "--freeze-encoder"], "pick one"),
     "flow_mixed_ar": (["--model", "flow", "--mixed-ar"], "DUSt3R-specific"),
     "flow_norm_loss": (["--model", "flow", "--norm-loss"], "DUSt3R-specific"),
-    "tp": (["--tp", "2"], "ROADMAP queue 1 item 12"),
-    "zero1": (["--zero1"], "ROADMAP queue 1 item 12"),
-    "fsdp": (["--fsdp"], "ROADMAP queue 1 item 12"),
+    "tp_not_dividing_the_world": (["--tp", "3"], "divide the world of 2"),
+    "tp_zero": (["--tp", "0"], "must be at least 1"),
+    "fsdp_tp_over_the_world": (["--fsdp", "--tp", "4"], "divide the world of 2"),
     "scan": (["--scan"], "loop layout"),
 }
+ARG_WORLD = {"tp_not_dividing_the_world": 2, "fsdp_tp_over_the_world": 2}  # WORLD_SIZE, as torchrun sets it
 
 
 @pytest.mark.parametrize("case", list(ARG_ERRORS))
 def test_argument_errors_before_any_model(case, capsys, monkeypatch):
     flags, message = ARG_ERRORS[case]
+    monkeypatch.setenv("WORLD_SIZE", str(ARG_WORLD.get(case, 1)))
     monkeypatch.setattr(train, "build_model", lambda *a: pytest.fail("a model was built"))
     with pytest.raises(SystemExit) as exc:
         train.main(BASE + flags)
     assert exc.value.code == 2 and message in capsys.readouterr().err
 
 
-def test_preemption_guard_refuses_several_processes(tmp_path):
+def test_preemption_guard_keeps_the_local_flag_in_a_world_of_one(tmp_path):
     guard = training.PreemptionGuard(signals=(signal.SIGUSR1,))
     try:
         assert not guard.should_stop()
@@ -207,3 +212,73 @@ def test_training_smokes(tmp_path, capsys, flags, expect):
     out = capsys.readouterr().out
     assert len(losses) == 2 and all(map(torch.isfinite, torch.tensor(losses)))
     assert expect in out and "saved params+opt_state+step" in out
+
+
+@pytest.mark.parametrize("flag", ["--zero1", "--fsdp"])
+def test_sharding_flags_in_a_world_of_one_train_as_one_device(tmp_path, flag):
+    "A world of one: --zero1 and --fsdp shard over a data axis of 1, so the run is the plain run bit for bit."
+    plain, sharded = str(tmp_path / "plain"), str(tmp_path / "sharded")
+    assert train.main(BASE + ["--steps", "2", "--ckpt-dir", plain]) == train.main(
+        BASE + [flag, "--steps", "2", "--ckpt-dir", sharded])
+    _assert_same_state(plain, sharded)
+
+
+def _torchrun(flags, log):
+    "Start ``train`` under torchrun on 2 CPU ranks (gloo), its output to ``log``."
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
+           "uniception_tpu_torch.train"] + BASE + ["--backend", "gloo"] + flags
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=open(log, "w"), stderr=subprocess.STDOUT)
+
+
+@pytest.fixture(scope="module")
+def torchrun_runs(tmp_path_factory):
+    """Every torchrun case of the module, started together: each flag for 3 steps, --fsdp for 4 steps and for
+    2 + 2 (the second resumed), and one step of --fsdp and of --tp 2 with --ema. Returns {name: (exit code, output,
+    checkpoint dir)}."""
+    d = tmp_path_factory.mktemp("torchrun")
+    cases = {"zero1": ["--zero1", "--steps", "3"], "fsdp": ["--fsdp", "--steps", "3"], "tp": ["--tp", "2", "--steps", "3"],
+             "whole": ["--fsdp", "--steps", "4", "--ckpt-dir", str(d / "whole")],
+             "part": ["--fsdp", "--steps", "2", "--ckpt-dir", str(d / "part")],
+             "fsdp_ema": ["--fsdp", "--steps", "1", "--ema", "0.5", "--ckpt-dir", str(d / "fsdp_ema")],
+             "tp_ema": ["--tp", "2", "--steps", "1", "--ema", "0.5", "--ckpt-dir", str(d / "tp_ema")]}
+    procs = {name: _torchrun(flags, str(d / f"{name}.log")) for name, flags in cases.items()}
+    out = {}
+    for name, p in procs.items():
+        out[name] = (p.wait(timeout=600), open(d / f"{name}.log").read(), str(d / name))
+    p = _torchrun(["--fsdp", "--steps", "2", "--ckpt-dir", str(d / "part"), "--resume"], str(d / "resumed.log"))
+    out["resumed"] = (p.wait(timeout=600), open(d / "resumed.log").read(), str(d / "part"))
+    return out
+
+
+@pytest.mark.parametrize("name,want", [("zero1", "mesh {'data': 2, 'model': 1}"), ("fsdp", "mesh {'data': 2, 'model': 1}"),
+                                       ("tp", "mesh {'data': 1, 'model': 2}")])
+def test_sharding_flags_train_under_torchrun(torchrun_runs, name, want):
+    "--zero1, --fsdp and --tp 2 on 2 gloo ranks exit 0, rank 0 alone printing its mesh and finite losses."
+    code, log, _ = torchrun_runs[name]
+    assert code == 0, log
+    assert want in log and log.count("params=") == 1
+    losses = [float(line.split()[3]) for line in log.splitlines() if line.startswith("step ")]
+    assert losses and all(map(torch.isfinite, torch.tensor(losses))), log
+
+
+def test_sharded_resume_under_torchrun_equals_the_uninterrupted_run(torchrun_runs):
+    "An --fsdp run of 2 steps and its --resume of 2 more write the train state the 4-step run writes, bit for bit."
+    for name in ("whole", "part", "resumed"):
+        assert torchrun_runs[name][0] == 0, torchrun_runs[name][1]
+    assert "resumed from" in torchrun_runs["resumed"][1]
+    _assert_same_state(torchrun_runs["whole"][2], torchrun_runs["resumed"][2])
+
+
+@pytest.mark.parametrize("name", ["fsdp_ema", "tp_ema"])
+def test_sharded_ema_is_written_whole_under_torchrun(torchrun_runs, name):
+    """--ema 0.5 under --fsdp and --tp 2: rank 0 writes the unsharded EMA under the single-device model's names, after
+    one step 0.5 * init + 0.5 * the parameters of the (gathered) train state, bit for bit."""
+    code, log, ckpt = torchrun_runs[name]
+    assert code == 0, log
+    init = dict(train.build_model(train.parse_args(BASE), torch.device("cpu")).named_parameters())
+    ema, params = _state(ckpt + "_ema")["tensors"], _state(ckpt)["tensors"]
+    assert sorted(ema) == sorted(f"params.{k}" for k in init)
+    with torch.no_grad():
+        for k, p in init.items():
+            assert torch.equal(ema[f"params.{k}"], p * 0.5 + params[f"params.{k}"] * (1.0 - 0.5)), k

@@ -190,3 +190,242 @@ def pipeline_cases(cases):
         qkv = blocks[held[0]].attn.qkv.weight.shape
         out[case["name"]] = {"out": y, "held": held, "qkv": tuple(qkv)}
     return {"cases": out, "jax_free": _jax_free()}
+
+
+# --- training across ranks (tests/test_torch_parallel_training.py) ---------------------------------------------
+
+
+def _whole_params(ctx):
+    "{unsharded name: whole parameter} of a train context (gathered over the world), on every rank."
+    from uniception_tpu_torch.parallel import training
+
+    tensors, _, layouts, _ = training._state_tensors(ctx)
+    return {k[len("params."):]: (training._whole(ctx.mesh, t, layouts[k]) if layouts else t).detach().clone()
+            for k, t in tensors.items() if k.startswith("params.")}
+
+
+def _local_bytes(ctx):
+    "(bytes of the parameters, bytes of the optimizer moments) this rank holds."
+    params = sum(p.numel() * p.element_size() for p in ctx.model.parameters())
+    moments = sum(t.numel() * t.element_size() for t in ctx.optimizer.mu + ctx.optimizer.nu)
+    return params, moments
+
+
+def train_case(spec, case, batches):
+    """``make_train_step`` on the port's DUSt3R of ``spec`` with ``case`` (its options), one step per batch on this
+    rank's rows. Returns the losses, grad norms, counters, bytes held and (rank 0) the whole parameters."""
+    from uniception_tpu_torch.parallel import comm, training
+    from uniception_tpu_torch.parallel.mesh import shard_batch
+
+    model = _dust3r(spec).train()
+    ctx = training.make_train_step(model, **case["options"])
+    losses, norms = [], []
+    for b in batches:
+        out = ctx.step(*shard_batch(tuple(_t(a) for a in b), ctx.mesh))
+        loss, aux = out if ctx.metrics else (out, None)
+        losses.append(float(loss))
+        if aux is not None:
+            norms.append(float(aux["grad_norm"]))
+    whole = _whole_params(ctx)
+    return {"losses": losses, "norms": norms, "count": ctx.optimizer.count, "notfinite": ctx.notfinite_count,
+            "bytes": _local_bytes(ctx), "params": whole if comm.rank() == 0 else None,
+            "moments": ({n: (m, v) for n, m, v in zip(ctx.names, ctx.optimizer.mu, ctx.optimizer.nu)}
+                        if case.get("moments") and comm.rank() == 0 else None)}
+
+
+def resume_case(spec, options, batches, path):
+    """Two steps, a sharded save, one more step; then a fresh model and context restore the file and take that step
+    again. Returns both runs' whole parameters (rank 0), the saved file's keys and shapes, and what each rank wrote."""
+    from uniception_tpu_torch.parallel import comm, training
+    from uniception_tpu_torch.parallel.mesh import shard_batch
+
+    def run(restore):
+        ctx = training.make_train_step(_dust3r(spec).train(), **options)
+        todo = batches
+        if restore:
+            assert training.restore_train_state(path, ctx) == 2
+            todo = batches[2:]
+        for i, b in enumerate(todo):
+            ctx.step(*shard_batch(tuple(_t(a) for a in b), ctx.mesh))
+            if not restore and i == 1:
+                out = training.save_train_state(path, ctx, step=2)
+                comm.all_reduce(torch.zeros(1))  # the file is whole before any rank reads it
+                assert out is None
+        return _whole_params(ctx), ctx
+
+    uninterrupted, _ = run(False)
+    resumed, ctx = run(True)
+    saved = torch.load(os.path.join(path, training.STATE_FILE), weights_only=True)
+    return {"uninterrupted": uninterrupted if comm.rank() == 0 else None,
+            "resumed": resumed if comm.rank() == 0 else None,
+            "shapes": {k: tuple(v.shape) for k, v in saved["tensors"].items()} if comm.rank() == 0 else None,
+            "count": ctx.optimizer.count, "ema": ema_case(ctx, path + "_ema")}
+
+
+def ema_case(ctx, path):
+    """An EMA of a sharded context's parameters (the rank's parts, by unsharded name), saved whole with ``ctx`` and
+    restored into zeros: whether every rank got its parts back, and (rank 0) the file's tensors."""
+    from uniception_tpu_torch.parallel import comm, training
+    from uniception_tpu_torch.parallel.mesh import canonical_name
+
+    ema = training.ema_init({canonical_name(k): v for k, v in ctx.model.named_parameters()})
+    assert training.save_train_state(path, ema, step=3, ctx=ctx) is None
+    comm.all_reduce(torch.zeros(1))  # the file is whole before any rank reads it
+    back = {k: torch.zeros_like(v) for k, v in ema.items()}
+    assert training.restore_train_state(path, back, ctx=ctx) == 3
+    saved = torch.load(os.path.join(path, training.STATE_FILE), weights_only=True)["tensors"]
+    return {"parts_back": all(torch.equal(back[k], v) for k, v in ema.items()),
+            "file": {k: v.numpy() for k, v in saved.items()} if comm.rank() == 0 else None}
+
+
+def custom_loss_case(spec, batch):
+    """A caller's loss that takes no share of the global batch (a mean over this rank's rows) under a data axis:
+    the step's ValueError, and whether the parameters were left as they were."""
+    from uniception_tpu_torch.parallel import training
+    from uniception_tpu_torch.parallel.mesh import shard_batch
+
+    def loss_fn(m, img1, img2, target1, target2):
+        res1, _ = m.forward_pair(img1, img2)
+        return (res1["pts3d"] - target1).abs().mean()
+
+    ctx = training.make_train_step(_dust3r(spec).train(), loss_fn=loss_fn)
+    before = [p.detach().clone() for p in ctx.params]
+    try:
+        ctx.step(*shard_batch(tuple(_t(a) for a in batch), ctx.mesh))
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return {"error": error, "unchanged": all(torch.equal(a, p) for a, p in zip(before, ctx.params))}
+
+
+def flow_loss_share(flow, conf, target, valid):
+    """This rank's rows of a flow batch (each rank its own valid count): its share of the global batch's loss under
+    ``global_batch`` and its gradient, and the shares summed over the world."""
+    from uniception_tpu_torch.parallel import comm, training
+    from uniception_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    mesh = make_mesh(data=-1, model=1)
+    f, c, t, v = shard_batch((_t(flow), _t(conf), _t(target), _t(valid)), mesh)
+    f.requires_grad_(True)
+    c.requires_grad_(True)
+    with training.global_batch(mesh.group("data"), mesh.shape["data"]):
+        share = training.flow_confidence_loss({"flow": f, "flow_conf": c}, t, valid=v)
+    gf, gc = torch.autograd.grad(share, [f, c])
+    return {"loss": comm.all_reduce(share.detach(), "sum"), "valid": int(v.sum()), "grads": (gf, gc)}
+
+
+def training_world(spec, cases, batches, resume, flow, ckpt):
+    "Every training case of the file on one world, then the sharded save and resume, then the flow loss's share."
+    torch.manual_seed(0)
+    out = {name: train_case(spec, case, [batches[i] for i in case["batches"]]) for name, case in cases.items()}
+    out["resume"] = resume_case(spec, resume, batches[:3], ckpt)
+    out["flow"] = flow_loss_share(*flow)
+    out["custom_loss"] = custom_loss_case(spec, batches[0])
+    out["jax_free"] = _jax_free()
+    return out
+
+
+# --- gradients through the ring, the pipeline and TP (tests/test_torch_parallel_grads.py) ----------------------
+
+
+def ring_grads(q, k, v, cot):
+    "dq, dk, dv of <ring_attention_sharded(q, k, v), cot> over the world's ranks, each rank the whole gradients."
+    from uniception_tpu_torch.parallel import comm
+    from uniception_tpu_torch.parallel.mesh import make_mesh
+    from uniception_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    mesh = make_mesh(data=-1, model=1)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    comm.calls.clear()
+    loss = (ring_attention_sharded(*leaves, mesh, "data") * _t(cot)).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return {"grads": grads, "exchanges": comm.calls["exchange"]}
+
+
+def sp_grads(spec, views, cots):
+    """Parameter gradients of sum_v <out_v, cot_v> of the global-attention transformer under sequence parallelism
+    over the world (the ring takes every attention call)."""
+    from uniception_tpu_torch.models.info_sharing.base import MultiViewTransformerInput
+    from uniception_tpu_torch.models.info_sharing.global_attention_transformer import (
+        MultiViewGlobalAttentionTransformer,
+    )
+    from uniception_tpu_torch.ops.attention import sequence_parallel
+    from uniception_tpu_torch.parallel import comm
+    from uniception_tpu_torch.parallel.mesh import make_mesh
+    from uniception_tpu_torch.utils.weights import load_state_dict_numpy
+
+    model = MultiViewGlobalAttentionTransformer(**spec["kwargs"], device="cpu")
+    load_state_dict_numpy(model, spec["state"])
+    mesh = make_mesh(data=-1, model=1)
+    comm.calls.clear()
+    with sequence_parallel(mesh, "data"):
+        out = model(MultiViewTransformerInput(features=[_t(v) for v in views]))
+    loss = sum((f * _t(c)).sum() for f, c in zip(out.features, cots))
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return {"grads": {n: g for (n, _), g in zip(named, grads)}, "exchanges": comm.calls["exchange"]}
+
+
+def pipeline_grads(cases):
+    """``pipeline_blocks`` under autograd on each case: dict(name, spec, axes, shape, data_axis, model_axis,
+    microbatches, x, cot). Returns {name: (dx, {block parameter name: whole gradient} of the rank's stage)}."""
+    from uniception_tpu_torch.parallel import training
+    from uniception_tpu_torch.parallel.mesh import Mesh
+    from uniception_tpu_torch.parallel.pipeline import pipeline_blocks, shard_stacked_state
+
+    out = {}
+    for case in cases:
+        blocks = _blocks(case["spec"]).train()
+        mesh = Mesh(np.arange(int(np.prod(case["shape"]))).reshape(case["shape"]), case["axes"])
+        shard_stacked_state(blocks, mesh, model_axis=case.get("model_axis"))
+        x = _t(case["x"]).requires_grad_(True)
+        y = pipeline_blocks(blocks, x, mesh=mesh, data_axis=case.get("data_axis"), model_axis=case.get("model_axis"),
+                            num_microbatches=case["microbatches"])
+        held = []
+        for mname, m in blocks.named_modules():
+            for pname, p in m.named_parameters(recurse=False):
+                held.append((f"{mname}.{pname}".replace(".inner.", "."), p, getattr(m, "tp_layout", {}).get(pname)))
+        grads = torch.autograd.grad((y * _t(case["cot"])).sum(), [x] + [p for _, p, _ in held])
+        whole = {n: (training._whole(mesh, g, (tp, None)) if tp is not None else g)
+                 for (n, _, tp), g in zip(held, grads[1:])}
+        out[case["name"]] = {"dx": grads[0], "grads": whole}
+    return out
+
+
+def tp_grads(x, seed=0):
+    """An fp32 ``Mlp`` (64 -> 256 -> 64) and self-``Attention`` (64 wide, 4 heads, qkv bias) unsharded and under
+    tensor parallelism (data 2 x model 2): outputs, input gradients and whole weight gradients of <out, out>."""
+    from uniception_tpu_torch.nn.blocks import Attention, Mlp
+    from uniception_tpu_torch.parallel import comm, training
+    from uniception_tpu_torch.parallel.mesh import make_mesh, tp_shard_state
+
+    mesh = make_mesh(data=2, model=2)
+    out = {}
+    for name, make in (("mlp", lambda g: Mlp(64, 256, device="cpu", generator=g)),
+                       ("attn", lambda g: Attention(64, 4, qkv_bias=True, device="cpu", generator=g))):
+        runs = []
+        for shard in (False, True):
+            mod = torch.nn.Module()  # the layer under its name in a block, which the TP rules anchor on
+            setattr(mod, name, make(torch.Generator().manual_seed(seed)))
+            if shard:
+                tp_shard_state(mod, mesh)
+            xi = _t(x).requires_grad_(True)
+            comm.calls.clear()
+            y = getattr(mod, name)(xi)
+            named = []
+            for mname, m in mod.named_modules():
+                for pname, p in m.named_parameters(recurse=False):
+                    named.append((f"{mname}.{pname}".replace(".inner.", "."), p,
+                                  getattr(m, "tp_layout", {}).get(pname)))
+            grads = torch.autograd.grad((y * y).sum(), [xi] + [p for _, p, _ in named])
+            whole = {n: (training._whole(mesh, g, (tp, None)) if tp is not None else g)
+                     for (n, _, tp), g in zip(named, grads[1:])}
+            runs.append({"y": y, "dx": grads[0], "grads": whole, "all_reduces": comm.calls["all_reduce"]})
+        out[name] = runs
+    return out
+
+
+def grads_world(ring, sp, pipes, x_tp):
+    "Every case of tests/test_torch_parallel_grads.py on one world of 4 ranks."
+    return {"ring": ring_grads(*ring), "sp": sp_grads(*sp), "pipe": pipeline_grads(pipes), "tp": tp_grads(x_tp),
+            "jax_free": _jax_free()}

@@ -268,6 +268,11 @@ def _token_count_scale_factor(n_tokens, use_scalable_softmax, use_entropy_scalin
     return f
 
 
+def _enter(proj, x):
+    "A projection's input as a kernel reading its weight takes it (parallel/mesh.py ``ColumnParallel.enter``)."
+    return proj.enter(x) if hasattr(proj, "enter") else x
+
+
 def _fused_attention_applicable(mod, n_kv: int) -> bool:
     """Whether the fused qkv + RoPE + attention kernel covers this module (JAX
     nn/blocks.py:238-266): the "fused" implementation, plain projections (an
@@ -283,7 +288,7 @@ def _fused_attention_applicable(mod, n_kv: int) -> bool:
     pe = mod.custom_positional_encoding
     projs = [getattr(mod, a) for a in ("qkv", "projq", "projk", "projv") if hasattr(mod, a)]
     return (
-        all(isinstance(p, nn.Linear) for p in projs)
+        all(isinstance(getattr(p, "inner", p), nn.Linear) for p in projs)
         and isinstance(mod.q_norm, nn.Identity)
         and isinstance(mod.k_norm, nn.Identity)
         and (pe is None or isinstance(pe, Rope2D))
@@ -397,8 +402,8 @@ class Attention(_AttentionBase):
         if _fused_attention_applicable(self, N):
             scale, (base, f0) = self._fused_args(N, xpos is not None)
             pos = xpos if self.custom_positional_encoding is not None else None
-            out = fused_qkv_rope_attention(x, self.qkv.weight.to(x.dtype), self.qkv.bias, pos, self.num_heads, scale,
-                                           base, f0)
+            out = fused_qkv_rope_attention(_enter(self.qkv, x), self.qkv.weight.to(x.dtype), self.qkv.bias, pos,
+                                           self.num_heads, scale, base, f0)
             return self.proj_drop(self.proj(out))
         # q/k/v stay strided views of the projection: the kernels read them by stride
         q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim).unbind(2)
@@ -452,7 +457,8 @@ class CrossAttention(_AttentionBase):
             rope = self.custom_positional_encoding is not None
             dt = query.dtype
             out = fused_cross_rope_attention(
-                query, key, self.projq.weight.to(dt), self.projk.weight.to(dt), self.projv.weight.to(dt),
+                _enter(self.projq, query), _enter(self.projk, key), self.projq.weight.to(dt),
+                self.projk.weight.to(dt), self.projv.weight.to(dt),
                 self.projq.bias, self.projk.bias, self.projv.bias, qpos if rope else None, kpos if rope else None,
                 self.num_heads, scale, base, f0,
             )

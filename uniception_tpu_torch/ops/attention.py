@@ -30,7 +30,11 @@ token counts the axis divides goes to the ring (parallel/ring_attention.py
 ``ring_attention_sharded``: each rank attends its share of the queries to every
 key chunk as the chunks rotate, K1 with its logsumexp on each), exactly where
 the JAX package routes it (its ops/attention.py:171-182); every other call takes
-the usual route.
+the usual route. When a gradient is needed the ring is differentiable (K3 on
+each chunk from the global logsumexp), so a model under sequence parallelism
+trains. The JAX package's activation-sharding constraints
+(``set_activation_sharding``) pin GSPMD's layout; each rank here already holds
+its rows and heads, so they have no counterpart.
 """
 
 import contextlib

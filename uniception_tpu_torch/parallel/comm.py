@@ -8,6 +8,9 @@ The process-group plumbing the multi-GPU modules share: one process per rank,
       :class:`Exchange` (a send to one peer and a receive from another, started
       together): the collectives, each counted in :data:`calls` and wrapped in a
       ``comm::<name>`` profiler span;
+    * :func:`reduce_from` and :func:`copy_to`: Megatron's pair of tensor-parallel
+      operators with their gradients (a sum forward and the identity backward, the
+      identity forward and a sum backward);
     * :func:`spawn`: start a world of rank processes (``spawn``, never ``fork``)
       on this host and collect what each returns.
 
@@ -29,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init", "device", "backend", "rank", "world_size", "transport", "calls", "all_reduce", "all_gather",
-           "broadcast", "Exchange", "spawn", "SOLO"]
+           "broadcast", "Exchange", "reduce_from", "copy_to", "spawn", "SOLO"]
 
 _DEVICE: Optional[torch.device] = None
 _AS_BYTES = (torch.bfloat16, torch.float16)  # gloo has no 2-byte integer type and no bf16: such data moves as bytes
@@ -161,6 +164,47 @@ class Exchange:
             for w in self._works:
                 w.wait()
             return [_unwire(w, t) for w, t in zip(self._recv, self._like)]
+
+
+class _ReduceFrom(torch.autograd.Function):
+    "The sum over ``group`` forward; the identity backward: each rank's partial product gets the whole gradient."
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    "The identity forward; the sum over ``group`` backward: the input's gradient adds every rank's share."
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel layer's output: the sum of the ranks' partial products over ``group``. Its gradient is the
+    identity (every rank's partial product gets the whole output gradient)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ReduceFrom.apply(t, group)
+    return all_reduce(t, "sum", group)
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel layer's input: the tensor itself forward; backward its gradient summed over ``group`` (each
+    rank's output features give a share of it). Without a gradient to carry it returns ``t`` and calls nothing."""
+    if torch.is_grad_enabled() and t.requires_grad and group is not SOLO:
+        return _CopyTo.apply(t, group)
+    return t
 
 
 def _wire_shape(t: torch.Tensor) -> torch.Tensor:

@@ -15,11 +15,19 @@ Tensor parallelism (:func:`tp_shard_state`) keeps, on each rank of the
 "model" axis, its share of every column-parallel layer's output features and
 of every row-parallel layer's input features; a row-parallel layer is wrapped
 in :class:`RowParallel`, which sums its partial products over the "model" group
-before its bias. :data:`TP_RULES` are the JAX rules in
-the port's state-dict names and layouts: a torch ``weight`` is (out, in), so
+before its bias, and a column-parallel one in :class:`ColumnParallel`, whose
+input's gradient is summed over the group (Megatron's pair of operators,
+parallel/comm.py ``reduce_from`` and ``copy_to``). Every other parameter is the
+same on each rank of the group, and so is its gradient. :data:`TP_RULES` are
+the JAX rules in the port's state-dict names and layouts: a torch ``weight`` is (out, in), so
 JAX's ``kernel`` (in, out) ``P(None, "model")`` is ``P("model", None)`` here;
 ``Int8Linear`` exports ``w_q`` (in, out) as JAX keeps it, so its rules read as
 JAX's.
+
+ZeRO-1 and FSDP (:func:`zero1_shard_state`, :func:`fsdp_shard_state`) split
+each tensor over the "data" axis by JAX's per-leaf rule (:func:`leaf_data_spec`:
+the largest axis that is free, divisible by the data size and larger than 1),
+taken in JAX's layout and reported in the tensor's own.
 
 Two column-parallel layers hold several sections in one output axis: ``qkv``
 (q, k and v, each H heads) and SwiGLU's ``w12`` (x1, x2). JAX's spec splits the
@@ -29,7 +37,9 @@ port shards each section on its own (q, k and v by heads, x1 and x2 by
 columns), and :func:`leaf_tp_spec` still reports JAX's spec.
 """
 
+import contextlib
 import re
+import weakref
 
 import numpy as np
 import torch
@@ -49,8 +59,16 @@ __all__ = [
     "make_mesh",
     "replicate_state",
     "RowParallel",
+    "ColumnParallel",
     "tp_shard_state",
     "leaf_tp_spec",
+    "leaf_data_spec",
+    "data_dim",
+    "data_slice",
+    "zero1_shard_state",
+    "fsdp_shard_state",
+    "fsdp_release",
+    "canonical_name",
     "shard_batch",
     "tree_map",
     "TP_RULES",
@@ -232,7 +250,7 @@ class RowParallel(nn.Module):
         lin, group = self.inner, self.group
         if not hasattr(lin, "w_q"):
             dt = getattr(lin, "compute_dtype", None) or lin.weight.dtype
-            y = comm.all_reduce(F.linear(x.to(dt), lin.weight.to(dt)), "sum", group)
+            y = comm.reduce_from(F.linear(x.to(dt), lin.weight.to(dt)), group)
             return y if lin.bias is None else y + lin.bias.to(dt)
         x2 = x.reshape(-1, lin.in_features)
         m = None
@@ -259,6 +277,30 @@ class RowParallel(nn.Module):
         return y.to(x.dtype).reshape(*x.shape[:-1], lin.out_features)
 
 
+class ColumnParallel(nn.Module):
+    """A column-parallel layer under tensor parallelism: ``inner`` (a Linear or Int8Linear) holds this rank's share of
+    the output features. The forward is ``inner``'s; the input's gradient is summed over ``group`` (the "model"
+    axis), since each rank's output features give a share of it (``comm.copy_to``). Attributes the wrapper does not
+    hold (``weight``, ``bias``, ``w_q``, ...) are ``inner``'s."""
+
+    def __init__(self, inner: nn.Module, group):
+        super().__init__()
+        self.inner, self.group = inner, group
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(super().__getattr__("inner"), name)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        "The layer's input as the kernels that read ``weight`` directly take it: its gradient summed over the group."
+        return comm.copy_to(x, self.group)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.inner(self.enter(x))
+
+
 def _keep_inputs(lin, lo: int, hi: int, group) -> RowParallel:
     "Row-parallel: keep input features [lo, hi) of a Linear or Int8Linear, wrapped to reduce over ``group``."
     with torch.no_grad():
@@ -280,6 +322,14 @@ def _sections(n_sections: int, width: int, r: int, t: int) -> torch.Tensor:
     return torch.cat([s * width + torch.arange(lo, hi) for s in range(n_sections)])
 
 
+def _record_tp(lin, names_dims, parts):
+    """Record on a float layer, for each of its tensors ``names_dims`` ({name: dim}) sharded by tensor parallelism,
+    the dim and the rows or columns of the whole tensor each rank of the "model" axis holds (``parts``, in axis
+    order): ``lin.tp_layout`` = {name: (dim, parts)}, which training's gather and re-shard read."""
+    if not hasattr(lin, "w_q"):
+        lin.tp_layout = {n: (d, parts) for n, d in names_dims.items() if getattr(lin, n, None) is not None}
+
+
 def tp_shard_state(module: nn.Module, mesh: Mesh, rules=None) -> nn.Module:
     """Shard ``module`` (in place) with the tensor-parallel rules over the mesh's "model" axis; returns it.
 
@@ -287,8 +337,9 @@ def tp_shard_state(module: nn.Module, mesh: Mesh, rules=None) -> nn.Module:
     ``proj`` the matching input columns; each MLP (``Mlp``, ``SwiGLUFFN``) its share of the hidden features. A module
     is sharded when every one of its layers' weights is sharded by :func:`leaf_tp_spec` (so a head count or hidden
     width that the axis does not divide stays replicated, as the divisibility fallback leaves it); everything else is
-    replicated. Each row-parallel layer becomes a :class:`RowParallel` around it. The module goes to the rank's device
-    first."""
+    replicated. Each row-parallel layer becomes a :class:`RowParallel` around it, each column-parallel one a
+    :class:`ColumnParallel`; a float layer records which rows or columns of each whole tensor every rank holds
+    (``tp_layout``, read by training's gathers). The module goes to the rank's device first."""
     from uniception_tpu_torch.nn.blocks import Attention, CrossAttention, Mlp, SwiGLUFFN
 
     rules = rules if rules is not None else TP_RULES
@@ -310,7 +361,12 @@ def tp_shard_state(module: nn.Module, mesh: Mesh, rules=None) -> nn.Module:
                 continue
             width = m.num_heads * m.head_dim
             for a in cols:
-                _keep_outputs(getattr(m, a), _sections(3 if a == "qkv" else 1, width, r, t))
+                n_sec = 3 if a == "qkv" else 1
+                lin = getattr(m, a)
+                _keep_outputs(lin, _sections(n_sec, width, r, t))
+                _record_tp(lin, {"weight": 0, "bias": 0}, [_sections(n_sec, width, i, t) for i in range(t)])
+                setattr(m, a, ColumnParallel(lin, group))
+            _record_tp(m.proj, {"weight": 1}, [torch.arange(*_span(i, t, width)) for i in range(t)])
             m.proj = _keep_inputs(m.proj, *_span(r, t, width), group)
             m.num_heads //= t
         elif isinstance(m, (Mlp, SwiGLUFFN)):
@@ -318,7 +374,11 @@ def tp_shard_state(module: nn.Module, mesh: Mesh, rules=None) -> nn.Module:
             hidden = getattr(m, row).in_features
             if hidden % t or not (ok(col) and ok(row)):
                 continue
-            _keep_outputs(getattr(m, col), _sections(1 if col == "fc1" else 2, hidden, r, t))
+            n_sec, lin = 1 if col == "fc1" else 2, getattr(m, col)
+            _keep_outputs(lin, _sections(n_sec, hidden, r, t))
+            _record_tp(lin, {"weight": 0, "bias": 0}, [_sections(n_sec, hidden, i, t) for i in range(t)])
+            setattr(m, col, ColumnParallel(lin, group))
+            _record_tp(getattr(m, row), {"weight": 1}, [torch.arange(*_span(i, t, hidden)) for i in range(t)])
             setattr(m, row, _keep_inputs(getattr(m, row), *_span(r, t, hidden), group))
     return module
 
@@ -345,3 +405,175 @@ def shard_batch(batch, mesh: Mesh, axis: str = "data"):
         return x[i * b : (i + 1) * b].to(mesh.device)
 
     return tree_map(rows, batch)
+
+
+# --- the data axis: ZeRO-1 and FSDP ----------------------------------------------------------------------------
+
+
+def canonical_name(name: str) -> str:
+    """A parameter's name as the unsharded module holds it: the tensor-parallel wrappers' ``inner`` and FSDP's
+    ``parametrizations.<name>.original`` taken out."""
+    name = re.sub(r"(^|\.)parametrizations\.(\w+)\.original$", r"\1\2", name)
+    return ".".join(p for p in name.split(".") if p != "inner")
+
+
+def _jax_dims(path: str, ndim: int) -> list:
+    """For each dim of a port tensor, the dim of the JAX leaf it is: a Linear's ``weight`` (out, in) is JAX's kernel
+    (in, out); a conv's ``weight`` (out, in, *k) is JAX's (*k, in, out); everything else keeps its layout."""
+    if path.endswith("weight") and ndim >= 2:
+        return [ndim - 1, ndim - 2] + list(range(ndim - 2))
+    return list(range(ndim))
+
+
+def leaf_data_spec(path: str, leaf, mesh: Mesh, tp_spec=None) -> P:
+    """The PartitionSpec of one tensor over the "data" axis (and the "model" axis it already has): JAX's
+    ``_data_shard_largest_axis`` for the same leaf, in the tensor's own dims.
+
+    JAX's rule, taken in JAX's layout: the largest axis that is not already sharded, that the data size divides and
+    that is larger than 1 (the first such in JAX's dim order on a tie); scalars, indivisible leaves and a data axis
+    of 1 keep ``tp_spec`` (None: replicated). ``leaf`` is the tensor (or anything with ``shape``); under tensor
+    parallelism the rank's share, whose model dim ``tp_spec`` names."""
+    shape = tuple(leaf.shape)
+    ndim = len(shape)
+    existing = list(tp_spec or ()) + [None] * (ndim - len(tp_spec or ()))
+    data = mesh.shape["data"]
+    if ndim == 0 or data == 1:
+        return P(*existing)
+    torch_dim = {j: d for d, j in enumerate(_jax_dims(path, ndim))}  # JAX dim -> port dim
+    cands = [j for j in range(ndim)
+             if existing[torch_dim[j]] is None and shape[torch_dim[j]] % data == 0 and shape[torch_dim[j]] > 1]
+    if not cands:
+        return P(*existing)
+    existing[torch_dim[max(cands, key=lambda j: shape[torch_dim[j]])]] = "data"
+    return P(*existing)
+
+
+def data_dim(spec) -> "int | None":
+    "The dim a spec splits over the data axis, or None."
+    return next((d for d, a in enumerate(spec) if a == "data"), None)
+
+
+def data_slice(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    "This rank's contiguous block of ``t`` along ``dim`` over the data axis (a view)."
+    n = t.shape[dim] // mesh.shape["data"]
+    return t.narrow(dim, mesh.coords["data"] * n, n)
+
+
+def _tp_spec(owner, pname: str, ndim: int):
+    layout = getattr(owner, "tp_layout", {}).get(pname)
+    if layout is None:
+        return None
+    spec = [None] * ndim
+    spec[layout[0]] = "model"
+    return P(*spec)
+
+
+def zero1_shard_state(state, mesh: Mesh, tp_specs=None):
+    """ZeRO-1: this rank's share of a {name: tensor} state (the optimizer moments, named as their parameters) over
+    the "data" axis. Each tensor keeps the block :func:`leaf_data_spec` gives this rank's data coordinate (a view);
+    a tensor the rule leaves whole stays whole. ``tp_specs`` ({name: spec}) names the model dims tensor parallelism
+    already split. Returns {name: (slice, dim or None)}."""
+    out = {}
+    for name, t in state.items():
+        d = data_dim(leaf_data_spec(name, t, mesh, (tp_specs or {}).get(name)))
+        out[name] = (t if d is None else data_slice(t, d, mesh), d)
+    return out
+
+
+_GATHERED = {}  # storage pointer of a gathered whole parameter -> (its _DataGather, the shard), while it lives
+
+
+class _Gather(torch.autograd.Function):
+    """The whole tensor from each rank's shard (an all-gather over the data axis). Backward: the whole tensor's
+    gradient is added to the gather's ``grad`` (every use of the parameter in the step), and the data reduce and the
+    slice come after the backward (``training``), as plain data parallelism reduces its gradients."""
+
+    @staticmethod
+    def forward(ctx, shard, gm):
+        ctx.gm = gm
+        return comm.all_gather(shard, gm.dim, gm.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        gm = ctx.gm
+        gm.grad = g if gm.grad is None else gm.grad + g
+        return None, None
+
+
+class _DataGather(nn.Module):
+    """FSDP's parametrization of one parameter: the module holds this rank's shard (``original``) and reads the whole
+    tensor, gathered over the data axis at each read and released when the read's result is."""
+
+    def __init__(self, dim: int, mesh: Mesh):
+        super().__init__()
+        self.dim, self.group = dim, mesh.group("data")
+        self.grad = None  # the step's gradient of the whole tensor, summed over its uses, before the data reduce
+
+    def forward(self, shard: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and shard.requires_grad:
+            full = _Gather.apply(shard, self)
+        else:
+            full = comm.all_gather(shard, self.dim, self.group)
+        key = full.untyped_storage().data_ptr()
+        _GATHERED[key] = (self, shard)
+        weakref.finalize(full, _GATHERED.pop, key, None)
+        return full
+
+
+def fsdp_shard_state(module: nn.Module, mesh: Mesh) -> nn.Module:
+    """FSDP / ZeRO-3: keep only this rank's share of each parameter over the "data" axis (in place); returns the
+    module.
+
+    Each parameter that :func:`leaf_data_spec` splits (after tensor parallelism's own split, kept) is replaced by its
+    block (``<owner>.parametrizations.<name>.original``) and read through a parametrization that all-gathers the whole
+    tensor at each read: every layer gathers its weights when it runs, and the whole tensor is released once the
+    layer's result no longer needs it (:func:`fsdp_release` re-gathers the ones a backward needs instead of keeping
+    them). A gather's gradient is the whole tensor's; the train step reduces it over "data" and keeps its block.
+    ``module.fsdp_leaves`` maps each split parameter's unsharded name to (parametrization, dim)."""
+    from torch.nn.utils import parametrize
+
+    leaves = {}
+    for mname, owner in list(module.named_modules()):
+        for pname, p in list(owner.named_parameters(recurse=False)):
+            name = canonical_name(f"{mname}.{pname}" if mname else pname)
+            d = data_dim(leaf_data_spec(name, p, mesh, _tp_spec(owner, pname, p.ndim)))
+            if d is None:
+                continue
+            gm = _DataGather(d, mesh)
+            with torch.no_grad():
+                setattr(owner, pname, nn.Parameter(data_slice(p.detach(), d, mesh).clone(),
+                                                   requires_grad=p.requires_grad))
+            parametrize.register_parametrization(owner, pname, gm, unsafe=True)
+            leaves[name] = (gm, d)
+    module.fsdp_leaves = leaves
+    return module
+
+
+class _Regather:
+    "A saved view of a gathered parameter, kept as its shard and gathered again when the backward reads it."
+
+    def __init__(self, gm, shard, t):
+        self.gm, self.shard = gm, shard
+        self.size, self.stride, self.offset = t.size(), t.stride(), t.storage_offset()
+
+    def get(self):
+        full = comm.all_gather(self.shard.detach(), self.gm.dim, self.gm.group)
+        return full.as_strided(self.size, self.stride, self.offset)
+
+
+def _pack(t):
+    hit = _GATHERED.get(t.untyped_storage().data_ptr()) if t.device.type != "meta" else None
+    return t if hit is None else _Regather(hit[0], hit[1], t)
+
+
+def _unpack(x):
+    return x.get() if isinstance(x, _Regather) else x
+
+
+@contextlib.contextmanager
+def fsdp_release():
+    """While open, a gathered parameter that the autograd graph saves for the backward (a fp32 layer's weight) is kept
+    as its shard and gathered again when the backward reads it, so no whole parameter outlives its layer. (A bf16
+    compute cast saves its own copy, as it does without FSDP.)"""
+    with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+        yield

@@ -12,6 +12,13 @@ static schedule (step t runs microbatch t - s on stage s; bubble fraction
 each microbatch's rows (pp x dp), a "model" axis shards each stage's blocks by
 tensor parallelism (pp x tp, parallel/mesh.py ``tp_shard_state``).
 
+Under autograd every stage keeps each microbatch's graph, and the backward is
+the reverse schedule: the stage takes its outputs' gradient from stage s + 1
+(the last stage its rows of the output gradient: every rank computes the same
+loss, so the broadcast's gradient is one copy, not a sum over the stages), runs
+backward and sends its input gradient to stage s - 1. The parameter gradients
+add up over the microbatches and over "data".
+
 Usage:
     mesh = Mesh(np.arange(world).reshape(S, D), ("stage", "data"))
     shard_stacked_state(blocks, mesh)
@@ -56,6 +63,118 @@ def shard_stacked_state(stacked: nn.ModuleList, mesh: Mesh, stage_axis: str = "s
             stacked[i] = nn.Identity()
 
 
+class _Plan:
+    "One pipeline call: the rank's stage, blocks, microbatches and the rows of each that are this rank's."
+
+    def __init__(self, stacked, x, broadcast_args, mesh, stage_axis, data_axis, num_microbatches):
+        self.mesh, self.stage_axis, self.data_axis = mesh, stage_axis, data_axis
+        self.S, self.s = mesh.shape[stage_axis], mesh.coords[stage_axis]
+        self.mine = list(stacked)[_stage_slice(len(stacked), mesh, stage_axis)]
+        self.batch = x.shape[0]
+        self.M = num_microbatches or self.S
+        assert self.batch % self.M == 0, f"batch {self.batch} not divisible by {self.M} microbatches"
+        self.mb = self.batch // self.M
+        self.d, self.di = 1, 0
+        if data_axis is not None:
+            self.d, self.di = mesh.shape[data_axis], mesh.coords[data_axis]
+            assert self.mb % self.d == 0, f"microbatch {self.mb} not divisible by data axis {self.d}"
+        self.rows = self.mb // self.d
+        self.args = broadcast_args
+        self.group = mesh.group(stage_axis)
+        self.nxt, self.prv = mesh.peer(stage_axis, 1), mesh.peer(stage_axis, -1)
+        self.saved = {}  # microbatch -> (stage input, stage output), the graphs a backward runs
+
+    def local(self, a, m):  # this rank's rows of microbatch m
+        lo = m * self.mb + self.di * self.rows
+        return a[lo : lo + self.rows].to(self.mesh.device)
+
+    def stage(self, h, m):
+        args = tuple(self.local(a, m) for a in self.args)
+        for blk in self.mine:
+            h = blk(h, *args)
+        return h
+
+    def forward(self, x, keep: bool):
+        """The static schedule (step t runs microbatch t - s on stage s); the last stage's outputs on every rank.
+        With ``keep`` each microbatch's graph is kept for :meth:`backward`."""
+        S, s, M = self.S, self.s, self.M
+        like = self.local(x, 0)
+        outs, sends = [], []
+        for t in range(M + S - 1):
+            m = t - s
+            if not 0 <= m < M:
+                continue
+            h = self.local(x, m) if s == 0 else comm.Exchange([], None, [like], self.prv, self.group).wait()[0]
+            if keep:
+                h = h.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    y = self.stage(h, m)
+                self.saved[m] = (h, y)
+                y = y.detach()
+            else:
+                y = self.stage(h, m)
+            if s < S - 1:
+                sends.append(comm.Exchange([y], self.nxt, [], None, self.group))
+            else:
+                outs.append(y)
+        for pending in sends:
+            pending.wait()
+        out = torch.cat(outs) if s == S - 1 else like.new_empty((M * self.rows, *like.shape[1:]))
+        out = comm.broadcast(out, self.mesh.members(self.stage_axis)[-1], self.group)
+        return self._gather(out, x.shape)
+
+    def _gather(self, out, shape):
+        "(M, rows) blocks of every data coordinate in the batch's order, as a (batch, ...) tensor."
+        if self.data_axis is not None:  # (d, M, rows) -> (M, d * rows)
+            out = comm.all_gather(out.reshape(self.M, self.rows, *out.shape[1:]), 1, self.mesh.group(self.data_axis))
+        return out.reshape(shape)
+
+    def backward(self, dout, params):
+        """The reverse schedule: the last stage takes its rows of the output gradient (every rank computes the same
+        loss, so one copy of it, not a sum over the stages), each stage runs its microbatches' graphs backward in
+        reverse order and sends the input gradient to the stage before. The parameter gradients add up over the
+        microbatches (and over "data"); the first stage's input gradients reach every rank as the outputs did."""
+        S, s, M = self.S, self.s, self.M
+        grads = [None] * len(params)
+        dxs, sends = [], []
+        for m in reversed(range(M)):
+            h, y = self.saved.pop(m)
+            if s == S - 1:
+                dy = self.local(dout, m).to(y.dtype)
+            else:
+                dy = comm.Exchange([], None, [y], self.nxt, self.group).wait()[0]
+            got = torch.autograd.grad(y, [h] + params, dy, allow_unused=True)
+            grads = [g if a is None else (a if g is None else g + a) for g, a in zip(grads, got[1:])]
+            if s > 0:
+                sends.append(comm.Exchange([got[0]], self.prv, [], None, self.group))
+            else:
+                dxs.insert(0, got[0])
+        for pending in sends:
+            pending.wait()
+        if self.data_axis is not None:
+            group = self.mesh.group(self.data_axis)
+            grads = [None if g is None else comm.all_reduce(g, "sum", group) for g in grads]
+        like = dout[: self.rows]
+        dx = torch.cat(dxs) if s == 0 else like.new_empty((M * self.rows, *like.shape[1:]))
+        dx = comm.broadcast(dx.to(like.dtype), self.mesh.members(self.stage_axis)[0], self.group)
+        return self._gather(dx, dout.shape), grads
+
+
+class _Pipeline(torch.autograd.Function):
+    "The pipeline with its gradient: inputs x and the rank's stage parameters."
+
+    @staticmethod
+    def forward(ctx, plan, x, *params):
+        ctx.plan, ctx.n = plan, len(params)
+        ctx.save_for_backward(*params)
+        return plan.forward(x, keep=True)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dx, grads = ctx.plan.backward(dout.contiguous(), list(ctx.saved_tensors))
+        return (None, dx, *grads)
+
+
 def pipeline_blocks(
     stacked: Sequence[nn.Module],
     x: torch.Tensor,
@@ -76,50 +195,15 @@ def pipeline_blocks(
     model_axis: the stage's blocks are tensor-parallel over this axis (shard them with
         ``shard_stacked_state(..., model_axis="model")``); activations are the same on its ranks.
     Returns the (B, ...) output on every rank, equal to running the blocks in a loop.
+
+    Under autograd (grad mode on, and x or a parameter of the rank's stage requiring a gradient) every stage keeps
+    each microbatch's graph, and the backward runs the reverse schedule (``_Plan.backward``): each rank's stage
+    parameters get the gradient of its (replicated) loss, summed over the microbatches and over ``data_axis``, and
+    x the whole input gradient on every rank.
     """
-    S = mesh.shape[stage_axis]
-    s = mesh.coords[stage_axis]
-    mine = list(stacked)[_stage_slice(len(stacked), mesh, stage_axis)]
-    batch = x.shape[0]
-    M = num_microbatches or S
-    assert batch % M == 0, f"batch {batch} not divisible by {M} microbatches"
-    mb = batch // M
-    d, di = 1, 0
-    if data_axis is not None:
-        d, di = mesh.shape[data_axis], mesh.coords[data_axis]
-        assert mb % d == 0, f"microbatch {mb} not divisible by data axis {d}"
-    rows = mb // d
-
-    def local(a, m):  # this rank's rows of microbatch m
-        return a[m * mb + di * rows : m * mb + (di + 1) * rows].to(mesh.device)
-
-    def stage(h, m):
-        args = tuple(local(a, m) for a in broadcast_args)
-        for blk in mine:
-            h = blk(h, *args)
-        return h
-
-    group = mesh.group(stage_axis)
-    nxt, prv = mesh.peer(stage_axis, 1), mesh.peer(stage_axis, -1)
-    like = local(x, 0)
-    outs, sends = [], []
+    plan = _Plan(stacked, x, broadcast_args, mesh, stage_axis, data_axis, num_microbatches)
+    params = [p for blk in plan.mine for p in blk.parameters() if p.requires_grad]
+    if torch.is_grad_enabled() and (x.requires_grad or params):
+        return _Pipeline.apply(plan, x, *params)
     with torch.no_grad():
-        # static schedule: step t runs microbatch t - s on stage s
-        for t in range(M + S - 1):
-            m = t - s
-            if not 0 <= m < M:
-                continue
-            h = local(x, m) if s == 0 else comm.Exchange([], None, [like], prv, group).wait()[0]
-            y = stage(h, m)
-            if s < S - 1:
-                sends.append(comm.Exchange([y], nxt, [], None, group))
-            else:
-                outs.append(y)
-        for pending in sends:
-            pending.wait()
-        out = torch.cat(outs) if s == S - 1 else torch.empty((M * rows, *like.shape[1:]), dtype=like.dtype,
-                                                               device=mesh.device)
-        out = comm.broadcast(out, mesh.members(stage_axis)[-1], group)  # the last stage's outputs on every stage
-        if data_axis is not None:  # (d, M, rows) -> (M, d * rows) in the batch's order
-            out = comm.all_gather(out.reshape(M, rows, *out.shape[1:]), 1, mesh.group(data_axis))
-    return out.reshape(batch, *x.shape[1:])
+        return plan.forward(x, keep=False)

@@ -19,18 +19,31 @@ rounding: each chunk's output leaves K1 in q's dtype (bf16 rounds it once
 more) before the fp32 combine. The full (V*T)^2 score matrix never exists on
 one rank, and no einsum runs on the card's path.
 
-Gradients through the ring are the training half of multi-GPU (ROADMAP queue 1
-item 12): a call that needs one raises.
+Gradients (:class:`RingAttentionFunction`): the forward saves the combined
+output (in q's dtype) and the global logsumexp, and the backward is a second
+ring. At each step the rank runs K3 (``flash_attention_bwd``; a CPU tensor
+takes ``flash_attention_bwd_ref``) on its queries and the chunk it holds, with
+the global output and logsumexp: K3 takes delta from O . dO and p from the
+global logsumexp, so each call gives exactly that chunk's share of dq, dk and
+dv. dq adds up on the rank; the dk/dv partials travel with their K/V chunk and
+reach their home rank after the last step. The partials leave K3 in q's dtype
+and are added in fp32 (one more rounding of each partial in bf16), then
+rounded once to q's dtype.
 """
 
 from typing import Optional
 
 import torch
 
-from uniception_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_lse_ref
+from uniception_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_fwd,
+    flash_attention_lse_ref,
+)
 from uniception_tpu_torch.parallel import comm
 
-__all__ = ["ring_attention", "ring_attention_sharded", "combine_lse"]
+__all__ = ["ring_attention", "ring_attention_sharded", "combine_lse", "RingAttentionFunction"]
 
 
 def combine_lse(out_a: torch.Tensor, lse_a: torch.Tensor, out_b: torch.Tensor, lse_b: torch.Tensor):
@@ -41,23 +54,12 @@ def combine_lse(out_a: torch.Tensor, lse_a: torch.Tensor, out_b: torch.Tensor, l
     return out_a.float() * wa + out_b.float() * wb, lse
 
 
-def _needs_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def ring_attention(q, k, v, axis_name: str, scale: Optional[float] = None, *, mesh, impl: str = "kernel"):
-    """Exact attention with the token axis split over ``axis_name`` of ``mesh``.
-
-    q, k, v: this rank's (B, N_local, H, D) shards (the token chunk of its coordinate on the axis). Returns its
-    (B, N_local, H, D) output shard in q's dtype. ``impl`` "naive" runs the plain version on every chunk."""
-    if _needs_grad(q, k, v):
-        raise NotImplementedError("gradients through ring attention are the training half of multi-GPU: "
-                                  "ROADMAP queue 1 item 12")
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
+def _ring_forward(q, k, v, scale, mesh, axis_name, impl):
+    "(out in q's dtype, fp32 lse (B, H, N_local)) of this rank's queries against every rank's chunk."
     n = mesh.shape[axis_name]
     group = mesh.group(axis_name)
     nxt, prv = mesh.peer(axis_name, 1), mesh.peer(axis_name, -1)
-    q, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    kc, vc = k, v
     out = lse = None
     for step in range(n):
         pending = comm.Exchange([kc, vc], nxt, [kc, vc], prv, group) if step < n - 1 else None
@@ -68,15 +70,92 @@ def ring_attention(q, k, v, axis_name: str, scale: Optional[float] = None, *, me
         out, lse = (o.float(), l) if out is None else combine_lse(out, lse, o, l)
         if pending is not None:
             kc, vc = pending.wait()
-    return out.to(q.dtype)
+    return out.to(q.dtype), lse.contiguous()
+
+
+def _ring_backward(q, k, v, out, lse, dout, scale, mesh, axis_name, impl):
+    """(dq, dk, dv) of this rank's shards: K3 on each chunk from the global out and lse; dq summed here, each chunk's
+    dk/dv partials summed in fp32 as they travel with it, home after the last step."""
+    n = mesh.shape[axis_name]
+    group = mesh.group(axis_name)
+    nxt, prv = mesh.peer(axis_name, 1), mesh.peer(axis_name, -1)
+    bwd = flash_attention_bwd_ref if impl == "naive" else flash_attention_bwd
+    dout = dout.contiguous()
+    kc, vc = k, v
+    dq = dk = dv = None
+    for step in range(n):
+        gq, gk, gv = bwd(q, kc, vc, out, lse, dout, scale)
+        dq = gq.float() if dq is None else dq + gq.float()
+        dk = gk.float() if dk is None else dk + gk.float()
+        dv = gv.float() if dv is None else dv + gv.float()
+        if n == 1:
+            break
+        # the chunk and its partials go on to the next rank; after the last step only the partials, home
+        send = [kc, vc, dk, dv] if step < n - 1 else [dk, dv]
+        kc, vc, dk, dv = ([None, None] if step == n - 1 else []) + comm.Exchange(send, nxt, send, prv, group).wait()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class RingAttentionFunction(torch.autograd.Function):
+    """:func:`ring_attention` with its gradient: the forward (K1 with its logsumexp on each chunk, the fp32 combine)
+    saves the output in q's dtype and the global logsumexp; the backward is the second ring of K3 calls."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, mesh, axis_name, impl):
+        out, lse = _ring_forward(q, k, v, scale, mesh, axis_name, impl)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, mesh, axis_name, impl)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _ring_backward(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def ring_attention(q, k, v, axis_name: str, scale: Optional[float] = None, *, mesh, impl: str = "kernel"):
+    """Exact attention with the token axis split over ``axis_name`` of ``mesh``.
+
+    q, k, v: this rank's (B, N_local, H, D) shards (the token chunk of its coordinate on the axis). Returns its
+    (B, N_local, H, D) output shard in q's dtype. ``impl`` "naive" runs the plain versions on every chunk. The
+    gradients (:class:`RingAttentionFunction`) of the shards are those of the sum of every rank's loss, as JAX's
+    ``shard_map`` gives them (each rank's dk/dv adds every rank's queries' share)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return RingAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale, mesh, axis_name, impl)
+
+
+class _ShardedRing(torch.autograd.Function):
+    """The whole q, k, v on every rank -> the whole output on every rank. Backward: every rank computes the same
+    loss, so its output gradient is one copy of dO, not a sum: the rank takes its slice of dO, runs the ring's
+    backward, and the chunks' dq, dk and dv are gathered over the axis."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, mesh, axis_name, impl):
+        n, i = mesh.shape[axis_name], mesh.coords[axis_name]
+        nq, nk = q.shape[1] // n, k.shape[1] // n
+        ql, kl, vl = (t[:, i * m : (i + 1) * m].contiguous() for t, m in ((q, nq), (k, nk), (v, nk)))
+        out, lse = _ring_forward(ql, kl, vl, scale, mesh, axis_name, impl)
+        ctx.save_for_backward(ql, kl, vl, out, lse)
+        ctx.args = (scale, mesh, axis_name, impl)
+        return comm.all_gather(out, dim=1, group=mesh.group(axis_name))
+
+    @staticmethod
+    def backward(ctx, dout):
+        ql, kl, vl, out, lse = ctx.saved_tensors
+        scale, mesh, axis_name, impl = ctx.args
+        n, i = mesh.shape[axis_name], mesh.coords[axis_name]
+        nq = ql.shape[1]
+        dq, dk, dv = _ring_backward(ql, kl, vl, out, lse, dout[:, i * nq : (i + 1) * nq], scale, mesh, axis_name,
+                                    impl)
+        group = mesh.group(axis_name)
+        return (*(comm.all_gather(g, dim=1, group=group) for g in (dq, dk, dv)), None, None, None, None)
 
 
 def ring_attention_sharded(q, k, v, mesh, axis_name: str = "data", scale: Optional[float] = None,
                            impl: str = "kernel"):
     """Every rank passes the whole (B, N, H, D) q, k and v (the same on every rank of the axis) and gets the whole
-    output: each takes its token chunk, runs :func:`ring_attention`, and the chunks are gathered over the axis."""
-    n, i = mesh.shape[axis_name], mesh.coords[axis_name]
-    nq, nk = q.shape[1] // n, k.shape[1] // n
-    local = ring_attention(q[:, i * nq : (i + 1) * nq], k[:, i * nk : (i + 1) * nk], v[:, i * nk : (i + 1) * nk],
-                           axis_name, scale, mesh=mesh, impl=impl)
-    return comm.all_gather(local, dim=1, group=mesh.group(axis_name))
+    output: each takes its token chunk, runs the ring (:class:`_ShardedRing`), and the chunks are gathered over the
+    axis. With a gradient, each rank gets the whole dq, dk and dv of its (replicated) loss."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _ShardedRing.apply(q, k, v, scale, mesh, axis_name, impl)

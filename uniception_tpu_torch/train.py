@@ -25,9 +25,20 @@ never moves to another one.
 The checkpoint is this package's own (one file in --ckpt-dir, see
 ``save_train_state``); a JAX orbax train state is not read. Parameters from a
 JAX run come across through the ``.npz``/``.nsv``/``.pth`` loaders
-(``utils.weights``, ``utils.coldstart``). The multi-device flags --tp,
---zero1 and --fsdp (ROADMAP queue 1 item 12) and --scan (an XLA layout; the
-port runs the loop layout and maps the scan layout's ``.nsv`` keys) raise.
+(``utils.weights``, ``utils.coldstart``). --scan (an XLA layout; the port runs
+the loop layout and maps the scan layout's ``.nsv`` keys) raises.
+
+Several processes (``python -m torch.distributed.run --nproc-per-node N -m
+uniception_tpu_torch.train ...``): each rank joins the world through
+``parallel.multihost.initialize_multihost`` (the backend follows the device,
+NCCL for one rank per card, gloo for the CPU; ``--backend gloo`` lets ranks
+that share a card run), the mesh is ("data" = the world / --tp, "model" =
+--tp), each rank loads its rows of every global --batch, and --tp, --zero1 and
+--fsdp shard the model, the optimizer moments and the parameters as the JAX
+example's flags do (``make_train_step``). Only rank 0 prints and writes the
+checkpoint (the unsharded train state); --resume re-shards it. In a world of
+one, --zero1 and --fsdp run with a data axis of 1, as the JAX example's do on
+one device.
 The warmup-cosine horizon is the step this run ends at (the restored step
 plus --steps), so a resumed run follows the uninterrupted run's schedule.
 
@@ -36,6 +47,7 @@ Usage:
     python -m uniception_tpu_torch.train --head dpt --mixed-ar --ckpt-dir ckpt --ckpt-every 100 --preempt-safe
     python -m uniception_tpu_torch.train --ckpt-dir ckpt --resume
     python -m uniception_tpu_torch.train --device cpu --steps 3 --lora 4
+    python -m torch.distributed.run --nproc-per-node 2 -m uniception_tpu_torch.train --device cpu --fsdp
 """
 
 import argparse
@@ -49,6 +61,7 @@ from uniception_tpu_torch.data.pipeline import DeterministicSampler, make_frame_
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
 from uniception_tpu_torch.models.factory.flow import UFMFlow
 from uniception_tpu_torch.nn.lora import apply_lora, lora_trainable
+from uniception_tpu_torch.parallel.mesh import canonical_name
 from uniception_tpu_torch.parallel.training import (
     PreemptionGuard,
     dust3r_confidence_loss,
@@ -70,9 +83,6 @@ __all__ = [
     "build_model",
     "main",
 ]
-
-MULTI_DEVICE = "ROADMAP queue 1 item 12 (multi-GPU)"
-
 
 def synthetic_dataset(n: int, img: int, seed: int = 0):
     "Random uint8 image pairs + pointmap targets (the JAX example's stand-in for a real set)."
@@ -137,9 +147,11 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--dataset-size", type=int, default=64)
-    ap.add_argument("--tp", type=int, default=1, help=f"tensor parallel: not taken, {MULTI_DEVICE}")
-    ap.add_argument("--zero1", action="store_true", help=f"not taken, {MULTI_DEVICE}")
-    ap.add_argument("--fsdp", action="store_true", help=f"not taken, {MULTI_DEVICE}")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (the mesh's model axis)")
+    ap.add_argument("--zero1", action="store_true", help="shard the optimizer state over the data axis")
+    ap.add_argument("--fsdp", action="store_true", help="shard the parameters (and moments) over the data axis")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="process-group backend under torchrun (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--head", choices=["linear", "dpt"], default="linear", help="prediction head family")
     ap.add_argument("--remat", action="store_true", help="gradient checkpointing (trunk and heads)")
@@ -170,8 +182,13 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and of the synthetic data")
     ap.add_argument("--device", default="cuda", help="cuda (default; fails without a GPU) or cpu")
     args = ap.parse_args(argv)
-    if args.tp > 1 or args.zero1 or args.fsdp:
-        ap.error(f"--tp > 1, --zero1 and --fsdp shard over several devices: {MULTI_DEVICE}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.tp < 1 or world % args.tp:
+        ap.error(f"--tp {args.tp} must be at least 1 and divide the world of {world} processes")
+    if args.batch % (world // args.tp):
+        ap.error(f"--batch {args.batch} does not split over the data axis of {world // args.tp} ranks")
+    if args.tp > 1 and args.lora:
+        ap.error("--lora under --tp: tensor parallelism of the LoRA adapters is not ported")
     if args.scan:
         ap.error("--scan is the JAX package's XLA layout; this trainer runs the loop layout "
                  "(convert_checkpoints maps the scan layout's keys)")
@@ -227,11 +244,12 @@ def _loss_fn(args):
     return loss_fn
 
 
-def _host_batches(args, sampler):
+def _host_batches(args, sampler, rows=slice(None)):
     """The sampler's batches as {img1, img2, pts1, pts2} (uint8 images, the two target slots) plus, with
     --mixed-ar, the true shapes in a tuple: not an array, so they stay on the host, where landscape_only reads
-    them without waiting for the device."""
+    them without waiting for the device. ``rows``: this rank's rows of each global batch."""
     for b in sampler:
+        b = {k: v[rows] for k, v in b.items()}
         if args.model == "flow":
             yield {"img1": b["img1"], "img2": b["img2"], "pts1": b["flow"], "pts2": b["valid"]}
             continue
@@ -247,6 +265,23 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: pass --device cpu to train on the CPU")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun: join the world, one rank per process
+        from uniception_tpu_torch.parallel import comm
+        from uniception_tpu_torch.parallel.multihost import initialize_multihost
+
+        initialize_multihost(backend=args.backend, device=device.type)
+        device = comm.device()
+    try:
+        return _train(args, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device):
+    from uniception_tpu_torch.parallel import comm
+
+    lead = comm.rank() == 0  # the rank that prints and writes
     model = build_model(args, device)
     trainable = None
     if args.lora:
@@ -255,7 +290,8 @@ def main(argv=None):
                                min_params=1)
         n_wrapped += apply_lora(model.info_sharing, args.lora,
                                 generator=torch.Generator(device).manual_seed(args.seed + 2), min_params=1)
-        print(f"lora: wrapped {n_wrapped} linears at rank {args.lora}")
+        if lead:
+            print(f"lora: wrapped {n_wrapped} linears at rank {args.lora}")
         trainable = lora_trainable
     elif args.freeze_encoder:
         trainable = lambda p: not p.startswith("encoder.")  # noqa: E731
@@ -270,16 +306,28 @@ def main(argv=None):
         skip_nonfinite=args.skip_nonfinite,
         metrics=args.metrics,
         trainable=trainable,
+        model_axis=args.tp,
+        use_tp=args.tp > 1,
+        zero1=args.zero1,
+        fsdp=args.fsdp,
     )
     n_params = sum(p.numel() for p in model.parameters())
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"params={n_params / 1e6:.2f}M trainable={sum(p.numel() for p in ctx.params) / 1e6:.2f}M on {where}")
+    rows = slice(None)
+    if ctx.mesh is not None:
+        n = args.batch // ctx.data_size
+        rows = slice(ctx.mesh.coords["data"] * n, (ctx.mesh.coords["data"] + 1) * n)
+        where += f", rank {comm.rank()} of {comm.world_size()}, mesh {ctx.mesh.shape}, {comm.transport()}"
+    if lead:
+        print(f"params={n_params / 1e6:.2f}M on this rank, trainable={sum(p.numel() for p in ctx.params) / 1e6:.2f}M "
+              f"on {where}")
 
     ckpt_dir = os.path.abspath(args.ckpt_dir) if args.ckpt_dir else ""
     start_step = 0
     if args.resume and ckpt_dir and os.path.isdir(ckpt_dir):
         start_step = restore_train_state(ckpt_dir, ctx)
-        print(f"resumed from {args.ckpt_dir} at step {start_step}")
+        if lead:
+            print(f"resumed from {args.ckpt_dir} at step {start_step}")
     if args.warmup_cosine > 0:
         ctx.optimizer.lr = warmup_cosine_decay_schedule(
             0.0, args.lr, args.warmup_cosine, max(start_step + args.steps, args.warmup_cosine + 1))
@@ -293,7 +341,11 @@ def main(argv=None):
     # step-indexed: the resumed run sees exactly the batches the uninterrupted run would have
     sampler = DeterministicSampler(data, args.batch, seed=1234, start_step=start_step)
     prep = make_frame_normalizer(model.data_norm_type, device)
-    ema = ema_init(dict(model.named_parameters())) if args.ema > 0 else None
+
+    def named_params():  # the rank's parts under --tp and --fsdp, keyed by the unsharded names
+        return {canonical_name(k): v for k, v in model.named_parameters()}
+
+    ema = ema_init(named_params()) if args.ema > 0 else None
     guard = PreemptionGuard() if args.preempt_safe else None
     pending = None  # the in-flight asynchronous save: waited on before the next one
 
@@ -304,7 +356,7 @@ def main(argv=None):
         pending = save_train_state(ckpt_dir, ctx, step=step_idx, wait=wait)
 
     losses, step_idx, preempted = [], start_step, False
-    batches = prefetch_to_device(_host_batches(args, sampler), device)
+    batches = prefetch_to_device(_host_batches(args, sampler, rows), device)
     t0 = time.perf_counter()
     try:
         for b in batches:
@@ -314,17 +366,18 @@ def main(argv=None):
             out = ctx.step(img1, img2, b["pts1"], b["pts2"])
             loss, aux = out if args.metrics else (out, None)
             if ema is not None:
-                ema_update(ema, dict(model.named_parameters()), args.ema)
+                ema_update(ema, named_params(), args.ema)
             losses.append(loss)  # read at the print steps and at the end: no wait for the device in between
             step_idx += 1
-            if step_idx % max(1, args.steps // 10) == 0 or step_idx == start_step + 1:
+            if lead and (step_idx % max(1, args.steps // 10) == 0 or step_idx == start_step + 1):
                 extra = f"  grad_norm {float(aux['grad_norm']):8.3f}" if aux is not None else ""
                 print(f"step {step_idx:5d}  loss {float(loss):9.4f}  {time.perf_counter() - t0:6.1f}s{extra}",
                       flush=True)
             if guard is not None and guard.should_stop():
                 # the step has updated the parameters: the resumed run continues from step_idx
                 checkpoint(wait=True)
-                print(f"preempted: saved at step {step_idx}; resume with --resume", flush=True)
+                if lead:
+                    print(f"preempted: saved at step {step_idx}; resume with --resume", flush=True)
                 preempted = True
                 break
             if step_idx >= start_step + args.steps:
@@ -333,9 +386,10 @@ def main(argv=None):
                 checkpoint(wait=False)
         if ckpt_dir and not preempted:
             checkpoint(wait=True)
-            if ema is not None:
-                save_train_state(ckpt_dir + "_ema", ema, step=step_idx)
-            print(f"saved params+opt_state+step to {args.ckpt_dir} (resume with --resume)")
+            if ema is not None:  # gathered whole (every rank takes part), written by rank 0
+                save_train_state(ckpt_dir + "_ema", ema, step=step_idx, ctx=ctx)
+            if lead:
+                print(f"saved params+opt_state+step to {args.ckpt_dir} (resume with --resume)")
     finally:
         batches.close()
         if pending is not None:
