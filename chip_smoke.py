@@ -327,6 +327,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    55. chain:  ChainPipeline(dust3r_chain_stages) at DUSt3R ViT-L 512, three
                stages on the card's streams, 4 microbatches streamed, bit for
                bit forward_pair with equal launches, pairs/s both ways.
+   56-59. multi-GPU training: DP, ZeRO-1, FSDP and TP steps, the ring's and
+               the pipeline's gradients, and the training CLI under torchrun
+               (--zero1, --fsdp, --tp 2 with --ema, --lora 4 --tp 2, an --fsdp
+               resume bit for bit).
+   60. remat:  DUSt3R ViT-L 512 linear training (fp32 parameters, bf16 trunk,
+               batch 2 pairs) through make_train_step under
+               UNICEPTION_TPU_REMAT_POLICY unset (full rematerialization),
+               "dots" and "attn_out", and without checkpointing: each one's
+               loss and gradients against no remat at phase 10's bars (and
+               whether bit for bit), exact launches per step (K1 with its
+               logsumexp 144, 144, 72 and 72; K2 288, 288, 288 and 144 forward,
+               144 backward; K3 72), ms per step, and the peak of
+               max_memory_allocated over the forward and backward, held in the
+               order none > "dots" > "attn_out" > full.
 
 Every phase prints its seconds (``[seconds] phase_...``). The line before
 the last is a JSON object with each kernel's launches on the serving,
@@ -6443,9 +6457,10 @@ def phase_parallel_training(torch, np, train, serve, training, card):
 class TrainCLI:
     """Phase 59's CLI runs, started at construction so that their start-up (interpreter, torch, CUDA context, kernel
     library) overlaps phases 56-58's world: ``python -m torch.distributed.run --nproc-per-node RANKS -m
-    uniception_tpu_torch.train`` on the card (gloo) with --zero1, --fsdp and --tp RANKS for CLI_STEPS steps at the JAX
-    example's widths, and an --fsdp run of 1 step, resumed for the rest as soon as it exits (a thread). Each run's
-    output goes to a log in a temporary directory of the checkout."""
+    uniception_tpu_torch.train`` on the card (gloo) with --zero1, --fsdp, --tp RANKS and --lora 4 --tp RANKS (the
+    wrapped layers whole on every rank) for CLI_STEPS steps at the JAX example's widths, and an --fsdp run of 1 step,
+    resumed for the rest as soon as it exits (a thread). Each run's output goes to a log in a temporary directory of
+    the checkout."""
 
     def __init__(self):
         import tempfile
@@ -6456,7 +6471,8 @@ class TrainCLI:
         # the --fsdp run saves at its end: it is the uninterrupted run the resumed one is held against; the --tp run
         # keeps an EMA of its parameter shards and saves it whole
         self.cases = {"zero1": ["--zero1"], "fsdp": ["--fsdp", "--ckpt-dir", os.path.join(self.tmp, "whole")],
-                      "tp": ["--tp", str(RANKS), "--ema", "0.5", "--ckpt-dir", os.path.join(self.tmp, "tp")]}
+                      "tp": ["--tp", str(RANKS), "--ema", "0.5", "--ckpt-dir", os.path.join(self.tmp, "tp")],
+                      "lora_tp": ["--lora", "4", "--tp", str(RANKS)]}
         self.procs = {name: self._start(flags + ["--steps", str(CLI_STEPS)], name) for name, flags in self.cases.items()}
         self.procs["part"] = self._start(["--fsdp", "--steps", "1", "--ckpt-dir", os.path.join(self.tmp, "part")], "part")
 
@@ -6501,10 +6517,10 @@ class TrainCLI:
 
 
 def phase_train_cli(torch, card, cli):
-    """Phase 59's CLI (``TrainCLI``, started before phases 56-58): every run exits 0, rank 0 alone prints its mesh and
-    finite losses, the --fsdp run resumed after 1 step writes the train state of the uninterrupted --fsdp run, bit
-    for bit, and the --tp run's EMA is written whole (the unsharded train state's names and shapes, finite, apart
-    from the last parameters)."""
+    """Phase 59's CLI (``TrainCLI``, started before phases 56-58): every run (--lora 4 --tp 2 among them) exits 0,
+    rank 0 alone prints its mesh and finite losses, the --fsdp run resumed after 1 step writes the train state of the
+    uninterrupted --fsdp run, bit for bit, and the --tp run's EMA is written whole (the unsharded train state's names
+    and shapes, finite, apart from the last parameters)."""
     try:
         runs = cli.finish()
         seconds = time.perf_counter() - cli.t0
@@ -6538,6 +6554,139 @@ def phase_train_cli(torch, card, cli):
               f"{seconds:.1f} s after their start on {card}")
     finally:
         cli.close()
+
+
+# phase 60: name -> UNICEPTION_TPU_REMAT_POLICY ("" unsets it; "none" trains without gradient checkpointing)
+REMAT_CASES = (("none", ""), ("full", ""), ("dots", "dots"), ("attn_out", "attn_out"))
+
+
+def _remat_launches(tc, name):
+    """Exact launches of one phase-60 step: every attention's K1 (with its logsumexp) and K2 on q and k run again in
+    the recompute under full remat and "dots" (a kernel's op is not a matmul); "attn_out" keeps K1's outputs, so only
+    K2 runs again (q and k are what K3 reads)."""
+    attn = ENC_DEPTH + DEC_DEPTH * 2 * 2
+    want = train_want(tc, attn, attn, passes=1 if name == "none" else 2)
+    if name == "attn_out":
+        want.update({"K1": attn, "K1-LSE": attn})
+    return want
+
+
+def phase_remat_policies(torch, train, serve_mod, training, DUSt3R, tc, card):
+    """DUSt3R ViT-L 512 linear built with gradient checkpointing, trained by make_train_step under each remat policy
+    and without checkpointing (the encoder's and decoder's flags off): the loss and every gradient on the first
+    batch against no remat at phase 10's bars (printed: whether bit for bit); then, for each policy, one counted
+    step (exact launches; the warm-up), TRAIN_TIMED_STEPS steps by CUDA events, each with the peak of
+    max_memory_allocated over its forward and backward (reset before the step, read when the optimizer's update
+    begins: AdamW's temporaries are the same under every policy) and what is allocated when the forward ends, then
+    one step profiled (device ms, busy share). The peaks and the forward's ends must fall none > "dots" >
+    "attn_out" > full. Returns the counted steps' launches."""
+    model = DUSt3R(name="dust3r_train_remat", img_size=(IMG, IMG), patch_embed_cls="ManyAR_PatchEmbed",
+                   dtype=torch.bfloat16, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED),
+                   gradient_checkpointing=True)
+    batch = _train_batch(torch, train, serve_mod, model)
+    names = [n for n, _ in model.named_parameters()]
+    before = os.environ.get("UNICEPTION_TPU_REMAT_POLICY")
+
+    def use(name):
+        model.encoder.gradient_checkpointing = model.info_sharing.gradient_checkpointing = name != "none"
+        value = dict(REMAT_CASES)[name]
+        if value:
+            os.environ["UNICEPTION_TPU_REMAT_POLICY"] = value
+        else:
+            os.environ.pop("UNICEPTION_TPU_REMAT_POLICY", None)
+
+    def grads():
+        res1, res2 = model.forward_pair(batch[0], batch[1])
+        loss = training.dust3r_confidence_loss(res1, res2, batch[2], batch[3])
+        out = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        return loss.detach(), out
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    launches, rows = {}, {}
+    try:
+        use("none")
+        ref_loss, ref = grads()
+        for name, _ in REMAT_CASES[1:]:
+            use(name)
+            loss, got = grads()
+            same = torch.equal(loss, ref_loss) and all(torch.equal(a, b) for a, b in zip(got, ref))
+            loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+            worst = max(zip((rel(a, b) for a, b in zip(got, ref)), names))
+            glob = rel(torch.cat([g.float().flatten() for g in got]), torch.cat([g.float().flatten() for g in ref]))
+            print(f"[60 remat {name}] loss {loss.item():.6f} against no remat {ref_loss.item():.6f} (rel "
+                  f"{loss_rel:.2e}, tol {TRAIN_BF16_LOSS_TOL}); gradients over {len(names)} parameters: all together "
+                  f"{glob:.3e} (tol {TRAIN_BF16_GLOBAL_TOL}), worst parameter {worst[0]:.3e} ({worst[1]}; tol "
+                  f"{TRAIN_BF16_REL_TOL}); bit for bit: {same}")
+            require(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item() for g in got),
+                    f"60 remat {name}: a non-finite loss or gradient")
+            require(loss_rel <= TRAIN_BF16_LOSS_TOL and glob <= TRAIN_BF16_GLOBAL_TOL
+                    and worst[0] <= TRAIN_BF16_REL_TOL,
+                    f"60 remat {name}: against no remat, loss {loss_rel}, all {glob}, worst {worst}")
+            del got
+        del ref
+        torch.cuda.empty_cache()
+
+        ctx = training.make_train_step(model, learning_rate=1e-4)
+        peaks, ends = [], []
+        update, loss_fn = ctx._update, ctx.loss_fn
+
+        def measured_loss(*args):  # the forward is done: what the policy keeps for the backward is allocated
+            loss = loss_fn(*args)
+            ends.append(torch.cuda.memory_allocated())
+            return loss
+
+        ctx.loss_fn = measured_loss
+
+        def timed_update(g):  # the forward and backward are done: their peak, before AdamW's temporaries
+            peaks.append(torch.cuda.max_memory_allocated())
+            return update(g)
+
+        ctx._update = timed_update
+
+        def step():
+            torch.cuda.reset_peak_memory_stats()
+            return ctx.step(*batch)
+
+        for name, _ in REMAT_CASES:
+            use(name)
+            _tadd(launches, counted_step(torch, tc, ctx, batch, _remat_launches(tc, name), f"60 remat {name}"))
+            held = torch.cuda.memory_allocated()  # parameters, AdamW's moments, the batch
+            peaks.clear()
+            ends.clear()
+            ms = cuda_ms(torch, step, warmup=0, iters=TRAIN_TIMED_STEPS)
+            peak, kept = max(peaks), max(ends) - held
+            rows[name] = (ms, peak, kept)
+            # one step profiled: the profiler's record of every op under selective checkpointing takes seconds a step
+            device_ms = kernel_device_ms(profile_device(torch, step, 1, "step", f"60 profile {name}", 6), 1, "step",
+                                         f"60 profile {name}")
+            print(f"[60 remat {name}] {ms:.2f} ms/step (CUDA events over {TRAIN_TIMED_STEPS} steps after the counted "
+                  f"one) = {BATCH * 1e3 / ms:.3f} training pairs/s; device {device_ms:.2f} ms/step (one profiled "
+                  f"step; busy share {device_ms / ms:.3f}); max_memory_allocated over the forward and backward "
+                  f"{peak} bytes ({peak / 2**30:.3f} GiB; {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
+                  f"GiB held between steps); allocated at the end of the forward {kept} bytes above it "
+                  f"({kept / 2**30:.3f} GiB: what the policy keeps for the backward) on {card}")
+    finally:
+        if before is None:
+            os.environ.pop("UNICEPTION_TPU_REMAT_POLICY", None)
+        else:
+            os.environ["UNICEPTION_TPU_REMAT_POLICY"] = before
+    order = [rows[n][1] for n in ("none", "dots", "attn_out", "full")]
+    kept = [rows[n][2] for n in ("none", "dots", "attn_out", "full")]
+    print(f"[60 remat] peak GiB none {order[0] / 2**30:.3f} > dots {order[1] / 2**30:.3f} > attn_out "
+          f"{order[2] / 2**30:.3f} > full {order[3] / 2**30:.3f}: {order[0] > order[1] > order[2] > order[3]}; kept at "
+          f"the end of the forward GiB {', '.join(f'{k / 2**30:.3f}' for k in kept)}: "
+          f"{kept[0] > kept[1] > kept[2] > kept[3]}; ms/step "
+          f"{', '.join(f'{n} {rows[n][0]:.2f}' for n, _ in REMAT_CASES)} on {card}")
+    require(order[0] > order[1] > order[2] > order[3],
+            f"60 remat: peaks {order} (none, dots, attn_out, full) not in the order none > dots > attn_out > full")
+    require(kept[0] > kept[1] > kept[2] > kept[3],
+            f"60 remat: kept {kept} (none, dots, attn_out, full) not in the order none > dots > attn_out > full")
+    del model, ctx
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _timed_phases(namespace):
@@ -6725,6 +6874,9 @@ def main():
         raise
     phase_train_cli(torch, card, cli)
     print(f"[59 training] launches over phases 56-59's counted runs (every rank): {trained_world}")
+    remat = phase_remat_policies(torch, train, serve, training, DUSt3R, tc, card)
+    print(f"[60 remat] launches over phase 60's counted steps: {remat}")
+    _tadd(new_train, remat)
     served = {k: served[k] + artifacts[k] + world.get(k, 0) + chained[k] for k in counters}
 
     def entry(name, source, replaces, n, err, m):

@@ -29,6 +29,7 @@ from flax import nnx
 from tests import torch_ranks
 from tests.test_torch_quant import jax_module
 from uniception_tpu.models.factory.dust3r import DUSt3R as JaxDUSt3R
+from uniception_tpu.nn import lora as jax_lora
 from uniception_tpu.parallel import training as jax_training
 from uniception_tpu.parallel.mesh import fsdp_shard_state as jax_fsdp_shard_state
 from uniception_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -37,6 +38,7 @@ from uniception_tpu.parallel.mesh import tp_shard_state as jax_tp_shard_state
 from uniception_tpu.utils.pytree import keypath_str
 from uniception_tpu.utils.torch_compat import load_torch_state_dict, state_dict_from_module
 from uniception_tpu_torch.models.factory.dust3r import DUSt3R
+from uniception_tpu_torch.nn.lora import apply_lora
 from uniception_tpu_torch.parallel import comm
 from uniception_tpu_torch.parallel import mesh as tmesh
 
@@ -143,21 +145,31 @@ def _jax_to_port_spec(jspec, key, ndim):
     return jspec
 
 
-@pytest.mark.parametrize("data,model_axis", [(2, 1), (8, 1), (4, 2)], ids=["data2", "data8", "data4_tp2"])
-def test_leaf_data_spec_matches_jax_leaf_by_leaf(data, model_axis):
+@pytest.mark.parametrize("data,model_axis,lora", [(2, 1, False), (8, 1, False), (4, 2, False), (4, 2, True)],
+                         ids=["data2", "data8", "data4_tp2", "data4_tp2_lora"])
+def test_leaf_data_spec_matches_jax_leaf_by_leaf(data, model_axis, lora):
     """Every parameter of DUSt3R gets, from the port's leaf_data_spec (after its TP spec), JAX's
     fsdp_shard_state / zero1_shard_state sharding of the same leaf (``_data_shard_largest_axis`` over the TP
-    layout), in the tensor's own dims: "data" on the largest free axis the data size divides, "model" kept."""
+    layout), in the tensor's own dims: "data" on the largest free axis the data size divides, "model" kept. With
+    LoRA on every trunk linear (``train.py --lora``), the wrapped layers (``...qkv.base.weight``) and their adapters
+    get JAX's TP spec, replicated over "model": its rules match ``qkv.kernel``, not ``qkv.base.kernel``."""
     jmesh = jax_make_mesh(data=data, model=model_axis, devices=jax.devices()[: data * model_axis])
-    _, params, _ = nnx.split(_jax_model(), nnx.Param, ...)
+    jmodel, port_state = _jax_model(), _port_state()
+    if lora:
+        tmodel = DUSt3R(name="train_test", device="cpu", **SMALL)
+        for part in ("encoder", "info_sharing"):
+            jax_lora.apply_lora(getattr(jmodel, part), rank=4, rngs=nnx.Rngs(1), min_params=1)
+            apply_lora(getattr(tmodel, part), 4, min_params=1)
+        port_state = {k: v.numpy() for k, v in tmodel.state_dict().items()}
+    _, params, _ = nnx.split(jmodel, nnx.Param, ...)
     with jmesh:
         state = jax_tp_shard_state(params, jmesh) if model_axis > 1 else params
         state = jax_fsdp_shard_state(state, jmesh)
     jspecs = {keypath_str(kp).removesuffix(".value"): leaf.sharding.spec
               for kp, leaf in jax.tree_util.tree_flatten_with_path(state)[0]}
     fake = types.SimpleNamespace(shape={"data": data, "model": model_axis})
-    compared = on_data = 0
-    for key, a in _port_state().items():
+    compared = on_data = wrapped = 0
+    for key, a in port_state.items():
         stem = key.rsplit(".", 1)[0]
         jpath = next((p for p in (key, f"{stem}.kernel", f"{stem}.scale") if p in jspecs), None)
         if jpath is None:
@@ -167,9 +179,13 @@ def test_leaf_data_spec_matches_jax_leaf_by_leaf(data, model_axis):
         got = tuple(tmesh.leaf_data_spec(key, t, fake, tp))
         got = got + (None,) * (t.ndim - len(got))
         assert got == _jax_to_port_spec(jspecs[jpath], key, t.ndim), (key, got, jspecs[jpath])
+        if lora and (".base." in key or key.endswith(("lora_a", "lora_b"))):
+            assert "model" not in got, key
+            wrapped += 1
         compared += 1
         on_data += "data" in got
     assert compared == len(jspecs) and on_data > compared // 2
+    assert wrapped == (4 * 40 if lora else 0)  # base weight, base bias and both adapters of the 40 trunk linears
 
 
 # --- the train steps ------------------------------------------------------------------------------------------

@@ -5,8 +5,9 @@ run bit for bit, SIGTERM under --preempt-safe saves at the step boundary, exits 
 --ckpt-every's asynchronous saves land and read back, a save cut short leaves the previous checkpoint, the
 argument errors and the flags the port does not take, and smokes of --mixed-ar, --lora and --model flow. Then the
 sharded flags: --zero1 and --fsdp in a world of one, and under torchrun (2 gloo ranks on the CPU, all runs started
-together) --zero1, --fsdp and --tp 2, an --fsdp run saved at step 2 and resumed, bit for bit the uninterrupted
-one, and --ema under --fsdp and --tp 2, written whole.
+together) --zero1, --fsdp, --tp 2 and --lora 4 --tp 2 (bit for bit the one-process --lora 4 run: no wrapped layer is
+sharded), an --fsdp run saved at step 2 and resumed, bit for bit the uninterrupted one, and --ema under --fsdp and --tp
+2, written whole.
 """
 
 import os
@@ -234,14 +235,15 @@ def _torchrun(flags, log):
 @pytest.fixture(scope="module")
 def torchrun_runs(tmp_path_factory):
     """Every torchrun case of the module, started together: each flag for 3 steps, --fsdp for 4 steps and for
-    2 + 2 (the second resumed), and one step of --fsdp and of --tp 2 with --ema. Returns {name: (exit code, output,
-    checkpoint dir)}."""
+    2 + 2 (the second resumed), one step of --fsdp and of --tp 2 with --ema, and --lora 4 --tp 2 for 3 steps.
+    Returns {name: (exit code, output, checkpoint dir)}."""
     d = tmp_path_factory.mktemp("torchrun")
     cases = {"zero1": ["--zero1", "--steps", "3"], "fsdp": ["--fsdp", "--steps", "3"], "tp": ["--tp", "2", "--steps", "3"],
              "whole": ["--fsdp", "--steps", "4", "--ckpt-dir", str(d / "whole")],
              "part": ["--fsdp", "--steps", "2", "--ckpt-dir", str(d / "part")],
              "fsdp_ema": ["--fsdp", "--steps", "1", "--ema", "0.5", "--ckpt-dir", str(d / "fsdp_ema")],
-             "tp_ema": ["--tp", "2", "--steps", "1", "--ema", "0.5", "--ckpt-dir", str(d / "tp_ema")]}
+             "tp_ema": ["--tp", "2", "--steps", "1", "--ema", "0.5", "--ckpt-dir", str(d / "tp_ema")],
+             "lora_tp": ["--lora", "4", "--tp", "2", "--steps", "3", "--ckpt-dir", str(d / "lora_tp")]}
     procs = {name: _torchrun(flags, str(d / f"{name}.log")) for name, flags in cases.items()}
     out = {}
     for name, p in procs.items():
@@ -252,14 +254,31 @@ def torchrun_runs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name,want", [("zero1", "mesh {'data': 2, 'model': 1}"), ("fsdp", "mesh {'data': 2, 'model': 1}"),
-                                       ("tp", "mesh {'data': 1, 'model': 2}")])
+                                       ("tp", "mesh {'data': 1, 'model': 2}"),
+                                       ("lora_tp", "mesh {'data': 1, 'model': 2}")])
 def test_sharding_flags_train_under_torchrun(torchrun_runs, name, want):
-    "--zero1, --fsdp and --tp 2 on 2 gloo ranks exit 0, rank 0 alone printing its mesh and finite losses."
+    """--zero1, --fsdp, --tp 2 and --lora 4 --tp 2 on 2 gloo ranks exit 0, rank 0 alone printing its mesh and finite
+    losses."""
     code, log, _ = torchrun_runs[name]
     assert code == 0, log
     assert want in log and log.count("params=") == 1
     losses = [float(line.split()[3]) for line in log.splitlines() if line.startswith("step ")]
     assert losses and all(map(torch.isfinite, torch.tensor(losses))), log
+
+
+def test_lora_under_tp_trains_as_one_process(torchrun_runs, tmp_path):
+    """--lora 4 --tp 2: as in the JAX package, whose TP rules match ``qkv.kernel`` and not ``qkv.base.kernel``, every
+    wrapped layer and its adapters stay whole on both "model" ranks, so the run writes the one-process --lora 4 run's
+    train state bit for bit (on one thread, as each rank runs)."""
+    code, log, ckpt = torchrun_runs["lora_tp"]
+    assert code == 0, log
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train.main(BASE + ["--lora", "4", "--steps", "3", "--ckpt-dir", str(tmp_path / "one")])
+    finally:
+        torch.set_num_threads(before)
+    _assert_same_state(str(tmp_path / "one"), ckpt)
 
 
 def test_sharded_resume_under_torchrun_equals_the_uninterrupted_run(torchrun_runs):

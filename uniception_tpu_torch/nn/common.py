@@ -2,7 +2,8 @@
 Small shared NN utilities (counterpart of uniception_tpu/nn/common.py):
 Identity, GELU by the configured mode, the reference's Linear init with an
 optional compute dtype, the xavier-uniform and truncated-normal inits (zeros
-under fast init, models/utils/config.py), gradient checkpointing, and
+under fast init, models/utils/config.py), gradient checkpointing with the
+``UNICEPTION_TPU_REMAT_POLICY`` policies (:func:`remat_call`), and
 the counterparts of flax's ``nnx.Linear`` and ``nnx.Conv`` (lecun-normal init;
 the conv on channels-last activations) for the modules the JAX package builds
 from them directly, and flax's ``nnx.GroupNorm``.
@@ -13,14 +14,20 @@ compute dtype at each use, with the input, so the optimizer sees fp32
 parameters and fp32 gradients while the matmuls run in bf16.
 """
 
-from typing import Optional
+from typing import Callable, Optional
 
+import collections
+import contextlib
+import contextvars
+import functools
 import math
+import os
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from uniception_tpu_torch.models.utils.config import get_fast_init, get_gelu_mode
 
@@ -95,11 +102,249 @@ def LinearX(
     return lin
 
 
-def remat_call(blk: nn.Module, *args):
-    """Apply a module under gradient checkpointing (the JAX package's
-    ``remat_call``, full rematerialization): its activations are not kept
-    for the backward but recomputed there, trading FLOPs for memory."""
-    return checkpoint(blk, *args, use_reentrant=False)
+class RematPolicy:
+    """A selective-checkpointing policy (``torch.utils.checkpoint.create_selective_checkpoint_contexts``): the outputs
+    of the ops ``saves(op, args)`` holds are kept from the forward, everything else is recomputed in the backward.
+    ``names`` are the :func:`checkpoint_name` names whose tensors it keeps."""
+
+    def __init__(self, name: str, saves: Callable, names=()):
+        self.name, self.saves, self.names = name, saves, tuple(names)
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if self.saves(op, args) else CheckpointPolicy.PREFER_RECOMPUTE
+
+    def __repr__(self):
+        return f"RematPolicy({self.name!r})"
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_ops() -> frozenset:
+    "The attention kernels' ops: K1 with and without its logsumexp, K5 self and cross, K6."
+    import uniception_tpu_torch.ops.flash_attention  # noqa: F401  (registers the ops)
+    import uniception_tpu_torch.ops.fused_attention  # noqa: F401
+
+    u = torch.ops.uniception
+    return frozenset(op.default for op in (u.flash_attention_fwd, u.flash_attention_fwd_lse, u.fused_self_attention,
+                                           u.fused_cross_attention, u.flash_attention_int8))
+
+
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+# JAX's dots_with_no_batch_dims_saveable: the outputs of the products without batch dims are kept. Every F.linear
+# (on 2-D or folded 3-D input) and every 2-D matmul lands on aten.mm or aten.addmm; batched products (bmm, baddbmm:
+# the attention einsums), the kernels' ops (in JAX a pallas_call is not a dot_general either), convolutions and
+# everything elementwise are recomputed.
+DOTS = RematPolicy("dots", lambda op, args: op in _DOTS)
+
+
+def _saves_attn_out(op, args) -> bool:
+    if op is _NAME_OP_DEFAULT:
+        return args[1] == "attn_out"
+    return op in _attention_ops()
+
+
+# JAX's save_only_these_names("attn_out"): the attention outputs are kept, whichever route made them: a kernel's op
+# (K1's keeps its logsumexp with its output, the one tensor the port keeps beyond JAX: B·H·N fp32, 1/32 of the bf16
+# output at D = 64, and with it the recompute does not launch K1 again; the gradients are the same), or, on the
+# routes without one ("naive", Dv != Dq), the tensor :func:`checkpoint_name` marks.
+ATTN_OUT = RematPolicy("attn_out", _saves_attn_out, names=("attn_out",))
+
+_ACTIVE_POLICY = contextvars.ContextVar("uniception_remat_policy", default=None)
+
+
+@torch.library.custom_op("uniception::checkpoint_name", mutates_args=())
+def _checkpoint_name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_checkpoint_name_op.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name_op.register_autograd(lambda ctx, grad: (grad, None))
+_NAME_OP_DEFAULT = torch.ops.uniception.checkpoint_name.default
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: name ``x`` for a remat policy that keeps tensors by name. Inside a
+    :func:`remat_call` whose policy keeps ``name`` it is the op ``uniception::checkpoint_name`` (a copy of ``x``),
+    which that policy saves; everywhere else it returns ``x`` itself."""
+    policy = _ACTIVE_POLICY.get()
+    if policy is None or name not in policy.names:
+        return x
+    return _checkpoint_name_op(x, name)
+
+
+def resolve_remat_policy() -> Optional[RematPolicy]:
+    """The ``UNICEPTION_TPU_REMAT_POLICY`` default for gradient checkpointing, read at each call as the JAX package
+    reads it: "dots" -> :data:`DOTS`, "attn_out" -> :data:`ATTN_OUT`, unset -> None (full rematerialization); any
+    other value warns and is full rematerialization. Shared by :func:`remat_call` and the DPT processor's
+    checkpoint."""
+    env_policy = os.environ.get("UNICEPTION_TPU_REMAT_POLICY")
+    if env_policy == "dots":
+        return DOTS
+    if env_policy == "attn_out":
+        return ATTN_OUT
+    if env_policy:
+        warnings.warn(
+            f"UNICEPTION_TPU_REMAT_POLICY={env_policy!r} is not one of"
+            " ('dots', 'attn_out'); falling back to full rematerialization.",
+            stacklevel=2,
+        )
+    return None
+
+
+def _generators(blk) -> list:
+    "The explicit generators the modules under ``blk`` (a module, or a bound method of one) draw their masks from."
+    owner = getattr(blk, "__self__", blk)
+    if not isinstance(owner, nn.Module):
+        return []
+    gens = {}
+    for m in owner.modules():
+        g = getattr(m, "generator", None)
+        if isinstance(g, torch.Generator):
+            gens[id(g)] = g
+    return list(gens.values())
+
+
+@contextlib.contextmanager
+def _in_states(gens, states):
+    "Run with each generator at the state it had when the forward began, then put back the state it has now."
+    now = [g.get_state() for g in gens]
+    for g, s in zip(gens, states):
+        g.set_state(s)
+    try:
+        yield
+    finally:
+        for g, s in zip(gens, now):
+            g.set_state(s)
+
+
+@contextlib.contextmanager
+def _chain(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
+
+
+_SAVE = (CheckpointPolicy.MUST_SAVE, CheckpointPolicy.PREFER_SAVE)
+
+
+class _Remat:
+    """One :func:`remat_call`: checkpoint's ``context_fn`` and, with a policy, the policy function its selective
+    contexts call.
+
+    Selective checkpointing decides at each op of the forward whether to keep its output, before it can know whether
+    the backward reads it: the recompute stops after the last tensor the backward saves (non-reentrant checkpoint's
+    early stop), so an output kept after that is held to the block's backward and never read (a block's last linear,
+    whose output only joins the residual). JAX's remat keeps only what its backward reads, so each op's place is
+    noted against the forward's saves (a saved-tensors hook over checkpoint's own) and, when the forward ends, an
+    output kept after the last save is given up: it is recomputed if the recompute ever reaches it."""
+
+    def __init__(self, policy: Optional[RematPolicy], gens):
+        self.policy, self.gens = policy, gens
+        self.states = [g.get_state() for g in gens]
+        self.seq, self.last_save = 0, 0  # ops dispatched in the forward; ops dispatched at its last save
+        self.calls, self.recalls = collections.Counter(), collections.Counter()
+        self.kept, self.dropped, self.storage = [], set(), None  # (place, op, index) of each kept output
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        if ctx.is_recompute:  # torch versions that ask the policy again in the recompute
+            idx = self.recalls[op]
+            self.recalls[op] += 1
+            return CheckpointPolicy.PREFER_RECOMPUTE if (op, idx) in self.dropped else self.policy(ctx, op, *args)
+        idx = self.calls[op]
+        self.calls[op] += 1
+        decision = self.policy(ctx, op, *args)
+        if decision in _SAVE:
+            self.kept.append((self.seq, op, idx))
+        self.seq += 1
+        return decision
+
+    def contexts(self):
+        if self.policy is None:
+            forward, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+        else:
+            forward, recompute = create_selective_checkpoint_contexts(self)
+            self.storage = forward.storage
+            forward = _chain(forward, self._watch_saves())
+        return forward, _chain(_in_states(self.gens, self.states), recompute)
+
+    @contextlib.contextmanager
+    def _watch_saves(self):
+        pack, unpack = torch._C._autograd._top_saved_tensors_default_hooks(False)  # checkpoint's own
+
+        def watched(x):
+            self.last_save = self.seq
+            return pack(x)
+
+        with torch.autograd.graph.saved_tensors_hooks(watched, unpack):
+            yield
+        self._give_up_late()
+
+    def _give_up_late(self):
+        "Give up the outputs kept after the forward's last save (storage by op: by index, or a queue of kept ones)."
+        from torch.utils import checkpoint as ckpt
+
+        late = [(op, idx) for place, op, idx in self.kept if place >= self.last_save]
+        for op, n in collections.Counter(op for op, _ in late).items():
+            entries = self.storage.get(op)
+            if isinstance(entries, dict) and hasattr(ckpt, "_RECOMPUTE"):
+                for o, idx in late:
+                    if o is op:
+                        entries[idx] = ckpt._RECOMPUTE
+            elif isinstance(entries, list):
+                del entries[len(entries) - n:]
+            else:
+                continue
+            self.dropped.update((o, idx) for o, idx in late if o is op)
+
+    def kept_tensors(self) -> list:
+        "The tensors the policy keeps for the backward after the forward (the selective storage's live entries)."
+        out = []
+        for entries in (self.storage or {}).values():
+            for entry in (entries.values() if isinstance(entries, dict) else entries):
+                for leaf in entry if isinstance(entry, (tuple, list)) else (entry,):
+                    val = getattr(leaf, "val", None)
+                    if isinstance(val, torch.Tensor):
+                        out.append(val)
+        return out
+
+
+def _named(blk, policy, *args):
+    token = _ACTIVE_POLICY.set(policy)
+    try:
+        return blk(*args)
+    finally:
+        _ACTIVE_POLICY.reset(token)
+
+
+def remat_call(blk: nn.Module, *args, policy: Optional[RematPolicy] = None):
+    """Apply ``blk`` (a module or any callable) under gradient checkpointing (the JAX package's ``remat_call``):
+    activations inside it are recomputed in the backward instead of kept, trading FLOPs for memory.
+
+    policy: None takes :func:`resolve_remat_policy` (``UNICEPTION_TPU_REMAT_POLICY``, read at each call):
+        unset       -> full rematerialization: only the arguments are kept;
+        "dots"      -> :data:`DOTS`, JAX's ``dots_with_no_batch_dims_saveable``: the linears' outputs are kept;
+        "attn_out"  -> :data:`ATTN_OUT`, JAX's ``save_only_these_names("attn_out")``: the attention outputs are
+                       kept (with K1's logsumexp), the projections, norms and MLP recomputed.
+    A policy is torch's selective checkpointing over the dispatched ops: under it every kernel launch is its
+    ``uniception::`` op (ops/serving_operands.py ``traced``), so a kept kernel output is not launched again and a
+    recomputed one is launched (and counted) once more.
+
+    Dropout and stochastic depth drawing from an explicit generator draw the forward's masks again in the recompute
+    under every policy: each such generator (on the modules under ``blk``) is set back to its state at the forward
+    for the recompute and then returned to where it was, so it advances once per call, as a plain call advances it.
+    (The JAX package's ``remat_call`` runs a split copy of the module, whose RNG counter never advances: every call
+    there reuses one mask. The port does not copy that.)"""
+    if policy is None:
+        policy = resolve_remat_policy()
+    gens = _generators(blk)
+    if policy is None and not gens:
+        return checkpoint(blk, *args, use_reentrant=False)
+    return checkpoint(_named, blk, policy, *args, use_reentrant=False, context_fn=_Remat(policy, gens).contexts)
 
 
 def lecun_normal(weight: torch.Tensor, fan_in: int, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:

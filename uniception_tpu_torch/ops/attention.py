@@ -129,6 +129,13 @@ def uses_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bo
     return single_key_block(q.shape, k.shape[1], q.dtype)
 
 
+def _attn_out(x: torch.Tensor) -> torch.Tensor:
+    "``x`` named for the \"attn_out\" remat policy (nn/common.py; imported at the call, as nn imports this module)."
+    from uniception_tpu_torch.nn.common import checkpoint_name
+
+    return checkpoint_name(x, "attn_out")
+
+
 def scaled_dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -161,9 +168,11 @@ def scaled_dot_product_attention(
                 k, v = expand_kv_heads(q.shape[2], k), expand_kv_heads(q.shape[2], v)
             return ring_attention_sharded(q, k, v, mesh, axis, scale=scale, impl=impl)
     # Dv != Dq (differential attention's Dv = 2 Dq) takes the explicit einsum path on every impl and device, as
-    # in the JAX package (uniception_tpu/ops/attention.py:190); no kernel takes it there either.
+    # in the JAX package (uniception_tpu/ops/attention.py:190); no kernel takes it there either. The routes without a
+    # kernel's op name their output for the "attn_out" remat policy (nn/common.py ATTN_OUT), which keeps the
+    # kernels' ops by their names.
     if v.shape[-1] != q.shape[-1]:
-        return einsum_attention(q, k, v, scale)
+        return _attn_out(einsum_attention(q, k, v, scale))
     if k.shape[2] != q.shape[2]:  # grouped-query shapes (JAX :198): key/value heads shared by query-head groups
         k, v = expand_kv_heads(q.shape[2], k), expand_kv_heads(q.shape[2], v)
     # "fused" outside the fused contract: exact attention, no int8 (uniception_tpu/ops/attention.py:190-200:
@@ -171,8 +180,8 @@ def scaled_dot_product_attention(
     if impl != "fused" and uses_int8_attention(q, k, v):
         mode = get_attention_quant()
         if impl == "naive":
-            return flash_attention_int8_ref(q, k, v, scale, mode)
+            return _attn_out(flash_attention_int8_ref(q, k, v, scale, mode))
         return flash_attention_int8(q, k, v, scale, mode)  # a CPU tensor takes the plain version inside
     if impl == "naive":
-        return flash_attention_ref(q, k, v, scale)
+        return _attn_out(flash_attention_ref(q, k, v, scale))
     return flash_attention(q, k, v, scale)

@@ -206,8 +206,14 @@ def replicate_state(module: nn.Module, mesh: Mesh) -> nn.Module:
 
 
 def _state_weight(lin):
-    "A linear layer's weight as its state dict names and holds it: ``weight`` (out, in), or ``w_q`` (in, out)."
-    return ("w_q", lin.w_q.t()) if hasattr(lin, "w_q") else ("weight", lin.weight)
+    """A linear layer's weight as its state dict names and holds it: ``weight`` (out, in), ``w_q`` (in, out), or a
+    LoRA-wrapped layer's ``base.weight``, which no rule shards (JAX's rules match ``qkv.kernel``, not
+    ``qkv.base.kernel``): under LoRA the wrapped layers and their adapters stay whole on every "model" rank."""
+    if hasattr(lin, "w_q"):
+        return "w_q", lin.w_q.t()
+    if hasattr(lin, "lora_a"):
+        return "base.weight", lin.base.weight
+    return "weight", lin.weight
 
 
 def _keep_outputs(lin, idx: torch.Tensor):
@@ -371,9 +377,9 @@ def tp_shard_state(module: nn.Module, mesh: Mesh, rules=None) -> nn.Module:
             m.num_heads //= t
         elif isinstance(m, (Mlp, SwiGLUFFN)):
             col, row = ("fc1", "fc2") if isinstance(m, Mlp) else ("w12", "w3")
-            hidden = getattr(m, row).in_features
-            if hidden % t or not (ok(col) and ok(row)):
+            if not (ok(col) and ok(row)) or getattr(m, row).in_features % t:
                 continue
+            hidden = getattr(m, row).in_features
             n_sec, lin = 1 if col == "fc1" else 2, getattr(m, col)
             _keep_outputs(lin, _sections(n_sec, hidden, r, t))
             _record_tp(lin, {"weight": 0, "bias": 0}, [_sections(n_sec, hidden, i, t) for i in range(t)])

@@ -187,8 +187,6 @@ def parse_args(argv=None):
         ap.error(f"--tp {args.tp} must be at least 1 and divide the world of {world} processes")
     if args.batch % (world // args.tp):
         ap.error(f"--batch {args.batch} does not split over the data axis of {world // args.tp} ranks")
-    if args.tp > 1 and args.lora:
-        ap.error("--lora under --tp: tensor parallelism of the LoRA adapters is not ported")
     if args.scan:
         ap.error("--scan is the JAX package's XLA layout; this trainer runs the loop layout "
                  "(convert_checkpoints maps the scan layout's keys)")
